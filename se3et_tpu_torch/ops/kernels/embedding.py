@@ -1,0 +1,159 @@
+r"""Geometric-structure embedding kernel (K3).
+
+Counterpart of ``se3et_tpu/ops/pallas/embedding.py``
+(``geometric_embedding_pallas``).  The map ``x -> [sin(x div) | cos(x div)]
+@ W + b`` is a smooth function of one scalar, so it is evaluated as a
+Chebyshev expansion ``T(t(x)) @ G + b`` with ``G = A @ W`` folded per call
+from the static fit table ``A`` — 40 (distance) and 16 (angle) basis terms
+in place of 128 sin/cos pairs per element, at a fit error below 1e-5 per
+sinusoid feature.  The kernel (``csrc/geometric_embedding.cu``) writes the
+(B, N, N, C) embedding straight from coordinates; the projections run in
+its body, as they do inside the TPU kernel.
+
+Differences from the TPU kernel, both towards the reference: the angle is
+an exact ``atan2`` (the TPU kernel uses a polynomial), and the distance is
+the reference's expanded ``|q|^2 - 2 q.p + |p|^2`` form.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from se3et_tpu_torch.ops.geometry import pairwise_distance
+from se3et_tpu_torch.ops.kernels import _build
+
+DEG = 64  # largest Chebyshev basis considered by pick_deg
+D_INDEX_MAX = 48.0  # distance-index range of the fit (indices = dist / sigma_d)
+_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+@functools.lru_cache(maxsize=None)
+def chebyshev_sinusoid_table(c: int, x_max: float, deg: int = DEG) -> np.ndarray:
+    """(deg, 2*(c//2)) Chebyshev coefficients, on ``t = 2x/x_max - 1``, of
+    the sinusoid features ``[sin(x*div_j) | cos(x*div_j)]`` for x in
+    [0, x_max], ``div_j = 10000^(-2j/c)``."""
+    div = np.exp(np.arange(0, c, 2) * (-np.log(10000.0) / c))
+    npts = 8 * deg
+    t = np.cos(np.pi * (np.arange(npts) + 0.5) / npts)
+    x = 0.5 * (t + 1.0) * x_max
+    feats = np.concatenate(
+        [np.sin(x[:, None] * div[None, :]), np.cos(x[:, None] * div[None, :])],
+        axis=1,
+    )
+    return np.polynomial.chebyshev.chebfit(t, feats, deg - 1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def pick_deg(c: int, x_max: float, tol: float = 1e-5, max_deg: int = DEG) -> int:
+    """Smallest basis size (multiple of 8, from 16) whose fit error over
+    [0, x_max] is below ``tol``."""
+    x = np.linspace(0.0, x_max, 4001)
+    t = 2.0 * x / x_max - 1.0
+    div = np.exp(np.arange(0, c, 2) * (-np.log(10000.0) / c))
+    feats = np.concatenate(
+        [np.sin(x[:, None] * div[None, :]), np.cos(x[:, None] * div[None, :])],
+        axis=1,
+    )
+    for deg in range(16, max_deg + 1, 8):
+        a = chebyshev_sinusoid_table(c, x_max, deg)
+        if np.abs(np.polynomial.chebyshev.chebval(t, a).T - feats).max() < tol:
+            return deg
+    return max_deg
+
+
+def _folded_projections(wd, wa, sigma_a):
+    """(deg_d, deg_a, Gd = A_d @ wd, Ga = A_a @ wa) in float32."""
+    c = wd.shape[1]
+    x_max_a = math.pi * (180.0 / (sigma_a * math.pi))
+    deg_d = pick_deg(c, D_INDEX_MAX)
+    deg_a = pick_deg(c, float(x_max_a))
+    a_d = torch.as_tensor(chebyshev_sinusoid_table(c, D_INDEX_MAX, deg_d),
+                          device=wd.device)
+    a_a = torch.as_tensor(chebyshev_sinusoid_table(c, float(x_max_a), deg_a),
+                          device=wa.device)
+    return deg_d, deg_a, a_d @ wd.float(), a_a @ wa.float()
+
+
+def _cheb_project(x, inv_half_range, g, bias):
+    """T(clip(x * inv_half_range - 1)) @ G + b for an index tensor x (...)."""
+    t = torch.clamp(x * inv_half_range - 1.0, -1.0, 1.0)
+    rows = [torch.ones_like(t), t]
+    while len(rows) < g.shape[0]:
+        rows.append(2.0 * t * rows[-1] - rows[-2])
+    basis = torch.stack(rows[: g.shape[0]], dim=-1)
+    return basis @ g + bias
+
+
+def geometric_embedding_plain(points, knn_points, wd, bd, wa, ba, sigma_d, sigma_a,
+                              out_dtype=torch.bfloat16, row_block=128):
+    """Plain version of K3.
+
+    points: (B, N, 3) f32; knn_points: (B, N, k, 3) f32; wd/wa: (C, C)
+    projection kernels stored (in, out); bd/ba: (C,).  Returns (B, N, N, C)
+    in ``out_dtype``.  Query rows are processed ``row_block`` at a time to
+    bound the (rows, N, k, C) angle temporaries.
+    """
+    b, n, _ = points.shape
+    _, _, gd, ga = _folded_projections(wd, wa, sigma_a)
+    inv_d = 2.0 / (D_INDEX_MAX * sigma_d)
+    inv_a = 2.0 / math.pi
+    points = points.float()
+    dist = torch.sqrt(pairwise_distance(points, points))  # (B, N, N)
+    ref = knn_points.float() - points[:, :, None, :]  # (B, N, k, 3)
+    out = torch.empty((b, n, n, wd.shape[1]), dtype=out_dtype, device=points.device)
+    for r0 in range(0, n, row_block):
+        r1 = min(n, r0 + row_block)
+        anc = points[:, None, :, :] - points[:, r0:r1, None, :]  # (B, R, N, 3)
+        ref_b, anc_b = torch.broadcast_tensors(
+            ref[:, r0:r1, None, :, :], anc[:, :, :, None, :]
+        )  # (B, R, N, k, 3)
+        sin_v = torch.linalg.norm(torch.cross(ref_b, anc_b, dim=-1), dim=-1)
+        # + 0.0 folds a -0 dot product of a self-pair to +0: atan2(0, 0) = 0
+        cos_v = torch.sum(ref_b * anc_b, dim=-1) + 0.0
+        ang = torch.atan2(sin_v, cos_v)  # (B, R, N, k)
+        a_emb = _cheb_project(ang, inv_a, ga, ba.float()).amax(dim=3)
+        d_emb = _cheb_project(dist[:, r0:r1], inv_d, gd, bd.float())
+        out[:, r0:r1] = (d_emb + a_emb).to(out_dtype)
+    return out
+
+
+def geometric_embedding(points, knn_points, wd, bd, wa, ba, sigma_d, sigma_a,
+                        out_dtype=torch.bfloat16):
+    """K3 (``csrc/geometric_embedding.cu``, replaces the TPU
+    ``geometric_embedding_pallas``): see :func:`geometric_embedding_plain`.
+    Bound by fp32 FMA throughput; the source notes the design."""
+    if points.device.type == "cpu":
+        return geometric_embedding_plain(points, knn_points, wd, bd, wa, ba,
+                                         sigma_d, sigma_a, out_dtype=out_dtype)
+    if points.device.type != "cuda":
+        raise ValueError(f"unsupported device {points.device}")
+    if out_dtype not in _DTYPES:
+        raise TypeError(f"unsupported output dtype {out_dtype}")
+    b, n, _ = points.shape
+    k = knn_points.shape[2]
+    c = wd.shape[1]
+    if knn_points.shape != (b, n, k, 3) or wd.shape != (c, c) or wa.shape != (c, c):
+        raise ValueError("bad embedding input shapes")
+    deg_d, deg_a, gd, ga = _folded_projections(wd, wa, sigma_a)
+    points = points.float().contiguous()
+    knn_points = knn_points.float().contiguous()
+    gd, ga = gd.contiguous(), ga.contiguous()
+    bd, ba = bd.float().contiguous(), ba.float().contiguous()
+    out = torch.empty((b, n, n, c), dtype=out_dtype, device=points.device)
+    fn = _build.function("geometric_embedding",
+                         f"se3et_geometric_embedding_{_DTYPES[out_dtype]}", 7, 6, 2)
+    _build.check(fn(points.data_ptr(), knn_points.data_ptr(), gd.data_ptr(),
+                    bd.data_ptr(), ga.data_ptr(), ba.data_ptr(), out.data_ptr(),
+                    b, n, c, deg_d, deg_a, k,
+                    2.0 / (D_INDEX_MAX * sigma_d), 2.0 / math.pi,
+                    torch.cuda.current_stream(points.device).cuda_stream),
+                 "geometric_embedding launch")
+    geometric_embedding.launches += 1
+    return out
+
+
+geometric_embedding.launches = 0
