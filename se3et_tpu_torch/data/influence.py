@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from se3et_tpu.core import kernel_points as kp_lib
+from se3et_tpu_torch.core import kernel_points as kp_lib
 
 
 def _kernel_points_for(model_cfg, radius: float) -> np.ndarray:

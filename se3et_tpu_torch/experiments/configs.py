@@ -2,19 +2,20 @@ r"""Experiment configuration of the PyTorch port.
 
 A torch-side copy of the JAX registry's ``se3ete.3dmatch`` entry
 (``se3et_tpu/experiments/configs.py``), which cannot be imported where JAX
-is absent (it pulls in flax and optax).  ``PyramidConfig`` is the shared
-numpy pipeline's own class.  A test holds these values field-for-field
+is absent (it pulls in flax and optax).  ``PyramidConfig`` is the port's
+copy of the numpy pipeline's class.  A test holds these values field-for-field
 equal to the JAX ``make_cfg('se3ete.3dmatch')``.
 
-:func:`serving_config` applies the two settings the port's serving slice
-runs with (exact neighbour indexing, materialised attention).
+:func:`serving_config` applies the setting the port's serving slice runs
+with (exact neighbour indexing); attention takes the JAX default, the
+flash kernels.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from se3et_tpu.data.pipeline import PyramidConfig
+from se3et_tpu_torch.data.pipeline import PyramidConfig
 from se3et_tpu_torch.nn.epn import EPNConfig
 from se3et_tpu_torch.nn.model import ModelConfig
 
@@ -121,14 +122,10 @@ def make_cfg(name: str) -> ExperimentConfig:
 def serving_config(cfg: ExperimentConfig) -> ExperimentConfig:
     """The port's serving slice of ``cfg``: neighbours indexed directly
     (``window_segments=0``: the Morton window maps exist only for the TPU
-    kernels) and the materialised-score attention routes
-    (``serve_fused_attention=False``: the flash attention kernels are not
-    ported yet)."""
+    kernels).  ``serve_fused_attention`` keeps its value (True, the JAX
+    default: flash RPE self-attention and EQ cross-attention kernels)."""
     return dataclasses.replace(
-        cfg,
-        pipeline=dataclasses.replace(cfg.pipeline, window_segments=0),
-        model=dataclasses.replace(cfg.model, serve_fused_attention=False),
-    )
+        cfg, pipeline=dataclasses.replace(cfg.pipeline, window_segments=0))
 
 
 def tiny_config(cfg: ExperimentConfig) -> ExperimentConfig:
@@ -151,6 +148,19 @@ def tiny_config(cfg: ExperimentConfig) -> ExperimentConfig:
         serve_fused_attention=False,
     )
     return dataclasses.replace(cfg, pipeline=pipeline, model=model)
+
+
+def tiny_flash_config(cfg: ExperimentConfig) -> ExperimentConfig:
+    """:func:`tiny_config` with a 128-point coarse stage and the flash
+    attention route on (the flash self layers need ``N % 128 == 0``);
+    built for about 600 input points."""
+    tiny = tiny_config(cfg)
+    return dataclasses.replace(
+        tiny,
+        pipeline=dataclasses.replace(tiny.pipeline, stage_caps=(256, 192, 160, 128),
+                                     coarse_point_cap=128),
+        model=dataclasses.replace(tiny.model, serve_fused_attention=True),
+    )
 
 
 def synthetic_extent(dataset: str) -> float:

@@ -17,8 +17,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from se3et_tpu.core import anchors as anchor_lib
-from se3et_tpu.core import harmonics
+from se3et_tpu_torch.core import anchors as anchor_lib
+from se3et_tpu_torch.core import harmonics
 from se3et_tpu_torch import precision as prec
 from se3et_tpu_torch.nn.layers import uniform_
 from se3et_tpu_torch.ops import geometry

@@ -2,7 +2,7 @@ r"""E2PN anchor-equivariant KPConv backbone (port of :mod:`se3et_tpu.nn.epn`).
 
 The rotate-by-permute machinery of the E2PN convolution is folded at
 construction into one static gather index ``wg_index[r, k, a]`` over the
-tied weight blocks, rebuilt here from the shared numpy anchor and
+tied weight blocks, rebuilt here from the numpy anchor and
 kernel-point tables, so a conv is:
 
 1. the neighbour gather x influence contraction
@@ -31,8 +31,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from se3et_tpu.core import anchors as anchor_lib
-from se3et_tpu.core import kernel_points as kp_lib
+from se3et_tpu_torch.core import anchors as anchor_lib
+from se3et_tpu_torch.core import kernel_points as kp_lib
 from se3et_tpu_torch import precision as prec
 from se3et_tpu_torch.nn.layers import (
     MaskedGroupNorm, TorchLinear, UnaryBlock, leaky_relu, uniform_,

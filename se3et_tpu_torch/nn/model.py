@@ -2,7 +2,7 @@ r"""The SE3ET registration model, serving forward (port of
 :mod:`se3et_tpu.nn.model`).
 
 Input is the padded two-cloud pyramid dict of
-:func:`se3et_tpu.data.pipeline.build_pair_pyramid` (cloud axis 0 = ref,
+:func:`se3et_tpu_torch.data.pipeline.build_pair_pyramid` (cloud axis 0 = ref,
 1 = src) as tensors on one device (:func:`pyramid_to_tensors`), with the
 host-side point-to-node partition (``PyramidConfig.patch_k``) and the
 influence weights of :func:`se3et_tpu_torch.data.influence.precompute_influence`.
@@ -10,8 +10,9 @@ The forward runs backbone -> transformer -> superpoint matching -> Sinkhorn
 -> local-to-global registration with static shapes and no host sync.
 
 The port covers the SE3ET-E/I family (E2PN backbone) with neighbour
-indexing (no window maps), the materialised-attention routes and the
-fused embedding and Sinkhorn kernels; other settings raise.
+indexing (no window maps), the flash attention kernels
+(``serve_fused_attention``, the default) or the materialised-attention
+routes, and the fused embedding and Sinkhorn kernels; other settings raise.
 """
 
 from __future__ import annotations
@@ -107,7 +108,6 @@ def _check_supported(c: ModelConfig) -> None:
     unsupported = {
         "backbone != 'e2pn'": c.backbone != "e2pn",
         "gn_joint_stats": c.gn_joint_stats,
-        "serve_fused_attention (flash attention kernels)": c.serve_fused_attention,
         "serve_fused_sinkhorn=False": not c.serve_fused_sinkhorn,
         "anchor_matching": c.anchor_matching,
         "supervise_rotation": c.supervise_rotation,
@@ -135,8 +135,15 @@ def pyramid_to_tensors(data: dict, device) -> dict:
 class SE3ETModel(nn.Module):
     """Full registration model, serving forward."""
 
-    def __init__(self, cfg: ModelConfig, seed: int = 0):
+    def __init__(self, cfg: ModelConfig, seed: int = 0, device="cuda"):
+        """Weights are drawn on the CPU from ``torch.Generator(seed)`` and
+        then put on ``device`` (the card unless the caller asks otherwise;
+        there is no fallback to the CPU)."""
         super().__init__()
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("SE3ETModel: no CUDA device; pass device='cpu' to "
+                               "run on the CPU")
         _check_supported(cfg)
         c = cfg
         self.cfg = cfg
@@ -155,6 +162,7 @@ class SE3ETModel(nn.Module):
         self.optimal_transport = matching_lib.LearnableLogOptimalTransport(
             c.num_sinkhorn_iterations)
         init_parameters(self, torch.Generator().manual_seed(seed))
+        self.to(device)
 
     @torch.no_grad()
     def forward(self, data: dict, with_registration: bool = True, stop_after: str = ""):
@@ -195,6 +203,8 @@ class SE3ETModel(nn.Module):
             points_c[0][None], points_c[1][None], feats_c[0][None], feats_c[1][None],
             masks_c[0][None], masks_c[1][None],
             fused_embedding=c.serve_fused_embedding,
+            fused_attention=c.serve_fused_attention,
+            fused_attention_cross=c.serve_fused_attention,
         )
         out["ref_feats_m"], out["src_feats_m"] = ref_feat_m, src_feat_m
         ref_feats_c = ref_out[0].float()

@@ -1,5 +1,5 @@
 r"""Conditional transformer (block scheduler) + GeometricTransformer wrapper
-(port of :mod:`se3et_tpu.nn.transformer`, materialised-attention routes).
+(port of :mod:`se3et_tpu.nn.transformer`).
 
 The scheduler interprets the experiment's ``blocks`` list (SE3ET-E:
 ``self_eq, cross_a_soft, self_eq, cross_r_soft, self, cross, ...``) and
@@ -8,6 +8,14 @@ plain ``cross`` pools anchors by max; plain ``cross`` between ``self_eq``
 blocks attends with invariant q/k over equivariant values; ``cross_r_soft``
 before plain blocks fuses anchors by the soft rotation weights and
 :class:`RotCompressOutput`.
+
+With ``fused_attention`` (serving) the self layers take the flash kernel
+K5 when every one of them can (``flash_self``: equal clouds of a
+128-multiple coarse size): ref and src then go through ONE launch per
+layer on the stacked (2, N, N, C) embedding, and the (B, A, N, M, 4)
+equivariant embedding is never built (K5 computes the SH term from the
+coordinates).  ``fused_attention_cross`` routes the EQ cross layers
+through K6 + K7.
 """
 
 from __future__ import annotations
@@ -18,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from se3et_tpu.core import anchors as anchor_lib
+from se3et_tpu_torch.core import anchors as anchor_lib
 from se3et_tpu_torch.nn.attention import (
     RotCompressOutput, RPETransformerLayer, TransformerLayer,
 )
@@ -53,7 +61,7 @@ class RPEConditionalTransformer(nn.Module):
             if "self" in block:
                 layers.append(RPETransformerLayer(
                     d_model, num_heads, activation_fn=activation_fn, equivariant=eq,
-                    d_equiv_embed=d_equiv_embed))
+                    d_equiv_embed=d_equiv_embed, kanchor=na))
             else:
                 layers.append(TransformerLayer(
                     d_model, num_heads, activation_fn=activation_fn, equivariant=eq,
@@ -78,19 +86,34 @@ class RPEConditionalTransformer(nn.Module):
         return self.rotcompress(feats0), self.rotcompress(fused)
 
     def forward(self, feats0, feats1, embeddings0, embeddings1, masks0=None,
-                masks1=None, equiv_embed0=None, equiv_embed1=None):
-        """feats (B, A, N, C) equivariant or (B, N, C) invariant coarse feats."""
+                masks1=None, equiv_embed0=None, equiv_embed1=None, use_flash=False,
+                points0=None, points1=None, stacked=None, use_flash_cross=None):
+        """feats (B, A, N, C) equivariant or (B, N, C) invariant coarse feats.
+
+        ``stacked``: optional (emb, masks, points) with both clouds on the
+        leading axis; the self layers then run one flash launch over both."""
         feats0_eq = feats1_eq = None
         ref_feat_m = src_feat_m = None
         blocks = self.blocks
+        flash_cross = use_flash if use_flash_cross is None else use_flash_cross
         for i, block in enumerate(blocks):
             layer = self.layers[i]
             if "self" in block:
                 in0, in1 = (feats0_eq, feats1_eq) if feats0_eq is not None else (feats0, feats1)
-                feats0, _ = layer(in0, in0, embeddings0, memory_masks=masks0,
-                                  equiv_states=equiv_embed0)
-                feats1, _ = layer(in1, in1, embeddings1, memory_masks=masks1,
-                                  equiv_states=equiv_embed1)
+                if stacked is not None and in0.shape == in1.shape:
+                    emb_s, masks_s, points_s = stacked
+                    ins = torch.cat([in0, in1])
+                    outs, _ = layer(ins, ins, emb_s, memory_masks=masks_s, points=points_s,
+                                    use_flash=True)
+                    nb = in0.shape[0]
+                    feats0, feats1 = outs[:nb], outs[nb:]
+                else:
+                    feats0, _ = layer(in0, in0, embeddings0, memory_masks=masks0,
+                                      equiv_states=equiv_embed0, points=points0,
+                                      use_flash=use_flash)
+                    feats1, _ = layer(in1, in1, embeddings1, memory_masks=masks1,
+                                      equiv_states=equiv_embed1, points=points1,
+                                      use_flash=use_flash)
                 if block == "self_eq" and i + 1 < len(blocks) and blocks[i + 1] == "cross":
                     # next block is plain cross: pool to invariant, remember eq
                     feats0_eq, feats1_eq = feats0, feats1
@@ -112,8 +135,10 @@ class RPEConditionalTransformer(nn.Module):
                     ref_feat_m, src_feat_m = feats0_eq, feats1_eq
                 continue
 
-            feats0_new, aux0 = layer(feats0, feats1, memory_masks=masks1, q_masks=masks0)
-            feats1_new, _ = layer(feats1, feats0, memory_masks=masks0, q_masks=masks1)
+            feats0_new, aux0 = layer(feats0, feats1, memory_masks=masks1, q_masks=masks0,
+                                     use_flash=flash_cross)
+            feats1_new, _ = layer(feats1, feats0, memory_masks=masks0, q_masks=masks1,
+                                  use_flash=flash_cross)
             feats0, feats1 = feats0_new, feats1_new
             if "r_soft" in block:
                 ref_feat_m, src_feat_m = feats0, feats1
@@ -137,6 +162,7 @@ class GeometricTransformer(nn.Module):
         super().__init__()
         self.na = na
         d_equiv_embed = int(np.sum(2 * np.arange(n_level_equiv) + 1))
+        self.d_equiv_embed = d_equiv_embed
         self.GeometricStructureEmbedding_0 = GeometricStructureEmbedding(
             hidden_dim, sigma_d, sigma_a, angle_k, reduction_a=reduction_a,
             kanchor=na or 1, n_level_equiv=n_level_equiv)
@@ -147,24 +173,38 @@ class GeometricTransformer(nn.Module):
             attn_r_positive=attn_r_positive, d_equiv_embed=d_equiv_embed)
 
     def forward(self, ref_points, src_points, ref_feats, src_feats, ref_masks,
-                src_masks, fused_embedding=False):
+                src_masks, fused_embedding=False, fused_attention=False,
+                fused_attention_cross=None):
         """points (B, N, 3); feats (B, N, [A,] C_in) -> (ref_out, src_out,
         ref_feat_m, src_feat_m); outputs (B, N, C_out)."""
         nb = ref_points.shape[0]
+        n_coarse = ref_points.shape[1]
+        de = self.d_equiv_embed
+        flash_self = (
+            fused_attention and n_coarse == src_points.shape[1] and n_coarse % 128 == 0
+            and (de == 0 or (de == 4 and (self.na or 1) > 1))
+        )
+        embed = self.GeometricStructureEmbedding_0
+        stacked = None
+        ref_eq = src_eq = None
         if ref_points.shape == src_points.shape:
             # both clouds through one embedding evaluation
-            emb, eq_emb = self.GeometricStructureEmbedding_0(
-                torch.cat([ref_points, src_points]), torch.cat([ref_masks, src_masks]),
-                fused=fused_embedding)
-            ref_emb, src_emb = emb[:nb], emb[nb:]
-            ref_eq = src_eq = None
+            pts = torch.cat([ref_points, src_points])
+            mks = torch.cat([ref_masks, src_masks])
+            emb, eq_emb = embed(pts, mks, fused=fused_embedding, compute_equiv=not flash_self)
+            if flash_self:
+                # the flash self layers take the stacked embedding as it is
+                ref_emb = src_emb = None
+                stacked = (emb, mks, pts)
+            else:
+                ref_emb, src_emb = emb[:nb], emb[nb:]
             if eq_emb is not None:
                 ref_eq, src_eq = eq_emb[:nb], eq_emb[nb:]
         else:
-            ref_emb, ref_eq = self.GeometricStructureEmbedding_0(
-                ref_points, ref_masks, fused=fused_embedding)
-            src_emb, src_eq = self.GeometricStructureEmbedding_0(
-                src_points, src_masks, fused=fused_embedding)
+            ref_emb, ref_eq = embed(ref_points, ref_masks, fused=fused_embedding,
+                                    compute_equiv=not flash_self)
+            src_emb, src_eq = embed(src_points, src_masks, fused=fused_embedding,
+                                    compute_equiv=not flash_self)
         if self.na is None or self.na == 1:
             f0, f1 = self.TorchLinear_0(ref_feats), self.TorchLinear_0(src_feats)
         else:
@@ -173,5 +213,8 @@ class GeometricTransformer(nn.Module):
             f1 = self.TorchLinear_0(src_feats.transpose(1, 2))
         f0, f1, ref_feat_m, src_feat_m = self.RPEConditionalTransformer_0(
             f0, f1, ref_emb, src_emb, masks0=ref_masks, masks1=src_masks,
-            equiv_embed0=ref_eq, equiv_embed1=src_eq)
+            equiv_embed0=ref_eq, equiv_embed1=src_eq, use_flash=fused_attention,
+            points0=ref_points if flash_self else None,
+            points1=src_points if flash_self else None, stacked=stacked,
+            use_flash_cross=fused_attention_cross)
         return self.TorchLinear_1(f0), self.TorchLinear_1(f1), ref_feat_m, src_feat_m

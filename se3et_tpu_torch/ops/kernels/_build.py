@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface (pointers, ints and the
 stream as ``void*``; every entry point returns ``cudaGetLastError()``), is
 compiled on first use with ``nvcc`` for Hopper (``sm_90a``) into a shared
 library under ``se3et_tpu_torch/_build/`` and is loaded with :mod:`ctypes`.
-The library name carries a hash of its source, so an edited kernel is
-rebuilt and a stale one is never loaded.  Nothing here runs at import.
+The library name carries a hash of its source and of the shared headers
+``csrc/*.cuh``, so an edited kernel is rebuilt and a stale one is never
+loaded.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import tempfile
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-KERNEL_SOURCES = ("gather_wf", "neighbor_max", "geometric_embedding", "sinkhorn")
+KERNEL_SOURCES = ("gather_wf", "neighbor_max", "geometric_embedding", "sinkhorn",
+                  "rpe_attention", "eq_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -39,9 +41,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
+    """Library of ``csrc/<name>.cu``, named by a hash of that source, the
+    shared headers ``csrc/*.cuh`` and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(names=KERNEL_SOURCES) -> dict[str, str]:

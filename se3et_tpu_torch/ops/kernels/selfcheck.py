@@ -2,8 +2,13 @@ r"""Kernel-versus-plain checks and timings on the card.
 
 Each check calls one kernel wrapper and its plain PyTorch version on the
 same CUDA tensors, reports the largest absolute difference against the
-stated tolerance, and times both with CUDA events.  Used by
-``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py``.
+stated tolerance, and times both with CUDA events, plus, where one
+PyTorch call computes the same function, that call (``library_ms``, a
+yardstick the port never calls).  Each result carries the kernel's bound:
+the larger of the bytes it must move (each input read once, each output
+written once) over the card's memory rate and its operations over the
+peak rate for the inputs' type (:data:`PEAK`).  Used by ``chip_smoke.py``
+and ``tests/test_torch_kernels_cuda.py``.
 """
 
 from __future__ import annotations
@@ -11,11 +16,16 @@ from __future__ import annotations
 import dataclasses
 import math
 
+from typing import Optional
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from se3et_tpu_torch import precision as prec
-from se3et_tpu_torch.ops.kernels import embedding, sinkhorn, windowed_conv
+from se3et_tpu_torch.ops.kernels import (
+    embedding, eq_attention, rpe_attention, sinkhorn, windowed_conv,
+)
 
 SOURCES = {
     "gather_wf": ("se3et_tpu_torch/csrc/gather_wf.cu",
@@ -26,13 +36,27 @@ SOURCES = {
                             "se3et_tpu/ops/pallas/embedding.py:416"),
     "sinkhorn": ("se3et_tpu_torch/csrc/sinkhorn.cu",
                  "se3et_tpu/ops/pallas/sinkhorn.py:72"),
+    "rpe_self_attention": ("se3et_tpu_torch/csrc/rpe_attention.cu",
+                           "se3et_tpu/ops/pallas/rpe_attention.py:265"),
+    "eq_attention_stats": ("se3et_tpu_torch/csrc/eq_attention.cu",
+                           "se3et_tpu/ops/pallas/eq_attention.py:155"),
+    "eq_attention_apply": ("se3et_tpu_torch/csrc/eq_attention.cu",
+                           "se3et_tpu/ops/pallas/eq_attention.py:233"),
 }
 WRAPPERS = {
     "gather_wf": windowed_conv.gather_wf,
     "neighbor_max": windowed_conv.neighbor_max,
     "geometric_embedding": embedding.geometric_embedding,
     "sinkhorn": sinkhorn.sinkhorn,
+    "rpe_self_attention": rpe_attention.rpe_self_attention,
+    "eq_attention_stats": eq_attention.eq_attention_stats,
+    "eq_attention_apply": eq_attention.eq_attention_apply,
 }
+
+# NVIDIA H100 SXM data-sheet peaks (dense): memory bytes/s, and operations/s
+# by input type (bf16 on the tensor cores, float32 outside them)
+MEMORY_RATE = 3.35e12
+PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
 @dataclasses.dataclass
@@ -43,10 +67,41 @@ class CheckResult:
     tol: float
     ms: float
     plain_ms: float
+    bound_ms: float = float("nan")
+    bound_by: str = ""
+    library_ms: Optional[float] = None
 
     @property
     def ok(self) -> bool:
         return self.max_abs_err <= self.tol
+
+
+def bound(nbytes: float, ops: float, dtype) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") for ``nbytes`` moved and ``ops``
+    operations on inputs of ``dtype``."""
+    t_bytes = nbytes / MEMORY_RATE * 1e3
+    t_ops = ops / PEAK[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _with_bound(res: CheckResult, nbytes, ops, dtype, library=None, reps=3) -> CheckResult:
+    res.bound_ms, res.bound_by = bound(nbytes, ops, dtype)
+    if library is not None:
+        res.library_ms = _time_ms(library, reps)
+    return res
+
+
+def _bag_inputs(x, nbr):
+    """x (B, Ns, AC) as one (B*(Ns+1), AC) table with a zero row per cloud
+    for the sentinel, and nbr (B, Nq, H) as int64 rows of that table."""
+    b, ns, ac = x.shape
+    table = torch.cat([x, x.new_zeros(b, 1, ac)], dim=1).reshape(b * (ns + 1), ac)
+    offs = torch.arange(b, device=x.device)[:, None, None] * (ns + 1)
+    return table, nbr.long() + offs
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -98,20 +153,39 @@ def check_gather_wf(nbr, ns, ac, k=15, dtype=torch.bfloat16, seed=0, reps=10):
             * (nbr < ns)[..., None]).to(dtype)
     tol = (lambda w: 1e-2 * float(w.float().abs().max())) if dtype == torch.bfloat16 \
         else (lambda w: 1e-5 * float(w.abs().max()))
-    return _compare(
+    res = _compare(
         "gather_wf", f"x{tuple(x.shape)} nbr{tuple(nbr.shape)} K={k} {dtype}",
         lambda: windowed_conv.gather_wf(x, nbr, infl),
         lambda: windowed_conv.gather_wf_plain(x, nbr, infl), tol, reps)
+    # library: one embedding_bag sum per (query, kernel point) over its
+    # neighbours, weighted by the influence
+    table, idx = _bag_inputs(x, nbr)
+    idx_k = idx[:, :, None, :].expand(b, nq, k, h).reshape(-1, h)
+    w_k = infl.permute(0, 1, 3, 2).reshape(-1, h).contiguous()
+    nvalid = int((nbr < ns).sum())
+    out_bytes = b * nq * k * ac * x.element_size()
+    return _with_bound(res, _nbytes(x, nbr, infl) + out_bytes, 2.0 * nvalid * k * ac, dtype,
+                       lambda: F.embedding_bag(idx_k, table, per_sample_weights=w_k,
+                                               mode="sum"))
 
 
 def check_neighbor_max(nbr, ns, ac, dtype=torch.bfloat16, seed=1, reps=10):
     """K2; exact (tolerance 0)."""
     g = torch.Generator().manual_seed(seed)
     x = torch.randn((nbr.shape[0], ns, ac), generator=g).to(nbr.device, dtype)
-    return _compare(
+    res = _compare(
         "neighbor_max", f"x{tuple(x.shape)} nbr{tuple(nbr.shape)} {dtype}",
         lambda: windowed_conv.neighbor_max(x, nbr),
         lambda: windowed_conv.neighbor_max_plain(x, nbr), lambda w: 0.0, reps)
+    # library: embedding_bag max over the neighbour rows, sentinels reading
+    # the zero row (the plain version's max includes 0 where a row has one)
+    table, idx = _bag_inputs(x, nbr)
+    idx2 = idx.reshape(-1, nbr.shape[2])
+    b, nq, h = nbr.shape
+    nvalid = int((nbr < x.shape[1]).sum())
+    return _with_bound(res, _nbytes(x, nbr) + b * nq * x.shape[2] * x.element_size(),
+                       float(nvalid * x.shape[2]), dtype,
+                       lambda: F.embedding_bag(idx2, table, mode="max"))
 
 
 def check_embedding(points, masks, c=256, k=3, sigma_d=0.2, sigma_a=15.0,
@@ -132,7 +206,7 @@ def check_embedding(points, masks, c=256, k=3, sigma_d=0.2, sigma_a=15.0,
     knn = torch.gather(points, 1, idx.reshape(b, -1, 1).expand(-1, -1, 3)).reshape(
         b, n, k, 3)
     valid = masks[:, :, None] & masks[:, None, :]
-    return _compare(
+    res = _compare(
         "geometric_embedding", f"points{tuple(points.shape)} C={c} {out_dtype}",
         lambda: embedding.geometric_embedding(points, knn, wd, bd, wa, ba, sigma_d,
                                               sigma_a, out_dtype=out_dtype),
@@ -141,6 +215,12 @@ def check_embedding(points, masks, c=256, k=3, sigma_d=0.2, sigma_a=15.0,
                                                     out_dtype=out_dtype),
         lambda w: (1e-2 if out_dtype == torch.bfloat16 else 1e-3)
         * float(w.float()[valid].abs().max()), reps, mask=valid)
+    # Chebyshev basis terms per output element: deg_d + k * deg_a, one FMA
+    # (2 operations) per term and channel
+    deg_d, deg_a, _, _ = embedding._folded_projections(wd, wa, sigma_a)
+    out_bytes = b * n * n * c * torch.empty((), dtype=out_dtype).element_size()
+    ops = 2.0 * b * n * n * c * (deg_d + k * deg_a)
+    return _with_bound(res, _nbytes(points, knn, wd, bd, wa, ba) + out_bytes, ops, out_dtype)
 
 
 def sinkhorn_inputs(b, m, n, device, seed=3):
@@ -172,8 +252,107 @@ def sinkhorn_inputs(b, m, n, device, seed=3):
 def check_sinkhorn(b=256, m=65, n=65, iters=100, device="cuda", reps=5):
     """K4 in float32; tolerance 1e-4 absolute on valid entries."""
     padded, mu, nu, valid = sinkhorn_inputs(b, m, n, device)
-    return _compare(
+    res = _compare(
         "sinkhorn", f"scores({b}, {m}, {n}) iters={iters} float32",
         lambda: sinkhorn.sinkhorn(padded, mu, nu, iters),
         lambda: sinkhorn.sinkhorn_plain(padded, mu, nu, iters),
         lambda w: 1e-4, reps, mask=valid)
+    # per iteration a row and a column multiply-reduce over every entry
+    return _with_bound(res, 2 * _nbytes(padded) + _nbytes(mu, nu),
+                       4.0 * iters * b * m * n, torch.float32)
+
+
+def check_rpe_attention(points, masks, ah, c=64, cc=256, with_sh=True,
+                        dtype=torch.bfloat16, seed=4, reps=3):
+    """K5 on the coarse points (B, N, 3) and key masks (B, N): random q, k,
+    v (B, AH, N, c), qp (B, N, AH, C), emb (B, N, N, C) in ``dtype`` and,
+    with ``with_sh``, qw (B, 3, AH, N).  Tolerance on valid query rows
+    1e-2 * max|out| in bf16 (p rounded to bf16 at other running maxima,
+    float32 sums in another order) and 1e-4 * max|out| in float32."""
+    g = torch.Generator().manual_seed(seed)
+    dev = points.device
+    b, n, _ = points.shape
+    rnd = lambda *s, sc=1.0: (torch.randn(s, generator=g) * sc).to(dev, dtype)  # noqa: E731
+    q, k, v = rnd(b, ah, n, c), rnd(b, ah, n, c), rnd(b, ah, n, c)
+    qp = rnd(b, n, ah, cc, sc=cc ** -0.5)
+    emb = rnd(b, n, n, cc)
+    qw = (torch.randn((b, 3, ah, n), generator=g) * 0.3).to(dev) if with_sh else None
+    pts = rpe_attention.point_rows(points) if with_sh else None
+    scale = 1.0 / math.sqrt(c)
+    rows = masks[:, None, :, None].expand(b, ah, n, c)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    res = _compare(
+        "rpe_self_attention",
+        f"q(B={b}, AH={ah}, N={n}, c={c}) emb C={cc} {'with' if with_sh else 'no'} SH {dtype}",
+        lambda: rpe_attention.rpe_self_attention(q, k, v, qp, emb, masks, qw, pts,
+                                                 scale=scale),
+        lambda: rpe_attention.rpe_self_attention_plain(q, k, v, qp, emb, masks, qw, pts,
+                                                       scale=scale),
+        lambda w: tol * float(w[rows].abs().max()), reps, mask=rows)
+    nkeys = int(masks.sum())  # valid keys of the B clouds
+    ops = 2.0 * ah * n * nkeys * (2 * c + cc) + (8.0 * ah * n * nkeys if with_sh else 0.0)
+    nbytes = _nbytes(q, k, v, qp, emb, masks) + b * ah * n * c * 4
+    if with_sh:
+        nbytes += _nbytes(qw, pts)
+    return _with_bound(res, nbytes, ops, dtype)
+
+
+def _eq_inputs(q_masks, k_masks, a, h, c, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    dev = q_masks.device
+    n, m = q_masks.shape[0], k_masks.shape[0]
+    q = torch.randn((a, h, n, c), generator=g).to(dev, dtype)
+    k = torch.randn((a, h, m, c), generator=g).to(dev, dtype)
+    v = torch.randn((a, h, m, c), generator=g).to(dev, dtype)
+    sup_q = (torch.rand((a, h), generator=g) + 0.5).to(dev)
+    sup_k = (torch.rand((a, h), generator=g) + 0.5).to(dev)
+    return q, k, v, sup_q, sup_k
+
+
+def check_eq_stats(q_masks, k_masks, a=6, h=4, c=64, with_sup=False,
+                   dtype=torch.bfloat16, seed=5, reps=3):
+    """K6 on random q (A, H, N, c), k (A, H, M, c) with the given masks.
+    The error reported is the largest over the outputs (row max, row sum,
+    attn_ae[, sup]) of max|got - want| / max|want|, tolerance 1e-3: float32
+    sums in another order, the row sum accumulated online."""
+    q, k, _, sup_q, sup_k = _eq_inputs(q_masks, k_masks, a, h, c, dtype, seed)
+    sq, sk = (sup_q, sup_k) if with_sup else (None, None)
+    kern = lambda: eq_attention.eq_attention_stats(q, k, q_masks, k_masks, sq, sk)  # noqa: E731
+    plain = lambda: eq_attention.eq_attention_stats_plain(q, k, q_masks, k_masks, sq, sk)  # noqa: E731
+    with prec.compute_dtype_scope("float32"):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = max(float((g_ - w_).abs().max()) / max(float(w_.abs().max()), 1e-30)
+                  for g_, w_ in zip(got, want))
+        res = CheckResult(
+            "eq_attention_stats",
+            f"q(A={a}, H={h}, N={q.shape[2]}, c={c}) M={k.shape[2]} "
+            f"{'with' if with_sup else 'no'} sup {dtype} (error relative to output scale)",
+            err, 1e-3, _time_ms(kern, reps), _time_ms(plain, reps))
+    e, m, n = k.shape[0], k.shape[2], q.shape[2]
+    nbytes = _nbytes(q, k, q_masks, k_masks) + 2 * a * e * h * n * 4 + a * e * 4
+    ops = 2.0 * a * e * h * n * m * c
+    return _with_bound(res, nbytes, ops, dtype)
+
+
+def check_eq_apply(q_masks, k_masks, a=6, h=4, c=64, dtype=torch.bfloat16, seed=6,
+                   reps=3):
+    """K7 on random q, k, v, the plain version's row statistics and
+    normalised random weights w (A, E); tolerance 1e-2 * max|out| in bf16
+    (p rounded to bf16, sums in another order), 1e-4 in float32."""
+    q, k, v, _, _ = _eq_inputs(q_masks, k_masks, a, h, c, dtype, seed)
+    rowmax, rowsum, _ = eq_attention.eq_attention_stats_plain(q, k, q_masks, k_masks)
+    g = torch.Generator().manual_seed(seed + 1)
+    w = torch.rand((a, k.shape[0]), generator=g).to(q.device)
+    w = w / w.sum(dim=1, keepdim=True)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    res = _compare(
+        "eq_attention_apply",
+        f"q(A={a}, H={h}, N={q.shape[2]}, c={c}) M={k.shape[2]} {dtype}",
+        lambda: eq_attention.eq_attention_apply(q, k, v, w, rowmax, rowsum, k_masks),
+        lambda: eq_attention.eq_attention_apply_plain(q, k, v, w, rowmax, rowsum, k_masks),
+        lambda want: tol * float(want.abs().max()), reps)
+    e, m, n = k.shape[0], k.shape[2], q.shape[2]
+    nbytes = _nbytes(q, k, v, w, rowmax, rowsum, k_masks) + a * h * n * c * 4
+    ops = 2.0 * a * e * h * n * m * 2 * c
+    return _with_bound(res, nbytes, ops, dtype)

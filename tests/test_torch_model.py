@@ -1,13 +1,20 @@
 """The PyTorch port's serving forward against the JAX model, on the CPU.
 
-One tiny SE3ET-E pair (``__graft_entry__._flagship_configs(tiny=True)``)
-goes through both packages in float32 with exact math on both sides:
-neighbours indexed directly (``window_segments=0``), materialised
-attention (``serve_fused_attention=False``) and the XLA embedding route
-(``serve_fused_embedding=False``).  Weights are drawn with numpy from a
-seed into the flax tree and converted with ``se3et_tpu_torch.convert``.
-The port is cut at each ``stop_after`` point and compared, on valid rows,
-with the JAX forward.
+One tiny SE3ET-E pair goes through both packages in float32 with exact
+math on both sides: neighbours indexed directly (``window_segments=0``)
+and the XLA embedding route (``serve_fused_embedding=False``), on two
+attention routes:
+
+* ``materialised``: ``__graft_entry__._flagship_configs(tiny=True)``
+  (24-point coarse stage, ``serve_fused_attention=False``);
+* ``flash``: the port's ``tiny_flash_config`` (128-point coarse stage, 600
+  input points, ``serve_fused_attention=True``), where the self layers take
+  K5 and the EQ cross layers K6 + K7 (their plain versions on the CPU; the
+  Pallas kernels in interpret mode on the JAX side).
+
+Weights are drawn with numpy from a seed into the flax tree and converted
+with ``se3et_tpu_torch.convert``.  The port is cut at each ``stop_after``
+point and compared, on valid rows, with the JAX forward.
 """
 
 import ast
@@ -45,8 +52,8 @@ def _random_params(shapes, seed=0):
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
-@pytest.fixture(scope="module")
-def pair():
+@pytest.fixture(scope="module", params=["materialised", "flash"])
+def pair(request):
     import __graft_entry__ as ge
     from se3et_tpu.nn.model import SE3ETModel as JaxModel
     from se3et_tpu_torch.convert import load_flax_params
@@ -57,7 +64,13 @@ def pair():
     # host point-to-node partition, as the production pipeline ships it
     pipeline = dataclasses.replace(pipeline, patch_k=jcfg.num_points_in_patch)
     jcfg = dataclasses.replace(jcfg, serve_fused_embedding=False)
-    data = ge._example_pair(pipeline, num_points=250, seed=0, model_cfg=jcfg)
+    num_points = 250
+    if request.param == "flash":
+        pipeline = dataclasses.replace(pipeline, stage_caps=(256, 192, 160, 128),
+                                       coarse_point_cap=128)
+        jcfg = dataclasses.replace(jcfg, serve_fused_attention=True)
+        num_points = 600
+    data = ge._example_pair(pipeline, num_points=num_points, seed=0, model_cfg=jcfg)
     # host influence arrives as ml_dtypes.bfloat16; both sides get the same
     # float32 values
     data = {k: (np.asarray(v, np.float32)
@@ -77,10 +90,11 @@ def pair():
 
     fields = dataclasses.asdict(jcfg)
     fields["epn"] = EPNConfig(**fields["epn"])
-    port = SE3ETModel(ModelConfig(**fields))
+    port = SE3ETModel(ModelConfig(**fields), device="cpu")
     load_flax_params(port, params)
     tdata = pyramid_to_tensors(data, "cpu")
     return {
+        "route": request.param,
         "data": data,
         "jax": run(""),
         "jax_backbone": run("backbone"),
@@ -154,35 +168,39 @@ def test_port_config_matches_jax_registry():
 
     want, got = jax_make_cfg("se3ete.3dmatch"), make_cfg("se3ete.3dmatch")
     assert dataclasses.asdict(got.model) == dataclasses.asdict(want.model)
-    assert got.pipeline == want.pipeline
+    assert dataclasses.asdict(got.pipeline) == dataclasses.asdict(want.pipeline)
     assert (got.name, got.seed, got.dataset, got.point_limit) == (
         want.name, want.seed, want.data.dataset, want.data.point_limit)
     served = serving_config(got)
     assert served.pipeline.window_segments == 0
-    assert not served.model.serve_fused_attention
+    assert served.model.serve_fused_attention  # the JAX default: flash kernels
+    assert not served.model.serve_femb
     assert served.model.serve_fused_embedding and served.model.serve_fused_sinkhorn
 
 
-def test_port_tiny_config_matches_graft_entry():
+@pytest.mark.parametrize("flash", [False, True])
+def test_port_tiny_config_matches_graft_entry(flash):
     """The port's tiny cut equals __graft_entry__'s tiny flagship config
-    (with the host point-to-node partition switched on)."""
+    (with the host point-to-node partition switched on); its flash variant
+    has a 128-point coarse stage and the flash attention route on."""
     import __graft_entry__ as ge
-    from se3et_tpu_torch.experiments.configs import make_cfg, tiny_config
+    from se3et_tpu_torch.experiments.configs import make_cfg, tiny_config, tiny_flash_config
 
     _, pipeline, model = ge._flagship_configs(tiny=True)
-    got = tiny_config(make_cfg("se3ete.3dmatch"))
-    assert got.pipeline == dataclasses.replace(pipeline, patch_k=model.num_points_in_patch)
+    pipeline = dataclasses.replace(pipeline, patch_k=model.num_points_in_patch)
+    if flash:
+        pipeline = dataclasses.replace(pipeline, stage_caps=(256, 192, 160, 128),
+                                       coarse_point_cap=128)
+        model = dataclasses.replace(model, serve_fused_attention=True)
+    got = (tiny_flash_config if flash else tiny_config)(make_cfg("se3ete.3dmatch"))
+    assert dataclasses.asdict(got.pipeline) == dataclasses.asdict(pipeline)
     assert dataclasses.asdict(got.model) == dataclasses.asdict(model)
 
 
-_BLOCKED = ("jax", "flax", "optax", "ml_dtypes")
-# the JAX package's numpy-only modules, which the port shares
-_SHARED = (
-    "se3et_tpu.core.anchors", "se3et_tpu.core.kernel_points",
-    "se3et_tpu.core.harmonics", "se3et_tpu.data.pipeline",
-    "se3et_tpu.data.host_ops", "se3et_tpu.data.native_bridge",
-    "se3et_tpu.data.datasets",
-)
+_BLOCKED = ("jax", "flax", "optax", "ml_dtypes", "se3et_tpu")
+# modules of the JAX package the port may import: none (it keeps copies of
+# the numpy-only ones, held equal by tests/test_torch_shared_copies.py)
+_SHARED = ()
 
 
 def _import_allowed(name: str) -> bool:
@@ -194,14 +212,14 @@ def _import_allowed(name: str) -> bool:
 
 
 def test_port_source_has_no_jax_imports():
-    """No module of the port imports JAX, flax, optax or ml_dtypes, or a
-    module of the JAX package other than the shared numpy-only ones —
-    lazy imports inside functions included."""
+    """No module of the port, and not chip_smoke.py, imports JAX, flax,
+    optax, ml_dtypes or any module of the JAX package -- lazy imports
+    inside functions included."""
     offenders = []
     pkg = REPO / "se3et_tpu_torch"
-    for path in pkg.rglob("*.py"):
-        if "_build" in path.relative_to(pkg).parts:  # kernel build outputs
-            continue
+    paths = [p for p in pkg.rglob("*.py")
+             if "_build" not in p.relative_to(pkg).parts]  # kernel build outputs
+    for path in paths + [REPO / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -229,11 +247,23 @@ from se3et_tpu_torch.experiments.configs import make_cfg, serving_config, tiny_c
 from se3et_tpu_torch.nn.model import SE3ETModel, pyramid_to_tensors
 cfg = tiny_config(serving_config(make_cfg("se3ete.3dmatch")))
 data = synthetic_pair(0, cfg.pipeline, cfg.model, num_points=250, extent=2.0)
-out = SE3ETModel(cfg.model)(pyramid_to_tensors(data, "cpu"))
+out = SE3ETModel(cfg.model, device="cpu")(pyramid_to_tensors(data, "cpu"))
 assert torch.isfinite(out["estimated_transform"]).all()
 assert not any(sys.modules.get(n) for n in {blocked!r})
 print("ok")
 """
+
+
+def test_model_without_device_needs_cuda():
+    """SE3ETModel runs on the card unless the caller asks for the CPU: with
+    no CUDA device, constructing it without ``device`` raises."""
+    from se3et_tpu_torch.experiments.configs import make_cfg, tiny_config
+    from se3et_tpu_torch.nn.model import SE3ETModel
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SE3ETModel(tiny_config(make_cfg("se3ete.3dmatch")).model)
 
 
 def test_port_runs_with_jax_blocked():
