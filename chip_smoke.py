@@ -12,7 +12,9 @@ Phases, each of which raises (exit code != 0) on failure:
 3. hold each of the seven kernels against its plain PyTorch version at the
    slice's real shapes, in the working dtype (bf16 for K1-K3 and K5-K7,
    float32 for K4), with its bound and, where one exists, the time of one
-   PyTorch call computing the same function;
+   PyTorch call computing the same function; and the time of the routes
+   that compute the TPU's fused conv kernels B1-B3 today (K1 + matmul
+   (+ K2)) beside the bound of the fused function;
 4. check that the kernel path (card) and the plain path (CPU) agree on two
    tiny float32 inputs: the materialised-attention cut and the flash cut
    (128-point coarse stage, 600 points), the latter launching K5-K7
@@ -22,7 +24,18 @@ Phases, each of which raises (exit code != 0) on failure:
    random weights, with every kernel's launch counter reset before and
    checked after (K5 20, K6 16, K7 16, the others > 0); then the section
    times from the ``stop_after`` cuts and the device time by kernel over
-   one served pair (``torch.profiler``).
+   one served pair (``torch.profiler``);
+6. training: hold the four backward kernels (K8-K11) against their plain
+   versions at the training shapes with their bounds; one tiny float32
+   training step on the card and on the CPU with the same weights and
+   target noise, agreeing on the losses and every parameter's gradient;
+   then ``make_train_step`` at full se3ete.3dmatch width (float32, the JAX
+   training routes): one warm-up and three timed steps on the synthetic
+   pairs with the backward kernels' launch counters reset before and
+   checked after (K8 10, K9 3, K10 1, K11 5 per step; forward K1 10, K2 3,
+   K3 1, K4 1, K5 5), finite losses and gradient norm, the step time, the
+   forward + loss time alone, peak memory and a ``torch.profiler``
+   breakdown of one step.
 
 Prints timings, then the card's name and power limit, a JSON line with the
 kernels, and as the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -31,6 +44,7 @@ not importable.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -43,6 +57,13 @@ NUM_PAIRS = 4
 # launch each), 2 EQ cross layers x 2 directions for K6 and for K7
 FLASH_LAUNCHES = {"rpe_self_attention": 5, "eq_attention_stats": 4,
                   "eq_attention_apply": 4}
+# launches per training step: 10 gathering convs (all but the ones-input
+# first one), 3 strided skips, 1 embedding, 1 Sinkhorn, 5 self layers
+TRAIN_LAUNCHES = {"gather_wf": 10, "neighbor_max": 3, "geometric_embedding": 1,
+                  "sinkhorn": 1, "rpe_self_attention": 5, "gather_wf_bwd": 10,
+                  "neighbor_max_bwd": 3, "geometric_embedding_bwd": 1,
+                  "rpe_attention_bwd": 5}
+TRAIN_STEPS = 3
 
 
 def _card_line() -> str:
@@ -97,16 +118,16 @@ def _tiny_card_vs_cpu(name, cfg, num_points, extent, dev, gate_transform=True):
     return launches
 
 
-def _profile(model, data):
-    """Device time by kernel over one served pair (torch.profiler), against
-    the pair's wall time."""
+def _profile(run, what="one pair", top=15):
+    """Device time by kernel over one call of ``run`` (torch.profiler),
+    against its wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model(data)
+        run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     from torch.autograd import DeviceType
@@ -119,11 +140,159 @@ def _profile(model, data):
     attr = "self_device_time_total" if hasattr(events[0], "self_device_time_total") \
         else "self_cuda_time_total"
     device_ms = sum(getattr(e, attr) for e in events) / 1e3
-    print(f"profile (one pair, profiler on): wall {wall:.2f} ms, kernels {device_ms:.2f} ms, "
+    print(f"profile ({what}, profiler on): wall {wall:.2f} ms, kernels {device_ms:.2f} ms, "
           f"device idle {max(0.0, 1 - device_ms / wall):.1%}", flush=True)
-    for e in sorted(events, key=lambda e: getattr(e, attr), reverse=True)[:15]:
+    for e in sorted(events, key=lambda e: getattr(e, attr), reverse=True)[:top]:
         print(f"  {getattr(e, attr) / 1e3:8.3f} ms  {e.count:5d} launches  {e.key[:90]}",
               flush=True)
+
+
+def _tiny_train_card_vs_cpu(cfg, extent, dev):
+    """One tiny float32 training step (``tiny_flash_config`` with the
+    training routes on) through ``make_train_step`` on the CPU (plain
+    versions) and on the card (kernels), same weights and Gumbel target
+    noise.  Gated: the losses within rtol 1e-3, and every parameter's
+    gradient within 5e-2 of its norm + 5e-5 (1e-2 over all of them): the
+    bf16 embedding differs by an ulp between K3 and its plain version, which
+    moves ReLU / max kinks downstream (the same tolerance the CPU tests
+    state against the JAX step)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from se3et_tpu_torch.data.pyramid import synthetic_pair
+    from se3et_tpu_torch.engine.steps import make_train_step
+    from se3et_tpu_torch.engine.trainer import make_optimizer
+    from se3et_tpu_torch.experiments.configs import tiny_flash_config
+    from se3et_tpu_torch.nn.model import SE3ETModel, pyramid_to_tensors
+    from se3et_tpu_torch.ops.kernels import selfcheck
+
+    tiny = tiny_flash_config(cfg)
+    mcfg = dataclasses.replace(tiny.model, train_fused_conv=True, train_fused_embedding=True,
+                               train_fused_attention=True)
+    data = synthetic_pair(0, tiny.pipeline, mcfg, 600, extent)
+    n_coarse = data[f"points_{tiny.pipeline.num_stages - 1}"].shape[1]
+    noise = torch.from_numpy(np.random.RandomState(11).gumbel(
+        size=(n_coarse, n_coarse)).astype(np.float32))
+    runs = {}
+    for where in ("cpu", dev):
+        model = SE3ETModel(mcfg, seed=5, device=where)
+        step = make_train_step(model, tiny.loss, make_optimizer(model.parameters(),
+                                                                tiny.optim, 10))
+        for w in selfcheck.WRAPPERS.values():
+            w.launches = 0
+        losses = step(pyramid_to_tensors(data, where), target_noise=noise.to(where))
+        runs[str(where)] = (
+            {k: float(v) for k, v in losses.items()},
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            {n: w.launches for n, w in selfcheck.WRAPPERS.items()})
+    (want_l, want_g, _), (got_l, got_g, launches) = runs["cpu"], runs[str(dev)]
+    l_err = max(abs(got_l[k] - want_l[k]) / max(abs(want_l[k]), 1e-30)
+                for k in ("c_loss", "f_loss", "loss"))
+    errs = {n: (float(torch.linalg.norm(got_g[n] - w)), float(torch.linalg.norm(w)))
+            for n, w in want_g.items()}
+    worst = max(errs, key=lambda n: errs[n][0] / (5e-2 * errs[n][1] + 5e-5))
+    tot = (sum(e * e for e, _ in errs.values()) ** 0.5,
+           sum(r * r for _, r in errs.values()) ** 0.5)
+    print(f"tiny fp32 training step card vs cpu: losses {got_l} vs {want_l} (max rel "
+          f"{l_err:.2e}, tol 1e-3); gradients |dg|/|g| over all {tot[0] / tot[1]:.2e} "
+          f"(tol 1e-2), worst tensor {worst} |dg| {errs[worst][0]:.3e} |g| "
+          f"{errs[worst][1]:.3e}; launches {launches}", flush=True)
+    bad = [n for n, (e, r) in errs.items() if not e <= 5e-2 * r + 5e-5]
+    if not (l_err <= 1e-3 and tot[0] <= 1e-2 * tot[1]) or bad:
+        raise RuntimeError(f"training step: card and CPU disagree ({bad})")
+    idle = [n for n in selfcheck.TRAINING if launches[n] == 0]
+    if idle:
+        raise RuntimeError(f"tiny training step did not launch {idle}")
+
+
+def _training(cfg, pairs, extent, dev):
+    """Phase 6 on ``cfg``, the serving cut, which trains on the JAX training
+    routes; returns the backward kernels' check results."""
+    import torch
+
+    from se3et_tpu_torch.engine.steps import make_train_step
+    from se3et_tpu_torch.engine.trainer import make_optimizer
+    from se3et_tpu_torch.nn.loss import overall_loss
+    from se3et_tpu_torch.nn.model import SE3ETModel, pyramid_to_tensors
+    from se3et_tpu_torch.ops.kernels import selfcheck
+
+    m = cfg.model
+    p0 = pyramid_to_tensors(pairs[0], dev)
+    pts_c, masks_c = p0["points_3"], p0["masks_3"]
+    ns0 = p0["points_0"].shape[1]
+    heads, head_dim = m.num_heads, m.gt_hidden_dim // m.num_heads
+    checks = {
+        # stage-0 bottleneck conv: x (2, 20000, A*32), K = 15
+        "gather_wf_bwd": selfcheck.check_gather_wf_bwd(p0["neighbors_0"], ns0, 6 * 32),
+        # stage-1 strided skip: x (2, 20000, A*128)
+        "neighbor_max_bwd": selfcheck.check_neighbor_max_bwd(p0["subsampling_0"], ns0,
+                                                             6 * 128),
+        "geometric_embedding_bwd": selfcheck.check_embedding_bwd(
+            pts_c, masks_c, c=m.gt_hidden_dim, k=m.angle_k, sigma_d=m.sigma_d,
+            sigma_a=m.sigma_a),
+        # self_eq layers (A*H anchor-heads with the SH term); training feeds
+        # K5/K11 the embedding's dtype, bf16
+        "rpe_attention_bwd": selfcheck.check_rpe_attention_bwd(
+            pts_c, masks_c, m.kanchor * heads, c=head_dim, cc=m.gt_hidden_dim),
+    }
+    extra = [selfcheck.check_rpe_attention_bwd(pts_c, masks_c, heads, c=head_dim,
+                                               cc=m.gt_hidden_dim, with_sh=False)]
+    for res in list(checks.values()) + extra:
+        _print_check(res)
+    bad = [r.name for r in list(checks.values()) + extra if not r.ok]
+    if bad:
+        raise RuntimeError(f"backward kernels disagree with their plain versions: {bad}")
+    del p0
+
+    _tiny_train_card_vs_cpu(cfg, extent, dev)
+
+    # full width: make_train_step on the synthetic pairs
+    model = SE3ETModel(m, seed=cfg.seed)
+    step = make_train_step(model, cfg.loss, make_optimizer(model.parameters(), cfg.optim,
+                                                            len(pairs)))
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    inputs = [pyramid_to_tensors(p, dev) for p in pairs]
+    step(inputs[-1], generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    for w in selfcheck.WRAPPERS.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms, losses = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(inputs[i % len(inputs)], generator=gen))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {n: w.launches for n, w in selfcheck.WRAPPERS.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    vals = [{k: float(v) for k, v in ls.items()} for ls in losses]
+    if not all(math.isfinite(x) for v in vals for x in v.values()):
+        raise RuntimeError(f"non-finite training losses or gradient norm: {vals}")
+    expected = {n: c * TRAIN_STEPS for n, c in TRAIN_LAUNCHES.items()}
+    if any(launches[n] != c for n, c in expected.items()):
+        raise RuntimeError(f"training step launched {launches}, expected {expected}")
+    for name in selfcheck.TRAINING:
+        checks[name].launches = launches[name]
+    # forward + loss alone (the graph built, no backward), to split the step
+    fwd_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model(inputs[0], train=True, with_registration=False, generator=gen)
+        overall_loss(out, inputs[0], cfg.loss)
+        torch.cuda.synchronize()
+        fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        del out
+    print(f"train forward + loss (no backward) ms: {[round(x, 2) for x in fwd_ms]} "
+          f"(median {statistics.median(fwd_ms):.2f})", flush=True)
+    print(f"train ms/step: {[round(x, 2) for x in step_ms]} (median "
+          f"{statistics.median(step_ms):.2f}); losses {vals}; launches {launches}; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
+    _profile(lambda: step(inputs[0], generator=gen), what="one training step", top=25)
+    return checks
 
 
 def main() -> int:
@@ -204,6 +373,9 @@ def main() -> int:
     bad = [r.name for r in list(checks.values()) + extra if not r.ok]
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: {bad}")
+    for name, shape, route, ms, bound_ms, bound_by in selfcheck.time_fused_conv_routes(p0):
+        print(f"fused conv {name}: {shape} bf16, route {route} {ms:.4f} ms, bound of the "
+              f"fused function {bound_ms:.4f} ms ({bound_by})", flush=True)
     del p0
 
     # 4. kernel path (card) vs plain path (CPU) on tiny inputs, float32
@@ -237,12 +409,14 @@ def main() -> int:
         tf = out["estimated_transform"]
         if tf.shape != (4, 4) or not bool(torch.isfinite(tf).all()):
             raise RuntimeError(f"bad estimated_transform {tf}")
-    idle = [n for n, c in launches.items() if c == 0]
+    idle = [n for n in selfcheck.SERVING if launches[n] == 0]
     if idle:
         raise RuntimeError(f"kernels not launched by the main path: {idle}")
     expected = {n: c * NUM_PAIRS for n, c in FLASH_LAUNCHES.items()}
     if any(launches[n] != c for n, c in expected.items()):
         raise RuntimeError(f"flash kernels launched {launches}, expected {expected}")
+    for name in selfcheck.SERVING:
+        checks[name].launches = launches[name]
     print(f"serve ms/pair: {[round(x, 2) for x in device_ms]} (median "
           f"{statistics.median(device_ms):.2f}); launches {launches}; "
           f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
@@ -263,13 +437,17 @@ def main() -> int:
           np.array2string(outs[0]["estimated_transform"].cpu().numpy(), precision=4),
           flush=True)
 
-    _profile(model, inputs[0])
+    _profile(lambda: model(inputs[0]))
+    del model, outs
+
+    # 6. training
+    checks.update(_training(cfg, pairs, extent, dev))
 
     kernels = []
     for name, res in checks.items():
         source, replaces = selfcheck.SOURCES[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": res.launches,
                         "max_abs_err": res.max_abs_err, "ms": res.ms,
                         "plain_ms": res.plain_ms, "bound_ms": res.bound_ms,
                         "bound_by": res.bound_by, "library_ms": res.library_ms})

@@ -29,7 +29,10 @@
 //   row once and contracts it against the AH folded queries held in shared
 //   memory as float32 (kWarps*AH*C*4 = 192 KB at AH=24, C=256).
 // Both use an online softmax per (row, ah) with no cross-block state and
-// no atomics.  wgmma and TMA are later work.
+// no atomics.  wgmma and TMA are later work.  Where lse is not null, each
+// also writes the row log-sum-exp lse[b,ah,n] = max + log(sum) of the
+// scaled, masked scores (the row statistics _rpe_fwd returns for the
+// backward, rpe_attention_bwd.cu); serving passes null.
 #include <type_traits>
 
 #include "attention_common.cuh"
@@ -51,8 +54,8 @@ rpe_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ qp,
                      const T* __restrict__ emb, const uint8_t* __restrict__ kmask,
                      const float* __restrict__ qw, const float* __restrict__ pts,
-                     float* __restrict__ out, int n, int cc, int pts_rows,
-                     float scale) {
+                     float* __restrict__ out, float* __restrict__ lse, int n, int cc,
+                     int pts_rows, float scale) {
   extern __shared__ float smem[];
   float* qp_s = smem;                      // [kWarps][AH][cc]
   float* p_s = qp_s + kWarps * AH * cc;    // [kWarps][AH][32]
@@ -202,6 +205,11 @@ rpe_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       o[1] = acc[a][1] / denom;
     }
   }
+  if (lse != nullptr && lane == 0) {
+#pragma unroll
+    for (int a = 0; a < AH; ++a)
+      lse[(long long)(b * AH + a) * n + row] = mrun[a] + logf(fmaxf(lrun[a], 1e-30f));
+  }
 }
 
 // Tensor-core kernel (bf16, head width 64, C a multiple of 32), with the
@@ -237,8 +245,8 @@ rpe_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ qp,
                         const __nv_bfloat16* __restrict__ emb,
                         const uint8_t* __restrict__ kmask, const float* __restrict__ qw,
-                        const float* __restrict__ pts, float* __restrict__ out, int n,
-                        int cc, int pts_rows, float scale) {
+                        const float* __restrict__ pts, float* __restrict__ out,
+                        float* __restrict__ lse, int n, int cc, int pts_rows, float scale) {
   constexpr int kRS = SpLayout<AH>::kRowStride;
   constexpr int kNT = (AH + 7) / 8;  // anchor-head n-tiles (phase 1) = ah per warp (phase 2)
   constexpr int kVStride = HC + 8;   // bf16 per staged v row
@@ -426,13 +434,18 @@ rpe_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
         *reinterpret_cast<float2*>(oh + (long long)rb * HC + 8 * j + 2 * t) =
             make_float2(o[i][j][2] / lb, o[i][j][3] / lb);
     }
+    if (lse != nullptr && t == 0) {
+      float* lh = lse + ((long long)b * AH + ah) * n;
+      if (ra < n) lh[ra] = mrun[i][0] + logf(la);
+      if (rb < n) lh[rb] = mrun[i][1] + logf(lb);
+    }
   }
 }
 
 template <int AH, int HC>
 int launch_tc(const void* q, const void* k, const void* v, const void* qp, const void* emb,
-              const void* kmask, const void* qw, const void* pts, void* out, int batch,
-              int n, int cc, int pts_rows, float scale, cudaStream_t stream) {
+              const void* kmask, const void* qw, const void* pts, void* out, void* lse,
+              int batch, int n, int cc, int pts_rows, float scale, cudaStream_t stream) {
   const size_t smem = SpLayout<AH>::kFloats * sizeof(float)
                       + (size_t)kTcWarps * kTcKeys * (HC + 8) * sizeof(__nv_bfloat16);
   cudaError_t err = cudaFuncSetAttribute(rpe_attention_tc_kernel<AH, HC>,
@@ -443,14 +456,14 @@ int launch_tc(const void* q, const void* k, const void* v, const void* qp, const
   rpe_attention_tc_kernel<AH, HC><<<grid, kTcThreads, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
       (const __nv_bfloat16*)qp, (const __nv_bfloat16*)emb, (const uint8_t*)kmask,
-      (const float*)qw, (const float*)pts, (float*)out, n, cc, pts_rows, scale);
+      (const float*)qw, (const float*)pts, (float*)out, (float*)lse, n, cc, pts_rows, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int AH, int HC>
 int launch(const void* q, const void* k, const void* v, const void* qp, const void* emb,
-           const void* kmask, const void* qw, const void* pts, void* out, int batch,
-           int n, int cc, int pts_rows, float scale, cudaStream_t stream) {
+           const void* kmask, const void* qw, const void* pts, void* out, void* lse,
+           int batch, int n, int cc, int pts_rows, float scale, cudaStream_t stream) {
   const size_t smem = (size_t)kWarps * AH * (cc + 32) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(rpe_attention_kernel<T, AH, HC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -459,34 +472,34 @@ int launch(const void* q, const void* k, const void* v, const void* qp, const vo
   const int grid = batch * ((n + kWarps - 1) / kWarps);
   rpe_attention_kernel<T, AH, HC><<<grid, kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)qp, (const T*)emb,
-      (const uint8_t*)kmask, (const float*)qw, (const float*)pts, (float*)out, n, cc,
-      pts_rows, scale);
+      (const uint8_t*)kmask, (const float*)qw, (const float*)pts, (float*)out, (float*)lse,
+      n, cc, pts_rows, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* qp,
              const void* emb, const void* kmask, const void* qw, const void* pts,
-             void* out, int batch, int ah, int n, int hc, int cc, int pts_rows,
+             void* out, void* lse, int batch, int ah, int n, int hc, int cc, int pts_rows,
              float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (cc % 16 != 0) return (int)cudaErrorInvalidValue;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (hc == 64 && cc % 32 == 0) {
       if (ah == 24)
-        return launch_tc<24, 64>(q, k, v, qp, emb, kmask, qw, pts, out, batch, n, cc, pts_rows, scale, s);
+        return launch_tc<24, 64>(q, k, v, qp, emb, kmask, qw, pts, out, lse, batch, n, cc, pts_rows, scale, s);
       if (ah == 4)
-        return launch_tc<4, 64>(q, k, v, qp, emb, kmask, qw, pts, out, batch, n, cc, pts_rows, scale, s);
+        return launch_tc<4, 64>(q, k, v, qp, emb, kmask, qw, pts, out, lse, batch, n, cc, pts_rows, scale, s);
     }
   }
   if (ah == 24 && hc == 64)
-    return launch<T, 24, 64>(q, k, v, qp, emb, kmask, qw, pts, out, batch, n, cc, pts_rows, scale, s);
+    return launch<T, 24, 64>(q, k, v, qp, emb, kmask, qw, pts, out, lse, batch, n, cc, pts_rows, scale, s);
   if (ah == 4 && hc == 64)
-    return launch<T, 4, 64>(q, k, v, qp, emb, kmask, qw, pts, out, batch, n, cc, pts_rows, scale, s);
+    return launch<T, 4, 64>(q, k, v, qp, emb, kmask, qw, pts, out, lse, batch, n, cc, pts_rows, scale, s);
   if (ah == 24 && hc == 16)
-    return launch<T, 24, 16>(q, k, v, qp, emb, kmask, qw, pts, out, batch, n, cc, pts_rows, scale, s);
+    return launch<T, 24, 16>(q, k, v, qp, emb, kmask, qw, pts, out, lse, batch, n, cc, pts_rows, scale, s);
   if (ah == 4 && hc == 16)
-    return launch<T, 4, 16>(q, k, v, qp, emb, kmask, qw, pts, out, batch, n, cc, pts_rows, scale, s);
+    return launch<T, 4, 16>(q, k, v, qp, emb, kmask, qw, pts, out, lse, batch, n, cc, pts_rows, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -495,18 +508,18 @@ int dispatch(const void* q, const void* k, const void* v, const void* qp,
 extern "C" int se3et_rpe_attention_bf16(const void* q, const void* k, const void* v,
                                         const void* qp, const void* emb,
                                         const void* kmask, const void* qw,
-                                        const void* pts, void* out, int batch, int ah,
-                                        int n, int hc, int cc, int pts_rows, float scale,
-                                        void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, qp, emb, kmask, qw, pts, out, batch, ah, n, hc,
-                                 cc, pts_rows, scale, stream);
+                                        const void* pts, void* out, void* lse, int batch,
+                                        int ah, int n, int hc, int cc, int pts_rows,
+                                        float scale, void* stream) {
+  return dispatch<__nv_bfloat16>(q, k, v, qp, emb, kmask, qw, pts, out, lse, batch, ah, n,
+                                 hc, cc, pts_rows, scale, stream);
 }
 
 extern "C" int se3et_rpe_attention_f32(const void* q, const void* k, const void* v,
                                        const void* qp, const void* emb, const void* kmask,
                                        const void* qw, const void* pts, void* out,
-                                       int batch, int ah, int n, int hc, int cc,
+                                       void* lse, int batch, int ah, int n, int hc, int cc,
                                        int pts_rows, float scale, void* stream) {
-  return dispatch<float>(q, k, v, qp, emb, kmask, qw, pts, out, batch, ah, n, hc, cc,
+  return dispatch<float>(q, k, v, qp, emb, kmask, qw, pts, out, lse, batch, ah, n, hc, cc,
                          pts_rows, scale, stream);
 }

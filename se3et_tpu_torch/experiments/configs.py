@@ -8,7 +8,8 @@ equal to the JAX ``make_cfg('se3ete.3dmatch')``.
 
 :func:`serving_config` applies the setting the port's serving slice runs
 with (exact neighbour indexing); attention takes the JAX default, the
-flash kernels.
+flash kernels.  The training step runs on the same cut, its routes
+(``train_fused_*``) at the JAX defaults.
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ from __future__ import annotations
 import dataclasses
 
 from se3et_tpu_torch.data.pipeline import PyramidConfig
+from se3et_tpu_torch.engine.trainer import OptimConfig
 from se3et_tpu_torch.nn.epn import EPNConfig
+from se3et_tpu_torch.nn.loss import LossConfig
 from se3et_tpu_torch.nn.model import ModelConfig
 
 
@@ -28,6 +31,8 @@ class ExperimentConfig:
     point_limit: int
     pipeline: PyramidConfig
     model: ModelConfig
+    loss: LossConfig = LossConfig()
+    optim: OptimConfig = OptimConfig()
 
 
 SE3ET_E_BLOCKS = (
@@ -107,6 +112,11 @@ def _se3ete_3dmatch() -> ExperimentConfig:
         name="se3ete.3dmatch", seed=7351, dataset="threedmatch",
         point_limit=point_limit, pipeline=_threedmatch_pipeline(min(point_limit, 24576)),
         model=model,
+        loss=LossConfig(positive_margin=0.1, negative_margin=1.4, positive_optimal=0.1,
+                        negative_optimal=1.4, log_scale=24.0, positive_overlap=0.1,
+                        fine_positive_radius=0.05, kanchor=6),
+        optim=OptimConfig(lr=1e-4, lr_decay=0.95, lr_decay_steps=1, weight_decay=1e-6,
+                          max_epoch=40),
     )
 
 
@@ -123,7 +133,10 @@ def serving_config(cfg: ExperimentConfig) -> ExperimentConfig:
     """The port's serving slice of ``cfg``: neighbours indexed directly
     (``window_segments=0``: the Morton window maps exist only for the TPU
     kernels).  ``serve_fused_attention`` keeps its value (True, the JAX
-    default: flash RPE self-attention and EQ cross-attention kernels)."""
+    default: flash RPE self-attention and EQ cross-attention kernels).  The
+    training step runs on this cut too: its routes keep the JAX defaults
+    (``train_fused_*`` on: the backward kernels K8-K11, float32 features,
+    materialised EQ cross layers)."""
     return dataclasses.replace(
         cfg, pipeline=dataclasses.replace(cfg.pipeline, window_segments=0))
 

@@ -7,10 +7,11 @@ equivariant-SH terms fold the projection into the query
 (``s_p = (q W_p^T) . emb + q . b_p``) instead of projecting the (N, M)
 embedding.  Scores are summed and soft-maxed in float32.
 
-``use_flash`` (serving) routes the RPE self layers through kernel K5 and
-the ``a_soft`` / ``r_soft`` EQ cross layers through K6 + K7, as the JAX
-package routes them through its Pallas kernels; the materialised routes
-stay for the configurations the flash gates refuse.
+``use_flash`` routes the RPE self layers through kernel K5 (differentiable:
+its backward is K11) and, in serving, the ``a_soft`` / ``r_soft`` EQ cross
+layers through K6 + K7, as the JAX package routes them through its Pallas
+kernels; the materialised routes stay for training's cross layers and the
+configurations the flash gates refuse.
 """
 
 from __future__ import annotations

@@ -4,9 +4,10 @@ r"""Geometric-structure embedding of the coarse transformer
 Pairwise distance + triplet-angle sinusoid embedding, projected to the
 model width, plus the per-anchor Wigner-rotated spherical harmonics of pair
 directions for the equivariant self-attention layers.  ``fused=True``
-(serving) runs kernel K3
-(:func:`se3et_tpu_torch.ops.kernels.embedding.geometric_embedding`); the
-unfused route is the reference formulation with [sin | cos] sinusoids.
+runs kernel K3
+(:func:`se3et_tpu_torch.ops.kernels.embedding.geometric_embedding`, with
+the backward K10 in training); the unfused route is the reference
+formulation with [sin | cos] sinusoids.
 """
 
 from __future__ import annotations
@@ -97,7 +98,9 @@ class GeometricStructureEmbedding(nn.Module):
         ang = idx[..., None] * div
         return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
-    def forward(self, points, masks=None, fused=False, compute_equiv=True):
+    def forward(self, points, masks=None, fused=False, compute_equiv=True, out_dtype=None):
+        """``out_dtype``: the fused route's output type (default the compute
+        dtype; training passes bf16, the JAX kernel's default)."""
         b, n, _ = points.shape
         k = self.angle_k
         sq = geometry.pairwise_distance(points, points)
@@ -112,7 +115,7 @@ class GeometricStructureEmbedding(nn.Module):
             emb = geometric_embedding(
                 points, knn_points, self.proj_d_kernel, self.proj_d_bias,
                 self.proj_a_kernel, self.proj_a_bias, self.sigma_d, self.sigma_a,
-                out_dtype=prec.compute_dtype() or torch.float32,
+                out_dtype=out_dtype or prec.compute_dtype() or torch.float32,
             )
         else:
             emb = self._unfused(points, torch.sqrt(sq), knn_points)

@@ -13,7 +13,9 @@ kernel-point tables, so a conv is:
    class-reduction pair of matmuls.
 
 The strided skip max-pool is kernel K2
-(:func:`~se3et_tpu_torch.ops.kernels.windowed_conv.neighbor_max`).
+(:func:`~se3et_tpu_torch.ops.kernels.windowed_conv.neighbor_max`).  Under
+autograd (training) both differentiate through their backward kernels K8
+and K9.
 Influence weights are host-precomputed (:mod:`se3et_tpu_torch.data.influence`)
 and shared by every conv of a (stage, neighbour set).
 

@@ -1,5 +1,6 @@
 r"""Coarse/fine matching and local-to-global registration
-(port of :mod:`se3et_tpu.nn.matching`, serving path).
+(port of :mod:`se3et_tpu.nn.matching`), with the training targets: the
+ground-truth patch overlaps and the sampled superpoint targets.
 
 Static shapes throughout: fixed correspondence budgets with validity
 masks.  Global top-k selections use :func:`torch.topk`; the chosen slots
@@ -28,7 +29,8 @@ def _topk_by_index(flat: torch.Tensor, k: int):
 
 class LearnableLogOptimalTransport(nn.Module):
     """SuperGlue-style log-domain Sinkhorn with a learnable dustbin ``alpha``;
-    the iterations run in kernel K4."""
+    the iterations run in kernel K4, and its gradient is that of the
+    logsumexp scan form (``ops.kernels.sinkhorn.sinkhorn_scan``)."""
 
     def __init__(self, num_iterations: int = 100, inf: float = 1e12):
         super().__init__()
@@ -85,6 +87,70 @@ def superpoint_matching(ref_feats, src_feats, ref_masks, src_masks,
     corr_scores, corr_idx = _topk_by_index(scores.reshape(-1), num_correspondences)
     valid = corr_scores > 0.0
     return corr_idx // m, corr_idx % m, torch.clamp_min(corr_scores, 0.0), valid
+
+
+def node_correspondences(ref_nodes, src_nodes, ref_knn_points, src_knn_points, transform,
+                         pos_radius, ref_masks, src_masks, ref_knn_masks, src_knn_masks,
+                         num_candidates=48):
+    """Ground-truth superpoint overlaps (M, N), float32, 0 where no overlap.
+
+    For each ref node the ``num_candidates`` nearest aligned src nodes are
+    shortlisted (``torch.topk``); the patch-pair overlap ratio of each
+    shortlisted pair (share of points with a partner within ``pos_radius``,
+    averaged over both patches, zero unless the enclosing spheres meet) is
+    scattered into the dense matrix with a max."""
+    aligned_src_nodes = se3.apply_transform(src_nodes, transform)
+    aligned_src_knn = se3.apply_transform(src_knn_points, transform)
+    sq = geometry.pairwise_distance(ref_nodes, aligned_src_nodes)  # (M, N)
+    sq = sq.masked_fill(~(ref_masks[:, None] & src_masks[None, :]), geometry.INF)
+    cand_idx = torch.topk(-sq, num_candidates, dim=1).indices  # (M, S)
+
+    # enclosing-sphere prefilter radii
+    ref_d = torch.linalg.norm(ref_knn_points - ref_nodes[:, None, :], dim=-1)
+    ref_max = ref_d.masked_fill(~ref_knn_masks, 0.0).amax(dim=1)  # (M,)
+    src_d = torch.linalg.norm(aligned_src_knn - aligned_src_nodes[:, None, :], dim=-1)
+    src_max = src_d.masked_fill(~src_knn_masks, 0.0).amax(dim=1)  # (N,)
+
+    cand_src_knn = aligned_src_knn[cand_idx]  # (M, S, K, 3)
+    cand_src_knn_masks = src_knn_masks[cand_idx]  # (M, S, K)
+    cand_dist = torch.sqrt(torch.gather(sq, 1, cand_idx))
+    intersect = (ref_max[:, None] + src_max[cand_idx] + pos_radius) > cand_dist
+
+    d2 = geometry.pairwise_distance(ref_knn_points[:, None], cand_src_knn)  # (M, S, K, K)
+    pair_mask = ref_knn_masks[:, None, :, None] & cand_src_knn_masks[:, :, None, :]
+    overlap_pt = (d2 < pos_radius**2) & pair_mask
+    ref_counts = overlap_pt.any(dim=3).sum(dim=2).float()
+    src_counts = overlap_pt.any(dim=2).sum(dim=2).float()
+    ref_total = ref_knn_masks.sum(dim=1).float()  # (M,)
+    src_total = cand_src_knn_masks.sum(dim=2).float()  # (M, S)
+    overlaps = 0.5 * (ref_counts / ref_total[:, None].clamp_min(1.0)
+                      + src_counts / src_total.clamp_min(1.0))
+    overlaps = torch.where(intersect, overlaps, torch.zeros_like(overlaps))
+    overlap_mat = torch.zeros((ref_nodes.shape[0], src_nodes.shape[0]),
+                              dtype=torch.float32, device=ref_nodes.device)
+    return overlap_mat.scatter_reduce_(1, cand_idx, overlaps, reduce="amax")
+
+
+def superpoint_targets(overlap_mat, num_targets, overlap_threshold, generator=None,
+                       noise=None):
+    """Up to ``num_targets`` ground-truth pairs drawn uniformly among those
+    with overlap above ``overlap_threshold``: a masked Gumbel top-k with
+    ``noise`` (M, N) or, if not given, Gumbel noise from ``generator`` (a
+    ``torch.Generator`` on the matrix's device).
+
+    Returns (ref_idx (T,), src_idx (T,), overlaps (T,), valid (T,)); slots
+    ordered by flat index, unfilled slots invalid."""
+    m, n = overlap_mat.shape
+    eligible = overlap_mat > overlap_threshold
+    if noise is None:  # standard Gumbel, -log(-log U)
+        u = torch.rand((m, n), generator=generator, device=overlap_mat.device)
+        noise = -torch.log(-torch.log(u.clamp(torch.finfo(torch.float32).tiny, 1.0 - 2**-24)))
+    keyed = torch.where(eligible, noise.to(overlap_mat.device).float(),
+                        torch.full_like(overlap_mat, float("-inf")))
+    vals, idx = _topk_by_index(keyed.reshape(-1), num_targets)
+    ref_idx, src_idx = idx // n, idx % n
+    valid = eligible[ref_idx, src_idx] & (vals > float("-inf"))
+    return ref_idx, src_idx, overlap_mat[ref_idx, src_idx], valid
 
 
 def fine_correspondence_matrix(score_mat, ref_knn_masks, src_knn_masks, k,

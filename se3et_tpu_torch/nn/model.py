@@ -1,4 +1,4 @@
-r"""The SE3ET registration model, serving forward (port of
+r"""The SE3ET registration model, serving and training forward (port of
 :mod:`se3et_tpu.nn.model`).
 
 Input is the padded two-cloud pyramid dict of
@@ -8,6 +8,10 @@ host-side point-to-node partition (``PyramidConfig.patch_k``) and the
 influence weights of :func:`se3et_tpu_torch.data.influence.precompute_influence`.
 The forward runs backbone -> transformer -> superpoint matching -> Sinkhorn
 -> local-to-global registration with static shapes and no host sync.
+``train=True`` is the route of the JAX training step: float32 features,
+the ground-truth overlaps and sampled target correspondences, the
+differentiable kernels (K1-K5 with their backwards K8-K11) and the
+materialised EQ cross layers.
 
 The port covers the SE3ET-E/I family (E2PN backbone) with neighbour
 indexing (no window maps), the flash attention kernels
@@ -133,7 +137,7 @@ def pyramid_to_tensors(data: dict, device) -> dict:
 
 
 class SE3ETModel(nn.Module):
-    """Full registration model, serving forward."""
+    """Full registration model, serving and training forward."""
 
     def __init__(self, cfg: ModelConfig, seed: int = 0, device="cuda"):
         """Weights are drawn on the CPU from ``torch.Generator(seed)`` and
@@ -164,16 +168,30 @@ class SE3ETModel(nn.Module):
         init_parameters(self, torch.Generator().manual_seed(seed))
         self.to(device)
 
-    @torch.no_grad()
-    def forward(self, data: dict, with_registration: bool = True, stop_after: str = ""):
+    def forward(self, data: dict, train: bool = False, with_registration: bool = True,
+                with_gt: bool = False, stop_after: str = "", generator=None,
+                target_noise=None):
         """``stop_after`` in {'backbone', 'transformer', 'matching', 'sinkhorn'}
-        returns early (cut points for section-wise comparison)."""
+        returns early (cut points for section-wise comparison).
+
+        ``train=True`` is the training route (float32 unless ``bf16_train``;
+        autograd on): it adds ``gt_overlap_mat`` and replaces the coarse
+        correspondences by :func:`~se3et_tpu_torch.nn.matching.superpoint_targets`,
+        whose Gumbel noise comes from ``generator`` (a ``torch.Generator`` on
+        the model's device) or is given as ``target_noise`` (M, N).
+        ``with_gt`` adds ``gt_overlap_mat`` outside training.  Serving
+        (``train=False``) runs under ``torch.no_grad``."""
         if stop_after not in STOP_POINTS:
             raise ValueError(f"stop_after must be one of {STOP_POINTS}")
-        with prec.compute_dtype_scope(self.cfg.compute_dtype):
-            return self._forward(data, with_registration, stop_after)
+        c = self.cfg
+        dtype = c.compute_dtype if (not train or c.bf16_train) else "float32"
+        with prec.compute_dtype_scope(dtype), torch.set_grad_enabled(
+                train and torch.is_grad_enabled()):
+            return self._forward(data, train, with_registration, with_gt, stop_after,
+                                 generator, target_noise)
 
-    def _forward(self, data, with_registration, stop_after):
+    def _forward(self, data, train, with_registration, with_gt, stop_after, generator,
+                 target_noise):
         c = self.cfg
         coarse, fine = c.num_stages - 1, 1
         points_c, masks_c = data[f"points_{coarse}"], data[f"masks_{coarse}"]
@@ -191,6 +209,11 @@ class SE3ETModel(nn.Module):
         knn_masks = data["node_knn_masks"]
         knn_points = [geometry.gather_with_sentinel(points_f[i], knn_idx[i]) for i in range(2)]
         out = {"ref_node_masks": node_masks[0], "src_node_masks": node_masks[1]}
+        if with_gt or train:
+            out["gt_overlap_mat"] = matching_lib.node_correspondences(
+                points_c[0], points_c[1], knn_points[0], knn_points[1], data["transform"],
+                c.ground_truth_matching_radius, node_masks[0], node_masks[1],
+                knn_masks[0], knn_masks[1], num_candidates=c.gt_candidates)
 
         # 1. backbone
         feats_f, feats_c = self.backbone_net(data["features"], data)
@@ -202,9 +225,12 @@ class SE3ETModel(nn.Module):
         ref_out, src_out, ref_feat_m, src_feat_m = self.transformer(
             points_c[0][None], points_c[1][None], feats_c[0][None], feats_c[1][None],
             masks_c[0][None], masks_c[1][None],
-            fused_embedding=c.serve_fused_embedding,
-            fused_attention=c.serve_fused_attention,
-            fused_attention_cross=c.serve_fused_attention,
+            fused_embedding=c.train_fused_embedding if train else c.serve_fused_embedding,
+            fused_attention=c.train_fused_attention if train else c.serve_fused_attention,
+            # the EQ cross kernels have no backward: training is materialised
+            fused_attention_cross=(not train) and c.serve_fused_attention,
+            # the JAX embedding kernel writes bf16 in training too
+            emb_dtype=torch.bfloat16 if train else None,
         )
         out["ref_feats_m"], out["src_feats_m"] = ref_feat_m, src_feat_m
         ref_feats_c = ref_out[0].float()
@@ -219,12 +245,16 @@ class SE3ETModel(nn.Module):
 
         # 3. coarse correspondences and patch gather
         ref_idx, src_idx, _, corr_valid = matching_lib.superpoint_matching(
-            out["ref_feats_c"], out["src_feats_c"], node_masks[0], node_masks[1],
-            c.num_correspondences, c.dual_normalization,
+            out["ref_feats_c"].detach(), out["src_feats_c"].detach(), node_masks[0],
+            node_masks[1], c.num_correspondences, c.dual_normalization,
         )
         out["ref_node_corr_indices"] = ref_idx
         out["src_node_corr_indices"] = src_idx
         out["node_corr_valid"] = corr_valid
+        if train:
+            ref_idx, src_idx, _, corr_valid = matching_lib.superpoint_targets(
+                out["gt_overlap_mat"], c.num_targets, c.overlap_threshold,
+                generator=generator, noise=target_noise)
         sel_ref_knn_idx = knn_idx[0][ref_idx]  # (P, K)
         sel_src_knn_idx = knn_idx[1][src_idx]
         out["ref_node_corr_knn_points"] = knn_points[0][ref_idx]
@@ -245,8 +275,8 @@ class SE3ETModel(nn.Module):
                 return (flat / (torch.linalg.norm(flat, dim=-1, keepdim=True) + 1e-9)
                         ).reshape(x.shape)
 
-            rm = _norm_flat(ref_feat_m[0][:, ref_idx].float())  # (A, P, C)
-            sm = _norm_flat(src_feat_m[0][:, src_idx].float())
+            rm = _norm_flat(ref_feat_m[0][:, ref_idx].detach().float())  # (A, P, C)
+            sm = _norm_flat(src_feat_m[0][:, src_idx].detach().float())
             out["rot_sup_matrix"] = (torch.einsum("anc,enc->ae", rm, sm) + 1.0) / 2.0
 
         # 4. optimal transport (kernel K4)
@@ -262,7 +292,7 @@ class SE3ETModel(nn.Module):
             out.update(matching_lib.local_global_registration(
                 out["ref_node_corr_knn_points"], out["src_node_corr_knn_points"],
                 out["ref_node_corr_knn_masks"], out["src_node_corr_knn_masks"],
-                out["matching_scores"], k=c.fine_topk,
+                out["matching_scores"].detach(), k=c.fine_topk,
                 acceptance_radius=c.acceptance_radius, mutual=c.mutual,
                 confidence_threshold=c.confidence_threshold, use_dustbin=c.use_dustbin,
                 correspondence_threshold=c.correspondence_threshold,

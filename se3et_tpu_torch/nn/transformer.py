@@ -9,13 +9,14 @@ blocks attends with invariant q/k over equivariant values; ``cross_r_soft``
 before plain blocks fuses anchors by the soft rotation weights and
 :class:`RotCompressOutput`.
 
-With ``fused_attention`` (serving) the self layers take the flash kernel
+With ``fused_attention`` the self layers take the flash kernel
 K5 when every one of them can (``flash_self``: equal clouds of a
 128-multiple coarse size): ref and src then go through ONE launch per
 layer on the stacked (2, N, N, C) embedding, and the (B, A, N, M, 4)
 equivariant embedding is never built (K5 computes the SH term from the
 coordinates).  ``fused_attention_cross`` routes the EQ cross layers
-through K6 + K7.
+through K6 + K7 (serving only: they have no backward, and training takes
+the materialised cross route, as the JAX package does).
 """
 
 from __future__ import annotations
@@ -174,9 +175,10 @@ class GeometricTransformer(nn.Module):
 
     def forward(self, ref_points, src_points, ref_feats, src_feats, ref_masks,
                 src_masks, fused_embedding=False, fused_attention=False,
-                fused_attention_cross=None):
+                fused_attention_cross=None, emb_dtype=None):
         """points (B, N, 3); feats (B, N, [A,] C_in) -> (ref_out, src_out,
-        ref_feat_m, src_feat_m); outputs (B, N, C_out)."""
+        ref_feat_m, src_feat_m); outputs (B, N, C_out).  ``emb_dtype``: the
+        fused embedding's output type (see GeometricStructureEmbedding)."""
         nb = ref_points.shape[0]
         n_coarse = ref_points.shape[1]
         de = self.d_equiv_embed
@@ -191,7 +193,8 @@ class GeometricTransformer(nn.Module):
             # both clouds through one embedding evaluation
             pts = torch.cat([ref_points, src_points])
             mks = torch.cat([ref_masks, src_masks])
-            emb, eq_emb = embed(pts, mks, fused=fused_embedding, compute_equiv=not flash_self)
+            emb, eq_emb = embed(pts, mks, fused=fused_embedding, compute_equiv=not flash_self,
+                                out_dtype=emb_dtype)
             if flash_self:
                 # the flash self layers take the stacked embedding as it is
                 ref_emb = src_emb = None
@@ -202,9 +205,9 @@ class GeometricTransformer(nn.Module):
                 ref_eq, src_eq = eq_emb[:nb], eq_emb[nb:]
         else:
             ref_emb, ref_eq = embed(ref_points, ref_masks, fused=fused_embedding,
-                                    compute_equiv=not flash_self)
+                                    compute_equiv=not flash_self, out_dtype=emb_dtype)
             src_emb, src_eq = embed(src_points, src_masks, fused=fused_embedding,
-                                    compute_equiv=not flash_self)
+                                    compute_equiv=not flash_self, out_dtype=emb_dtype)
         if self.na is None or self.na == 1:
             f0, f1 = self.TorchLinear_0(ref_feats), self.TorchLinear_0(src_feats)
         else:

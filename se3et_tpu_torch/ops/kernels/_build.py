@@ -23,7 +23,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__fil
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 KERNEL_SOURCES = ("gather_wf", "neighbor_max", "geometric_embedding", "sinkhorn",
-                  "rpe_attention", "eq_attention")
+                  "rpe_attention", "eq_attention", "gather_wf_bwd", "neighbor_max_bwd",
+                  "rpe_attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -13,6 +13,11 @@ its body, as they do inside the TPU kernel.
 Differences from the TPU kernel, both towards the reference: the angle is
 an exact ``atan2`` (the TPU kernel uses a polynomial), and the distance is
 the reference's expanded ``|q|^2 - 2 q.p + |p|^2`` form.
+
+The projection parameters are differentiable (training): the backward is
+kernel K10 (:func:`geometric_embedding_bwd`, in the same source; replaces
+the TPU ``_emb_bwd_call``), which accumulates the gradient in basis space
+with the angle max routed to its first argmax.  Points take no gradient.
 """
 
 from __future__ import annotations
@@ -78,14 +83,29 @@ def _folded_projections(wd, wa, sigma_a):
     return deg_d, deg_a, a_d @ wd.float(), a_a @ wa.float()
 
 
-def _cheb_project(x, inv_half_range, g, bias):
-    """T(clip(x * inv_half_range - 1)) @ G + b for an index tensor x (...)."""
+def _cheb_basis(x, inv_half_range, deg):
+    """T(clip(x * inv_half_range - 1)) for an index tensor x (...) -> (..., deg)."""
     t = torch.clamp(x * inv_half_range - 1.0, -1.0, 1.0)
     rows = [torch.ones_like(t), t]
-    while len(rows) < g.shape[0]:
+    while len(rows) < deg:
         rows.append(2.0 * t * rows[-1] - rows[-2])
-    basis = torch.stack(rows[: g.shape[0]], dim=-1)
-    return basis @ g + bias
+    return torch.stack(rows[:deg], dim=-1)
+
+
+def _cheb_project(x, inv_half_range, g, bias):
+    """T(clip(x * inv_half_range - 1)) @ G + b for an index tensor x (...)."""
+    return _cheb_basis(x, inv_half_range, g.shape[0]) @ g + bias
+
+
+def _pair_geometry(points, knn_points, r0, r1):
+    """Triplet angles (B, R, N, k) of query rows r0:r1, float32."""
+    ref = knn_points[:, r0:r1].float() - points[:, r0:r1, None, :]  # (B, R, k, 3)
+    anc = points[:, None, :, :] - points[:, r0:r1, None, :]  # (B, R, N, 3)
+    ref_b, anc_b = torch.broadcast_tensors(ref[:, :, None, :, :], anc[:, :, :, None, :])
+    sin_v = torch.linalg.norm(torch.cross(ref_b, anc_b, dim=-1), dim=-1)
+    # + 0.0 folds a -0 dot product of a self-pair to +0: atan2(0, 0) = 0
+    cos_v = torch.sum(ref_b * anc_b, dim=-1) + 0.0
+    return torch.atan2(sin_v, cos_v)
 
 
 def geometric_embedding_plain(points, knn_points, wd, bd, wa, ba, sigma_d, sigma_a,
@@ -103,29 +123,65 @@ def geometric_embedding_plain(points, knn_points, wd, bd, wa, ba, sigma_d, sigma
     inv_a = 2.0 / math.pi
     points = points.float()
     dist = torch.sqrt(pairwise_distance(points, points))  # (B, N, N)
-    ref = knn_points.float() - points[:, :, None, :]  # (B, N, k, 3)
     out = torch.empty((b, n, n, wd.shape[1]), dtype=out_dtype, device=points.device)
     for r0 in range(0, n, row_block):
         r1 = min(n, r0 + row_block)
-        anc = points[:, None, :, :] - points[:, r0:r1, None, :]  # (B, R, N, 3)
-        ref_b, anc_b = torch.broadcast_tensors(
-            ref[:, r0:r1, None, :, :], anc[:, :, :, None, :]
-        )  # (B, R, N, k, 3)
-        sin_v = torch.linalg.norm(torch.cross(ref_b, anc_b, dim=-1), dim=-1)
-        # + 0.0 folds a -0 dot product of a self-pair to +0: atan2(0, 0) = 0
-        cos_v = torch.sum(ref_b * anc_b, dim=-1) + 0.0
-        ang = torch.atan2(sin_v, cos_v)  # (B, R, N, k)
+        ang = _pair_geometry(points, knn_points, r0, r1)  # (B, R, N, k)
         a_emb = _cheb_project(ang, inv_a, ga, ba.float()).amax(dim=3)
         d_emb = _cheb_project(dist[:, r0:r1], inv_d, gd, bd.float())
         out[:, r0:r1] = (d_emb + a_emb).to(out_dtype)
     return out
 
 
-def geometric_embedding(points, knn_points, wd, bd, wa, ba, sigma_d, sigma_a,
-                        out_dtype=torch.bfloat16):
-    """K3 (``csrc/geometric_embedding.cu``, replaces the TPU
-    ``geometric_embedding_pallas``): see :func:`geometric_embedding_plain`.
-    Bound by fp32 FMA throughput; the source notes the design."""
+def geometric_embedding_bwd_plain(d_emb, points, knn_points, wd, bd, wa, ba, sigma_d,
+                                  sigma_a, row_block=128):
+    """Plain version of K10: the gradient of :func:`geometric_embedding_plain`
+    with respect to (wd, bd, wa, ba) for the cotangent d_emb (B, N, N, C).
+
+    Accumulated in basis space, ``dGd = sum T_d^T d_emb``, ``dGa = sum_k
+    T_a(k)^T (d_emb * first_argmax_k)``, ``db = sum d_emb``, then ``d_wd =
+    A_d^T dGd``, ``d_wa = A_a^T dGa`` and ``d_bd = d_ba = db``.  The angle
+    max is routed to the FIRST k attaining it (recomputed with the forward's
+    arithmetic), as the JAX package's VJP routes it; ``torch.amax``'s own
+    backward would split ties instead.  Returns float32 (d_wd, d_bd, d_wa,
+    d_ba)."""
+    b, n, _ = points.shape
+    deg_d, deg_a, _, ga = _folded_projections(wd, wa, sigma_a)
+    inv_d = 2.0 / (D_INDEX_MAX * sigma_d)
+    inv_a = 2.0 / math.pi
+    points = points.float()
+    dist = torch.sqrt(pairwise_distance(points, points))
+    c = wd.shape[1]
+    dgd = torch.zeros((deg_d, c), dtype=torch.float32, device=points.device)
+    dga = torch.zeros((deg_a, c), dtype=torch.float32, device=points.device)
+    db = torch.zeros((c,), dtype=torch.float32, device=points.device)
+    for r0 in range(0, n, row_block):
+        r1 = min(n, r0 + row_block)
+        g = d_emb[:, r0:r1].float()  # (B, R, N, C)
+        ang = _pair_geometry(points, knn_points, r0, r1)
+        first = torch.argmax(_cheb_project(ang, inv_a, ga, ba.float()), dim=3)  # (B, R, N, C)
+        basis_a = _cheb_basis(ang, inv_a, deg_a)  # (B, R, N, k, deg_a)
+        dgd += torch.einsum("brnj,brnc->jc", _cheb_basis(dist[:, r0:r1], inv_d, deg_d), g)
+        for kk in range(ang.shape[3]):
+            dga += torch.einsum("brnj,brnc->jc", basis_a[:, :, :, kk], g * (first == kk))
+        db += g.sum(dim=(0, 1, 2))
+    return _basis_to_weights(dgd, dga, db, wd, sigma_a)
+
+
+def _basis_to_weights(dgd, dga, db, wd, sigma_a):
+    """Basis-space gradients -> (d_wd, d_bd, d_wa, d_ba)."""
+    c = wd.shape[1]
+    x_max_a = math.pi * (180.0 / (sigma_a * math.pi))
+    a_d = torch.as_tensor(chebyshev_sinusoid_table(c, D_INDEX_MAX, dgd.shape[0]),
+                          device=dgd.device)
+    a_a = torch.as_tensor(chebyshev_sinusoid_table(c, float(x_max_a), dga.shape[0]),
+                          device=dga.device)
+    # d_ba is a copy: two parameters' .grad must not share storage
+    return a_d.T @ dgd, db, a_a.T @ dga, db.clone()
+
+
+def _geometric_embedding_forward(points, knn_points, wd, bd, wa, ba, sigma_d, sigma_a,
+                                 out_dtype):
     if points.device.type == "cpu":
         return geometric_embedding_plain(points, knn_points, wd, bd, wa, ba,
                                          sigma_d, sigma_a, out_dtype=out_dtype)
@@ -156,4 +212,77 @@ def geometric_embedding(points, knn_points, wd, bd, wa, ba, sigma_d, sigma_a,
     return out
 
 
+class _GeometricEmbedding(torch.autograd.Function):
+    """K3 forward, K10 backward (projection parameters only)."""
+
+    @staticmethod
+    def forward(ctx, points, knn_points, wd, bd, wa, ba, sigma_d, sigma_a, out_dtype):
+        ctx.save_for_backward(points, knn_points, wd, bd, wa, ba)
+        ctx.sigmas = (sigma_d, sigma_a)
+        return _geometric_embedding_forward(points, knn_points, wd, bd, wa, ba, sigma_d,
+                                            sigma_a, out_dtype)
+
+    @staticmethod
+    def backward(ctx, d_emb):
+        grads = geometric_embedding_bwd(d_emb, *ctx.saved_tensors, *ctx.sigmas)
+        return (None, None, *grads, None, None, None)
+
+
+def geometric_embedding(points, knn_points, wd, bd, wa, ba, sigma_d, sigma_a,
+                        out_dtype=torch.bfloat16):
+    """K3 (``csrc/geometric_embedding.cu``, replaces the TPU
+    ``geometric_embedding_pallas``): see :func:`geometric_embedding_plain`.
+    Bound by fp32 FMA throughput; the source notes the design.
+    Differentiable in (wd, bd, wa, ba), backward K10
+    (:func:`geometric_embedding_bwd`)."""
+    if points.requires_grad or knn_points.requires_grad:
+        raise ValueError("geometric_embedding: points are geometry and take no gradient")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (wd, bd, wa, ba)):
+        return _GeometricEmbedding.apply(points, knn_points, wd, bd, wa, ba, sigma_d,
+                                         sigma_a, out_dtype)
+    return _geometric_embedding_forward(points, knn_points, wd, bd, wa, ba, sigma_d,
+                                        sigma_a, out_dtype)
+
+
 geometric_embedding.launches = 0
+
+
+def geometric_embedding_bwd(d_emb, points, knn_points, wd, bd, wa, ba, sigma_d, sigma_a):
+    """K10 (``csrc/geometric_embedding.cu``, replaces the TPU
+    ``_emb_bwd_call``): see :func:`geometric_embedding_bwd_plain`; d_emb in
+    bf16 or float32.  Per-row partial sums are added by ``torch.sum`` in a
+    fixed order; ``d_W = A^T dG`` stays a matmul, as in the JAX package.
+    Bound by fp32 FMA throughput; the source notes the design."""
+    if points.device.type == "cpu":
+        return geometric_embedding_bwd_plain(d_emb, points, knn_points, wd, bd, wa, ba,
+                                             sigma_d, sigma_a)
+    if points.device.type != "cuda":
+        raise ValueError(f"unsupported device {points.device}")
+    if d_emb.dtype not in _DTYPES:
+        raise TypeError(f"unsupported gradient dtype {d_emb.dtype}")
+    b, n, _ = points.shape
+    k = knn_points.shape[2]
+    c = wd.shape[1]
+    if d_emb.shape != (b, n, n, c) or knn_points.shape != (b, n, k, 3):
+        raise ValueError("bad embedding backward input shapes")
+    deg_d, deg_a, _, ga = _folded_projections(wd, wa, sigma_a)
+    points = points.float().contiguous()
+    knn_points = knn_points.float().contiguous()
+    ga, ba = ga.contiguous(), ba.float().contiguous()
+    d_emb = d_emb.contiguous()
+    part = torch.empty((b * n, deg_d + deg_a + 1, c), dtype=torch.float32,
+                       device=points.device)
+    fn = _build.function("geometric_embedding",
+                         f"se3et_geometric_embedding_bwd_{_DTYPES[d_emb.dtype]}", 6, 6, 2)
+    _build.check(fn(points.data_ptr(), knn_points.data_ptr(), ga.data_ptr(), ba.data_ptr(),
+                    d_emb.data_ptr(), part.data_ptr(), b, n, c, deg_d, deg_a, k,
+                    2.0 / (D_INDEX_MAX * sigma_d), 2.0 / math.pi,
+                    torch.cuda.current_stream(points.device).cuda_stream),
+                 "geometric_embedding_bwd launch")
+    geometric_embedding_bwd.launches += 1
+    tot = part.sum(dim=0)
+    return _basis_to_weights(tot[:deg_d], tot[deg_d:deg_d + deg_a], tot[deg_d + deg_a], wd,
+                             sigma_a)
+
+
+geometric_embedding_bwd.launches = 0

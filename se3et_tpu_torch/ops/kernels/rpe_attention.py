@@ -20,6 +20,14 @@ Keys with ``k_masks`` False are masked before the exp, and the softmax
 weights are cast to ``v``'s dtype before the value product, as the TPU
 kernel does.  The kernel (``csrc/rpe_attention.cu``) reads each embedding
 row once for all anchor-heads; its source notes the design.
+
+Training differentiates through it (:func:`rpe_self_attention` under
+autograd): the forward also returns the row log-sum-exp, and the backward
+is kernel K11 (:func:`rpe_attention_bwd`, ``csrc/rpe_attention_bwd.cu``,
+replaces the TPU ``_rpe_bwd``), which recomputes the softmax P and forms
+``dS = P * (dO . v^T - rowsum(dO * out))``; the gradient contractions over
+P and dS run as matmuls, as the JAX package runs them as XLA einsums.
+Gradients flow to q, k, v, qp, emb and qw, in their own dtypes.
 """
 
 from __future__ import annotations
@@ -55,56 +63,111 @@ def point_rows(points: torch.Tensor) -> torch.Tensor:
     return points.float().transpose(1, 2).contiguous()
 
 
-def sh_term(qw, points, n0, n1):
-    """rinv(n, m) * qw . (p_n - p_m)_yzx for query rows n0:n1: (B, AH, R, N)."""
+def _sh_geometry(points, n0, n1):
+    """(rinv (B, R, N) with the diagonal zeroed by index, (p_n - p_m) in the
+    (y, z, x) order (B, 3, R, N)) for query rows n0:n1."""
     p = points[:, :3].float()  # (B, 3, N) rows x, y, z
     d = p[:, :, n0:n1, None] - p[:, :, None, :]  # (B, 3, R, N): p_n - p_m
     r = torch.sqrt((d * d).sum(dim=1))  # (B, R, N)
     rinv = SH1_C / (r + 1e-12)
     idx = torch.arange(n0, n1, device=p.device)
     rinv[:, idx - n0, idx] = 0.0
-    dyzx = d[:, (1, 2, 0)]
+    return rinv, d[:, (1, 2, 0)]
+
+
+def sh_term(qw, points, n0, n1):
+    """rinv(n, m) * qw . (p_n - p_m)_yzx for query rows n0:n1: (B, AH, R, N)."""
+    rinv, dyzx = _sh_geometry(points, n0, n1)
     pre = torch.einsum("bdan,bdnm->banm", qw[..., n0:n1].float(), dyzx)
     return rinv[:, None] * pre
 
 
+def _scores(q, k, qp, emb, k_masks, qw, points, n0, n1, scale):
+    """Scaled, masked float32 scores of query rows n0:n1 (B, AH, R, N)."""
+    s = torch.einsum("banc,bamc->banm", q[:, :, n0:n1].float(), k.float())
+    s = s + torch.einsum("bnad,bnmd->banm", qp[:, n0:n1].float(), emb[:, n0:n1].float())
+    if qw is not None:
+        s = s + sh_term(qw, points, n0, n1)
+    return torch.where(k_masks[:, None, None, :], s * scale, _NEG)
+
+
 def rpe_self_attention_plain(q, k, v, qp, emb, k_masks, qw=None, points=None, *,
-                             scale, row_block=128):
+                             scale, row_block=128, with_lse=False):
     """Plain version of K5, in float32 from the given inputs.
 
     q, k, v: (B, AH, N, c); qp: (B, N, AH, C); emb: (B, N, N, C);
     k_masks: (B, N) bool (True = valid key); qw: (B, 3, AH, N) or None;
     points: (B, 3|4, N) coordinate rows, needed with ``qw``.
-    Returns (B, AH, N, c) float32.  Query rows are taken ``row_block`` at a
-    time to bound the float32 copies of the embedding.
+    Returns (B, AH, N, c) float32 and, with ``with_lse``, the row
+    log-sum-exp (B, AH, N) of the scaled, masked scores.  Query rows are
+    taken ``row_block`` at a time to bound the float32 copies of the
+    embedding.
     """
     b, ah, n, c = q.shape
-    kf, vf = k.float(), v.float()
+    vf = v.float()
     km = k_masks[:, None, None, :]
     out = torch.empty((b, ah, n, c), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, ah, n), dtype=torch.float32, device=q.device)
     for n0 in range(0, n, row_block):
         n1 = min(n, n0 + row_block)
-        s = torch.einsum("banc,bamc->banm", q[:, :, n0:n1].float(), kf)
-        s = s + torch.einsum("bnad,bnmd->banm", qp[:, n0:n1].float(),
-                             emb[:, n0:n1].float())
-        if qw is not None:
-            s = s + sh_term(qw, points, n0, n1)
-        s = torch.where(km, s * scale, _NEG)
-        p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * km
+        s = _scores(q, k, qp, emb, k_masks, qw, points, n0, n1, scale)
+        mx = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - mx) * km
         denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
         pv = torch.einsum("banm,bamc->banc", p.to(v.dtype).float(), vf)
         out[:, :, n0:n1] = pv / denom
-    return out
+        lse[:, :, n0:n1] = (mx + torch.log(denom))[..., 0]
+    return (out, lse) if with_lse else out
 
 
-def rpe_self_attention(q, k, v, qp, emb, k_masks, qw=None, points=None, *, scale):
-    """K5 (``csrc/rpe_attention.cu``, replaces the TPU ``rpe_self_attention``):
-    see :func:`rpe_self_attention_plain`.  Bound by the embedding's bytes;
-    the source notes the design."""
-    if q.device.type == "cpu":
-        return rpe_self_attention_plain(q, k, v, qp, emb, k_masks, qw, points, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
+def _grads_from_p_ds(p, ds, q, k, qp, emb, qw, points, dout, scale, row_block=128):
+    """dq, dk, dv, dqp, d_emb, dqw from the recomputed softmax P and dS
+    (B, AH, N, N) float32: the contractions of the JAX ``_rpe_bwd``, in
+    float32, query rows ``row_block`` at a time for the embedding-sized
+    ones.  Each gradient is returned in its input's dtype (dqw float32)."""
+    b, ah, n, _ = q.shape
+    do32 = dout.float()
+    dv = torch.einsum("banm,banc->bamc", p, do32)
+    dk = scale * torch.einsum("banm,banc->bamc", ds, q.float())
+    dq = scale * torch.einsum("banm,bamc->banc", ds, k.float())
+    dqp = torch.empty(qp.shape, dtype=torch.float32, device=q.device)
+    demb = torch.empty_like(emb)
+    dqw = None if qw is None else torch.empty(qw.shape, dtype=torch.float32, device=q.device)
+    for n0 in range(0, n, row_block):
+        n1 = min(n, n0 + row_block)
+        ds_r = ds[:, :, n0:n1]
+        dqp[:, n0:n1] = scale * torch.einsum("banm,bnmd->bnad", ds_r, emb[:, n0:n1].float())
+        demb[:, n0:n1] = (scale * torch.einsum("banm,bnad->bnmd", ds_r,
+                                               qp[:, n0:n1].float())).to(emb.dtype)
+        if qw is not None:
+            rinv, dyzx = _sh_geometry(points, n0, n1)
+            dqw[..., n0:n1] = scale * torch.einsum("banm,bdnm->bdan", ds_r * rinv[:, None],
+                                                   dyzx)
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(q.dtype), dqp.to(qp.dtype), demb, dqw)
+
+
+def rpe_attention_bwd_plain(q, k, v, qp, emb, k_masks, qw, points, dout, out, lse, *,
+                            scale, row_block=128):
+    """Plain version of K11 and the contractions after it: the gradients
+    (dq, dk, dv, dqp, d_emb, dqw) of :func:`rpe_self_attention_plain` for
+    the cotangent ``dout``, from the saved float32 ``out`` and row
+    log-sum-exp ``lse``; ``dqw`` is None without the SH term."""
+    b, ah, n, _ = q.shape
+    km = k_masks[:, None, None, :]
+    dd = (dout.float() * out).sum(dim=-1)  # (B, AH, N)
+    p = torch.empty((b, ah, n, n), dtype=torch.float32, device=q.device)
+    ds = torch.empty_like(p)
+    for n0 in range(0, n, row_block):
+        n1 = min(n, n0 + row_block)
+        s = _scores(q, k, qp, emb, k_masks, qw, points, n0, n1, scale)
+        pr = torch.exp(s - lse[:, :, n0:n1, None]) * km
+        dpv = torch.einsum("banc,bamc->banm", dout[:, :, n0:n1].float(), v.float())
+        p[:, :, n0:n1] = pr
+        ds[:, :, n0:n1] = pr * (dpv - dd[:, :, n0:n1, None])
+    return _grads_from_p_ds(p, ds, q, k, qp, emb, qw, points, dout, scale)
+
+
+def _check_inputs(q, k, v, qp, emb, k_masks, qw, points):
     b, ah, n, c = q.shape
     cc = emb.shape[-1]
     dtype = q.dtype
@@ -114,27 +177,116 @@ def rpe_self_attention(q, k, v, qp, emb, k_masks, qw=None, points=None, *, scale
             or emb.shape != (b, n, n, cc) or k_masks.shape != (b, n)):
         raise ValueError("bad rpe_self_attention input shapes")
     if ah not in KERNEL_AH or c not in KERNEL_HEAD_DIMS or cc % 16:
-        raise ValueError(f"K5 is built for AH in {KERNEL_AH}, head width in "
+        raise ValueError(f"K5/K11 are built for AH in {KERNEL_AH}, head width in "
                          f"{KERNEL_HEAD_DIMS} and C % 16 == 0, got {ah}, {c}, {cc}")
-    with_sh = qw is not None
-    if with_sh:
+    if qw is not None:
         if qw.shape != (b, 3, ah, n) or points is None or points.shape[:1] != (b,) \
                 or points.shape[1] not in (3, 4) or points.shape[2] != n:
             raise ValueError("qw must be (B, 3, AH, N) with points (B, 3|4, N)")
+
+
+def _rpe_forward(q, k, v, qp, emb, k_masks, qw, points, scale, with_lse):
+    if q.device.type == "cpu":
+        return rpe_self_attention_plain(q, k, v, qp, emb, k_masks, qw, points, scale=scale,
+                                        with_lse=with_lse)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check_inputs(q, k, v, qp, emb, k_masks, qw, points)
+    b, ah, n, c = q.shape
+    with_sh = qw is not None
+    if with_sh:
         qw = qw.float().contiguous()
         points = points.float().contiguous()
     q, k, v, qp, emb = (t.contiguous() for t in (q, k, v, qp, emb))
     km = k_masks.to(torch.uint8).contiguous()
     out = torch.empty((b, ah, n, c), dtype=torch.float32, device=q.device)
-    fn = _build.function("rpe_attention", f"se3et_rpe_attention_{_DTYPES[dtype]}", 9, 6, 1)
+    lse = torch.empty((b, ah, n), dtype=torch.float32, device=q.device) if with_lse else None
+    fn = _build.function("rpe_attention", f"se3et_rpe_attention_{_DTYPES[q.dtype]}", 10, 6, 1)
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(), emb.data_ptr(),
                     km.data_ptr(), qw.data_ptr() if with_sh else None,
                     points.data_ptr() if with_sh else None, out.data_ptr(),
-                    b, ah, n, c, cc, points.shape[1] if with_sh else 0, float(scale),
-                    torch.cuda.current_stream(q.device).cuda_stream),
+                    lse.data_ptr() if with_lse else None,
+                    b, ah, n, c, emb.shape[-1], points.shape[1] if with_sh else 0,
+                    float(scale), torch.cuda.current_stream(q.device).cuda_stream),
                  "rpe_self_attention launch")
     rpe_self_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+class _RPESelfAttention(torch.autograd.Function):
+    """K5 forward (with row log-sum-exp), K11 backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qp, emb, k_masks, qw, points, scale):
+        out, lse = _rpe_forward(q, k, v, qp, emb, k_masks, qw, points, scale, True)
+        ctx.save_for_backward(q, k, v, qp, emb, k_masks, qw, points, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, qp, emb, k_masks, qw, points, out, lse = ctx.saved_tensors
+        dq, dk, dv, dqp, demb, dqw = rpe_attention_bwd(
+            q, k, v, qp, emb, k_masks, qw, points, dout, out, lse, scale=ctx.scale)
+        return dq, dk, dv, dqp, demb, None, dqw, None, None
+
+
+def rpe_self_attention(q, k, v, qp, emb, k_masks, qw=None, points=None, *, scale):
+    """K5 (``csrc/rpe_attention.cu``, replaces the TPU ``rpe_self_attention``):
+    see :func:`rpe_self_attention_plain`.  Bound by the embedding's bytes;
+    the source notes the design.  Differentiable in q, k, v, qp, emb and qw
+    (backward K11, :func:`rpe_attention_bwd`)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, qp, emb, qw)):
+        return _RPESelfAttention.apply(q, k, v, qp, emb, k_masks, qw, points, scale)
+    return _rpe_forward(q, k, v, qp, emb, k_masks, qw, points, scale, False)
 
 
 rpe_self_attention.launches = 0
+
+
+def rpe_self_attention_with_lse(q, k, v, qp, emb, k_masks, qw=None, points=None, *, scale):
+    """K5's forward with its row log-sum-exp output, (out, lse) (no autograd)."""
+    return _rpe_forward(q, k, v, qp, emb, k_masks, qw, points, scale, True)
+
+
+def rpe_attention_bwd(q, k, v, qp, emb, k_masks, qw, points, dout, out, lse, *, scale):
+    """K11 (``csrc/rpe_attention_bwd.cu``, replaces the TPU ``_rpe_bwd``):
+    recomputes P and dS on the card, then runs the contractions of
+    :func:`rpe_attention_bwd_plain`.  Bound by the embedding's bytes and the
+    two (B, AH, N, N) float32 outputs; the source notes the design."""
+    if q.device.type == "cpu":
+        return rpe_attention_bwd_plain(q, k, v, qp, emb, k_masks, qw, points, dout, out,
+                                       lse, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check_inputs(q, k, v, qp, emb, k_masks, qw, points)
+    b, ah, n, c = q.shape
+    if dout.shape != q.shape or out.shape != q.shape or lse.shape != (b, ah, n):
+        raise ValueError("bad rpe_attention_bwd gradient shapes")
+    if out.dtype != torch.float32 or lse.dtype != torch.float32:
+        raise TypeError("rpe_attention_bwd takes K5's float32 output and row log-sum-exp")
+    with_sh = qw is not None
+    qwc = qw.float().contiguous() if with_sh else None
+    ptsc = points.float().contiguous() if with_sh else None
+    qc, kc, vc, qpc, embc = (t.contiguous() for t in (q, k, v, qp, emb))
+    km = k_masks.to(torch.uint8).contiguous()
+    do32 = dout.float().contiguous()
+    dd = (do32 * out).sum(dim=-1).contiguous()
+    lse = lse.contiguous()
+    p = torch.empty((b, ah, n, n), dtype=torch.float32, device=q.device)
+    ds = torch.empty_like(p)
+    fn = _build.function("rpe_attention_bwd",
+                         f"se3et_rpe_attention_bwd_{_DTYPES[q.dtype]}", 13, 6, 1)
+    _build.check(fn(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), qpc.data_ptr(),
+                    embc.data_ptr(), km.data_ptr(), qwc.data_ptr() if with_sh else None,
+                    ptsc.data_ptr() if with_sh else None, do32.data_ptr(), lse.data_ptr(),
+                    dd.data_ptr(), p.data_ptr(), ds.data_ptr(), b, ah, n, c, emb.shape[-1],
+                    ptsc.shape[1] if with_sh else 0, float(scale),
+                    torch.cuda.current_stream(q.device).cuda_stream),
+                 "rpe_attention_bwd launch")
+    rpe_attention_bwd.launches += 1
+    return _grads_from_p_ds(p, ds, q, k, qp, emb, qw, points, dout, scale)
+
+
+rpe_attention_bwd.launches = 0

@@ -42,6 +42,14 @@ SOURCES = {
                            "se3et_tpu/ops/pallas/eq_attention.py:155"),
     "eq_attention_apply": ("se3et_tpu_torch/csrc/eq_attention.cu",
                            "se3et_tpu/ops/pallas/eq_attention.py:233"),
+    "gather_wf_bwd": ("se3et_tpu_torch/csrc/gather_wf_bwd.cu",
+                      "se3et_tpu/ops/pallas/windowed_conv.py:469"),
+    "neighbor_max_bwd": ("se3et_tpu_torch/csrc/neighbor_max_bwd.cu",
+                         "se3et_tpu/ops/pallas/windowed_conv.py:758"),
+    "geometric_embedding_bwd": ("se3et_tpu_torch/csrc/geometric_embedding.cu",
+                                "se3et_tpu/ops/pallas/embedding.py:336"),
+    "rpe_attention_bwd": ("se3et_tpu_torch/csrc/rpe_attention_bwd.cu",
+                          "se3et_tpu/ops/pallas/rpe_attention.py:617"),
 }
 WRAPPERS = {
     "gather_wf": windowed_conv.gather_wf,
@@ -51,7 +59,15 @@ WRAPPERS = {
     "rpe_self_attention": rpe_attention.rpe_self_attention,
     "eq_attention_stats": eq_attention.eq_attention_stats,
     "eq_attention_apply": eq_attention.eq_attention_apply,
+    "gather_wf_bwd": windowed_conv.gather_wf_bwd,
+    "neighbor_max_bwd": windowed_conv.neighbor_max_bwd,
+    "geometric_embedding_bwd": embedding.geometric_embedding_bwd,
+    "rpe_attention_bwd": rpe_attention.rpe_attention_bwd,
 }
+SERVING = ("gather_wf", "neighbor_max", "geometric_embedding", "sinkhorn",
+           "rpe_self_attention", "eq_attention_stats", "eq_attention_apply")
+TRAINING = ("gather_wf_bwd", "neighbor_max_bwd", "geometric_embedding_bwd",
+            "rpe_attention_bwd")
 
 # NVIDIA H100 SXM data-sheet peaks (dense): memory bytes/s, and operations/s
 # by input type (bf16 on the tensor cores, float32 outside them)
@@ -70,6 +86,7 @@ class CheckResult:
     bound_ms: float = float("nan")
     bound_by: str = ""
     library_ms: Optional[float] = None
+    launches: int = 0  # on the main path, filled in by the caller
 
     @property
     def ok(self) -> bool:
@@ -356,3 +373,200 @@ def check_eq_apply(q_masks, k_masks, a=6, h=4, c=64, dtype=torch.bfloat16, seed=
     nbytes = _nbytes(q, k, v, w, rowmax, rowsum, k_masks) + a * h * n * c * 4
     ops = 2.0 * a * e * h * n * m * 2 * c
     return _with_bound(res, nbytes, ops, dtype)
+
+
+def _compare_many(name, shape, kernel_fn, plain_fn, tol, reps):
+    """Like :func:`_compare` for functions returning several tensors (None
+    entries skipped): the error is the largest over the outputs of
+    max|got - want| / max|want|, against ``tol``."""
+    with prec.compute_dtype_scope("float32"):
+        got, want = kernel_fn(), plain_fn()
+        torch.cuda.synchronize()
+        err = max(float((g.float() - w.float()).abs().max())
+                  / max(float(w.float().abs().max()), 1e-30)
+                  for g, w in zip(got, want) if w is not None)
+        ms = _time_ms(kernel_fn, reps)
+        plain_ms = _time_ms(plain_fn, reps)
+    return CheckResult(name, shape + " (error relative to output scale)", err, tol, ms, plain_ms)
+
+
+def check_gather_wf_bwd(nbr, ns, ac, k=15, seed=7, reps=5):
+    """K8 in float32 on dwf (B, Nq, K*ac) for the given neighbours (the
+    reverse index is built by the first call, before the timing, as the
+    first backward over a neighbour set builds it for all its convs);
+    tolerance 1e-5 * max|dx| (float32 sums in another order).  Library: the
+    backward of the ``F.embedding_bag`` sum that :func:`check_gather_wf`
+    times for K1."""
+    g = torch.Generator().manual_seed(seed)
+    dev = nbr.device
+    b, nq, h = nbr.shape
+    dwf = torch.randn((b, nq, k * ac), generator=g).to(dev)
+    infl = torch.rand((b, nq, h, k), generator=g).to(dev) * (nbr < ns)[..., None]
+    res = _compare(
+        "gather_wf_bwd", f"dwf{tuple(dwf.shape)} nbr{tuple(nbr.shape)} Ns={ns} float32",
+        lambda: windowed_conv.gather_wf_bwd(dwf, nbr, infl, ns),
+        lambda: windowed_conv.gather_wf_bwd_plain(dwf, nbr, infl, ns),
+        lambda w: 1e-5 * float(w.abs().max()), reps)
+    table, idx = _bag_inputs(torch.zeros((b, ns, ac), device=dev), nbr)
+    table.requires_grad_(True)
+    idx_k = idx[:, :, None, :].expand(b, nq, k, h).reshape(-1, h)
+    w_k = infl.permute(0, 1, 3, 2).reshape(-1, h).contiguous()
+    bag = F.embedding_bag(idx_k, table, per_sample_weights=w_k, mode="sum")
+    d_bag = dwf.reshape(-1, ac)
+    nvalid = int((nbr < ns).sum())
+    # one neighbour structure: the reverse index (order, offsets) the kernel
+    # reads in place of nbr
+    rev_bytes = 4 * (b * nq * h + b * (ns + 1))
+    nbytes = _nbytes(dwf, infl) + rev_bytes + b * ns * ac * 4
+    return _with_bound(res, nbytes, 2.0 * nvalid * k * ac, torch.float32,
+                       lambda: torch.autograd.grad(bag, table, d_bag, retain_graph=True))
+
+
+def check_neighbor_max_bwd(nbr, ns, ac, seed=8, reps=5):
+    """K9 in float32 on x (B, ns, ac) with integer-valued entries (so that
+    ties occur) and its forward max; tolerance 1e-5 * max|dx| (shares added
+    in another order).  No single PyTorch call splits ties like this
+    (``embedding_bag``'s max backward routes to one index)."""
+    g = torch.Generator().manual_seed(seed)
+    dev = nbr.device
+    b, nq, _ = nbr.shape
+    x = torch.randint(-8, 9, (b, ns, ac), generator=g).float().to(dev)
+    out = windowed_conv.neighbor_max_plain(x, nbr)
+    dout = torch.randn((b, nq, ac), generator=g).to(dev)
+    res = _compare(
+        "neighbor_max_bwd", f"dout{tuple(dout.shape)} nbr{tuple(nbr.shape)} Ns={ns} float32",
+        lambda: windowed_conv.neighbor_max_bwd(dout, x, out, nbr),
+        lambda: windowed_conv.neighbor_max_bwd_plain(dout, x, out, nbr),
+        lambda w: 1e-5 * float(w.abs().max()), reps)
+    nvalid = int((nbr < ns).sum())
+    # one neighbour structure, nbr (its reverse index is a derived copy)
+    nbytes = _nbytes(x, nbr, out, dout) + b * ns * ac * 4
+    return _with_bound(res, nbytes, 2.0 * nvalid * ac, torch.float32)
+
+
+def check_embedding_bwd(points, masks, c=256, k=3, sigma_d=0.2, sigma_a=15.0,
+                        grad_dtype=torch.bfloat16, seed=9, reps=3):
+    """K10 on the coarse points with a random cotangent d_emb (B, N, N, C)
+    in ``grad_dtype``.  Error relative to each output's scale, tolerance
+    1e-2: float32 sums over B*N*N pairs in another order, and where two of
+    the k angle projections of an element agree to rounding the kernel (K3's
+    arithmetic) and the plain version (its own) may route to different k."""
+    g = torch.Generator().manual_seed(seed)
+    dev = points.device
+    b, n, _ = points.shape
+    bound_w = 1.0 / math.sqrt(c)
+    wd, wa = ((torch.rand((c, c), generator=g) * 2 - 1) * bound_w for _ in range(2))
+    bd, ba = ((torch.rand((c,), generator=g) * 2 - 1) * bound_w for _ in range(2))
+    wd, wa, bd, ba = (t.to(dev) for t in (wd, wa, bd, ba))
+    sq = torch.cdist(points, points).masked_fill(~masks[:, None, :], 1e10)
+    idx = torch.topk(-sq, k + 1, dim=-1).indices[:, :, 1:]
+    knn = torch.gather(points, 1, idx.reshape(b, -1, 1).expand(-1, -1, 3)).reshape(
+        b, n, k, 3)
+    d_emb = torch.randn((b, n, n, c), generator=g).to(dev, grad_dtype)
+    args = (d_emb, points, knn, wd, bd, wa, ba, sigma_d, sigma_a)
+    res = _compare_many(
+        "geometric_embedding_bwd", f"d_emb{tuple(d_emb.shape)} {grad_dtype}",
+        lambda: embedding.geometric_embedding_bwd(*args),
+        lambda: embedding.geometric_embedding_bwd_plain(*args), 1e-2, reps)
+    deg_d, deg_a, _, _ = embedding._folded_projections(wd, wa, sigma_a)
+    # per d_emb element: deg_d + deg_a basis accumulations and the k angle
+    # projections recomputed for the argmax, one FMA (2 operations) each, at
+    # the peak of the cotangent's type (as K3's bound takes its output's)
+    ops = 2.0 * b * n * n * c * (deg_d + deg_a + k * deg_a)
+    nbytes = _nbytes(d_emb, points, knn, wd, wa, ba) + 2 * c * c * 4 + 2 * c * 4
+    return _with_bound(res, nbytes, ops, grad_dtype)
+
+
+def check_rpe_attention_bwd(points, masks, ah, c=64, cc=256, with_sh=True,
+                            dtype=torch.bfloat16, seed=10, reps=3):
+    """K11 (and the contractions after it) on the inputs of
+    :func:`check_rpe_attention` with K5's own output and row log-sum-exp
+    and a random float32 cotangent.  Error relative to each gradient's
+    scale, tolerance 1e-2 in bf16 (d_emb rounded to bf16 from float32 sums
+    in another order) and 1e-4 in float32."""
+    g = torch.Generator().manual_seed(seed)
+    dev = points.device
+    b, n, _ = points.shape
+    rnd = lambda *s, sc=1.0: (torch.randn(s, generator=g) * sc).to(dev, dtype)  # noqa: E731
+    q, k, v = rnd(b, ah, n, c), rnd(b, ah, n, c), rnd(b, ah, n, c)
+    qp = rnd(b, n, ah, cc, sc=cc ** -0.5)
+    emb = rnd(b, n, n, cc)
+    qw = (torch.randn((b, 3, ah, n), generator=g) * 0.3).to(dev) if with_sh else None
+    pts = rpe_attention.point_rows(points) if with_sh else None
+    scale = 1.0 / math.sqrt(c)
+    out, lse = rpe_attention.rpe_self_attention_with_lse(q, k, v, qp, emb, masks, qw, pts,
+                                                         scale=scale)
+    dout = torch.randn((b, ah, n, c), generator=g).to(dev)
+    args = (q, k, v, qp, emb, masks, qw, pts, dout, out, lse)
+    res = _compare_many(
+        "rpe_attention_bwd",
+        f"q(B={b}, AH={ah}, N={n}, c={c}) emb C={cc} {'with' if with_sh else 'no'} SH {dtype}",
+        lambda: rpe_attention.rpe_attention_bwd(*args, scale=scale),
+        lambda: rpe_attention.rpe_attention_bwd_plain(*args, scale=scale),
+        1e-2 if dtype == torch.bfloat16 else 1e-4, reps)
+    nkeys = int(masks.sum())
+    # recompute q.k, qp.emb, dO.v; contractions dv, dk, dq (c each), dqp and
+    # d_emb (C each); the SH term's few operations per pair are left out
+    ops = 2.0 * ah * n * nkeys * (5 * c + 3 * cc)
+    nbytes = _nbytes(q, k, v, qp, emb, masks, dout, out, lse) + _nbytes(q, k, v, qp, emb)
+    if with_sh:
+        nbytes += 2 * _nbytes(qw) + _nbytes(pts)
+    return _with_bound(res, nbytes, ops, dtype)
+
+
+def time_fused_conv_routes(pyr, a=6, k=15, seed=11, reps=5):
+    """Times, in bf16 at the main-path shapes, the routes by which the port
+    computes the functions of the TPU's fused conv kernels, beside the bound
+    of the fused function (which writes no (B, Nq, K*A*Cin) wf tensor):
+
+    * B1 ``windowed_gather_wf_mm`` as K1 + ``torch.matmul`` (stage-0 conv,
+      x (B, N0, A*32) over ``neighbors_0``, expanded weight (K*A*32, A*32));
+    * B2 ``windowed_gather_wf_max_mm`` as K1 + matmul + K2 (the s0 -> s1
+      strided bottleneck over ``subsampling_0``, skip payload (B, N0, A*128));
+    * B3 ``windowed_gather_wf_max`` as K1 + K2 (the s1 -> s2 strided block
+      over ``subsampling_1``: flat wf of x (B, N1, A*64), skip payload
+      (B, N1, A*256)).
+
+    Returns ``[(name, shape, route, ms, bound_ms, bound_by)]``."""
+    g = torch.Generator().manual_seed(seed)
+    dt = torch.bfloat16
+    dev = pyr["points_0"].device
+
+    def inputs(nbr, ns, ac):
+        b, nq, h = nbr.shape
+        x = torch.randn((b, ns, ac), generator=g).to(dev, dt)
+        infl = (torch.rand((b, nq, h, k), generator=g).to(dev) * (nbr < ns)[..., None]).to(dt)
+        return x, infl, int((nbr < ns).sum())
+
+    rows = []
+    n0, n1 = pyr["points_0"].shape[1], pyr["points_1"].shape[1]
+    for name, nbr, ns, cin, skip_ac, mm in (
+            ("B1", pyr["neighbors_0"], n0, 32, 0, True),
+            ("B2", pyr["subsampling_0"], n0, 32, 128, True),
+            ("B3", pyr["subsampling_1"], n1, 64, 256, False)):
+        b, nq, _ = nbr.shape
+        ac = a * cin
+        x, infl, nvalid = inputs(nbr, ns, ac)
+        rhs = (torch.randn((k * ac, a * cin), generator=g) * (k * ac) ** -0.5).to(dev, dt)
+        skip = torch.randn((b, ns, a * skip_ac), generator=g).to(dev, dt) if skip_ac else None
+
+        def route():
+            wf = windowed_conv.gather_wf(x, nbr, infl)
+            out = (wf @ rhs).float() if mm else wf
+            return out, (windowed_conv.neighbor_max(skip, nbr) if skip is not None else None)
+
+        with torch.no_grad():
+            ms = _time_ms(route, reps)
+        ops = 2.0 * nvalid * k * ac + (2.0 * b * nq * k * ac * a * cin if mm else 0.0)
+        out_bytes = b * nq * (a * cin * 4 if mm else k * ac * 2)
+        nbytes = _nbytes(x, nbr, infl) + out_bytes + (_nbytes(rhs) if mm else 0)
+        if skip is not None:
+            nbytes += _nbytes(skip) + b * nq * skip.shape[2] * 2
+            ops += float(nvalid * skip.shape[2])
+        bound_ms, bound_by = bound(nbytes, ops, dt)
+        shape = f"x({b}, {ns}, {ac}) nbr{tuple(nbr.shape)}" + (
+            f" skip({b}, {ns}, {skip.shape[2]})" if skip is not None else "")
+        route_name = "K1 + torch.matmul" + (" + K2" if skip is not None else "") if mm \
+            else "K1 + K2"
+        rows.append((name, shape, route_name, ms, bound_ms, bound_by))
+    return rows

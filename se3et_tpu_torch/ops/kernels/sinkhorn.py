@@ -8,6 +8,11 @@ of the serial iterations is two multiply-reduce passes over precomputed
 ``exp`` matrices.  The kernel (``csrc/sinkhorn.cu``) runs one block per
 patch matrix with both ``exp`` matrices resident in shared memory for all
 iterations.
+
+Training differentiates through it: the backward re-runs the log-domain
+scan form (:func:`sinkhorn_scan`, the JAX package's ``_sinkhorn_scan``)
+and returns its vector-Jacobian product, as ``_sinkhorn_fused_bwd`` does;
+the TPU package has no Sinkhorn backward kernel, and neither has the port.
 """
 
 from __future__ import annotations
@@ -37,11 +42,59 @@ def sinkhorn_plain(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Ten
     return scores + u[:, :, None] + v[:, None, :]
 
 
+def _logsumexp(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """logsumexp with the shift held constant, ``log(sum(exp(x - m))) + m``
+    (``jax.nn.logsumexp``'s form): its gradient is the softmax
+    ``exp(x - m) / sum``, which stays normalised for rows of masked (-1e12)
+    entries, where ``torch.logsumexp``'s ``exp(x - result)`` loses the
+    log-sum to rounding."""
+    m = x.amax(dim=dim, keepdim=True).detach()
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    return (torch.log(torch.exp(x - m).sum(dim=dim, keepdim=True)) + m).squeeze(dim)
+
+
+def sinkhorn_scan(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,
+                  num_iterations: int) -> torch.Tensor:
+    """Log-domain Sinkhorn by alternating logsumexp updates (the
+    differentiable form): returns ``scores + u[:, :, None] + v[:, None, :]``."""
+    u = torch.zeros_like(log_mu)
+    v = torch.zeros_like(log_nu)
+    for _ in range(num_iterations):
+        u = log_mu - _logsumexp(scores + v[:, None, :], dim=2)
+        v = log_nu - _logsumexp(scores + u[:, :, None], dim=1)
+    return scores + u[:, :, None] + v[:, None, :]
+
+
+class _Sinkhorn(torch.autograd.Function):
+    """K4 forward; the backward is the VJP of :func:`sinkhorn_scan`."""
+
+    @staticmethod
+    def forward(ctx, scores, log_mu, log_nu, num_iterations):
+        ctx.save_for_backward(scores, log_mu, log_nu)
+        ctx.num_iterations = num_iterations
+        return _sinkhorn_forward(scores, log_mu, log_nu, num_iterations)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = sinkhorn_scan(*inputs, ctx.num_iterations)
+        grads = torch.autograd.grad(out, inputs, grad)
+        return (*grads, None)
+
+
 def sinkhorn(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,
              num_iterations: int) -> torch.Tensor:
     """K4 (``csrc/sinkhorn.cu``, replaces the TPU ``sinkhorn_pallas``): see
     :func:`sinkhorn_plain`.  Latency-bound (serial iterations); the source
-    notes the design."""
+    notes the design.  Differentiable: the backward replays
+    :func:`sinkhorn_scan`."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (scores, log_mu, log_nu)):
+        return _Sinkhorn.apply(scores, log_mu, log_nu, num_iterations)
+    return _sinkhorn_forward(scores, log_mu, log_nu, num_iterations)
+
+
+def _sinkhorn_forward(scores, log_mu, log_nu, num_iterations):
     if scores.device.type == "cpu":
         return sinkhorn_plain(scores, log_mu, log_nu, num_iterations)
     if scores.device.type != "cuda":

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (K1-K7) against their plain versions on the card,
-at the serving shapes of se3ete.3dmatch, at ragged shapes (N not a multiple
-of any block) and at the tiny float32 widths of the card-vs-CPU check.
+"""The port's CUDA kernels (K1-K7, and the training backwards K8-K11)
+against their plain versions on the card, at the serving and training
+shapes of se3ete.3dmatch, at ragged shapes (N not a multiple of any block)
+and at the tiny float32 widths of the card-vs-CPU check.
 Skipped where no CUDA device is present; run on the card with
 ``python -m pytest --noconftest -m gpu tests/test_torch_kernels_cuda.py``.
 """
@@ -104,3 +105,66 @@ def test_eq_attention_apply_kernel(cuda, n, m, c, dtype):
     qm = torch.arange(n, device=cuda) < n - 24
     km = torch.arange(m, device=cuda) < m - 40
     _assert_ok(selfcheck.check_eq_apply(qm, km, c=c, dtype=dtype, reps=1))
+
+
+@pytest.mark.parametrize("nq,ns,h,ac", [
+    (20000, 20000, 24, 192),   # stage-0 bottleneck conv
+    (10000, 20000, 24, 192),   # stage-1 strided conv
+    (1024, 1024, 38, 1536),    # stage-3 conv
+    (250, 997, 7, 48),         # ragged, tiny
+])
+def test_gather_wf_bwd_kernel(cuda, nq, ns, h, ac):
+    g = torch.Generator().manual_seed(7)
+    nbr = torch.cat([selfcheck.local_neighbors(nq, ns, h, g, cuda) for _ in range(2)])
+    _assert_ok(selfcheck.check_gather_wf_bwd(nbr, ns, ac, reps=1))
+
+
+@pytest.mark.parametrize("nq,ns,h,ac", [(10000, 20000, 24, 768), (1024, 2500, 38, 3072),
+                                        (97, 250, 5, 40)])
+def test_neighbor_max_bwd_kernel(cuda, nq, ns, h, ac):
+    g = torch.Generator().manual_seed(8)
+    nbr = torch.cat([selfcheck.local_neighbors(nq, ns, h, g, cuda) for _ in range(2)])
+    _assert_ok(selfcheck.check_neighbor_max_bwd(nbr, ns, ac, reps=1))
+
+
+@pytest.mark.parametrize("n,c,grad_dtype", [(1024, 256, torch.bfloat16),
+                                            (128, 64, torch.float32)])
+def test_geometric_embedding_bwd_kernel(cuda, n, c, grad_dtype):
+    points, masks = _cloud(cuda, n, 9)
+    _assert_ok(selfcheck.check_embedding_bwd(points, masks, c=c, grad_dtype=grad_dtype,
+                                             reps=1))
+
+
+@pytest.mark.parametrize("n,ah,c,cc,with_sh,dtype", [
+    (1024, 24, 64, 256, True, torch.bfloat16),    # self_eq layers
+    (1024, 4, 64, 256, False, torch.bfloat16),    # plain self layers
+    (1003, 24, 64, 256, True, torch.bfloat16),    # ragged N
+    (128, 24, 16, 64, True, torch.bfloat16),      # tiny card-vs-CPU widths (training: bf16)
+    (128, 4, 16, 64, False, torch.float32),
+])
+def test_rpe_attention_bwd_kernel(cuda, n, ah, c, cc, with_sh, dtype):
+    points, masks = _cloud(cuda, n, 10)
+    _assert_ok(selfcheck.check_rpe_attention_bwd(points, masks, ah, c=c, cc=cc,
+                                                 with_sh=with_sh, dtype=dtype, reps=1))
+
+
+@pytest.mark.parametrize("ah,with_sh", [(24, True), (4, False)])
+def test_rpe_attention_row_stats_leave_the_output_unchanged(cuda, ah, with_sh):
+    """K5 with and without its row log-sum-exp output gives the same out
+    (bit for bit), and the log-sum-exp agrees with the plain version's."""
+    from se3et_tpu_torch.ops.kernels import rpe_attention as rpe
+
+    points, masks = _cloud(cuda, 1024, 4)
+    g = torch.Generator().manual_seed(11)
+    b, n = masks.shape
+    rnd = lambda *s: torch.randn(s, generator=g).to(cuda, torch.bfloat16)  # noqa: E731
+    q, k, v, qp, emb = rnd(b, ah, n, 64), rnd(b, ah, n, 64), rnd(b, ah, n, 64), \
+        rnd(b, n, ah, 256) * 0.0625, rnd(b, n, n, 256)
+    qw = (torch.randn((b, 3, ah, n), generator=g) * 0.3).to(cuda) if with_sh else None
+    pts = rpe.point_rows(points) if with_sh else None
+    plain = rpe.rpe_self_attention(q, k, v, qp, emb, masks, qw, pts, scale=0.125)
+    out, lse = rpe.rpe_self_attention_with_lse(q, k, v, qp, emb, masks, qw, pts, scale=0.125)
+    assert torch.equal(plain, out)
+    _, want = rpe.rpe_self_attention_plain(q, k, v, qp, emb, masks, qw, pts, scale=0.125,
+                                           with_lse=True)
+    assert float((lse - want).abs().max()) <= 1e-3 * float(want.abs().max())

@@ -162,13 +162,16 @@ def test_estimated_transform_matches_jax(pair):
 
 
 def test_port_config_matches_jax_registry():
-    """The port's se3ete.3dmatch values equal make_cfg's, field for field."""
+    """The port's se3ete.3dmatch values equal make_cfg's, field for field
+    (model, pipeline, loss, optimizer)."""
     from se3et_tpu.experiments import make_cfg as jax_make_cfg
     from se3et_tpu_torch.experiments.configs import make_cfg, serving_config
 
     want, got = jax_make_cfg("se3ete.3dmatch"), make_cfg("se3ete.3dmatch")
     assert dataclasses.asdict(got.model) == dataclasses.asdict(want.model)
     assert dataclasses.asdict(got.pipeline) == dataclasses.asdict(want.pipeline)
+    assert dataclasses.asdict(got.loss) == dataclasses.asdict(want.loss)
+    assert dataclasses.asdict(got.optim) == dataclasses.asdict(want.optim)
     assert (got.name, got.seed, got.dataset, got.point_limit) == (
         want.name, want.seed, want.data.dataset, want.data.point_limit)
     served = serving_config(got)
@@ -176,6 +179,9 @@ def test_port_config_matches_jax_registry():
     assert served.model.serve_fused_attention  # the JAX default: flash kernels
     assert not served.model.serve_femb
     assert served.model.serve_fused_embedding and served.model.serve_fused_sinkhorn
+    # the same cut trains on the JAX training routes: the backward kernels, float32
+    assert served.model.train_fused_conv and served.model.train_fused_embedding
+    assert served.model.train_fused_attention and not served.model.bf16_train
 
 
 @pytest.mark.parametrize("flash", [False, True])
