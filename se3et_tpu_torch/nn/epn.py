@@ -16,6 +16,20 @@ The strided skip max-pool is kernel K2
 (:func:`~se3et_tpu_torch.ops.kernels.windowed_conv.neighbor_max`).  Under
 autograd (training) both differentiate through their backward kernels K8
 and K9.
+
+Serving with ``fused`` (the model's ``serve_fused_conv``, as in the JAX
+package) takes the fused forms where they apply: an expanded-contraction
+conv runs as K12 (gather + weight product in one kernel, no wf tensor),
+a strided bottleneck hands its skip payload to its conv, which runs as K13
+(K12 + the skip max) or, where K13 does not take the widths, as K14 (wf
+and the skip max in one pass) + matmul; a skip that neither takes pools in
+K2.  The gates are ``gather_wf_mm_fits``, ``gather_wf_max_mm_fits`` and
+``gather_wf_max_fits`` of :mod:`se3et_tpu_torch.ops.kernels.windowed_conv`;
+at full ``se3ete.3dmatch`` width they send the same convs to each form as
+the JAX package's VMEM gates do (``scripts/fused_conv_split.py``): stage
+0-1 same-level convs K12, the s0 -> s1 strided block K13, the s1 -> s2
+strided block K14, the s2 -> s3 strided block K1 + matmul + K2, stage 2-3
+same-level convs K1 + matmul.
 Influence weights are host-precomputed (:mod:`se3et_tpu_torch.data.influence`)
 and shared by every conv of a (stage, neighbour set).
 
@@ -40,7 +54,10 @@ from se3et_tpu_torch.nn.layers import (
     MaskedGroupNorm, TorchLinear, UnaryBlock, leaky_relu, uniform_,
 )
 from se3et_tpu_torch.ops.geometry import batched_gather_rows
-from se3et_tpu_torch.ops.kernels.windowed_conv import gather_wf, neighbor_max
+from se3et_tpu_torch.ops.kernels.windowed_conv import (
+    gather_wf, gather_wf_max, gather_wf_max_fits, gather_wf_max_mm, gather_wf_max_mm_fits,
+    gather_wf_mm, gather_wf_mm_fits, neighbor_max,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,18 +144,28 @@ class KPConvInterSO3(nn.Module):
         uniform_(self.weights, bound, generator)
 
     def _expanded_rhs(self, a_dim, cin):
-        """(K*A*Cin, A*Cout) effective weight in the flat (k, a, c) order of wf."""
+        """(K*A*Cin, A*Cout) effective weight in the flat (k, a, c) order of
+        wf, as the transposed view of a contiguous (A*Cout, K*A*Cin) tensor
+        (the layout K12/K13 read)."""
         wg = prec.cast_feature(self.weights)[self.wg_index]  # (R, K, A, Cin, Cout)
-        return wg.permute(1, 2, 3, 0, 4).reshape(
-            self.num_kernel_points * a_dim * cin, self.kanchor * self.out_channels
-        )
+        return wg.permute(0, 4, 1, 2, 3).reshape(
+            self.kanchor * self.out_channels, self.num_kernel_points * a_dim * cin
+        ).t()
 
-    def forward(self, x, neighbor_indices, influence, ones_input=False):
-        """x: (B, Ns, A, Cin); influence (B, Nq, H, K) -> (B, Nq, A, Cout) f32."""
+    def forward(self, x, neighbor_indices, influence, ones_input=False, fused=False,
+                skip=None):
+        """x: (B, Ns, A, Cin); influence (B, Nq, H, K) -> (B, Nq, A, Cout) f32.
+
+        ``fused`` (serving): take K12 / K13 where the gates admit the widths.
+        ``skip`` (B, Ns, AC2): the strided bottleneck's skip payload, pooled
+        over the same neighbours (K13, or K14 with the weight product after
+        it); the call then returns ``(out, pooled (B, Nq, AC2))``, with
+        ``pooled`` None where neither kernel takes the widths."""
         b, num_s, a_dim, cin = x.shape
         nq = neighbor_indices.shape[1]
         k, a = self.num_kernel_points, self.kanchor
         w = prec.cast_feature(influence)
+        pooled = None
         if ones_input:
             # x == 1 and invalid-neighbour weights are zero:
             # wf[b, n, k, a, c] = sum_h w[b, n, h, k]
@@ -147,17 +174,32 @@ class KPConvInterSO3(nn.Module):
                 b, nq, k * a_dim * cin)
         else:
             flat = prec.cast_feature(x).reshape(b, num_s, a_dim * cin)
-            wf_flat = gather_wf(flat, neighbor_indices, w)
+            ac, ac_out = a_dim * cin, a * self.out_channels
+            fused_mm = fused and cin < 256  # K12/K13 fuse the expanded contraction
+            if fused_mm and skip is None and gather_wf_mm_fits(ac, ac_out, k):
+                out = gather_wf_mm(flat, neighbor_indices, w, self._expanded_rhs(a_dim, cin))
+                return out.reshape(b, nq, a, self.out_channels)
+            if fused_mm and skip is not None and gather_wf_max_mm_fits(ac, ac_out,
+                                                                       skip.shape[2], k):
+                out, pooled = gather_wf_max_mm(flat, neighbor_indices, w, skip,
+                                               self._expanded_rhs(a_dim, cin))
+                return out.reshape(b, nq, a, self.out_channels), pooled
+            if skip is not None and gather_wf_max_fits(skip.shape[2], k):
+                wf_flat, pooled = gather_wf_max(flat, neighbor_indices, w, skip)
+            else:
+                wf_flat = gather_wf(flat, neighbor_indices, w)
         if cin < 256:
             out = (wf_flat @ self._expanded_rhs(a_dim, cin)).float()
-            return out.reshape(b, nq, a, self.out_channels)
-        # factored: out[n, r, d] = sum_{o, c} (sum_{ka: idx[r, ka] = o} wf[n, ka, c]) W[o, c, d]
-        num_o = self.num_weight_blocks
-        wf_kac = wf_flat.reshape(b, nq, k * a, cin)
-        red = torch.einsum("bnxc,xm->bnmc", wf_kac,
-                           prec.cast_feature(self.reduce_mats)).reshape(b, nq, a, num_o, cin)
-        return torch.einsum("bnroc,ocd->bnrd", red,
-                            prec.cast_feature(self.weights)).float()
+            out = out.reshape(b, nq, a, self.out_channels)
+        else:
+            # factored: out[n, r, d] = sum_{o, c} (sum_{ka: idx[r, ka] = o} wf[n, ka, c]) W[o, c, d]
+            num_o = self.num_weight_blocks
+            wf_kac = wf_flat.reshape(b, nq, k * a, cin)
+            red = torch.einsum("bnxc,xm->bnmc", wf_kac,
+                               prec.cast_feature(self.reduce_mats)).reshape(
+                b, nq, a, num_o, cin)
+            out = torch.einsum("bnroc,ocd->bnrd", red, prec.cast_feature(self.weights)).float()
+        return out if skip is None else (out, pooled)
 
 
 class InvOutBlockEPN(nn.Module):
@@ -187,9 +229,14 @@ class KPConvInterSO3Block(nn.Module):
         self.KPConvInterSO3_0 = KPConvInterSO3(in_dim, out_dim, radius, config)
         self.MaskedGroupNorm_0 = MaskedGroupNorm(group_norm, out_dim)
 
-    def forward(self, x, neighbor_indices, q_mask, influence, ones_input=False):
-        x = self.KPConvInterSO3_0(x, neighbor_indices, influence, ones_input=ones_input)
-        return leaky_relu(self.MaskedGroupNorm_0(x, q_mask))
+    def forward(self, x, neighbor_indices, q_mask, influence, ones_input=False, fused=False,
+                skip=None):
+        x = self.KPConvInterSO3_0(x, neighbor_indices, influence, ones_input=ones_input,
+                                  fused=fused, skip=skip)
+        if skip is None:
+            return leaky_relu(self.MaskedGroupNorm_0(x, q_mask))
+        x, pooled = x
+        return leaky_relu(self.MaskedGroupNorm_0(x, q_mask)), pooled
 
 
 class SimpleBlockEPN(nn.Module):
@@ -201,9 +248,9 @@ class SimpleBlockEPN(nn.Module):
             in_dim, out_dim, radius, group_norm, config)
         self.MaskedGroupNorm_0 = MaskedGroupNorm(group_norm, out_dim)
 
-    def forward(self, x, neighbor_indices, q_mask, influence, ones_input=False):
+    def forward(self, x, neighbor_indices, q_mask, influence, ones_input=False, fused=False):
         x = self.KPConvInterSO3Block_0(x, neighbor_indices, q_mask, influence,
-                                       ones_input=ones_input)
+                                       ones_input=ones_input, fused=fused)
         return leaky_relu(self.MaskedGroupNorm_0(x, q_mask))
 
 
@@ -228,18 +275,32 @@ class ResnetBottleneckBlockEPN(nn.Module):
             self.add_module(self.unary_skip,
                             UnaryBlock(in_dim, out_dim, group_norm, no_relu=True))
 
-    def forward(self, x, neighbor_indices, q_mask, influence, s_mask=None):
+    def forward(self, x, neighbor_indices, q_mask, influence, s_mask=None, fused=False):
+        """``fused`` (serving): the convs take the fused kernels, and a
+        strided block's skip max rides its conv over the same neighbours
+        where a kernel takes it, else K2 (the payload cast to the compute
+        dtype either way, as in the JAX fused route); otherwise the skip is
+        K2's max of the float32 features."""
         if s_mask is None and not self.strided:
             s_mask = q_mask
         skip = x
+        b, ns, a_dim, ch = skip.shape
+        nq = neighbor_indices.shape[1]
         h = getattr(self, self.unary_in)(x, s_mask) if self.unary_in else x
-        h = self.KPConvInterSO3Block_0(h, neighbor_indices, q_mask, influence)
+        if self.strided and fused:
+            payload = prec.cast_feature(skip).reshape(b, ns, a_dim * ch)
+            h, pooled = self.KPConvInterSO3Block_0(h, neighbor_indices, q_mask, influence,
+                                                   fused=True, skip=payload)
+            if pooled is None:
+                pooled = neighbor_max(payload, neighbor_indices)
+            skip = pooled.reshape(b, nq, a_dim, ch).float()
+        else:
+            h = self.KPConvInterSO3Block_0(h, neighbor_indices, q_mask, influence, fused=fused)
         h = leaky_relu(self.MaskedGroupNorm_0(h, q_mask))
         h = getattr(self, self.unary_out)(h, q_mask)
-        if self.strided:
-            b, ns, a_dim, ch = skip.shape
+        if self.strided and not fused:
             pooled = neighbor_max(skip.reshape(b, ns, a_dim * ch), neighbor_indices)
-            skip = pooled.reshape(b, neighbor_indices.shape[1], a_dim, ch)
+            skip = pooled.reshape(b, nq, a_dim, ch)
         if self.unary_skip:
             skip = getattr(self, self.unary_skip)(skip, q_mask)
         return leaky_relu(h + skip)
@@ -255,9 +316,10 @@ class _EPNStage0(nn.Module):
         self.ResnetBottleneckBlockEPN_0 = ResnetBottleneckBlockEPN(
             out_dim, out_dim * 2, radius, group_norm, config)
 
-    def forward(self, x, nbs, msk, influence):
-        x = self.SimpleBlockEPN_0(x, nbs, msk, influence, ones_input=self.ones_input)
-        return self.ResnetBottleneckBlockEPN_0(x, nbs, msk, influence)
+    def forward(self, x, nbs, msk, influence, fused=False):
+        x = self.SimpleBlockEPN_0(x, nbs, msk, influence, ones_input=self.ones_input,
+                                  fused=fused)
+        return self.ResnetBottleneckBlockEPN_0(x, nbs, msk, influence, fused=fused)
 
 
 class _EPNStage(nn.Module):
@@ -273,10 +335,11 @@ class _EPNStage(nn.Module):
         self.ResnetBottleneckBlockEPN_2 = ResnetBottleneckBlockEPN(
             in_dim * 2, in_dim * 2, radius * 2, group_norm, config)
 
-    def forward(self, x, sub_idx, nbr_idx, q_msk, s_msk, inf_sub, inf_same):
-        x = self.ResnetBottleneckBlockEPN_0(x, sub_idx, q_msk, inf_sub, s_mask=s_msk)
-        x = self.ResnetBottleneckBlockEPN_1(x, nbr_idx, q_msk, inf_same)
-        return self.ResnetBottleneckBlockEPN_2(x, nbr_idx, q_msk, inf_same)
+    def forward(self, x, sub_idx, nbr_idx, q_msk, s_msk, inf_sub, inf_same, fused=False):
+        x = self.ResnetBottleneckBlockEPN_0(x, sub_idx, q_msk, inf_sub, s_mask=s_msk,
+                                            fused=fused)
+        x = self.ResnetBottleneckBlockEPN_1(x, nbr_idx, q_msk, inf_same, fused=fused)
+        return self.ResnetBottleneckBlockEPN_2(x, nbr_idx, q_msk, inf_same, fused=fused)
 
 
 class E2PNBackbone(nn.Module):
@@ -313,7 +376,9 @@ class E2PNBackbone(nn.Module):
             else:
                 self.TorchLinear_0 = TorchLinear(cat, output_dim)
 
-    def forward(self, feats, pyramid):
+    def forward(self, feats, pyramid, fused=False):
+        """``fused``: the serving route of the convs (``serve_fused_conv``
+        outside training); no gradient flows through it."""
         s = self.num_stages
         msk = [pyramid[f"masks_{i}"] for i in range(s)]
         nbs = [pyramid[f"neighbors_{i}"] for i in range(s)]
@@ -321,12 +386,13 @@ class E2PNBackbone(nn.Module):
         ups = [pyramid[f"upsampling_{i}"] for i in range(s - 1)]
 
         x = lift_features(feats, self.kanchor)
-        x = self._EPNStage0_0(x, nbs[0], msk[0], pyramid["influence_same_0"])
+        x = self._EPNStage0_0(x, nbs[0], msk[0], pyramid["influence_same_0"], fused=fused)
         stage_feats = [x]
         for st in range(1, s):
             x = getattr(self, f"_EPNStage_{st - 1}")(
                 x, subs[st - 1], nbs[st], msk[st], msk[st - 1],
                 pyramid[f"influence_sub_{st}"], pyramid[f"influence_same_{st}"],
+                fused=fused,
             )
             stage_feats.append(x)
 

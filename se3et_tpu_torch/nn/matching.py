@@ -178,6 +178,9 @@ def local_global_registration(ref_knn_points, src_knn_points, ref_knn_masks,
     Patch hypotheses are weighted Procrustes fits over each patch's full
     masked (K, K) score matrix; the hypothesis with the most inliers on the
     global top-C correspondence set seeds ``num_refinement_steps`` re-fits.
+    ``corr_inliers`` (C,) marks the correspondences the final fit weighted
+    (its inlier decisions; all valid ones where no patch hypothesis was
+    valid and no re-fit ran).
     """
     p, kk = ref_knn_masks.shape
     scores = torch.exp(matching_scores)
@@ -207,19 +210,19 @@ def local_global_registration(ref_knn_points, src_knn_points, ref_knn_masks,
     inliers = (residual < acceptance_radius) & corr_valid[None]
     counts = inliers.sum(dim=1).masked_fill(~patch_valid, -1)
     best_inliers = inliers[torch.argmax(counts)]
-    start_scores = torch.where(patch_valid.any(), corr_scores * best_inliers, corr_scores)
-
-    estimated = se3.weighted_procrustes(src_corr, ref_corr, start_scores)
+    corr_inliers = torch.where(patch_valid.any(), best_inliers, corr_valid)
+    estimated = se3.weighted_procrustes(src_corr, ref_corr, corr_scores * corr_inliers)
     for _ in range(num_refinement_steps - 1):
         res = torch.linalg.norm(ref_corr - se3.apply_transform(src_corr, estimated), dim=-1)
-        cur = corr_scores * (res < acceptance_radius)
-        estimated = se3.weighted_procrustes(src_corr, ref_corr, cur)
+        corr_inliers = (res < acceptance_radius) & corr_valid
+        estimated = se3.weighted_procrustes(src_corr, ref_corr, corr_scores * corr_inliers)
 
     return {
         "ref_corr_points": ref_corr,
         "src_corr_points": src_corr,
         "corr_scores": corr_scores,
         "corr_valid": corr_valid,
+        "corr_inliers": corr_inliers,
         "estimated_transform": estimated,
     }
 

@@ -14,7 +14,8 @@ differentiable kernels (K1-K5 with their backwards K8-K11) and the
 materialised EQ cross layers.
 
 The port covers the SE3ET-E/I family (E2PN backbone) with neighbour
-indexing (no window maps), the flash attention kernels
+indexing (no window maps), the fused serving convs (``serve_fused_conv``,
+the default: K12-K14) or the K1 + matmul route, the flash attention kernels
 (``serve_fused_attention``, the default) or the materialised-attention
 routes, and the fused embedding and Sinkhorn kernels; other settings raise.
 """
@@ -216,7 +217,8 @@ class SE3ETModel(nn.Module):
                 knn_masks[0], knn_masks[1], num_candidates=c.gt_candidates)
 
         # 1. backbone
-        feats_f, feats_c = self.backbone_net(data["features"], data)
+        feats_f, feats_c = self.backbone_net(data["features"], data,
+                                             fused=(not train) and c.serve_fused_conv)
         feats_f, feats_c = feats_f.float(), feats_c.float()
         if stop_after == "backbone":
             return {"feats_f": feats_f, "feats_c": feats_c}

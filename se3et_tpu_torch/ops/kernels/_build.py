@@ -24,7 +24,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 KERNEL_SOURCES = ("gather_wf", "neighbor_max", "geometric_embedding", "sinkhorn",
                   "rpe_attention", "eq_attention", "gather_wf_bwd", "neighbor_max_bwd",
-                  "rpe_attention_bwd")
+                  "rpe_attention_bwd", "gather_wf_mm", "gather_wf_max")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -50,6 +50,12 @@ SOURCES = {
                                 "se3et_tpu/ops/pallas/embedding.py:336"),
     "rpe_attention_bwd": ("se3et_tpu_torch/csrc/rpe_attention_bwd.cu",
                           "se3et_tpu/ops/pallas/rpe_attention.py:617"),
+    "gather_wf_mm": ("se3et_tpu_torch/csrc/gather_wf_mm.cu",
+                     "se3et_tpu/ops/pallas/windowed_conv.py:994"),
+    "gather_wf_max_mm": ("se3et_tpu_torch/csrc/gather_wf_mm.cu",
+                         "se3et_tpu/ops/pallas/windowed_conv.py:1229"),
+    "gather_wf_max": ("se3et_tpu_torch/csrc/gather_wf_max.cu",
+                      "se3et_tpu/ops/pallas/windowed_conv.py:1352"),
 }
 WRAPPERS = {
     "gather_wf": windowed_conv.gather_wf,
@@ -63,9 +69,13 @@ WRAPPERS = {
     "neighbor_max_bwd": windowed_conv.neighbor_max_bwd,
     "geometric_embedding_bwd": embedding.geometric_embedding_bwd,
     "rpe_attention_bwd": rpe_attention.rpe_attention_bwd,
+    "gather_wf_mm": windowed_conv.gather_wf_mm,
+    "gather_wf_max_mm": windowed_conv.gather_wf_max_mm,
+    "gather_wf_max": windowed_conv.gather_wf_max,
 }
 SERVING = ("gather_wf", "neighbor_max", "geometric_embedding", "sinkhorn",
-           "rpe_self_attention", "eq_attention_stats", "eq_attention_apply")
+           "rpe_self_attention", "eq_attention_stats", "eq_attention_apply",
+           "gather_wf_mm", "gather_wf_max_mm", "gather_wf_max")
 TRAINING = ("gather_wf_bwd", "neighbor_max_bwd", "geometric_embedding_bwd",
             "rpe_attention_bwd")
 
@@ -87,6 +97,7 @@ class CheckResult:
     bound_by: str = ""
     library_ms: Optional[float] = None
     launches: int = 0  # on the main path, filled in by the caller
+    route_ms: Optional[float] = None  # the unfused route's time (K12-K14), a yardstick
 
     @property
     def ok(self) -> bool:
@@ -514,59 +525,119 @@ def check_rpe_attention_bwd(points, masks, ah, c=64, cc=256, with_sh=True,
     return _with_bound(res, nbytes, ops, dtype)
 
 
-def time_fused_conv_routes(pyr, a=6, k=15, seed=11, reps=5):
-    """Times, in bf16 at the main-path shapes, the routes by which the port
-    computes the functions of the TPU's fused conv kernels, beside the bound
-    of the fused function (which writes no (B, Nq, K*A*Cin) wf tensor):
+def _pair_set(out, mask):
+    """The (ref point, src point) pairs of a registration output where
+    ``mask``, as a set of float tuples."""
+    ref, src = (out[k].detach().cpu().double().numpy() for k in
+                ("ref_corr_points", "src_corr_points"))
+    keep = mask.detach().cpu().numpy()
+    return {tuple(r) + tuple(s) for r, s in zip(ref[keep], src[keep])}
 
-    * B1 ``windowed_gather_wf_mm`` as K1 + ``torch.matmul`` (stage-0 conv,
-      x (B, N0, A*32) over ``neighbors_0``, expanded weight (K*A*32, A*32));
-    * B2 ``windowed_gather_wf_max_mm`` as K1 + matmul + K2 (the s0 -> s1
-      strided bottleneck over ``subsampling_0``, skip payload (B, N0, A*128));
-    * B3 ``windowed_gather_wf_max`` as K1 + K2 (the s1 -> s2 strided block
-      over ``subsampling_1``: flat wf of x (B, N1, A*64), skip payload
-      (B, N1, A*256)).
 
-    Returns ``[(name, shape, route, ms, bound_ms, bound_by)]``."""
+def registration_agreement(got: dict, want: dict, acceptance_radius: float,
+                           tol: float = 1e-3) -> tuple[bool, str]:
+    """Whether the registration ``got`` agrees with ``want``: two outputs of
+    :func:`se3et_tpu_torch.nn.matching.local_global_registration` from
+    matching scores that differ by rounding.
+
+    The registration is discontinuous in its scores: top-k correspondence
+    picks, the best-hypothesis argmax and the ``res < acceptance_radius``
+    inlier masks are discrete, and a score difference far below any
+    tolerance can flip one.  So the transforms are held to ``tol`` only
+    where the comparison is continuous: both sides chose the same valid
+    correspondences and the same final inliers (as point pairs), and those
+    inliers (at least 3, not on one line) determine the fit.  Otherwise
+    ``got``'s transform must be a finite proper rigid transform that aligns
+    every final inlier of ``want`` within ``acceptance_radius``.  Returns
+    (ok, description)."""
+    tg = got["estimated_transform"].detach().cpu().double()
+    tw = want["estimated_transform"].detach().cpu().double()
+    w_in = _pair_set(want, want["corr_inliers"])
+    same = (_pair_set(got, got["corr_valid"]) == _pair_set(want, want["corr_valid"])
+            and _pair_set(got, got["corr_inliers"]) == w_in)
+    pts = np.array([p[:3] for p in w_in]).reshape(-1, 3)
+    sv = np.linalg.svd(pts - pts.mean(0), compute_uv=False) if len(pts) >= 3 else [1.0, 0.0]
+    determined = len(pts) >= 3 and sv[1] > 1e-3 * sv[0]
+    err = float((tg - tw).abs().max())
+    if same and determined:
+        return err <= tol, f"same decisions, {len(w_in)} inliers: |dT| {err:.2e} (tol {tol:.0e})"
+    rot = tg[:3, :3]
+    proper = (bool(torch.isfinite(tg).all())
+              and float((rot.T @ rot - torch.eye(3, dtype=rot.dtype)).abs().max()) < 1e-4
+              and abs(float(torch.linalg.det(rot)) - 1.0) < 1e-4
+              and torch.equal(tg[3], torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=tg.dtype)))
+    if w_in:
+        ref = torch.tensor([p[:3] for p in w_in], dtype=tg.dtype)
+        src = torch.tensor([p[3:] for p in w_in], dtype=tg.dtype)
+        res = float(torch.linalg.norm(ref - (src @ rot.T + tg[:3, 3]), dim=-1).max())
+    else:
+        res = 0.0
+    why = "other decisions" if not same else f"{len(w_in)} inliers do not determine the fit"
+    return (proper and res < acceptance_radius,
+            f"{why}: |dT| {err:.2e} not gated; proper {proper}, largest residual of the "
+            f"reference's inliers {res:.3e} (acceptance radius {acceptance_radius})")
+
+
+def check_fused_conv(name, nbr, ns, ac, ac_out=0, ac2=0, k=15, dtype=torch.bfloat16,
+                     seed=11, reps=5):
+    """K12 (``name`` "gather_wf_mm"), K13 ("gather_wf_max_mm") or K14
+    ("gather_wf_max") on random x (B, ns, ac), influence, expanded weight
+    (K*ac, ac_out) and skip payload (B, ns, ac2) for the given neighbours.
+    The error is relative to the conv output's scale, tolerance 1e-2 in bf16
+    (the per-k rounding of the gathered sums to bf16 can land an ulp apart
+    where the float32 sums differ in order) and 1e-4 in float32; the skip
+    max must equal the plain version's bit for bit (else the error is inf).
+    ``route_ms`` times the unfused route that computes the same function
+    (K1 + ``torch.matmul`` (+ K2) for K12/K13, K1 + K2 for K14), a
+    yardstick of several library calls, not one."""
     g = torch.Generator().manual_seed(seed)
-    dt = torch.bfloat16
-    dev = pyr["points_0"].device
-
-    def inputs(nbr, ns, ac):
-        b, nq, h = nbr.shape
-        x = torch.randn((b, ns, ac), generator=g).to(dev, dt)
-        infl = (torch.rand((b, nq, h, k), generator=g).to(dev) * (nbr < ns)[..., None]).to(dt)
-        return x, infl, int((nbr < ns).sum())
-
-    rows = []
-    n0, n1 = pyr["points_0"].shape[1], pyr["points_1"].shape[1]
-    for name, nbr, ns, cin, skip_ac, mm in (
-            ("B1", pyr["neighbors_0"], n0, 32, 0, True),
-            ("B2", pyr["subsampling_0"], n0, 32, 128, True),
-            ("B3", pyr["subsampling_1"], n1, 64, 256, False)):
-        b, nq, _ = nbr.shape
-        ac = a * cin
-        x, infl, nvalid = inputs(nbr, ns, ac)
-        rhs = (torch.randn((k * ac, a * cin), generator=g) * (k * ac) ** -0.5).to(dev, dt)
-        skip = torch.randn((b, ns, a * skip_ac), generator=g).to(dev, dt) if skip_ac else None
-
-        def route():
-            wf = windowed_conv.gather_wf(x, nbr, infl)
-            out = (wf @ rhs).float() if mm else wf
-            return out, (windowed_conv.neighbor_max(skip, nbr) if skip is not None else None)
-
-        with torch.no_grad():
-            ms = _time_ms(route, reps)
-        ops = 2.0 * nvalid * k * ac + (2.0 * b * nq * k * ac * a * cin if mm else 0.0)
-        out_bytes = b * nq * (a * cin * 4 if mm else k * ac * 2)
-        nbytes = _nbytes(x, nbr, infl) + out_bytes + (_nbytes(rhs) if mm else 0)
-        if skip is not None:
-            nbytes += _nbytes(skip) + b * nq * skip.shape[2] * 2
-            ops += float(nvalid * skip.shape[2])
-        bound_ms, bound_by = bound(nbytes, ops, dt)
-        shape = f"x({b}, {ns}, {ac}) nbr{tuple(nbr.shape)}" + (
-            f" skip({b}, {ns}, {skip.shape[2]})" if skip is not None else "")
-        route_name = "K1 + torch.matmul" + (" + K2" if skip is not None else "") if mm \
-            else "K1 + K2"
-        rows.append((name, shape, route_name, ms, bound_ms, bound_by))
-    return rows
+    dev = nbr.device
+    b, nq, h = nbr.shape
+    x = torch.randn((b, ns, ac), generator=g).to(dev, dtype)
+    infl = (torch.rand((b, nq, h, k), generator=g).to(dev) * (nbr < ns)[..., None]).to(dtype)
+    # the expanded weight as the model builds it: a transposed view of a
+    # contiguous (A*Cout, K*AC) tensor (the layout K12/K13 read)
+    rhs = (torch.randn((ac_out or 8, k * ac), generator=g) * (k * ac) ** -0.5).to(dev, dtype).t()
+    x2 = torch.randn((b, ns, ac2 or 8), generator=g).to(dev, dtype)
+    wc = windowed_conv
+    fns = {
+        "gather_wf_mm": (lambda: (wc.gather_wf_mm(x, nbr, infl, rhs), None),
+                         lambda: (wc.gather_wf_mm_plain(x, nbr, infl, rhs), None),
+                         lambda: (wc.gather_wf(x, nbr, infl) @ rhs).float()),
+        "gather_wf_max_mm": (lambda: wc.gather_wf_max_mm(x, nbr, infl, x2, rhs),
+                             lambda: wc.gather_wf_max_mm_plain(x, nbr, infl, x2, rhs),
+                             lambda: ((wc.gather_wf(x, nbr, infl) @ rhs).float(),
+                                      wc.neighbor_max(x2, nbr))),
+        "gather_wf_max": (lambda: wc.gather_wf_max(x, nbr, infl, x2),
+                          lambda: wc.gather_wf_max_plain(x, nbr, infl, x2),
+                          lambda: (wc.gather_wf(x, nbr, infl), wc.neighbor_max(x2, nbr))),
+    }
+    kernel_fn, plain_fn, route_fn = fns[name]
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    with prec.compute_dtype_scope("float32"), torch.no_grad():
+        got, want = kernel_fn(), plain_fn()
+        torch.cuda.synchronize()
+        err = float((got[0].float() - want[0].float()).abs().max()) / max(
+            float(want[0].float().abs().max()), 1e-30)
+        if want[1] is not None and not torch.equal(got[1], want[1]):
+            err = float("inf")
+        ms, plain_ms = _time_ms(kernel_fn, reps), _time_ms(plain_fn, reps)
+        route_ms = _time_ms(route_fn, reps)
+    skip = f" skip{tuple(x2.shape)}" if name != "gather_wf_mm" else ""
+    mm = f" W({k * ac}, {ac_out})" if name != "gather_wf_max" else f" K={k}"
+    res = CheckResult(name, f"x{tuple(x.shape)} nbr{tuple(nbr.shape)}{mm}{skip} {dtype} "
+                      "(error relative to output scale)", err, tol, ms, plain_ms,
+                      route_ms=route_ms)
+    nvalid = int((nbr < ns).sum())
+    esz = x.element_size()
+    nbytes = _nbytes(x, nbr, infl)
+    ops = 2.0 * nvalid * k * ac
+    if name == "gather_wf_max":
+        nbytes += b * nq * k * ac * esz
+    else:
+        nbytes += _nbytes(rhs) + b * nq * ac_out * 4
+        ops += 2.0 * b * nq * k * ac * ac_out
+    if name != "gather_wf_mm":
+        nbytes += _nbytes(x2) + b * nq * ac2 * esz
+        ops += float(nvalid * ac2)
+    return _with_bound(res, nbytes, ops, dtype)

@@ -1,4 +1,4 @@
-r"""E2PN conv gather and neighbour max-pool kernels (K1, K2).
+r"""E2PN conv gather and neighbour max-pool kernels (K1, K2, K12-K14).
 
 Counterpart of ``se3et_tpu/ops/pallas/windowed_conv.py``.  The TPU kernels
 there read Morton-segment *windows* of the source features through
@@ -9,14 +9,22 @@ drop no neighbours).  Their JAX counterpart is the exact gather route of
 ``max_pool_neighbors``).
 
 * :func:`gather_wf` (K1, ``csrc/gather_wf.cu``) replaces
-  ``windowed_gather_wf`` and the gather half of ``windowed_gather_wf_mm``,
-  ``windowed_gather_wf_max`` and ``windowed_gather_wf_max_mm``; the E2PN
-  weight matmul that those fuse in stays a ``torch.matmul`` (as the JAX
-  exact route leaves it to XLA).
+  ``windowed_gather_wf``; the E2PN weight matmul after it stays a
+  ``torch.matmul`` (as the JAX exact route leaves it to XLA).
 * :func:`neighbor_max` (K2, ``csrc/neighbor_max.cu``) replaces
-  ``windowed_max_pool`` and the skip half of the fused max variants.
+  ``windowed_max_pool``.
+* The serving forms (``serve_fused_conv``), forward only like their TPU
+  counterparts: :func:`gather_wf_mm` (K12, ``csrc/gather_wf_mm.cu``)
+  replaces ``windowed_gather_wf_mm`` (gather + weight product, no wf
+  tensor written); :func:`gather_wf_max_mm` (K13, same source) replaces
+  ``windowed_gather_wf_max_mm`` (K12 + the strided skip's max);
+  :func:`gather_wf_max` (K14, ``csrc/gather_wf_max.cu``) replaces
+  ``windowed_gather_wf_max`` (wf and the skip max in one pass; the weight
+  product follows as a ``torch.matmul``).  Which conv takes which form is
+  :func:`gather_wf_mm_fits`, :func:`gather_wf_max_mm_fits` and
+  :func:`gather_wf_max_fits`.
 
-Both are differentiable with respect to the features (training): their
+K1 and K2 are differentiable with respect to the features (training): their
 backwards are kernels too, :func:`gather_wf_bwd` (K8,
 ``csrc/gather_wf_bwd.cu``, replaces ``_wf_bwd_win``) and
 :func:`neighbor_max_bwd` (K9, ``csrc/neighbor_max_bwd.cu``, replaces
@@ -301,3 +309,183 @@ def neighbor_max_bwd(dout: torch.Tensor, x: torch.Tensor, out: torch.Tensor,
 
 
 neighbor_max_bwd.launches = 0
+
+
+# K12 keeps the (64, A*Cout) float32 output tile of its 64 query rows in the
+# registers of one 8-warp block per SM (96 per thread at A*Cout = 384); K13
+# runs two blocks per SM (its skip max is a latency-bound gather), which
+# halves that to 48 per thread (A*Cout = 192).  Both read the influence as
+# 16 padded weights per (query, neighbour).  K14 keeps the skip maxima of
+# its 4 query rows in registers, at most 6 groups of 8 channels for each of
+# its 128 threads (A*C2 <= 1536).
+MM_MAX_AC_OUT = 384
+MAX_MM_MAX_AC_OUT = 192
+MAX_SKIP_AC = 1536
+_KP = 16
+
+
+def gather_wf_mm_fits(ac: int, ac_out: int, k: int) -> bool:
+    """Whether K12 takes a conv of AC = A*Cin input and A*Cout = ``ac_out``
+    output channels with ``k`` kernel points."""
+    return k <= _KP and ac % 8 == 0 and ac_out % 8 == 0 and 0 < ac_out <= MM_MAX_AC_OUT
+
+
+def gather_wf_max_mm_fits(ac: int, ac_out: int, ac2: int, k: int) -> bool:
+    """Whether K13 takes a strided conv (as :func:`gather_wf_mm_fits`) with
+    a skip payload of ``ac2`` channels."""
+    return (k <= _KP and ac % 8 == 0 and ac_out % 8 == 0 and ac2 % 2 == 0
+            and 0 < ac_out <= MAX_MM_MAX_AC_OUT)
+
+
+def gather_wf_max_fits(ac2: int, k: int) -> bool:
+    """Whether K14 takes a strided conv with ``k`` kernel points and a skip
+    payload of ``ac2`` channels."""
+    return k <= _KP and ac2 % 8 == 0 and 0 < ac2 <= MAX_SKIP_AC
+
+
+def gather_wf_mm_plain(x: torch.Tensor, nbr: torch.Tensor, infl: torch.Tensor,
+                       rhs: torch.Tensor) -> torch.Tensor:
+    """out[b, q, :] = sum_k wf[b, q, k, :] @ rhs[k*AC:(k+1)*AC, :] in float32,
+    wf = :func:`gather_wf_plain` (rounded to x's dtype, as the TPU kernel's
+    epilogue rounds each kernel point's sum); rhs (K*AC, A*Cout)."""
+    return gather_wf_plain(x, nbr, infl).float() @ rhs.float()
+
+
+def gather_wf_max_mm_plain(x, nbr, infl, x2, rhs):
+    """(:func:`gather_wf_mm_plain`, :func:`neighbor_max_plain` of the skip
+    payload x2 (B, Ns, AC2) over the same neighbours)."""
+    return gather_wf_mm_plain(x, nbr, infl, rhs), neighbor_max_plain(x2, nbr)
+
+
+def gather_wf_max_plain(x, nbr, infl, x2):
+    """(:func:`gather_wf_plain`, :func:`neighbor_max_plain` of x2)."""
+    return gather_wf_plain(x, nbr, infl), neighbor_max_plain(x2, nbr)
+
+
+def _check_fused(name, x, nbr, infl, rhs=None, x2=None):
+    """Checks shared by K12-K14: types, shapes, devices, and no gradient
+    (the kernels have no backward, like their TPU counterparts)."""
+    _check_common(x, nbr)
+    tensors = [t for t in (x, infl, rhs, x2) if t is not None]
+    if any(t.requires_grad for t in tensors):
+        raise ValueError(f"{name} has no backward (serving only): an input requires grad")
+    if any(t.device != x.device for t in tensors):
+        raise ValueError(f"{name}: inputs on different devices")
+    b, nq, h = nbr.shape
+    if infl.ndim != 4 or infl.shape[:2] != (b, nq) or infl.shape[2] < h:
+        raise ValueError(f"{name}: bad influence shape {tuple(infl.shape)}")
+    if rhs is not None and (rhs.ndim != 2 or rhs.shape[0] != infl.shape[3] * x.shape[2]):
+        raise ValueError(f"{name}: bad weight shape {tuple(rhs.shape)}")
+    if x2 is not None and (x2.dtype != x.dtype or x2.ndim != 3
+                           or x2.shape[:2] != x.shape[:2]):
+        raise ValueError(f"{name}: bad skip payload {tuple(x2.shape)} {x2.dtype}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+
+
+def _padded_influence(infl, h, dtype):
+    """(B, Nq, H, 16) influence in ``dtype``, zero past K: one 16-byte
+    aligned row of weights per (query, neighbour)."""
+    out = infl.new_zeros((*infl.shape[:2], h, _KP), dtype=dtype)
+    out[..., :infl.shape[3]] = infl[:, :, :h]
+    return out
+
+
+def _launch_mm(name, x, nbr, infl, rhs, x2=None):
+    """K12 (x2 None) or K13 on CUDA tensors; returns (out, pooled or None)."""
+    b, nq, h = nbr.shape
+    k, ac, ac_out = infl.shape[3], x.shape[2], rhs.shape[1]
+    x, nbr = x.contiguous(), nbr.contiguous()
+    w = _padded_influence(infl, h, x.dtype)
+    rhs_t = rhs.to(x.dtype).t().contiguous()  # (A*Cout, K*AC): free for a transposed view
+    out = torch.empty((b, nq, ac_out), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if x2 is None:
+        fn = _build.function("gather_wf_mm", f"se3et_gather_wf_mm_{_DTYPES[x.dtype]}", 5, 7)
+        status = fn(x.data_ptr(), nbr.data_ptr(), w.data_ptr(), rhs_t.data_ptr(),
+                    out.data_ptr(), b, x.shape[1], nq, h, k, ac, ac_out, stream)
+        pooled = None
+    else:
+        x2 = x2.contiguous()
+        pooled = torch.empty((b, nq, x2.shape[2]), dtype=x2.dtype, device=x.device)
+        fn = _build.function("gather_wf_mm", f"se3et_gather_wf_max_mm_{_DTYPES[x.dtype]}",
+                             7, 8)
+        status = fn(x.data_ptr(), nbr.data_ptr(), w.data_ptr(), rhs_t.data_ptr(),
+                    out.data_ptr(), x2.data_ptr(), pooled.data_ptr(), b, x.shape[1], nq, h,
+                    k, ac, ac_out, x2.shape[2], stream)
+    _build.check(status, f"{name} launch")
+    return out, pooled
+
+
+def gather_wf_mm(x: torch.Tensor, nbr: torch.Tensor, infl: torch.Tensor,
+                 rhs: torch.Tensor) -> torch.Tensor:
+    """K12 (``csrc/gather_wf_mm.cu``, replaces the TPU
+    ``windowed_gather_wf_mm``): see :func:`gather_wf_mm_plain`; x (B, Ns,
+    AC), rhs (K*AC, A*Cout) cast to x's dtype; returns (B, Nq, A*Cout)
+    float32.  Forward only; raises on shapes :func:`gather_wf_mm_fits`
+    refuses.  Bound by the tensor-core product at the serving shapes; the
+    source notes the design."""
+    _check_fused("gather_wf_mm", x, nbr, infl, rhs)
+    if not gather_wf_mm_fits(x.shape[2], rhs.shape[1], infl.shape[3]):
+        raise ValueError(f"gather_wf_mm does not take AC={x.shape[2]}, "
+                         f"A*Cout={rhs.shape[1]}, K={infl.shape[3]}")
+    if x.device.type == "cpu":
+        return gather_wf_mm_plain(x, nbr, infl, rhs)
+    out, _ = _launch_mm("gather_wf_mm", x, nbr, infl, rhs)
+    gather_wf_mm.launches += 1
+    return out
+
+
+gather_wf_mm.launches = 0
+
+
+def gather_wf_max_mm(x: torch.Tensor, nbr: torch.Tensor, infl: torch.Tensor,
+                     x2: torch.Tensor, rhs: torch.Tensor):
+    """K13 (``csrc/gather_wf_mm.cu``, replaces the TPU
+    ``windowed_gather_wf_max_mm``): see :func:`gather_wf_max_mm_plain`;
+    returns ((B, Nq, A*Cout) float32, pooled (B, Nq, AC2) in x2's dtype,
+    bit-identical to K2).  Forward only; raises on shapes
+    :func:`gather_wf_max_mm_fits` refuses."""
+    _check_fused("gather_wf_max_mm", x, nbr, infl, rhs, x2)
+    if not gather_wf_max_mm_fits(x.shape[2], rhs.shape[1], x2.shape[2], infl.shape[3]):
+        raise ValueError(f"gather_wf_max_mm does not take AC={x.shape[2]}, "
+                         f"A*Cout={rhs.shape[1]}, AC2={x2.shape[2]}, K={infl.shape[3]}")
+    if x.device.type == "cpu":
+        return gather_wf_max_mm_plain(x, nbr, infl, x2, rhs)
+    out = _launch_mm("gather_wf_max_mm", x, nbr, infl, rhs, x2)
+    gather_wf_max_mm.launches += 1
+    return out
+
+
+gather_wf_max_mm.launches = 0
+
+
+def gather_wf_max(x: torch.Tensor, nbr: torch.Tensor, infl: torch.Tensor,
+                  x2: torch.Tensor):
+    """K14 (``csrc/gather_wf_max.cu``, replaces the TPU
+    ``windowed_gather_wf_max``): see :func:`gather_wf_max_plain`; returns
+    (wf (B, Nq, K*AC), pooled (B, Nq, AC2)), both in x's dtype, wf
+    bit-identical to K1 and pooled to K2.  Forward only; raises on widths
+    :func:`gather_wf_max_fits` refuses.  Bound by device memory; the source
+    notes the design."""
+    _check_fused("gather_wf_max", x, nbr, infl, x2=x2)
+    if not gather_wf_max_fits(x2.shape[2], infl.shape[3]):
+        raise ValueError(f"gather_wf_max does not take AC2={x2.shape[2]}, K={infl.shape[3]}")
+    if x.device.type == "cpu":
+        return gather_wf_max_plain(x, nbr, infl, x2)
+    b, nq, h = nbr.shape
+    k, ac, ac2 = infl.shape[3], x.shape[2], x2.shape[2]
+    x, nbr, x2 = x.contiguous(), nbr.contiguous(), x2.contiguous()
+    infl = infl[:, :, :h].to(x.dtype).contiguous()
+    wf = torch.empty((b, nq, k * ac), dtype=x.dtype, device=x.device)
+    pooled = torch.empty((b, nq, ac2), dtype=x.dtype, device=x.device)
+    fn = _build.function("gather_wf_max", f"se3et_gather_wf_max_{_DTYPES[x.dtype]}", 6, 7)
+    _build.check(fn(x.data_ptr(), nbr.data_ptr(), infl.data_ptr(), wf.data_ptr(),
+                    x2.data_ptr(), pooled.data_ptr(), b, x.shape[1], nq, h, k, ac, ac2,
+                    torch.cuda.current_stream(x.device).cuda_stream),
+                 "gather_wf_max launch")
+    gather_wf_max.launches += 1
+    return wf, pooled
+
+
+gather_wf_max.launches = 0

@@ -1,7 +1,8 @@
-"""The port's CUDA kernels (K1-K7, and the training backwards K8-K11)
-against their plain versions on the card, at the serving and training
-shapes of se3ete.3dmatch, at ragged shapes (N not a multiple of any block)
-and at the tiny float32 widths of the card-vs-CPU check.
+"""The port's CUDA kernels (K1-K7 and the fused serving convs K12-K14, and
+the training backwards K8-K11) against their plain versions on the card,
+at the serving and training shapes of se3ete.3dmatch, at ragged shapes (N
+not a multiple of any block) and at the tiny float32 widths of the
+card-vs-CPU check.
 Skipped where no CUDA device is present; run on the card with
 ``python -m pytest --noconftest -m gpu tests/test_torch_kernels_cuda.py``.
 """
@@ -168,3 +169,66 @@ def test_rpe_attention_row_stats_leave_the_output_unchanged(cuda, ah, with_sh):
     _, want = rpe.rpe_self_attention_plain(q, k, v, qp, emb, masks, qw, pts, scale=0.125,
                                            with_lse=True)
     assert float((lse - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+def _conv_neighbors(cuda, nq, ns, h, seed):
+    """Two clouds of local neighbour rows (about a quarter sentinels) with
+    the last 3 query rows all sentinels, as the pyramid's padded rows."""
+    g = torch.Generator().manual_seed(seed)
+    nbr = torch.cat([selfcheck.local_neighbors(nq, ns, h, g, cuda) for _ in range(2)])
+    nbr[:, -3:] = ns
+    return nbr
+
+
+@pytest.mark.parametrize("nq,ns,h,ac", [
+    (20000, 20000, 24, 192),   # stage-0 bottleneck conv
+    (10000, 10000, 32, 384),   # stage-1 bottleneck convs
+    (250, 997, 7, 48),         # ragged, tiny widths
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gather_wf_mm_kernel(cuda, nq, ns, h, ac, dtype):
+    nbr = _conv_neighbors(cuda, nq, ns, h, 12)
+    _assert_ok(selfcheck.check_fused_conv("gather_wf_mm", nbr, ns, ac, ac_out=ac,
+                                          dtype=dtype, reps=1))
+
+
+@pytest.mark.parametrize("nq,ns,h,ac,ac2", [
+    (10000, 20000, 24, 192, 768),   # s0 -> s1 strided bottleneck
+    (97, 250, 5, 48, 192),          # ragged, tiny widths
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gather_wf_max_mm_kernel(cuda, nq, ns, h, ac, ac2, dtype):
+    nbr = _conv_neighbors(cuda, nq, ns, h, 13)
+    _assert_ok(selfcheck.check_fused_conv("gather_wf_max_mm", nbr, ns, ac, ac_out=ac,
+                                          ac2=ac2, dtype=dtype, reps=1))
+
+
+@pytest.mark.parametrize("nq,ns,h,ac,ac2", [
+    (2500, 10000, 32, 384, 1536),   # s1 -> s2 strided bottleneck
+    (20000, 20000, 24, 192, 768),   # stage-0 widths
+    (97, 250, 5, 48, 96),           # ragged, tiny widths
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gather_wf_max_kernel(cuda, nq, ns, h, ac, ac2, dtype):
+    nbr = _conv_neighbors(cuda, nq, ns, h, 14)
+    _assert_ok(selfcheck.check_fused_conv("gather_wf_max", nbr, ns, ac, ac2=ac2,
+                                          dtype=dtype, reps=1))
+
+
+def test_fused_conv_kernels_raise_on_grad_and_refused_widths(cuda):
+    """No fallback: an input that requires grad raises, and widths outside
+    the gates raise instead of running anything else."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    nbr = _conv_neighbors(cuda, 64, 128, 5, 15)
+    x = torch.randn((2, 128, 48), device=cuda, dtype=torch.bfloat16)
+    infl = torch.rand((2, 64, 5, 15), device=cuda, dtype=torch.bfloat16)
+    rhs = torch.randn((15 * 48, 48), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="no backward"):
+        wc.gather_wf_mm(x.clone().requires_grad_(True), nbr, infl, rhs)
+    with pytest.raises(ValueError, match="does not take"):
+        wc.gather_wf_mm(x, nbr, infl, torch.zeros((15 * 48, 392), device=cuda,
+                                                  dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="does not take"):
+        wc.gather_wf_max(x, nbr, infl, torch.zeros((2, 128, 3072), device=cuda,
+                                                   dtype=torch.bfloat16))
