@@ -4,11 +4,12 @@
 
 Phases, each of which raises (exit code != 0) on failure:
 
-1. build the eleven CUDA sources of ``se3et_tpu_torch/csrc`` (nvcc,
+1. build the thirteen CUDA sources of ``se3et_tpu_torch/csrc`` (nvcc,
    sm_90a, all started together);
 2. build four synthetic 3DMatch pairs at point_limit 20000 on the host
-   (the port's numpy pipeline, exact neighbours, the port's influence),
-   and say which host-ops route ran (``native`` C++ library or ``numpy``);
+   (the port's numpy pipeline, exact neighbours), timed without and with
+   the port's host influence, and say which host-ops route ran (``native``
+   C++ library or ``numpy``);
 3. hold each of the ten serving kernels against its plain PyTorch version
    at the slice's real shapes, in the working dtype (bf16 for K1-K3, K5-K7
    and K12-K14, float32 for K4), with its bound and, where one exists, the
@@ -40,7 +41,17 @@ Phases, each of which raises (exit code != 0) on failure:
    checked after (K8 10, K9 3, K10 1, K11 5 per step; forward K1 10, K2 3,
    K3 1, K4 1, K5 5), finite losses and gradient norm, the step time, the
    forward + loss time alone, peak memory and a ``torch.profiler``
-   breakdown of one step.
+   breakdown of one step;
+7. the routes off the default one: K15 (device influence) against its plain
+   version at the stage-0 same-level and the stage-1 strided set of pair 0,
+   K16 (``serve_femb``) at the self_eq (AH = 24, SH) and plain self (AH =
+   4) shapes; tiny float32 card-vs-CPU runs with ``serve_femb=True`` and on
+   a pyramid without host influence; the four pairs without host influence
+   served in turns with the default route (per pair K15 7), then with
+   ``serve_femb=True`` in turns with the default route (per pair K16 5, K3
+   0, K5 0), with ms/pair, peak memory, the routes' differences on pair 0
+   and a ``torch.profiler`` breakdown of one femb pair; then
+   ``se3et_tpu_torch.entry.entry()`` once, with a finite transform.
 
 Prints timings, then the card's name and power limit, a JSON line with the
 kernels, and as the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -49,6 +60,7 @@ not importable.
 """
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -76,6 +88,12 @@ TRAIN_LAUNCHES = {"gather_wf": 10, "neighbor_max": 3, "geometric_embedding": 1,
                   "rpe_attention_bwd": 5, "gather_wf_mm": 0, "gather_wf_max_mm": 0,
                   "gather_wf_max": 0}
 TRAIN_STEPS = 3
+# launches per served pair on the routes of phase 7: device influence (7
+# (stage, neighbour set) pairs), and serve_femb (5 self layers, no
+# embedding written, no K5)
+DEVICE_INFLUENCE_LAUNCHES = {"influence": 7}
+FEMB_LAUNCHES = {"rpe_self_attention_femb": 5, "geometric_embedding": 0,
+                 "rpe_self_attention": 0}
 
 
 def _card_line() -> str:
@@ -94,9 +112,10 @@ def _print_check(res):
           f"bound {res.bound_ms:.4f} ms ({res.bound_by}), library {lib}{route}", flush=True)
 
 
-def _tiny_card_vs_cpu(name, cfg, num_points, extent, dev):
-    """One tiny pair through the CPU (plain versions) and the card (kernels)
-    in float32; returns the launches the card run made.  Checked within
+def _tiny_card_vs_cpu(name, cfg, num_points, extent, dev, host_influence=True):
+    """One tiny pair (without host influence unless ``host_influence``)
+    through the CPU (plain versions) and the card (kernels) in float32;
+    returns the launches the card run made.  Checked within
     1e-3: the transformer's coarse features on valid rows and the matching
     scores on valid entries.  The transform by
     ``selfcheck.registration_agreement``: the registration is discontinuous
@@ -112,7 +131,8 @@ def _tiny_card_vs_cpu(name, cfg, num_points, extent, dev):
     from se3et_tpu_torch.nn.model import SE3ETModel, pyramid_to_tensors
     from se3et_tpu_torch.ops.kernels import selfcheck
 
-    tiny = synthetic_pair(0, cfg.pipeline, cfg.model, num_points, extent)
+    tiny = synthetic_pair(0, cfg.pipeline, cfg.model if host_influence else None, num_points,
+                          extent)
     model = SE3ETModel(cfg.model, seed=0, device="cpu")
     want = model(pyramid_to_tensors(tiny, "cpu"))
     for w in selfcheck.WRAPPERS.values():
@@ -314,6 +334,168 @@ def _training(cfg, pairs, extent, dev):
     return checks
 
 
+def _serve_turns(routes, order, npairs):
+    """Serve every pair on each route of ``order`` in turn (``routes``: name
+    -> (model, inputs)); returns ({route: ms per pair}, {route: launches
+    summed over its turns}).  Counters are set to 0 just before each turn
+    and read just after it."""
+    import torch
+
+    from se3et_tpu_torch.ops.kernels import selfcheck
+
+    ms = {r: [] for r in routes}
+    launches = {r: dict.fromkeys(selfcheck.WRAPPERS, 0) for r in routes}
+    for route in order:
+        net, inputs = routes[route]
+        for w in selfcheck.WRAPPERS.values():
+            w.launches = 0
+        for td in inputs[:npairs]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = net(td)
+            torch.cuda.synchronize()
+            ms[route].append((time.perf_counter() - t0) * 1e3)
+            tf = out["estimated_transform"]
+            if tf.shape != (4, 4) or not bool(torch.isfinite(tf).all()):
+                raise RuntimeError(f"bad estimated_transform on the {route} route: {tf}")
+        for n, w in selfcheck.WRAPPERS.items():
+            launches[route][n] += w.launches
+    return ms, launches
+
+
+def _require_launches(route, launches, per_pair, pairs_served):
+    want = {n: c * pairs_served for n, c in per_pair.items()}
+    got = {n: launches[n] for n in want}
+    if got != want:
+        raise RuntimeError(f"the {route} route launched {got}, expected {want}")
+
+
+def _routes(cfg, pairs, bare_pairs, extent, dev):
+    """Phase 7: K15 and K16 checked against their plain versions, tiny
+    card-vs-CPU runs of both routes, both routes served at full width in
+    turns with the default route, and ``entry()``; returns the checks."""
+    import torch
+
+    from se3et_tpu_torch.data.influence import _kernel_points_for
+    from se3et_tpu_torch.entry import entry
+    from se3et_tpu_torch.experiments.configs import tiny_flash_config
+    from se3et_tpu_torch.nn.model import SE3ETModel, pyramid_to_tensors
+    from se3et_tpu_torch.ops.kernels import selfcheck
+
+    m = cfg.model
+    p0 = pyramid_to_tensors(bare_pairs[0], dev)
+    pts_c, masks_c = p0["points_3"], p0["masks_3"]
+    heads, head_dim = m.num_heads, m.gt_hidden_dim // m.num_heads
+    emb_kw = dict(c=head_dim, cc=m.gt_hidden_dim, k=m.angle_k, sigma_d=m.sigma_d,
+                  sigma_a=m.sigma_a)
+    kp0 = _kernel_points_for(m, m.init_radius)
+    checks = {
+        # stage-0 same-level set at the stage-0 radius and sigma
+        "influence": selfcheck.check_influence(p0["points_0"], p0["points_0"],
+                                               p0["neighbors_0"], kp0, m.init_sigma,
+                                               mode=m.epn.kp_influence, reps=20),
+        # self_eq layers: A*H anchor-heads with the SH term
+        "rpe_self_attention_femb": selfcheck.check_rpe_attention_femb(
+            pts_c, masks_c, m.kanchor * heads, reps=10, **emb_kw),
+    }
+    extra = [
+        # the s0 -> s1 strided set (stage-1 queries over stage-0 points)
+        selfcheck.check_influence(p0["points_1"], p0["points_0"], p0["subsampling_0"], kp0,
+                                  m.init_sigma, mode=m.epn.kp_influence, reps=20),
+        # plain self layers: H heads, no SH term
+        selfcheck.check_rpe_attention_femb(pts_c, masks_c, heads, with_sh=False, reps=10,
+                                           **emb_kw),
+    ]
+    for res in list(checks.values()) + extra:
+        _print_check(res)
+    bad = [r.name for r in list(checks.values()) + extra if not r.ok]
+    if bad:
+        raise RuntimeError(f"route kernels disagree with their plain versions: {bad}")
+    del p0
+
+    tiny = tiny_flash_config(cfg)
+    femb_tiny = dataclasses.replace(tiny, model=dataclasses.replace(tiny.model, serve_femb=True))
+    launches = _tiny_card_vs_cpu("flash, serve_femb", femb_tiny, 600, extent, dev)
+    _require_launches("tiny femb", launches, FEMB_LAUNCHES, 1)
+    launches = _tiny_card_vs_cpu("flash, device influence", tiny, 600, extent, dev,
+                                 host_influence=False)
+    _require_launches("tiny device-influence", launches, DEVICE_INFLUENCE_LAUNCHES, 1)
+
+    # full width: the same weights on the default, device-influence and
+    # femb routes (what training left behind collected first)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = SE3ETModel(m, seed=cfg.seed).eval()
+    femb = SE3ETModel(dataclasses.replace(m, serve_femb=True), seed=cfg.seed).eval()
+    inputs = [pyramid_to_tensors(p, dev) for p in pairs]
+    bare = [pyramid_to_tensors(p, dev) for p in bare_pairs]
+    routes = {"default": (model, inputs), "device influence": (model, bare),
+              "femb": (femb, inputs)}
+    _serve_turns(routes, ("default", "device influence", "femb"), NUM_PAIRS)  # warm-up
+    ms, launches = _serve_turns(routes, ("default", "device influence", "device influence",
+                                         "default"), NUM_PAIRS)
+    _require_launches("device-influence", launches["device influence"],
+                      DEVICE_INFLUENCE_LAUNCHES, 2 * NUM_PAIRS)
+    if launches["default"]["influence"]:
+        raise RuntimeError("the default route (host influence) launched K15")
+    checks["influence"].launches = launches["device influence"]["influence"] // 2
+    print("serve ms/pair in turns (device influence): " + "; ".join(
+        f"{r} {[round(x, 2) for x in ms[r]]} (median {statistics.median(ms[r]):.2f})"
+        for r in ("default", "device influence")), flush=True)
+    a = model(inputs[0], stop_after="backbone")
+    b = model(bare[0], stop_after="backbone")
+    mask = inputs[0]["masks_3"]
+    d = float((a["feats_c"] - b["feats_c"])[mask].abs().max()) / float(
+        a["feats_c"][mask].abs().max())
+    print(f"backbone feats_c, device vs host influence (pair 0, valid rows, bf16): "
+          f"max|diff| / max|host| = {d:.3e}", flush=True)
+    _profile(lambda: model(bare[0]), what="one pair, device-influence route", top=40)
+    del a, b, routes["device influence"], bare
+
+    ms, launches = _serve_turns(routes, ("default", "femb", "femb", "default"), NUM_PAIRS)
+    _require_launches("femb", launches["femb"], FEMB_LAUNCHES, 2 * NUM_PAIRS)
+    checks["rpe_self_attention_femb"].launches = \
+        launches["femb"]["rpe_self_attention_femb"] // 2
+    peak, resident = {}, {}
+    for route in ("default", "femb"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        resident[route] = torch.cuda.memory_allocated(dev) / 2**30
+        _serve_turns(routes, (route,), NUM_PAIRS)
+        peak[route] = torch.cuda.max_memory_allocated(dev) / 2**30
+    print("serve ms/pair in turns (femb): " + "; ".join(
+        f"{r} {[round(x, 2) for x in ms[r]]} (median {statistics.median(ms[r]):.2f}), "
+        f"max_memory_allocated {peak[r]:.2f} GiB ({peak[r] - resident[r]:.2f} above the "
+        f"{resident[r]:.2f} GiB resident)" for r in ("default", "femb")), flush=True)
+    a = model(inputs[0], stop_after="transformer")
+    b = femb(inputs[0], stop_after="transformer")
+    for i, key in enumerate(("ref_feats_c", "src_feats_c")):
+        mask = inputs[0]["masks_3"][i]
+        d = float((b[key] - a[key])[mask].abs().max()) / float(a[key][mask].abs().max())
+        print(f"transformer {key}, femb vs default route (pair 0, valid rows, bf16): "
+              f"max|diff| / max|default| = {d:.3e}", flush=True)
+    del a, b
+    _profile(lambda: femb(inputs[0]), what="one pair, femb route")
+    del model, femb, inputs, routes
+
+    fn, (net, data) = entry()
+    for w in selfcheck.WRAPPERS.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(net, data)
+    torch.cuda.synchronize()
+    tf = out["estimated_transform"]
+    if tf.shape != (4, 4) or not bool(torch.isfinite(tf).all()):
+        raise RuntimeError(f"entry(): bad estimated_transform {tf}")
+    if selfcheck.WRAPPERS["influence"].launches != 7:
+        raise RuntimeError("entry() did not compute the influence on the card")
+    print(f"entry(): {(time.perf_counter() - t0) * 1e3:.1f} ms (first call), "
+          f"estimated_transform finite, K15 launches "
+          f"{selfcheck.WRAPPERS['influence'].launches}", flush=True)
+    return checks
+
+
 def main() -> int:
     import torch
 
@@ -324,6 +506,7 @@ def main() -> int:
     import numpy as np
 
     from se3et_tpu_torch.data import host_ops
+    from se3et_tpu_torch.data.influence import precompute_influence
     from se3et_tpu_torch.data.pyramid import synthetic_pair
     from se3et_tpu_torch.experiments.configs import (
         make_cfg, serving_config, synthetic_extent, tiny_config, tiny_flash_config,
@@ -341,20 +524,29 @@ def main() -> int:
     print(f"build: {len(libs)} kernel sources in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    # 2. host pyramids
+    # 2. host pyramids, without influence (the device-influence route of
+    # phase 7) and with the host's influence added (every other phase)
     cfg = serving_config(make_cfg("se3ete.3dmatch"))
     extent = synthetic_extent(cfg.dataset)
-    pairs, host_ms = [], []
+    pairs, bare_pairs, pyramid_ms, influence_ms = [], [], [], []
     for i in range(NUM_PAIRS):
         t0 = time.perf_counter()
-        pairs.append(synthetic_pair(i, cfg.pipeline, cfg.model, cfg.point_limit, extent,
-                                    seed=cfg.seed))
-        host_ms.append((time.perf_counter() - t0) * 1e3)
+        bare_pairs.append(synthetic_pair(i, cfg.pipeline, None, cfg.point_limit, extent,
+                                         seed=cfg.seed))
+        t1 = time.perf_counter()
+        pairs.append(precompute_influence(dict(bare_pairs[-1]), cfg.model))
+        t2 = time.perf_counter()
+        pyramid_ms.append((t1 - t0) * 1e3)
+        influence_ms.append((t2 - t1) * 1e3)
+    host_ms = [a + b for a, b in zip(pyramid_ms, influence_ms)]
     valid = [int(pairs[0][f"masks_{s}"].sum()) for s in range(cfg.pipeline.num_stages)]
     print(f"host ops route: {'native' if host_ops._USE_NATIVE else 'numpy'}; "
-          f"host pyramid+influence ms/pair: {[round(x, 1) for x in host_ms]} "
-          f"(median {statistics.median(host_ms):.1f}); pair 0 valid points per "
-          f"stage {valid}", flush=True)
+          f"host pyramid ms/pair (no influence): {[round(x, 1) for x in pyramid_ms]} "
+          f"(median {statistics.median(pyramid_ms):.1f}); + host influence "
+          f"{[round(x, 1) for x in influence_ms]} (median "
+          f"{statistics.median(influence_ms):.1f}); pyramid+influence median "
+          f"{statistics.median(host_ms):.1f}; pair 0 valid points per stage {valid}",
+          flush=True)
 
     # 3. kernels against their plain versions at the slice's shapes
     m = cfg.model
@@ -443,6 +635,7 @@ def main() -> int:
     if idle:
         raise RuntimeError(f"kernels not launched by the main path: {idle}")
     expected = {n: c * NUM_PAIRS for n, c in {**FLASH_LAUNCHES, **FUSED_CONV_LAUNCHES}.items()}
+    expected.update(dict.fromkeys(selfcheck.ROUTES, 0))  # host influence, no serve_femb
     if any(launches[n] != c for n, c in expected.items()):
         raise RuntimeError(f"serving launched {launches}, expected {expected}")
     for name in selfcheck.SERVING:
@@ -497,6 +690,9 @@ def main() -> int:
 
     # 6. training
     checks.update(_training(cfg, pairs, extent, dev))
+
+    # 7. the device-influence and femb routes, and entry()
+    checks.update(_routes(cfg, pairs, bare_pairs, extent, dev))
 
     kernels = []
     for name, res in checks.items():

@@ -32,30 +32,13 @@
 // recompute FMAs per d_emb element) over one read of d_emb.  One block per
 // query row (b, n), one thread per channel; each block writes its partial
 // sums, which the wrapper adds in a fixed order (no atomics).
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "embedding_common.cuh"
 
 namespace {
 
+using namespace se3et;
+
 constexpr int kTM = 32;
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-// basis[0..deg) of T_k(t), t = clip(x * inv - 1, -1, 1)
-template <int DEG>
-__device__ __forceinline__ void cheb_basis(float x, float inv, float* dst) {
-  const float t = fminf(fmaxf(x * inv - 1.f, -1.f), 1.f);
-  float prev = 1.f, cur = t;
-  const float two_t = 2.f * t;
-#pragma unroll
-  for (int k = 0; k < DEG; ++k) {
-    dst[k] = prev;
-    const float nxt = two_t * cur - prev;
-    prev = cur;
-    cur = nxt;
-  }
-}
 
 // Bases of one tile of tm support points m0.. of query (qx, qy, qz): the
 // distance basis into s_bd[mm] and the KA angle bases into s_ba[k][mm].
@@ -70,20 +53,11 @@ __device__ __forceinline__ void tile_bases(const float* pb, int m0, int tm, floa
     const int m = m0 + mm;
     const float px = pb[m * 3 + 0], py = pb[m * 3 + 1], pz = pb[m * 3 + 2];
     if (kind == 0) {
-      const float p2 = px * px + py * py + pz * pz;
-      const float qp = qx * px + qy * py + qz * pz;
-      const float sq = fmaxf(q2 - 2.f * qp + p2, 0.f);
-      cheb_basis<DD>(sqrtf(sq), inv_d, s_bd[mm]);
+      cheb_basis<DD>(pair_distance(qx, qy, qz, q2, px, py, pz), inv_d, s_bd[mm]);
     } else {
       const int k = kind - 1;
-      const float ax = px - qx, ay = py - qy, az = pz - qz;
-      const float cx = ry[k] * az - rz[k] * ay;
-      const float cy = rz[k] * ax - rx[k] * az;
-      const float cz = rx[k] * ay - ry[k] * ax;
-      const float sn = sqrtf(cx * cx + cy * cy + cz * cz);
-      // + 0 folds a -0 dot product of a self-pair to +0: atan2(0, 0) = 0
-      const float cs = rx[k] * ax + ry[k] * ay + rz[k] * az + 0.f;
-      cheb_basis<DA>(atan2f(sn, cs), inv_a, s_ba[k][mm]);
+      cheb_basis<DA>(pair_angle(rx[k], ry[k], rz[k], px - qx, py - qy, pz - qz), inv_a,
+                     s_ba[k][mm]);
     }
   }
 }
@@ -102,24 +76,6 @@ __device__ __forceinline__ float project(const float* basis, const float* gcol, 
     acc = fmaf(t.w, gcol[4 * j + 3], acc);
   }
   return acc;
-}
-
-// query point, its KA neighbour offsets and |q|^2
-template <int KA>
-__device__ __forceinline__ void query_geometry(const float* pb, const float* knn, int n_pts,
-                                               int b, int n, float& qx, float& qy, float& qz,
-                                               float& q2, float* rx, float* ry, float* rz) {
-  qx = pb[n * 3 + 0];
-  qy = pb[n * 3 + 1];
-  qz = pb[n * 3 + 2];
-  q2 = qx * qx + qy * qy + qz * qz;
-  const float* kb = knn + ((long long)b * n_pts + n) * KA * 3;
-#pragma unroll
-  for (int k = 0; k < KA; ++k) {
-    rx[k] = kb[k * 3 + 0] - qx;
-    ry[k] = kb[k * 3 + 1] - qy;
-    rz[k] = kb[k * 3 + 2] - qz;
-  }
 }
 
 template <int DD, int DA, int KA, typename TOut>

@@ -8,10 +8,12 @@ equivariant-SH terms fold the projection into the query
 embedding.  Scores are summed and soft-maxed in float32.
 
 ``use_flash`` routes the RPE self layers through kernel K5 (differentiable:
-its backward is K11) and, in serving, the ``a_soft`` / ``r_soft`` EQ cross
-layers through K6 + K7, as the JAX package routes them through its Pallas
-kernels; the materialised routes stay for training's cross layers and the
-configurations the flash gates refuse.
+its backward is K11), or with a ``femb_pack`` (serving, ``serve_femb``)
+through K16, which recomputes the embedding from coordinates, and, in
+serving, the ``a_soft`` / ``r_soft`` EQ cross layers through K6 + K7, as
+the JAX package routes them through its Pallas kernels; the materialised
+routes stay for training's cross layers and the configurations the flash
+gates refuse.
 """
 
 from __future__ import annotations
@@ -118,11 +120,16 @@ class RPEMultiHeadAttention(nn.Module):
             uniform_(self.proj_eq_kernel, bound, generator)
             uniform_(self.proj_eq_bias, bound, generator)
 
-    def _flash_path(self, q, k, v, wp_h, embed_qk, key_masks, points):
+    def _flash_path(self, q, k, v, wp_h, embed_qk, key_masks, points, femb_pack=None):
         """Kernel K5: folded-query streaming softmax.  Projection biases and
         the degree-0 SH term are per-query constants, softmax no-ops, so only
-        the ``q @ W^T`` folds are passed."""
-        cdtype = embed_qk.dtype
+        the ``q @ W^T`` folds are passed.  ``femb_pack = (knn_points, wd, wa,
+        sigma_d, sigma_a)`` takes K16 instead, with ``embed_qk`` None: the
+        embedding is recomputed in the kernel, in the compute dtype (the JAX
+        route casts to bf16 there; the port's float32 route stays float32, as
+        its K3 route does)."""
+        cdtype = (embed_qk.dtype if femb_pack is None
+                  else prec.compute_dtype() or torch.float32)
         b = q.shape[0]
         n, dh = q.shape[-2:]
         ah = math.prod(q.shape[1:-2])  # A*H (or H)
@@ -138,12 +145,18 @@ class RPEMultiHeadAttention(nn.Module):
             pts = rpe_flash.point_rows(points)
         km = key_masks if key_masks is not None else torch.ones(
             (b, n), dtype=torch.bool, device=q.device)
-        hidden = rpe_flash.rpe_self_attention(qf, kf, vf, qp, embed_qk, km, qw, pts,
-                                              scale=1.0 / math.sqrt(dh)).to(v.dtype)
-        return _merge_heads(hidden.reshape(q.shape)), {}
+        if femb_pack is not None:
+            knn_points, wd, wa, sigma_d, sigma_a = femb_pack
+            hidden = rpe_flash.rpe_self_attention_femb(
+                qf, kf, vf, qp, km, qw, rpe_flash.point_rows(points), knn_points, wd, wa,
+                scale=1.0 / math.sqrt(dh), sigma_d=sigma_d, sigma_a=sigma_a)
+        else:
+            hidden = rpe_flash.rpe_self_attention(qf, kf, vf, qp, embed_qk, km, qw, pts,
+                                                  scale=1.0 / math.sqrt(dh))
+        return _merge_heads(hidden.to(v.dtype).reshape(q.shape)), {}
 
     def forward(self, input_q, input_k, input_v, embed_qk, key_masks=None, embed_eq=None,
-                points=None, use_flash=False):
+                points=None, use_flash=False, femb_pack=None):
         h = self.num_heads
         dh = self.d_model // h
         q = _split_heads(self.TorchLinear_0(input_q), h)  # (B, [A,] H, N, c)
@@ -153,12 +166,13 @@ class RPEMultiHeadAttention(nn.Module):
         wp_h = cast(self.proj_p_kernel).reshape(self.d_model, h, dh)
         n, m = q.shape[-2], k.shape[-2]
         flash_ok = (
-            use_flash and n == m and n % 128 == 0 and embed_qk.shape[-3] == n
+            use_flash and n == m and n % 128 == 0
+            and (embed_qk.shape[-3] == n if femb_pack is None else points is not None)
             and (not self.with_eq_term
                  or (points is not None and self.d_equiv_embed == 4 and self.kanchor > 1))
         )
         if flash_ok:
-            return self._flash_path(q, k, v, wp_h, embed_qk, key_masks, points)
+            return self._flash_path(q, k, v, wp_h, embed_qk, key_masks, points, femb_pack)
         bp_h = self.proj_p_bias.reshape(h, dh)
         a = "a" if self.equivariant else ""
         # positional scores with the projection folded into q:
@@ -376,11 +390,11 @@ class RPEAttentionLayer(nn.Module):
         self.LayerNorm_0 = LayerNorm(d_model)
 
     def forward(self, input_states, memory_states, position_states, memory_masks=None,
-                equiv_states=None, points=None, use_flash=False):
+                equiv_states=None, points=None, use_flash=False, femb_pack=None):
         hidden, aux = self.RPEMultiHeadAttention_0(
             input_states, memory_states, memory_states, position_states,
             key_masks=memory_masks, embed_eq=equiv_states, points=points,
-            use_flash=use_flash)
+            use_flash=use_flash, femb_pack=femb_pack)
         hidden = self.TorchLinear_0(hidden)
         return self.LayerNorm_0(hidden + input_states), aux
 
@@ -397,8 +411,8 @@ class RPETransformerLayer(nn.Module):
         self.AttentionOutput_0 = AttentionOutput(d_model, activation_fn)
 
     def forward(self, input_states, memory_states, position_states, memory_masks=None,
-                equiv_states=None, points=None, use_flash=False):
+                equiv_states=None, points=None, use_flash=False, femb_pack=None):
         hidden, aux = self.RPEAttentionLayer_0(
             input_states, memory_states, position_states, memory_masks, equiv_states,
-            points=points, use_flash=use_flash)
+            points=points, use_flash=use_flash, femb_pack=femb_pack)
         return self.AttentionOutput_0(hidden), aux

@@ -3,7 +3,8 @@ r"""Geometric-structure embedding of the coarse transformer
 
 Pairwise distance + triplet-angle sinusoid embedding, projected to the
 model width, plus the per-anchor Wigner-rotated spherical harmonics of pair
-directions for the equivariant self-attention layers.  ``fused=True``
+directions for the equivariant self-attention layers (``tables_only``:
+just the inputs K16 rebuilds the embedding from).  ``fused=True``
 runs kernel K3
 (:func:`se3et_tpu_torch.ops.kernels.embedding.geometric_embedding`, with
 the backward K10 in training); the unfused route is the reference
@@ -98,9 +99,12 @@ class GeometricStructureEmbedding(nn.Module):
         ang = idx[..., None] * div
         return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
-    def forward(self, points, masks=None, fused=False, compute_equiv=True, out_dtype=None):
+    def forward(self, points, masks=None, fused=False, compute_equiv=True, out_dtype=None,
+                tables_only=False):
         """``out_dtype``: the fused route's output type (default the compute
-        dtype; training passes bf16, the JAX kernel's default)."""
+        dtype; training passes bf16, the JAX kernel's default).
+        ``tables_only`` computes no embedding and returns ``(wd, wa,
+        knn_points)``, what the in-attention fused embedding (K16) needs."""
         b, n, _ = points.shape
         k = self.angle_k
         sq = geometry.pairwise_distance(points, points)
@@ -110,6 +114,8 @@ class GeometricStructureEmbedding(nn.Module):
         knn_points = torch.gather(
             points, 1, knn_idx.reshape(b, n * k, 1).expand(-1, -1, 3)
         ).reshape(b, n, k, 3)
+        if tables_only:
+            return self.proj_d_kernel, self.proj_a_kernel, knn_points
 
         if fused and self.reduction_a == "max":
             emb = geometric_embedding(

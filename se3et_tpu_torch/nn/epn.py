@@ -30,8 +30,11 @@ the JAX package's VMEM gates do (``scripts/fused_conv_split.py``): stage
 0-1 same-level convs K12, the s0 -> s1 strided block K13, the s1 -> s2
 strided block K14, the s2 -> s3 strided block K1 + matmul + K2, stage 2-3
 same-level convs K1 + matmul.
-Influence weights are host-precomputed (:mod:`se3et_tpu_torch.data.influence`)
-and shared by every conv of a (stage, neighbour set).
+Influence weights are shared by every conv of a (stage, neighbour set):
+the pyramid's host-precomputed ones (:mod:`se3et_tpu_torch.data.influence`)
+where it carries them, else computed on the card by kernel K15
+(:func:`~se3et_tpu_torch.ops.kernels.windowed_conv.influence`), as the JAX
+package's ``make_influence`` does.
 
 Feature tensors carry a leading cloud axis: ``x (B, N, A, C)``;
 neighbour indices ``(B, N, H)`` with per-cloud sentinel ``N_support``.
@@ -56,7 +59,7 @@ from se3et_tpu_torch.nn.layers import (
 from se3et_tpu_torch.ops.geometry import batched_gather_rows
 from se3et_tpu_torch.ops.kernels.windowed_conv import (
     gather_wf, gather_wf_max, gather_wf_max_fits, gather_wf_max_mm, gather_wf_max_mm_fits,
-    gather_wf_mm, gather_wf_mm_fits, neighbor_max,
+    gather_wf_mm, gather_wf_mm_fits, influence, neighbor_max,
 )
 
 
@@ -349,12 +352,20 @@ class E2PNBackbone(nn.Module):
     (B, N1, output_dim) and equivariant coarse features (B, Nc, A, C).
     """
 
-    def __init__(self, input_dim, output_dim, init_dim, init_radius, group_norm,
-                 config: EPNConfig, num_stages=4, ones_input=False):
+    def __init__(self, input_dim, output_dim, init_dim, init_radius, init_sigma, group_norm,
+                 config: EPNConfig, kernel_points, num_stages=4, ones_input=False):
+        """``init_sigma`` and ``kernel_points`` (radius -> (K, 3) numpy, the
+        port's ``data.influence._kernel_points_for``) serve the influence of
+        pyramids without host weights."""
         super().__init__()
         check_supported(config)
         self.kanchor = config.kanchor
         self.num_stages = num_stages
+        self.init_radius, self.init_sigma = init_radius, init_sigma
+        self.kp_influence = config.kp_influence
+        self.num_kernel_points = config.num_kernel_points
+        self._kernel_points = kernel_points
+        self._kp_tensors = {}  # (radius, device) -> (K, 3) kernel points, copied there once
         self.inv_out = InvOutBlockEPN()
         d, r = init_dim, init_radius
         self._EPNStage0_0 = _EPNStage0(input_dim, d, r, group_norm, config,
@@ -376,22 +387,54 @@ class E2PNBackbone(nn.Module):
             else:
                 self.TorchLinear_0 = TorchLinear(cat, output_dim)
 
+    def make_influence(self, pyramid, key, radius, sigma, q, sup, idx):
+        """Influence weights of one (stage, neighbour set): the pyramid's
+        ``key`` where present and shaped for ``idx`` (JAX ``make_influence``'s
+        checks), else kernel K15 on the card (its plain version on the CPU),
+        cast to the compute dtype; its H-sum is not used."""
+        pre = pyramid.get(key)
+        if (pre is not None and pre.shape[:2] == idx.shape[:2] and pre.shape[2] >= idx.shape[2]
+                and pre.shape[-1] == self.num_kernel_points):
+            return pre
+        kp = self._kp_tensors.get((radius, q.device))
+        if kp is None:  # a copy from host memory per call would wait for the card
+            kp = torch.as_tensor(self._kernel_points(radius), dtype=torch.float32,
+                                 device=q.device)
+            self._kp_tensors[(radius, q.device)] = kp
+        infl, _ = influence(q, sup, idx, kp, sigma=float(sigma), mode=self.kp_influence,
+                            out_dtype=prec.compute_dtype() or torch.float32)
+        return infl
+
     def forward(self, feats, pyramid, fused=False):
         """``fused``: the serving route of the convs (``serve_fused_conv``
         outside training); no gradient flows through it."""
         s = self.num_stages
+        pts = [pyramid[f"points_{i}"] for i in range(s)]
         msk = [pyramid[f"masks_{i}"] for i in range(s)]
         nbs = [pyramid[f"neighbors_{i}"] for i in range(s)]
         subs = [pyramid[f"subsampling_{i}"] for i in range(s - 1)]
         ups = [pyramid[f"upsampling_{i}"] for i in range(s - 1)]
+        # the radius / sigma schedule of the JAX backbone: same-level sets at
+        # 2^(st-1) * 2 * init (stage 0: init), strided sets at 2^(st-1) * init
+        r, sg = self.init_radius, self.init_sigma
+        inf_same = [self.make_influence(pyramid, "influence_same_0", r, sg, pts[0], pts[0],
+                                        nbs[0])]
+        inf_sub = [None]
+        for st in range(1, s):
+            mult = 2 ** (st - 1)
+            inf_sub.append(self.make_influence(
+                pyramid, f"influence_sub_{st}", r * mult, sg * mult, pts[st], pts[st - 1],
+                subs[st - 1]))
+            inf_same.append(self.make_influence(
+                pyramid, f"influence_same_{st}", r * mult * 2, sg * mult * 2, pts[st],
+                pts[st], nbs[st]))
 
         x = lift_features(feats, self.kanchor)
-        x = self._EPNStage0_0(x, nbs[0], msk[0], pyramid["influence_same_0"], fused=fused)
+        x = self._EPNStage0_0(x, nbs[0], msk[0], inf_same[0], fused=fused)
         stage_feats = [x]
         for st in range(1, s):
             x = getattr(self, f"_EPNStage_{st - 1}")(
-                x, subs[st - 1], nbs[st], msk[st], msk[st - 1],
-                pyramid[f"influence_sub_{st}"], pyramid[f"influence_same_{st}"],
+                x, subs[st - 1], nbs[st], msk[st], msk[st - 1], inf_sub[st], inf_same[st],
                 fused=fused,
             )
             stage_feats.append(x)

@@ -4,10 +4,12 @@ r"""The SE3ET registration model, serving and training forward (port of
 Input is the padded two-cloud pyramid dict of
 :func:`se3et_tpu_torch.data.pipeline.build_pair_pyramid` (cloud axis 0 = ref,
 1 = src) as tensors on one device (:func:`pyramid_to_tensors`), with the
-host-side point-to-node partition (``PyramidConfig.patch_k``) and the
-influence weights of :func:`se3et_tpu_torch.data.influence.precompute_influence`.
-The forward runs backbone -> transformer -> superpoint matching -> Sinkhorn
--> local-to-global registration with static shapes and no host sync.
+host-side point-to-node partition (``PyramidConfig.patch_k``).  Influence
+weights come from the pyramid where it carries them
+(:func:`se3et_tpu_torch.data.influence.precompute_influence`), else they are
+computed on the card (kernel K15), as in the JAX package.  The forward runs
+backbone -> transformer -> superpoint matching -> Sinkhorn ->
+local-to-global registration with static shapes and no host sync.
 ``train=True`` is the route of the JAX training step: float32 features,
 the ground-truth overlaps and sampled target correspondences, the
 differentiable kernels (K1-K5 with their backwards K8-K11) and the
@@ -17,12 +19,15 @@ The port covers the SE3ET-E/I family (E2PN backbone) with neighbour
 indexing (no window maps), the fused serving convs (``serve_fused_conv``,
 the default: K12-K14) or the K1 + matmul route, the flash attention kernels
 (``serve_fused_attention``, the default) or the materialised-attention
-routes, and the fused embedding and Sinkhorn kernels; other settings raise.
+routes, the fused embedding (K3) or, with ``serve_femb``, the embedding
+recomputed inside the flash self layers (K16), and the Sinkhorn kernel;
+other settings raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -30,6 +35,7 @@ import torch
 from torch import nn
 
 from se3et_tpu_torch import precision as prec
+from se3et_tpu_torch.data import influence as influence_lib
 from se3et_tpu_torch.nn import matching as matching_lib
 from se3et_tpu_torch.nn.epn import E2PNBackbone, EPNConfig
 from se3et_tpu_torch.nn.layers import init_parameters
@@ -154,7 +160,8 @@ class SE3ETModel(nn.Module):
         self.cfg = cfg
         self.backbone_net = E2PNBackbone(
             input_dim=c.input_dim, output_dim=c.output_dim, init_dim=c.init_dim,
-            init_radius=c.init_radius, group_norm=c.group_norm, config=c.epn,
+            init_radius=c.init_radius, init_sigma=c.init_sigma, group_norm=c.group_norm,
+            config=c.epn, kernel_points=functools.partial(influence_lib._kernel_points_for, c),
             num_stages=c.num_stages, ones_input=c.ones_features,
         )
         self.transformer = GeometricTransformer(
@@ -203,9 +210,6 @@ class SE3ETModel(nn.Module):
             raise ValueError(
                 "the pyramid must carry the host point-to-node partition of this "
                 "model's stages (PyramidConfig.patch_k = num_points_in_patch)")
-        if "influence_same_0" not in data:
-            raise ValueError("the pyramid must carry host influence weights "
-                             "(se3et_tpu_torch.data.influence.precompute_influence)")
         node_masks = data["patch_node_masks"]
         knn_masks = data["node_knn_masks"]
         knn_points = [geometry.gather_with_sentinel(points_f[i], knn_idx[i]) for i in range(2)]
@@ -231,6 +235,7 @@ class SE3ETModel(nn.Module):
             fused_attention=c.train_fused_attention if train else c.serve_fused_attention,
             # the EQ cross kernels have no backward: training is materialised
             fused_attention_cross=(not train) and c.serve_fused_attention,
+            fused_femb=(not train) and c.serve_fused_attention and c.serve_femb,
             # the JAX embedding kernel writes bf16 in training too
             emb_dtype=torch.bfloat16 if train else None,
         )

@@ -16,7 +16,11 @@ layer on the stacked (2, N, N, C) embedding, and the (B, A, N, M, 4)
 equivariant embedding is never built (K5 computes the SH term from the
 coordinates).  ``fused_attention_cross`` routes the EQ cross layers
 through K6 + K7 (serving only: they have no backward, and training takes
-the materialised cross route, as the JAX package does).
+the materialised cross route, as the JAX package does).  ``fused_femb``
+(serving, ``serve_femb``) goes one step further where the JAX package does
+(both clouds stacked with masks, ``flash_self``, ``reduction_a == "max"``):
+no embedding is computed, and each flash self layer runs K16, which
+rebuilds the embedding rows from the coordinates.
 """
 
 from __future__ import annotations
@@ -88,11 +92,14 @@ class RPEConditionalTransformer(nn.Module):
 
     def forward(self, feats0, feats1, embeddings0, embeddings1, masks0=None,
                 masks1=None, equiv_embed0=None, equiv_embed1=None, use_flash=False,
-                points0=None, points1=None, stacked=None, use_flash_cross=None):
+                points0=None, points1=None, stacked=None, use_flash_cross=None,
+                femb_pack=None):
         """feats (B, A, N, C) equivariant or (B, N, C) invariant coarse feats.
 
         ``stacked``: optional (emb, masks, points) with both clouds on the
-        leading axis; the self layers then run one flash launch over both."""
+        leading axis; the self layers then run one flash launch over both
+        (with ``femb_pack`` (knn_points, wd, wa, sigma_d, sigma_a) and emb
+        None, K16's)."""
         feats0_eq = feats1_eq = None
         ref_feat_m = src_feat_m = None
         blocks = self.blocks
@@ -105,7 +112,7 @@ class RPEConditionalTransformer(nn.Module):
                     emb_s, masks_s, points_s = stacked
                     ins = torch.cat([in0, in1])
                     outs, _ = layer(ins, ins, emb_s, memory_masks=masks_s, points=points_s,
-                                    use_flash=True)
+                                    use_flash=True, femb_pack=femb_pack)
                     nb = in0.shape[0]
                     feats0, feats1 = outs[:nb], outs[nb:]
                 else:
@@ -175,7 +182,7 @@ class GeometricTransformer(nn.Module):
 
     def forward(self, ref_points, src_points, ref_feats, src_feats, ref_masks,
                 src_masks, fused_embedding=False, fused_attention=False,
-                fused_attention_cross=None, emb_dtype=None):
+                fused_attention_cross=None, emb_dtype=None, fused_femb=False):
         """points (B, N, 3); feats (B, N, [A,] C_in) -> (ref_out, src_out,
         ref_feat_m, src_feat_m); outputs (B, N, C_out).  ``emb_dtype``: the
         fused embedding's output type (see GeometricStructureEmbedding)."""
@@ -187,22 +194,29 @@ class GeometricTransformer(nn.Module):
             and (de == 0 or (de == 4 and (self.na or 1) > 1))
         )
         embed = self.GeometricStructureEmbedding_0
-        stacked = None
+        stacked = femb_pack = None
         ref_eq = src_eq = None
         if ref_points.shape == src_points.shape:
             # both clouds through one embedding evaluation
             pts = torch.cat([ref_points, src_points])
             mks = torch.cat([ref_masks, src_masks])
-            emb, eq_emb = embed(pts, mks, fused=fused_embedding, compute_equiv=not flash_self,
-                                out_dtype=emb_dtype)
-            if flash_self:
-                # the flash self layers take the stacked embedding as it is
+            if flash_self and fused_femb and embed.reduction_a == "max":
+                # no embedding: each flash self layer rebuilds its rows (K16)
+                wd, wa, knn_pts = embed(pts, mks, tables_only=True)
+                femb_pack = (knn_pts, wd, wa, embed.sigma_d, embed.sigma_a)
                 ref_emb = src_emb = None
-                stacked = (emb, mks, pts)
+                stacked = (None, mks, pts)
             else:
-                ref_emb, src_emb = emb[:nb], emb[nb:]
-            if eq_emb is not None:
-                ref_eq, src_eq = eq_emb[:nb], eq_emb[nb:]
+                emb, eq_emb = embed(pts, mks, fused=fused_embedding,
+                                    compute_equiv=not flash_self, out_dtype=emb_dtype)
+                if flash_self:
+                    # the flash self layers take the stacked embedding as it is
+                    ref_emb = src_emb = None
+                    stacked = (emb, mks, pts)
+                else:
+                    ref_emb, src_emb = emb[:nb], emb[nb:]
+                if eq_emb is not None:
+                    ref_eq, src_eq = eq_emb[:nb], eq_emb[nb:]
         else:
             ref_emb, ref_eq = embed(ref_points, ref_masks, fused=fused_embedding,
                                     compute_equiv=not flash_self, out_dtype=emb_dtype)
@@ -219,5 +233,5 @@ class GeometricTransformer(nn.Module):
             equiv_embed0=ref_eq, equiv_embed1=src_eq, use_flash=fused_attention,
             points0=ref_points if flash_self else None,
             points1=src_points if flash_self else None, stacked=stacked,
-            use_flash_cross=fused_attention_cross)
+            use_flash_cross=fused_attention_cross, femb_pack=femb_pack)
         return self.TorchLinear_1(f0), self.TorchLinear_1(f1), ref_feat_m, src_feat_m

@@ -70,16 +70,21 @@ def pick_deg(c: int, x_max: float, tol: float = 1e-5, max_deg: int = DEG) -> int
     return max_deg
 
 
+@functools.lru_cache(maxsize=None)
+def _fit_table(c: int, x_max: float, deg: int, device: torch.device) -> torch.Tensor:
+    """:func:`chebyshev_sinusoid_table` as a tensor on ``device``, copied there
+    once: a copy from host memory per call would wait for the card."""
+    return torch.as_tensor(chebyshev_sinusoid_table(c, x_max, deg), device=device)
+
+
 def _folded_projections(wd, wa, sigma_a):
     """(deg_d, deg_a, Gd = A_d @ wd, Ga = A_a @ wa) in float32."""
     c = wd.shape[1]
     x_max_a = math.pi * (180.0 / (sigma_a * math.pi))
     deg_d = pick_deg(c, D_INDEX_MAX)
     deg_a = pick_deg(c, float(x_max_a))
-    a_d = torch.as_tensor(chebyshev_sinusoid_table(c, D_INDEX_MAX, deg_d),
-                          device=wd.device)
-    a_a = torch.as_tensor(chebyshev_sinusoid_table(c, float(x_max_a), deg_a),
-                          device=wa.device)
+    a_d = _fit_table(c, D_INDEX_MAX, deg_d, wd.device)
+    a_a = _fit_table(c, float(x_max_a), deg_a, wa.device)
     return deg_d, deg_a, a_d @ wd.float(), a_a @ wa.float()
 
 
@@ -172,10 +177,8 @@ def _basis_to_weights(dgd, dga, db, wd, sigma_a):
     """Basis-space gradients -> (d_wd, d_bd, d_wa, d_ba)."""
     c = wd.shape[1]
     x_max_a = math.pi * (180.0 / (sigma_a * math.pi))
-    a_d = torch.as_tensor(chebyshev_sinusoid_table(c, D_INDEX_MAX, dgd.shape[0]),
-                          device=dgd.device)
-    a_a = torch.as_tensor(chebyshev_sinusoid_table(c, float(x_max_a), dga.shape[0]),
-                          device=dga.device)
+    a_d = _fit_table(c, D_INDEX_MAX, dgd.shape[0], dgd.device)
+    a_a = _fit_table(c, float(x_max_a), dga.shape[0], dga.device)
     # d_ba is a copy: two parameters' .grad must not share storage
     return a_d.T @ dgd, db, a_a.T @ dga, db.clone()
 

@@ -28,6 +28,12 @@ replaces the TPU ``_rpe_bwd``), which recomputes the softmax P and forms
 ``dS = P * (dO . v^T - rowsum(dO * out))``; the gradient contractions over
 P and dS run as matmuls, as the JAX package runs them as XLA einsums.
 Gradients flow to q, k, v, qp, emb and qw, in their own dtypes.
+
+:func:`rpe_self_attention_femb` (K16, ``csrc/rpe_attention_femb.cu``,
+replaces the TPU ``rpe_self_attention_femb``; serving only) is the same
+attention with the embedding rows recomputed inside the kernel from the
+coordinates (K3's function without its biases, which are softmax no-ops),
+so the (B, N, N, C) embedding is never written.
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ import math
 
 import torch
 
-from se3et_tpu_torch.ops.kernels import _build
+from se3et_tpu_torch.ops.geometry import pairwise_distance
+from se3et_tpu_torch.ops.kernels import _build, embedding
 
 _NEG = -1e9
 SH1_C = math.sqrt(3.0 / (4.0 * math.pi))  # real_sh degree-1 coefficient
@@ -82,10 +89,11 @@ def sh_term(qw, points, n0, n1):
     return rinv[:, None] * pre
 
 
-def _scores(q, k, qp, emb, k_masks, qw, points, n0, n1, scale):
-    """Scaled, masked float32 scores of query rows n0:n1 (B, AH, R, N)."""
+def _scores(q, k, qp, emb_rows, k_masks, qw, points, n0, n1, scale):
+    """Scaled, masked float32 scores of query rows n0:n1 (B, AH, R, N);
+    emb_rows (B, R, N, C) are the embedding rows n0:n1."""
     s = torch.einsum("banc,bamc->banm", q[:, :, n0:n1].float(), k.float())
-    s = s + torch.einsum("bnad,bnmd->banm", qp[:, n0:n1].float(), emb[:, n0:n1].float())
+    s = s + torch.einsum("bnad,bnmd->banm", qp[:, n0:n1].float(), emb_rows.float())
     if qw is not None:
         s = s + sh_term(qw, points, n0, n1)
     return torch.where(k_masks[:, None, None, :], s * scale, _NEG)
@@ -103,6 +111,12 @@ def rpe_self_attention_plain(q, k, v, qp, emb, k_masks, qw=None, points=None, *,
     taken ``row_block`` at a time to bound the float32 copies of the
     embedding.
     """
+    return _attend_rows(q, k, v, qp, lambda n0, n1: emb[:, n0:n1], k_masks, qw, points,
+                        scale, row_block, with_lse)
+
+
+def _attend_rows(q, k, v, qp, emb_rows, k_masks, qw, points, scale, row_block, with_lse):
+    """K5's plain attention with the embedding rows n0:n1 from ``emb_rows(n0, n1)``."""
     b, ah, n, c = q.shape
     vf = v.float()
     km = k_masks[:, None, None, :]
@@ -110,7 +124,7 @@ def rpe_self_attention_plain(q, k, v, qp, emb, k_masks, qw=None, points=None, *,
     lse = torch.empty((b, ah, n), dtype=torch.float32, device=q.device)
     for n0 in range(0, n, row_block):
         n1 = min(n, n0 + row_block)
-        s = _scores(q, k, qp, emb, k_masks, qw, points, n0, n1, scale)
+        s = _scores(q, k, qp, emb_rows(n0, n1), k_masks, qw, points, n0, n1, scale)
         mx = s.amax(dim=-1, keepdim=True)
         p = torch.exp(s - mx) * km
         denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
@@ -159,7 +173,7 @@ def rpe_attention_bwd_plain(q, k, v, qp, emb, k_masks, qw, points, dout, out, ls
     ds = torch.empty_like(p)
     for n0 in range(0, n, row_block):
         n1 = min(n, n0 + row_block)
-        s = _scores(q, k, qp, emb, k_masks, qw, points, n0, n1, scale)
+        s = _scores(q, k, qp, emb[:, n0:n1], k_masks, qw, points, n0, n1, scale)
         pr = torch.exp(s - lse[:, :, n0:n1, None]) * km
         dpv = torch.einsum("banc,bamc->banm", dout[:, :, n0:n1].float(), v.float())
         p[:, :, n0:n1] = pr
@@ -167,14 +181,15 @@ def rpe_attention_bwd_plain(q, k, v, qp, emb, k_masks, qw, points, dout, out, ls
     return _grads_from_p_ds(p, ds, q, k, qp, emb, qw, points, dout, scale)
 
 
-def _check_inputs(q, k, v, qp, emb, k_masks, qw, points):
+def _check_inputs(q, k, v, qp, emb, k_masks, qw, points, cc=None):
+    """Checks of K5, K11 and K16 (``emb`` None and its width ``cc`` for K16)."""
     b, ah, n, c = q.shape
-    cc = emb.shape[-1]
+    cc = emb.shape[-1] if emb is not None else cc
     dtype = q.dtype
-    if dtype not in _DTYPES or any(t.dtype != dtype for t in (k, v, qp, emb)):
+    if dtype not in _DTYPES or any(t is not None and t.dtype != dtype for t in (k, v, qp, emb)):
         raise TypeError("q, k, v, qp and emb must share one dtype, bf16 or float32")
     if (k.shape != q.shape or v.shape != q.shape or qp.shape != (b, n, ah, cc)
-            or emb.shape != (b, n, n, cc) or k_masks.shape != (b, n)):
+            or (emb is not None and emb.shape != (b, n, n, cc)) or k_masks.shape != (b, n)):
         raise ValueError("bad rpe_self_attention input shapes")
     if ah not in KERNEL_AH or c not in KERNEL_HEAD_DIMS or cc % 16:
         raise ValueError(f"K5/K11 are built for AH in {KERNEL_AH}, head width in "
@@ -290,3 +305,104 @@ def rpe_attention_bwd(q, k, v, qp, emb, k_masks, qw, points, dout, out, lse, *, 
 
 
 rpe_attention_bwd.launches = 0
+
+
+def _femb_rows(pts3, knn_points, gd, ga, n0, n1, inv_d, dtype):
+    """Embedding rows n0:n1 (B, R, N, C) as K16 builds them, float32 holding
+    ``dtype`` values: K3's distance and triplet angles (0 on the diagonal,
+    by index), their Chebyshev bases and G rounded to ``dtype``, products
+    summed in float32, the angle max rounded to ``dtype``, then the row."""
+    rnd = lambda t: t.to(dtype).float()  # noqa: E731
+    dist = torch.sqrt(pairwise_distance(pts3[:, n0:n1], pts3))  # (B, R, N)
+    ang = embedding._pair_geometry(pts3, knn_points, n0, n1)  # (B, R, N, k)
+    idx = torch.arange(n0, n1, device=pts3.device)
+    dist[:, idx - n0, idx] = 0.0
+    ang[:, idx - n0, idx] = 0.0
+    d = rnd(embedding._cheb_basis(dist, inv_d, gd.shape[0])) @ rnd(gd)
+    a = (rnd(embedding._cheb_basis(ang, 2.0 / math.pi, ga.shape[0])) @ rnd(ga)).amax(dim=3)
+    return rnd(d + rnd(a))
+
+
+def rpe_self_attention_femb_plain(q, k, v, qp, k_masks, qw, points, knn_points, wd, wa, *,
+                                  scale, sigma_d, sigma_a, row_block=128):
+    """Plain version of K16: :func:`rpe_self_attention_plain` over the
+    embedding ``T_d(dist) @ Gd + max_k T_a(angle_k) @ Ga`` (K3's without its
+    biases), built ``row_block`` query rows at a time (the (B, N, N, C)
+    tensor is never held), in q's dtype as K16 rounds it (bf16: bases, G,
+    the angle max and each row; float32: nothing rounded).
+
+    Arguments as K5's minus ``emb``; ``points`` (B, 3|4, N) coordinate rows
+    are required, ``knn_points`` (B, N, angle_k, 3) float32, ``wd``/``wa``
+    (C, C) the unfolded projections.  Returns (B, AH, N, c) float32."""
+    _, _, gd, ga = embedding._folded_projections(wd, wa, sigma_a)
+    pts3 = points[:, :3].float().transpose(1, 2)
+    knn = knn_points.float()
+    inv_d = 2.0 / (embedding.D_INDEX_MAX * sigma_d)
+    return _attend_rows(
+        q, k, v, qp, lambda n0, n1: _femb_rows(pts3, knn, gd, ga, n0, n1, inv_d, q.dtype),
+        k_masks, qw, points, scale, row_block, False)
+
+
+def _femb_tables(wd, wa, sigma_a, dtype):
+    """(deg_d, deg_a, g (64, C) float32 rows [Gd | 0 | Ga] rounded to
+    ``dtype``, its (C, 64) bf16 transpose for the tensor-core kernel or
+    None): the distance basis padded to 48 rows, three k-steps of 16."""
+    deg_d, deg_a, gd, ga = embedding._folded_projections(wd, wa, sigma_a)
+    if (deg_d, deg_a) != (40, 16):
+        raise ValueError(f"K16 is built for 40 distance and 16 angle basis terms, got "
+                         f"{deg_d} and {deg_a}")
+    g = torch.zeros((64, gd.shape[1]), dtype=torch.float32, device=gd.device)
+    g[:40] = gd
+    g[48:] = ga
+    g = g.to(dtype).float()
+    gt = g.t().contiguous().to(torch.bfloat16) if dtype == torch.bfloat16 else None
+    return deg_d, deg_a, g, gt
+
+
+def rpe_self_attention_femb(q, k, v, qp, k_masks, qw, points, knn_points, wd, wa, *,
+                            scale, sigma_d, sigma_a):
+    """K16 (``csrc/rpe_attention_femb.cu``, replaces the TPU
+    ``rpe_self_attention_femb``): see :func:`rpe_self_attention_femb_plain`.
+    Serving only: inputs that require grad raise, as the TPU kernel has no
+    VJP.  Bound by the tensor-core operations of the in-kernel projections;
+    the source notes the design."""
+    if any(t is not None and t.requires_grad for t in (q, k, v, qp, qw, wd, wa)) \
+            and torch.is_grad_enabled():
+        raise ValueError("rpe_self_attention_femb has no backward (serving only)")
+    if q.device.type == "cpu":
+        return rpe_self_attention_femb_plain(q, k, v, qp, k_masks, qw, points, knn_points,
+                                             wd, wa, scale=scale, sigma_d=sigma_d,
+                                             sigma_a=sigma_a)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    b, ah, n, c = q.shape
+    cc = wd.shape[1]
+    ka = knn_points.shape[2]
+    if points is None or points.shape[:1] != (b,) or points.shape[1] not in (3, 4) \
+            or points.shape[2] != n or knn_points.shape != (b, n, ka, 3):
+        raise ValueError("rpe_self_attention_femb takes points (B, 3|4, N) and knn_points "
+                         "(B, N, k, 3)")
+    _check_inputs(q, k, v, qp, None, k_masks, qw, points, cc=cc)
+    deg_d, deg_a, g, gt = _femb_tables(wd, wa, sigma_a, q.dtype)
+    with_sh = qw is not None
+    qwc = qw.float().contiguous() if with_sh else None
+    pts = points.float().contiguous()
+    pts3 = points[:, :3].float().transpose(1, 2).contiguous()
+    knn = knn_points.float().contiguous()
+    q, k, v, qp = (t.contiguous() for t in (q, k, v, qp))
+    km = k_masks.to(torch.uint8).contiguous()
+    out = torch.empty((b, ah, n, c), dtype=torch.float32, device=q.device)
+    fn = _build.function("rpe_attention_femb", f"se3et_rpe_attention_femb_{_DTYPES[q.dtype]}",
+                         12, 9, 3)
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(), km.data_ptr(),
+                    qwc.data_ptr() if with_sh else None, pts.data_ptr(), pts3.data_ptr(),
+                    knn.data_ptr(), g.data_ptr(), gt.data_ptr() if gt is not None else None,
+                    out.data_ptr(), b, ah, n, c, cc, pts.shape[1], deg_d, deg_a, ka,
+                    float(scale), 2.0 / (embedding.D_INDEX_MAX * sigma_d), 2.0 / math.pi,
+                    torch.cuda.current_stream(q.device).cuda_stream),
+                 "rpe_self_attention_femb launch")
+    rpe_self_attention_femb.launches += 1
+    return out
+
+
+rpe_self_attention_femb.launches = 0

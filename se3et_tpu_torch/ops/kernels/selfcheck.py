@@ -56,6 +56,10 @@ SOURCES = {
                          "se3et_tpu/ops/pallas/windowed_conv.py:1229"),
     "gather_wf_max": ("se3et_tpu_torch/csrc/gather_wf_max.cu",
                       "se3et_tpu/ops/pallas/windowed_conv.py:1352"),
+    "influence": ("se3et_tpu_torch/csrc/influence.cu",
+                  "se3et_tpu/ops/pallas/windowed_conv.py:202"),
+    "rpe_self_attention_femb": ("se3et_tpu_torch/csrc/rpe_attention_femb.cu",
+                                "se3et_tpu/ops/pallas/rpe_attention.py:495"),
 }
 WRAPPERS = {
     "gather_wf": windowed_conv.gather_wf,
@@ -72,12 +76,17 @@ WRAPPERS = {
     "gather_wf_mm": windowed_conv.gather_wf_mm,
     "gather_wf_max_mm": windowed_conv.gather_wf_max_mm,
     "gather_wf_max": windowed_conv.gather_wf_max,
+    "influence": windowed_conv.influence,
+    "rpe_self_attention_femb": rpe_attention.rpe_self_attention_femb,
 }
 SERVING = ("gather_wf", "neighbor_max", "geometric_embedding", "sinkhorn",
            "rpe_self_attention", "eq_attention_stats", "eq_attention_apply",
            "gather_wf_mm", "gather_wf_max_mm", "gather_wf_max")
 TRAINING = ("gather_wf_bwd", "neighbor_max_bwd", "geometric_embedding_bwd",
             "rpe_attention_bwd")
+# kernels of the routes off the default one: device influence (pyramids
+# without host weights) and the in-attention fused embedding (serve_femb)
+ROUTES = ("influence", "rpe_self_attention_femb")
 
 # NVIDIA H100 SXM data-sheet peaks (dense): memory bytes/s, and operations/s
 # by input type (bf16 on the tensor cores, float32 outside them)
@@ -640,4 +649,81 @@ def check_fused_conv(name, nbr, ns, ac, ac_out=0, ac2=0, k=15, dtype=torch.bfloa
     if name != "gather_wf_mm":
         nbytes += _nbytes(x2) + b * nq * ac2 * esz
         ops += float(nvalid * ac2)
+    return _with_bound(res, nbytes, ops, dtype)
+
+
+def check_influence(q_points, s_points, nbr, kernel_points, sigma, mode="linear",
+                    out_dtype=torch.bfloat16, reps=10):
+    """K15 on the given (B, Nq, 3) / (B, Ns, 3) points, (B, Nq, H) neighbours
+    and (K, 3) kernel points.  The error is the largest over (infl, inf_sum)
+    of max|got - want| / max|want|: 1e-2 in bf16 (one rounding of weights
+    <= 1; float32 sums in another order may land an ulp apart), 1e-5 in
+    float32."""
+    kp = torch.as_tensor(kernel_points, dtype=torch.float32, device=q_points.device)
+    args = (q_points, s_points, nbr, kp)
+    kw = dict(sigma=sigma, mode=mode, out_dtype=out_dtype)
+    b, nq, h = nbr.shape
+    res = _compare_many(
+        "influence", f"q{tuple(q_points.shape)} nbr{tuple(nbr.shape)} K={kp.shape[0]} "
+        f"{mode} {out_dtype}",
+        lambda: windowed_conv.influence(*args, **kw),
+        lambda: windowed_conv.influence_plain(*args, **kw),
+        1e-2 if out_dtype == torch.bfloat16 else 1e-5, reps)
+    k = kp.shape[0]
+    out_bytes = b * nq * h * k * torch.empty((), dtype=out_dtype).element_size() \
+        + b * nq * k * 4
+    # per (query, neighbour, kernel point): the offset's dot product with
+    # the kernel point, the expanded square, sqrt and the weight, about 12
+    # operations, and one add of the H-sum
+    ops = 13.0 * b * nq * h * k
+    return _with_bound(res, _nbytes(q_points, s_points, nbr, kp) + out_bytes, ops,
+                       torch.float32)
+
+
+def check_rpe_attention_femb(points, masks, ah, c=64, cc=256, k=3, sigma_d=0.2, sigma_a=15.0,
+                             with_sh=True, dtype=torch.bfloat16, seed=12, reps=3):
+    """K16 on the coarse points (B, N, 3) and key masks (B, N): random q, k,
+    v (B, AH, N, c), qp (B, N, AH, C) in ``dtype``, random projections
+    (C, C) and, with ``with_sh``, qw (B, 3, AH, N); the k nearest valid
+    neighbours of each point.  Tolerance on valid query rows 1e-2 *
+    max|out| in bf16 (K5's; the kernel and the plain version round the same
+    bases, G and rows, their float32 sums differ in order, so a row can
+    land an ulp apart) and 1e-4 * max|out| in float32."""
+    g = torch.Generator().manual_seed(seed)
+    dev = points.device
+    b, n, _ = points.shape
+    rnd = lambda *s, sc=1.0: (torch.randn(s, generator=g) * sc).to(dev, dtype)  # noqa: E731
+    q, kk, v = rnd(b, ah, n, c), rnd(b, ah, n, c), rnd(b, ah, n, c)
+    qp = rnd(b, n, ah, cc, sc=cc ** -0.5)
+    bound_w = 1.0 / math.sqrt(cc)
+    wd, wa = (((torch.rand((cc, cc), generator=g) * 2 - 1) * bound_w).to(dev) for _ in range(2))
+    qw = (torch.randn((b, 3, ah, n), generator=g) * 0.3).to(dev) if with_sh else None
+    sq = torch.cdist(points, points).masked_fill(~masks[:, None, :], 1e10)
+    idx = torch.topk(-sq, k + 1, dim=-1).indices[:, :, 1:]
+    knn = torch.gather(points, 1, idx.reshape(b, -1, 1).expand(-1, -1, 3)).reshape(b, n, k, 3)
+    pts = rpe_attention.point_rows(points)
+    scale = 1.0 / math.sqrt(c)
+    rows = masks[:, None, :, None].expand(b, ah, n, c)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    kw = dict(scale=scale, sigma_d=sigma_d, sigma_a=sigma_a)
+    res = _compare(
+        "rpe_self_attention_femb",
+        f"q(B={b}, AH={ah}, N={n}, c={c}) C={cc} {'with' if with_sh else 'no'} SH {dtype}",
+        lambda: rpe_attention.rpe_self_attention_femb(q, kk, v, qp, masks, qw, pts, knn, wd,
+                                                      wa, **kw),
+        lambda: rpe_attention.rpe_self_attention_femb_plain(q, kk, v, qp, masks, qw, pts, knn,
+                                                            wd, wa, **kw),
+        lambda w: tol * float(w[rows].abs().max()), reps, mask=rows)
+    deg_d, deg_a, _, _ = embedding._folded_projections(wd, wa, sigma_a)
+    nkeys = int(masks.sum())  # valid keys of the B clouds
+    # per (query, valid key): the distance and k angle projections (deg_d +
+    # k * deg_a terms per channel), the positional product (AH x C), the
+    # content and value products (2 x AH x c), one FMA (2 operations) each,
+    # and the SH term's few operations
+    ops = 2.0 * n * nkeys * ((deg_d + k * deg_a) * cc + ah * cc + 2 * ah * c)
+    if with_sh:
+        ops += 8.0 * ah * n * nkeys
+    nbytes = _nbytes(q, kk, v, qp, masks, points, knn, wd, wa) + b * ah * n * c * 4
+    if with_sh:
+        nbytes += _nbytes(qw)
     return _with_bound(res, nbytes, ops, dtype)

@@ -34,6 +34,11 @@ first backward over a neighbour tensor and shared by every later one, so
 once per set for all its convs), so gradients are reproducible bit for
 bit.  Influence is geometry and takes no gradient.
 
+:func:`influence` (K15, ``csrc/influence.cu``) replaces
+``influence_windowed_pallas``: the kernel-point influence weights of a
+(stage, neighbour set) computed on the card, where the pyramid carries no
+host influence (:mod:`se3et_tpu_torch.data.influence`).
+
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel (building it on first use) or raises.
 """
@@ -489,3 +494,78 @@ def gather_wf_max(x: torch.Tensor, nbr: torch.Tensor, infl: torch.Tensor,
 
 
 gather_wf_max.launches = 0
+
+
+INFLUENCE_MODES = {"linear": 0, "constant": 1, "gaussian": 2}
+
+
+def influence_plain(q_points: torch.Tensor, s_points: torch.Tensor,
+                    neighbor_indices: torch.Tensor, kernel_points: torch.Tensor, *,
+                    sigma: float, mode: str = "linear", out_dtype=torch.float32):
+    """Plain version of K15: ``infl[b, p, h, k] = f_sigma(|s[nbr(p, h)] - q[p]
+    - kp_k|)``, 0 for sentinel neighbours (``index == Ns``), with the squared
+    distance expanded as ``|rel|^2 - 2 rel.kp + |kp|^2`` and clamped at 0 (the
+    port's host influence); ``f`` is linear ``max(1 - d / sigma, 0)``,
+    constant 1 or gaussian ``exp(-d^2 / (2 (0.3 sigma)^2))``.
+
+    q_points (B, Nq, 3), s_points (B, Ns, 3) float32; neighbor_indices
+    (B, Nq, H); kernel_points (K, 3).  Returns (infl (B, Nq, H, K) in
+    ``out_dtype``, inf_sum (B, Nq, K) float32 = the sum over h of the
+    float32 weights)."""
+    if mode not in INFLUENCE_MODES:
+        raise ValueError(f"unknown influence mode {mode!r}")
+    rel = batched_gather_rows(s_points.float(), neighbor_indices) \
+        - q_points.float()[:, :, None, :]  # (B, Nq, H, 3)
+    kp = kernel_points.float()
+    sq = ((rel * rel).sum(dim=-1, keepdim=True) - 2.0 * (rel @ kp.T)
+          + (kp * kp).sum(dim=-1)).clamp_min(0.0)
+    if mode == "linear":
+        w = (1.0 - torch.sqrt(sq) / sigma).clamp_min(0.0)
+    elif mode == "constant":
+        w = torch.ones_like(sq)
+    else:
+        w = torch.exp(-sq / (2.0 * (sigma * 0.3) ** 2))
+    w = w * (neighbor_indices < s_points.shape[1])[..., None]
+    return w.to(out_dtype), w.sum(dim=2)
+
+
+def influence(q_points: torch.Tensor, s_points: torch.Tensor, neighbor_indices: torch.Tensor,
+              kernel_points: torch.Tensor, *, sigma: float, mode: str = "linear",
+              out_dtype=torch.float32):
+    """K15 (``csrc/influence.cu``, replaces the TPU
+    ``influence_windowed_pallas``): see :func:`influence_plain`; ``out_dtype``
+    bf16 or float32.  Geometry: no gradient.  Bound by device memory (the
+    (B, Nq, H, K) output); the source notes the design."""
+    if mode not in INFLUENCE_MODES:
+        raise ValueError(f"unknown influence mode {mode!r}")
+    if q_points.device.type == "cpu":
+        return influence_plain(q_points, s_points, neighbor_indices, kernel_points,
+                               sigma=sigma, mode=mode, out_dtype=out_dtype)
+    if q_points.device.type != "cuda":
+        raise ValueError(f"unsupported device {q_points.device}")
+    if out_dtype not in _DTYPES:
+        raise TypeError(f"unsupported influence dtype {out_dtype}")
+    b, nq, h = neighbor_indices.shape
+    k = kernel_points.shape[0]
+    if (q_points.shape != (b, nq, 3) or s_points.ndim != 3 or s_points.shape[0] != b
+            or s_points.shape[2] != 3 or kernel_points.shape != (k, 3)):
+        raise ValueError("bad influence input shapes")
+    if any(t.device != q_points.device for t in (s_points, neighbor_indices, kernel_points)):
+        raise ValueError("influence inputs on different devices")
+    q = q_points.float().contiguous()
+    sp = s_points.float().contiguous()
+    nbr = neighbor_indices.to(torch.int32).contiguous()
+    kp = kernel_points.float().contiguous()
+    infl = torch.empty((b, nq, h, k), dtype=out_dtype, device=q.device)
+    inf_sum = torch.empty((b, nq, k), dtype=torch.float32, device=q.device)
+    fn = _build.function("influence", f"se3et_influence_{_DTYPES[out_dtype]}", 6, 6, 1)
+    _build.check(fn(q.data_ptr(), sp.data_ptr(), nbr.data_ptr(), kp.data_ptr(),
+                    infl.data_ptr(), inf_sum.data_ptr(), b, nq, sp.shape[1], h, k,
+                    INFLUENCE_MODES[mode], float(sigma),
+                    torch.cuda.current_stream(q.device).cuda_stream),
+                 "influence launch")
+    influence.launches += 1
+    return infl, inf_sum
+
+
+influence.launches = 0

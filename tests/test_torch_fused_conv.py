@@ -8,7 +8,9 @@ the JAX package, on the CPU.
   dropped), in float32 and in bf16.
 * The slice as a whole: the port's backbone on its fused route against the
   JAX backbone on its windowed route (window maps covering every segment),
-  where JAX runs B1-B3, with the routes each side took counted.
+  where JAX runs B1-B3, with the routes each side took counted; on a
+  pyramid with host influence and on one without, where JAX computes the
+  influence with B15 and the port with K15.
 * The routing: the full-width split equals the JAX package's
   (``scripts/fused_conv_split.py``), the training route and
   ``serve_fused_conv=False`` keep K1 + matmul (+ K2), and the wrappers raise
@@ -186,7 +188,8 @@ def test_full_width_split_matches_jax():
     assert counts == {"K12": 3, "K13": 1, "K14": 1, "K1": 5, "K2": 1, "matmul": 6}
 
 
-_ROUTES = ("gather_wf", "gather_wf_mm", "gather_wf_max_mm", "gather_wf_max", "neighbor_max")
+_ROUTES = ("gather_wf", "gather_wf_mm", "gather_wf_max_mm", "gather_wf_max", "neighbor_max",
+           "influence")
 
 
 @pytest.fixture
@@ -223,14 +226,20 @@ def _random_params(shapes, seed=0):
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
-def test_backbone_fused_matches_jax_windowed_route(monkeypatch, route_calls):
+@pytest.mark.parametrize("host_influence", [True, False])
+def test_backbone_fused_matches_jax_windowed_route(monkeypatch, route_calls, host_influence):
     """The port's backbone on its fused route (serve_fused_conv=True, the
     plain versions of K12-K14 on the CPU) == the JAX backbone on its
     windowed route (tiny config, window maps over every segment, no
     neighbour dropped), where JAX runs B1/B2/B3 in interpret mode; feats_f
     and feats_c on valid rows within 1e-4 of the output scale.  At these
     tiny widths JAX sends every strided block to B2 and the port every one
-    to K13, so K14 is held against B3 by its own test only."""
+    to K13, so K14 is held against B3 by its own test only.  Without host
+    influence JAX computes the weights of the 7 (stage, set) pairs with B15
+    from its windows and the port with K15 (plain), 7 calls each; B15 reads
+    the coordinates as double-bf16, which leaves up to 2e-4 in the weights
+    (the JAX test of B15 holds it there), so that case is held at 1e-3 of
+    the output scale (measured 4.5e-4)."""
     import __graft_entry__ as ge
     from se3et_tpu.data import pipeline as jpipe
     from se3et_tpu.nn.model import SE3ETModel as JaxModel
@@ -245,7 +254,8 @@ def test_backbone_fused_matches_jax_windowed_route(monkeypatch, route_calls):
     jcfg = dataclasses.replace(jcfg, serve_fused_embedding=False)
     assert jcfg.serve_fused_conv
     jpipe.WINDOW_DROP_STATS.clear()
-    data = ge._example_pair(pipeline, num_points=250, seed=0, model_cfg=jcfg)
+    data = ge._example_pair(pipeline, num_points=250, seed=0,
+                            model_cfg=jcfg if host_influence else None)
     drops = {k: v for k, v in jpipe.WINDOW_DROP_STATS.items() if v[0]}
     assert not drops and jpipe.WINDOW_DROP_STATS, drops
     data = {k: (np.asarray(v, np.float32)
@@ -260,6 +270,14 @@ def test_backbone_fused_matches_jax_windowed_route(monkeypatch, route_calls):
         return b3(*args, **kwargs)
 
     monkeypatch.setattr(wc, "windowed_gather_wf_max", count_b3)
+    b15_calls = []
+    b15 = wc.influence_windowed_pallas
+
+    def count_b15(*args, **kwargs):
+        b15_calls.append(1)
+        return b15(*args, **kwargs)
+
+    monkeypatch.setattr(wc, "influence_windowed_pallas", count_b15)
     jmodel = JaxModel(jcfg)
     rngs = {"params": jax.random.PRNGKey(0), "targets": jax.random.PRNGKey(1)}
     shapes = jax.eval_shape(lambda d: jmodel.init(rngs, d, train=False, with_gt=False,
@@ -267,6 +285,7 @@ def test_backbone_fused_matches_jax_windowed_route(monkeypatch, route_calls):
     params = _random_params(shapes)
     mm_before = len(wc.TRACE_MM_FLOPS)
     b3_calls.clear()
+    b15_calls.clear()
     want = jax.tree.map(np.asarray, jax.jit(lambda p, d: jmodel.apply(
         p, d, train=False, with_gt=False, stop_after="backbone"))(params, data))
     jax_mm = len(wc.TRACE_MM_FLOPS) - mm_before
@@ -277,13 +296,16 @@ def test_backbone_fused_matches_jax_windowed_route(monkeypatch, route_calls):
     load_flax_params(port, params)
     got = port(pyramid_to_tensors(data, "cpu"), stop_after="backbone")
 
-    assert route_calls == {"gather_wf_mm": 7, "gather_wf_max_mm": 3}
+    k15 = {} if host_influence else {"influence": 7}
+    assert route_calls == {"gather_wf_mm": 7, "gather_wf_max_mm": 3, **k15}
+    assert len(b15_calls) == route_calls["influence"]
     assert jax_mm == route_calls["gather_wf_mm"] + route_calls["gather_wf_max_mm"]
     assert len(b3_calls) == route_calls["gather_wf_max"] == 0
     m1, mc = data["masks_1"], data["masks_3"]
+    tol = 1e-4 if host_influence else 1e-3
     for key, m in (("feats_f", m1), ("feats_c", mc)):
         g, w = got[key][torch.from_numpy(m)].numpy(), want[key][m]
-        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4 * np.abs(w).max())
+        np.testing.assert_allclose(g, w, rtol=tol, atol=tol * np.abs(w).max())
 
 
 @pytest.mark.parametrize("route", ["serve_fused_conv=False", "train"])

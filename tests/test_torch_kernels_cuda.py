@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1-K7 and the fused serving convs K12-K14, and
-the training backwards K8-K11) against their plain versions on the card,
+"""The port's CUDA kernels (K1-K7, the fused serving convs K12-K14, the
+training backwards K8-K11, the device influence K15 and the fused-embedding
+attention K16) against their plain versions on the card,
 at the serving and training shapes of se3ete.3dmatch, at ragged shapes (N
 not a multiple of any block) and at the tiny float32 widths of the
 card-vs-CPU check.
@@ -232,3 +233,41 @@ def test_fused_conv_kernels_raise_on_grad_and_refused_widths(cuda):
     with pytest.raises(ValueError, match="does not take"):
         wc.gather_wf_max(x, nbr, infl, torch.zeros((2, 128, 3072), device=cuda,
                                                    dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("nq,ns,h", [
+    (20000, 20000, 24),   # stage-0 same-level set
+    (10000, 20000, 24),   # stage-1 strided set
+    (1024, 2500, 38),     # stage-3 strided set
+    (97, 250, 5),         # ragged, tiny
+])
+@pytest.mark.parametrize("mode", ["linear", "constant", "gaussian"])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_influence_kernel(cuda, nq, ns, h, mode, out_dtype):
+    """K15 with sentinels (about a quarter, and the last 3 query rows all
+    sentinels) in the three influence modes."""
+    from se3et_tpu_torch.core import kernel_points as kp_lib
+
+    g = torch.Generator().manual_seed(16)
+    s_points = (torch.rand((2, ns, 3), generator=g) * 2).to(cuda)
+    q_points = s_points[:, :nq].contiguous()
+    nbr = _conv_neighbors(cuda, nq, ns, h, 17)
+    kp = kp_lib.equivariant_kernel_points(0.0625, 15, 6, 4)
+    _assert_ok(selfcheck.check_influence(q_points, s_points, nbr, kp, 0.05, mode=mode,
+                                         out_dtype=out_dtype, reps=1))
+
+
+@pytest.mark.parametrize("n,ah,c,cc,with_sh,dtype", [
+    (1024, 24, 64, 256, True, torch.bfloat16),    # self_eq layers
+    (1024, 4, 64, 256, False, torch.bfloat16),    # plain self layers
+    (1024, 24, 64, 256, False, torch.bfloat16),
+    (1024, 4, 64, 256, True, torch.bfloat16),
+    (1003, 24, 64, 256, True, torch.bfloat16),    # ragged N
+    (128, 24, 16, 64, True, torch.float32),       # tiny card-vs-CPU widths
+    (128, 4, 16, 64, False, torch.float32),
+    (128, 24, 64, 64, True, torch.float32),       # float32 at the serving head width
+])
+def test_rpe_attention_femb_kernel(cuda, n, ah, c, cc, with_sh, dtype):
+    points, masks = _cloud(cuda, n, 18)
+    _assert_ok(selfcheck.check_rpe_attention_femb(points, masks, ah, c=c, cc=cc,
+                                                  with_sh=with_sh, dtype=dtype, reps=1))
