@@ -14,7 +14,9 @@ Phases, each of which raises (exit code != 0) on failure:
    at the slice's real shapes, in the working dtype (bf16 for K1-K3, K5-K7
    and K12-K14, float32 for K4), with its bound and, where one exists, the
    time of one PyTorch call computing the same function; for the fused
-   convs K12-K14 also the time of the unfused route (K1 + matmul (+ K2));
+   convs K12-K14 also the time of the unfused route (K1 + matmul (+ K2)),
+   and K1 and K2 at the shapes where they serve on the fused route (the
+   stage 2-3 convs and the s2 -> s3 skip) beside their stage-0 rows;
 4. check that the kernel path (card) and the plain path (CPU) agree on two
    tiny float32 inputs: the materialised-attention cut and the flash cut
    (128-point coarse stage, 600 points), both through the fused convs
@@ -51,7 +53,8 @@ Phases, each of which raises (exit code != 0) on failure:
    ``serve_femb=True`` in turns with the default route (per pair K16 5, K3
    0, K5 0), with ms/pair, peak memory, the routes' differences on pair 0
    and a ``torch.profiler`` breakdown of one femb pair; then
-   ``se3et_tpu_torch.entry.entry()`` once, with a finite transform.
+   ``se3et_tpu_torch.entry.entry()`` once, with a finite transform, printed
+   beside its largest matching score.
 
 Prints timings, then the card's name and power limit, a JSON line with the
 kernels, and as the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -486,6 +489,10 @@ def _routes(cfg, pairs, bare_pairs, extent, dev):
     out = fn(net, data)
     torch.cuda.synchronize()
     tf = out["estimated_transform"]
+    scores = out["matching_scores"]
+    top = float(scores[torch.isfinite(scores) & (scores > -1e6)].max())
+    print(f"entry(): largest matching score {top:.4f}, estimated_transform\n"
+          f"{tf.cpu().numpy()}", flush=True)
     if tf.shape != (4, 4) or not bool(torch.isfinite(tf).all()):
         raise RuntimeError(f"entry(): bad estimated_transform {tf}")
     if selfcheck.WRAPPERS["influence"].launches != 7:
@@ -551,7 +558,7 @@ def main() -> int:
     # 3. kernels against their plain versions at the slice's shapes
     m = cfg.model
     p0 = pyramid_to_tensors(pairs[0], dev)
-    ns0, ns1 = p0["points_0"].shape[1], p0["points_1"].shape[1]
+    ns0, ns1, ns2, ns3 = (p0[f"points_{i}"].shape[1] for i in range(4))
     pts_c, masks_c = p0["points_3"], p0["masks_3"]
     heads, head_dim = m.num_heads, m.gt_hidden_dim // m.num_heads
     checks = {
@@ -587,6 +594,13 @@ def main() -> int:
         # stage-1 bottleneck convs (mid 64: A*Cin = A*Cout = 384)
         selfcheck.check_fused_conv("gather_wf_mm", p0["neighbors_1"], ns1, 6 * 64,
                                    ac_out=6 * 64),
+        # K1 and K2 where they serve on the fused route: the stage-2
+        # bottleneck convs (x2, A*128), the s2 -> s3 strided conv (A*128)
+        # and its skip max (A*512), the stage-3 bottleneck convs (x2, A*256)
+        selfcheck.check_gather_wf(p0["neighbors_2"], ns2, 6 * 128),
+        selfcheck.check_gather_wf(p0["subsampling_2"], ns2, 6 * 128),
+        selfcheck.check_neighbor_max(p0["subsampling_2"], ns2, 6 * 512),
+        selfcheck.check_gather_wf(p0["neighbors_3"], ns3, 6 * 256),
         # plain self layers: H heads, no SH term
         selfcheck.check_rpe_attention(pts_c, masks_c, heads, c=head_dim,
                                       cc=m.gt_hidden_dim, with_sh=False),

@@ -30,26 +30,22 @@
 // angle max is taken elementwise, and the sum is repacked as bf16 into the
 // A fragment of the positional product against qp (the accumulator layout
 // of m16n8k16 is the A layout of the next product).  The embedding never
-// leaves registers.  The float32 kernel evaluates the same per key on the
+// leaves registers.  The basis rows and the tile projection are
+// K3's (embedding_tc.cuh).  The float32 kernel evaluates the same per key on the
 // CUDA cores, one lane per key.
 #include "rpe_attention_core.cuh"
-#include "embedding_common.cuh"
+#include "embedding_tc.cuh"
 
 namespace {
 
 using namespace se3et;
 
-constexpr int kDD = 40;       // distance basis
-constexpr int kDDPad = 48;    // ... padded to three k-steps of 16
-constexpr int kDA = 16;       // angle basis
-constexpr int kKA = 3;        // angle neighbours
-constexpr int kDeg = kDDPad + kDA;  // rows of the folded G (distance, then angle)
-constexpr int kGStride = kDeg + 8;  // bf16 per shared G column
-constexpr int kBStride = kDDPad + kKA * kDA + 8;  // bf16 per shared basis row
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+using emb::kBStride;
+using emb::kDA;
+using emb::kDD;
+using emb::kDDPad;
+using emb::kGStride;
+using emb::kKA;
 
 __device__ __forceinline__ uint32_t ldg32(const __nv_bfloat16* p, bool ok) {
   return ok ? __ldg(reinterpret_cast<const unsigned int*>(p)) : 0u;
@@ -86,13 +82,7 @@ struct EmbGeometry {
 
   // G, transposed, into shared memory (16-byte copies)
   __device__ void init(char* smem, int cc) const {
-    __nv_bfloat16* sg = reinterpret_cast<__nv_bfloat16*>(smem);
-    for (int i = threadIdx.x; i < cc * (kDeg / 8); i += blockDim.x) {
-      const int c = i / (kDeg / 8);
-      const int part = i - c * (kDeg / 8);
-      *reinterpret_cast<uint4*>(sg + c * kGStride + 8 * part) =
-          __ldg(reinterpret_cast<const uint4*>(gt + c * kDeg + 8 * part));
-    }
+    emb::load_g(reinterpret_cast<__nv_bfloat16*>(smem), gt, cc);
   }
 
   template <int AH, int NT>
@@ -112,17 +102,10 @@ struct EmbGeometry {
       if (key < n) {
         float dist, ang[kKA];
         pair_geometry(pts3 + (long long)b * n * 3, knn, n, b, row, key, dist, ang);
-        cheb_basis<kDD>(dist, inv_d, mine);
-#pragma unroll
-        for (int k = 0; k < kKA; ++k) cheb_basis<kDA>(ang[k], inv_a, mine + kDDPad + kDA * k);
+        emb::key_basis(dist, ang, inv_d, inv_a, mine);
       } else {
-#pragma unroll
-        for (int j = 0; j < kDD; ++j) mine[j] = __float2bfloat16(0.f);
-#pragma unroll
-        for (int j = kDDPad; j < kDDPad + kKA * kDA; ++j) mine[j] = __float2bfloat16(0.f);
+        emb::zero_basis(mine);
       }
-#pragma unroll
-      for (int j = kDD; j < kDDPad; ++j) mine[j] = __float2bfloat16(0.f);
     }
     __syncwarp();
 
@@ -131,44 +114,15 @@ struct EmbGeometry {
     const __nv_bfloat16* qprow = qp + ((long long)b * n + row) * AH * cc;
 #pragma unroll 1
     for (int mt = 0; mt < 2; ++mt) {
-      const __nv_bfloat16* r_lo = sb + (16 * mt + g) * kBStride + 2 * t;
-      const __nv_bfloat16* r_hi = r_lo + 8 * kBStride;
-      uint32_t ad[kDDPad / 16][4], aa[kKA][4];
-#pragma unroll
-      for (int s = 0; s < kDDPad / 16; ++s) {
-        ad[s][0] = lds32(r_lo + 16 * s);
-        ad[s][1] = lds32(r_hi + 16 * s);
-        ad[s][2] = lds32(r_lo + 16 * s + 8);
-        ad[s][3] = lds32(r_hi + 16 * s + 8);
-      }
-#pragma unroll
-      for (int k = 0; k < kKA; ++k) {
-        const int o = kDDPad + kDA * k;
-        aa[k][0] = lds32(r_lo + o);
-        aa[k][1] = lds32(r_hi + o);
-        aa[k][2] = lds32(r_lo + o + 8);
-        aa[k][3] = lds32(r_hi + o + 8);
-      }
+      emb::BasisFrag f;
+      emb::load_basis(sb, 16 * mt, lane, f);
 #pragma unroll 1
       for (int c0 = 0; c0 < cc; c0 += 16) {
         float e[2][4];
 #pragma unroll
         for (int jn = 0; jn < 2; ++jn) {
-          const __nv_bfloat16* gcol = sg + (c0 + 8 * jn + g) * kGStride + 2 * t;
-          float d[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-          for (int s = 0; s < kDDPad / 16; ++s)
-            mma_bf16(d, ad[s][0], ad[s][1], ad[s][2], ad[s][3], lds32(gcol + 16 * s),
-                     lds32(gcol + 16 * s + 8));
-          const uint32_t b0 = lds32(gcol + kDDPad), b1 = lds32(gcol + kDDPad + 8);
-          float amax[4];
-#pragma unroll
-          for (int k = 0; k < kKA; ++k) {
-            float cur[4] = {0.f, 0.f, 0.f, 0.f};
-            mma_bf16(cur, aa[k][0], aa[k][1], aa[k][2], aa[k][3], b0, b1);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) amax[i] = k == 0 ? cur[i] : fmaxf(amax[i], cur[i]);
-          }
+          float d[4], amax[4];
+          emb::project(f, sg + (c0 + 8 * jn + g) * kGStride + 2 * t, d, amax);
 #pragma unroll
           for (int i = 0; i < 4; ++i) e[jn][i] = d[i] + Elem<__nv_bfloat16>::round(amax[i]);
         }

@@ -119,6 +119,10 @@ def _check_supported(c: ModelConfig) -> None:
     unsupported = {
         "backbone != 'e2pn'": c.backbone != "e2pn",
         "gn_joint_stats": c.gn_joint_stats,
+        # rematerialising the backbone in the backward changes memory, not
+        # the function; refused until training ports it, so it is never
+        # accepted and ignored
+        "backbone_remat": c.backbone_remat,
         "serve_fused_sinkhorn=False": not c.serve_fused_sinkhorn,
         "anchor_matching": c.anchor_matching,
         "supervise_rotation": c.supervise_rotation,

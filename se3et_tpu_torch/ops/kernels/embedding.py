@@ -97,9 +97,29 @@ def _cheb_basis(x, inv_half_range, deg):
     return torch.stack(rows[:deg], dim=-1)
 
 
-def _cheb_project(x, inv_half_range, g, bias):
-    """T(clip(x * inv_half_range - 1)) @ G + b for an index tensor x (...)."""
-    return _cheb_basis(x, inv_half_range, g.shape[0]) @ g + bias
+def _cheb_project(x, inv_half_range, g, bias, dtype=torch.float32):
+    """T(clip(x * inv_half_range - 1)) @ G + b for an index tensor x (...),
+    the basis and G rounded to ``dtype`` (bf16: the TPU kernel's chain),
+    products summed in float32."""
+    return _rnd(_cheb_basis(x, inv_half_range, g.shape[0]), dtype) @ _rnd(g, dtype) + bias
+
+
+def _rnd(t, dtype):
+    """``t`` rounded to ``dtype``, held in float32."""
+    return t if dtype == torch.float32 else t.to(dtype).float()
+
+
+def tc_table(gd, ga):
+    """The folded projections as the tensor-core tile projection reads them
+    (``csrc/embedding_tc.cuh``): (C, 64) bf16 rows ``[Gd (40) | 0 (8) | Ga
+    (16)]``, G transposed."""
+    if (gd.shape[0], ga.shape[0]) != (40, 16):
+        raise ValueError(f"the tensor-core projection takes 40 distance and 16 angle basis "
+                         f"terms, got {gd.shape[0]} and {ga.shape[0]}")
+    gt = torch.zeros((gd.shape[1], 64), dtype=torch.bfloat16, device=gd.device)
+    gt[:, :40] = gd.t()
+    gt[:, 48:] = ga.t()
+    return gt
 
 
 def _pair_geometry(points, knn_points, r0, r1):
@@ -119,8 +139,11 @@ def geometric_embedding_plain(points, knn_points, wd, bd, wa, ba, sigma_d, sigma
 
     points: (B, N, 3) f32; knn_points: (B, N, k, 3) f32; wd/wa: (C, C)
     projection kernels stored (in, out); bd/ba: (C,).  Returns (B, N, N, C)
-    in ``out_dtype``.  Query rows are processed ``row_block`` at a time to
-    bound the (rows, N, k, C) angle temporaries.
+    in ``out_dtype``.  For a bf16 output the TPU kernel's chain: the bases
+    and G rounded to bf16, products summed in float32, the biases and the
+    angle max in float32, the row rounded to bf16; in float32 nothing is
+    rounded.  Query rows are processed ``row_block`` at a time to bound the
+    (rows, N, k, C) angle temporaries.
     """
     b, n, _ = points.shape
     _, _, gd, ga = _folded_projections(wd, wa, sigma_a)
@@ -132,8 +155,8 @@ def geometric_embedding_plain(points, knn_points, wd, bd, wa, ba, sigma_d, sigma
     for r0 in range(0, n, row_block):
         r1 = min(n, r0 + row_block)
         ang = _pair_geometry(points, knn_points, r0, r1)  # (B, R, N, k)
-        a_emb = _cheb_project(ang, inv_a, ga, ba.float()).amax(dim=3)
-        d_emb = _cheb_project(dist[:, r0:r1], inv_d, gd, bd.float())
+        a_emb = _cheb_project(ang, inv_a, ga, ba.float(), out_dtype).amax(dim=3)
+        d_emb = _cheb_project(dist[:, r0:r1], inv_d, gd, bd.float(), out_dtype)
         out[:, r0:r1] = (d_emb + a_emb).to(out_dtype)
     return out
 
@@ -146,10 +169,11 @@ def geometric_embedding_bwd_plain(d_emb, points, knn_points, wd, bd, wa, ba, sig
     Accumulated in basis space, ``dGd = sum T_d^T d_emb``, ``dGa = sum_k
     T_a(k)^T (d_emb * first_argmax_k)``, ``db = sum d_emb``, then ``d_wd =
     A_d^T dGd``, ``d_wa = A_a^T dGa`` and ``d_bd = d_ba = db``.  The angle
-    max is routed to the FIRST k attaining it (recomputed with the forward's
-    arithmetic), as the JAX package's VJP routes it; ``torch.amax``'s own
-    backward would split ties instead.  Returns float32 (d_wd, d_bd, d_wa,
-    d_ba)."""
+    max is routed to the FIRST k attaining it, recomputed with the forward's
+    arithmetic for an output of d_emb's dtype (bf16: the forward's bf16
+    chain), as the JAX package's VJP routes it; ``torch.amax``'s own backward
+    would split ties instead.  The accumulations take the float32 bases.
+    Returns float32 (d_wd, d_bd, d_wa, d_ba)."""
     b, n, _ = points.shape
     deg_d, deg_a, _, ga = _folded_projections(wd, wa, sigma_a)
     inv_d = 2.0 / (D_INDEX_MAX * sigma_d)
@@ -164,7 +188,8 @@ def geometric_embedding_bwd_plain(d_emb, points, knn_points, wd, bd, wa, ba, sig
         r1 = min(n, r0 + row_block)
         g = d_emb[:, r0:r1].float()  # (B, R, N, C)
         ang = _pair_geometry(points, knn_points, r0, r1)
-        first = torch.argmax(_cheb_project(ang, inv_a, ga, ba.float()), dim=3)  # (B, R, N, C)
+        first = torch.argmax(_cheb_project(ang, inv_a, ga, ba.float(), d_emb.dtype),
+                             dim=3)  # (B, R, N, C)
         basis_a = _cheb_basis(ang, inv_a, deg_a)  # (B, R, N, k, deg_a)
         dgd += torch.einsum("brnj,brnc->jc", _cheb_basis(dist[:, r0:r1], inv_d, deg_d), g)
         for kk in range(ang.shape[3]):
@@ -200,17 +225,21 @@ def _geometric_embedding_forward(points, knn_points, wd, bd, wa, ba, sigma_d, si
     deg_d, deg_a, gd, ga = _folded_projections(wd, wa, sigma_a)
     points = points.float().contiguous()
     knn_points = knn_points.float().contiguous()
-    gd, ga = gd.contiguous(), ga.contiguous()
     bd, ba = bd.float().contiguous(), ba.float().contiguous()
     out = torch.empty((b, n, n, c), dtype=out_dtype, device=points.device)
-    fn = _build.function("geometric_embedding",
-                         f"se3et_geometric_embedding_{_DTYPES[out_dtype]}", 7, 6, 2)
-    _build.check(fn(points.data_ptr(), knn_points.data_ptr(), gd.data_ptr(),
-                    bd.data_ptr(), ga.data_ptr(), ba.data_ptr(), out.data_ptr(),
-                    b, n, c, deg_d, deg_a, k,
-                    2.0 / (D_INDEX_MAX * sigma_d), 2.0 / math.pi,
-                    torch.cuda.current_stream(points.device).cuda_stream),
-                 "geometric_embedding launch")
+    stream = torch.cuda.current_stream(points.device).cuda_stream
+    scalars = (b, n, c, deg_d, deg_a, k, 2.0 / (D_INDEX_MAX * sigma_d), 2.0 / math.pi, stream)
+    if out_dtype == torch.bfloat16:
+        gt = tc_table(gd, ga)
+        fn = _build.function("geometric_embedding", "se3et_geometric_embedding_bf16", 6, 6, 2)
+        status = fn(points.data_ptr(), knn_points.data_ptr(), gt.data_ptr(), bd.data_ptr(),
+                    ba.data_ptr(), out.data_ptr(), *scalars)
+    else:
+        gd, ga = gd.contiguous(), ga.contiguous()
+        fn = _build.function("geometric_embedding", "se3et_geometric_embedding_f32", 7, 6, 2)
+        status = fn(points.data_ptr(), knn_points.data_ptr(), gd.data_ptr(), bd.data_ptr(),
+                    ga.data_ptr(), ba.data_ptr(), out.data_ptr(), *scalars)
+    _build.check(status, "geometric_embedding launch")
     geometric_embedding.launches += 1
     return out
 
@@ -235,7 +264,9 @@ def geometric_embedding(points, knn_points, wd, bd, wa, ba, sigma_d, sigma_a,
                         out_dtype=torch.bfloat16):
     """K3 (``csrc/geometric_embedding.cu``, replaces the TPU
     ``geometric_embedding_pallas``): see :func:`geometric_embedding_plain`.
-    Bound by fp32 FMA throughput; the source notes the design.
+    bf16: the projections on the tensor cores, bound by the output's write;
+    float32: on the CUDA cores, bound by their FMA rate.  The source notes
+    the design.
     Differentiable in (wd, bd, wa, ba), backward K10
     (:func:`geometric_embedding_bwd`)."""
     if points.requires_grad or knn_points.requires_grad:
@@ -255,7 +286,9 @@ def geometric_embedding_bwd(d_emb, points, knn_points, wd, bd, wa, ba, sigma_d, 
     ``_emb_bwd_call``): see :func:`geometric_embedding_bwd_plain`; d_emb in
     bf16 or float32.  Per-row partial sums are added by ``torch.sum`` in a
     fixed order; ``d_W = A^T dG`` stays a matmul, as in the JAX package.
-    Bound by fp32 FMA throughput; the source notes the design."""
+    With a bf16 d_emb the angle argmax comes from K3's tensor-core
+    projections.  Bound by fp32 FMA throughput; the source notes the
+    design."""
     if points.device.type == "cpu":
         return geometric_embedding_bwd_plain(d_emb, points, knn_points, wd, bd, wa, ba,
                                              sigma_d, sigma_a)
@@ -268,20 +301,27 @@ def geometric_embedding_bwd(d_emb, points, knn_points, wd, bd, wa, ba, sigma_d, 
     c = wd.shape[1]
     if d_emb.shape != (b, n, n, c) or knn_points.shape != (b, n, k, 3):
         raise ValueError("bad embedding backward input shapes")
-    deg_d, deg_a, _, ga = _folded_projections(wd, wa, sigma_a)
+    deg_d, deg_a, gd, ga = _folded_projections(wd, wa, sigma_a)
     points = points.float().contiguous()
     knn_points = knn_points.float().contiguous()
     ga, ba = ga.contiguous(), ba.float().contiguous()
     d_emb = d_emb.contiguous()
     part = torch.empty((b * n, deg_d + deg_a + 1, c), dtype=torch.float32,
                        device=points.device)
-    fn = _build.function("geometric_embedding",
-                         f"se3et_geometric_embedding_bwd_{_DTYPES[d_emb.dtype]}", 6, 6, 2)
-    _build.check(fn(points.data_ptr(), knn_points.data_ptr(), ga.data_ptr(), ba.data_ptr(),
-                    d_emb.data_ptr(), part.data_ptr(), b, n, c, deg_d, deg_a, k,
-                    2.0 / (D_INDEX_MAX * sigma_d), 2.0 / math.pi,
-                    torch.cuda.current_stream(points.device).cuda_stream),
-                 "geometric_embedding_bwd launch")
+    scalars = (b, n, c, deg_d, deg_a, k, 2.0 / (D_INDEX_MAX * sigma_d), 2.0 / math.pi,
+               torch.cuda.current_stream(points.device).cuda_stream)
+    if d_emb.dtype == torch.bfloat16:
+        # the argmax over the forward's tensor-core projections
+        gt = tc_table(gd, ga)
+        fn = _build.function("geometric_embedding", "se3et_geometric_embedding_bwd_bf16", 7, 6,
+                             2)
+        status = fn(points.data_ptr(), knn_points.data_ptr(), ga.data_ptr(), ba.data_ptr(),
+                    gt.data_ptr(), d_emb.data_ptr(), part.data_ptr(), *scalars)
+    else:
+        fn = _build.function("geometric_embedding", "se3et_geometric_embedding_bwd_f32", 6, 6, 2)
+        status = fn(points.data_ptr(), knn_points.data_ptr(), ga.data_ptr(), ba.data_ptr(),
+                    d_emb.data_ptr(), part.data_ptr(), *scalars)
+    _build.check(status, "geometric_embedding_bwd launch")
     geometric_embedding_bwd.launches += 1
     tot = part.sum(dim=0)
     return _basis_to_weights(tot[:deg_d], tot[deg_d:deg_d + deg_a], tot[deg_d + deg_a], wd,

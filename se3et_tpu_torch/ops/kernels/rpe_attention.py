@@ -355,7 +355,7 @@ def _femb_tables(wd, wa, sigma_a, dtype):
     g[:40] = gd
     g[48:] = ga
     g = g.to(dtype).float()
-    gt = g.t().contiguous().to(torch.bfloat16) if dtype == torch.bfloat16 else None
+    gt = embedding.tc_table(gd, ga) if dtype == torch.bfloat16 else None
     return deg_d, deg_a, g, gt
 
 

@@ -319,13 +319,18 @@ neighbor_max_bwd.launches = 0
 # K12 keeps the (64, A*Cout) float32 output tile of its 64 query rows in the
 # registers of one 8-warp block per SM (96 per thread at A*Cout = 384); K13
 # runs two blocks per SM (its skip max is a latency-bound gather), which
-# halves that to 48 per thread (A*Cout = 192).  Both read the influence as
-# 16 padded weights per (query, neighbour).  K14 keeps the skip maxima of
+# halves that to 48 per thread (A*Cout = 192).  K12 in bf16 reads the
+# influence in place into registers and gathers on the tensor cores for
+# H <= MM_TC_MAX_H (past it the influence fragments and the staged
+# neighbour rows outgrow registers and shared memory); wider neighbour
+# sets, the float32 K12 and K13 read it as 16 padded weights per (query,
+# neighbour).  K14 keeps the skip maxima of
 # its 4 query rows in registers, at most 6 groups of 8 channels for each of
 # its 128 threads (A*C2 <= 1536).
 MM_MAX_AC_OUT = 384
 MAX_MM_MAX_AC_OUT = 192
 MAX_SKIP_AC = 1536
+MM_TC_MAX_H = 32
 _KP = 16
 
 
@@ -396,28 +401,63 @@ def _padded_influence(infl, h, dtype):
     return out
 
 
+def mm_panels(rhs: torch.Tensor, k: int, ac: int) -> torch.Tensor:
+    """The expanded weight rhs (K*AC, A*Cout) as the tensor-core K12 reads
+    it: one contiguous panel per (32-channel chunk c, kernel point k),
+    ``panels[c, k, n, :] = rhs[k*AC + 32c : k*AC + 32c + 32, n]`` (zero past
+    AC), each 64-byte row's four 16-byte units XOR-swizzled by the row pair
+    (unit u at u ^ ((n >> 1) & 3)), the order the kernel's shared tiles
+    use, so that one bulk copy lands a panel in place.  The plain version of
+    the relayout the K12 wrapper launches on the card (one kernel: a 4.4 MB
+    copy at the stage-1 convs)."""
+    ac_out = rhs.shape[1]
+    nch = -(-ac // 32)
+    w = rhs.t().reshape(ac_out, k, ac)
+    if nch * 32 != ac:
+        w = torch.nn.functional.pad(w, (0, nch * 32 - ac))
+    w = w.reshape(ac_out, k, nch, 4, 8)
+    n = torch.arange(ac_out, device=rhs.device)
+    unit = torch.arange(4, device=rhs.device)[None, :] ^ ((n[:, None] >> 1) & 3)
+    w = torch.gather(w, 3, unit[:, None, None, :, None].expand(ac_out, k, nch, 4, 8))
+    return w.permute(2, 1, 0, 3, 4).contiguous()
+
+
 def _launch_mm(name, x, nbr, infl, rhs, x2=None):
     """K12 (x2 None) or K13 on CUDA tensors; returns (out, pooled or None)."""
     b, nq, h = nbr.shape
     k, ac, ac_out = infl.shape[3], x.shape[2], rhs.shape[1]
-    x, nbr = x.contiguous(), nbr.contiguous()
-    w = _padded_influence(infl, h, x.dtype)
-    rhs_t = rhs.to(x.dtype).t().contiguous()  # (A*Cout, K*AC): free for a transposed view
+    x, nbr, rhs = x.contiguous(), nbr.contiguous(), rhs.to(x.dtype)
     out = torch.empty((b, nq, ac_out), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if x2 is None:
-        fn = _build.function("gather_wf_mm", f"se3et_gather_wf_mm_{_DTYPES[x.dtype]}", 5, 7)
-        status = fn(x.data_ptr(), nbr.data_ptr(), w.data_ptr(), rhs_t.data_ptr(),
-                    out.data_ptr(), b, x.shape[1], nq, h, k, ac, ac_out, stream)
-        pooled = None
+    pooled = None
+    if x2 is None and x.dtype == torch.bfloat16 and h <= MM_TC_MAX_H:
+        # the tensor-core K12 reads the influence as it lies (its first h of
+        # hs columns) and the weight as panels
+        w = infl.to(x.dtype).contiguous()
+        rhs_t = rhs.t().contiguous()  # (A*Cout, K*AC): free for a transposed view
+        panels = torch.empty((-(-ac // 32), k, ac_out, 4, 8), dtype=x.dtype, device=x.device)
+        _build.check(_build.function("gather_wf_mm", "se3et_gather_wf_mm_panels_bf16", 2, 3)(
+            rhs_t.data_ptr(), panels.data_ptr(), k, ac, ac_out, stream), f"{name} panels")
+        fn = _build.function("gather_wf_mm", "se3et_gather_wf_mm_bf16", 5, 8)
+        status = fn(x.data_ptr(), nbr.data_ptr(), w.data_ptr(), panels.data_ptr(),
+                    out.data_ptr(), b, x.shape[1], nq, h, w.shape[2], k, ac, ac_out, stream)
     else:
-        x2 = x2.contiguous()
-        pooled = torch.empty((b, nq, x2.shape[2]), dtype=x2.dtype, device=x.device)
-        fn = _build.function("gather_wf_mm", f"se3et_gather_wf_max_mm_{_DTYPES[x.dtype]}",
-                             7, 8)
-        status = fn(x.data_ptr(), nbr.data_ptr(), w.data_ptr(), rhs_t.data_ptr(),
-                    out.data_ptr(), x2.data_ptr(), pooled.data_ptr(), b, x.shape[1], nq, h,
-                    k, ac, ac_out, x2.shape[2], stream)
+        w = _padded_influence(infl, h, x.dtype)
+        rhs_t = rhs.t().contiguous()  # (A*Cout, K*AC): free for a transposed view
+        if x2 is None:
+            symbol = "se3et_gather_wf_mm_wide_bf16" if x.dtype == torch.bfloat16 \
+                else "se3et_gather_wf_mm_f32"
+            fn = _build.function("gather_wf_mm", symbol, 5, 7)
+            status = fn(x.data_ptr(), nbr.data_ptr(), w.data_ptr(), rhs_t.data_ptr(),
+                        out.data_ptr(), b, x.shape[1], nq, h, k, ac, ac_out, stream)
+        else:
+            x2 = x2.contiguous()
+            pooled = torch.empty((b, nq, x2.shape[2]), dtype=x2.dtype, device=x.device)
+            fn = _build.function("gather_wf_mm",
+                                 f"se3et_gather_wf_max_mm_{_DTYPES[x.dtype]}", 7, 8)
+            status = fn(x.data_ptr(), nbr.data_ptr(), w.data_ptr(), rhs_t.data_ptr(),
+                        out.data_ptr(), x2.data_ptr(), pooled.data_ptr(), b, x.shape[1], nq,
+                        h, k, ac, ac_out, x2.shape[2], stream)
     _build.check(status, f"{name} launch")
     return out, pooled
 

@@ -330,3 +330,24 @@ def test_unfused_routes_keep_k1_and_k2(route, route_calls):
     if route == "train":
         model(data, stop_after="backbone")
         assert route_calls == {"gather_wf_mm": 7, "gather_wf_max_mm": 3}
+
+
+@pytest.mark.parametrize("k,ac,ac_out", [(15, 192, 192), (3, 40, 16), (2, 8, 24)])
+def test_mm_panels_lay_out_the_weight_as_the_kernel_reads_it(k, ac, ac_out):
+    """The tensor-core K12's weight panels: panel (chunk c, kernel point k),
+    row n holds rhs[k*AC + 32c + 8u + e, n] at unit u ^ ((n >> 1) & 3),
+    element e, zero past AC."""
+    rng = np.random.RandomState(k * ac)
+    rhs = torch.from_numpy(rng.randn(k * ac, ac_out).astype(np.float32))
+    panels = wc_k.mm_panels(rhs, k, ac).numpy()
+    nch = -(-ac // 32)
+    assert panels.shape == (nch, k, ac_out, 4, 8)
+    want = np.zeros_like(panels)
+    for c in range(nch):
+        for kk in range(k):
+            for n in range(ac_out):
+                for u in range(4):
+                    ch = 32 * c + 8 * u + np.arange(8)
+                    ok = ch < ac
+                    want[c, kk, n, u ^ ((n >> 1) & 3), ok] = rhs.numpy()[kk * ac + ch[ok], n]
+    np.testing.assert_array_equal(panels, want)

@@ -145,8 +145,12 @@ def test_embedding_matches_jax_xla_route():
 
 def test_embedding_plain_matches_pallas_kernel():
     """K3 plain (bf16 out) == geometric_embedding_pallas in interpret mode:
-    |diff| <= 8e-3 * max|emb| (bf16 output rounding plus the TPU kernel's
-    polynomial atan2)."""
+    both round the bases and G to bf16 and sum in float32, so a row lands
+    at most one bf16 ulp apart where the TPU kernel's polynomial atan2 and
+    direct distance (the port: exact atan2, the expanded distance) or the
+    order of the float32 sums move it across a rounding boundary:
+    |diff| <= 5e-3 * max|emb| (one ulp at the scale, < 2^-7), and under 2 %
+    of the valid elements differ at all."""
     from se3et_tpu.nn.embedding import GeometricStructureEmbedding as JEmb
     from se3et_tpu.ops.pallas.embedding import geometric_embedding_pallas
 
@@ -165,9 +169,13 @@ def test_embedding_plain_matches_pallas_kernel():
         torch.from_numpy(pts), torch.from_numpy(knn), t["proj_d_kernel"],
         t["proj_d_bias"], t["proj_a_kernel"], t["proj_a_bias"], 0.2, 15.0,
         out_dtype=torch.bfloat16).float().numpy()
-    tol = 8e-3 * np.abs(want).max()
+    tol = 5e-3 * np.abs(want).max()
+    differ = total = 0
     for g, w in zip(_valid_block(got, masks), _valid_block(want, masks)):
         np.testing.assert_allclose(g, w, rtol=0, atol=tol)
+        differ += int((g != w).sum())
+        total += g.size
+    assert differ < 0.02 * total
 
 
 @pytest.mark.parametrize("reference", ["pallas", "scan"])

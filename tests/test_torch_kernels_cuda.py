@@ -47,14 +47,20 @@ def test_neighbor_max_kernel(cuda, nq, ns, h, ac, dtype):
     _assert_ok(selfcheck.check_neighbor_max(nbr, ns, ac, dtype=dtype, reps=1))
 
 
-@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
-def test_geometric_embedding_kernel(cuda, out_dtype):
+@pytest.mark.parametrize("n,c,out_dtype", [
+    (1024, 256, torch.bfloat16),   # serving shape
+    (1024, 256, torch.float32),
+    (1003, 256, torch.bfloat16),   # ragged N (keys past the last 32-key tile)
+    (128, 64, torch.bfloat16),     # tiny training widths (bf16 embedding)
+    (100, 512, torch.bfloat16),    # two staged channel blocks
+])
+def test_geometric_embedding_kernel(cuda, n, c, out_dtype):
     g = torch.Generator().manual_seed(2)
-    points = (torch.rand((2, 1024, 3), generator=g) * 4 - 2).to(cuda)
-    masks = torch.ones((2, 1024), dtype=torch.bool, device=cuda)
+    points = (torch.rand((2, n, 3), generator=g) * 4 - 2).to(cuda)
+    masks = torch.ones((2, n), dtype=torch.bool, device=cuda)
     masks[1, -40:] = False
     points[1, -40:] = 0.0
-    _assert_ok(selfcheck.check_embedding(points, masks, out_dtype=out_dtype, reps=1))
+    _assert_ok(selfcheck.check_embedding(points, masks, c=c, out_dtype=out_dtype, reps=1))
 
 
 def test_sinkhorn_kernel(cuda):
@@ -130,6 +136,8 @@ def test_neighbor_max_bwd_kernel(cuda, nq, ns, h, ac):
 
 
 @pytest.mark.parametrize("n,c,grad_dtype", [(1024, 256, torch.bfloat16),
+                                            (1003, 256, torch.bfloat16),
+                                            (128, 64, torch.bfloat16),
                                             (128, 64, torch.float32)])
 def test_geometric_embedding_bwd_kernel(cuda, n, c, grad_dtype):
     points, masks = _cloud(cuda, n, 9)
@@ -181,16 +189,57 @@ def _conv_neighbors(cuda, nq, ns, h, seed):
     return nbr
 
 
-@pytest.mark.parametrize("nq,ns,h,ac", [
-    (20000, 20000, 24, 192),   # stage-0 bottleneck conv
-    (10000, 10000, 32, 384),   # stage-1 bottleneck convs
-    (250, 997, 7, 48),         # ragged, tiny widths
+@pytest.mark.parametrize("nq,ns,h,ac,ac_out", [
+    (20000, 20000, 24, 192, 192),   # stage-0 bottleneck conv
+    (10000, 10000, 32, 384, 384),   # stage-1 bottleneck convs
+    (9000, 9000, 32, 384, 384),     # a partial half tile in the last wave
+    (1003, 2000, 24, 192, 384),     # Nq not a multiple of the 64-row tile
+    (997, 2000, 32, 384, 192),
+    (500, 1000, 38, 192, 192),      # H > 32: the CUDA-core gather
+    (250, 997, 7, 48, 48),          # ragged, tiny widths
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_gather_wf_mm_kernel(cuda, nq, ns, h, ac, dtype):
+def test_gather_wf_mm_kernel(cuda, nq, ns, h, ac, ac_out, dtype):
+    """K12 with about a quarter sentinel neighbours and the last 3 query
+    rows of each cloud all sentinels."""
     nbr = _conv_neighbors(cuda, nq, ns, h, 12)
-    _assert_ok(selfcheck.check_fused_conv("gather_wf_mm", nbr, ns, ac, ac_out=ac,
+    _assert_ok(selfcheck.check_fused_conv("gather_wf_mm", nbr, ns, ac, ac_out=ac_out,
                                           dtype=dtype, reps=1))
+
+
+@pytest.mark.parametrize("k,ac,ac_out", [(15, 192, 192), (15, 384, 384), (3, 40, 16)])
+def test_gather_wf_mm_panels_kernel(cuda, k, ac, ac_out):
+    """K12's weight relayout on the card equals its plain version."""
+    from se3et_tpu_torch.ops.kernels import _build
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    g = torch.Generator().manual_seed(20)
+    rhs = torch.randn((ac_out, k * ac), generator=g).to(cuda, torch.bfloat16).t()
+    want = wc.mm_panels(rhs, k, ac)
+    got = torch.empty_like(want)
+    _build.check(_build.function("gather_wf_mm", "se3et_gather_wf_mm_panels_bf16", 2, 3)(
+        rhs.t().contiguous().data_ptr(), got.data_ptr(), k, ac, ac_out,
+        torch.cuda.current_stream().cuda_stream), "panels")
+    assert torch.equal(got, want)
+
+
+def test_gather_wf_mm_reads_padded_influence_in_place(cuda):
+    """K12 in bf16 reads the first H of H' > H influence columns as they lie
+    (the padded host layout), equal to the plain version on the same
+    tensor, and to itself on the unpadded copy."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    g = torch.Generator().manual_seed(19)
+    nq, ns, h = 1003, 2000, 24
+    nbr = _conv_neighbors(cuda, nq, ns, h, 19)
+    x = torch.randn((2, ns, 192), generator=g).to(cuda, torch.bfloat16)
+    infl = torch.rand((2, nq, h + 8, 15), generator=g).to(cuda, torch.bfloat16)
+    infl[:, :, :h] *= (nbr < ns)[..., None]
+    rhs = (torch.randn((192, 15 * 192), generator=g) * 0.02).to(cuda, torch.bfloat16).t()
+    got = wc.gather_wf_mm(x, nbr, infl, rhs)
+    want = wc.gather_wf_mm_plain(x, nbr, infl, rhs)
+    assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+    assert torch.equal(got, wc.gather_wf_mm(x, nbr, infl[:, :, :h].contiguous(), rhs))
 
 
 @pytest.mark.parametrize("nq,ns,h,ac,ac2", [
