@@ -281,8 +281,18 @@ def _training(cfg, pairs, extent, dev):
     }
     extra = [selfcheck.check_rpe_attention_bwd(pts_c, masks_c, heads, c=head_dim,
                                                cc=m.gt_hidden_dim, with_sh=False)]
+    # K1 where it serves on the fused route, with its launches per pair:
+    # the stage-2 bottleneck convs (x2, A*128), the s2 -> s3 strided conv
+    # (A*128), the stage-3 bottleneck convs (x2, A*256)
+    k1_serving = [(2, selfcheck.check_gather_wf(p0["neighbors_2"], ns2, 6 * 128)),
+                  (1, selfcheck.check_gather_wf(p0["subsampling_2"], ns2, 6 * 128)),
+                  (2, selfcheck.check_gather_wf(p0["neighbors_3"], ns3, 6 * 256))]
+    extra += [res for _, res in k1_serving]
     for res in list(checks.values()) + extra:
         _print_check(res)
+    print(f"K1 per served pair ({sum(n for n, _ in k1_serving)} launches at the stage 2-3 "
+          f"shapes): {sum(n * r.ms for n, r in k1_serving):.4f} ms (PR 6: 2.28), bound "
+          f"{sum(n * r.bound_ms for n, r in k1_serving):.4f} ms", flush=True)
     bad = [r.name for r in list(checks.values()) + extra if not r.ok]
     if bad:
         raise RuntimeError(f"backward kernels disagree with their plain versions: {bad}")
@@ -409,8 +419,18 @@ def _routes(cfg, pairs, bare_pairs, extent, dev):
         selfcheck.check_rpe_attention_femb(pts_c, masks_c, heads, with_sh=False, reps=10,
                                            **emb_kw),
     ]
+    # K1 where it serves on the fused route, with its launches per pair:
+    # the stage-2 bottleneck convs (x2, A*128), the s2 -> s3 strided conv
+    # (A*128), the stage-3 bottleneck convs (x2, A*256)
+    k1_serving = [(2, selfcheck.check_gather_wf(p0["neighbors_2"], ns2, 6 * 128)),
+                  (1, selfcheck.check_gather_wf(p0["subsampling_2"], ns2, 6 * 128)),
+                  (2, selfcheck.check_gather_wf(p0["neighbors_3"], ns3, 6 * 256))]
+    extra += [res for _, res in k1_serving]
     for res in list(checks.values()) + extra:
         _print_check(res)
+    print(f"K1 per served pair ({sum(n for n, _ in k1_serving)} launches at the stage 2-3 "
+          f"shapes): {sum(n * r.ms for n, r in k1_serving):.4f} ms (PR 6: 2.28), bound "
+          f"{sum(n * r.bound_ms for n, r in k1_serving):.4f} ms", flush=True)
     bad = [r.name for r in list(checks.values()) + extra if not r.ok]
     if bad:
         raise RuntimeError(f"route kernels disagree with their plain versions: {bad}")
@@ -594,13 +614,8 @@ def main() -> int:
         # stage-1 bottleneck convs (mid 64: A*Cin = A*Cout = 384)
         selfcheck.check_fused_conv("gather_wf_mm", p0["neighbors_1"], ns1, 6 * 64,
                                    ac_out=6 * 64),
-        # K1 and K2 where they serve on the fused route: the stage-2
-        # bottleneck convs (x2, A*128), the s2 -> s3 strided conv (A*128)
-        # and its skip max (A*512), the stage-3 bottleneck convs (x2, A*256)
-        selfcheck.check_gather_wf(p0["neighbors_2"], ns2, 6 * 128),
-        selfcheck.check_gather_wf(p0["subsampling_2"], ns2, 6 * 128),
+        # K2 where it serves on the fused route: the s2 -> s3 skip max (A*512)
         selfcheck.check_neighbor_max(p0["subsampling_2"], ns2, 6 * 512),
-        selfcheck.check_gather_wf(p0["neighbors_3"], ns3, 6 * 256),
         # plain self layers: H heads, no SH term
         selfcheck.check_rpe_attention(pts_c, masks_c, heads, c=head_dim,
                                       cc=m.gt_hidden_dim, with_sh=False),
@@ -608,8 +623,18 @@ def main() -> int:
         selfcheck.check_eq_stats(masks_c[0], masks_c[1], a=m.kanchor, h=heads, c=head_dim,
                                  with_sup=True),
     ]
+    # K1 where it serves on the fused route, with its launches per pair:
+    # the stage-2 bottleneck convs (x2, A*128), the s2 -> s3 strided conv
+    # (A*128), the stage-3 bottleneck convs (x2, A*256)
+    k1_serving = [(2, selfcheck.check_gather_wf(p0["neighbors_2"], ns2, 6 * 128)),
+                  (1, selfcheck.check_gather_wf(p0["subsampling_2"], ns2, 6 * 128)),
+                  (2, selfcheck.check_gather_wf(p0["neighbors_3"], ns3, 6 * 256))]
+    extra += [res for _, res in k1_serving]
     for res in list(checks.values()) + extra:
         _print_check(res)
+    print(f"K1 per served pair ({sum(n for n, _ in k1_serving)} launches at the stage 2-3 "
+          f"shapes): {sum(n * r.ms for n, r in k1_serving):.4f} ms (PR 6: 2.28), bound "
+          f"{sum(n * r.bound_ms for n, r in k1_serving):.4f} ms", flush=True)
     bad = [r.name for r in list(checks.values()) + extra if not r.ok]
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: {bad}")

@@ -2,21 +2,47 @@
 //
 //   wf[b, q, k, ac] = sum_h infl[b, q, h, k] * x[b, nbr[b, q, h], ac]
 //
-// with nbr == Ns a sentinel (the entry contributes nothing).  Replaces the
-// TPU kernel se3et_tpu/ops/pallas/windowed_conv.py windowed_gather_wf and
-// the gather half of windowed_gather_wf_mm / _max / _max_mm.
+// with nbr == Ns a sentinel (the entry contributes nothing), sums in
+// float32 rounded once to the feature type, and the influence read in place
+// as (B, Nq, hs, K) with hs >= H (its first H columns).  Replaces the TPU
+// kernel se3et_tpu/ops/pallas/windowed_conv.py windowed_gather_wf.
 //
-// Bound: device memory.  Each query reads H neighbour rows of AC features
-// (mostly L2 hits: Morton-ordered neighbours overlap between queries) and
-// writes K*AC outputs, at about one FMA per byte.  Design: a block takes
-// QB query rows; their neighbour indices and influence rows are staged in
-// shared memory, and each thread owns one (query, channel) column, keeps
-// the K sums in registers (fp32) and streams the H neighbour values of
-// its channel, so that a warp reads AC-contiguous runs of one row.  Each
-// gathered value is used by exactly one thread, so the neighbour rows
-// themselves are not staged in shared memory (there is no reuse to buy).
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+// Bound: device memory, and writing the output is most of it.  At the
+// stage-2 serving conv (x (2, 2500, 768) bf16, H 36, K 15) wf is 115 MB
+// against 14 MB of x, indices and influence; the gather also reads H * AC *
+// 2 bytes per query from L2 (276 MB there: x is L2-resident), a second
+// floor of about the same height at a few TB/s.
+//
+// The tensor-core form (tc::gather_wf_tc_kernel, bf16, H <= 64), the
+// serving form.  Every warp walks its own contiguous run of (query row,
+// 32-channel chunk) items, so no warp waits for another and a warp's
+// stores fill one contiguous stretch of wf:
+//  * the row's influence is read once, in place, into registers as the A
+//    fragments of an m16n8k16 mma.sync: A[kp][hh] = infl[row][hh][kp], K
+//    padded to 16 and H to 16 * HS with zeros (HS 1-4, a template
+//    parameter);
+//  * the row's neighbour rows of the chunk are staged by 16-byte cp.async
+//    into a 4-slot per-warp ring, three items ahead (across rows), with
+//    sentinels zero-filled and the padding rows past H zeroed once; they
+//    are read with ldmatrix.trans from 64-byte rows whose 16-byte units are
+//    XOR-swizzled by row pair (conflict-free);
+//  * per item the (16 x 16 HS) @ (16 HS x 32) product runs on the tensor
+//    cores, and its float32 sums are rounded to bf16 into a per-warp
+//    (16 x 32) shared tile, read back as 16-byte units and written with
+//    streaming 16-byte stores (st.global.cs: wf does not fit in L2 and is
+//    read back only by the next op): each of the K output rows of a chunk
+//    is a 64-byte run, every 32-byte sector written whole by one warp
+//    instruction.
+// Blocks are 4 warps; as many are resident per SM as shared memory allows
+// (13 KB a warp at HS 3), and the grid holds exactly that many.
+//
+// The first design (gather_wf_kernel, float32 for the training step and
+// the card-vs-CPU checks, and bf16 for H > 64): a block takes kQB query
+// rows; their neighbour indices and influence rows are staged in shared
+// memory, and each thread owns one (query, channel) column, keeps the K
+// sums in registers (fp32) and streams the H neighbour values of its
+// channel, so that a warp reads AC-contiguous runs of one row.
+#include "attention_common.cuh"
 
 namespace {
 
@@ -32,7 +58,7 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2
 template <typename T>
 __global__ void gather_wf_kernel(const T* __restrict__ x, const int* __restrict__ nbr,
                                  const T* __restrict__ infl, T* __restrict__ out,
-                                 int ns, int nq, int h, int k, int ac) {
+                                 int ns, int nq, int h, int hs, int k, int ac) {
   extern __shared__ float smem[];
   float* s_w = smem;                                  // [kQB][h][k]
   int* s_nbr = reinterpret_cast<int*>(s_w + kQB * h * k);  // [kQB][h]
@@ -46,7 +72,8 @@ __global__ void gather_wf_kernel(const T* __restrict__ x, const int* __restrict_
     s_nbr[i] = nbr[row0 * h + i];
   }
   for (int i = threadIdx.x; i < nrows * h * k; i += blockDim.x) {
-    s_w[i] = to_f(infl[row0 * h * k + i]);
+    const int ql = i / (h * k);
+    s_w[i] = to_f(infl[(row0 + ql) * hs * k + (i - ql * h * k)]);
   }
   __syncthreads();
 
@@ -78,25 +105,250 @@ __global__ void gather_wf_kernel(const T* __restrict__ x, const int* __restrict_
 
 template <typename T>
 int launch(const void* x, const void* nbr, const void* infl, void* out, int batch,
-           int ns, int nq, int h, int k, int ac, void* stream) {
-  if (k > kMaxK || k < 1 || h < 1) return (int)cudaErrorInvalidValue;
+           int ns, int nq, int h, int hs, int k, int ac, void* stream) {
+  if (k > kMaxK || k < 1 || h < 1 || hs < h) return (int)cudaErrorInvalidValue;
+  if (batch < 1 || nq < 1) return 0;
   const size_t smem = (size_t)kQB * h * (k * sizeof(float) + sizeof(int));
   dim3 grid((nq + kQB - 1) / kQB, batch);
   gather_wf_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)x, (const int*)nbr, (const T*)infl, (T*)out, ns, nq, h, k, ac);
+      (const T*)x, (const int*)nbr, (const T*)infl, (T*)out, ns, nq, h, hs, k, ac);
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core form (bf16, H <= 64).  Rows are the flattened (b, q) rows
+// of nbr / infl / out; items the (row, chunk) pairs in row-major order.
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = 4;               // warps per block (each independent)
+constexpr int kThreads = kWarps * 32;
+constexpr int kCW = 32;                 // channels per chunk: one 64-byte shared row
+constexpr int kU = kCW / 8;             // 16-byte units per shared row
+constexpr int kStages = 4;              // ring slots per warp
+constexpr int kAhead = kStages - 1;     // items staged ahead
+constexpr int kMaxHS = 4;               // H <= 16 * kMaxHS
+
+// element offset of channel c (0..31) in row r of a tile of 64-byte rows,
+// 16-byte units XOR-swizzled by row pair: the 8 rows an ldmatrix phase
+// reads, and the rows a fragment store writes, hit 32 distinct banks
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * kCW + ((((c >> 3) ^ (r >> 1)) & 3) << 3) + (c & 7);
+}
+
+__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// shared bytes of one warp: the ring and the output tile
+template <int HS>
+__host__ __device__ constexpr size_t warp_smem() {
+  return (size_t)(kStages * 16 * HS * kCW + 16 * kCW) * sizeof(bf16);
+}
+
+template <int HS>
+__global__ void __launch_bounds__(kThreads)
+gather_wf_tc_kernel(const bf16* __restrict__ x, const int* __restrict__ nbr,
+                    const bf16* __restrict__ infl, bf16* __restrict__ out, int ns, int nq,
+                    int h, int hs, int k, int ac, int nchunks, int items, int nwarps) {
+  constexpr int hp = 16 * HS;
+  constexpr int kSlot = hp * kCW;        // bf16 per ring slot
+  constexpr int kRowsPerLane = hp * kU / 32;  // neighbour rows a lane stages
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  bf16* ring = reinterpret_cast<bf16*>(smem + warp * warp_smem<HS>());  // [kStages][hp][kCW]
+  bf16* otile = ring + kStages * kSlot;                                 // [16][kCW]
+
+  const long long gw = (long long)blockIdx.x * kWarps + warp;
+  const int i0 = (int)(items * gw / nwarps), i1 = (int)(items * (gw + 1) / nwarps);
+  if (i0 >= i1) return;
+
+  // padding rows h..hp of every slot are never staged: zero them once
+  for (int i = lane; i < kStages * (hp - h) * kU; i += 32) {
+    const int slot = i / ((hp - h) * kU), rem = i - slot * (hp - h) * kU;
+    *reinterpret_cast<uint4*>(ring + slot * kSlot + swz(h + rem / kU, 8 * (rem % kU))) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+
+  // the staging cursor's row: lane stages units u of neighbour rows
+  // hh = lane / kU + (32 / kU) m, whose indices it holds in idx[m]
+  const int u = lane % kU;
+  int idx[kRowsPerLane];
+  int srow = -1;
+  auto stage = [&](int j) {
+    const int row = j / nchunks, c0 = (j - row * nchunks) * kCW;
+    if (row != srow) {
+      srow = row;
+      const int* rn = nbr + (long long)row * h;
+#pragma unroll
+      for (int m = 0; m < kRowsPerLane; ++m) {
+        const int hh = lane / kU + (32 / kU) * m;
+        idx[m] = hh < h ? __ldg(rn + hh) : ns;
+      }
+    }
+    const bf16* xb = x + (long long)(row / nq) * ns * ac;
+    bf16* dst = ring + (j % kStages) * kSlot;
+    const bool col_ok = c0 + 8 * u < ac;
+#pragma unroll
+    for (int m = 0; m < kRowsPerLane; ++m) {
+      const int hh = lane / kU + (32 / kU) * m;
+      if (hh < h) {
+        const int jn = idx[m];
+        const bool ok = col_ok && jn >= 0 && jn < ns;
+        se3et::cp_async16(dst + swz(hh, 8 * u), ok ? xb + (long long)jn * ac + c0 + 8 * u : xb,
+                          ok);
+      }
+    }
+  };
+#pragma unroll
+  for (int a = 0; a < kAhead; ++a) {
+    if (i0 + a < i1) stage(i0 + a);
+    se3et::cp_async_commit();
+  }
+
+  uint32_t wf[HS][4];
+  int crow = -1;
+  for (int i = i0; i < i1; ++i) {
+    if (i + kAhead < i1) stage(i + kAhead);
+    se3et::cp_async_commit();
+    se3et::cp_async_wait<kAhead>();
+    __syncwarp();
+    const int row = i / nchunks, c0 = (i - row * nchunks) * kCW;
+    if (row != crow) {
+      // A[kp][hh] = infl[row][hh][kp]: rows kp = g, g + 8 (zero past k),
+      // columns hh (zero past h)
+      crow = row;
+      const bf16* wr = infl + (long long)row * hs * k;
+      auto w = [&](int kp, int hh) {
+        return kp < k && hh < h ? wr[hh * k + kp] : __float2bfloat16(0.f);
+      };
+#pragma unroll
+      for (int s = 0; s < HS; ++s) {
+        const int ha = 16 * s + 2 * t, hb = ha + 8;
+        wf[s][0] = pack2(w(g, ha), w(g, ha + 1));
+        wf[s][1] = pack2(w(g + 8, ha), w(g + 8, ha + 1));
+        wf[s][2] = pack2(w(g, hb), w(g, hb + 1));
+        wf[s][3] = pack2(w(g + 8, hb), w(g + 8, hb + 1));
+      }
+    }
+    // B fragments of n-tiles 2qq, 2qq+1 over neighbour rows 16s.. (by
+    // ldmatrix.trans), all loaded before the products use them
+    const bf16* xs = ring + (i % kStages) * kSlot;
+    const int mi = lane >> 3;
+    uint32_t bq[HS][kCW / 16][4];
+#pragma unroll
+    for (int s = 0; s < HS; ++s)
+#pragma unroll
+      for (int qq = 0; qq < kCW / 16; ++qq)
+        se3et::ldmatrix_x4_trans(
+            bq[s][qq], xs + swz(16 * s + (mi & 1) * 8 + (lane & 7), 8 * (2 * qq + (mi >> 1))));
+    float d[kCW / 8][4];
+#pragma unroll
+    for (int j = 0; j < kCW / 8; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.f;
+#pragma unroll
+    for (int s = 0; s < HS; ++s) {
+#pragma unroll
+      for (int qq = 0; qq < kCW / 16; ++qq) {
+        se3et::mma_bf16(d[2 * qq], wf[s][0], wf[s][1], wf[s][2], wf[s][3], bq[s][qq][0],
+                        bq[s][qq][1]);
+        se3et::mma_bf16(d[2 * qq + 1], wf[s][0], wf[s][1], wf[s][2], wf[s][3], bq[s][qq][2],
+                        bq[s][qq][3]);
+      }
+    }
+    // the (16, 32) tile rounded to bf16 through shared memory, then the K
+    // valid rows' units as streaming 16-byte stores
+#pragma unroll
+    for (int j = 0; j < kCW / 8; ++j) {
+      const int c = 8 * j + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(otile + swz(g, c)) =
+          __floats2bfloat162_rn(d[j][0], d[j][1]);
+      *reinterpret_cast<__nv_bfloat162*>(otile + swz(g + 8, c)) =
+          __floats2bfloat162_rn(d[j][2], d[j][3]);
+    }
+    __syncwarp();
+    bf16* orow = out + (long long)row * k * ac + c0;
+#pragma unroll
+    for (int m = 0; m < 16 * kU / 32; ++m) {
+      const int v = lane + 32 * m, kp = v / kU, uu = v % kU;
+      if (kp < k && c0 + 8 * uu < ac)
+        __stcs(reinterpret_cast<uint4*>(orow + (long long)kp * ac + 8 * uu),
+               *reinterpret_cast<const uint4*>(otile + swz(kp, 8 * uu)));
+    }
+    __syncwarp();  // the slot and the tile are free for the next items
+  }
+  se3et::cp_async_wait<0>();
+}
+
+template <int HS>
+int launch_hs(const void* x, const void* nbr, const void* infl, void* out, int ns, int nq,
+              int rows, int h, int hs, int k, int ac, cudaStream_t stream) {
+  auto fn = gather_wf_tc_kernel<HS>;
+  const size_t smem = kWarps * warp_smem<HS>();
+  cudaError_t e =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  // blocks resident per SM, found once per form (the grid holds that many)
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  }
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int nchunks = (ac + kCW - 1) / kCW;
+  const long long items = (long long)rows * nchunks;
+  if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // every warp takes at least 4 items where there are that few
+  const long long want = (items + 4 * kWarps - 1) / (4 * kWarps);
+  const int nblocks = (int)(want < (long long)per_sm * sms ? want : (long long)per_sm * sms);
+  fn<<<nblocks, kThreads, smem, stream>>>((const bf16*)x, (const int*)nbr, (const bf16*)infl,
+                                          (bf16*)out, ns, nq, h, hs, k, ac, nchunks,
+                                          (int)items, nblocks * kWarps);
+  return (int)cudaGetLastError();
+}
+
+int launch(const void* x, const void* nbr, const void* infl, void* out, int batch, int ns,
+           int nq, int h, int hs, int k, int ac, void* stream) {
+  if (k < 1 || k > kMaxK || h < 1 || h > 16 * kMaxHS || hs < h || ac < 8 || ac % 8 ||
+      (reinterpret_cast<uintptr_t>(x) & 15) || (reinterpret_cast<uintptr_t>(out) & 15))
+    return (int)cudaErrorInvalidValue;
+  if (batch < 1 || nq < 1) return 0;
+  const int rows = batch * nq;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch ((h + 15) / 16) {
+    case 1: return launch_hs<1>(x, nbr, infl, out, ns, nq, rows, h, hs, k, ac, st);
+    case 2: return launch_hs<2>(x, nbr, infl, out, ns, nq, rows, h, hs, k, ac, st);
+    case 3: return launch_hs<3>(x, nbr, infl, out, ns, nq, rows, h, hs, k, ac, st);
+    default: return launch_hs<4>(x, nbr, infl, out, ns, nq, rows, h, hs, k, ac, st);
+  }
+}
+
+}  // namespace tc
+
 }  // namespace
 
+// K1 in bf16 on the tensor cores, H <= 64, AC a multiple of 8, x and out
+// 16-byte aligned; influence (B, Nq, hs, K) read in place (its first h
+// columns)
+extern "C" int se3et_gather_wf_tc_bf16(const void* x, const void* nbr, const void* infl,
+                                       void* out, int batch, int ns, int nq, int h, int hs,
+                                       int k, int ac, void* stream) {
+  return tc::launch(x, nbr, infl, out, batch, ns, nq, h, hs, k, ac, stream);
+}
+
+// the first design in bf16 (H > 64) and float32
 extern "C" int se3et_gather_wf_bf16(const void* x, const void* nbr, const void* infl,
-                                    void* out, int batch, int ns, int nq, int h, int k,
+                                    void* out, int batch, int ns, int nq, int h, int hs, int k,
                                     int ac, void* stream) {
-  return launch<__nv_bfloat16>(x, nbr, infl, out, batch, ns, nq, h, k, ac, stream);
+  return launch<__nv_bfloat16>(x, nbr, infl, out, batch, ns, nq, h, hs, k, ac, stream);
 }
 
 extern "C" int se3et_gather_wf_f32(const void* x, const void* nbr, const void* infl,
-                                   void* out, int batch, int ns, int nq, int h, int k,
+                                   void* out, int batch, int ns, int nq, int h, int hs, int k,
                                    int ac, void* stream) {
-  return launch<float>(x, nbr, infl, out, batch, ns, nq, h, k, ac, stream);
+  return launch<float>(x, nbr, infl, out, batch, ns, nq, h, hs, k, ac, stream);
 }

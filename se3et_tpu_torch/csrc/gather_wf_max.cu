@@ -14,8 +14,8 @@
 // about one operation per byte.  Design: a block takes kQB query rows and
 // stages their neighbour indices and influence rows in shared memory once;
 // then each thread owns one (query, channel) column of the conv, keeps its
-// K sums in registers and streams its H neighbour values (K1's arithmetic,
-// so wf equals K1's bit for bit).  For the skip, each thread owns up to
+// K sums in registers and streams its H neighbour values (the arithmetic of
+// K1's first design, so wf equals that form's output bit for bit).  For the skip, each thread owns up to
 // kGroups groups of 8 payload channels and keeps their maxima in registers
 // through one pass over the neighbour slots, so every slot issues kGroups
 // independent 16-byte loads (the max in K2's order, bit-identical to it).

@@ -18,7 +18,10 @@ shapes of se3ete.3dmatch (bf16) and the tiny float32 widths:
 * K12 (fused conv) at the stage-0 (x (2, 20000, 192), H 24) and stage-1
   (x (2, 10000, 384), H 32) shapes, and K13 at the s0 -> s1 strided shape;
 * K16 (fused-embedding attention) at AH = 24 with SH and AH = 4 without,
-  at both widths.
+  at both widths;
+* K1 (conv gather) in bf16 at the stage-2 (x (2, 2500, 768), H 36), s2 ->
+  s3 (the same x, 1024 queries) and stage-3 (x (2, 1024, 1536), H 38)
+  shapes, and in float32 at the stage-0 shape (x (2, 20000, 192), H 24).
 
 Each case is held bit for bit unless ``TOLERANCES`` names it: then the
 largest difference over the other checkout's largest magnitude must stay
@@ -35,15 +38,13 @@ import sys
 
 import torch
 
-TIMED = ("K12 stage 0", "K12 stage 1", "K3 N=1024 C=256 bf16")
+TIMED = ("K1 stage 2", "K1 s2 -> s3", "K1 stage 3")
 REPS = 20  # launches per timing
-# kernels redesigned on purpose, with their bound against the other build:
-# K3 in bf16 now rounds the bases and G to bf16 (the TPU kernel's chain),
-# where the first design rounded only the row (a bf16 ulp and the rounding
-# of G, 1e-2 of the scale as the kernel-vs-plain check states); K12's float32
-# sums of the gather run in another order before the per-k rounding (1e-2,
-# as its kernel-vs-plain check states)
-TOLERANCES = {"K3 N=1024 C=256 bf16": 1e-2, "K12 stage 0": 1e-2, "K12 stage 1": 1e-2}
+# kernels changed on purpose, with their bound against the other build:
+# the bf16 K1 sums the gather on the tensor cores, in another order than
+# the first design's float32 FMAs, before its one rounding (1e-2, as its
+# kernel-vs-plain check states)
+TOLERANCES = {"K1 stage 2": 1e-2, "K1 s2 -> s3": 1e-2, "K1 stage 3": 1e-2}
 
 
 def _cases(dev):
@@ -96,6 +97,16 @@ def _cases(dev):
             cases.append((name, lambda a=(x, nbr, infl, x2, rhs): wc.gather_wf_max_mm(*a)))
         else:
             cases.append((name, lambda a=(x, nbr, infl, rhs): wc.gather_wf_mm(*a)))
+    for name, nq, ns, h, ac, dtype in (("K1 stage 2", 2500, 2500, 36, 768, bf),
+                                       ("K1 s2 -> s3", 1024, 2500, 36, 768, bf),
+                                       ("K1 stage 3", 1024, 1024, 38, 1536, bf),
+                                       ("K1 stage 0 float32", 20000, 20000, 24, 192,
+                                        torch.float32)):
+        nbr = torch.cat([selfcheck.local_neighbors(nq, ns, h, g, dev) for _ in range(2)])
+        x = torch.randn((2, ns, ac), generator=g).to(dev, dtype)
+        infl = (torch.rand((2, nq, h, 15), generator=g).to(dev)
+                * (nbr < ns)[..., None]).to(dtype)
+        cases.append((name, lambda a=(x, nbr, infl): wc.gather_wf(*a)))
     return cases
 
 

@@ -8,7 +8,8 @@ drop no neighbours).  Their JAX counterpart is the exact gather route of
 ``se3et_tpu/nn/epn.py`` (``KPConvInterSO3`` without ``window``, and
 ``max_pool_neighbors``).
 
-* :func:`gather_wf` (K1, ``csrc/gather_wf.cu``) replaces
+* :func:`gather_wf` (K1, ``csrc/gather_wf.cu``, in two forms chosen by
+  :func:`gather_wf_form`) replaces
   ``windowed_gather_wf``; the E2PN weight matmul after it stays a
   ``torch.matmul`` (as the JAX exact route leaves it to XLA).
 * :func:`neighbor_max` (K2, ``csrc/neighbor_max.cu``) replaces
@@ -149,6 +150,32 @@ def _check_common(x, nbr):
         raise ValueError("x and nbr must be on the same device")
 
 
+# K1's tensor-core form holds a row's influence as mma A fragments of 16
+# neighbours each, at most 4 of them (H <= 64), and stages neighbour rows in
+# 16-byte units (AC a multiple of 8); the float32 K1 and wider neighbour sets
+# take the first design
+GATHER_WF_TC_MAX_H = 64
+
+
+def gather_wf_form(h: int, dtype) -> str:
+    """Which hand-written K1 kernel takes a gather over ``h`` neighbours of
+    ``dtype`` features: "tc" (bf16, H <= 64: the tensor-core form) or
+    "first" (the first design: float32, and bf16 with H > 64).  Chosen by
+    shape alone; both are kernels, neither a fallback of the other."""
+    return "tc" if dtype == torch.bfloat16 and h <= GATHER_WF_TC_MAX_H else "first"
+
+
+def _check_gather_wf(x, nbr, infl):
+    """K1's shape checks, on either device: influence (B, Nq, H' >= H, K <=
+    16), and AC a multiple of 8 where the tensor-core form takes the call."""
+    b, nq, h = nbr.shape
+    if infl.ndim != 4 or infl.shape[:2] != (b, nq) or infl.shape[2] < h \
+            or not 1 <= infl.shape[3] <= _KP:
+        raise ValueError(f"gather_wf: bad influence shape {tuple(infl.shape)}")
+    if gather_wf_form(h, x.dtype) == "tc" and x.shape[2] % 8:
+        raise ValueError(f"gather_wf: AC={x.shape[2]} is not a multiple of 8")
+
+
 def _gather_wf_forward(x, nbr, infl):
     if x.device.type == "cpu":
         return gather_wf_plain(x, nbr, infl)
@@ -156,15 +183,20 @@ def _gather_wf_forward(x, nbr, infl):
         raise ValueError(f"unsupported device {x.device}")
     b, nq, h = nbr.shape
     k = infl.shape[3]
-    if infl.shape[:2] != (b, nq) or infl.shape[2] < h:
-        raise ValueError(f"bad influence shape {tuple(infl.shape)}")
-    x = x.contiguous()
-    nbr = nbr.contiguous()
-    infl = infl[:, :, :h].to(x.dtype).contiguous()
+    x, nbr = x.contiguous(), nbr.contiguous()
+    # the influence as it lies: its first h of hs columns, cast only when
+    # its dtype differs
+    infl = (infl if infl.dtype == x.dtype else infl.to(x.dtype)).contiguous()
     out = torch.empty((b, nq, k * x.shape[2]), dtype=x.dtype, device=x.device)
-    fn = _build.function("gather_wf", f"se3et_gather_wf_{_DTYPES[x.dtype]}", 4, 6)
+    if gather_wf_form(h, x.dtype) == "tc":
+        if x.data_ptr() % 16:  # 16-byte cp.async of the neighbour rows
+            x = x.clone()
+        symbol = "se3et_gather_wf_tc_bf16"
+    else:
+        symbol = f"se3et_gather_wf_{_DTYPES[x.dtype]}"
+    fn = _build.function("gather_wf", symbol, 4, 7)
     _build.check(fn(x.data_ptr(), nbr.data_ptr(), infl.data_ptr(), out.data_ptr(),
-                    b, x.shape[1], nq, h, k, x.shape[2],
+                    b, x.shape[1], nq, h, infl.shape[2], k, x.shape[2],
                     torch.cuda.current_stream(x.device).cuda_stream),
                  "gather_wf launch")
     gather_wf.launches += 1
@@ -188,10 +220,14 @@ class _GatherWF(torch.autograd.Function):
 
 def gather_wf(x: torch.Tensor, nbr: torch.Tensor, infl: torch.Tensor) -> torch.Tensor:
     """K1 (``csrc/gather_wf.cu``, replaces the TPU ``windowed_gather_wf``):
-    see :func:`gather_wf_plain`; ``infl`` is cast to x's dtype.  Bound by
-    device memory; the source notes the design.  Differentiable in ``x``
-    (backward K8, :func:`gather_wf_bwd`)."""
+    see :func:`gather_wf_plain`; ``infl`` (B, Nq, H' >= H, K <= 16) is read
+    in place, cast to x's dtype where it differs.  The kernel is the one
+    :func:`gather_wf_form` names: in bf16 with H <= 64 the tensor-core form
+    (AC a multiple of 8, else ``ValueError``), otherwise the first design.
+    Bound by device memory (the wf output); the source notes the design.
+    Differentiable in ``x`` (backward K8, :func:`gather_wf_bwd`)."""
     _check_common(x, nbr)
+    _check_gather_wf(x, nbr, infl)
     if infl.requires_grad:
         raise ValueError("gather_wf: influence is geometry and takes no gradient")
     if torch.is_grad_enabled() and x.requires_grad:
@@ -510,7 +546,8 @@ def gather_wf_max(x: torch.Tensor, nbr: torch.Tensor, infl: torch.Tensor,
     """K14 (``csrc/gather_wf_max.cu``, replaces the TPU
     ``windowed_gather_wf_max``): see :func:`gather_wf_max_plain`; returns
     (wf (B, Nq, K*AC), pooled (B, Nq, AC2)), both in x's dtype, wf
-    bit-identical to K1 and pooled to K2.  Forward only; raises on widths
+    bit-identical to K1's first design (the float32 K1, and bf16 with H >
+    64) and pooled to K2.  Forward only; raises on widths
     :func:`gather_wf_max_fits` refuses.  Bound by device memory; the source
     notes the design."""
     _check_fused("gather_wf_max", x, nbr, infl, x2=x2)

@@ -82,6 +82,44 @@ def test_gather_wf_plain_matches_windowed_kernel():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("h,dtype,form", [
+    (1, torch.bfloat16, "tc"), (36, torch.bfloat16, "tc"), (64, torch.bfloat16, "tc"),
+    (65, torch.bfloat16, "first"), (24, torch.float32, "first"),
+    (65, torch.float32, "first"),
+])
+def test_gather_wf_form(h, dtype, form):
+    """K1 takes the tensor-core form in bf16 up to H = 64, else the first
+    design."""
+    assert wc_k.gather_wf_form(h, dtype) == form
+
+
+@pytest.mark.parametrize("ac,infl_shape", [
+    (12, (2, 5, 7, 15)),   # bf16 with H <= 64 (tensor-core form): AC not a multiple of 8
+    (16, (2, 5, 6, 15)),   # fewer influence columns than neighbours
+    (16, (2, 4, 7, 15)),   # another Nq
+    (16, (2, 5, 7, 17)),   # K > 16
+    (16, (2, 5, 7)),       # not (B, Nq, H', K)
+])
+def test_gather_wf_refuses_bad_shapes_on_the_cpu(ac, infl_shape):
+    x = torch.zeros((2, 10, ac), dtype=torch.bfloat16)
+    nbr = torch.zeros((2, 5, 7), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        wc_k.gather_wf(x, nbr, torch.zeros(infl_shape, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("h,dtype", [(65, torch.bfloat16), (7, torch.float32)])
+def test_gather_wf_first_design_takes_any_ac(h, dtype):
+    """The first design's forms take AC = 12 (not a multiple of 8) and read
+    the first H of H' > H influence columns, as the plain version does."""
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.normal(size=(2, 10, 12)).astype(np.float32)).to(dtype)
+    nbr = torch.from_numpy(_neighbors(rng, 2, 5, 10, h))
+    infl = torch.from_numpy(rng.rand(2, 5, h + 3, 15).astype(np.float32)).to(dtype)
+    got = wc_k.gather_wf(x, nbr, infl)
+    assert got.shape == (2, 5, 15 * 12) and got.dtype == dtype
+    assert torch.equal(got, wc_k.gather_wf_plain(x, nbr, infl[:, :, :h].contiguous()))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_neighbor_max_plain_matches_jax_exactly(dtype):
     """K2 plain == max_pool_neighbors bit for bit; sentinel rows count as

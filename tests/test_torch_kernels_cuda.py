@@ -30,13 +30,74 @@ def _assert_ok(res):
 @pytest.mark.parametrize("nq,ns,h,ac", [
     (20000, 20000, 24, 192),   # stage-0 bottleneck conv
     (10000, 20000, 24, 192),   # stage-1 strided conv
+    (2500, 2500, 36, 768),     # stage-2 convs (served by K1 on the fused route)
+    (1024, 2500, 36, 768),     # s2 -> s3 strided conv
     (1024, 1024, 38, 1536),    # stage-3 conv (factored weights)
+    (997, 2000, 16, 192),      # the tensor-core form's HS edges: 1, 2, 3, 4
+    (997, 2000, 17, 192),
+    (997, 2000, 48, 192),
+    (997, 2000, 64, 192),
+    (997, 2000, 65, 192),      # H > 64: the first design in bf16 too
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_gather_wf_kernel(cuda, nq, ns, h, ac, dtype):
     g = torch.Generator().manual_seed(0)
     nbr = torch.cat([selfcheck.local_neighbors(nq, ns, h, g, cuda) for _ in range(2)])
     _assert_ok(selfcheck.check_gather_wf(nbr, ns, ac, dtype=dtype, reps=1))
+
+
+@pytest.mark.parametrize("nq,ns,h,ac,k", [
+    (1003, 2000, 36, 768, 15),   # ragged Nq: a warp's items end inside a row
+    (250, 997, 36, 192, 1),      # K 1 and 16
+    (250, 997, 36, 192, 16),
+    (250, 997, 24, 8, 15),       # AC 8: one 16-byte unit of a 32-channel chunk
+    (250, 997, 36, 776, 15),     # AC not a multiple of the 32-channel chunk
+    (7, 50, 5, 40, 3),           # fewer items than one warp's share
+])
+def test_gather_wf_kernel_edges(cuda, nq, ns, h, ac, k):
+    """K1 in bf16 (the tensor-core form) at ragged widths, with about a
+    quarter sentinel neighbours and the last 3 query rows all sentinels."""
+    nbr = _conv_neighbors(cuda, nq, ns, h, 14)
+    _assert_ok(selfcheck.check_gather_wf(nbr, ns, ac, k=k, dtype=torch.bfloat16, reps=1))
+
+
+def test_gather_wf_reads_padded_influence_in_place(cuda):
+    """K1 in bf16 reads the first H of H' > H influence columns as they lie:
+    equal to the plain version on the same tensor, bit for bit to itself on
+    the unpadded copy, and exactly zero on all-sentinel rows."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    g = torch.Generator().manual_seed(21)
+    nq, ns, h = 1003, 2000, 36
+    nbr = _conv_neighbors(cuda, nq, ns, h, 21)
+    x = torch.randn((2, ns, 768), generator=g).to(cuda, torch.bfloat16)
+    infl = torch.rand((2, nq, h + 12, 15), generator=g).to(cuda, torch.bfloat16)
+    infl[:, :, :h] *= (nbr < ns)[..., None]
+    got = wc.gather_wf(x, nbr, infl)
+    want = wc.gather_wf_plain(x, nbr, infl)
+    assert float((got - want).float().abs().max()) <= 1e-2 * float(want.float().abs().max())
+    assert torch.equal(got, wc.gather_wf(x, nbr, infl[:, :, :h].contiguous()))
+    assert not bool(got[:, -3:].any())
+
+
+@pytest.mark.parametrize("h,dtype", [(24, torch.float32), (38, torch.float32),
+                                     (65, torch.bfloat16)])
+def test_gather_wf_first_design_is_bit_identical(cuda, h, dtype):
+    """The first design (the float32 K1, and bf16 with H > 64) equals bit
+    for bit the wf of K14, which carries that design's arithmetic
+    unchanged, with the influence read in place (H' > H)."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    assert wc.gather_wf_form(h, dtype) == "first"
+    g = torch.Generator().manual_seed(22)
+    nq, ns = 1003, 2000
+    nbr = _conv_neighbors(cuda, nq, ns, h, 22)
+    x = torch.randn((2, ns, 192), generator=g).to(cuda, dtype)
+    infl = torch.rand((2, nq, h + 4, 15), generator=g).to(cuda, dtype)
+    infl[:, :, :h] *= (nbr < ns)[..., None]
+    x2 = torch.randn((2, ns, 8), generator=g).to(cuda, dtype)
+    want, _ = wc.gather_wf_max(x, nbr, infl, x2)
+    assert torch.equal(wc.gather_wf(x, nbr, infl), want)
 
 
 @pytest.mark.parametrize("nq,ns,h,ac", [(10000, 20000, 24, 768), (1024, 2500, 38, 3072)])
