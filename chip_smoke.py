@@ -162,9 +162,10 @@ def _tiny_card_vs_cpu(name, cfg, num_points, extent, dev, host_influence=True):
     return launches
 
 
-def _profile(run, what="one pair", top=15):
+def _profile(run, what="one pair", top=15, also=()):
     """Device time by kernel over one call of ``run`` (torch.profiler),
-    against its wall time."""
+    against its wall time: the ``top`` kernels, then any other whose name
+    holds a string of ``also``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -186,9 +187,11 @@ def _profile(run, what="one pair", top=15):
     device_ms = sum(getattr(e, attr) for e in events) / 1e3
     print(f"profile ({what}, profiler on): wall {wall:.2f} ms, kernels {device_ms:.2f} ms, "
           f"device idle {max(0.0, 1 - device_ms / wall):.1%}", flush=True)
-    for e in sorted(events, key=lambda e: getattr(e, attr), reverse=True)[:top]:
-        print(f"  {getattr(e, attr) / 1e3:8.3f} ms  {e.count:5d} launches  {e.key[:90]}",
-              flush=True)
+    ranked = sorted(events, key=lambda e: getattr(e, attr), reverse=True)
+    for i, e in enumerate(ranked):
+        if i < top or any(a in e.key for a in also):
+            print(f"  {getattr(e, attr) / 1e3:8.3f} ms  {e.count:5d} launches  {e.key[:90]}",
+                  flush=True)
 
 
 def _tiny_train_card_vs_cpu(cfg, extent, dev):
@@ -281,18 +284,8 @@ def _training(cfg, pairs, extent, dev):
     }
     extra = [selfcheck.check_rpe_attention_bwd(pts_c, masks_c, heads, c=head_dim,
                                                cc=m.gt_hidden_dim, with_sh=False)]
-    # K1 where it serves on the fused route, with its launches per pair:
-    # the stage-2 bottleneck convs (x2, A*128), the s2 -> s3 strided conv
-    # (A*128), the stage-3 bottleneck convs (x2, A*256)
-    k1_serving = [(2, selfcheck.check_gather_wf(p0["neighbors_2"], ns2, 6 * 128)),
-                  (1, selfcheck.check_gather_wf(p0["subsampling_2"], ns2, 6 * 128)),
-                  (2, selfcheck.check_gather_wf(p0["neighbors_3"], ns3, 6 * 256))]
-    extra += [res for _, res in k1_serving]
     for res in list(checks.values()) + extra:
         _print_check(res)
-    print(f"K1 per served pair ({sum(n for n, _ in k1_serving)} launches at the stage 2-3 "
-          f"shapes): {sum(n * r.ms for n, r in k1_serving):.4f} ms (PR 6: 2.28), bound "
-          f"{sum(n * r.bound_ms for n, r in k1_serving):.4f} ms", flush=True)
     bad = [r.name for r in list(checks.values()) + extra if not r.ok]
     if bad:
         raise RuntimeError(f"backward kernels disagree with their plain versions: {bad}")
@@ -419,18 +412,8 @@ def _routes(cfg, pairs, bare_pairs, extent, dev):
         selfcheck.check_rpe_attention_femb(pts_c, masks_c, heads, with_sh=False, reps=10,
                                            **emb_kw),
     ]
-    # K1 where it serves on the fused route, with its launches per pair:
-    # the stage-2 bottleneck convs (x2, A*128), the s2 -> s3 strided conv
-    # (A*128), the stage-3 bottleneck convs (x2, A*256)
-    k1_serving = [(2, selfcheck.check_gather_wf(p0["neighbors_2"], ns2, 6 * 128)),
-                  (1, selfcheck.check_gather_wf(p0["subsampling_2"], ns2, 6 * 128)),
-                  (2, selfcheck.check_gather_wf(p0["neighbors_3"], ns3, 6 * 256))]
-    extra += [res for _, res in k1_serving]
     for res in list(checks.values()) + extra:
         _print_check(res)
-    print(f"K1 per served pair ({sum(n for n, _ in k1_serving)} launches at the stage 2-3 "
-          f"shapes): {sum(n * r.ms for n, r in k1_serving):.4f} ms (PR 6: 2.28), bound "
-          f"{sum(n * r.bound_ms for n, r in k1_serving):.4f} ms", flush=True)
     bad = [r.name for r in list(checks.values()) + extra if not r.ok]
     if bad:
         raise RuntimeError(f"route kernels disagree with their plain versions: {bad}")
@@ -724,7 +707,7 @@ def main() -> int:
           np.array2string(outs[0]["estimated_transform"].cpu().numpy(), precision=4),
           flush=True)
 
-    _profile(lambda: model(inputs[0]))
+    _profile(lambda: model(inputs[0]), also=("gather_wf_tc_kernel",))  # K1 in bf16
     del model, outs
 
     # 6. training

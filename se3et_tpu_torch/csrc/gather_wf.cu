@@ -34,7 +34,12 @@
 //    is a 64-byte run, every 32-byte sector written whole by one warp
 //    instruction.
 // Blocks are 4 warps; as many are resident per SM as shared memory allows
-// (13 KB a warp at HS 3), and the grid holds exactly that many.
+// (13 KB a warp at HS 3), and the grid holds exactly that many.  At the
+// stage 2-3 shapes (scripts/probe_gather_wf.py) 64-channel chunks (128-byte
+// output runs: twice the ring per warp, half the warps per SM) ran 15-24 %
+// slower, a 6-slot ring (fewer warps per SM) 40-50 % slower, and a 3-slot
+// ring (two items ahead) the same: copies in flight are not the limit; the
+// kernel moves 4.0-4.6 TB/s of gathered reads and output writes through L2.
 //
 // The first design (gather_wf_kernel, float32 for the training step and
 // the card-vs-CPU checks, and bf16 for H > 64): a block takes kQB query
@@ -107,7 +112,6 @@ template <typename T>
 int launch(const void* x, const void* nbr, const void* infl, void* out, int batch,
            int ns, int nq, int h, int hs, int k, int ac, void* stream) {
   if (k > kMaxK || k < 1 || h < 1 || hs < h) return (int)cudaErrorInvalidValue;
-  if (batch < 1 || nq < 1) return 0;
   const size_t smem = (size_t)kQB * h * (k * sizeof(float) + sizeof(int));
   dim3 grid((nq + kQB - 1) / kQB, batch);
   gather_wf_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(

@@ -165,17 +165,6 @@ def gather_wf_form(h: int, dtype) -> str:
     return "tc" if dtype == torch.bfloat16 and h <= GATHER_WF_TC_MAX_H else "first"
 
 
-def _check_gather_wf(x, nbr, infl):
-    """K1's shape checks, on either device: influence (B, Nq, H' >= H, K <=
-    16), and AC a multiple of 8 where the tensor-core form takes the call."""
-    b, nq, h = nbr.shape
-    if infl.ndim != 4 or infl.shape[:2] != (b, nq) or infl.shape[2] < h \
-            or not 1 <= infl.shape[3] <= _KP:
-        raise ValueError(f"gather_wf: bad influence shape {tuple(infl.shape)}")
-    if gather_wf_form(h, x.dtype) == "tc" and x.shape[2] % 8:
-        raise ValueError(f"gather_wf: AC={x.shape[2]} is not a multiple of 8")
-
-
 def _gather_wf_forward(x, nbr, infl):
     if x.device.type == "cpu":
         return gather_wf_plain(x, nbr, infl)
@@ -188,12 +177,8 @@ def _gather_wf_forward(x, nbr, infl):
     # its dtype differs
     infl = (infl if infl.dtype == x.dtype else infl.to(x.dtype)).contiguous()
     out = torch.empty((b, nq, k * x.shape[2]), dtype=x.dtype, device=x.device)
-    if gather_wf_form(h, x.dtype) == "tc":
-        if x.data_ptr() % 16:  # 16-byte cp.async of the neighbour rows
-            x = x.clone()
-        symbol = "se3et_gather_wf_tc_bf16"
-    else:
-        symbol = f"se3et_gather_wf_{_DTYPES[x.dtype]}"
+    symbol = "se3et_gather_wf_tc_bf16" if gather_wf_form(h, x.dtype) == "tc" \
+        else f"se3et_gather_wf_{_DTYPES[x.dtype]}"
     fn = _build.function("gather_wf", symbol, 4, 7)
     _build.check(fn(x.data_ptr(), nbr.data_ptr(), infl.data_ptr(), out.data_ptr(),
                     b, x.shape[1], nq, h, infl.shape[2], k, x.shape[2],
@@ -227,7 +212,12 @@ def gather_wf(x: torch.Tensor, nbr: torch.Tensor, infl: torch.Tensor) -> torch.T
     Bound by device memory (the wf output); the source notes the design.
     Differentiable in ``x`` (backward K8, :func:`gather_wf_bwd`)."""
     _check_common(x, nbr)
-    _check_gather_wf(x, nbr, infl)
+    b, nq, h = nbr.shape
+    if infl.ndim != 4 or infl.shape[:2] != (b, nq) or infl.shape[2] < h \
+            or not 1 <= infl.shape[3] <= _KP:
+        raise ValueError(f"gather_wf: bad influence shape {tuple(infl.shape)}")
+    if gather_wf_form(h, x.dtype) == "tc" and x.shape[2] % 8:
+        raise ValueError(f"gather_wf: AC={x.shape[2]} is not a multiple of 8")
     if infl.requires_grad:
         raise ValueError("gather_wf: influence is geometry and takes no gradient")
     if torch.is_grad_enabled() and x.requires_grad:
