@@ -16,7 +16,9 @@ Phases, each of which raises (exit code != 0) on failure:
    time of one PyTorch call computing the same function; for the fused
    convs K12-K14 also the time of the unfused route (K1 + matmul (+ K2)),
    and K1 and K2 at the shapes where they serve on the fused route (the
-   stage 2-3 convs and the s2 -> s3 skip) beside their stage-0 rows;
+   stage 2-3 convs and the s2 -> s3 skip) beside their stage-0 rows; K5 at
+   its two self-layer shapes beside its times before the redesign, with
+   its total per served pair (as K1's);
 4. check that the kernel path (card) and the plain path (CPU) agree on two
    tiny float32 inputs: the materialised-attention cut and the flash cut
    (128-point coarse stage, 600 points), both through the fused convs
@@ -97,6 +99,12 @@ TRAIN_STEPS = 3
 DEVICE_INFLUENCE_LAUNCHES = {"influence": 7}
 FEMB_LAUNCHES = {"rpe_self_attention_femb": 5, "geometric_embedding": 0,
                  "rpe_self_attention": 0}
+# the CUDA kernels of the default serving route (K1-K7, K12-K14 in bf16, K4
+# in float32), whose device time per launch the pair profile always prints
+SERVING_KERNELS = ("gather_wf_tc_kernel", "neighbor_max_kernel", "embedding_tc_kernel",
+                   "sinkhorn_kernel", "rpe_attention_ws_kernel", "eq_stats_mma_kernel",
+                   "eq_apply_mma_kernel", "gather_wf_mm_tc_kernel", "panels_kernel",
+                   "gather_wf_mm_kernel", "gather_wf_max_kernel")
 
 
 def _card_line() -> str:
@@ -190,7 +198,8 @@ def _profile(run, what="one pair", top=15, also=()):
     ranked = sorted(events, key=lambda e: getattr(e, attr), reverse=True)
     for i, e in enumerate(ranked):
         if i < top or any(a in e.key for a in also):
-            print(f"  {getattr(e, attr) / 1e3:8.3f} ms  {e.count:5d} launches  {e.key[:90]}",
+            print(f"  {getattr(e, attr) / 1e3:8.3f} ms  {e.count:5d} launches  "
+                  f"{getattr(e, attr) / 1e3 / max(e.count, 1):.4f} ms each  {e.key[:90]}",
                   flush=True)
 
 
@@ -577,7 +586,7 @@ def main() -> int:
             n=m.num_points_in_patch + 1, iters=m.num_sinkhorn_iterations, device=dev),
         # self_eq layers: A*H anchor-heads with the SH term
         "rpe_self_attention": selfcheck.check_rpe_attention(
-            pts_c, masks_c, m.kanchor * heads, c=head_dim, cc=m.gt_hidden_dim),
+            pts_c, masks_c, m.kanchor * heads, c=head_dim, cc=m.gt_hidden_dim, reps=10),
         "eq_attention_stats": selfcheck.check_eq_stats(
             masks_c[0], masks_c[1], a=m.kanchor, h=heads, c=head_dim),
         "eq_attention_apply": selfcheck.check_eq_apply(
@@ -599,13 +608,18 @@ def main() -> int:
                                    ac_out=6 * 64),
         # K2 where it serves on the fused route: the s2 -> s3 skip max (A*512)
         selfcheck.check_neighbor_max(p0["subsampling_2"], ns2, 6 * 512),
-        # plain self layers: H heads, no SH term
-        selfcheck.check_rpe_attention(pts_c, masks_c, heads, c=head_dim,
-                                      cc=m.gt_hidden_dim, with_sh=False),
         # rotation-supervision max (not on the serving path)
         selfcheck.check_eq_stats(masks_c[0], masks_c[1], a=m.kanchor, h=heads, c=head_dim,
                                  with_sup=True),
     ]
+    # K5 at its two self-layer shapes, with its launches per pair and its
+    # times before the redesign (NVIDIA H100 80GB HBM3, 700 W): 2 self_eq
+    # layers (A*H anchor-heads, SH term), 3 plain self layers (H heads)
+    k5_serving = [(2, checks["rpe_self_attention"], 0.8990),
+                  (3, selfcheck.check_rpe_attention(pts_c, masks_c, heads, c=head_dim,
+                                                    cc=m.gt_hidden_dim, with_sh=False,
+                                                    reps=10), 0.6492)]
+    extra.append(k5_serving[1][1])
     # K1 where it serves on the fused route, with its launches per pair:
     # the stage-2 bottleneck convs (x2, A*128), the s2 -> s3 strided conv
     # (A*128), the stage-3 bottleneck convs (x2, A*256)
@@ -618,6 +632,12 @@ def main() -> int:
     print(f"K1 per served pair ({sum(n for n, _ in k1_serving)} launches at the stage 2-3 "
           f"shapes): {sum(n * r.ms for n, r in k1_serving):.4f} ms (PR 6: 2.28), bound "
           f"{sum(n * r.bound_ms for n, r in k1_serving):.4f} ms", flush=True)
+    for _, res, before in k5_serving:
+        print(f"K5 {res.shape}: {res.ms:.4f} ms (first design: {before:.4f}), bound "
+              f"{res.bound_ms:.4f} ms", flush=True)
+    print(f"K5 per served pair ({sum(n for n, _, _ in k5_serving)} launches): "
+          f"{sum(n * r.ms for n, r, _ in k5_serving):.4f} ms (first design: 3.745), bound "
+          f"{sum(n * r.bound_ms for n, r, _ in k5_serving):.4f} ms", flush=True)
     bad = [r.name for r in list(checks.values()) + extra if not r.ok]
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: {bad}")
@@ -707,7 +727,7 @@ def main() -> int:
           np.array2string(outs[0]["estimated_transform"].cpu().numpy(), precision=4),
           flush=True)
 
-    _profile(lambda: model(inputs[0]), also=("gather_wf_tc_kernel",))  # K1 in bf16
+    _profile(lambda: model(inputs[0]), also=SERVING_KERNELS)
     del model, outs
 
     # 6. training

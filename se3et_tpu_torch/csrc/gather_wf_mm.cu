@@ -74,6 +74,7 @@
 // max-pools the skip payload over the same index rows, staged once in
 // shared memory for both; it runs two blocks per SM (the skip's gather is
 // latency-bound), which caps its accumulator at A*Cout <= 192.
+#include "async_copy.cuh"
 #include "attention_common.cuh"
 
 namespace {
@@ -337,6 +338,13 @@ int launch(const void* x, const void* nbr, const void* infl, const void* rhs_t, 
 // last wave in half tiles of kBM / 2, see launch).
 namespace tc {
 
+using se3et::bulk_load;
+using se3et::mbar_arrive;
+using se3et::mbar_expect_tx;
+using se3et::mbar_init;
+using se3et::mbar_wait;
+using se3et::smem_u32;
+
 using bf16 = __nv_bfloat16;
 
 constexpr int kBM = 64;
@@ -362,40 +370,10 @@ __device__ __forceinline__ int swz(int r, int c) {
   return r * kCW + ((((c >> 3) ^ (r >> 1)) & 3) << 3) + (c & 7);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* smem) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(smem)));
-}
-
-// mbarriers of the weight ring, and the bulk copy that fills a slot
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// until the phase of the given parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n .reg .pred p;\n WAIT_%=:\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      " @!p bra WAIT_%=;\n}\n" ::"r"(smem_u32(bar)), "r"(parity) : "memory");
-}
-// a bulk global -> shared copy that signals `bar` with its bytes
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
 }
 
 __device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {

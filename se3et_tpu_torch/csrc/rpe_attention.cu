@@ -15,62 +15,35 @@
 // tensor cores.  A textbook flash layout (one block per (b, ah, query
 // block)) would read each emb[b,n,m,:] row AH = 24 times.
 //
-// The kernels (rpe_attention_core.cuh, shared with K16) take the
-// positional term from the policy EmbRows below:
-// * bf16 (the serving path; head width 64, C % 32 == 0): on the tensor
-//   cores, each emb[b,n,m,:] row is streamed from device memory exactly once
-//   (evict-first loads straight into A fragments) and contracted against
-//   the AH folded queries of its row at once;
-// * float32 (and other widths): on the CUDA cores, each lane streams its
+// Two forms, chosen by shape (the wrapper's rpe_attention_form mirrors
+// the choice):
+// * "ws" (bf16, head width 64, C % 32 == 0, the serving path):
+//   rpe_attention_ws.cuh.  A producer warp streams each emb[b,n,m,:] row
+//   from device memory exactly once, as bulk copies into a ring of shared
+//   memory, while positional warps contract it against the AH folded
+//   queries of its row on the tensor cores and flash warps run the softmax
+//   and p.v of the previous key tile;
+// * "cuda" (float32 and the other widths): rpe_attention_core.cuh's
+//   CUDA-core kernel with the policy EmbRows below; each lane streams its
 //   own embedding row once and contracts it against the AH folded queries
 //   held in shared memory as float32.
-// wgmma and TMA are later work.  Where lse is not null, the kernel also
-// writes the row log-sum-exp (the row statistics _rpe_fwd returns for the
-// backward, rpe_attention_bwd.cu); serving passes null.
-#include "rpe_attention_core.cuh"
+// Where lse is not null, the kernel also writes the row log-sum-exp (the
+// row statistics _rpe_fwd returns for the backward, rpe_attention_bwd.cu);
+// serving passes null.
+#include "rpe_attention_ws.cuh"
 
 namespace {
 
 using namespace se3et;
 
-// The positional term qp . emb from a materialised embedding emb (B, N, N, C).
+// The positional term qp . emb of the CUDA-core kernel, from a
+// materialised embedding emb (B, N, N, C).
 template <typename T>
 struct EmbRows {
   const T* emb;
 
   size_t smem_bytes(int) const { return 0; }
   __device__ void init(char*, int) const {}
-
-  template <int AH, int NT>
-  __device__ __forceinline__ void tc_scores(int b, int n, int row, int key0, int cc,
-                                            const __nv_bfloat16* qp, int, int lane, char*,
-                                            float (&acc)[2][NT][4]) const {
-    const int g = lane >> 2, t = lane & 3;
-    const __nv_bfloat16* erow = emb + ((long long)b * n + row) * n * cc;
-    const __nv_bfloat16* qprow = qp + ((long long)b * n + row) * AH * cc;
-#pragma unroll 2
-    for (int c0 = 0; c0 < cc; c0 += 32) {
-      uint4 ua[2][2], ub[NT];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int key = key0 + 16 * mt + 8 * hh + g;
-          ua[mt][hh] = key < n ? __ldcs(reinterpret_cast<const uint4*>(
-                                     erow + (long long)key * cc + c0 + 8 * t))
-                               : make_uint4(0u, 0u, 0u, 0u);
-        }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int ah = 8 * nt + g;
-        ub[nt] = ld16(qprow + (long long)ah * cc + c0 + 8 * t, ah < AH);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) mma_bf16_x2(acc[mt][nt], ua[mt][0], ua[mt][1], ub[nt]);
-    }
-  }
 
   template <typename TT, int AH>
   __device__ __forceinline__ void lane_scores(int b, int n, int row, int m, int cc,
@@ -89,9 +62,14 @@ template <typename T>
 int run(const void* q, const void* k, const void* v, const void* qp, const void* emb,
         const void* kmask, const void* qw, const void* pts, void* out, void* lse, int batch,
         int ah, int n, int hc, int cc, int pts_rows, float scale, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const size_t ws = rpe_ws::smem_bytes(ah, hc, cc);
+  if (std::is_same<T, __nv_bfloat16>::value && ws != 0 && ws <= (size_t)rpe_ws::kMaxSmem)
+    return rpe_ws::dispatch(q, k, v, qp, emb, kmask, qw, pts, out, lse, batch, ah, n, hc, cc,
+                            pts_rows, scale, s);
   const EmbRows<T> pos{(const T*)emb};
-  return rpe::dispatch<T, EmbRows>(q, k, v, qp, kmask, qw, pts, out, lse, batch, ah, n, hc,
-                                   cc, pts_rows, scale, pos, stream);
+  return rpe::dispatch_cuda<T>(q, k, v, qp, kmask, qw, pts, out, lse, batch, ah, n, hc, cc,
+                               pts_rows, scale, pos, s);
 }
 
 }  // namespace
@@ -113,4 +91,10 @@ extern "C" int se3et_rpe_attention_f32(const void* q, const void* k, const void*
                                        int pts_rows, float scale, void* stream) {
   return run<float>(q, k, v, qp, emb, kmask, qw, pts, out, lse, batch, ah, n, hc, cc,
                     pts_rows, scale, stream);
+}
+
+// the shared memory of the ws form at (ah, hc, cc), 0 where it is not built
+// (the wrapper's rpe_attention.ws_smem_bytes is held against it)
+extern "C" long long se3et_rpe_attention_ws_smem(int ah, int hc, int cc) {
+  return (long long)se3et::rpe_ws::smem_bytes(ah, hc, cc);
 }

@@ -1,6 +1,7 @@
-// The flash RPE self-attention kernels, shared by K5 (rpe_attention.cu:
-// the positional term read from a materialised embedding) and K16
-// (rpe_attention_femb.cu: the embedding recomputed from coordinates).
+// The flash RPE self-attention kernels of K16 (rpe_attention_femb.cu: the
+// embedding recomputed from coordinates) and the CUDA-core kernel of K5
+// (rpe_attention.cu: the positional term read from a materialised
+// embedding; K5's bf16 serving form is rpe_attention_ws.cuh).
 //
 //   s[b,ah,n,m] = scale * (q[b,ah,n].k[b,ah,m] + qp[b,n,ah].emb[b,n,m]
 //                          + rinv(n,m) * (qw_y dy + qw_z dz + qw_x dx))
@@ -17,7 +18,8 @@
 //   void init(char* smem, int cc) const            (block-wide, before use)
 //   tc_scores<AH, NT>(b, n, row, key0, cc, qp, warp, lane, smem, acc)
 //       positional scores of one query row and 32 keys on the tensor cores
-//       (bf16), acc[mt][nt][i] = keys 16 mt + g (+8), anchor-heads 8 nt + 2t + i
+//       (bf16; K16 only), acc[mt][nt][i] = keys 16 mt + g (+8), anchor-heads
+//       8 nt + 2t + i
 //   lane_scores<T, AH>(b, n, row, m, cc, my_qp, s)
 //       s[a] += qp[b,row,a] . emb[b,row,m] for one key on the CUDA cores.
 //
@@ -469,22 +471,14 @@ int launch(const void* q, const void* k, const void* v, const void* qp, const vo
   return (int)cudaGetLastError();
 }
 
-// The kernel for (T, AH, head width hc) with the policy `pos` (a template
-// over the element type); cudaErrorInvalidValue where none is built.
-template <typename T, template <typename> class PosT>
-int dispatch(const void* q, const void* k, const void* v, const void* qp, const void* kmask,
-             const void* qw, const void* pts, void* out, void* lse, int batch, int ah, int n,
-             int hc, int cc, int pts_rows, float scale, const PosT<T>& pos, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+// The CUDA-core kernel for (T, AH, head width hc) with the policy `pos`;
+// cudaErrorInvalidValue where none is built.
+template <typename T, class Pos>
+int dispatch_cuda(const void* q, const void* k, const void* v, const void* qp,
+                  const void* kmask, const void* qw, const void* pts, void* out, void* lse,
+                  int batch, int ah, int n, int hc, int cc, int pts_rows, float scale,
+                  const Pos& pos, cudaStream_t s) {
   if (cc % 16 != 0) return (int)cudaErrorInvalidValue;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (hc == 64 && cc % 32 == 0) {
-      if (ah == 24)
-        return launch_tc<24, 64>(q, k, v, qp, kmask, qw, pts, out, lse, batch, n, cc, pts_rows, scale, pos, s);
-      if (ah == 4)
-        return launch_tc<4, 64>(q, k, v, qp, kmask, qw, pts, out, lse, batch, n, cc, pts_rows, scale, pos, s);
-    }
-  }
   if (ah == 24 && hc == 64)
     return launch<T, 24, 64>(q, k, v, qp, kmask, qw, pts, out, lse, batch, n, cc, pts_rows, scale, pos, s);
   if (ah == 4 && hc == 64)
@@ -494,6 +488,27 @@ int dispatch(const void* q, const void* k, const void* v, const void* qp, const 
   if (ah == 4 && hc == 16)
     return launch<T, 4, 16>(q, k, v, qp, kmask, qw, pts, out, lse, batch, n, cc, pts_rows, scale, pos, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The kernel for (T, AH, head width hc) with the policy `pos` (a template
+// over the element type): the tensor-core kernel in bf16 with head width 64
+// and C % 32 == 0, else the CUDA-core one; cudaErrorInvalidValue where none
+// is built.
+template <typename T, template <typename> class PosT>
+int dispatch(const void* q, const void* k, const void* v, const void* qp, const void* kmask,
+             const void* qw, const void* pts, void* out, void* lse, int batch, int ah, int n,
+             int hc, int cc, int pts_rows, float scale, const PosT<T>& pos, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (hc == 64 && cc % 32 == 0) {
+      if (ah == 24)
+        return launch_tc<24, 64>(q, k, v, qp, kmask, qw, pts, out, lse, batch, n, cc, pts_rows, scale, pos, s);
+      if (ah == 4)
+        return launch_tc<4, 64>(q, k, v, qp, kmask, qw, pts, out, lse, batch, n, cc, pts_rows, scale, pos, s);
+    }
+  }
+  return dispatch_cuda<T>(q, k, v, qp, kmask, qw, pts, out, lse, batch, ah, n, hc, cc, pts_rows,
+                          scale, pos, s);
 }
 
 }  // namespace rpe

@@ -14,7 +14,8 @@ shapes of se3ete.3dmatch (bf16) and the tiny float32 widths:
 * K3 (geometric embedding) at N = 1024, C = 256 in bf16, and N = 128,
   C = 64 in float32;
 * K5 (flash RPE self-attention) on random inputs: AH = 24 with the SH term
-  and AH = 4 without, at both widths;
+  and AH = 4 without, at both widths (the bf16 ones, the serving shapes,
+  timed and held within their ``TOLERANCES``);
 * K12 (fused conv) at the stage-0 (x (2, 20000, 192), H 24) and stage-1
   (x (2, 10000, 384), H 32) shapes, and K13 at the s0 -> s1 strided shape;
 * K16 (fused-embedding attention) at AH = 24 with SH and AH = 4 without,
@@ -38,13 +39,15 @@ import sys
 
 import torch
 
-TIMED = ("K1 stage 2", "K1 s2 -> s3", "K1 stage 3")
+K5_BF16 = ("K5 AH=24 SH N=1024 C=256 bf16", "K5 AH=4 no SH N=1024 C=256 bf16")
+TIMED = K5_BF16
 REPS = 20  # launches per timing
-# kernels changed on purpose, with their bound against the other build:
-# the bf16 K1 sums the gather on the tensor cores, in another order than
-# the first design's float32 FMAs, before its one rounding (1e-2, as its
-# kernel-vs-plain check states)
-TOLERANCES = {"K1 stage 2": 1e-2, "K1 s2 -> s3": 1e-2, "K1 stage 3": 1e-2}
+# kernels changed on purpose, with their bound against the other build
+# (1e-2, as the kernel-vs-plain check states): the bf16 K5 (the ws form) at
+# AH = 4 runs each head's softmax in two halves of the keys, merged at the
+# end, so its p are rounded to bf16 at other running maxima (at AH = 24 it
+# keeps the first design's sums in the same order)
+TOLERANCES = dict.fromkeys(K5_BF16, 1e-2)
 
 
 def _cases(dev):

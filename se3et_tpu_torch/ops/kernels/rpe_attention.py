@@ -19,7 +19,8 @@ a per-query constant is a softmax no-op.  ``rinv = sqrt(3/4pi) / (r +
 Keys with ``k_masks`` False are masked before the exp, and the softmax
 weights are cast to ``v``'s dtype before the value product, as the TPU
 kernel does.  The kernel (``csrc/rpe_attention.cu``) reads each embedding
-row once for all anchor-heads; its source notes the design.
+row once for all anchor-heads; its source notes the design, and
+:func:`rpe_attention_form` names the kernel a shape takes.
 
 Training differentiates through it (:func:`rpe_self_attention` under
 autograd): the forward also returns the row log-sum-exp, and the backward
@@ -50,6 +51,64 @@ SH1_C = math.sqrt(3.0 / (4.0 * math.pi))  # real_sh degree-1 coefficient
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 KERNEL_AH = (4, 24)  # anchor-heads per launch the kernel is built for
 KERNEL_HEAD_DIMS = (16, 64)
+SMEM_LIMIT = 232448  # dynamic shared memory one block can have on Hopper, bytes
+# the ws form's plan (csrc/rpe_attention_ws.cuh): query rows per block, keys
+# per tile, flash warps
+WS_ROWS, WS_KEYS, WS_FLASH_WARPS = 16, 32, 8
+
+
+def ws_slots(ah: int) -> int:
+    """Embedding slabs in the ws form's ring, one per positional warp."""
+    return 3 if ah >= WS_FLASH_WARPS else 5
+
+
+def ws_smem_bytes(ah: int, hc: int, cc: int) -> int:
+    """Shared memory of K5's ws form at (AH, head width, C), in bytes, as
+    ``rpe_ws::Layout<AH, HC>::bytes`` lays it out: the ring of
+    :func:`ws_slots` slots (an embedding slab of 32 keys and the row's
+    folded queries), two float32 score buffers (rows padded to AH * 32 + 8 floats),
+    a v tile per flash warp (rows of hc + 8 bf16), the block's SH queries
+    and 2 * slots + 4 mbarriers."""
+    split = 1 if ah >= WS_FLASH_WARPS else WS_FLASH_WARPS // ah  # flash warps per head
+    slots = ws_slots(ah)
+    ring = slots * (WS_KEYS + ah) * cc * 2  # a slot: 32 embedding rows and qp[b, n]
+    scores = 2 * WS_ROWS * (ah * WS_KEYS + 8) * 4
+    vtiles = WS_FLASH_WARPS * (WS_KEYS // split) * (hc + 8) * 2
+    qw = WS_ROWS * 3 * ah * 4
+    return ring + scores + vtiles + qw + (2 * slots + 4) * 8
+
+
+def cuda_smem_bytes(ah: int, cc: int) -> int:
+    """Shared memory of the CUDA-core form (``rpe::launch``): 8 query rows'
+    AH folded queries as float32 and their 32 softmax weights."""
+    return 8 * ah * (cc + 32) * 4
+
+
+def rpe_attention_form(ah: int, hc: int, cc: int, dtype, *, femb: bool = False) -> str:
+    """Which hand-written kernel takes a flash RPE self-attention of AH
+    anchor-heads, head width ``hc`` and embedding width ``cc`` in ``dtype``:
+
+    * "ws": K5 in bf16 with head width 64 and C % 32 == 0 (the serving
+      form, ``csrc/rpe_attention_ws.cuh``), where its plan fits a block;
+    * "tc": K16 (``femb``) in the same shapes (``rpe_attention_tc_kernel``);
+    * "cuda": the CUDA-core kernel (float32, the other widths).
+
+    Chosen by shape alone, as the C entry points choose; none is a
+    fallback of another.  Raises ``ValueError`` where no form takes the
+    shape."""
+    if dtype not in _DTYPES or ah not in KERNEL_AH or hc not in KERNEL_HEAD_DIMS or cc % 16:
+        raise ValueError(f"no flash RPE kernel for AH={ah}, head width {hc}, C={cc}, {dtype}: "
+                         f"built for AH in {KERNEL_AH}, head width in {KERNEL_HEAD_DIMS}, "
+                         f"C % 16 == 0, bf16 or float32")
+    if dtype == torch.bfloat16 and hc == 64 and cc % 32 == 0:
+        if femb:
+            return "tc"
+        if ws_smem_bytes(ah, hc, cc) <= SMEM_LIMIT:
+            return "ws"
+    if femb or cuda_smem_bytes(ah, cc) <= SMEM_LIMIT:
+        return "cuda"
+    raise ValueError(f"no flash RPE kernel fits AH={ah}, C={cc} in {dtype}: the CUDA-core "
+                     f"form needs {cuda_smem_bytes(ah, cc)} bytes of shared memory")
 
 
 def fold_equivariant_query(qe: torch.Tensor, wigner_d1: torch.Tensor) -> torch.Tensor:
@@ -208,6 +267,9 @@ def _rpe_forward(q, k, v, qp, emb, k_masks, qw, points, scale, with_lse):
         raise ValueError(f"unsupported device {q.device}")
     _check_inputs(q, k, v, qp, emb, k_masks, qw, points)
     b, ah, n, c = q.shape
+    # raises where no form takes the shape; the C entry point launches the
+    # same form
+    rpe_attention_form(ah, c, emb.shape[-1], q.dtype)
     with_sh = qw is not None
     if with_sh:
         qw = qw.float().contiguous()
@@ -248,8 +310,10 @@ class _RPESelfAttention(torch.autograd.Function):
 
 def rpe_self_attention(q, k, v, qp, emb, k_masks, qw=None, points=None, *, scale):
     """K5 (``csrc/rpe_attention.cu``, replaces the TPU ``rpe_self_attention``):
-    see :func:`rpe_self_attention_plain`.  Bound by the embedding's bytes;
-    the source notes the design.  Differentiable in q, k, v, qp, emb and qw
+    see :func:`rpe_self_attention_plain`.  The kernel is the one
+    :func:`rpe_attention_form` names (serving in bf16: "ws"); a shape no
+    form takes raises ``ValueError``.  Bound by the embedding's bytes; the
+    source notes the design.  Differentiable in q, k, v, qp, emb and qw
     (backward K11, :func:`rpe_attention_bwd`)."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (q, k, v, qp, emb, qw)):
@@ -383,6 +447,7 @@ def rpe_self_attention_femb(q, k, v, qp, k_masks, qw, points, knn_points, wd, wa
         raise ValueError("rpe_self_attention_femb takes points (B, 3|4, N) and knn_points "
                          "(B, N, k, 3)")
     _check_inputs(q, k, v, qp, None, k_masks, qw, points, cc=cc)
+    rpe_attention_form(ah, c, cc, q.dtype, femb=True)  # raises where no form takes it
     deg_d, deg_a, g, gt = _femb_tables(wd, wa, sigma_a, q.dtype)
     with_sh = qw is not None
     qwc = qw.float().contiguous() if with_sh else None

@@ -14,6 +14,7 @@ import torch
 
 from se3et_tpu.data import pipeline as pipe
 from se3et_tpu_torch.ops.kernels import embedding as emb_k
+from se3et_tpu_torch.ops.kernels import rpe_attention as rpe_k
 from se3et_tpu_torch.ops.kernels import selfcheck
 from se3et_tpu_torch.ops.kernels import sinkhorn as sk_k
 from se3et_tpu_torch.ops.kernels import windowed_conv as wc_k
@@ -91,6 +92,46 @@ def test_gather_wf_form(h, dtype, form):
     """K1 takes the tensor-core form in bf16 up to H = 64, else the first
     design."""
     assert wc_k.gather_wf_form(h, dtype) == form
+
+
+@pytest.mark.parametrize("ah,hc,cc,dtype,form", [
+    (24, 64, 256, torch.bfloat16, "ws"), (4, 64, 256, torch.bfloat16, "ws"),
+    (24, 64, 64, torch.bfloat16, "ws"),
+    (24, 64, 256, torch.float32, "cuda"), (4, 64, 256, torch.float32, "cuda"),
+    (24, 16, 64, torch.bfloat16, "cuda"), (4, 16, 64, torch.bfloat16, "cuda"),
+    (24, 16, 64, torch.float32, "cuda"), (24, 64, 48, torch.bfloat16, "cuda"),
+])
+def test_rpe_attention_form(ah, hc, cc, dtype, form):
+    """K5 takes the ws form in bf16 with head width 64 and C % 32 == 0, the
+    CUDA-core form otherwise; never "tc", which is K16's."""
+    assert rpe_k.rpe_attention_form(ah, hc, cc, dtype) == form
+
+
+@pytest.mark.parametrize("ah,hc,cc,form", [(24, 64, 256, "tc"), (4, 64, 256, "tc"),
+                                           (24, 16, 64, "cuda")])
+def test_rpe_attention_form_of_femb(ah, hc, cc, form):
+    assert rpe_k.rpe_attention_form(ah, hc, cc, torch.bfloat16, femb=True) == form
+
+
+@pytest.mark.parametrize("ah", [4, 24])
+def test_rpe_attention_ws_plan_fits_a_block(ah):
+    """The ws form's shared memory at the serving width C = 256 fits one
+    block of an H100 (232,448 bytes), with its ring of 16 KB embedding
+    slabs and their rows' folded queries."""
+    plan = rpe_k.ws_smem_bytes(ah, 64, 256)
+    assert rpe_k.ws_slots(ah) * (32 + ah) * 256 * 2 < plan <= 232448 == rpe_k.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("ah,hc,cc,dtype", [
+    (24, 64, 512, torch.bfloat16),   # neither form's plan fits a block
+    (8, 64, 256, torch.bfloat16),    # no kernel for AH = 8
+    (24, 32, 256, torch.bfloat16),   # nor head width 32
+    (24, 64, 40, torch.float32),     # C % 16 != 0
+    (24, 64, 256, torch.float16),
+])
+def test_rpe_attention_form_refuses_shapes_no_kernel_takes(ah, hc, cc, dtype):
+    with pytest.raises(ValueError):
+        rpe_k.rpe_attention_form(ah, hc, cc, dtype)
 
 
 @pytest.mark.parametrize("ac,infl_shape", [

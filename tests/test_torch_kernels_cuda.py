@@ -139,17 +139,45 @@ def _cloud(cuda, n, seed, pad=40):
     return points, masks
 
 
-@pytest.mark.parametrize("n,ah,c,cc,with_sh,dtype", [
-    (1024, 24, 64, 256, True, torch.bfloat16),    # self_eq layers
-    (1024, 4, 64, 256, False, torch.bfloat16),    # plain self layers
-    (1003, 24, 64, 256, True, torch.bfloat16),    # ragged N
-    (128, 24, 16, 64, True, torch.float32),       # tiny card-vs-CPU widths
-    (128, 4, 16, 64, False, torch.float32),
+# (N, padded keys at the end of cloud 1): the serving shape, whose last 40
+# masked keys leave key tile 992-1023 wholly masked; ragged N; one key past
+# a tile; fewer rows than a block; two wholly masked tiles
+RPE_EDGES = [(1024, 40), (1003, 40), (33, 5), (12, 3), (1003, 72)]
+
+
+@pytest.mark.parametrize("n,ah,c,cc,with_sh,dtype,pad", [
+    (1024, 24, 64, 256, True, torch.bfloat16, 40),    # self_eq layers
+    (1024, 4, 64, 256, False, torch.bfloat16, 40),    # plain self layers
+    (1003, 24, 64, 256, True, torch.bfloat16, 40),    # ragged N
+    (1003, 4, 64, 256, False, torch.bfloat16, 40),
+    (33, 24, 64, 256, True, torch.bfloat16, 5),       # one key past a tile
+    (33, 4, 64, 256, False, torch.bfloat16, 5),
+    (12, 24, 64, 256, True, torch.bfloat16, 3),       # fewer rows than a block
+    (12, 4, 64, 256, False, torch.bfloat16, 3),
+    (1003, 24, 64, 256, True, torch.bfloat16, 72),    # two wholly masked key tiles
+    (1003, 4, 64, 256, False, torch.bfloat16, 72),
+    (128, 24, 16, 64, True, torch.float32, 40),       # tiny card-vs-CPU widths
+    (128, 4, 16, 64, False, torch.float32, 40),
 ])
-def test_rpe_attention_kernel(cuda, n, ah, c, cc, with_sh, dtype):
-    points, masks = _cloud(cuda, n, 4)
+def test_rpe_attention_kernel(cuda, n, ah, c, cc, with_sh, dtype, pad):
+    points, masks = _cloud(cuda, n, 4, pad=pad)
     _assert_ok(selfcheck.check_rpe_attention(points, masks, ah, c=c, cc=cc,
                                              with_sh=with_sh, dtype=dtype, reps=1))
+
+
+def test_rpe_attention_ws_plan_matches_the_kernel(cuda):
+    """The wrapper's shared-memory plan of K5's ws form is the kernel's."""
+    import ctypes
+
+    from se3et_tpu_torch.ops.kernels import _build
+    from se3et_tpu_torch.ops.kernels import rpe_attention as rpe
+
+    fn = getattr(_build._library("rpe_attention"), "se3et_rpe_attention_ws_smem")
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    for ah, hc, cc in ((24, 64, 256), (4, 64, 256), (24, 64, 64), (4, 64, 512)):
+        assert fn(ah, hc, cc) == rpe.ws_smem_bytes(ah, hc, cc)
+    assert fn(24, 16, 64) == 0 and fn(24, 64, 48) == 0
 
 
 @pytest.mark.parametrize("n,m,c,dtype", [
@@ -219,13 +247,14 @@ def test_rpe_attention_bwd_kernel(cuda, n, ah, c, cc, with_sh, dtype):
                                                  with_sh=with_sh, dtype=dtype, reps=1))
 
 
+@pytest.mark.parametrize("n,pad", RPE_EDGES)
 @pytest.mark.parametrize("ah,with_sh", [(24, True), (4, False)])
-def test_rpe_attention_row_stats_leave_the_output_unchanged(cuda, ah, with_sh):
+def test_rpe_attention_row_stats_leave_the_output_unchanged(cuda, ah, with_sh, n, pad):
     """K5 with and without its row log-sum-exp output gives the same out
     (bit for bit), and the log-sum-exp agrees with the plain version's."""
     from se3et_tpu_torch.ops.kernels import rpe_attention as rpe
 
-    points, masks = _cloud(cuda, 1024, 4)
+    points, masks = _cloud(cuda, n, 4, pad=pad)
     g = torch.Generator().manual_seed(11)
     b, n = masks.shape
     rnd = lambda *s: torch.randn(s, generator=g).to(cuda, torch.bfloat16)  # noqa: E731
