@@ -18,7 +18,9 @@ Phases, each of which raises (exit code != 0) on failure:
    and K1 and K2 at the shapes where they serve on the fused route (the
    stage 2-3 convs and the s2 -> s3 skip) beside their stage-0 rows; K5 at
    its two self-layer shapes beside its times before the redesign, with
-   its total per served pair (as K1's);
+   its total per served pair (as K1's); K6 by events and by its device
+   time (profiler), with its total per served pair and its bound (its
+   exponentials), beside its times before the redesign;
 4. check that the kernel path (card) and the plain path (CPU) agree on two
    tiny float32 inputs: the materialised-attention cut and the flash cut
    (128-point coarse stage, 600 points), both through the fused convs
@@ -102,7 +104,7 @@ FEMB_LAUNCHES = {"rpe_self_attention_femb": 5, "geometric_embedding": 0,
 # the CUDA kernels of the default serving route (K1-K7, K12-K14 in bf16, K4
 # in float32), whose device time per launch the pair profile always prints
 SERVING_KERNELS = ("gather_wf_tc_kernel", "neighbor_max_kernel", "embedding_tc_kernel",
-                   "sinkhorn_kernel", "rpe_attention_ws_kernel", "eq_stats_mma_kernel",
+                   "sinkhorn_kernel", "rpe_attention_ws_kernel", "eq_stats_tc_kernel",
                    "eq_apply_mma_kernel", "gather_wf_mm_tc_kernel", "panels_kernel",
                    "gather_wf_mm_kernel", "gather_wf_max_kernel")
 
@@ -587,8 +589,10 @@ def main() -> int:
         # self_eq layers: A*H anchor-heads with the SH term
         "rpe_self_attention": selfcheck.check_rpe_attention(
             pts_c, masks_c, m.kanchor * heads, c=head_dim, cc=m.gt_hidden_dim, reps=10),
+        # 20 launches per timing: with 3 the first call's host time shows
         "eq_attention_stats": selfcheck.check_eq_stats(
-            masks_c[0], masks_c[1], a=m.kanchor, h=heads, c=head_dim),
+            masks_c[0], masks_c[1], a=m.kanchor, h=heads, c=head_dim, reps=20,
+            device_kernel="eq_stats_tc_kernel"),
         "eq_attention_apply": selfcheck.check_eq_apply(
             masks_c[0], masks_c[1], a=m.kanchor, h=heads, c=head_dim),
         # stage-0 bottleneck conv (mid 32: A*Cin = A*Cout = 192)
@@ -638,6 +642,16 @@ def main() -> int:
     print(f"K5 per served pair ({sum(n for n, _, _ in k5_serving)} launches): "
           f"{sum(n * r.ms for n, r, _ in k5_serving):.4f} ms (first design: 3.745), bound "
           f"{sum(n * r.bound_ms for n, r, _ in k5_serving):.4f} ms", flush=True)
+    # K6 at the EQ cross layers' shape, beside its times before the redesign
+    # (NVIDIA H100 80GB HBM3, 700 W: 0.5218 ms by events, 0.4376 device)
+    k6 = checks["eq_attention_stats"]
+    k6_dev = "not measured" if k6.device_ms is None else f"{k6.device_ms:.4f}"
+    k6_pair = "not measured" if k6.device_ms is None else \
+        f"{FLASH_LAUNCHES['eq_attention_stats'] * k6.device_ms:.4f}"
+    print(f"K6 {k6.shape}: events {k6.ms:.4f} ms (first design 0.5218), device {k6_dev} ms "
+          f"(0.4376); per served pair ({FLASH_LAUNCHES['eq_attention_stats']} launches) "
+          f"device {k6_pair} ms (1.750); bound {k6.bound_ms:.4f} ms ({k6.bound_by})",
+          flush=True)
     bad = [r.name for r in list(checks.values()) + extra if not r.ok]
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: {bad}")

@@ -32,10 +32,52 @@ _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 POSITIVE_MODES = (None, "sq", "abs", "relu", "sigmoid", "leakyrelu", "softplus", "minus")
 KERNEL_HEADS = (4,)
 KERNEL_HEAD_DIMS = (16, 64)
-# K6 writes one pooled partial per block; slots are sized for the smallest
-# block (8 query rows, the CUDA-core kernels), the tensor-core kernel
-# (64 rows) fills the first of them
-ROWS_PER_BLOCK = 8
+SMEM_LIMIT = 232448  # dynamic shared memory one block can have on Hopper, bytes
+# K6's forms (csrc/eq_attention.cu): query rows behind one pooled partial
+# slot, and the tc form's plan: keys per staged tile, ring slots, consumer
+# warps, query rows per consumer warp (q staged in shared memory)
+TC_ROWS, CUDA_ROWS = 16, 8
+TC_KEYS, TC_STAGES, TC_CONSUMERS, TC_UNIT_ROWS = 32, 8, 9, 16
+
+
+def eq_attention_stats_form(h: int, c: int, dtype) -> str:
+    """Which hand-written K6 kernel takes H heads of width ``c`` in ``dtype``:
+
+    * "tc": bf16, H = 4, head width 64 (the serving form,
+      ``eq_tc::eq_stats_tc_kernel``: TMA key tiles, mma.sync, base-2
+      softmax);
+    * "cuda": the CUDA-core kernel (float32, and head width 16 in either
+      type).
+
+    Chosen by shape alone, as the C entry point chooses; neither is a
+    fallback of the other.  Raises ``ValueError`` where no form takes the
+    shape."""
+    if dtype not in _DTYPES or h not in KERNEL_HEADS or c not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"no K6 kernel for H={h}, head width {c}, {dtype}: built for H in "
+                         f"{KERNEL_HEADS}, head width in {KERNEL_HEAD_DIMS}, bf16 or float32")
+    return "tc" if dtype == torch.bfloat16 and c == 64 else "cuda"
+
+
+def eq_attention_stats_parts(h: int, n: int, c: int, dtype) -> int:
+    """Pooled partial slots per (a, e) that K6 writes for N query rows: one
+    per 16-row warp unit in the tc form, one per 8-row block in the CUDA-core
+    form (``se3et_eq_attention_stats_parts`` in the C source)."""
+    rows = TC_ROWS if eq_attention_stats_form(h, c, dtype) == "tc" else CUDA_ROWS
+    return -(-n // rows)
+
+
+def eq_stats_smem_bytes(m: int) -> int:
+    """Shared memory of K6's tc form at M keys, in bytes, as
+    ``eq_tc::smem_bytes`` lays it out: 1024 bytes of alignment slack, the
+    ring of TC_STAGES key tiles (4 heads x TC_KEYS keys x 64 bf16), each
+    consumer warp's q tile (4 heads x TC_UNIT_ROWS rows x 64 bf16), the key
+    mask as bits (a whole number of tiles, padded to 8 bytes), 2 x TC_STAGES
+    mbarriers and two counts."""
+    tiles = -(-m // TC_KEYS)
+    mask = (tiles * TC_KEYS // 8 + 7) // 8 * 8
+    ring = TC_STAGES * 4 * TC_KEYS * 64 * 2
+    q = TC_CONSUMERS * 4 * TC_UNIT_ROWS * 64 * 2
+    return 1024 + ring + q + mask + 2 * TC_STAGES * 8 + 8
 
 
 def _positive(x, mode: Optional[str]):
@@ -106,43 +148,64 @@ def eq_attention_apply_plain(q, k, v, w_ae, rowmax, rowsum, k_masks):
 def _check_qk(q, k):
     if q.dtype not in _DTYPES or k.dtype != q.dtype:
         raise TypeError("q and k must share one dtype, bf16 or float32")
-    a, h, n, c = q.shape
-    if k.ndim != 4 or k.shape[1] != h or k.shape[3] != c:
-        raise ValueError("bad q/k shapes")
-    if h not in KERNEL_HEADS or c not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"K6/K7 are built for H in {KERNEL_HEADS} and head width in "
-                         f"{KERNEL_HEAD_DIMS}, got {h}, {c}")
+    if q.ndim != 4 or k.ndim != 4 or k.shape[1] != q.shape[1] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"bad q/k shapes {tuple(q.shape)}, {tuple(k.shape)}")
+
+
+def _check_stats(q, k, q_masks, k_masks, sup_q, sup_k, positive):
+    """K6's argument checks, on every device."""
+    _check_qk(q, k)
+    if positive not in POSITIVE_MODES:
+        raise ValueError(f"unknown positive mode {positive!r}")
+    if q_masks.shape != (q.shape[2],) or k_masks.shape != (k.shape[2],):
+        raise ValueError(f"masks must be (N,), (M,): got {tuple(q_masks.shape)}, "
+                         f"{tuple(k_masks.shape)}")
+    if (sup_q is None) != (sup_k is None):
+        raise ValueError("sup_q and sup_k go together")
+    if sup_q is not None and (sup_q.numel() != q.shape[0] * q.shape[1]
+                              or sup_k.numel() != k.shape[0] * k.shape[1]):
+        raise ValueError("sup_q must hold (A, H) values and sup_k (E, H)")
+
+
+def _mask_bytes(masks):
+    """A mask as one byte per entry, viewed in place where it is bool."""
+    m = masks.view(torch.uint8) if masks.dtype == torch.bool else masks.to(torch.uint8)
+    return m.contiguous()
 
 
 def eq_attention_stats(q, k, q_masks, k_masks, sup_q=None, sup_k=None, *,
                        positive="sq"):
     """K6 (``csrc/eq_attention.cu``, replaces the TPU ``eq_attention_stats``):
-    see :func:`eq_attention_stats_plain`.  Per-block partial sums are
-    reduced here, in a fixed order (no atomics)."""
+    see :func:`eq_attention_stats_plain`.  The kernel is the one
+    :func:`eq_attention_stats_form` names (serving in bf16: "tc"); a shape
+    no form takes raises ``ValueError``.  The kernel writes every pooled
+    partial slot (:func:`eq_attention_stats_parts`); they are reduced here,
+    in a fixed order (no atomics).  Bound by its exponentials."""
+    _check_stats(q, k, q_masks, k_masks, sup_q, sup_k, positive)
     if q.device.type == "cpu":
         return eq_attention_stats_plain(q, k, q_masks, k_masks, sup_q, sup_k,
                                         positive=positive)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    _check_qk(q, k)
-    if positive not in POSITIVE_MODES:
-        raise ValueError(positive)
     a, h, n, c = q.shape
     e, _, m, _ = k.shape
+    form = eq_attention_stats_form(h, c, q.dtype)
+    if form == "tc" and eq_stats_smem_bytes(m) > SMEM_LIMIT:
+        raise ValueError(f"K6's tc form does not fit M={m} keys in a block")
     with_sup = sup_q is not None
     if with_sup:
         sup_q = sup_q.float().reshape(a, h).contiguous()
         sup_k = sup_k.float().reshape(e, h).contiguous()
     q, k = q.contiguous(), k.contiguous()
-    qm = q_masks.to(torch.uint8).contiguous()
-    km = k_masks.to(torch.uint8).contiguous()
-    nblk = -(-n // ROWS_PER_BLOCK)
+    if k.data_ptr() % 16:  # the tc form's tensor copies need 16-byte aligned rows
+        k = k.clone()
+    qm, km = _mask_bytes(q_masks), _mask_bytes(k_masks)
     dev = q.device
     rowmax = torch.empty((a, e, h, n), dtype=torch.float32, device=dev)
     rowsum = torch.empty_like(rowmax)
-    # per-block partials; a kernel with larger blocks fills fewer slots
-    gpart = torch.zeros((a, e, nblk), dtype=torch.float32, device=dev)
-    spart = torch.full_like(gpart, _NEG)
+    gpart = torch.empty((a, e, eq_attention_stats_parts(h, n, c, q.dtype)),
+                        dtype=torch.float32, device=dev)
+    spart = torch.empty_like(gpart)
     fn = _build.function("eq_attention", f"se3et_eq_attention_stats_{_DTYPES[q.dtype]}",
                          10, 7)
     _build.check(fn(q.data_ptr(), k.data_ptr(), qm.data_ptr(), km.data_ptr(),
@@ -153,8 +216,11 @@ def eq_attention_stats(q, k, q_masks, k_masks, sup_q=None, sup_k=None, *,
                     torch.cuda.current_stream(dev).cuda_stream),
                  "eq_attention_stats launch")
     eq_attention_stats.launches += 1
-    counts = q_masks.sum().float() * k_masks.sum().float()
-    attn_ae = gpart.sum(dim=-1) / (counts + 1e-9)
+    if form == "tc":  # the partials come divided by the valid (n, m) count
+        attn_ae = gpart.sum(dim=-1)
+    else:
+        counts = q_masks.sum().float() * k_masks.sum().float()
+        attn_ae = gpart.sum(dim=-1) / (counts + 1e-9)
     if with_sup:
         return rowmax, rowsum, attn_ae, spart.amax(dim=-1)
     return rowmax, rowsum, attn_ae
@@ -170,6 +236,9 @@ def eq_attention_apply(q, k, v, w_ae, rowmax, rowsum, k_masks):
     _check_qk(q, k)
     a, h, n, c = q.shape
     e, _, m, _ = k.shape
+    if h not in KERNEL_HEADS or c not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"K7 is built for H in {KERNEL_HEADS} and head width in "
+                         f"{KERNEL_HEAD_DIMS}, got {h}, {c}")
     if v.shape != k.shape or v.dtype != q.dtype:
         raise ValueError("v must match k in shape and q in dtype")
     if w_ae.shape != (a, e) or rowmax.shape != (a, e, h, n) or rowsum.shape != (a, e, h, n):

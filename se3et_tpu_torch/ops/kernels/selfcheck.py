@@ -92,6 +92,10 @@ ROUTES = ("influence", "rpe_self_attention_femb")
 # by input type (bf16 on the tensor cores, float32 outside them)
 MEMORY_RATE = 3.35e12
 PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# exponentials/s: the special-function units return 16 exp2 results per
+# clock per SM (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0), 132 SMs at the 1.98 GHz boost clock
+EXP_RATE = 132 * 16 * 1.98e9
 
 
 @dataclasses.dataclass
@@ -107,26 +111,29 @@ class CheckResult:
     library_ms: Optional[float] = None
     launches: int = 0  # on the main path, filled in by the caller
     route_ms: Optional[float] = None  # the unfused route's time (K12-K14), a yardstick
+    device_ms: Optional[float] = None  # the kernel's own device time per call (profiler)
 
     @property
     def ok(self) -> bool:
         return self.max_abs_err <= self.tol
 
 
-def bound(nbytes: float, ops: float, dtype) -> tuple[float, str]:
-    """(least ms, "bytes" or "operations") for ``nbytes`` moved and ``ops``
-    operations on inputs of ``dtype``."""
-    t_bytes = nbytes / MEMORY_RATE * 1e3
-    t_ops = ops / PEAK[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(nbytes: float, ops: float, dtype, exps: float = 0.0) -> tuple[float, str]:
+    """(least ms, "bytes", "operations" or "exps") for ``nbytes`` moved,
+    ``ops`` operations on inputs of ``dtype`` and ``exps`` exponentials."""
+    times = {"bytes": nbytes / MEMORY_RATE * 1e3, "operations": ops / PEAK[dtype] * 1e3,
+             "exps": exps / EXP_RATE * 1e3}
+    kind = max(times, key=times.get)
+    return times[kind], kind
 
 
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _with_bound(res: CheckResult, nbytes, ops, dtype, library=None, reps=3) -> CheckResult:
-    res.bound_ms, res.bound_by = bound(nbytes, ops, dtype)
+def _with_bound(res: CheckResult, nbytes, ops, dtype, library=None, reps=3,
+                exps=0.0) -> CheckResult:
+    res.bound_ms, res.bound_by = bound(nbytes, ops, dtype, exps)
     if library is not None:
         res.library_ms = _time_ms(library, reps)
     return res
@@ -152,6 +159,28 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, kernel: str, reps: int = 10) -> Optional[float]:
+    """Device time per call of the kernels whose name holds ``kernel``, from
+    ``torch.profiler`` over ``reps`` calls of ``fn`` (after one warm-up);
+    None where the profiler records none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and kernel in e.key]
+    if not events:
+        return None
+    attr = "self_device_time_total" if hasattr(events[0], "self_device_time_total") \
+        else "self_cuda_time_total"
+    return sum(getattr(e, attr) for e in events) / 1e3 / reps
 
 
 def _compare(name, shape, kernel_fn, plain_fn, tol_fn, reps, mask=None):
@@ -338,7 +367,8 @@ def check_rpe_attention(points, masks, ah, c=64, cc=256, with_sh=True,
     nbytes = _nbytes(q, k, v, qp, emb, masks) + b * ah * n * c * 4
     if with_sh:
         nbytes += _nbytes(qw, pts)
-    return _with_bound(res, nbytes, ops, dtype)
+    # one exp per score with a valid key
+    return _with_bound(res, nbytes, ops, dtype, exps=float(ah * n * nkeys))
 
 
 def _eq_inputs(q_masks, k_masks, a, h, c, dtype, seed):
@@ -353,16 +383,20 @@ def _eq_inputs(q_masks, k_masks, a, h, c, dtype, seed):
     return q, k, v, sup_q, sup_k
 
 
-def check_eq_stats(q_masks, k_masks, a=6, h=4, c=64, with_sup=False,
-                   dtype=torch.bfloat16, seed=5, reps=3):
-    """K6 on random q (A, H, N, c), k (A, H, M, c) with the given masks.
-    The error reported is the largest over the outputs (row max, row sum,
-    attn_ae[, sup]) of max|got - want| / max|want|, tolerance 1e-3: float32
-    sums in another order, the row sum accumulated online."""
+def check_eq_stats(q_masks, k_masks, a=6, h=4, c=64, with_sup=False, positive="sq",
+                   dtype=torch.bfloat16, seed=5, reps=3, device_kernel=None):
+    """K6 on random q (A, H, N, c), k (A, H, M, c) with the given masks and
+    ``positive`` mode.  The error reported is the largest over the outputs
+    (row max, row sum, attn_ae[, sup]) of max|got - want| / max|want|,
+    tolerance 1e-3: float32 sums in another order, the row sum accumulated
+    online in base 2 (ex2.approx in the bf16 form).  With ``device_kernel``
+    (a kernel name) also the device time of that kernel per call."""
     q, k, _, sup_q, sup_k = _eq_inputs(q_masks, k_masks, a, h, c, dtype, seed)
     sq, sk = (sup_q, sup_k) if with_sup else (None, None)
-    kern = lambda: eq_attention.eq_attention_stats(q, k, q_masks, k_masks, sq, sk)  # noqa: E731
-    plain = lambda: eq_attention.eq_attention_stats_plain(q, k, q_masks, k_masks, sq, sk)  # noqa: E731
+    kern = lambda: eq_attention.eq_attention_stats(  # noqa: E731
+        q, k, q_masks, k_masks, sq, sk, positive=positive)
+    plain = lambda: eq_attention.eq_attention_stats_plain(  # noqa: E731
+        q, k, q_masks, k_masks, sq, sk, positive=positive)
     with prec.compute_dtype_scope("float32"):
         got, want = kern(), plain()
         torch.cuda.synchronize()
@@ -370,13 +404,17 @@ def check_eq_stats(q_masks, k_masks, a=6, h=4, c=64, with_sup=False,
                   for g_, w_ in zip(got, want))
         res = CheckResult(
             "eq_attention_stats",
-            f"q(A={a}, H={h}, N={q.shape[2]}, c={c}) M={k.shape[2]} "
+            f"q(A={a}, H={h}, N={q.shape[2]}, c={c}) M={k.shape[2]} positive={positive} "
             f"{'with' if with_sup else 'no'} sup {dtype} (error relative to output scale)",
             err, 1e-3, _time_ms(kern, reps), _time_ms(plain, reps))
+        if device_kernel is not None:
+            res.device_ms = device_ms(kern, device_kernel)
     e, m, n = k.shape[0], k.shape[2], q.shape[2]
     nbytes = _nbytes(q, k, q_masks, k_masks) + 2 * a * e * h * n * 4 + a * e * 4
     ops = 2.0 * a * e * h * n * m * c
-    return _with_bound(res, nbytes, ops, dtype)
+    # one exp per score with a valid key
+    exps = float(a * e * h * n * int(k_masks.sum()))
+    return _with_bound(res, nbytes, ops, dtype, exps=exps)
 
 
 def check_eq_apply(q_masks, k_masks, a=6, h=4, c=64, dtype=torch.bfloat16, seed=6,
@@ -399,7 +437,7 @@ def check_eq_apply(q_masks, k_masks, a=6, h=4, c=64, dtype=torch.bfloat16, seed=
     e, m, n = k.shape[0], k.shape[2], q.shape[2]
     nbytes = _nbytes(q, k, v, w, rowmax, rowsum, k_masks) + a * h * n * c * 4
     ops = 2.0 * a * e * h * n * m * 2 * c
-    return _with_bound(res, nbytes, ops, dtype)
+    return _with_bound(res, nbytes, ops, dtype, exps=float(a * e * h * n * int(k_masks.sum())))
 
 
 def _compare_many(name, shape, kernel_fn, plain_fn, tol, reps):
@@ -733,4 +771,4 @@ def check_rpe_attention_femb(points, masks, ah, c=64, cc=256, k=3, sigma_d=0.2, 
     nbytes = _nbytes(q, kk, v, qp, masks, points, knn, wd, wa) + b * ah * n * c * 4
     if with_sh:
         nbytes += _nbytes(qw)
-    return _with_bound(res, nbytes, ops, dtype)
+    return _with_bound(res, nbytes, ops, dtype, exps=float(ah * n * nkeys))

@@ -14,6 +14,7 @@ import torch
 
 from se3et_tpu.data import pipeline as pipe
 from se3et_tpu_torch.ops.kernels import embedding as emb_k
+from se3et_tpu_torch.ops.kernels import eq_attention as eq_k
 from se3et_tpu_torch.ops.kernels import rpe_attention as rpe_k
 from se3et_tpu_torch.ops.kernels import selfcheck
 from se3et_tpu_torch.ops.kernels import sinkhorn as sk_k
@@ -132,6 +133,79 @@ def test_rpe_attention_ws_plan_fits_a_block(ah):
 def test_rpe_attention_form_refuses_shapes_no_kernel_takes(ah, hc, cc, dtype):
     with pytest.raises(ValueError):
         rpe_k.rpe_attention_form(ah, hc, cc, dtype)
+
+
+@pytest.mark.parametrize("h,c,dtype,form", [
+    (4, 64, torch.bfloat16, "tc"),      # the EQ cross layers in serving
+    (4, 64, torch.float32, "cuda"),
+    (4, 16, torch.float32, "cuda"),     # the tiny card-vs-CPU widths
+    (4, 16, torch.bfloat16, "cuda"),
+])
+def test_eq_attention_stats_form(h, c, dtype, form):
+    """K6 takes the tc form in bf16 with H = 4 and head width 64, the
+    CUDA-core form otherwise."""
+    assert eq_k.eq_attention_stats_form(h, c, dtype) == form
+
+
+@pytest.mark.parametrize("h,c,dtype", [
+    (8, 64, torch.bfloat16),    # no kernel for H = 8
+    (2, 16, torch.float32),     # nor H = 2
+    (4, 32, torch.bfloat16),    # nor head width 32
+    (4, 64, torch.float16),
+])
+def test_eq_attention_stats_form_refuses_shapes_no_kernel_takes(h, c, dtype):
+    with pytest.raises(ValueError):
+        eq_k.eq_attention_stats_form(h, c, dtype)
+
+
+@pytest.mark.parametrize("n,c,dtype,parts", [
+    (1024, 64, torch.bfloat16, 64), (1003, 64, torch.bfloat16, 63),
+    (17, 64, torch.bfloat16, 2), (1, 64, torch.bfloat16, 1),
+    (1024, 64, torch.float32, 128), (17, 16, torch.float32, 3),
+    (17, 16, torch.bfloat16, 3),
+])
+def test_eq_attention_stats_parts(n, c, dtype, parts):
+    """One pooled partial slot per 16 query rows in the tc form, per 8 in
+    the CUDA-core form; every slot is written by the kernel."""
+    assert eq_k.eq_attention_stats_parts(4, n, c, dtype) == parts
+
+
+@pytest.mark.parametrize("m", [1, 1024, 100_000])
+def test_eq_attention_stats_plan_fits_a_block(m):
+    """The tc form's shared memory (ring of key tiles, each consumer warp's
+    q tile, the key-mask bits, mbarriers) fits one block of an H100."""
+    plan = eq_k.eq_stats_smem_bytes(m)
+    ring = eq_k.TC_STAGES * 4 * eq_k.TC_KEYS * 64 * 2
+    q = eq_k.TC_CONSUMERS * 4 * eq_k.TC_UNIT_ROWS * 64 * 2
+    assert ring + q + m // 8 < plan <= 232448 == eq_k.SMEM_LIMIT
+
+
+def _eq_stats_args(**change):
+    g = torch.Generator().manual_seed(0)
+    args = dict(q=torch.randn((2, 4, 5, 16), generator=g),
+                k=torch.randn((3, 4, 7, 16), generator=g),
+                q_masks=torch.ones(5, dtype=torch.bool), k_masks=torch.ones(7, dtype=torch.bool),
+                sup_q=None, sup_k=None)
+    args.update(change)
+    return args
+
+
+@pytest.mark.parametrize("change,error", [
+    (dict(k=torch.zeros((3, 4, 7, 8))), ValueError),                  # another head width
+    (dict(k=torch.zeros((3, 2, 7, 16))), ValueError),                 # other heads
+    (dict(q=torch.zeros((4, 5, 16))), ValueError),                    # not (A, H, N, c)
+    (dict(k_masks=torch.ones(6, dtype=torch.bool)), ValueError),      # mask of another M
+    (dict(q_masks=torch.ones((1, 5), dtype=torch.bool)), ValueError),
+    (dict(sup_q=torch.ones((2, 4))), ValueError),                     # sup_q without sup_k
+    (dict(sup_q=torch.ones((2, 3)), sup_k=torch.ones((3, 4))), ValueError),
+    (dict(k=torch.zeros((3, 4, 7, 16), dtype=torch.bfloat16)), TypeError),
+    (dict(positive="cube"), ValueError),
+])
+def test_eq_attention_stats_refuses_bad_inputs_on_the_cpu(change, error):
+    """K6's wrapper checks its inputs on every device, the CPU included."""
+    args = _eq_stats_args(**{k: v for k, v in change.items() if k != "positive"})
+    with pytest.raises(error):
+        eq_k.eq_attention_stats(**args, positive=change.get("positive", "sq"))
 
 
 @pytest.mark.parametrize("ac,infl_shape", [

@@ -180,17 +180,84 @@ def test_rpe_attention_ws_plan_matches_the_kernel(cuda):
     assert fn(24, 16, 64) == 0 and fn(24, 64, 48) == 0
 
 
-@pytest.mark.parametrize("n,m,c,dtype", [
-    (1024, 1024, 64, torch.bfloat16),   # EQ cross layers
-    (1003, 997, 64, torch.bfloat16),    # ragged N and M
-    (128, 128, 16, torch.float32),      # tiny card-vs-CPU widths
-])
+EQ_MODES = ("sq", None, "abs", "relu", "sigmoid", "leakyrelu", "softplus", "minus")
+
+
+@pytest.mark.parametrize("n,m,c,dtype,positive", [
+    (1024, 1024, 64, torch.bfloat16, "sq"),   # EQ cross layers
+    (1003, 997, 64, torch.bfloat16, "sq"),    # ragged N and M
+    (128, 128, 16, torch.float32, "sq"),      # tiny card-vs-CPU widths
+] + [(1024, 1024, 64, torch.bfloat16, mode) for mode in EQ_MODES[1:]])
 @pytest.mark.parametrize("with_sup", [False, True])
-def test_eq_attention_stats_kernel(cuda, n, m, c, dtype, with_sup):
+def test_eq_attention_stats_kernel(cuda, n, m, c, dtype, positive, with_sup):
+    """K6 against its plain version in every positive() mode at the serving
+    shape, with and without the supervision max; within 1e-3 of each
+    output's scale."""
     qm = torch.arange(n, device=cuda) < n - 24
     km = torch.arange(m, device=cuda) < m - 40
-    _assert_ok(selfcheck.check_eq_stats(qm, km, c=c, with_sup=with_sup, dtype=dtype,
-                                        reps=1))
+    _assert_ok(selfcheck.check_eq_stats(qm, km, c=c, with_sup=with_sup, positive=positive,
+                                        dtype=dtype, reps=1))
+
+
+def _eq_edge_masks(case, n, m, device):
+    qm = torch.arange(n, device=device) < max(n - 3, 1)
+    km = torch.arange(m, device=device) < max(m - 5, 1)
+    if case == "masked tiles":  # keys 64-191 and 320-383: whole 64-key tiles
+        km[64:192] = False
+        km[320:384] = False
+    elif case == "no query row":
+        qm[:] = False
+    elif case == "one key":
+        km[:] = False
+        km[m // 2] = True
+    return qm, km
+
+
+@pytest.mark.parametrize("n,m,case", [
+    (1, 1024, "ragged"), (17, 1024, "ragged"),          # fewer rows than a warp unit
+    (1024, 1, "ragged"), (1024, 63, "ragged"),          # M not a multiple of the tile
+    (1024, 997, "ragged"),
+    (1024, 1024, "masked tiles"), (1003, 997, "masked tiles"),
+    (1024, 1024, "no query row"), (1024, 1024, "one key"), (17, 63, "one key"),
+])
+@pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 64), (torch.float32, 16)])
+@pytest.mark.parametrize("with_sup", [False, True])
+def test_eq_attention_stats_kernel_edges(cuda, n, m, case, dtype, c, with_sup):
+    """K6 (both forms) at shapes and masks off the serving path: N = 1 and
+    17, M = 1, 63 and 997, whole masked key tiles (skipped by the tc form),
+    every query row masked, a single valid key; within 1e-3 of each output's
+    scale."""
+    qm, km = _eq_edge_masks(case, n, m, cuda)
+    _assert_ok(selfcheck.check_eq_stats(qm, km, c=c, with_sup=with_sup, dtype=dtype, reps=1))
+
+
+def test_eq_attention_stats_plan_matches_the_kernel(cuda):
+    """The wrapper's partial-slot count and the tc form's shared-memory plan
+    are the kernel's."""
+    import ctypes
+
+    from se3et_tpu_torch.ops.kernels import _build
+    from se3et_tpu_torch.ops.kernels import eq_attention as eq
+
+    lib = _build._library("eq_attention")
+    parts = lib.se3et_eq_attention_stats_parts
+    parts.argtypes = [ctypes.c_int] * 4
+    parts.restype = ctypes.c_int
+    for n in (1, 17, 1003, 1024):
+        for c, dtype in ((64, torch.bfloat16), (16, torch.bfloat16), (64, torch.float32),
+                         (16, torch.float32)):
+            assert parts(4, n, c, int(dtype == torch.bfloat16)) == \
+                eq.eq_attention_stats_parts(4, n, c, dtype)
+    assert parts(8, 1024, 64, 1) == 0 and parts(4, 1024, 32, 1) == 0
+    smem = lib.se3et_eq_attention_stats_smem
+    smem.argtypes = [ctypes.c_int]
+    smem.restype = ctypes.c_longlong
+    for m in (1, 63, 64, 997, 1024, 5000):
+        assert smem(m) == eq.eq_stats_smem_bytes(m)
+    occupancy = lib.se3et_eq_attention_stats_blocks_per_sm
+    occupancy.argtypes = [ctypes.c_int]
+    occupancy.restype = ctypes.c_int
+    assert occupancy(1024) == 1
 
 
 @pytest.mark.parametrize("n,m,c,dtype", [
