@@ -18,9 +18,12 @@ Phases, each of which raises (exit code != 0) on failure:
    and K1 and K2 at the shapes where they serve on the fused route (the
    stage 2-3 convs and the s2 -> s3 skip) beside their stage-0 rows; K5 at
    its two self-layer shapes beside its times before the redesign, with
-   its total per served pair (as K1's); K6 by events and by its device
-   time (profiler), with its total per served pair and its bound (its
-   exponentials), beside its times before the redesign;
+   its total per served pair (as K1's); K6 and K7 by events over 20
+   launches and by their device time (profiler), with their totals per
+   served pair and their bounds, beside their times before the redesign,
+   and for K7 the time of the two PyTorch calls that compute its function
+   (``scaled_dot_product_attention`` with the key mask, then the weighted
+   sum over key anchors);
 4. check that the kernel path (card) and the plain path (CPU) agree on two
    tiny float32 inputs: the materialised-attention cut and the flash cut
    (128-point coarse stage, 600 points), both through the fused convs
@@ -105,7 +108,7 @@ FEMB_LAUNCHES = {"rpe_self_attention_femb": 5, "geometric_embedding": 0,
 # in float32), whose device time per launch the pair profile always prints
 SERVING_KERNELS = ("gather_wf_tc_kernel", "neighbor_max_kernel", "embedding_tc_kernel",
                    "sinkhorn_kernel", "rpe_attention_ws_kernel", "eq_stats_tc_kernel",
-                   "eq_apply_mma_kernel", "gather_wf_mm_tc_kernel", "panels_kernel",
+                   "eq_apply_tc_kernel", "gather_wf_mm_tc_kernel", "panels_kernel",
                    "gather_wf_mm_kernel", "gather_wf_max_kernel")
 
 
@@ -120,6 +123,8 @@ def _card_line() -> str:
 def _print_check(res):
     lib = "none" if res.library_ms is None else f"{res.library_ms:.4f} ms"
     route = "" if res.route_ms is None else f", unfused route {res.route_ms:.4f} ms"
+    if res.two_calls_ms is not None:
+        route += f", two PyTorch calls {res.two_calls_ms:.4f} ms"
     print(f"kernel {res.name}: {res.shape} max_abs_err={res.max_abs_err:.3e} "
           f"(tol {res.tol:.3e}) kernel {res.ms:.4f} ms, plain {res.plain_ms:.4f} ms, "
           f"bound {res.bound_ms:.4f} ms ({res.bound_by}), library {lib}{route}", flush=True)
@@ -594,7 +599,8 @@ def main() -> int:
             masks_c[0], masks_c[1], a=m.kanchor, h=heads, c=head_dim, reps=20,
             device_kernel="eq_stats_tc_kernel"),
         "eq_attention_apply": selfcheck.check_eq_apply(
-            masks_c[0], masks_c[1], a=m.kanchor, h=heads, c=head_dim),
+            masks_c[0], masks_c[1], a=m.kanchor, h=heads, c=head_dim, reps=20,
+            device_kernel="eq_apply_tc_kernel", two_calls=True),
         # stage-0 bottleneck conv (mid 32: A*Cin = A*Cout = 192)
         "gather_wf_mm": selfcheck.check_fused_conv("gather_wf_mm", p0["neighbors_0"], ns0,
                                                    6 * 32, ac_out=6 * 32),
@@ -644,14 +650,16 @@ def main() -> int:
           f"{sum(n * r.bound_ms for n, r, _ in k5_serving):.4f} ms", flush=True)
     # K6 at the EQ cross layers' shape, beside its times before the redesign
     # (NVIDIA H100 80GB HBM3, 700 W: 0.5218 ms by events, 0.4376 device)
-    k6 = checks["eq_attention_stats"]
-    k6_dev = "not measured" if k6.device_ms is None else f"{k6.device_ms:.4f}"
-    k6_pair = "not measured" if k6.device_ms is None else \
-        f"{FLASH_LAUNCHES['eq_attention_stats'] * k6.device_ms:.4f}"
-    print(f"K6 {k6.shape}: events {k6.ms:.4f} ms (first design 0.5218), device {k6_dev} ms "
-          f"(0.4376); per served pair ({FLASH_LAUNCHES['eq_attention_stats']} launches) "
-          f"device {k6_pair} ms (1.750); bound {k6.bound_ms:.4f} ms ({k6.bound_by})",
-          flush=True)
+    # and K7 (0.4686 ms by events, 0.4242 device)
+    for label, name, before in (("K6", "eq_attention_stats", (0.5218, 0.4376)),
+                                ("K7", "eq_attention_apply", (0.4686, 0.4242))):
+        res, per_pair = checks[name], FLASH_LAUNCHES[name]
+        dev_ms = "not measured" if res.device_ms is None else f"{res.device_ms:.4f}"
+        pair_ms = "not measured" if res.device_ms is None else f"{per_pair * res.device_ms:.4f}"
+        print(f"{label} {res.shape}: events {res.ms:.4f} ms (first design {before[0]:.4f}), "
+              f"device {dev_ms} ms ({before[1]:.4f}); per served pair ({per_pair} launches) "
+              f"device {pair_ms} ms ({per_pair * before[1]:.4f}); bound {res.bound_ms:.4f} ms "
+              f"({res.bound_by})", flush=True)
     bad = [r.name for r in list(checks.values()) + extra if not r.ok]
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: {bad}")

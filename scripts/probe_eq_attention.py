@@ -1,12 +1,15 @@
-"""What holds K6's tc form back, and how its tiling and warp split move it.
+"""What holds the tc forms of K6 and K7 back, and how their tiling and warp
+split move them.
 
-    python scripts/probe_eq_attention.py      # on a CUDA card (nvcc needed)
+    python scripts/probe_eq_attention.py [--kernel k6|k7|both]   # on a CUDA card
 
-Builds variants of the bf16 K6 (``eq_tc`` in
+Builds variants of the bf16 K6 and K7 (``eq_tc`` in
 ``se3et_tpu_torch/csrc/eq_attention.cu``) into
 ``se3et_tpu_torch/_build/probe_eq/``, each a copy of the source with one
 setting changed, compiled with ``-Xptxas -v`` (registers and spills of the
-serving instance, positive "sq" without sup, printed):
+kernel printed; K6's serving instance, positive "sq" without sup).
+
+K6 (``eq_stats_tc_kernel``):
 
 * ``committed``: the source as it stands (32-key tiles in 8 ring slots, 9
   consumer warps of one 16-row m-tile each, q in shared memory, a
@@ -24,17 +27,32 @@ serving instance, positive "sq" without sup, printed):
   of: ``no_exp`` (each exp a multiply) and ``no_mma`` (no tensor-core
   products; the fragments still read).
 
-At the serving shape of se3ete.3dmatch (q, k (6, 4, 1024, 64) bf16, 24
+K7 (``eq_apply_tc_kernel``):
+
+* ``committed``: the source as it stands (wgmma, three warpgroups of 64
+  query rows per block, 64-key k and v tiles in 4 ring slots, q in
+  registers, a persistent grid of H x SMs / H blocks grouped by head: one
+  pass at the serving shape);
+* ``warps8``: two warpgroups (two passes); ``stages8``: 8 ring slots;
+* ``per_item``: one block per (head, pass, block) item;
+* ablations: ``no_exp`` (each exp a multiply) and ``no_mma`` (no products:
+  each wgmma an integer mix of its register operand, k and v not read).
+
+At the serving shape of se3ete.3dmatch (q, k, v (6, 4, 1024, 64) bf16, 24
 query rows and 40 keys masked at the end) it times each variant's C entry
 point with CUDA events in turns (the list forward, then backward; the
-smaller time kept), checks each against K6's plain version (every output
-within 1e-3 of its scale), and prints per variant the blocks resident per
-SM, the grid, and the bytes the kernel moves through L2 per launch (k[e]
-once per pass and staged tile of each block, q once, the row statistics
-and partials once) with their rate, and the exponential rate (one per score
-with a valid key) against the card's 4.18e12/s.  Prints the card first.
+smaller time kept), checks each against the plain version (K6: every
+output within 1e-3 of its scale; K7: within 1e-2 of max |out|, its
+kernel-vs-plain tolerance), and prints per variant the blocks resident per
+SM, the grid, and the bytes the kernel moves through L2 per launch (K6:
+k[e] once per pass and staged tile of each block; K7: k[e, h] and v[e, h]
+for every e once per pass of each block; q once, the row statistics,
+partials and outputs once) with their rate, and the exponential rate (one
+per score with a valid key) against the card's 4.18e12/s.  Prints the card
+first.
 """
 
+import argparse
 import ctypes
 import os
 import re
@@ -59,7 +77,8 @@ PERSISTENT = "constexpr bool kPersistent = true;"
 EX2 = 'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));'
 MMA0 = "mma_bf16(s[mt][h][jn], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b[0], b[1]);"
 MMA1 = "mma_bf16(s[mt][h][jn + 1], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b[2], b[3]);"
-VARIANTS = {
+NO_EXP = ((EX2, "y = x * 0.5f;"),)
+K6_VARIANTS = {
     "committed": (),
     "mt2": ((MT, "constexpr int kMT = 2;"), (STAGES, "constexpr int kStages = 4;")),
     "qregs": ((QSMEM, "constexpr bool kQInSmem = false;"),),
@@ -71,9 +90,34 @@ VARIANTS = {
     "eager": ((SLACK, "constexpr float kSlack = 0.f;"),),
     # ablations, not the function: the exps as a multiply, the products as
     # an integer mix of the fragments (outputs differ)
-    "no_exp": ((EX2, "y = x * 0.5f;"),),
+    "no_exp": NO_EXP,
     "no_mma": ((MMA0, "s[mt][h][jn][0] += __uint_as_float((a[mt][0] ^ b[0]) & 0x3f7fffffu);"),
                (MMA1, "s[mt][h][jn + 1][0] += __uint_as_float((a[mt][3] ^ b[3]) & 0x3f7fffffu);")),
+}
+A_STAGES = "constexpr int kApplyStages = 4;"
+A_WARPS = "constexpr int kApplyConsumers = 12;"
+A_PERSISTENT = "constexpr bool kApplyPersistent = true;"
+A_QK = "for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(&s[0][0], qf[kk], dk + 2 * kk);  // +32 bytes"
+A_PV = "wgmma_rs<1>(&o[0][0], p, dv + 128 * kc);  // +16 keys: 2048 bytes"
+K7_VARIANTS = {
+    "committed": (),
+    "warps8": ((A_WARPS, "constexpr int kApplyConsumers = 8;"),),
+    "stages8": ((A_STAGES, "constexpr int kApplyStages = 8;"),),
+    "per_item": ((A_PERSISTENT, "constexpr bool kApplyPersistent = false;"),),
+    # ablations (outputs differ): the exps as a multiply; no products, each
+    # wgmma an integer mix of its register operand (k and v are not read)
+    "no_exp": NO_EXP,
+    "no_mma": ((A_QK, "for (int kk = 0; kk < 4; ++kk) "
+                      "s[0][kk] += __uint_as_float(qf[kk][0] & 0x3f7fffffu);"),
+               (A_PV, "o[0][kc] += __uint_as_float(p[3] & 0x3f7fffffu);")),
+}
+# per kernel: variants, the entry function whose registers are printed,
+# the C entry point (pointers, ints) and the occupancy query
+KERNELS = {
+    "k6": (K6_VARIANTS, "eq_stats_tc_kernelILi1ELb0E", "se3et_eq_attention_stats_bf16", 10, 7,
+           "se3et_eq_attention_stats_blocks_per_sm"),
+    "k7": (K7_VARIANTS, "eq_apply_tc_kernel", "se3et_eq_attention_apply_bf16", 8, 6,
+           "se3et_eq_attention_apply_blocks_per_sm"),
 }
 A = E = 6
 H, N, M, C = 4, 1024, 1024, 64
@@ -86,11 +130,12 @@ def _setting(edits, line, default):
     return default
 
 
-def _build_variants():
-    out_dir = os.path.join(_build.BUILD_DIR, "probe_eq")
+def _build_variants(kernel):
+    variants, entry, symbol, n_ptr, n_int, occupancy = KERNELS[kernel]
+    out_dir = os.path.join(_build.BUILD_DIR, "probe_eq", kernel)
     shutil.rmtree(out_dir, ignore_errors=True)
     procs = {}
-    for name, edits in VARIANTS.items():
+    for name, edits in variants.items():
         src = os.path.join(out_dir, name)
         shutil.copytree(_build.CSRC_DIR, src)
         path = os.path.join(src, "eq_attention.cu")
@@ -110,89 +155,135 @@ def _build_variants():
     for name, (src, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            sys.exit(f"nvcc failed for {name}:\n{log}")
+            sys.exit(f"nvcc failed for {kernel} {name}:\n{log}")
         lines = log.splitlines()
         usage[name] = "?"
         for i, line in enumerate(lines):
-            if "Compiling entry function" in line and "eq_stats_tc_kernelILi1ELb0E" in line:
+            if "Compiling entry function" in line and entry in line:
                 after = "\n".join(lines[i + 1:i + 5])
                 spill = re.search(r"(\d+) bytes spill stores", after)
                 regs = re.search(r"Used (\d+) registers", after)
                 usage[name] = (f"{regs.group(1) if regs else '?'} registers, "
                                f"{spill.group(1) if spill else '?'} bytes spilled")
         lib = ctypes.CDLL(os.path.join(src, "lib.so"))
-        lib.se3et_eq_attention_stats_bf16.argtypes = [ctypes.c_void_p] * 10 + \
-            [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        lib.se3et_eq_attention_stats_bf16.restype = ctypes.c_int
-        lib.se3et_eq_attention_stats_blocks_per_sm.argtypes = [ctypes.c_int]
-        lib.se3et_eq_attention_stats_blocks_per_sm.restype = ctypes.c_int
-        libs[name] = lib
+        fn = getattr(lib, symbol)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        occ = getattr(lib, occupancy)
+        occ.argtypes = [ctypes.c_int]
+        occ.restype = ctypes.c_int
+        libs[name] = (fn, occ)
     return libs, usage
 
 
-def grid_and_l2(edits, km, sms):
+def _valid_tiles(km, keys):
+    return sum(1 for j in range(-(-M // keys)) if bool(km[j * keys:(j + 1) * keys].any()))
+
+
+def _block_passes(units, warps, groups, sms):
+    """(blocks per group, passes, block-passes with a unit) of a persistent
+    grid of ``groups`` x SMs / groups blocks."""
+    per = max(1, min(sms // groups, -(-units // warps)))
+    passes = -(-units // (per * warps))
+    busy = sum(1 for lb in range(per) for p in range(passes) if (p * per + lb) * warps < units)
+    return per, passes, busy
+
+
+def grid_and_l2(kernel, edits, km, sms):
     """(blocks, passes, bytes through L2 per launch) of a variant."""
-    keys = _setting(edits, KEYS, 32)
-    warps = _setting(edits, WARPS, 9)
-    units = A * -(-N // (16 * _setting(edits, MT, 1)))
-    bpe = max(1, min(sms // E, -(-units // warps)))
-    passes = -(-units // (bpe * warps))
-    block_passes = sum(1 for lb in range(bpe) for p in range(passes)
-                       if (p * bpe + lb) * warps < units)
-    tiles = sum(1 for j in range(-(-M // keys)) if bool(km[j * keys:(j + 1) * keys].any()))
-    k_bytes = E * block_passes * tiles * H * keys * C * 2
     q_bytes = A * H * N * C * 2
-    out_bytes = 2 * A * E * H * N * 4 + 2 * A * E * -(-N // 16) * 4
-    return E * bpe, passes, k_bytes + q_bytes + out_bytes
+    if kernel == "k6":
+        keys = _setting(edits, KEYS, 32)
+        units = A * -(-N // (16 * _setting(edits, MT, 1)))
+        bpe, passes, busy = _block_passes(units, _setting(edits, WARPS, 9), E, sms)
+        kv_bytes = E * busy * _valid_tiles(km, keys) * H * keys * C * 2
+        out_bytes = 2 * A * E * H * N * 4 + 2 * A * E * -(-N // 16) * 4
+        return E * bpe, passes, kv_bytes + q_bytes + out_bytes
+    keys = 64
+    units = A * -(-N // 64)  # warpgroup units of 64 query rows
+    bph, passes, busy = _block_passes(units, _setting(edits, A_WARPS, 12) // 4, H, sms)
+    kv_bytes = H * busy * E * _valid_tiles(km, keys) * 2 * keys * C * 2
+    io_bytes = 2 * A * E * H * N * 4 + A * H * N * C * 4
+    return H * bph, passes, kv_bytes + q_bytes + io_bytes
 
 
-def main():
-    if not torch.cuda.is_available():
-        sys.exit("probe_eq_attention: no CUDA device")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip())
-    libs, usage = _build_variants()
-    dev = torch.device("cuda")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+def _runs(kernel, libs, dev):
+    """{variant: (launch, outputs)} and the plain version's outputs."""
     g = torch.Generator().manual_seed(0)
     q = torch.randn((A, H, N, C), generator=g).to(dev, torch.bfloat16)
     k = torch.randn((E, H, M, C), generator=g).to(dev, torch.bfloat16)
+    v = torch.randn((E, H, M, C), generator=g).to(dev, torch.bfloat16)
     qmask = torch.arange(N, device=dev) < N - 24
     kmask = torch.arange(M, device=dev) < M - 40
-    want = eq_attention.eq_attention_stats_plain(q, k, qmask, kmask)
     stream = torch.cuda.current_stream().cuda_stream
     qm, km = qmask.to(torch.uint8), kmask.to(torch.uint8)
-    parts = eq_attention.eq_attention_stats_parts(H, N, C, q.dtype)
     runs = {}
-    for name, lib in libs.items():
-        rowmax = torch.empty((A, E, H, N), dtype=torch.float32, device=dev)
-        rowsum = torch.empty_like(rowmax)
-        gpart = torch.empty((A, E, parts), dtype=torch.float32, device=dev)
-        spart = torch.empty_like(gpart)
+    if kernel == "k6":
+        want = eq_attention.eq_attention_stats_plain(q, k, qmask, kmask)
+        parts = eq_attention.eq_attention_stats_parts(H, N, C, q.dtype)
+        for name, (fn, _) in libs.items():
+            rowmax = torch.empty((A, E, H, N), dtype=torch.float32, device=dev)
+            rowsum = torch.empty_like(rowmax)
+            gpart = torch.empty((A, E, parts), dtype=torch.float32, device=dev)
+            spart = torch.empty_like(gpart)
 
-        def call(lib=lib, outs=(rowmax, rowsum, gpart, spart)):
-            _build.check(lib.se3et_eq_attention_stats_bf16(
-                q.data_ptr(), k.data_ptr(), qm.data_ptr(), km.data_ptr(), None, None,
-                *(t.data_ptr() for t in outs), A, E, H, N, M, C, 1, stream), "K6 variant")
-        runs[name] = (call, (rowmax, rowsum, gpart))
+            def call(fn=fn, outs=(rowmax, rowsum, gpart, spart)):
+                _build.check(fn(q.data_ptr(), k.data_ptr(), qm.data_ptr(), km.data_ptr(), None,
+                                None, *(t.data_ptr() for t in outs), A, E, H, N, M, C, 1,
+                                stream), "K6 variant")
+            runs[name] = (call, lambda o=(rowmax, rowsum, gpart): (o[0], o[1], o[2].sum(dim=-1)))
+        return runs, want, kmask
+    rowmax, rowsum, _ = eq_attention.eq_attention_stats_plain(q, k, qmask, kmask)
+    w = torch.rand((A, E), generator=g).to(dev)
+    w = w / w.sum(dim=1, keepdim=True)
+    want = (eq_attention.eq_attention_apply_plain(q, k, v, w, rowmax, rowsum, kmask),)
+    for name, (fn, _) in libs.items():
+        out = torch.empty((A, H, N, C), dtype=torch.float32, device=dev)
+
+        def call(fn=fn, out=out):
+            _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                            rowmax.data_ptr(), rowsum.data_ptr(), km.data_ptr(), out.data_ptr(),
+                            A, E, H, N, M, C, stream), "K7 variant")
+        runs[name] = (call, lambda out=out: (out,))
+    return runs, want, kmask
+
+
+def probe(kernel, dev, sms):
+    libs, usage = _build_variants(kernel)
+    runs, want, kmask = _runs(kernel, libs, dev)
     ms = {name: [] for name in runs}
     for order in (list(runs), list(runs)[::-1]):
         for name in order:
             ms[name].append(selfcheck._time_ms(runs[name][0], 20))
     exps = A * E * H * N * int(kmask.sum())
-    for name, (_, (rowmax, rowsum, gpart)) in runs.items():
-        got = (rowmax, rowsum, gpart.sum(dim=-1))
-        diff = max(float((x - y).abs().max()) / float(y.abs().max()) for x, y in zip(got, want))
+    # K6: within 1e-3 of each output's scale; K7: 1e-2 of max |out|
+    tol = 1e-3 if kernel == "k6" else 1e-2
+    for name, (_, outputs) in runs.items():
+        diff = max(float((x - y).abs().max()) / float(y.abs().max())
+                   for x, y in zip(outputs(), want))
         t = min(ms[name])
-        blocks, passes, l2 = grid_and_l2(VARIANTS[name], kmask.cpu(), sms)
-        flag = "" if diff <= 1e-3 else f" DIFFERS {diff:.2e}"
-        print(f"{name}: {t:.4f} ms ({', '.join(f'{x:.4f}' for x in ms[name])}); {usage[name]}; "
-              f"{libs[name].se3et_eq_attention_stats_blocks_per_sm(M)} block(s) per SM, grid "
-              f"{blocks} x {passes} pass(es); L2 {l2 / 1e6:.1f} MB per launch, "
-              f"{l2 / (t * 1e-3) / 1e12:.2f} TB/s; exps {exps / (t * 1e-3) / 1e12:.2f}e12/s "
-              f"(card {selfcheck.EXP_RATE / 1e12:.2f}e12/s); max diff / scale {diff:.2e}{flag}",
-              flush=True)
+        blocks, passes, l2 = grid_and_l2(kernel, KERNELS[kernel][0][name], kmask.cpu(), sms)
+        flag = "" if diff <= tol else f" DIFFERS {diff:.2e}"
+        print(f"{kernel} {name}: {t:.4f} ms ({', '.join(f'{x:.4f}' for x in ms[name])}); "
+              f"{usage[name]}; {libs[name][1](M)} block(s) per SM, grid {blocks} x {passes} "
+              f"pass(es); L2 {l2 / 1e6:.1f} MB per launch, {l2 / (t * 1e-3) / 1e12:.2f} TB/s; "
+              f"exps {exps / (t * 1e-3) / 1e12:.2f}e12/s (card {selfcheck.EXP_RATE / 1e12:.2f}"
+              f"e12/s); max diff / scale {diff:.2e}{flag}", flush=True)
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernel", choices=("k6", "k7", "both"), default="both")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("probe_eq_attention: no CUDA device")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for kernel in (("k6", "k7") if args.kernel == "both" else (args.kernel,)):
+        probe(kernel, dev, sms)
 
 
 if __name__ == "__main__":

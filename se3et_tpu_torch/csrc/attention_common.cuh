@@ -157,23 +157,6 @@ __device__ __forceinline__ void qk_tile(const uint4 (&qf)[HC / 32][2],
   }
 }
 
-// qk_tile from a K tile staged in shared memory (NT*8 keys x HC, row
-// stride `stride` bf16, 16-byte aligned rows)
-template <int HC, int NT>
-__device__ __forceinline__ void qk_tile_smem(const uint4 (&qf)[HC / 32][2],
-                                             const __nv_bfloat16* ks, int stride, int g,
-                                             int t, float (&s)[NT][4]) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    const __nv_bfloat16* row = ks + (8 * j + g) * stride + 8 * t;
-#pragma unroll
-    for (int p = 0; p < HC / 32; ++p)
-      mma_bf16_x2(s[j], qf[p][0], qf[p][1],
-                  *reinterpret_cast<const uint4*>(row + 32 * p));
-  }
-}
-
 // o[jn] += P . V for a 16-row probability tile of NK keys (s[j] from
 // qk_tile, already exponentiated and masked) and a staged V tile vs
 // (NK keys x HC values, row stride `stride` bf16, 16-byte aligned rows).

@@ -19,10 +19,11 @@
 // block and K6 writes per-block partials.
 //
 // Two implementations of each, chosen by shape (the wrapper's
-// eq_attention_stats_form names K6's):
-// * bf16, H = 4, head width 64 (the serving path): K6 in the "tc" form
-//   below (eq_stats_tc_kernel: TMA key tiles, mma.sync, base-2 softmax);
-//   K7 on mma.sync (eq_apply_mma_kernel);
+// eq_attention_stats_form and eq_attention_apply_form name them):
+// * bf16, H = 4, head width 64 (the serving path): the "tc" forms below,
+//   K6 eq_stats_tc_kernel (TMA key tiles, mma.sync, base-2 softmax) and K7
+//   eq_apply_tc_kernel (TMA key and value tiles of one head, wgmma for
+//   q k^T and p v, base-2 exps);
 // * float32 and head width 16: the CUDA-core kernels, one block per
 //   (a[, e], 8 query rows), one warp per query row, one lane per key of a
 //   32-key tile, key rows read through L1 (the block's warps walk the same
@@ -251,134 +252,6 @@ eq_apply_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 }
 
-// K7's tensor-core kernel (bf16, head width a multiple of 32):
-// mma.sync.m16n8k16 (bf16 in, float32 accumulate; fragment layout in
-// attention_common.cuh).  One warp owns 16 query rows, a block 64; a key
-// tile is 32 keys (few registers: three blocks fit an SM), its k and v rows
-// staged in shared memory for the block's warps by cp.async one tile ahead
-// of the tile being computed.  Probabilities go from the score accumulators
-// straight into A fragments (rounded to bf16, as on the TPU); V fragments
-// come from a shared-memory tile through ldmatrix.trans.
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = kMmaWarps * 32;
-constexpr int kMmaRows = 16 * kMmaWarps;  // query rows per block
-constexpr int kTileKeys = 32;
-constexpr int kTileNT = kTileKeys / 8;  // key n-tiles per tile
-template <int HC>
-constexpr int kStride = HC + 8;  // bf16 per staged k / v row: 16-byte aligned
-
-// One block per (a, h, 64 query rows); e and the key tiles loop inside.
-template <int H, int HC>
-__global__ void __launch_bounds__(kMmaThreads)
-eq_apply_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const float* __restrict__ w,
-                    const float* __restrict__ rowmax, const float* __restrict__ rowsum,
-                    const uint8_t* __restrict__ kmask, float* __restrict__ out, int ne,
-                    int n, int mlen) {
-  constexpr int kS = kStride<HC>;
-  // double-buffered k and v tiles, filled by cp.async a tile ahead
-  __shared__ __align__(16) __nv_bfloat16 k_s[2][kTileKeys * kS];
-  __shared__ __align__(16) __nv_bfloat16 v_s[2][kTileKeys * kS];
-  const int nblk = (n + kMmaRows - 1) / kMmaRows;
-  const int blk = blockIdx.x % nblk;
-  const int ah = blockIdx.x / nblk;
-  const int a = ah / H;
-  const int h = ah - a * H;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int ra = blk * kMmaRows + warp * 16 + g;
-  const int rb = ra + 8;
-  const float scale = 1.f / sqrtf((float)HC);
-
-  uint4 qf[HC / 32][2];
-  load_q<HC>(q + ((long long)a * H + h) * n * HC, n, ra, rb, t, qf);
-  float acc[HC / 8][4], o[HC / 8][4];
-#pragma unroll
-  for (int j = 0; j < HC / 8; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[j][c] = o[j][c] = 0.f;
-
-  // one flat loop over (key anchor e, key tile), so the prefetch runs
-  // across e boundaries
-  const int ntiles = (mlen + kTileKeys - 1) / kTileKeys;
-  const int total = ne * ntiles;
-  auto stage = [&](int it, int buf) {
-    const int e = it / ntiles;
-    const int key0 = (it - e * ntiles) * kTileKeys;
-    const long long head = ((long long)e * H + h) * mlen * HC;
-    stage_rows_async<HC, kTileKeys>(k + head, mlen, key0, k_s[buf], kS, threadIdx.x,
-                                    kMmaThreads);
-    stage_rows_async<HC, kTileKeys>(v + head, mlen, key0, v_s[buf], kS, threadIdx.x,
-                                    kMmaThreads);
-  };
-  stage(0, 0);
-  cp_async_commit();
-  float rma = 0.f, rmb = 0.f;
-  for (int it = 0; it < total; ++it) {
-    const int e = it / ntiles;
-    const int key0 = (it - e * ntiles) * kTileKeys;
-    const int buf = it & 1;
-    const long long srow = (((long long)a * ne + e) * H + h) * n;
-    if (key0 == 0) {
-      rma = ra < n ? rowmax[srow + ra] : 0.f;
-      rmb = rb < n ? rowmax[srow + rb] : 0.f;
-    }
-    if (it + 1 < total) stage(it + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile's copies have landed
-    __syncthreads();
-    float s[kTileNT][4];
-    qk_tile_smem<HC, kTileNT>(qf, k_s[buf], kS, g, t, s);
-#pragma unroll
-    for (int j = 0; j < kTileNT; ++j)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int key = key0 + 8 * j + 2 * t + i;
-        const bool kv = key < mlen && kmask[key] != 0;
-        s[j][i] = kv ? expf(s[j][i] * scale - rma) : 0.f;
-        s[j][2 + i] = kv ? expf(s[j][2 + i] * scale - rmb) : 0.f;
-      }
-    pv_tile<HC, kTileKeys>(s, v_s[buf], kS, lane, o);
-    __syncthreads();  // all reads of buffer buf done before it is refilled
-    if (key0 + kTileKeys >= mlen) {  // last tile of this e
-      const float we = w[a * ne + e];
-      const float fa = ra < n ? we * (1.f / fmaxf(rowsum[srow + ra], 1e-30f)) : 0.f;
-      const float fb = rb < n ? we * (1.f / fmaxf(rowsum[srow + rb], 1e-30f)) : 0.f;
-#pragma unroll
-      for (int j = 0; j < HC / 8; ++j) {
-        acc[j][0] += fa * o[j][0];
-        acc[j][1] += fa * o[j][1];
-        acc[j][2] += fb * o[j][2];
-        acc[j][3] += fb * o[j][3];
-        o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-      }
-    }
-  }
-  float* oh = out + ((long long)a * H + h) * n * HC;
-#pragma unroll
-  for (int j = 0; j < HC / 8; ++j) {
-    if (ra < n)
-      *reinterpret_cast<float2*>(oh + (long long)ra * HC + 8 * j + 2 * t) =
-          make_float2(acc[j][0], acc[j][1]);
-    if (rb < n)
-      *reinterpret_cast<float2*>(oh + (long long)rb * HC + 8 * j + 2 * t) =
-          make_float2(acc[j][2], acc[j][3]);
-  }
-}
-
-template <int H, int HC>
-int launch_apply_mma(const void* q, const void* k, const void* v, const void* w,
-                     const void* rowmax, const void* rowsum, const void* km, void* out,
-                     int na, int ne, int n, int m, cudaStream_t st) {
-  const int grid = na * H * ((n + kMmaRows - 1) / kMmaRows);
-  eq_apply_mma_kernel<H, HC><<<grid, kMmaThreads, 0, st>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const float*)w, (const float*)rowmax, (const float*)rowsum, (const uint8_t*)km,
-      (float*)out, ne, n, m);
-  return (int)cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
 // K6's serving form, "tc" (bf16, H = 4, head width 64).
 //
@@ -464,13 +337,14 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// one TMA copy of key tile `key0` of k[e] (all heads) into `dst`
-__device__ __forceinline__ void load_tile(void* dst, const CUtensorMap* map, int key0, int e,
-                                          uint64_t* bar) {
+// one TMA copy of the box at key `key0`, head `h` of anchor `e` (K6's box:
+// all heads from h = 0; K7's: one head) into `dst`
+__device__ __forceinline__ void load_tile(void* dst, const CUtensorMap* map, int key0, int h,
+                                          int e, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(key0), "r"(0),
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(key0), "r"(h),
       "r"(e), "r"(smem_u32(bar)) : "memory");
 }
 
@@ -506,17 +380,20 @@ struct Frag {
   }
 };
 
+// whether a tile of kW mask words holds no valid key / only valid keys
+template <int kW = kWords>
 __device__ __forceinline__ bool tile_empty(const uint32_t* w) {
   uint32_t any = 0;
 #pragma unroll
-  for (int i = 0; i < kWords; ++i) any |= w[i];
+  for (int i = 0; i < kW; ++i) any |= w[i];
   return any == 0;
 }
 
+template <int kW = kWords>
 __device__ __forceinline__ bool tile_full(const uint32_t* w) {
   uint32_t all = ~0u;
 #pragma unroll
-  for (int i = 0; i < kWords; ++i) all &= w[i];
+  for (int i = 0; i < kW; ++i) all &= w[i];
   return all == ~0u;
 }
 
@@ -720,7 +597,7 @@ eq_stats_tc_kernel(const __grid_constant__ CUtensorMap map, const bf16* __restri
         const int slot = s % kStages;
         if (s >= kStages) mbar_wait_or_trap(&empty[slot], ((s / kStages) - 1) & 1, 0);
         mbar_expect_tx(&full[slot], kStageBytes);
-        load_tile(base + (size_t)slot * kStageBytes, &map, j * kKeys, e, &full[slot]);
+        load_tile(base + (size_t)slot * kStageBytes, &map, j * kKeys, 0, e, &full[slot]);
         ++s;
       }
     return;
@@ -873,6 +750,24 @@ static int sm_count() {
   return sms;
 }
 
+// A TMA map of x (E, 4, M, 64) bf16 (16-byte aligned) whose box is `keys`
+// keys of `heads` heads of one anchor, 128-byte swizzled; 0 or a CUDA error
+static int encode_map(CUtensorMap* map, const void* x, int ne, int m, int keys, int heads) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)kHC, (cuuint64_t)m, (cuuint64_t)kH, (cuuint64_t)ne};
+  const cuuint64_t strides[3] = {kHC * sizeof(bf16), (cuuint64_t)m * kHC * sizeof(bf16),
+                                 (cuuint64_t)kH * m * kHC * sizeof(bf16)};
+  const cuuint32_t box[4] = {(cuuint32_t)kHC, (cuuint32_t)keys, (cuuint32_t)heads, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
+             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
+      CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
 // (blocks per key anchor, passes) of the grid for A anchors, E key anchors,
 // N query rows
 static void plan(int na, int ne, int n, int* bpe, int* passes) {
@@ -912,19 +807,9 @@ inline int launch(const void* q, const void* k, const void* qm, const void* km,
                   const void* sq, const void* sk, void* rowmax, void* rowsum, void* gpart,
                   void* spart, int na, int ne, int n, int m, int mode, cudaStream_t st) {
   if (smem_bytes(m) > (size_t)kMaxSmem || sm_count() == 0) return (int)cudaErrorInvalidValue;
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap map;
-  const cuuint64_t dims[4] = {(cuuint64_t)kHC, (cuuint64_t)m, (cuuint64_t)kH, (cuuint64_t)ne};
-  const cuuint64_t strides[3] = {kHC * sizeof(bf16), (cuuint64_t)m * kHC * sizeof(bf16),
-                                 (cuuint64_t)kH * m * kHC * sizeof(bf16)};
-  const cuuint32_t box[4] = {(cuuint32_t)kHC, (cuuint32_t)kKeys, (cuuint32_t)kH, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(k), dims, strides,
-             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
-      CUDA_SUCCESS)
-    return (int)cudaErrorInvalidValue;
+  const int err = encode_map(&map, k, ne, m, kKeys, kH);
+  if (err) return err;
   const bool sup = sq != nullptr;
   if (mode == 1)
     return sup ? launch_mode<1, true>(map, q, qm, km, sq, sk, rowmax, rowsum, gpart, spart, na,
@@ -945,6 +830,348 @@ inline int blocks_per_sm(int m) {
     return -1;
   int nb = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, eq_stats_tc_kernel<1, false>, kThreads,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return nb;
+}
+
+// ---------------------------------------------------------------------------
+// K7's serving form, "tc" (bf16, H = 4, head width 64).
+//
+// out[a,h,n] = sum_e w[a,e] / max(rowsum[a,e,h,n], 1e-30)
+//              * sum_m round_bf16(exp(s_aeh[n,m] - rowmax[a,e,h,n]) kmask[m]) v[e,h,m]
+// (the unscaled probability rounded to bf16 before p v, as on the TPU).
+//
+// Bound: at the serving shape the products (q k^T and p v, 38.7 GFLOP) take
+// 39 us at the tensor-core peak and the exps (151 M) 36 us.  On mma.sync,
+// with k and v fragments read by ldmatrix, a 16-row warp reads 16 bytes of
+// shared memory per score (a floor of ~72 us at 128 bytes per clock per
+// SM); wgmma reads k and v once per 64-row warpgroup, a quarter of that,
+// and runs the products at the full tensor-core rate.  What is left is the
+// chain within a warpgroup, q k^T -> exp -> p v, each step waiting for the
+// one before (scripts/probe_eq_attention.py: the variants and ablations).
+//
+// Work: per head h, A * ceil(N / 64) units (anchor a, 64 query rows), one
+// per warpgroup, each looping over every key anchor e; each warp owns 16 of
+// the unit's rows: its o (16 x 64 float32) sums one e's p v, and at the end
+// of each e its acc takes w[a,e] / rowsum * o.  One block per SM, grouped
+// by head: H x bph blocks (bph = SMs / H), each of one producer warp and
+// kApplyConsumers consumer warps (three warpgroups) that all take units of
+// one head; in each pass the block streams k[e, h] and v[e, h] once for
+// every e and each warpgroup computes one unit (at the serving shape 96
+// units per head over 32 x 3 warpgroups: one pass, ~212 MB through L2 per
+// launch).  No block barrier after the set-up:
+// * producer (one lane): per pass and e, every key tile holding a valid
+//   key, as two TMA tensor copies (k and v, kApplyKeys keys x 64 channels,
+//   the 128-byte swizzle) into one slot of a ring of kApplyStages, with
+//   full / empty mbarriers;
+// * consumers: q in registers (the A operand), fetched once per unit;
+//   rowmax and rowsum read once per (unit, e); per tile S = q k^T by
+//   wgmma.m64n64k16 (k read from the swizzled slot as a K-major B), p =
+//   2^(s scale log2 e - rowmax log2 e) (one FFMA, one ex2.approx), the mask
+//   a select from the staged bits, p rounded to bf16 straight from the
+//   accumulators into A fragments, o += p v by wgmma (v read from the slot
+//   as an MN-major B).
+// The key mask is staged once per block as bits: tiles without a valid key
+// are skipped by producer and consumers alike.  Rows >= N are neither read
+// nor written.
+constexpr int kApplyKeys = 64;  // keys per staged k / v tile: one wgmma N
+constexpr int kApplyStages = 4;  // ring slots
+constexpr int kApplyConsumers = 12;  // consumer warps per block, whole warpgroups
+constexpr bool kApplyPersistent = true;  // one block walks every pass
+constexpr int kApplyThreads = (kApplyConsumers + 1) * 32;
+constexpr int kAUnitsPerBlock = kApplyConsumers / 4;
+constexpr int kAUnitRows = 4 * kRows;  // query rows of a warpgroup
+constexpr int kANT = kApplyKeys / 8;  // key n-tiles per tile
+constexpr int kAWords = kApplyKeys / 32;  // key-mask words per tile
+constexpr uint32_t kATileBytes = (uint32_t)kApplyKeys * kHC * sizeof(bf16);  // k or v
+constexpr uint32_t kASlotBytes = 2 * kATileBytes;
+static_assert(kANT == 8 && kHC / 8 == 8 && kApplyConsumers % 4 == 0,
+              "wgmma.m64n64k16 tiles: 64 keys, 64 channels, whole warpgroups");
+
+// K7's shared-memory plan, byte offsets from the block's 1024-aligned base
+// (mirrored by the wrapper's eq_attention.eq_apply_smem_bytes): the ring
+// (each slot a k tile, then a v tile), the key-mask bits, 2 * kApplyStages
+// mbarriers
+__host__ __device__ inline size_t apply_mask_off() {
+  return (size_t)kApplyStages * kASlotBytes;
+}
+__host__ __device__ inline int apply_tiles(int m) { return (m + kApplyKeys - 1) / kApplyKeys; }
+__host__ __device__ inline size_t apply_bar_off(int m) {
+  return apply_mask_off() + (((size_t)apply_tiles(m) * kAWords * 4 + 7) & ~(size_t)7);
+}
+__host__ __device__ inline size_t apply_smem_bytes(int m) {
+  return 1024 + apply_bar_off(m) + 2 * kApplyStages * sizeof(uint64_t);
+}
+
+// A wgmma descriptor of a 128-byte swizzled tile of 128-byte rows at shared
+// address `addr` (1024-byte aligned atoms of 8 rows, 1024 bytes apart), read
+// K-major (k: the channels of a key contiguous) or MN-major (v as B of p v:
+// the channels contiguous along N)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3ffff) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving reads or writes of the 32 accumulators at
+// `d` across the asynchronous products
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64: 32 floats, each warp its 16 rows in the mma.sync accumulator
+// layout, n-tile j at d[4 j .. 4 j + 3]) += a (64 x 16 bf16 in registers, the
+// mma.sync A layout) . b (16 x 64 behind `desc`; kTransB: MN-major)
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n .reg .pred acc;\n setp.ne.b32 acc, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, acc, 1, 1, %37;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(kTransB), "r"(1));
+}
+
+// o += p v for one staged tile (k at `slot`, v kATileBytes after it) and the
+// warpgroup's 64 query rows (this warp's 16): q from registers `qf`
+// ([k-step][a0..a3]); nb[r] = -rowmax log2 e of rows g / g + 8; kMasked:
+// only the tile's valid keys (bits in w) count.
+template <bool kMasked>
+__device__ __forceinline__ void apply_step(uint32_t slot, const uint32_t (&qf)[4][4],
+                                           const uint32_t* w, int t, float c2,
+                                           const float (&nb)[2], float (&o)[kHC / 8][4]) {
+  float s[kANT][4];
+#pragma unroll
+  for (int jn = 0; jn < kANT; ++jn) s[jn][0] = s[jn][1] = s[jn][2] = s[jn][3] = 0.f;
+  const uint64_t dk = gmma_desc(slot);
+  fence_regs(&s[0][0]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(&s[0][0], qf[kk], dk + 2 * kk);  // +32 bytes
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(&s[0][0]);
+  uint32_t bits[kAWords];
+#pragma unroll
+  for (int i = 0; i < kAWords; ++i) bits[i] = w[i] >> (2 * t);
+#pragma unroll
+  for (int jn = 0; jn < kANT; ++jn)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float p = ex2(fmaf(s[jn][c], c2, nb[c >> 1]));
+      if constexpr (kMasked)
+        s[jn][c] = (bits[jn >> 2] >> (((jn & 3) << 3) + (c & 1))) & 1u ? p : 0.f;
+      else
+        s[jn][c] = p;
+    }
+  const uint64_t dv = gmma_desc(slot + kATileBytes);
+  fence_regs(&o[0][0]);
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < kApplyKeys / 16; ++kc) {
+    const uint32_t p[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
+                           pack_bf16(s[2 * kc][2], s[2 * kc][3]),
+                           pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+                           pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+    wgmma_rs<1>(&o[0][0], p, dv + 128 * kc);  // +16 keys: 2048 bytes
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(&o[0][0]);
+}
+
+// q (A,H,N,64), k / v (E,H,M,64) behind kmap / vmap, w (A,E), rowmax/rowsum
+// (A,E,H,N), kmask (M) as bytes; out (A,H,N,64) float32.
+__global__ void __launch_bounds__(kApplyThreads, 1)
+eq_apply_tc_kernel(const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap, const bf16* __restrict__ q,
+                   const float* __restrict__ w, const float* __restrict__ rowmax,
+                   const float* __restrict__ rowsum, const uint8_t* __restrict__ kmask,
+                   float* __restrict__ out, int na, int ne, int n, int mlen, int bph,
+                   int passes) {
+  extern __shared__ char smem_raw[];
+  char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint32_t* mask_s = reinterpret_cast<uint32_t*>(base + apply_mask_off());
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + apply_bar_off(mlen));
+  uint64_t* empty = full + kApplyStages;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int per_pass = kH * bph;
+  const int p0 = kApplyPersistent ? 0 : blockIdx.x / per_pass;
+  const int p_end = kApplyPersistent ? passes : p0 + 1;
+  const int bid = blockIdx.x % per_pass;
+  const int h = bid / bph, lb = bid - h * bph;
+  const int rblocks = (n + kAUnitRows - 1) / kAUnitRows;
+  const int units = na * rblocks;  // per head
+  const int ntiles = apply_tiles(mlen);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kApplyStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kApplyConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the key mask as bits (zero past mlen)
+  for (int wd = warp; wd < ntiles * kAWords; wd += kApplyConsumers + 1) {
+    const int key = 32 * wd + lane;
+    const uint32_t b = __ballot_sync(0xffffffffu, key < mlen && kmask[key] != 0);
+    if (lane == 0) mask_s[wd] = b;
+  }
+  __syncthreads();
+
+  if (warp == kApplyConsumers) {  // the producer
+    if (lane != 0) return;
+    int s = 0;
+    for (int pass = p0; pass < p_end && (pass * bph + lb) * kAUnitsPerBlock < units; ++pass)
+      for (int e = 0; e < ne; ++e)
+        for (int j = 0; j < ntiles; ++j) {
+          if (tile_empty<kAWords>(mask_s + j * kAWords)) continue;
+          const int slot = s % kApplyStages;
+          if (s >= kApplyStages)
+            mbar_wait_or_trap(&empty[slot], ((s / kApplyStages) - 1) & 1, 0);
+          mbar_expect_tx(&full[slot], kASlotBytes);
+          char* dst = base + (size_t)slot * kASlotBytes;
+          load_tile(dst, &kmap, j * kApplyKeys, h, e, &full[slot]);
+          load_tile(dst + kATileBytes, &vmap, j * kApplyKeys, h, e, &full[slot]);
+          ++s;
+        }
+    return;
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+  const float c2 = 0.125f * kLog2e;  // 1 / sqrt(64) in base 2
+  int s = 0;
+  for (int pass = p0; pass < p_end && (pass * bph + lb) * kAUnitsPerBlock < units; ++pass) {
+    const int unit = (pass * bph + lb) * kAUnitsPerBlock + warp / 4;
+    const bool active = unit < units;  // the same for the warpgroup's four warps
+    const int a = active ? unit / rblocks : 0;
+    const int ra = (unit - a * rblocks) * kAUnitRows + (warp % 4) * kRows + g, rb = ra + 8;
+    const bool va = active && ra < n, vb = active && rb < n;
+    const bf16* qh = q + ((long long)a * kH + h) * n * kHC;
+    auto q32 = [&](bool ok, int row, int c) -> uint32_t {
+      return ok ? __ldg(reinterpret_cast<const unsigned int*>(qh + (long long)row * kHC + c))
+                : 0u;
+    };
+    uint32_t qf[4][4];  // the A fragments of this warp's rows: a0..a3 per k-step
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      qf[kk][0] = q32(va, ra, 16 * kk + 2 * t);
+      qf[kk][1] = q32(vb, rb, 16 * kk + 2 * t);
+      qf[kk][2] = q32(va, ra, 16 * kk + 8 + 2 * t);
+      qf[kk][3] = q32(vb, rb, 16 * kk + 8 + 2 * t);
+    }
+    float acc[kHC / 8][4];
+#pragma unroll
+    for (int j = 0; j < kHC / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int e = 0; e < ne; ++e) {
+      const long long srow = (((long long)a * ne + e) * kH + h) * n;
+      const float nb[2] = {va ? -rowmax[srow + ra] * kLog2e : 0.f,
+                           vb ? -rowmax[srow + rb] * kLog2e : 0.f};
+      float o[kHC / 8][4];
+#pragma unroll
+      for (int j = 0; j < kHC / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+      for (int j = 0; j < ntiles; ++j) {
+        const uint32_t* wd = mask_s + j * kAWords;
+        if (tile_empty<kAWords>(wd)) continue;
+        const int slot = s % kApplyStages;
+        mbar_wait_or_trap(&full[slot], (s / kApplyStages) & 1, 1);
+        if (active) {
+          const uint32_t sb = smem_u32(base) + (uint32_t)slot * kASlotBytes;
+          if (tile_full<kAWords>(wd))
+            apply_step<false>(sb, qf, wd, t, c2, nb, o);
+          else
+            apply_step<true>(sb, qf, wd, t, c2, nb, o);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[slot]);
+        ++s;
+      }
+      if (active) {
+        const float we = w[a * ne + e];
+        const float fa = va ? we * (1.f / fmaxf(rowsum[srow + ra], 1e-30f)) : 0.f;
+        const float fb = vb ? we * (1.f / fmaxf(rowsum[srow + rb], 1e-30f)) : 0.f;
+#pragma unroll
+        for (int j = 0; j < kHC / 8; ++j) {
+          acc[j][0] += fa * o[j][0];
+          acc[j][1] += fa * o[j][1];
+          acc[j][2] += fb * o[j][2];
+          acc[j][3] += fb * o[j][3];
+        }
+      }
+    }
+    float* oh = out + ((long long)a * kH + h) * n * kHC;
+#pragma unroll
+    for (int j = 0; j < kHC / 8; ++j) {
+      if (va)
+        *reinterpret_cast<float2*>(oh + (long long)ra * kHC + 8 * j + 2 * t) =
+            make_float2(acc[j][0], acc[j][1]);
+      if (vb)
+        *reinterpret_cast<float2*>(oh + (long long)rb * kHC + 8 * j + 2 * t) =
+            make_float2(acc[j][2], acc[j][3]);
+    }
+  }
+}
+
+// (blocks per head, passes) of K7's grid for A anchors and N query rows
+static void apply_plan(int na, int n, int* bph, int* passes) {
+  const int units = na * ((n + kAUnitRows - 1) / kAUnitRows);
+  const int most = (units + kAUnitsPerBlock - 1) / kAUnitsPerBlock;  // blocks with a unit
+  *bph = std::max(1, std::min(sm_count() / kH, most));
+  *passes = (units + *bph * kAUnitsPerBlock - 1) / (*bph * kAUnitsPerBlock);
+}
+
+// K7 in the tc form: k, v (E, 4, M, 64) bf16, 16-byte aligned
+inline int launch_apply(const void* q, const void* k, const void* v, const void* w,
+                        const void* rowmax, const void* rowsum, const void* km, void* out,
+                        int na, int ne, int n, int m, cudaStream_t st) {
+  const size_t smem = apply_smem_bytes(m);
+  if (smem > (size_t)kMaxSmem || sm_count() == 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap kmap, vmap;
+  int err = encode_map(&kmap, k, ne, m, kApplyKeys, 1);
+  if (!err) err = encode_map(&vmap, v, ne, m, kApplyKeys, 1);
+  if (err) return err;
+  static size_t attr = 0;  // the kernel's shared-memory attribute, raised once per size
+  if (smem > attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        eq_apply_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    attr = smem;
+  }
+  int bph, passes;
+  apply_plan(na, n, &bph, &passes);
+  const int grid = kH * bph * (kApplyPersistent ? 1 : passes);
+  eq_apply_tc_kernel<<<grid, kApplyThreads, smem, st>>>(
+      kmap, vmap, (const bf16*)q, (const float*)w, (const float*)rowmax, (const float*)rowsum,
+      (const uint8_t*)km, (float*)out, na, ne, n, m, bph, passes);
+  return (int)cudaGetLastError();
+}
+
+// blocks of K7's kernel resident per SM at M keys
+inline int apply_blocks_per_sm(int m) {
+  const size_t smem = apply_smem_bytes(m);
+  if (cudaFuncSetAttribute(eq_apply_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess)
+    return -1;
+  int nb = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, eq_apply_tc_kernel, kApplyThreads,
                                                     smem) != cudaSuccess)
     return -1;
   return nb;
@@ -1001,9 +1228,10 @@ int apply(const void* q, const void* k, const void* v, const void* w, const void
           const void* rowsum, const void* km, void* out, int na, int ne, int h, int n,
           int m, int hc, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  // bf16 at head width 64 takes the tc form, everything else the CUDA cores
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (h == 4 && hc == 64)
-      return launch_apply_mma<4, 64>(q, k, v, w, rowmax, rowsum, km, out, na, ne, n, m, st);
+      return eq_tc::launch_apply(q, k, v, w, rowmax, rowsum, km, out, na, ne, n, m, st);
   }
   if (h == 4 && hc == 64)
     return launch_apply<T, 4, 64>(q, k, v, w, rowmax, rowsum, km, out, na, ne, n, m, st);
@@ -1062,4 +1290,14 @@ extern "C" long long se3et_eq_attention_stats_smem(int m) {
 // blocks of the tc form resident per SM at M keys (-1 on a CUDA error)
 extern "C" int se3et_eq_attention_stats_blocks_per_sm(int m) {
   return eq_tc::blocks_per_sm(m);
+}
+
+// K7's tc form: its shared memory at M keys (eq_attention.eq_apply_smem_bytes)
+extern "C" long long se3et_eq_attention_apply_smem(int m) {
+  return (long long)eq_tc::apply_smem_bytes(m);
+}
+
+// blocks of K7's tc form resident per SM at M keys (-1 on a CUDA error)
+extern "C" int se3et_eq_attention_apply_blocks_per_sm(int m) {
+  return eq_tc::apply_blocks_per_sm(m);
 }

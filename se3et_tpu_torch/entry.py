@@ -41,9 +41,10 @@ def entry(device="cuda"):
     from se3et_tpu_torch.nn.model import SE3ETModel, pyramid_to_tensors
 
     cfg = entry_config()
-    # the experiment's seed: with the weights of seed 0 this pair's Sinkhorn
-    # scores overflow exp() in the registration and the transform is NaN, on
-    # every route and in float32 too (untrained weights, no port fault)
+    # the experiment's seed: with the untrained weights of seed 0 this pair's
+    # Sinkhorn log-scores pass log(float32 max), so exp() makes some of the
+    # registration's weights infinite and its transform meaningless, in JAX
+    # too (tests/test_torch_entry_seed0.py)
     model = SE3ETModel(cfg.model, seed=cfg.seed, device=device).eval()
     pair = synthetic_pair(0, cfg.pipeline, None, ENTRY_POINTS, synthetic_extent(cfg.dataset))
     data = pyramid_to_tensors(pair, device)

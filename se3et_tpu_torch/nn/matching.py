@@ -211,11 +211,17 @@ def local_global_registration(ref_knn_points, src_knn_points, ref_knn_masks,
     counts = inliers.sum(dim=1).masked_fill(~patch_valid, -1)
     best_inliers = inliers[torch.argmax(counts)]
     corr_inliers = torch.where(patch_valid.any(), best_inliers, corr_valid)
-    estimated = se3.weighted_procrustes(src_corr, ref_corr, corr_scores * corr_inliers)
+    # the fits weight the inliers' scores and give the others 0 by selection
+    # (as JAX's jitted score * mask does), so an overflowed score outside
+    # the inliers leaves no NaN
+    zero = torch.zeros_like(corr_scores)
+    estimated = se3.weighted_procrustes(src_corr, ref_corr,
+                                        torch.where(corr_inliers, corr_scores, zero))
     for _ in range(num_refinement_steps - 1):
         res = torch.linalg.norm(ref_corr - se3.apply_transform(src_corr, estimated), dim=-1)
         corr_inliers = (res < acceptance_radius) & corr_valid
-        estimated = se3.weighted_procrustes(src_corr, ref_corr, corr_scores * corr_inliers)
+        estimated = se3.weighted_procrustes(src_corr, ref_corr,
+                                            torch.where(corr_inliers, corr_scores, zero))
 
     return {
         "ref_corr_points": ref_corr,

@@ -23,9 +23,9 @@ shapes of se3ete.3dmatch (bf16) and the tiny float32 widths:
 * K1 (conv gather) in bf16 at the stage-2 (x (2, 2500, 768), H 36), s2 ->
   s3 (the same x, 1024 queries) and stage-3 (x (2, 1024, 1536), H 38)
   shapes, and in float32 at the stage-0 shape (x (2, 20000, 192), H 24);
-* K6 (EQ cross-attention stats) at the serving shape, q, k (6, 4, 1024, 64)
-  in bf16 (timed, held within its ``TOLERANCES``), and at N = M = 128, head
-  width 16 in float32; K7 (apply) at the serving shape in bf16.
+* K6 (EQ cross-attention stats) and K7 (apply) at the serving shape, q, k,
+  v (6, 4, 1024, 64) in bf16 (timed, held within their ``TOLERANCES``), and
+  at N = M = 128, head width 16 in float32.
 
 Each case is held bit for bit unless ``TOLERANCES`` names it: then the
 largest difference over the other checkout's largest magnitude must stay
@@ -44,15 +44,18 @@ import torch
 
 K5_BF16 = ("K5 AH=24 SH N=1024 C=256 bf16", "K5 AH=4 no SH N=1024 C=256 bf16")
 K6_BF16 = "K6 N=M=1024 c=64 bf16"
-TIMED = K5_BF16 + (K6_BF16,)
+K7_BF16 = "K7 N=M=1024 c=64 bf16"
+TIMED = K5_BF16 + (K6_BF16, K7_BF16)
 REPS = 20  # launches per timing
 # kernels changed on purpose, with their bound against the other build: the
 # bf16 K5 (the ws form; 1e-2, as its kernel-vs-plain check states) at AH = 4
 # runs each head's softmax in two halves of the keys, merged at the end, so
 # its p are rounded to bf16 at other running maxima (at AH = 24 it keeps the
 # first design's sums in the same order); the bf16 K6 (1e-3, as its check
-# states) exponentiates in base 2 with ex2.approx and sums in another order
-TOLERANCES = {**dict.fromkeys(K5_BF16, 1e-2), K6_BF16: 1e-3}
+# states) exponentiates in base 2 with ex2.approx and sums in another order;
+# the bf16 K7 (1e-3) exponentiates with ex2.approx, which moves some p by
+# one bf16 ulp before p v, and sums p v on wgmma in another order
+TOLERANCES = {**dict.fromkeys(K5_BF16, 1e-2), K6_BF16: 1e-3, K7_BF16: 1e-3}
 
 
 def _cases(dev):
@@ -123,13 +126,12 @@ def _cases(dev):
         tag = "bf16" if dtype == bf else "float32"
         cases.append((f"K6 N=M={n} c={c} {tag}",
                       lambda a=(q, k, qm, km): eq_attention.eq_attention_stats(*a)))
-        if dtype == bf:
-            v = torch.randn((6, 4, n, c), generator=g).to(dev, dtype)
-            rowmax, rowsum, _ = eq_attention.eq_attention_stats_plain(q, k, qm, km)
-            w = torch.rand((6, 6), generator=g).to(dev)
-            cases.append((f"K7 N=M={n} c={c} {tag}",
-                          lambda a=(q, k, v, w / w.sum(1, keepdim=True), rowmax, rowsum, km):
-                          eq_attention.eq_attention_apply(*a)))
+        v = torch.randn((6, 4, n, c), generator=g).to(dev, dtype)
+        rowmax, rowsum, _ = eq_attention.eq_attention_stats_plain(q, k, qm, km)
+        w = torch.rand((6, 6), generator=g).to(dev)
+        cases.append((f"K7 N=M={n} c={c} {tag}",
+                      lambda a=(q, k, v, w / w.sum(1, keepdim=True), rowmax, rowsum, km):
+                      eq_attention.eq_attention_apply(*a)))
     return cases
 
 

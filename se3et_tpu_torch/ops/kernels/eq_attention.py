@@ -38,6 +38,16 @@ SMEM_LIMIT = 232448  # dynamic shared memory one block can have on Hopper, bytes
 # warps, query rows per consumer warp (q staged in shared memory)
 TC_ROWS, CUDA_ROWS = 16, 8
 TC_KEYS, TC_STAGES, TC_CONSUMERS, TC_UNIT_ROWS = 32, 8, 9, 16
+# K7's tc form (csrc/eq_attention.cu, eq_tc::kApply*): keys per staged k /
+# v tile and ring slots (each a k and a v tile)
+APPLY_KEYS, APPLY_STAGES = 64, 4
+
+
+def _form(kernel: str, h: int, c: int, dtype) -> str:
+    if dtype not in _DTYPES or h not in KERNEL_HEADS or c not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"no {kernel} kernel for H={h}, head width {c}, {dtype}: built for H in "
+                         f"{KERNEL_HEADS}, head width in {KERNEL_HEAD_DIMS}, bf16 or float32")
+    return "tc" if dtype == torch.bfloat16 and c == 64 else "cuda"
 
 
 def eq_attention_stats_form(h: int, c: int, dtype) -> str:
@@ -52,10 +62,22 @@ def eq_attention_stats_form(h: int, c: int, dtype) -> str:
     Chosen by shape alone, as the C entry point chooses; neither is a
     fallback of the other.  Raises ``ValueError`` where no form takes the
     shape."""
-    if dtype not in _DTYPES or h not in KERNEL_HEADS or c not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"no K6 kernel for H={h}, head width {c}, {dtype}: built for H in "
-                         f"{KERNEL_HEADS}, head width in {KERNEL_HEAD_DIMS}, bf16 or float32")
-    return "tc" if dtype == torch.bfloat16 and c == 64 else "cuda"
+    return _form("K6", h, c, dtype)
+
+
+def eq_attention_apply_form(h: int, c: int, dtype) -> str:
+    """Which hand-written K7 kernel takes H heads of width ``c`` in ``dtype``:
+
+    * "tc": bf16, H = 4, head width 64 (the serving form,
+      ``eq_tc::eq_apply_tc_kernel``: TMA key and value tiles of one head,
+      wgmma for q k^T and p v, base-2 exps);
+    * "cuda": the CUDA-core kernel (float32, and head width 16 in either
+      type).
+
+    Chosen by shape alone, as the C entry point chooses; neither is a
+    fallback of the other.  Raises ``ValueError`` where no form takes the
+    shape."""
+    return _form("K7", h, c, dtype)
 
 
 def eq_attention_stats_parts(h: int, n: int, c: int, dtype) -> int:
@@ -78,6 +100,17 @@ def eq_stats_smem_bytes(m: int) -> int:
     ring = TC_STAGES * 4 * TC_KEYS * 64 * 2
     q = TC_CONSUMERS * 4 * TC_UNIT_ROWS * 64 * 2
     return 1024 + ring + q + mask + 2 * TC_STAGES * 8 + 8
+
+
+def eq_apply_smem_bytes(m: int) -> int:
+    """Shared memory of K7's tc form at M keys, in bytes, as
+    ``eq_tc::apply_smem_bytes`` lays it out: 1024 bytes of alignment slack,
+    the ring of APPLY_STAGES slots (a k and a v tile of APPLY_KEYS keys x 64
+    bf16 each), the key mask as bits (a whole number of tiles, padded to 8
+    bytes) and 2 x APPLY_STAGES mbarriers."""
+    tiles = -(-m // APPLY_KEYS)
+    mask = (tiles * APPLY_KEYS // 8 + 7) // 8 * 8
+    return 1024 + APPLY_STAGES * 2 * APPLY_KEYS * 64 * 2 + mask + 2 * APPLY_STAGES * 8
 
 
 def _positive(x, mode: Optional[str]):
@@ -167,6 +200,21 @@ def _check_stats(q, k, q_masks, k_masks, sup_q, sup_k, positive):
         raise ValueError("sup_q must hold (A, H) values and sup_k (E, H)")
 
 
+def _check_apply(q, k, v, w_ae, rowmax, rowsum, k_masks):
+    """K7's argument checks, on every device."""
+    _check_qk(q, k)
+    a, h, n, _ = q.shape
+    e, _, m, _ = k.shape
+    if v.shape != k.shape or v.dtype != q.dtype:
+        raise ValueError("v must match k in shape and q in dtype")
+    if w_ae.shape != (a, e) or rowmax.shape != (a, e, h, n) or rowsum.shape != (a, e, h, n):
+        raise ValueError(f"w_ae must be (A, E) = {(a, e)} and rowmax/rowsum (A, E, H, N) = "
+                         f"{(a, e, h, n)}: got {tuple(w_ae.shape)}, {tuple(rowmax.shape)}, "
+                         f"{tuple(rowsum.shape)}")
+    if k_masks.shape != (m,):
+        raise ValueError(f"k_masks must be (M,) = ({m},): got {tuple(k_masks.shape)}")
+
+
 def _mask_bytes(masks):
     """A mask as one byte per entry, viewed in place where it is bool."""
     m = masks.view(torch.uint8) if masks.dtype == torch.bool else masks.to(torch.uint8)
@@ -228,25 +276,26 @@ def eq_attention_stats(q, k, q_masks, k_masks, sup_q=None, sup_k=None, *,
 
 def eq_attention_apply(q, k, v, w_ae, rowmax, rowsum, k_masks):
     """K7 (``csrc/eq_attention.cu``, replaces the TPU ``eq_attention_apply``):
-    see :func:`eq_attention_apply_plain`."""
+    see :func:`eq_attention_apply_plain`.  The kernel is the one
+    :func:`eq_attention_apply_form` names (serving in bf16: "tc"); a shape
+    no form takes raises ``ValueError``.  Bound by its products."""
+    _check_apply(q, k, v, w_ae, rowmax, rowsum, k_masks)
     if q.device.type == "cpu":
         return eq_attention_apply_plain(q, k, v, w_ae, rowmax, rowsum, k_masks)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    _check_qk(q, k)
     a, h, n, c = q.shape
     e, _, m, _ = k.shape
-    if h not in KERNEL_HEADS or c not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"K7 is built for H in {KERNEL_HEADS} and head width in "
-                         f"{KERNEL_HEAD_DIMS}, got {h}, {c}")
-    if v.shape != k.shape or v.dtype != q.dtype:
-        raise ValueError("v must match k in shape and q in dtype")
-    if w_ae.shape != (a, e) or rowmax.shape != (a, e, h, n) or rowsum.shape != (a, e, h, n):
-        raise ValueError("bad weight or row-statistics shapes")
+    form = eq_attention_apply_form(h, c, q.dtype)
+    if form == "tc" and eq_apply_smem_bytes(m) > SMEM_LIMIT:
+        raise ValueError(f"K7's tc form does not fit M={m} keys in a block")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if form == "tc":  # tensor copies need 16-byte aligned rows
+        k = k.clone() if k.data_ptr() % 16 else k
+        v = v.clone() if v.data_ptr() % 16 else v
     w = w_ae.float().contiguous()
     rowmax, rowsum = rowmax.float().contiguous(), rowsum.float().contiguous()
-    km = k_masks.to(torch.uint8).contiguous()
+    km = _mask_bytes(k_masks)
     out = torch.empty((a, h, n, c), dtype=torch.float32, device=q.device)
     fn = _build.function("eq_attention", f"se3et_eq_attention_apply_{_DTYPES[q.dtype]}",
                          8, 6)

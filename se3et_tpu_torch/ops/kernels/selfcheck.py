@@ -112,6 +112,7 @@ class CheckResult:
     launches: int = 0  # on the main path, filled in by the caller
     route_ms: Optional[float] = None  # the unfused route's time (K12-K14), a yardstick
     device_ms: Optional[float] = None  # the kernel's own device time per call (profiler)
+    two_calls_ms: Optional[float] = None  # two PyTorch calls computing the function (K7)
 
     @property
     def ok(self) -> bool:
@@ -418,23 +419,45 @@ def check_eq_stats(q_masks, k_masks, a=6, h=4, c=64, with_sup=False, positive="s
 
 
 def check_eq_apply(q_masks, k_masks, a=6, h=4, c=64, dtype=torch.bfloat16, seed=6,
-                   reps=3):
+                   reps=3, device_kernel=None, two_calls=False, zero_rows=()):
     """K7 on random q, k, v, the plain version's row statistics and
-    normalised random weights w (A, E); tolerance 1e-2 * max|out| in bf16
-    (p rounded to bf16, sums in another order), 1e-4 in float32."""
+    normalised random weights w (A, E), the anchors in ``zero_rows`` with
+    all-zero weights; tolerance 1e-2 * max|out| in bf16 (p rounded to bf16,
+    sums in another order), 1e-4 in float32.  With ``device_kernel`` (a
+    kernel name) also the device time of that kernel per call; with
+    ``two_calls`` the time of two PyTorch calls computing the same function
+    (``scaled_dot_product_attention`` over the A * E * H heads with the key
+    mask, then the w-weighted sum over e; the heads expanded beforehand),
+    a yardstick the port never calls."""
     q, k, v, _, _ = _eq_inputs(q_masks, k_masks, a, h, c, dtype, seed)
     rowmax, rowsum, _ = eq_attention.eq_attention_stats_plain(q, k, q_masks, k_masks)
     g = torch.Generator().manual_seed(seed + 1)
     w = torch.rand((a, k.shape[0]), generator=g).to(q.device)
     w = w / w.sum(dim=1, keepdim=True)
+    w[list(zero_rows)] = 0.0
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    kern = lambda: eq_attention.eq_attention_apply(  # noqa: E731
+        q, k, v, w, rowmax, rowsum, k_masks)
     res = _compare(
         "eq_attention_apply",
         f"q(A={a}, H={h}, N={q.shape[2]}, c={c}) M={k.shape[2]} {dtype}",
-        lambda: eq_attention.eq_attention_apply(q, k, v, w, rowmax, rowsum, k_masks),
+        kern,
         lambda: eq_attention.eq_attention_apply_plain(q, k, v, w, rowmax, rowsum, k_masks),
         lambda want: tol * float(want.abs().max()), reps)
     e, m, n = k.shape[0], k.shape[2], q.shape[2]
+    if device_kernel is not None:
+        res.device_ms = device_ms(kern, device_kernel)
+    if two_calls:
+        qe = q[:, None].expand(a, e, h, n, c).reshape(a * e * h, n, c)
+        ke = k[None].expand(a, e, h, m, c).reshape(a * e * h, m, c)
+        ve = v[None].expand(a, e, h, m, c).reshape(a * e * h, m, c)
+        mask = k_masks[None, :]
+        wf = w.float()
+
+        def library():
+            o = F.scaled_dot_product_attention(qe, ke, ve, attn_mask=mask)
+            return torch.einsum("ae,aehnc->ahnc", wf, o.reshape(a, e, h, n, c).float())
+        res.two_calls_ms = _time_ms(library, reps)
     nbytes = _nbytes(q, k, v, w, rowmax, rowsum, k_masks) + a * h * n * c * 4
     ops = 2.0 * a * e * h * n * m * 2 * c
     return _with_bound(res, nbytes, ops, dtype, exps=float(a * e * h * n * int(k_masks.sum())))

@@ -208,6 +208,68 @@ def test_eq_attention_stats_refuses_bad_inputs_on_the_cpu(change, error):
         eq_k.eq_attention_stats(**args, positive=change.get("positive", "sq"))
 
 
+@pytest.mark.parametrize("h,c,dtype,form", [
+    (4, 64, torch.bfloat16, "tc"),      # the EQ cross layers in serving
+    (4, 64, torch.float32, "cuda"),
+    (4, 16, torch.float32, "cuda"),     # the tiny card-vs-CPU widths
+    (4, 16, torch.bfloat16, "cuda"),
+])
+def test_eq_attention_apply_form(h, c, dtype, form):
+    """K7 takes the tc form in bf16 with H = 4 and head width 64, the
+    CUDA-core form otherwise."""
+    assert eq_k.eq_attention_apply_form(h, c, dtype) == form
+
+
+@pytest.mark.parametrize("h,c,dtype", [
+    (8, 64, torch.bfloat16),    # no kernel for H = 8
+    (2, 16, torch.float32),     # nor H = 2
+    (4, 32, torch.bfloat16),    # nor head width 32
+    (4, 64, torch.float16),
+])
+def test_eq_attention_apply_form_refuses_shapes_no_kernel_takes(h, c, dtype):
+    with pytest.raises(ValueError):
+        eq_k.eq_attention_apply_form(h, c, dtype)
+
+
+@pytest.mark.parametrize("m", [1, 1024, 5000])
+def test_eq_attention_apply_plan_fits_a_block(m):
+    """The tc form's shared memory (ring of k and v tiles, the key-mask bits,
+    mbarriers) fits one block of an H100."""
+    plan = eq_k.eq_apply_smem_bytes(m)
+    ring = eq_k.APPLY_STAGES * 2 * eq_k.APPLY_KEYS * 64 * 2
+    assert ring + m // 8 < plan <= 232448 == eq_k.SMEM_LIMIT
+
+
+def _eq_apply_args(**change):
+    g = torch.Generator().manual_seed(0)
+    args = dict(q=torch.randn((2, 4, 5, 16), generator=g),
+                k=torch.randn((3, 4, 7, 16), generator=g),
+                v=torch.randn((3, 4, 7, 16), generator=g),
+                w_ae=torch.rand((2, 3), generator=g),
+                rowmax=torch.zeros((2, 3, 4, 5)), rowsum=torch.ones((2, 3, 4, 5)),
+                k_masks=torch.ones(7, dtype=torch.bool))
+    args.update(change)
+    return args
+
+
+@pytest.mark.parametrize("change,error", [
+    (dict(k=torch.zeros((3, 4, 7, 8))), ValueError),                  # another head width
+    (dict(k=torch.zeros((3, 2, 7, 16))), ValueError),                 # other heads
+    (dict(q=torch.zeros((4, 5, 16))), ValueError),                    # not (A, H, N, c)
+    (dict(v=torch.zeros((3, 4, 6, 16))), ValueError),                 # v of another M
+    (dict(v=torch.zeros((3, 4, 7, 16), dtype=torch.float64)), ValueError),
+    (dict(w_ae=torch.ones((3, 2))), ValueError),                      # not (A, E)
+    (dict(rowmax=torch.zeros((2, 3, 4, 6))), ValueError),             # stats of another N
+    (dict(rowsum=torch.ones((2, 3, 5))), ValueError),
+    (dict(k_masks=torch.ones(6, dtype=torch.bool)), ValueError),      # mask of another M
+    (dict(k=torch.zeros((3, 4, 7, 16), dtype=torch.bfloat16)), TypeError),
+])
+def test_eq_attention_apply_refuses_bad_inputs_on_the_cpu(change, error):
+    """K7's wrapper checks its inputs on every device, the CPU included."""
+    with pytest.raises(error):
+        eq_k.eq_attention_apply(**_eq_apply_args(**change))
+
+
 @pytest.mark.parametrize("ac,infl_shape", [
     (12, (2, 5, 7, 15)),   # bf16 with H <= 64 (tensor-core form): AC not a multiple of 8
     (16, (2, 5, 6, 15)),   # fewer influence columns than neighbours

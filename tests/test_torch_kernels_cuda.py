@@ -210,6 +210,8 @@ def _eq_edge_masks(case, n, m, device):
     elif case == "one key":
         km[:] = False
         km[m // 2] = True
+    elif case == "no key":
+        km[:] = False
     return qm, km
 
 
@@ -269,6 +271,56 @@ def test_eq_attention_apply_kernel(cuda, n, m, c, dtype):
     qm = torch.arange(n, device=cuda) < n - 24
     km = torch.arange(m, device=cuda) < m - 40
     _assert_ok(selfcheck.check_eq_apply(qm, km, c=c, dtype=dtype, reps=1))
+
+
+@pytest.mark.parametrize("n,m,case", [
+    (1, 1024, "ragged"), (17, 1024, "ragged"), (1003, 1024, "ragged"),  # N off the unit
+    (1024, 1, "ragged"), (1024, 63, "ragged"), (1024, 997, "ragged"),   # M off the tile
+    (1024, 1024, "masked tiles"), (1003, 997, "masked tiles"),
+    (1024, 1024, "one key"), (17, 63, "one key"),
+    (1024, 1024, "no key"), (17, 63, "no key"),
+    (1024, 1024, "zero w row"),
+])
+@pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 64), (torch.float32, 16)])
+def test_eq_attention_apply_kernel_edges(cuda, n, m, case, dtype, c):
+    """K7 (both forms) at shapes and masks off the serving path: N = 1, 17
+    and 1003, M = 1, 63 and 997, whole masked key tiles (skipped by the tc
+    form), a single valid key, no valid key (the output 0 and finite) and
+    an anchor whose weights are all zero; within the tolerance of
+    ``selfcheck.check_eq_apply``."""
+    from se3et_tpu_torch.ops.kernels import eq_attention as eq
+
+    qm, km = _eq_edge_masks(case, n, m, cuda)
+    zero = (2,) if case == "zero w row" else ()
+    _assert_ok(selfcheck.check_eq_apply(qm, km, c=c, dtype=dtype, reps=1, zero_rows=zero))
+    if case == "no key":
+        g = torch.Generator().manual_seed(0)
+        q, k, v = (torch.randn(s, generator=g).to(cuda, dtype)
+                   for s in ((6, 4, n, c), (6, 4, m, c), (6, 4, m, c)))
+        rowmax, rowsum, _ = eq.eq_attention_stats_plain(q, k, qm, km)
+        out = eq.eq_attention_apply(q, k, v, torch.full((6, 6), 1 / 6, device=cuda), rowmax,
+                                    rowsum, km)
+        assert bool((out == 0).all()), float(out.abs().max())
+
+
+def test_eq_attention_apply_plan_matches_the_kernel(cuda):
+    """The wrapper's shared-memory plan of K7's tc form is the kernel's, and
+    one block of it is resident per SM at the serving M."""
+    import ctypes
+
+    from se3et_tpu_torch.ops.kernels import _build
+    from se3et_tpu_torch.ops.kernels import eq_attention as eq
+
+    lib = _build._library("eq_attention")
+    smem = lib.se3et_eq_attention_apply_smem
+    smem.argtypes = [ctypes.c_int]
+    smem.restype = ctypes.c_longlong
+    for m in (1, 63, 64, 997, 1024, 5000):
+        assert smem(m) == eq.eq_apply_smem_bytes(m)
+    occupancy = lib.se3et_eq_attention_apply_blocks_per_sm
+    occupancy.argtypes = [ctypes.c_int]
+    occupancy.restype = ctypes.c_int
+    assert occupancy(1024) == 1
 
 
 @pytest.mark.parametrize("nq,ns,h,ac", [
