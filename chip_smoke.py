@@ -23,7 +23,9 @@ Phases, each of which raises (exit code != 0) on failure:
    served pair and their bounds, beside their times before the redesign,
    and for K7 the time of the two PyTorch calls that compute its function
    (``scaled_dot_product_attention`` with the key mask, then the weighted
-   sum over key anchors);
+   sum over key anchors); K4 the same way (events over 20 launches, device
+   time), beside its bound, its chain floor from
+   ``scripts/probe_sinkhorn.py`` and its first design's times;
 4. check that the kernel path (card) and the plain path (CPU) agree on two
    tiny float32 inputs: the materialised-attention cut and the flash cut
    (128-point coarse stage, 600 points), both through the fused convs
@@ -104,10 +106,14 @@ TRAIN_STEPS = 3
 DEVICE_INFLUENCE_LAUNCHES = {"influence": 7}
 FEMB_LAUNCHES = {"rpe_self_attention_femb": 5, "geometric_embedding": 0,
                  "rpe_self_attention": 0}
+# K4's chain floor per launch at the serving shape: its rows form with each
+# dot product cut to one load (log, exp, shuffle and barrier left), measured
+# by scripts/probe_sinkhorn.py (``no_dot``) on an NVIDIA H100 80GB HBM3, 700 W
+K4_CHAIN_FLOOR_MS = 0.0524
 # the CUDA kernels of the default serving route (K1-K7, K12-K14 in bf16, K4
 # in float32), whose device time per launch the pair profile always prints
 SERVING_KERNELS = ("gather_wf_tc_kernel", "neighbor_max_kernel", "embedding_tc_kernel",
-                   "sinkhorn_kernel", "rpe_attention_ws_kernel", "eq_stats_tc_kernel",
+                   "sinkhorn_rows_kernel", "rpe_attention_ws_kernel", "eq_stats_tc_kernel",
                    "eq_apply_tc_kernel", "gather_wf_mm_tc_kernel", "panels_kernel",
                    "gather_wf_mm_kernel", "gather_wf_max_kernel")
 
@@ -590,7 +596,8 @@ def main() -> int:
             sigma_a=m.sigma_a),
         "sinkhorn": selfcheck.check_sinkhorn(
             b=m.num_correspondences, m=m.num_points_in_patch + 1,
-            n=m.num_points_in_patch + 1, iters=m.num_sinkhorn_iterations, device=dev),
+            n=m.num_points_in_patch + 1, iters=m.num_sinkhorn_iterations, device=dev,
+            reps=20, device_kernel="sinkhorn_rows_kernel"),
         # self_eq layers: A*H anchor-heads with the SH term
         "rpe_self_attention": selfcheck.check_rpe_attention(
             pts_c, masks_c, m.kanchor * heads, c=head_dim, cc=m.gt_hidden_dim, reps=10),
@@ -660,6 +667,14 @@ def main() -> int:
               f"device {dev_ms} ms ({before[1]:.4f}); per served pair ({per_pair} launches) "
               f"device {pair_ms} ms ({per_pair * before[1]:.4f}); bound {res.bound_ms:.4f} ms "
               f"({res.bound_by})", flush=True)
+    # K4 beside its chain floor (the probe's loop without dot products: log,
+    # exp, shuffle and barrier) and its first design's times (NVIDIA H100
+    # 80GB HBM3, 700 W: 0.6490 ms by events, 0.6381 device)
+    res = checks["sinkhorn"]
+    dev_ms = "not measured" if res.device_ms is None else f"{res.device_ms:.4f}"
+    print(f"K4 {res.shape}: events {res.ms:.4f} ms (first design 0.6490), device {dev_ms} ms "
+          f"(0.6381); bound {res.bound_ms:.4f} ms ({res.bound_by}); chain floor "
+          f"{K4_CHAIN_FLOOR_MS:.4f} ms (scripts/probe_sinkhorn.py)", flush=True)
     bad = [r.name for r in list(checks.values()) + extra if not r.ok]
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: {bad}")

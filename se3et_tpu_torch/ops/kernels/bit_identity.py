@@ -25,7 +25,11 @@ shapes of se3ete.3dmatch (bf16) and the tiny float32 widths:
   shapes, and in float32 at the stage-0 shape (x (2, 20000, 192), H 24);
 * K6 (EQ cross-attention stats) and K7 (apply) at the serving shape, q, k,
   v (6, 4, 1024, 64) in bf16 (timed, held within their ``TOLERANCES``), and
-  at N = M = 128, head width 16 in float32.
+  at N = M = 128, head width 16 in float32;
+* K4 (Sinkhorn, 100 iterations, float32) on ``selfcheck.sinkhorn_inputs``
+  at the serving shape (256, 65, 65) (timed) and at (6, 17, 13), compared
+  on valid entries only: the masked ones are zeroed (they hold -1e12 + u +
+  v, whose scale would hide any difference), which the timing includes.
 
 Each case is held bit for bit unless ``TOLERANCES`` names it: then the
 largest difference over the other checkout's largest magnitude must stay
@@ -45,7 +49,8 @@ import torch
 K5_BF16 = ("K5 AH=24 SH N=1024 C=256 bf16", "K5 AH=4 no SH N=1024 C=256 bf16")
 K6_BF16 = "K6 N=M=1024 c=64 bf16"
 K7_BF16 = "K7 N=M=1024 c=64 bf16"
-TIMED = K5_BF16 + (K6_BF16, K7_BF16)
+K4_CASES = ("K4 (256, 65, 65) f32", "K4 (6, 17, 13) f32")
+TIMED = K5_BF16 + (K6_BF16, K7_BF16, K4_CASES[0])
 REPS = 20  # launches per timing
 # kernels changed on purpose, with their bound against the other build: the
 # bf16 K5 (the ws form; 1e-2, as its kernel-vs-plain check states) at AH = 4
@@ -54,13 +59,19 @@ REPS = 20  # launches per timing
 # first design's sums in the same order); the bf16 K6 (1e-3, as its check
 # states) exponentiates in base 2 with ex2.approx and sums in another order;
 # the bf16 K7 (1e-3) exponentiates with ex2.approx, which moves some p by
-# one bf16 ulp before p v, and sums p v on wgmma in another order
-TOLERANCES = {**dict.fromkeys(K5_BF16, 1e-2), K6_BF16: 1e-3, K7_BF16: 1e-3}
+# one bf16 ulp before p v, and sums p v on wgmma in another order; K4 (1e-5
+# of the valid entries' scale, ~K4's 1e-4 absolute at out ~ 10) sums each
+# row and column in two lanes' slices of two FMA chains each, where its
+# first design summed 32 lanes' strided shares
+TOLERANCES = {**dict.fromkeys(K5_BF16, 1e-2), K6_BF16: 1e-3, K7_BF16: 1e-3,
+              **dict.fromkeys(K4_CASES, 1e-5)}
 
 
 def _cases(dev):
     """[(name, fn)] on seeded inputs; ``fn`` returns a tensor or a tuple."""
-    from se3et_tpu_torch.ops.kernels import embedding, eq_attention, rpe_attention, selfcheck
+    from se3et_tpu_torch.ops.kernels import (
+        embedding, eq_attention, rpe_attention, selfcheck, sinkhorn,
+    )
     from se3et_tpu_torch.ops.kernels import windowed_conv as wc
 
     g = torch.Generator().manual_seed(0)
@@ -132,6 +143,10 @@ def _cases(dev):
         cases.append((f"K7 N=M={n} c={c} {tag}",
                       lambda a=(q, k, v, w / w.sum(1, keepdim=True), rowmax, rowsum, km):
                       eq_attention.eq_attention_apply(*a)))
+    for name, (b, m, n) in zip(K4_CASES, ((256, 65, 65), (6, 17, 13))):
+        padded, mu, nu, valid = selfcheck.sinkhorn_inputs(b, m, n, dev)
+        cases.append((name, lambda a=(padded, mu, nu), v=valid: torch.where(
+            v, sinkhorn.sinkhorn(*a, 100), 0.0)))
     return cases
 
 

@@ -297,10 +297,13 @@ def _emb_tol(scale: float, dtype) -> float:
     return 1e-3 * scale + ulp
 
 
-def sinkhorn_inputs(b, m, n, device, seed=3):
+def sinkhorn_inputs(b, m, n, device, seed=3, *, single_entry=False, peak=None):
     """(padded scores, log_mu, log_nu, valid) as LearnableLogOptimalTransport
     builds them, with masked rows and columns, one patch with every row
-    masked and one with every column masked."""
+    masked and one with every column masked.  With ``single_entry`` patch 2
+    keeps one valid entry (row 0, column 0; the dustbins masked too); with
+    ``peak`` the scores are scaled so the largest magnitude is ``peak`` (the
+    seed-0 weights give ``entry()``'s pair valid scores up to ~176)."""
     rng = np.random.RandomState(seed)
     rows = rng.rand(b, m - 1) > 0.2
     cols = rng.rand(b, n - 1) > 0.2
@@ -308,9 +311,14 @@ def sinkhorn_inputs(b, m, n, device, seed=3):
     cols[1] = False
     rv = np.concatenate([rows, np.ones((b, 1), bool)], 1)
     cv = np.concatenate([cols, np.ones((b, 1), bool)], 1)
+    if single_entry:
+        rv[2] = np.arange(m) == 0
+        cv[2] = np.arange(n) == 0
     valid = rv[:, :, None] & cv[:, None, :]
     padded = rng.normal(size=(b, m, n)) * 2.0
     padded[:, -1, :] = padded[:, :, -1] = 1.0
+    if peak is not None:
+        padded *= peak / np.abs(padded).max()
     nr, nc = rows.sum(1), cols.sum(1)
     norm = -np.log(nr + nc + 1e-9)
     mu = np.concatenate([np.repeat(norm[:, None], m - 1, 1),
@@ -323,14 +331,25 @@ def sinkhorn_inputs(b, m, n, device, seed=3):
             .to(device) for a in out]
 
 
-def check_sinkhorn(b=256, m=65, n=65, iters=100, device="cuda", reps=5):
-    """K4 in float32; tolerance 1e-4 absolute on valid entries."""
-    padded, mu, nu, valid = sinkhorn_inputs(b, m, n, device)
+def check_sinkhorn(b=256, m=65, n=65, iters=100, device="cuda", reps=5, device_kernel=None,
+                   form=None, **inputs):
+    """K4 in float32 on :func:`sinkhorn_inputs` (``inputs`` passed on), on
+    the form :func:`sinkhorn.sinkhorn_form` names or on ``form``; tolerance
+    1e-4 absolute on valid entries, and the output finite wherever the
+    plain version's is (an error of inf otherwise).  With ``device_kernel``
+    (a kernel name) also the device time of that kernel per call."""
+    padded, mu, nu, valid = sinkhorn_inputs(b, m, n, device, **inputs)
+    kern = lambda: sinkhorn._sinkhorn_forward(padded, mu, nu, iters, form)  # noqa: E731
+    plain = lambda: sinkhorn.sinkhorn_plain(padded, mu, nu, iters)  # noqa: E731
     res = _compare(
-        "sinkhorn", f"scores({b}, {m}, {n}) iters={iters} float32",
-        lambda: sinkhorn.sinkhorn(padded, mu, nu, iters),
-        lambda: sinkhorn.sinkhorn_plain(padded, mu, nu, iters),
-        lambda w: 1e-4, reps, mask=valid)
+        "sinkhorn", f"scores({b}, {m}, {n}) iters={iters} float32 form "
+        f"{form or sinkhorn.sinkhorn_form(m, n)}", kern, plain, lambda w: 1e-4, reps,
+        mask=valid)
+    got, want = kern(), plain()
+    if bool((torch.isfinite(want) & ~torch.isfinite(got)).any()):
+        res.max_abs_err = float("inf")
+    if device_kernel is not None:
+        res.device_ms = device_ms(kern, device_kernel)
     # per iteration a row and a column multiply-reduce over every entry
     return _with_bound(res, 2 * _nbytes(padded) + _nbytes(mu, nu),
                        4.0 * iters * b * m * n, torch.float32)

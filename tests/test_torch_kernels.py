@@ -393,6 +393,57 @@ def test_embedding_plain_matches_pallas_kernel():
     assert differ < 0.02 * total
 
 
+@pytest.mark.parametrize("m,n,form,lanes", [
+    (65, 65, "rows", 2),        # serving: 64 points per patch + the dustbin
+    (65, 33, "rows", 2),
+    (129, 129, "rows", 4),      # KITTI's patch budget 128
+    (144, 144, "rows", 4),      # the largest square the rows form holds
+    (145, 145, "smem", 0),
+    (168, 168, "smem", 0),      # the largest square the first design took
+    (1, 11621, "smem", 0),      # the most lopsided shape it took
+    (2, 2, "rows", 1),
+])
+def test_sinkhorn_plan_covers_the_accepted_shapes(m, n, form, lanes):
+    """K4's plan takes every shape the first design's wrapper took (its
+    2mn + 3(m + n) floats within one block's shared memory), the rows form
+    where its register slices hold a row, and raises beyond."""
+    plan = sk_k.sinkhorn_plan(m, n)
+    assert (plan.form, plan.lanes) == (form, lanes) and sk_k.sinkhorn_form(m, n) == form
+    assert plan.smem_bytes <= sk_k.SMEM_LIMIT
+    if form == "rows":
+        assert plan.lanes * plan.chunk >= max(m, n) and -(-max(m, n) // lanes) <= sk_k.MAX_CHUNK
+        assert plan.warps * 32 >= max(m, n) * lanes
+
+
+def test_sinkhorn_plan_accepts_what_the_first_design_took():
+    """Over a grid of shapes, and at the edges of the smem limit, a shape
+    has a plan exactly where the first design's (2mn + 3(m + n)) * 4 bytes
+    fit 227 KB."""
+    shapes = [(m, n) for m in range(1, 200, 7) for n in range(1, 200, 5)]
+    shapes += [(168, 168), (169, 169), (1, 11621), (1, 11622), (2, 9294), (2, 9295),
+               (0, 5), (5, 0)]
+    for m, n in shapes:
+        took = m >= 1 and n >= 1 and (2 * m * n + 3 * (m + n)) * 4 <= 227 * 1024
+        if took:
+            assert sk_k.sinkhorn_plan(m, n).form in ("rows", "smem")
+        else:
+            with pytest.raises(ValueError):
+                sk_k.sinkhorn_plan(m, n)
+
+
+@pytest.mark.parametrize("scores,mu,nu", [
+    ((2, 5, 4), (2, 4), (2, 4)),     # log_mu of another M
+    ((2, 5, 4), (2, 5), (2, 5)),     # log_nu of another N
+    ((2, 5, 4), (3, 5), (2, 4)),     # another batch
+    ((2, 5, 4), (2, 5, 1), (2, 4)),  # not (B, M)
+    ((5, 4), (5,), (4,)),            # 2-D scores
+])
+def test_sinkhorn_refuses_bad_inputs_on_the_cpu(scores, mu, nu):
+    """K4's wrapper checks its shapes on every device, the CPU included."""
+    with pytest.raises(ValueError):
+        sk_k.sinkhorn(torch.zeros(scores), torch.zeros(mu), torch.zeros(nu), 3)
+
+
 @pytest.mark.parametrize("reference", ["pallas", "scan"])
 def test_sinkhorn_plain_matches_jax(reference):
     """K4 plain == sinkhorn_pallas (interpret) and the lax.scan route on

@@ -128,6 +128,53 @@ def test_sinkhorn_kernel(cuda):
     _assert_ok(selfcheck.check_sinkhorn(device=cuda, reps=1))
 
 
+@pytest.mark.parametrize("m,n", [(2, 2), (17, 9), (65, 65), (65, 33), (129, 129)])
+@pytest.mark.parametrize("iters", [0, 1, 100])
+@pytest.mark.parametrize("form", ["rows", "smem"])
+@pytest.mark.parametrize("peak", [None, 176.0])
+def test_sinkhorn_kernel_edges(cuda, m, n, iters, form, peak):
+    """K4, each form, against its plain version on 8 patches: one with every
+    row masked, one with every column masked, one with a single valid entry,
+    the rest with about a fifth of rows and columns masked; with valid
+    scores up to 176 too (as the seed-0 weights give entry()'s pair).
+    Within 1e-4 on valid entries, finite wherever the plain version is."""
+    _assert_ok(selfcheck.check_sinkhorn(b=8, m=m, n=n, iters=iters, device=cuda, reps=1,
+                                        form=form, single_entry=True, peak=peak))
+
+
+@pytest.mark.parametrize("m,n", [(144, 144), (145, 145), (168, 168), (3, 6000)])
+def test_sinkhorn_kernel_at_the_largest_shapes(cuda, m, n):
+    """K4 on the form its plan names at the edges of the rows form (144) and
+    of the first design's shared memory (168 x 168, lopsided)."""
+    _assert_ok(selfcheck.check_sinkhorn(b=4, m=m, n=n, iters=20, device=cuda, reps=1,
+                                        single_entry=True))
+
+
+def test_sinkhorn_plan_matches_the_kernel(cuda):
+    """The wrapper's plan (form, lanes, slice width, warps, patches per
+    block, shared bytes) is the C entry point's."""
+    import ctypes
+
+    from se3et_tpu_torch.ops.kernels import _build
+    from se3et_tpu_torch.ops.kernels import sinkhorn as sk
+
+    fn = _build._library("sinkhorn").se3et_sinkhorn_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    codes = {code: name for name, code in sk.FORM_CODES.items()}
+    shapes = [(m, n) for m in (1, 2, 9, 17, 33, 64, 65, 100, 129, 144, 145, 168, 169)
+              for n in (1, 2, 13, 33, 65, 129, 145, 168, 200)] + [(1, 11621), (1, 11622)]
+    for m, n in shapes:
+        out = (ctypes.c_int * 6)()
+        form = fn(m, n, out)
+        try:
+            want = sk.sinkhorn_plan(m, n)
+        except ValueError:
+            assert form == 0 and out[0] == 0, (m, n)
+            continue
+        assert (codes[form], *out[1:]) == tuple(want), (m, n)
+
+
 def _cloud(cuda, n, seed, pad=40):
     """(2, n, 3) points in a 4 m box with ``pad`` padded (zero, masked)
     points at the end of cloud 1, and their (2, n) masks."""
