@@ -25,7 +25,10 @@ Phases, each of which raises (exit code != 0) on failure:
    (``scaled_dot_product_attention`` with the key mask, then the weighted
    sum over key anchors); K4 the same way (events over 20 launches, device
    time), beside its bound, its chain floor from
-   ``scripts/probe_sinkhorn.py`` and its first design's times;
+   ``scripts/probe_sinkhorn.py`` and its first design's times; K13 the same
+   way, beside its bound, the unfused route and its first design's times,
+   with what its skip max must read on pair 0 (valid references, distinct
+   rows per 64-row tile);
 4. check that the kernel path (card) and the plain path (CPU) agree on two
    tiny float32 inputs: the materialised-attention cut and the flash cut
    (128-point coarse stage, 600 points), both through the fused convs
@@ -115,7 +118,7 @@ K4_CHAIN_FLOOR_MS = 0.0524
 SERVING_KERNELS = ("gather_wf_tc_kernel", "neighbor_max_kernel", "embedding_tc_kernel",
                    "sinkhorn_rows_kernel", "rpe_attention_ws_kernel", "eq_stats_tc_kernel",
                    "eq_apply_tc_kernel", "gather_wf_mm_tc_kernel", "panels_kernel",
-                   "gather_wf_mm_kernel", "gather_wf_max_kernel")
+                   "gather_wf_max_mm_tc_kernel", "gather_wf_mm_kernel", "gather_wf_max_kernel")
 
 
 def _card_line() -> str:
@@ -614,7 +617,7 @@ def main() -> int:
         # s0 -> s1 strided bottleneck: conv mid 32, skip payload A*128
         "gather_wf_max_mm": selfcheck.check_fused_conv(
             "gather_wf_max_mm", p0["subsampling_0"], ns0, 6 * 32, ac_out=6 * 32,
-            ac2=6 * 128),
+            ac2=6 * 128, reps=20, device_kernel="gather_wf_max_mm_tc_kernel"),
         # s1 -> s2 strided bottleneck: conv mid 64, skip payload A*256
         "gather_wf_max": selfcheck.check_fused_conv("gather_wf_max", p0["subsampling_1"], ns1,
                                                     6 * 64, ac2=6 * 256),
@@ -675,6 +678,17 @@ def main() -> int:
     print(f"K4 {res.shape}: events {res.ms:.4f} ms (first design 0.6490), device {dev_ms} ms "
           f"(0.6381); bound {res.bound_ms:.4f} ms ({res.bound_by}); chain floor "
           f"{K4_CHAIN_FLOOR_MS:.4f} ms (scripts/probe_sinkhorn.py)", flush=True)
+    # K13 beside the unfused route and its first design's times (NVIDIA H100
+    # 80GB HBM3, 700 W: 0.6695 ms by events, 0.6282 device), with what its
+    # skip max must read
+    res = checks["gather_wf_max_mm"]
+    dev_ms = "not measured" if res.device_ms is None else f"{res.device_ms:.4f}"
+    reuse = selfcheck.skip_reuse(p0["subsampling_0"], ns0)
+    print(f"K13 {res.shape}: events {res.ms:.4f} ms (first design 0.6695), device {dev_ms} ms "
+          f"(0.6282); unfused route {res.route_ms:.4f} ms; bound {res.bound_ms:.4f} ms "
+          f"({res.bound_by}); skip max reads {reuse['valid']} valid rows, {reuse['distinct']} "
+          f"distinct per 64-row tile, {reuse['live_tiles']} of {reuse['tiles']} tiles with a "
+          f"valid neighbour", flush=True)
     bad = [r.name for r in list(checks.values()) + extra if not r.ok]
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: {bad}")
@@ -776,11 +790,16 @@ def main() -> int:
     kernels = []
     for name, res in checks.items():
         source, replaces = selfcheck.SOURCES[name]
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": res.launches,
-                        "max_abs_err": res.max_abs_err, "ms": res.ms,
-                        "plain_ms": res.plain_ms, "bound_ms": res.bound_ms,
-                        "bound_by": res.bound_by, "library_ms": res.library_ms})
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": res.launches,
+               "max_abs_err": res.max_abs_err, "ms": res.ms,
+               "plain_ms": res.plain_ms, "bound_ms": res.bound_ms,
+               "bound_by": res.bound_by, "library_ms": res.library_ms}
+        # yardsticks measured beside some kernels: device time (profiler),
+        # the unfused route (K12-K14)
+        row.update({key: getattr(res, key) for key in ("device_ms", "route_ms")
+                    if getattr(res, key) is not None})
+        kernels.append(row)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -52,9 +52,36 @@
 // Within a block the gather and the product still alternate per chunk, and
 // one block runs per SM (the accumulator and the influence fragments take
 // up to 254 registers a thread).  For H > 32 the fragments and the staging
-// outgrow registers and shared memory; that form, the float32 K12 (the tiny
-// card-vs-CPU checks only) and K13 keep the first design below, K13 bit
-// for bit.
+// outgrow registers and shared memory; that form and the float32 K12 (the
+// tiny card-vs-CPU checks only) keep the first design below.
+//
+// K13 in bf16 (tc::gather_wf_max_mm_tc_kernel, H <= 32, AC2 a multiple of 8
+// up to 1536): K12's tile (conv_tile: its gather and product unchanged, so
+// its output equals K12's bit for bit) and the strided skip's max over the
+// same index rows.  At the serving shape (x (2, 20000, 192), nbr (2, 10000,
+// 24), skip (2, 20000, 768)) the skip reads whole 1536-byte payload rows,
+// ~180 MB for pair 0's 118,184 valid references (of 480,000 slots: most
+// are sentinels, and rows 7354-9999 of its first cloud have none), beside
+// a 22 GFLOP product.  The first design ran the skip max first and alone
+// (a 4-byte channel pair per thread, 24 dependent loads per item), two
+// blocks per SM at 128 registers a thread, the gather on the CUDA cores.
+// The design:
+//  * each warp takes the max over its own 8 rows first (skip_max.cuh
+//    SkipMax::direct), before the conv's registers are live: per row, up
+//    to 24 / SU valid neighbours' payload rows at once, each lane loading
+//    its 16-byte units of each straight into registers (96 registers of
+//    loads in flight, ~80 KB a block), sentinel slots issuing no load and
+//    a row with a sentinel starting its max at zero;
+//  * then K12's conv; the skip of one SM overlaps the conv of the others;
+//  * a tile without a valid neighbour (the padding) writes zero rows and
+//    exits before its influence, gather and product;
+//  * shared memory: K12's (166 KB at the serving shape).
+// Chosen by measurement: a ring of shared slots per warp filled by bulk
+// copies (or every lane's cp.async), its max taken before the conv, between
+// the gather's rows or between the product's panels, kept at most ~48 KB a
+// block in flight beside K12's shared memory and ran the skip at half the
+// rate of the loads above in every placement (PERF.md), so it was removed.
+// The float32 K13 and H > 32 keep the first design below, unchanged.
 //
 // First design: a block owns 64 query rows and keeps their (64, A*Cout) float32
 // output in registers (8 warps: 2 along the rows, 4 along the columns; at
@@ -76,6 +103,7 @@
 // latency-bound), which caps its accumulator at A*Cout <= 192.
 #include "async_copy.cuh"
 #include "attention_common.cuh"
+#include "skip_max.cuh"
 
 namespace {
 
@@ -357,10 +385,13 @@ constexpr int kPlane = kBM * kCW + 8;  // bf16 per kernel-point plane of the A t
 constexpr int kStages = 4;             // weight panels in the ring
 constexpr int kStageRows = 3;          // neighbour-row buffers per warp
 constexpr int kMaxH = 32;              // neighbours per row (padded to 16 in the gather)
+constexpr int kMaxSkip = 1536;         // K13: skip payload channels
 // phase bits (the probe's): the gather, the weight product, the last wave in
-// half tiles
-constexpr int kGather = 1, kProduct = 2, kSplitTail = 4;
+// half tiles; K13's skip max (by 16-byte loads into registers before the
+// conv) and the exit of a tile without a valid neighbour
+constexpr int kGather = 1, kProduct = 2, kSplitTail = 4, kSkip = 8, kPadExit = 16;
 constexpr int kDefaultPhases = kGather | kProduct | kSplitTail;
+constexpr int kMaxDefaultPhases = kDefaultPhases | kSkip | kPadExit;
 
 // element offset of channel c (0..31) in row r of a tile of 64-byte rows,
 // 16-byte units XOR-swizzled by row pair: the 8 rows an ldmatrix phase
@@ -392,12 +423,17 @@ __device__ __forceinline__ void stage_row(bf16* dst, const bf16* xb, const int* 
   }
 }
 
-template <int NT, int HS>
-__global__ void __launch_bounds__(kThreads, 1)
-gather_wf_mm_tc_kernel(const bf16* __restrict__ x, const int* __restrict__ nbr,
-                       const bf16* __restrict__ infl, const bf16* __restrict__ panels,
-                       float* __restrict__ out, int ns, int nq, int rows, int h, int hs, int k,
-                       int ac, int ac_out, int nfull, int phases) {
+// One tile of K12 (SU == 0) or K13 (SU > 0: the skip max too, SU 16-byte
+// units of a payload row per lane at most).  K13 leaves K12's gather and
+// product, and so their sums, as they are.
+template <int NT, int HS, int SU>
+__device__ __forceinline__ void conv_tile(const bf16* __restrict__ x, const int* __restrict__ nbr,
+                                          const bf16* __restrict__ infl,
+                                          const bf16* __restrict__ panels,
+                                          float* __restrict__ out, const bf16* __restrict__ x2,
+                                          bf16* __restrict__ pooled, int ns, int nq, int rows,
+                                          int h, int hs, int k, int ac, int ac_out, int ac2,
+                                          int nfull, int phases) {
   constexpr int hp = 16 * HS;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* s_a = reinterpret_cast<bf16*>(smem);                       // [k][kPlane]
@@ -418,8 +454,30 @@ gather_wf_mm_tc_kernel(const bf16* __restrict__ x, const int* __restrict__ nbr,
   const uint32_t panel_bytes = (uint32_t)panel_elems * 2;
   const bool gather = phases & kGather, product = phases & kProduct;
 
-  for (int i = tid; i < kBM * h; i += kThreads)
-    s_nbr[i] = i < nrows * h ? nbr[(long long)r0 * h + i] : ns;
+  bool any = false;  // a valid neighbour among this thread's slots
+  for (int i = tid; i < kBM * h; i += kThreads) {
+    const int j = i < nrows * h ? nbr[(long long)r0 * h + i] : ns;
+    s_nbr[i] = j;
+    any |= j >= 0 && j < ns;
+  }
+  if constexpr (SU > 0) {
+    const bool live = __syncthreads_or(any);  // and s_nbr is complete
+    // a tile without a valid neighbour (the padding): zero rows of both
+    // outputs, as the plain version gives them
+    if ((phases & kPadExit) && !live) {
+      float4* o = reinterpret_cast<float4*>(out + (long long)r0 * ac_out);
+      for (int i = tid; i < nrows * ac_out / 4; i += kThreads)
+        o[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      uint4* pz = reinterpret_cast<uint4*>(pooled + (long long)r0 * ac2);
+      for (int i = tid; i < nrows * ac2 / 8; i += kThreads) pz[i] = make_uint4(0u, 0u, 0u, 0u);
+      return;
+    }
+    if (phases & kSkip) {
+      const se3et::SkipMax<SU> skip{x2, pooled, s_nbr, ns, nq, h, ac2, r0, nrows,
+                                    warp, kWarps, kRows, lane};
+      skip.template direct<24 / SU>();
+    }
+  }
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
@@ -614,6 +672,30 @@ gather_wf_mm_tc_kernel(const bf16* __restrict__ x, const int* __restrict__ nbr,
   }
 }
 
+// K12's and K13's kernels take the same arguments (K12 ignores the skip's),
+// so that one dispatch launches both
+template <int NT, int HS>
+__global__ void __launch_bounds__(kThreads, 1)
+gather_wf_mm_tc_kernel(const bf16* __restrict__ x, const int* __restrict__ nbr,
+                       const bf16* __restrict__ infl, const bf16* __restrict__ panels,
+                       float* __restrict__ out, const bf16* __restrict__, bf16* __restrict__,
+                       int ns, int nq, int rows, int h, int hs, int k, int ac, int ac_out, int,
+                       int nfull, int phases) {
+  conv_tile<NT, HS, 0>(x, nbr, infl, panels, out, nullptr, nullptr, ns, nq, rows, h, hs, k, ac,
+                       ac_out, 0, nfull, phases);
+}
+
+template <int NT, int HS, int SU>
+__global__ void __launch_bounds__(kThreads, 1)
+gather_wf_max_mm_tc_kernel(const bf16* __restrict__ x, const int* __restrict__ nbr,
+                           const bf16* __restrict__ infl, const bf16* __restrict__ panels,
+                           float* __restrict__ out, const bf16* __restrict__ x2,
+                           bf16* __restrict__ pooled, int ns, int nq, int rows, int h, int hs,
+                           int k, int ac, int ac_out, int ac2, int nfull, int phases) {
+  conv_tile<NT, HS, SU>(x, nbr, infl, panels, out, x2, pooled, ns, nq, rows, h, hs, k, ac,
+                        ac_out, ac2, nfull, phases);
+}
+
 // the weight panels from the transposed weight rhs_t (A*Cout, K*AC): one
 // thread per 16-byte unit (chunk c, kernel point kk, row n, unit pu), unit
 // pu of row n holding channels 32c + 8 (pu ^ ((n >> 1) & 3)) .. + 8
@@ -638,71 +720,93 @@ size_t smem_bytes(int h, int k, int ac_out) {
          (size_t)2 * kStages * 8;
 }
 
-template <int NT, int HS>
-int launch_nt(int nblocks, size_t smem, cudaStream_t stream, const void* x, const void* nbr,
-              const void* infl, const void* panels, void* out, int ns, int nq, int rows, int h,
-              int hs, int k, int ac, int ac_out, int nfull, int phases) {
+// one launch of K12 (x2 null) or K13
+struct Launch {
+  const void *x, *nbr, *infl, *panels;
+  void* out;
+  const void* x2;
+  void* pooled;
+  int ns, nq, rows, h, hs, k, ac, ac_out, ac2, nblocks, nfull, phases;
+  size_t smem;
+  cudaStream_t stream;
+};
+
+template <int NT, int HS, int SU>
+int launch_nt(const Launch& l) {
   auto fn = gather_wf_mm_tc_kernel<NT, HS>;
+  if constexpr (SU > 0) fn = gather_wf_max_mm_tc_kernel<NT, HS, SU>;
   const cudaError_t e =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
   if (e != cudaSuccess) return (int)e;
-  fn<<<nblocks, kThreads, smem, stream>>>((const bf16*)x, (const int*)nbr, (const bf16*)infl,
-                                          (const bf16*)panels, (float*)out, ns, nq, rows, h,
-                                          hs, k, ac, ac_out, nfull, phases);
+  fn<<<l.nblocks, kThreads, l.smem, l.stream>>>(
+      (const bf16*)l.x, (const int*)l.nbr, (const bf16*)l.infl, (const bf16*)l.panels,
+      (float*)l.out, (const bf16*)l.x2, (bf16*)l.pooled, l.ns, l.nq, l.rows, l.h, l.hs, l.k,
+      l.ac, l.ac_out, l.ac2, l.nfull, l.phases);
   return (int)cudaGetLastError();
 }
 
+// K13 (A*Cout <= 192, so NT <= 6): 16-byte units of a payload row per lane,
+// 3 up to AC2 768, else 6
+template <int NT, int HS>
+int launch_su(const Launch& l) {
+  if constexpr (NT <= 6)
+    if (l.x2) return l.ac2 <= 768 ? launch_nt<NT, HS, 3>(l) : launch_nt<NT, HS, 6>(l);
+  return launch_nt<NT, HS, 0>(l);
+}
+
 template <int HS>
-int launch_hs(int grid, size_t smem, cudaStream_t st, const void* x, const void* nbr,
-              const void* infl, const void* panels, void* out, int ns, int nq, int rows, int h,
-              int hs, int k, int ac, int ac_out, int nfull, int phases) {
-  const int per = (ac_out / 8 + 3) / 4;
-  if (per <= 2)
-    return launch_nt<2, HS>(grid, smem, st, x, nbr, infl, panels, out, ns, nq, rows, h, hs, k,
-                            ac, ac_out, nfull, phases);
-  if (per <= 6)
-    return launch_nt<6, HS>(grid, smem, st, x, nbr, infl, panels, out, ns, nq, rows, h, hs, k,
-                            ac, ac_out, nfull, phases);
-  return launch_nt<12, HS>(grid, smem, st, x, nbr, infl, panels, out, ns, nq, rows, h, hs, k,
-                           ac, ac_out, nfull, phases);
+int launch_hs(const Launch& l) {
+  const int per = (l.ac_out / 8 + 3) / 4;
+  if (per <= 2) return launch_su<2, HS>(l);
+  if (per <= 6) return launch_su<6, HS>(l);
+  return launch_su<12, HS>(l);
 }
 
 // One block per SM (the (64, A*Cout) float32 accumulator and the influence
 // fragments take up to ~170 registers a thread).  With T full tiles on S SMs
 // the last wave holds T mod S tiles; when its rows fit in S half tiles, it
-// runs as half tiles, so that more SMs share it (kSplitTail).  panels: the
-// weight as (chunks, K, A*Cout, 32) bf16, rows swizzled as swz(), zero past AC.
-int launch(const void* x, const void* nbr, const void* infl, const void* panels, void* out,
-           int batch, int ns, int nq, int h, int hs, int k, int ac, int ac_out, int phases,
-           void* stream) {
-  if (k < 1 || k > kKP || h < 1 || h > kMaxH || hs < h || ac < 8 || ac % 8 || ac_out < 8 ||
-      ac_out % 8 || ac_out > kMaxAcOutMM || (reinterpret_cast<uintptr_t>(panels) & 15))
-    return (int)cudaErrorInvalidValue;
-  if (batch < 1 || nq < 1) return 0;
-  const int rows = batch * nq;
+// runs as half tiles, so that more SMs share it (kSplitTail).  Sets the
+// blocks and the full tiles among them for `rows` flattened rows.
+cudaError_t grid_of(int rows, int phases, int* nblocks, int* nfull) {
   const int tiles = (rows + kBM - 1) / kBM;
-  int nfull = tiles, nblocks = tiles;
+  *nfull = *nblocks = tiles;
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess) return e;
   const int waves = tiles / sms;
   if ((phases & kSplitTail) && waves > 0 && tiles % sms) {
     const int rest = rows - waves * sms * kBM;
     const int halves = (rest + kBM / 2 - 1) / (kBM / 2);
     if (halves <= sms) {
-      nfull = waves * sms;
-      nblocks = nfull + halves;
+      *nfull = waves * sms;
+      *nblocks = *nfull + halves;
     }
   }
-  const size_t smem = smem_bytes(h, k, ac_out);
-  const int grid = nblocks;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (h <= 16)
-    return launch_hs<1>(grid, smem, st, x, nbr, infl, panels, out, ns, nq, rows, h, hs, k, ac,
-                        ac_out, nfull, phases);
-  return launch_hs<2>(grid, smem, st, x, nbr, infl, panels, out, ns, nq, rows, h, hs, k, ac,
-                      ac_out, nfull, phases);
+  return cudaSuccess;
+}
+
+// K12 (x2 and pooled null) or K13 (x2 (B, Ns, AC2), pooled (B, Nq, AC2)).
+// panels: the weight as (chunks, K, A*Cout, 32) bf16, rows swizzled as
+// swz(), zero past AC.
+int launch(const void* x, const void* nbr, const void* infl, const void* panels, void* out,
+           const void* x2, void* pooled, int batch, int ns, int nq, int h, int hs, int k,
+           int ac, int ac_out, int ac2, int phases, void* stream) {
+  const bool skip = x2 != nullptr;
+  if (k < 1 || k > kKP || h < 1 || h > kMaxH || hs < h || ac < 8 || ac % 8 || ac_out < 8 ||
+      ac_out % 8 || ac_out > (skip ? kMaxAcOutMaxMM : kMaxAcOutMM) ||
+      (reinterpret_cast<uintptr_t>(panels) & 15))
+    return (int)cudaErrorInvalidValue;
+  if (skip && (ac2 < 8 || ac2 % 8 || ac2 > kMaxSkip ||
+               ((reinterpret_cast<uintptr_t>(x2) | reinterpret_cast<uintptr_t>(pooled) |
+                 reinterpret_cast<uintptr_t>(out)) & 15)))
+    return (int)cudaErrorInvalidValue;
+  if (batch < 1 || nq < 1) return 0;
+  Launch l{x, nbr, infl, panels, out, x2, pooled, ns, nq, batch * nq, h, hs, k, ac, ac_out,
+           ac2, 0, 0, phases, smem_bytes(h, k, ac_out), (cudaStream_t)stream};
+  const cudaError_t e = grid_of(l.rows, phases, &l.nblocks, &l.nfull);
+  if (e != cudaSuccess) return (int)e;
+  return h <= 16 ? launch_hs<1>(l) : launch_hs<2>(l);
 }
 
 }  // namespace tc
@@ -728,8 +832,8 @@ extern "C" int se3et_gather_wf_mm_bf16(const void* x, const void* nbr, const voi
                                        const void* panels, void* out, int batch, int ns,
                                        int nq, int h, int hs, int k, int ac, int ac_out,
                                        void* stream) {
-  return tc::launch(x, nbr, infl, panels, out, batch, ns, nq, h, hs, k, ac, ac_out,
-                    tc::kDefaultPhases, stream);
+  return tc::launch(x, nbr, infl, panels, out, nullptr, nullptr, batch, ns, nq, h, hs, k, ac,
+                    ac_out, 0, tc::kDefaultPhases, stream);
 }
 
 // the same with the phases chosen (bits: 1 gather, 2 weight product, 4 the
@@ -738,8 +842,33 @@ extern "C" int se3et_gather_wf_mm_bf16_phases(const void* x, const void* nbr, co
                                               const void* panels, void* out, int batch, int ns,
                                               int nq, int h, int hs, int k, int ac, int ac_out,
                                               int phases, void* stream) {
-  return tc::launch(x, nbr, infl, panels, out, batch, ns, nq, h, hs, k, ac, ac_out, phases,
-                    stream);
+  return tc::launch(x, nbr, infl, panels, out, nullptr, nullptr, batch, ns, nq, h, hs, k, ac,
+                    ac_out, 0, phases, stream);
+}
+
+// K13 in bf16 on K12's tensor-core tiles, H <= 32, A*Cout <= 192, AC2 a
+// multiple of 8 up to 1536, influence read in place as for
+// K12, the weight as K12's panels; x2 (B, Ns, AC2), pooled (B, Nq, AC2).
+extern "C" int se3et_gather_wf_max_mm_tc_bf16(const void* x, const void* nbr, const void* infl,
+                                              const void* panels, void* out, const void* x2,
+                                              void* pooled, int batch, int ns, int nq, int h,
+                                              int hs, int k, int ac, int ac_out, int ac2,
+                                              void* stream) {
+  if (!x2 || !pooled) return (int)cudaErrorInvalidValue;
+  return tc::launch(x, nbr, infl, panels, out, x2, pooled, batch, ns, nq, h, hs, k, ac, ac_out,
+                    ac2, tc::kMaxDefaultPhases, stream);
+}
+
+// the same with the phases chosen (bits: 1 gather, 2 weight product, 4 the
+// last wave in half tiles, 8 the skip max, 16 the exit of tiles without a
+// valid neighbour), for scripts/probe_gather_wf_mm.py
+extern "C" int se3et_gather_wf_max_mm_tc_bf16_phases(
+    const void* x, const void* nbr, const void* infl, const void* panels, void* out,
+    const void* x2, void* pooled, int batch, int ns, int nq, int h, int hs, int k, int ac,
+    int ac_out, int ac2, int phases, void* stream) {
+  if (!x2 || !pooled) return (int)cudaErrorInvalidValue;
+  return tc::launch(x, nbr, infl, panels, out, x2, pooled, batch, ns, nq, h, hs, k, ac, ac_out,
+                    ac2, phases, stream);
 }
 
 // K12 in bf16 for H > 32: the CUDA-core gather of K13 without the skip,

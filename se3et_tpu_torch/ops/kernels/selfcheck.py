@@ -674,8 +674,24 @@ def registration_agreement(got: dict, want: dict, acceptance_radius: float,
             f"reference's inliers {res:.3e} (acceptance radius {acceptance_radius})")
 
 
+def skip_reuse(nbr: torch.Tensor, ns: int, tile: int = 64) -> dict:
+    """What a strided skip max over ``nbr`` (B, Nq, H) must read, by the
+    K12/K13 tiling (``tile`` flattened (b, q) rows per block): the valid
+    references, the distinct source rows summed over the tiles, the tiles,
+    and the tiles with a valid neighbour.  Counted on whatever device
+    ``nbr`` lies on."""
+    b, nq, h = nbr.shape
+    valid = (nbr >= 0) & (nbr < ns)
+    rows = (torch.arange(b, device=nbr.device)[:, None, None] * nq
+            + torch.arange(nq, device=nbr.device)[None, :, None]).expand(b, nq, h)
+    cloud = torch.arange(b, device=nbr.device)[:, None, None].expand(b, nq, h)
+    key = ((rows // tile) * (b * ns) + cloud * ns + nbr.long())[valid]
+    return {"valid": int(valid.sum()), "distinct": int(torch.unique(key).numel()),
+            "tiles": -(-b * nq // tile), "live_tiles": int(torch.unique(rows[valid] // tile).numel())}
+
+
 def check_fused_conv(name, nbr, ns, ac, ac_out=0, ac2=0, k=15, dtype=torch.bfloat16,
-                     seed=11, reps=5):
+                     seed=11, reps=5, device_kernel=None):
     """K12 (``name`` "gather_wf_mm"), K13 ("gather_wf_max_mm") or K14
     ("gather_wf_max") on random x (B, ns, ac), influence, expanded weight
     (K*ac, ac_out) and skip payload (B, ns, ac2) for the given neighbours.
@@ -685,7 +701,9 @@ def check_fused_conv(name, nbr, ns, ac, ac_out=0, ac2=0, k=15, dtype=torch.bfloa
     max must equal the plain version's bit for bit (else the error is inf).
     ``route_ms`` times the unfused route that computes the same function
     (K1 + ``torch.matmul`` (+ K2) for K12/K13, K1 + K2 for K14), a
-    yardstick of several library calls, not one."""
+    yardstick of several library calls, not one.  With ``device_kernel`` (a
+    substring of the kernel's name) ``device_ms`` is its device time per
+    call from the profiler."""
     g = torch.Generator().manual_seed(seed)
     dev = nbr.device
     b, nq, h = nbr.shape
@@ -719,11 +737,12 @@ def check_fused_conv(name, nbr, ns, ac, ac_out=0, ac2=0, k=15, dtype=torch.bfloa
             err = float("inf")
         ms, plain_ms = _time_ms(kernel_fn, reps), _time_ms(plain_fn, reps)
         route_ms = _time_ms(route_fn, reps)
+        dev_ms = None if device_kernel is None else device_ms(kernel_fn, device_kernel)
     skip = f" skip{tuple(x2.shape)}" if name != "gather_wf_mm" else ""
     mm = f" W({k * ac}, {ac_out})" if name != "gather_wf_max" else f" K={k}"
     res = CheckResult(name, f"x{tuple(x.shape)} nbr{tuple(nbr.shape)}{mm}{skip} {dtype} "
                       "(error relative to output scale)", err, tol, ms, plain_ms,
-                      route_ms=route_ms)
+                      route_ms=route_ms, device_ms=dev_ms)
     nvalid = int((nbr < ns).sum())
     esz = x.element_size()
     nbytes = _nbytes(x, nbr, infl)

@@ -343,16 +343,18 @@ neighbor_max_bwd.launches = 0
 
 
 # K12 keeps the (64, A*Cout) float32 output tile of its 64 query rows in the
-# registers of one 8-warp block per SM (96 per thread at A*Cout = 384); K13
-# runs two blocks per SM (its skip max is a latency-bound gather), which
-# halves that to 48 per thread (A*Cout = 192).  K12 in bf16 reads the
-# influence in place into registers and gathers on the tensor cores for
+# registers of one 8-warp block per SM (96 per thread at A*Cout = 384); K13's
+# first design runs two blocks per SM (its skip max is a latency-bound
+# gather), which halves that to 48 per thread (A*Cout = 192), the width
+# K13 takes in both forms.  K12 and K13 in bf16 read the
+# influence in place into registers and gather on the tensor cores for
 # H <= MM_TC_MAX_H (past it the influence fragments and the staged
 # neighbour rows outgrow registers and shared memory); wider neighbour
-# sets, the float32 K12 and K13 read it as 16 padded weights per (query,
-# neighbour).  K14 keeps the skip maxima of
-# its 4 query rows in registers, at most 6 groups of 8 channels for each of
-# its 128 threads (A*C2 <= 1536).
+# sets and the float32 K12 and K13 read it as 16 padded weights per (query,
+# neighbour).  K13's tensor-core form keeps the skip maxima of a row in
+# registers, at most 6 16-byte units for each of a warp's 32 lanes, and K14
+# those of its 4 query rows, at most 6 groups of 8 channels for each of its
+# 128 threads: both take A*C2 <= 1536.
 MM_MAX_AC_OUT = 384
 MAX_MM_MAX_AC_OUT = 192
 MAX_SKIP_AC = 1536
@@ -377,6 +379,19 @@ def gather_wf_max_fits(ac2: int, k: int) -> bool:
     """Whether K14 takes a strided conv with ``k`` kernel points and a skip
     payload of ``ac2`` channels."""
     return k <= _KP and ac2 % 8 == 0 and 0 < ac2 <= MAX_SKIP_AC
+
+
+def gather_wf_max_mm_form(h: int, dtype, ac2: int) -> str:
+    """Which hand-written K13 kernel takes a strided conv over ``h``
+    neighbours of ``dtype`` features with an ``ac2``-channel skip payload:
+    "tc" (bf16, H <= MM_TC_MAX_H, AC2 a multiple of 8 up to MAX_SKIP_AC: the
+    skip max by 16-byte loads of whole payload rows, then K12's tensor-core
+    tile) or "first" (the first design: float32, and bf16 with wider
+    neighbour sets or other payloads).  Chosen by shape alone, as the
+    wrapper launches; both are kernels, neither a fallback of the other."""
+    tc = (dtype == torch.bfloat16 and h <= MM_TC_MAX_H and ac2 % 8 == 0
+          and 0 < ac2 <= MAX_SKIP_AC)
+    return "tc" if tc else "first"
 
 
 def gather_wf_mm_plain(x: torch.Tensor, nbr: torch.Tensor, infl: torch.Tensor,
@@ -456,20 +471,32 @@ def _launch_mm(name, x, nbr, infl, rhs, x2=None):
     out = torch.empty((b, nq, ac_out), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     pooled = None
-    if x2 is None and x.dtype == torch.bfloat16 and h <= MM_TC_MAX_H:
-        # the tensor-core K12 reads the influence as it lies (its first h of
-        # hs columns) and the weight as panels
+    if x2 is not None:
+        x2 = x2.contiguous()
+        pooled = torch.empty((b, nq, x2.shape[2]), dtype=x2.dtype, device=x.device)
+        tc = gather_wf_max_mm_form(h, x.dtype, x2.shape[2]) == "tc"
+    else:
+        tc = x.dtype == torch.bfloat16 and h <= MM_TC_MAX_H
+    rhs_t = rhs.t().contiguous()  # (A*Cout, K*AC): free for a transposed view
+    if tc:
+        # the tensor-core K12 / K13 read the influence as it lies (its first
+        # h of hs columns) and the weight as panels
         w = infl.to(x.dtype).contiguous()
-        rhs_t = rhs.t().contiguous()  # (A*Cout, K*AC): free for a transposed view
         panels = torch.empty((-(-ac // 32), k, ac_out, 4, 8), dtype=x.dtype, device=x.device)
         _build.check(_build.function("gather_wf_mm", "se3et_gather_wf_mm_panels_bf16", 2, 3)(
             rhs_t.data_ptr(), panels.data_ptr(), k, ac, ac_out, stream), f"{name} panels")
-        fn = _build.function("gather_wf_mm", "se3et_gather_wf_mm_bf16", 5, 8)
-        status = fn(x.data_ptr(), nbr.data_ptr(), w.data_ptr(), panels.data_ptr(),
-                    out.data_ptr(), b, x.shape[1], nq, h, w.shape[2], k, ac, ac_out, stream)
+        if x2 is None:
+            fn = _build.function("gather_wf_mm", "se3et_gather_wf_mm_bf16", 5, 8)
+            status = fn(x.data_ptr(), nbr.data_ptr(), w.data_ptr(), panels.data_ptr(),
+                        out.data_ptr(), b, x.shape[1], nq, h, w.shape[2], k, ac, ac_out,
+                        stream)
+        else:
+            fn = _build.function("gather_wf_mm", "se3et_gather_wf_max_mm_tc_bf16", 7, 9)
+            status = fn(x.data_ptr(), nbr.data_ptr(), w.data_ptr(), panels.data_ptr(),
+                        out.data_ptr(), x2.data_ptr(), pooled.data_ptr(), b, x.shape[1], nq,
+                        h, w.shape[2], k, ac, ac_out, x2.shape[2], stream)
     else:
         w = _padded_influence(infl, h, x.dtype)
-        rhs_t = rhs.t().contiguous()  # (A*Cout, K*AC): free for a transposed view
         if x2 is None:
             symbol = "se3et_gather_wf_mm_wide_bf16" if x.dtype == torch.bfloat16 \
                 else "se3et_gather_wf_mm_f32"
@@ -477,8 +504,6 @@ def _launch_mm(name, x, nbr, infl, rhs, x2=None):
             status = fn(x.data_ptr(), nbr.data_ptr(), w.data_ptr(), rhs_t.data_ptr(),
                         out.data_ptr(), b, x.shape[1], nq, h, k, ac, ac_out, stream)
         else:
-            x2 = x2.contiguous()
-            pooled = torch.empty((b, nq, x2.shape[2]), dtype=x2.dtype, device=x.device)
             fn = _build.function("gather_wf_mm",
                                  f"se3et_gather_wf_max_mm_{_DTYPES[x.dtype]}", 7, 8)
             status = fn(x.data_ptr(), nbr.data_ptr(), w.data_ptr(), rhs_t.data_ptr(),
@@ -515,8 +540,11 @@ def gather_wf_max_mm(x: torch.Tensor, nbr: torch.Tensor, infl: torch.Tensor,
     """K13 (``csrc/gather_wf_mm.cu``, replaces the TPU
     ``windowed_gather_wf_max_mm``): see :func:`gather_wf_max_mm_plain`;
     returns ((B, Nq, A*Cout) float32, pooled (B, Nq, AC2) in x2's dtype,
-    bit-identical to K2).  Forward only; raises on shapes
-    :func:`gather_wf_max_mm_fits` refuses."""
+    equal to K2's).  The kernel is the one :func:`gather_wf_max_mm_form`
+    names: in bf16 with H <= 32 K12's tensor-core tiles with the skip max
+    (its conv's sums those of K12's tc form), otherwise the first design.
+    Forward only; raises on shapes :func:`gather_wf_max_mm_fits` refuses.
+    The source notes the design and its bound."""
     _check_fused("gather_wf_max_mm", x, nbr, infl, rhs, x2)
     if not gather_wf_max_mm_fits(x.shape[2], rhs.shape[1], x2.shape[2], infl.shape[3]):
         raise ValueError(f"gather_wf_max_mm does not take AC={x.shape[2]}, "

@@ -351,3 +351,26 @@ def test_mm_panels_lay_out_the_weight_as_the_kernel_reads_it(k, ac, ac_out):
                     ok = ch < ac
                     want[c, kk, n, u ^ ((n >> 1) & 3), ok] = rhs.numpy()[kk * ac + ch[ok], n]
     np.testing.assert_array_equal(panels, want)
+
+
+@pytest.mark.parametrize("h,dtype,ac2,form", [
+    (1, torch.bfloat16, 768, "tc"), (24, torch.bfloat16, 768, "tc"),
+    (32, torch.bfloat16, 768, "tc"), (24, torch.bfloat16, 8, "tc"),
+    (24, torch.bfloat16, 1536, "tc"), (33, torch.bfloat16, 768, "first"),
+    (24, torch.float32, 768, "first"), (24, torch.bfloat16, 100, "first"),
+    (24, torch.bfloat16, 1544, "first"),
+])
+def test_gather_wf_max_mm_form(h, dtype, ac2, form):
+    """K13 takes the tensor-core form in bf16 up to H = 32 with payloads of
+    16-byte units up to 1536 channels, else the first design."""
+    assert wc_k.gather_wf_max_mm_form(h, dtype, ac2) == form
+
+
+def test_gather_wf_max_mm_fits_is_unchanged():
+    """K13 still takes A*Cout up to 192 only (the s1 -> s2 block, 384, stays
+    with K14 as in the JAX package's split), any even payload width."""
+    assert wc_k.gather_wf_max_mm_fits(192, 192, 768, 15)
+    assert wc_k.gather_wf_max_mm_fits(192, 192, 98, 15)
+    assert not wc_k.gather_wf_max_mm_fits(384, 384, 1536, 15)
+    assert not wc_k.gather_wf_max_mm_fits(192, 200, 768, 15)
+    assert not wc_k.gather_wf_max_mm_fits(192, 192, 97, 15)

@@ -509,6 +509,124 @@ def test_gather_wf_max_mm_kernel(cuda, nq, ns, h, ac, ac2, dtype):
                                           ac2=ac2, dtype=dtype, reps=1))
 
 
+def _k13_inputs(cuda, nbr, ns, ac, ac_out, ac2, k, seed, negative=False):
+    """x, influence (zero on sentinels), the expanded weight as the model
+    builds it (a transposed view) and the skip payload, bf16; with
+    ``negative`` every payload value is below zero, so that a sentinel's
+    zero row sets the max."""
+    g = torch.Generator().manual_seed(seed)
+    b, nq, h = nbr.shape
+    x = torch.randn((b, ns, ac), generator=g).to(cuda, torch.bfloat16)
+    infl = (torch.rand((b, nq, h, k), generator=g).to(cuda)
+            * (nbr < ns)[..., None]).to(torch.bfloat16)
+    rhs = (torch.randn((ac_out, k * ac), generator=g) * (k * ac) ** -0.5).to(
+        cuda, torch.bfloat16).t()
+    x2 = torch.randn((b, ns, ac2), generator=g)
+    if negative:
+        x2 = -x2.abs() - 0.01
+    return x, infl, rhs, x2.to(cuda, torch.bfloat16)
+
+
+@pytest.fixture(scope="module")
+def pair_subsampling():
+    """Pair 0's s0 -> s1 neighbour rows (2, 10000, 24) over 20000 points, as
+    chip_smoke.py builds them (synthetic se3ete.3dmatch pair, host
+    pipeline)."""
+    from se3et_tpu_torch.data.pyramid import synthetic_pair
+    from se3et_tpu_torch.experiments.configs import make_cfg, serving_config, synthetic_extent
+
+    cfg = serving_config(make_cfg("se3ete.3dmatch"))
+    pair = synthetic_pair(0, cfg.pipeline, None, cfg.point_limit,
+                          synthetic_extent(cfg.dataset), seed=cfg.seed)
+    return torch.as_tensor(pair["subsampling_0"]).to(torch.int32), pair["points_0"].shape[1]
+
+
+def _k13_neighbors(cuda, pattern, nq, ns, h, seed, pair):
+    """(2, nq, h) neighbour rows: "local" (about a quarter sentinels, the
+    last 3 rows all sentinels), "dense" (no sentinel), "pad" (local, with
+    rows 64-191 of each cloud, whole tiles, all sentinels), "empty" (every
+    slot a sentinel) or "pair" (pair 0's s0 -> s1 rows, their first nq
+    rows and h columns)."""
+    if pattern == "pair":
+        nbr, pair_ns = pair
+        assert ns == pair_ns
+        return nbr[:, :nq, :h].contiguous().to(cuda)
+    g = torch.Generator().manual_seed(seed)
+    nbr = torch.cat([selfcheck.local_neighbors(nq, ns, h, g, cuda) for _ in range(2)])
+    if pattern == "dense":
+        q = torch.arange(nq, device=cuda)[:, None] * ns // nq
+        return (q + torch.arange(h, device=cuda)).clamp(0, ns - 1).to(torch.int32).expand(
+            2, nq, h).contiguous()
+    if pattern == "pad":
+        nbr[:, 64:192] = ns
+    if pattern == "empty":
+        nbr[:] = ns
+    nbr[:, -3:] = ns
+    return nbr
+
+
+@pytest.mark.parametrize("nq,ns,h,ac,ac_out,ac2,k,pattern", [
+    (10000, 20000, 24, 192, 192, 768, 15, "pair"),   # the serving shape
+    (10000, 20000, 24, 192, 192, 768, 15, "local"),
+    (10000, 20000, 24, 192, 192, 768, 15, "pad"),    # whole tiles of padding
+    (10000, 20000, 24, 192, 192, 1536, 15, "pair"),  # the widest payload: 2 slots
+    (1, 50, 1, 48, 8, 8, 1, "local"),
+    (63, 500, 8, 64, 64, 96, 16, "dense"),           # no sentinel: no zero in the max
+    (64, 500, 16, 64, 192, 768, 15, "local"),
+    (97, 500, 17, 192, 64, 1536, 15, "dense"),
+    (97, 500, 24, 40, 8, 96, 1, "local"),
+    (97, 500, 32, 192, 192, 768, 16, "local"),
+    (1000, 3000, 32, 96, 192, 8, 15, "pad"),
+    (1000, 3000, 8, 192, 192, 768, 15, "empty"),     # every tile padding
+    (9000, 18000, 24, 192, 192, 768, 15, "local"),   # a partial half tile last
+    (10000, 20000, 24, 192, 192, 100, 15, "local"),  # AC2 not of 16-byte units: "first"
+    (1000, 3000, 16, 192, 192, 1544, 15, "local"),   # AC2 past 1536: "first"
+])
+@pytest.mark.parametrize("negative", [False, True])
+def test_gather_wf_max_mm_tc_edges(cuda, pair_subsampling, nq, ns, h, ac, ac_out, ac2, k,
+                                   pattern, negative):
+    """K13 in bf16 against its plain version: pooled bit for bit, the conv
+    within 1e-2 of its scale (as selfcheck.check_fused_conv), at ragged Nq
+    (1, 63, 64, 97, a half-tile tail), H 1-32, K 1/15/16, A*Cout 8-192 and
+    payloads of 8-1536 channels, with rows and whole tiles of sentinels,
+    rows without one, and payloads below zero (the sentinel's zero row
+    then sets the max).  The payloads the tc form refuses take the first
+    design by the form, not by a failure."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    tc = ac2 % 8 == 0 and ac2 <= wc.MAX_SKIP_AC
+    assert wc.gather_wf_max_mm_form(h, torch.bfloat16, ac2) == ("tc" if tc else "first")
+    nbr = _k13_neighbors(cuda, pattern, nq, ns, h, 23, pair_subsampling)
+    x, infl, rhs, x2 = _k13_inputs(cuda, nbr, ns, ac, ac_out, ac2, k, 24, negative)
+    with torch.no_grad():
+        out, pooled = wc.gather_wf_max_mm(x, nbr, infl, x2, rhs)
+        want, want_pooled = wc.gather_wf_max_mm_plain(x, nbr, infl, x2, rhs)
+    assert torch.equal(pooled, want_pooled)
+    scale = max(float(want.abs().max()), 1e-30)
+    assert float((out - want).abs().max()) <= 1e-2 * scale
+    if pattern == "empty":
+        assert not bool(out.any()) and not bool(pooled.any())
+
+
+@pytest.mark.parametrize("nq,ns,h,ac2,pattern", [
+    (10000, 20000, 24, 768, "pair"),
+    (10000, 20000, 24, 768, "pad"),
+    (9000, 18000, 32, 1536, "local"),
+    (97, 500, 17, 96, "dense"),
+])
+def test_gather_wf_max_mm_tc_matches_k12(cuda, pair_subsampling, nq, ns, h, ac2, pattern):
+    """K13's tc form runs K12's tc gather and product unchanged, so its conv
+    equals K12's on the same inputs bit for bit (padding tiles, which K13
+    leaves without a product, give zero rows in both)."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    nbr = _k13_neighbors(cuda, pattern, nq, ns, h, 25, pair_subsampling)
+    x, infl, rhs, x2 = _k13_inputs(cuda, nbr, ns, 192, 192, ac2, 15, 26)
+    with torch.no_grad():
+        out, _ = wc.gather_wf_max_mm(x, nbr, infl, x2, rhs)
+        assert torch.equal(out, wc.gather_wf_mm(x, nbr, infl, rhs))
+
+
 @pytest.mark.parametrize("nq,ns,h,ac,ac2", [
     (2500, 10000, 32, 384, 1536),   # s1 -> s2 strided bottleneck
     (20000, 20000, 24, 192, 768),   # stage-0 widths
