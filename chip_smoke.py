@@ -15,8 +15,12 @@ Phases, each of which raises (exit code != 0) on failure:
    and K12-K14, float32 for K4), with its bound and, where one exists, the
    time of one PyTorch call computing the same function; for the fused
    convs K12-K14 also the time of the unfused route (K1 + matmul (+ K2)),
-   and K1 and K2 at the shapes where they serve on the fused route (the
-   stage 2-3 convs and the s2 -> s3 skip) beside their stage-0 rows; K5 at
+   and K1 at the shapes where it serves on the fused route (the stage 2-3
+   convs) beside its stage-0 row; K2 at the s2 -> s3 skip (where it serves
+   on the fused route) by events and by its device time (profiler), beside
+   its times before the redesign, and at the three strided skips of the
+   unfused route (bf16) and of training (float32), each beside its first
+   design's time on the same inputs; K5 at
    its two self-layer shapes beside its times before the redesign, with
    its total per served pair (as K1's); K6 and K7 by events over 20
    launches and by their device time (profiler), with their totals per
@@ -55,7 +59,7 @@ Phases, each of which raises (exit code != 0) on failure:
    checked after (K8 10, K9 3, K10 1, K11 5 per step; forward K1 10, K2 3,
    K3 1, K4 1, K5 5), finite losses and gradient norm, the step time, the
    forward + loss time alone, peak memory and a ``torch.profiler``
-   breakdown of one step;
+   breakdown of one step (with K2's float32 line);
 7. the routes off the default one: K15 (device influence) against its plain
    version at the stage-0 same-level and the stage-1 strided set of pair 0,
    K16 (``serve_femb``) at the self_eq (AH = 24, SH) and plain self (AH =
@@ -115,7 +119,7 @@ FEMB_LAUNCHES = {"rpe_self_attention_femb": 5, "geometric_embedding": 0,
 K4_CHAIN_FLOOR_MS = 0.0524
 # the CUDA kernels of the default serving route (K1-K7, K12-K14 in bf16, K4
 # in float32), whose device time per launch the pair profile always prints
-SERVING_KERNELS = ("gather_wf_tc_kernel", "neighbor_max_kernel", "embedding_tc_kernel",
+SERVING_KERNELS = ("gather_wf_tc_kernel", "neighbor_max_rows_kernel", "embedding_tc_kernel",
                    "sinkhorn_rows_kernel", "rpe_attention_ws_kernel", "eq_stats_tc_kernel",
                    "eq_apply_tc_kernel", "gather_wf_mm_tc_kernel", "panels_kernel",
                    "gather_wf_max_mm_tc_kernel", "gather_wf_mm_kernel", "gather_wf_max_kernel")
@@ -361,7 +365,8 @@ def _training(cfg, pairs, extent, dev):
     print(f"train ms/step: {[round(x, 2) for x in step_ms]} (median "
           f"{statistics.median(step_ms):.2f}); losses {vals}; launches {launches}; "
           f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
-    _profile(lambda: step(inputs[0], generator=gen), what="one training step", top=25)
+    _profile(lambda: step(inputs[0], generator=gen), what="one training step", top=25,
+             also=("neighbor_max_rows_kernel",))
     return checks
 
 
@@ -593,7 +598,10 @@ def main() -> int:
         # stage 2-3 same-level convs and the s2 -> s3 strided conv: K1 +
         # matmul; at the stage-0 shape for comparison with PR 1-3
         "gather_wf": selfcheck.check_gather_wf(p0["neighbors_0"], ns0, 6 * 32),
-        "neighbor_max": selfcheck.check_neighbor_max(p0["subsampling_0"], ns0, 6 * 128),
+        # K2 where it serves on the fused route: the s2 -> s3 skip max (A*512)
+        "neighbor_max": selfcheck.check_neighbor_max(
+            p0["subsampling_2"], ns2, 6 * 512, reps=20,
+            device_kernel="neighbor_max_rows_kernel", first=True),
         "geometric_embedding": selfcheck.check_embedding(
             pts_c, masks_c, c=m.gt_hidden_dim, k=m.angle_k, sigma_d=m.sigma_d,
             sigma_a=m.sigma_a),
@@ -626,8 +634,6 @@ def main() -> int:
         # stage-1 bottleneck convs (mid 64: A*Cin = A*Cout = 384)
         selfcheck.check_fused_conv("gather_wf_mm", p0["neighbors_1"], ns1, 6 * 64,
                                    ac_out=6 * 64),
-        # K2 where it serves on the fused route: the s2 -> s3 skip max (A*512)
-        selfcheck.check_neighbor_max(p0["subsampling_2"], ns2, 6 * 512),
         # rotation-supervision max (not on the serving path)
         selfcheck.check_eq_stats(masks_c[0], masks_c[1], a=m.kanchor, h=heads, c=head_dim,
                                  with_sup=True),
@@ -647,11 +653,33 @@ def main() -> int:
                   (1, selfcheck.check_gather_wf(p0["subsampling_2"], ns2, 6 * 128)),
                   (2, selfcheck.check_gather_wf(p0["neighbors_3"], ns3, 6 * 256))]
     extra += [res for _, res in k1_serving]
+    # K2 at the three strided skips of the unfused route (bf16) and of
+    # training (float32): s0 -> s1 (A*128), s1 -> s2 (A*256), s2 -> s3
+    # (A*512), each beside its first design on the same inputs
+    k2_skips = [(f"s{i} -> s{i + 1}", dtype,
+                 selfcheck.check_neighbor_max(p0[f"subsampling_{i}"], ns, 6 * 128 << i,
+                                              dtype=dtype, reps=20, first=True))
+                for dtype in (torch.bfloat16, torch.float32)
+                for i, ns in enumerate((ns0, ns1, ns2))
+                if not (dtype == torch.bfloat16 and i == 2)]  # the serving check above
+    extra += [res for _, _, res in k2_skips]
     for res in list(checks.values()) + extra:
         _print_check(res)
     print(f"K1 per served pair ({sum(n for n, _ in k1_serving)} launches at the stage 2-3 "
           f"shapes): {sum(n * r.ms for n, r in k1_serving):.4f} ms (PR 6: 2.28), bound "
           f"{sum(n * r.bound_ms for n, r in k1_serving):.4f} ms", flush=True)
+    # K2 beside its times before the redesign (NVIDIA H100 80GB HBM3, 700 W:
+    # 0.3142 ms by events, 0.3372 device at the serving shape) and its first
+    # design's in this run
+    res = checks["neighbor_max"]
+    dev_ms = "not measured" if res.device_ms is None else f"{res.device_ms:.4f}"
+    print(f"K2 s2 -> s3 {res.shape}: events {res.ms:.4f} ms (first design 0.3142; in this run "
+          f"{res.first_ms:.4f}), device {dev_ms} ms (0.3372); bound {res.bound_ms:.4f} ms "
+          f"({res.bound_by}); embedding_bag max {res.library_ms:.4f} ms", flush=True)
+    for label, dtype, res in k2_skips:
+        print(f"K2 {label} {res.shape}: events {res.ms:.4f} ms, first design in this run "
+              f"{res.first_ms:.4f} ms; bound {res.bound_ms:.4f} ms ({res.bound_by}); "
+              f"embedding_bag max {res.library_ms:.4f} ms", flush=True)
     for _, res, before in k5_serving:
         print(f"K5 {res.shape}: {res.ms:.4f} ms (first design: {before:.4f}), bound "
               f"{res.bound_ms:.4f} ms", flush=True)
@@ -796,8 +824,8 @@ def main() -> int:
                "plain_ms": res.plain_ms, "bound_ms": res.bound_ms,
                "bound_by": res.bound_by, "library_ms": res.library_ms}
         # yardsticks measured beside some kernels: device time (profiler),
-        # the unfused route (K12-K14)
-        row.update({key: getattr(res, key) for key in ("device_ms", "route_ms")
+        # the unfused route (K12-K14), the first design (K2)
+        row.update({key: getattr(res, key) for key in ("device_ms", "route_ms", "first_ms")
                     if getattr(res, key) is not None})
         kernels.append(row)
     print(card)

@@ -67,7 +67,8 @@
 // blocks per SM at 128 registers a thread, the gather on the CUDA cores.
 // The design:
 //  * each warp takes the max over its own 8 rows first (skip_max.cuh
-//    SkipMax::direct), before the conv's registers are live: per row, up
+//    skip_row_max, a whole row a call, the routine K2's rows form takes
+//    a slice at a time), before the conv's registers are live: per row, up
 //    to 24 / SU valid neighbours' payload rows at once, each lane loading
 //    its 16-byte units of each straight into registers (96 registers of
 //    loads in flight, ~80 KB a block), sentinel slots issuing no load and
@@ -473,9 +474,16 @@ __device__ __forceinline__ void conv_tile(const bf16* __restrict__ x, const int*
       return;
     }
     if (phases & kSkip) {
-      const se3et::SkipMax<SU> skip{x2, pooled, s_nbr, ns, nq, h, ac2, r0, nrows,
-                                    warp, kWarps, kRows, lane};
-      skip.template direct<24 / SU>();
+      // this warp's rows in turn, each whole (one slice of SU units a lane)
+#pragma unroll 1
+      for (int i = 0; i < kRows; ++i) {
+        const int r = warp + kWarps * i;
+        const uint4* src =
+            reinterpret_cast<const uint4*>(x2 + (long long)(r0 + r) / nq * ns * ac2);
+        se3et::skip_row_max<bf16, SU, 24 / SU>(
+            src, s_nbr + r * h, h, ns, ac2 >> 3, 0,
+            reinterpret_cast<uint4*>(pooled + (long long)(r0 + r) * ac2), r < nrows, lane);
+      }
     }
   }
   if (tid == 0) {

@@ -32,7 +32,10 @@ shapes of se3ete.3dmatch (bf16) and the tiny float32 widths:
 * K4 (Sinkhorn, 100 iterations, float32) on ``selfcheck.sinkhorn_inputs``
   at the serving shape (256, 65, 65) (timed) and at (6, 17, 13), compared
   on valid entries only: the masked ones are zeroed (they hold -1e12 + u +
-  v, whose scale would hide any difference), which the timing includes.
+  v, whose scale would hide any difference), which the timing includes;
+* K2 (neighbour max) in bf16 at the fused serving route's s2 -> s3 skip (x
+  (2, 2500, 3072), H 36) and in float32 at the training s0 -> s1 skip (x
+  (2, 20000, 768), H 24), both timed and held by their bit patterns.
 
 Each case is held bit for bit unless ``TOLERANCES`` names it: then the
 largest difference over the other checkout's largest magnitude must stay
@@ -54,7 +57,11 @@ K6_BF16 = "K6 N=M=1024 c=64 bf16"
 K7_BF16 = "K7 N=M=1024 c=64 bf16"
 K4_CASES = ("K4 (256, 65, 65) f32", "K4 (6, 17, 13) f32")
 K13_CASES = ("K13 s0 -> s1 out", "K13 s0 -> s1 pooled")
-TIMED = K5_BF16 + (K6_BF16, K7_BF16, K4_CASES[0], K13_CASES[0])
+K2_CASES = ("K2 s2 -> s3 bf16", "K2 s0 -> s1 float32")
+TIMED = K5_BF16 + (K6_BF16, K7_BF16, K4_CASES[0], K13_CASES[0]) + K2_CASES
+# held by their bit patterns (-0.0 apart from +0.0), where the others are
+# held by value
+BITS = K2_CASES
 REPS = 20  # launches per timing
 # kernels changed on purpose, with their bound against the other build: the
 # bf16 K5 (the ws form; 1e-2, as its kernel-vs-plain check states) at AH = 4
@@ -156,7 +163,16 @@ def _cases(dev):
         padded, mu, nu, valid = selfcheck.sinkhorn_inputs(b, m, n, dev)
         cases.append((name, lambda a=(padded, mu, nu), v=valid: torch.where(
             v, sinkhorn.sinkhorn(*a, 100), 0.0)))
+    for name, (nq, ns, h, ac, dtype) in zip(K2_CASES, ((1024, 2500, 36, 3072, bf),
+                                                       (10000, 20000, 24, 768, torch.float32))):
+        nbr = torch.cat([selfcheck.local_neighbors(nq, ns, h, g, dev) for _ in range(2)])
+        x = torch.randn((2, ns, ac), generator=g).to(dev, dtype)
+        cases.append((name, lambda a=(x, nbr): wc.neighbor_max(*a)))
     return cases
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
 
 
 def _worker(tree: str, out: str, save: bool) -> None:
@@ -219,7 +235,10 @@ def main() -> int:
     bad = 0
     for name, a in ours.items():
         b = theirs[name]
-        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        if name in BITS:
+            same = all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b))
+        else:
+            same = all(torch.equal(x, y) for x, y in zip(a, b))
         diff = max(float((x.float() - y.float()).abs().max()) / max(
             float(y.float().abs().max()), 1e-30) for x, y in zip(a, b))
         if name in TOLERANCES:

@@ -113,6 +113,7 @@ class CheckResult:
     route_ms: Optional[float] = None  # the unfused route's time (K12-K14), a yardstick
     device_ms: Optional[float] = None  # the kernel's own device time per call (profiler)
     two_calls_ms: Optional[float] = None  # two PyTorch calls computing the function (K7)
+    first_ms: Optional[float] = None  # the first design on the same inputs (K2), a yardstick
 
     @property
     def ok(self) -> bool:
@@ -236,14 +237,24 @@ def check_gather_wf(nbr, ns, ac, k=15, dtype=torch.bfloat16, seed=0, reps=10):
                                                mode="sum"))
 
 
-def check_neighbor_max(nbr, ns, ac, dtype=torch.bfloat16, seed=1, reps=10):
-    """K2; exact (tolerance 0)."""
+def check_neighbor_max(nbr, ns, ac, dtype=torch.bfloat16, seed=1, reps=10,
+                       device_kernel=None, first=False):
+    """K2 on the form ``neighbor_max_form`` names; exact (tolerance 0).
+    With ``device_kernel`` (a kernel name) also that kernel's device time
+    per call; with ``first`` also the time of the first design on the same
+    inputs (``first_ms``)."""
     g = torch.Generator().manual_seed(seed)
     x = torch.randn((nbr.shape[0], ns, ac), generator=g).to(nbr.device, dtype)
+    kern = lambda: windowed_conv.neighbor_max(x, nbr)  # noqa: E731
     res = _compare(
-        "neighbor_max", f"x{tuple(x.shape)} nbr{tuple(nbr.shape)} {dtype}",
-        lambda: windowed_conv.neighbor_max(x, nbr),
-        lambda: windowed_conv.neighbor_max_plain(x, nbr), lambda w: 0.0, reps)
+        "neighbor_max", f"x{tuple(x.shape)} nbr{tuple(nbr.shape)} {dtype} "
+        f"({windowed_conv.neighbor_max_form(ac, dtype)} form)",
+        kern, lambda: windowed_conv.neighbor_max_plain(x, nbr), lambda w: 0.0, reps)
+    if device_kernel is not None:
+        res.device_ms = device_ms(kern, device_kernel)
+    if first:
+        res.first_ms = _time_ms(lambda: windowed_conv._neighbor_max_forward(x, nbr, "first"),
+                                reps)
     # library: embedding_bag max over the neighbour rows, sentinels reading
     # the zero row (the plain version's max includes 0 where a row has one)
     table, idx = _bag_inputs(x, nbr)

@@ -12,8 +12,8 @@ drop no neighbours).  Their JAX counterpart is the exact gather route of
   :func:`gather_wf_form`) replaces
   ``windowed_gather_wf``; the E2PN weight matmul after it stays a
   ``torch.matmul`` (as the JAX exact route leaves it to XLA).
-* :func:`neighbor_max` (K2, ``csrc/neighbor_max.cu``) replaces
-  ``windowed_max_pool``.
+* :func:`neighbor_max` (K2, ``csrc/neighbor_max.cu``, in two forms chosen
+  by :func:`neighbor_max_form`) replaces ``windowed_max_pool``.
 * The serving forms (``serve_fused_conv``), forward only like their TPU
   counterparts: :func:`gather_wf_mm` (K12, ``csrc/gather_wf_mm.cu``)
   replaces ``windowed_gather_wf_mm`` (gather + weight product, no wf
@@ -45,6 +45,8 @@ launches its kernel (building it on first use) or raises.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
@@ -262,20 +264,72 @@ def gather_wf_bwd(dwf: torch.Tensor, nbr: torch.Tensor, infl: torch.Tensor,
 gather_wf_bwd.launches = 0
 
 
-def _neighbor_max_forward(x, nbr):
+# K2's forms (csrc/neighbor_max.cu, codes as its entry points'): "rows"
+# where a row is a whole number of 16-byte units, "first" (the first
+# design) for any other width.  The rows form's plan, as the C
+# plan_for makes it: a warp per (query row, slice of 32 x SU units), at
+# most ROWS_MAX_SU units a lane, the slices of a row balanced; each lane
+# keeps NB = ROWS_LOAD_WORDS / (4 SU) neighbour rows of loads in flight
+# (32-bit registers) and 4 SU of maxima; ROWS_WARPS warps a block
+NEIGHBOR_MAX_FORMS = {"rows": 1, "first": 2}
+ROWS_MAX_SU = 3
+ROWS_LOAD_WORDS = 48
+ROWS_WARPS = 8
+FIRST_THREADS = 128
+
+
+class NeighborMaxPlan(NamedTuple):
+    """How K2 runs on rows of AC elements: the form, 16-byte units a lane
+    of a slice, slices a row, neighbour rows in flight a lane and warps a
+    block (the first design's su, slices and nb are 0)."""
+    form: str
+    su: int
+    slices: int
+    nb: int
+    warps: int
+
+
+def neighbor_max_plan(ac: int, dtype) -> NeighborMaxPlan:
+    """K2's plan for rows of ``ac`` elements of ``dtype``, as
+    ``se3et_neighbor_max_plan`` in ``csrc/neighbor_max.cu`` makes it."""
+    per_unit = 16 // torch.empty((), dtype=dtype).element_size()
+    if ac < 1 or ac % per_unit:
+        return NeighborMaxPlan("first", 0, 0, 0, FIRST_THREADS // 32)
+    units = ac // per_unit
+    slices = -(-units // (32 * ROWS_MAX_SU))
+    su = -(-units // (32 * slices))
+    return NeighborMaxPlan("rows", su, slices, ROWS_LOAD_WORDS // (4 * su), ROWS_WARPS)
+
+
+def neighbor_max_form(ac: int, dtype) -> str:
+    """Which hand-written K2 kernel takes rows of ``ac`` elements: "rows"
+    (``neighbor_max_rows_kernel``; AC a multiple of 8 in bf16, of 4 in
+    float32: every width of the model) or "first" (``neighbor_max_kernel``,
+    the first design; any other width).  Chosen by shape alone, as the C
+    entry point chooses; neither is a fallback of the other."""
+    return neighbor_max_plan(ac, dtype).form
+
+
+def _neighbor_max_forward(x, nbr, form: Optional[str] = None):
+    """The forward on the kernel :func:`neighbor_max_form` names, or on
+    ``form`` where the caller asks for one that takes the width ("first"
+    takes any)."""
     if x.device.type == "cpu":
         return neighbor_max_plain(x, nbr)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     b, nq, h = nbr.shape
+    form = form or neighbor_max_form(x.shape[2], x.dtype)
     x = x.contiguous()
     nbr = nbr.contiguous()
+    if form == "rows" and x.data_ptr() % 16:
+        raise ValueError("K2's rows form reads 16-byte units: x must start 16-byte aligned")
     out = torch.empty((b, nq, x.shape[2]), dtype=x.dtype, device=x.device)
-    fn = _build.function("neighbor_max", f"se3et_neighbor_max_{_DTYPES[x.dtype]}", 3, 5)
+    fn = _build.function("neighbor_max", f"se3et_neighbor_max_{_DTYPES[x.dtype]}", 3, 6)
     _build.check(fn(x.data_ptr(), nbr.data_ptr(), out.data_ptr(),
-                    b, x.shape[1], nq, h, x.shape[2],
+                    b, x.shape[1], nq, h, x.shape[2], NEIGHBOR_MAX_FORMS[form],
                     torch.cuda.current_stream(x.device).cuda_stream),
-                 "neighbor_max launch")
+                 f"neighbor_max launch ({form})")
     neighbor_max.launches += 1
     return out
 
@@ -298,9 +352,10 @@ class _NeighborMax(torch.autograd.Function):
 
 def neighbor_max(x: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
     """K2 (``csrc/neighbor_max.cu``, replaces the TPU ``windowed_max_pool``):
-    see :func:`neighbor_max_plain`; bit-identical to it.  Bound by device
-    memory; the source notes the design.  Differentiable in ``x`` (backward
-    K9, :func:`neighbor_max_bwd`)."""
+    see :func:`neighbor_max_plain`; bit-identical to it, on the form
+    :func:`neighbor_max_form` names.  Bound by device memory; the source
+    notes the design.  Differentiable in ``x`` (backward K9,
+    :func:`neighbor_max_bwd`)."""
     _check_common(x, nbr)
     if torch.is_grad_enabled() and x.requires_grad:
         return _NeighborMax.apply(x, nbr)

@@ -297,21 +297,65 @@ def test_gather_wf_first_design_takes_any_ac(h, dtype):
     assert torch.equal(got, wc_k.gather_wf_plain(x, nbr, infl[:, :, :h].contiguous()))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_neighbor_max_plain_matches_jax_exactly(dtype):
+@pytest.mark.parametrize("dtype,h,rows", [
+    pytest.param("float32", 6, "mixed", id="float32"),
+    pytest.param("bfloat16", 6, "mixed", id="bfloat16"),
+    *(pytest.param(dt, h, rows, id=f"{dt}-h{h}-{rows}")
+      for dt in ("float32", "bfloat16")
+      for h, rows in ((36, "mixed"), (40, "mixed"), (40, "sentinels"), (36, "full"))),
+])
+def test_neighbor_max_plain_matches_jax_exactly(dtype, h, rows):
     """K2 plain == max_pool_neighbors bit for bit; sentinel rows count as
-    zero rows, all-sentinel rows give zeros."""
+    zero rows, all-sentinel rows give zeros.  H past 32 (more than one
+    32-slot word of the kernel's mask), rows of only sentinels ("sentinels":
+    every slot) and rows without one ("full")."""
     from se3et_tpu.nn.epn import max_pool_neighbors
 
     rng = np.random.RandomState(2)
-    b, ns, nq, h = 2, 50, 30, 6
+    b, ns, nq = 2, 50, 30
     x = rng.normal(size=(b, ns, 6, 5)).astype(np.float32)
     nbr = _neighbors(rng, b, nq, ns, h)
+    if rows == "sentinels":
+        nbr[:] = ns
+    if rows == "full":
+        nbr = rng.randint(0, ns, size=(b, nq, h)).astype(np.int32)
     want = np.asarray(max_pool_neighbors(jnp.asarray(x, dtype), jnp.asarray(nbr)),
                       np.float32)
     xt = torch.from_numpy(x).to(getattr(torch, dtype)).reshape(b, ns, 30)
     got = wc_k.neighbor_max(xt, torch.from_numpy(nbr)).float().reshape(b, nq, 6, 5).numpy()
     np.testing.assert_array_equal(got, want)
+    if rows == "sentinels":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("ac,dtype,form", [
+    (768, torch.bfloat16, "rows"), (3072, torch.bfloat16, "rows"),
+    (768, torch.float32, "rows"), (1536, torch.float32, "rows"),
+    (3072, torch.float32, "rows"),
+    (30, torch.bfloat16, "first"), (6, torch.float32, "first"),
+])
+def test_neighbor_max_form(ac, dtype, form):
+    """K2 takes the rows form where a row is whole 16-byte units, the first
+    design otherwise."""
+    assert wc_k.neighbor_max_form(ac, dtype) == form
+
+
+@pytest.mark.parametrize("ac,dtype,su,slices", [
+    (768, torch.bfloat16, 3, 1), (1536, torch.bfloat16, 3, 2), (3072, torch.bfloat16, 3, 4),
+    (768, torch.float32, 3, 2), (1536, torch.float32, 3, 4), (3072, torch.float32, 3, 8),
+    (8, torch.bfloat16, 1, 1), (800, torch.bfloat16, 2, 2), (4, torch.float32, 1, 1),
+])
+def test_neighbor_max_plan_covers_the_row(ac, dtype, su, slices):
+    """The rows form's slices of 32 x SU units cover the row's units, the
+    last slice holds some of them, and a lane's loads and maxima (4 (NB + 1)
+    SU 32-bit registers) stay within 128 registers: the budget that lets
+    two 8-warp blocks share an SM."""
+    plan = wc_k.neighbor_max_plan(ac, dtype)
+    units = ac * torch.empty((), dtype=dtype).element_size() // 16
+    assert (plan.form, plan.su, plan.slices) == ("rows", su, slices)
+    assert (plan.slices - 1) * 32 * plan.su < units <= plan.slices * 32 * plan.su
+    assert 1 <= plan.su <= wc_k.ROWS_MAX_SU and plan.nb >= 1
+    assert 4 * (plan.nb + 1) * plan.su <= 128 and plan.warps * 32 <= 1024
 
 
 def _embedding_inputs(n=32, c=64, seed=3):

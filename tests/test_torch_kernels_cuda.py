@@ -100,12 +100,169 @@ def test_gather_wf_first_design_is_bit_identical(cuda, h, dtype):
     assert torch.equal(wc.gather_wf(x, nbr, infl), want)
 
 
-@pytest.mark.parametrize("nq,ns,h,ac", [(10000, 20000, 24, 768), (1024, 2500, 38, 3072)])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_neighbor_max_kernel(cuda, nq, ns, h, ac, dtype):
-    g = torch.Generator().manual_seed(1)
+def _bits(t):
+    """The bit patterns of a bf16 or float32 tensor (-0.0 apart from +0.0)."""
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _k2_neighbors(cuda, nq, ns, h, seed):
+    """(2, nq, h) local neighbour rows, about a quarter sentinels, with rows
+    5-9 of each cloud without a sentinel and the last 3 all sentinels."""
+    g = torch.Generator().manual_seed(seed)
     nbr = torch.cat([selfcheck.local_neighbors(nq, ns, h, g, cuda) for _ in range(2)])
-    _assert_ok(selfcheck.check_neighbor_max(nbr, ns, ac, dtype=dtype, reps=1))
+    nbr[:, 5:10] = nbr[:, 5:10].clamp_max(ns - 1)
+    nbr[:, -3:] = ns
+    return nbr
+
+
+@pytest.mark.parametrize("nq,ns,h,ac", [
+    (10000, 20000, 24, 768),   # s0 -> s1 skip (unfused route, training)
+    (2500, 10000, 32, 1536),   # s1 -> s2
+    (1024, 2500, 36, 3072),    # s2 -> s3 (the fused serving route's K2)
+    (1024, 2500, 38, 3072),
+    *((1003, 2500, h, ac) for ac in (768, 1536, 3072) for h in (24, 32, 36, 40)),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("form", ["rows", "first"])
+def test_neighbor_max_kernel(cuda, nq, ns, h, ac, dtype, form):
+    """K2, each form, bit for bit against its plain version at the skips'
+    widths and H 24-40 (past 32: a second word of the rows form's slot
+    mask), with sentinel slots, rows without one and rows of only
+    sentinels; the wrapper runs the form neighbor_max_form names."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    nbr = _k2_neighbors(cuda, nq, ns, h, 1)
+    x = torch.randn((2, ns, ac), generator=torch.Generator().manual_seed(1)).to(cuda, dtype)
+    got = wc._neighbor_max_forward(x, nbr, form)
+    assert torch.equal(_bits(got), _bits(wc.neighbor_max_plain(x, nbr)))
+    assert not bool(got[:, -3:].any())
+    if form == wc.neighbor_max_form(ac, dtype):
+        assert torch.equal(_bits(wc.neighbor_max(x, nbr)), _bits(got))
+
+
+@pytest.mark.parametrize("ac,dtype", [(30, torch.bfloat16), (6, torch.float32),
+                                      (8, torch.bfloat16), (4, torch.float32),
+                                      (776, torch.bfloat16)])
+def test_neighbor_max_kernel_narrow_and_ragged_rows(cuda, ac, dtype):
+    """Rows that are not whole 16-byte units take the first design, and the
+    rows form refuses them (a raise, never another kernel); one-unit rows
+    and a last slice of a single unit (AC 776 bf16: 97 units in slices of
+    64) take the rows form.  Bit for bit against the plain version."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    nbr = _k2_neighbors(cuda, 997, 500, 36, 2)
+    x = torch.randn((2, 500, ac), generator=torch.Generator().manual_seed(2)).to(cuda, dtype)
+    form = wc.neighbor_max_form(ac, dtype)
+    assert form == ("first" if ac * x.element_size() % 16 else "rows")
+    assert torch.equal(_bits(wc.neighbor_max(x, nbr)), _bits(wc.neighbor_max_plain(x, nbr)))
+    if form == "first":
+        with pytest.raises(RuntimeError):
+            wc._neighbor_max_forward(x, nbr, "rows")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("form", ["rows", "first"])
+def test_neighbor_max_signed_zeros(cuda, dtype, form):
+    """Zeros of both signs, H 40.  Every payload value is below zero but for
+    -0.0 in the even channels of source rows 0-3.  Query rows: 0, -0.0
+    rows beside a sentinel (slot 1) and negative rows; 1, the same with
+    the sentinel first and a -0.0 row in the second word of slots; 2, -0.0
+    rows and negative rows, no sentinel; 3, negative rows and one sentinel
+    (slot 37, in the second word); 4, only sentinels; the rest local
+    neighbours.  Both forms equal each other bit for bit, and give +0.0
+    wherever a sentinel meets -0.0: the card's max orders +0.0 above -0.0.
+    The plain version (torch.amax) keeps one of two equal values as its
+    reduction order falls, so at those entries the test holds only its
+    value (zero); everywhere else it holds its bits: -0.0 in row 2's even
+    channels, +0.0 in rows 3 and 4."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    ns, nq, h, ac = 64, 200, 40, 768
+    g = torch.Generator().manual_seed(3)
+    x = -(torch.rand((2, ns, ac), generator=g) + 0.5)
+    x[:, :4, 0::2] = -0.0
+    x = x.to(cuda, dtype)
+    nbr = _k2_neighbors(cuda, nq, ns, h, 3)
+    rows = torch.arange(10, 10 + h, dtype=torch.int32).repeat(5, 1)  # negative rows
+    rows[0, :3] = torch.tensor([0, ns, 1])
+    rows[1, :2] = torch.tensor([ns, 2])
+    rows[1, 35] = 3
+    rows[2, :2] = torch.tensor([0, 3])
+    rows[3, 37] = ns
+    rows[4] = ns
+    nbr[:, :5] = rows.to(cuda)
+    got = wc._neighbor_max_forward(x, nbr, form)
+    other = wc._neighbor_max_forward(x, nbr, "first" if form == "rows" else "rows")
+    want = wc.neighbor_max_plain(x, nbr)
+    assert torch.equal(_bits(got), _bits(other))
+    zero = torch.zeros((), dtype=dtype, device=cuda)
+    neg_zero = -zero
+    sentinel = (nbr >= ns).any(dim=2)[..., None]  # (2, nq, 1)
+    valid = torch.where(nbr < ns, nbr, 0).long()
+    gathered = torch.stack([x[b][valid[b]] for b in range(2)])  # (2, nq, h, ac)
+    minus_zero = ((_bits(gathered) == _bits(neg_zero)) & (nbr < ns)[..., None]).any(dim=2)
+    mixed = sentinel & minus_zero
+    assert bool(mixed[:, :2, 0::2].all()) and not bool(mixed[:, 2:5].any())
+    assert torch.equal(_bits(got[mixed]), _bits(zero).expand(int(mixed.sum())))
+    assert torch.equal(got[mixed], want[mixed])
+    assert torch.equal(_bits(got[~mixed]), _bits(want[~mixed]))
+    assert bool((_bits(got[:, 2, 0::2]) == _bits(neg_zero)).all())
+    assert not bool(_bits(got[:, 3:5]).any())
+
+
+@pytest.mark.parametrize("negative", [False, True])
+def test_neighbor_max_equals_k13_pooled(cuda, pair_subsampling, negative):
+    """K2 and K13's skip max take the same routine (skip_max.cuh): on pair
+    0's s0 -> s1 neighbours and a (2, 20000, 768) bf16 payload (below zero
+    with ``negative``) K2's output is K13's pooled bit for bit."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    nbr, ns = pair_subsampling
+    nbr = nbr.to(cuda)
+    x, infl, rhs, x2 = _k13_inputs(cuda, nbr, ns, 192, 192, 768, 15, 27, negative)
+    assert wc.gather_wf_max_mm_form(nbr.shape[2], torch.bfloat16, 768) == "tc"
+    with torch.no_grad():
+        _, pooled = wc.gather_wf_max_mm(x, nbr, infl, x2, rhs)
+    assert torch.equal(_bits(wc.neighbor_max(x2, nbr)), _bits(pooled))
+
+
+def test_neighbor_max_bwd_reads_the_new_out(cuda):
+    """K9 (the backward, which reads K2's saved ``out`` for its ties) gives
+    the same gradient, bit for bit, on the rows form's output as on the
+    plain version's, called directly and through autograd (float32, the
+    training dtype, s0 -> s1 widths)."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    nq, ns, h, ac = 10000, 20000, 24, 768
+    nbr = _k2_neighbors(cuda, nq, ns, h, 4)
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((2, ns, ac), generator=g).to(cuda)
+    dout = torch.randn((2, nq, ac), generator=g).to(cuda)
+    assert wc.neighbor_max_form(ac, torch.float32) == "rows"
+    want = wc.neighbor_max_bwd(dout, x, wc.neighbor_max_plain(x, nbr), nbr)
+    assert torch.equal(wc.neighbor_max_bwd(dout, x, wc.neighbor_max(x, nbr), nbr), want)
+    xg = x.clone().requires_grad_(True)
+    wc.neighbor_max(xg, nbr).backward(dout)
+    assert torch.equal(xg.grad, want)
+
+
+def test_neighbor_max_plan_matches_the_kernel(cuda):
+    """The wrapper's plan (form, units a lane, slices, rows in flight, warps
+    a block) is the C entry point's, at every width up to 4100."""
+    import ctypes
+
+    from se3et_tpu_torch.ops.kernels import _build
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    fn = _build._library("neighbor_max").se3et_neighbor_max_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    codes = {code: name for name, code in wc.NEIGHBOR_MAX_FORMS.items()}
+    for dtype, nbytes in ((torch.bfloat16, 2), (torch.float32, 4)):
+        for ac in range(1, 4100):
+            out = (ctypes.c_int * 5)()
+            form = fn(ac, nbytes, out)
+            assert (codes[form], *out[1:]) == tuple(wc.neighbor_max_plan(ac, dtype)), (ac, dtype)
 
 
 @pytest.mark.parametrize("n,c,out_dtype", [
