@@ -32,7 +32,9 @@ Phases, each of which raises (exit code != 0) on failure:
    ``scripts/probe_sinkhorn.py`` and its first design's times; K13 the same
    way, beside its bound, the unfused route and its first design's times,
    with what its skip max must read on pair 0 (valid references, distinct
-   rows per 64-row tile);
+   rows per 64-row tile); K14 the same way (events over 20 launches,
+   device time), beside the unfused route K1 + K2, its times before the
+   redesign and its first design's time on the same inputs;
 4. check that the kernel path (card) and the plain path (CPU) agree on two
    tiny float32 inputs: the materialised-attention cut and the flash cut
    (128-point coarse stage, 600 points), both through the fused convs
@@ -122,7 +124,8 @@ K4_CHAIN_FLOOR_MS = 0.0524
 SERVING_KERNELS = ("gather_wf_tc_kernel", "neighbor_max_rows_kernel", "embedding_tc_kernel",
                    "sinkhorn_rows_kernel", "rpe_attention_ws_kernel", "eq_stats_tc_kernel",
                    "eq_apply_tc_kernel", "gather_wf_mm_tc_kernel", "panels_kernel",
-                   "gather_wf_max_mm_tc_kernel", "gather_wf_mm_kernel", "gather_wf_max_kernel")
+                   "gather_wf_max_mm_tc_kernel", "gather_wf_mm_kernel", "gather_wf_max_kernel",
+                   "gather_wf_max_tc_kernel")
 
 
 def _card_line() -> str:
@@ -627,8 +630,9 @@ def main() -> int:
             "gather_wf_max_mm", p0["subsampling_0"], ns0, 6 * 32, ac_out=6 * 32,
             ac2=6 * 128, reps=20, device_kernel="gather_wf_max_mm_tc_kernel"),
         # s1 -> s2 strided bottleneck: conv mid 64, skip payload A*256
-        "gather_wf_max": selfcheck.check_fused_conv("gather_wf_max", p0["subsampling_1"], ns1,
-                                                    6 * 64, ac2=6 * 256),
+        "gather_wf_max": selfcheck.check_fused_conv(
+            "gather_wf_max", p0["subsampling_1"], ns1, 6 * 64, ac2=6 * 256, reps=20,
+            device_kernel="gather_wf_max_tc_kernel", first=True),
     }
     extra = [
         # stage-1 bottleneck convs (mid 64: A*Cin = A*Cout = 384)
@@ -717,6 +721,14 @@ def main() -> int:
           f"({res.bound_by}); skip max reads {reuse['valid']} valid rows, {reuse['distinct']} "
           f"distinct per 64-row tile, {reuse['live_tiles']} of {reuse['tiles']} tiles with a "
           f"valid neighbour", flush=True)
+    # K14 beside the unfused route (K1 + K2) and its first design's times
+    # (NVIDIA H100 80GB HBM3, 700 W: 0.3485 ms by events, 0.3284 device), and
+    # the first design in this run
+    res = checks["gather_wf_max"]
+    dev_ms = "not measured" if res.device_ms is None else f"{res.device_ms:.4f}"
+    print(f"K14 {res.shape}: events {res.ms:.4f} ms (first design 0.3485; in this run "
+          f"{res.first_ms:.4f}), device {dev_ms} ms (0.3284); unfused route K1 + K2 "
+          f"{res.route_ms:.4f} ms; bound {res.bound_ms:.4f} ms ({res.bound_by})", flush=True)
     bad = [r.name for r in list(checks.values()) + extra if not r.ok]
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: {bad}")
@@ -824,7 +836,7 @@ def main() -> int:
                "plain_ms": res.plain_ms, "bound_ms": res.bound_ms,
                "bound_by": res.bound_by, "library_ms": res.library_ms}
         # yardsticks measured beside some kernels: device time (profiler),
-        # the unfused route (K12-K14), the first design (K2)
+        # the unfused route (K12-K14), the first design (K2, K14)
         row.update({key: getattr(res, key) for key in ("device_ms", "route_ms", "first_ms")
                     if getattr(res, key) is not None})
         kernels.append(row)

@@ -14,9 +14,10 @@
 // floor of about the same height at a few TB/s.
 //
 // The tensor-core form (tc::gather_wf_tc_kernel, bf16, H <= 64), the
-// serving form.  Every warp walks its own contiguous run of (query row,
-// 32-channel chunk) items, so no warp waits for another and a warp's
-// stores fill one contiguous stretch of wf:
+// serving form; its body is gather_wf_tc.cuh gather_wf_tc_items, which
+// K14's tc form takes too.  Every warp walks its own contiguous run of
+// (query row, 32-channel chunk) items, so no warp waits for another and a
+// warp's stores fill one contiguous stretch of wf:
 //  * the row's influence is read once, in place, into registers as the A
 //    fragments of an m16n8k16 mma.sync: A[kp][hh] = infl[row][hh][kp], K
 //    padded to 16 and H to 16 * HS with zeros (HS 1-4, a template
@@ -48,6 +49,7 @@
 // sums in registers (fp32) and streams the H neighbour values of its
 // channel, so that a warp reads AC-contiguous runs of one row.
 #include "attention_common.cuh"
+#include "gather_wf_tc.cuh"
 
 namespace {
 
@@ -126,162 +128,46 @@ namespace tc {
 
 using bf16 = __nv_bfloat16;
 
+// the tiling (scripts/probe_gather_wf.py builds copies of this source with
+// these constants and swz changed)
 constexpr int kWarps = 4;               // warps per block (each independent)
 constexpr int kThreads = kWarps * 32;
 constexpr int kCW = 32;                 // channels per chunk: one 64-byte shared row
-constexpr int kU = kCW / 8;             // 16-byte units per shared row
 constexpr int kStages = 4;              // ring slots per warp
-constexpr int kAhead = kStages - 1;     // items staged ahead
 constexpr int kMaxHS = 4;               // H <= 16 * kMaxHS
 
 // element offset of channel c (0..31) in row r of a tile of 64-byte rows,
 // 16-byte units XOR-swizzled by row pair: the 8 rows an ldmatrix phase
 // reads, and the rows a fragment store writes, hit 32 distinct banks
 __device__ __forceinline__ int swz(int r, int c) {
-  return r * kCW + ((((c >> 3) ^ (r >> 1)) & 3) << 3) + (c & 7);
+  return se3et::wf_swz32(r, c);
 }
 
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
+// the tiling as gather_wf_tc.cuh takes it (at these constants
+// se3et::WfTile)
+struct Tile {
+  static constexpr int cw = kCW, stages = kStages;
+  static __device__ __forceinline__ int at(int r, int c) { return swz(r, c); }
+};
 
-// shared bytes of one warp: the ring and the output tile
 template <int HS>
 __host__ __device__ constexpr size_t warp_smem() {
-  return (size_t)(kStages * 16 * HS * kCW + 16 * kCW) * sizeof(bf16);
+  return se3et::wf_warp_smem<Tile, HS>();
 }
 
+// every warp takes its own contiguous run of the items
 template <int HS>
 __global__ void __launch_bounds__(kThreads)
 gather_wf_tc_kernel(const bf16* __restrict__ x, const int* __restrict__ nbr,
                     const bf16* __restrict__ infl, bf16* __restrict__ out, int ns, int nq,
                     int h, int hs, int k, int ac, int nchunks, int items, int nwarps) {
-  constexpr int hp = 16 * HS;
-  constexpr int kSlot = hp * kCW;        // bf16 per ring slot
-  constexpr int kRowsPerLane = hp * kU / 32;  // neighbour rows a lane stages
   extern __shared__ __align__(16) unsigned char smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  bf16* ring = reinterpret_cast<bf16*>(smem + warp * warp_smem<HS>());  // [kStages][hp][kCW]
-  bf16* otile = ring + kStages * kSlot;                                 // [16][kCW]
-
+  const int warp = threadIdx.x >> 5;
   const long long gw = (long long)blockIdx.x * kWarps + warp;
-  const int i0 = (int)(items * gw / nwarps), i1 = (int)(items * (gw + 1) / nwarps);
-  if (i0 >= i1) return;
-
-  // padding rows h..hp of every slot are never staged: zero them once
-  for (int i = lane; i < kStages * (hp - h) * kU; i += 32) {
-    const int slot = i / ((hp - h) * kU), rem = i - slot * (hp - h) * kU;
-    *reinterpret_cast<uint4*>(ring + slot * kSlot + swz(h + rem / kU, 8 * (rem % kU))) =
-        make_uint4(0u, 0u, 0u, 0u);
-  }
-
-  // the staging cursor's row: lane stages units u of neighbour rows
-  // hh = lane / kU + (32 / kU) m, whose indices it holds in idx[m]
-  const int u = lane % kU;
-  int idx[kRowsPerLane];
-  int srow = -1;
-  auto stage = [&](int j) {
-    const int row = j / nchunks, c0 = (j - row * nchunks) * kCW;
-    if (row != srow) {
-      srow = row;
-      const int* rn = nbr + (long long)row * h;
-#pragma unroll
-      for (int m = 0; m < kRowsPerLane; ++m) {
-        const int hh = lane / kU + (32 / kU) * m;
-        idx[m] = hh < h ? __ldg(rn + hh) : ns;
-      }
-    }
-    const bf16* xb = x + (long long)(row / nq) * ns * ac;
-    bf16* dst = ring + (j % kStages) * kSlot;
-    const bool col_ok = c0 + 8 * u < ac;
-#pragma unroll
-    for (int m = 0; m < kRowsPerLane; ++m) {
-      const int hh = lane / kU + (32 / kU) * m;
-      if (hh < h) {
-        const int jn = idx[m];
-        const bool ok = col_ok && jn >= 0 && jn < ns;
-        se3et::cp_async16(dst + swz(hh, 8 * u), ok ? xb + (long long)jn * ac + c0 + 8 * u : xb,
-                          ok);
-      }
-    }
-  };
-#pragma unroll
-  for (int a = 0; a < kAhead; ++a) {
-    if (i0 + a < i1) stage(i0 + a);
-    se3et::cp_async_commit();
-  }
-
-  uint32_t wf[HS][4];
-  int crow = -1;
-  for (int i = i0; i < i1; ++i) {
-    if (i + kAhead < i1) stage(i + kAhead);
-    se3et::cp_async_commit();
-    se3et::cp_async_wait<kAhead>();
-    __syncwarp();
-    const int row = i / nchunks, c0 = (i - row * nchunks) * kCW;
-    if (row != crow) {
-      // A[kp][hh] = infl[row][hh][kp]: rows kp = g, g + 8 (zero past k),
-      // columns hh (zero past h)
-      crow = row;
-      const bf16* wr = infl + (long long)row * hs * k;
-      auto w = [&](int kp, int hh) {
-        return kp < k && hh < h ? wr[hh * k + kp] : __float2bfloat16(0.f);
-      };
-#pragma unroll
-      for (int s = 0; s < HS; ++s) {
-        const int ha = 16 * s + 2 * t, hb = ha + 8;
-        wf[s][0] = pack2(w(g, ha), w(g, ha + 1));
-        wf[s][1] = pack2(w(g + 8, ha), w(g + 8, ha + 1));
-        wf[s][2] = pack2(w(g, hb), w(g, hb + 1));
-        wf[s][3] = pack2(w(g + 8, hb), w(g + 8, hb + 1));
-      }
-    }
-    // B fragments of n-tiles 2qq, 2qq+1 over neighbour rows 16s.. (by
-    // ldmatrix.trans), all loaded before the products use them
-    const bf16* xs = ring + (i % kStages) * kSlot;
-    const int mi = lane >> 3;
-    uint32_t bq[HS][kCW / 16][4];
-#pragma unroll
-    for (int s = 0; s < HS; ++s)
-#pragma unroll
-      for (int qq = 0; qq < kCW / 16; ++qq)
-        se3et::ldmatrix_x4_trans(
-            bq[s][qq], xs + swz(16 * s + (mi & 1) * 8 + (lane & 7), 8 * (2 * qq + (mi >> 1))));
-    float d[kCW / 8][4];
-#pragma unroll
-    for (int j = 0; j < kCW / 8; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.f;
-#pragma unroll
-    for (int s = 0; s < HS; ++s) {
-#pragma unroll
-      for (int qq = 0; qq < kCW / 16; ++qq) {
-        se3et::mma_bf16(d[2 * qq], wf[s][0], wf[s][1], wf[s][2], wf[s][3], bq[s][qq][0],
-                        bq[s][qq][1]);
-        se3et::mma_bf16(d[2 * qq + 1], wf[s][0], wf[s][1], wf[s][2], wf[s][3], bq[s][qq][2],
-                        bq[s][qq][3]);
-      }
-    }
-    // the (16, 32) tile rounded to bf16 through shared memory, then the K
-    // valid rows' units as streaming 16-byte stores
-#pragma unroll
-    for (int j = 0; j < kCW / 8; ++j) {
-      const int c = 8 * j + 2 * t;
-      *reinterpret_cast<__nv_bfloat162*>(otile + swz(g, c)) =
-          __floats2bfloat162_rn(d[j][0], d[j][1]);
-      *reinterpret_cast<__nv_bfloat162*>(otile + swz(g + 8, c)) =
-          __floats2bfloat162_rn(d[j][2], d[j][3]);
-    }
-    __syncwarp();
-    bf16* orow = out + (long long)row * k * ac + c0;
-#pragma unroll
-    for (int m = 0; m < 16 * kU / 32; ++m) {
-      const int v = lane + 32 * m, kp = v / kU, uu = v % kU;
-      if (kp < k && c0 + 8 * uu < ac)
-        __stcs(reinterpret_cast<uint4*>(orow + (long long)kp * ac + 8 * uu),
-               *reinterpret_cast<const uint4*>(otile + swz(kp, 8 * uu)));
-    }
-    __syncwarp();  // the slot and the tile are free for the next items
-  }
-  se3et::cp_async_wait<0>();
+  se3et::gather_wf_tc_items<Tile, HS>(x, nbr, infl, out, ns, nq, h, hs, k, ac, nchunks,
+                                      (int)(items * gw / nwarps),
+                                      (int)(items * (gw + 1) / nwarps),
+                                      smem + warp * warp_smem<HS>(), threadIdx.x & 31);
 }
 
 template <int HS>

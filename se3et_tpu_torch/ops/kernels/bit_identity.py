@@ -35,7 +35,13 @@ shapes of se3ete.3dmatch (bf16) and the tiny float32 widths:
   v, whose scale would hide any difference), which the timing includes;
 * K2 (neighbour max) in bf16 at the fused serving route's s2 -> s3 skip (x
   (2, 2500, 3072), H 36) and in float32 at the training s0 -> s1 skip (x
-  (2, 20000, 768), H 24), both timed and held by their bit patterns.
+  (2, 20000, 768), H 24), both timed and held by their bit patterns;
+* K14 (fused conv gather + skip max) at the s1 -> s2 strided shape (x (2,
+  10000, 384), H 32, K 15, skip (2, 10000, 1536), bf16), its wf and its
+  pooled as two cases, both timed: wf held within its ``TOLERANCES``,
+  pooled by its bit pattern.
+
+The bf16 K1 cases are timed too.
 
 Each case is held bit for bit unless ``TOLERANCES`` names it: then the
 largest difference over the other checkout's largest magnitude must stay
@@ -58,10 +64,13 @@ K7_BF16 = "K7 N=M=1024 c=64 bf16"
 K4_CASES = ("K4 (256, 65, 65) f32", "K4 (6, 17, 13) f32")
 K13_CASES = ("K13 s0 -> s1 out", "K13 s0 -> s1 pooled")
 K2_CASES = ("K2 s2 -> s3 bf16", "K2 s0 -> s1 float32")
-TIMED = K5_BF16 + (K6_BF16, K7_BF16, K4_CASES[0], K13_CASES[0]) + K2_CASES
+K14_CASES = ("K14 s1 -> s2 wf", "K14 s1 -> s2 pooled")
+K1_BF16 = ("K1 stage 2", "K1 s2 -> s3", "K1 stage 3")
+TIMED = K5_BF16 + (K6_BF16, K7_BF16, K4_CASES[0], K13_CASES[0]) + K2_CASES + K14_CASES \
+    + K1_BF16
 # held by their bit patterns (-0.0 apart from +0.0), where the others are
 # held by value
-BITS = K2_CASES
+BITS = K2_CASES + K14_CASES[1:]
 REPS = 20  # launches per timing
 # kernels changed on purpose, with their bound against the other build: the
 # bf16 K5 (the ws form; 1e-2, as its kernel-vs-plain check states) at AH = 4
@@ -76,9 +85,13 @@ REPS = 20  # launches per timing
 # first design summed 32 lanes' strided shares; the bf16 K13's conv (1e-3;
 # its skip max stays bit for bit) runs on K12's tensor-core tiles since its
 # redesign, whose H contraction sums in another order than the first
-# design's CUDA-core gather (as K12's did, 2.1e-4, when it took that form)
+# design's CUDA-core gather (as K12's did, 2.1e-4, when it took that form);
+# the bf16 K14's wf (1e-2, as selfcheck.check_fused_conv states; its pooled
+# stays bit for bit) runs on K1's tensor-core routine since its redesign,
+# whose H contraction sums in another order than the first design's FMA
+# chain, so a sum rounds to bf16 an ulp apart where the orders round apart
 TOLERANCES = {**dict.fromkeys(K5_BF16, 1e-2), K6_BF16: 1e-3, K7_BF16: 1e-3,
-              **dict.fromkeys(K4_CASES, 1e-5), K13_CASES[0]: 1e-3}
+              **dict.fromkeys(K4_CASES, 1e-5), K13_CASES[0]: 1e-3, K14_CASES[0]: 1e-2}
 
 
 def _cases(dev):
@@ -168,6 +181,13 @@ def _cases(dev):
         nbr = torch.cat([selfcheck.local_neighbors(nq, ns, h, g, dev) for _ in range(2)])
         x = torch.randn((2, ns, ac), generator=g).to(dev, dtype)
         cases.append((name, lambda a=(x, nbr): wc.neighbor_max(*a)))
+    nq, ns, h, ac, ac2 = 2500, 10000, 32, 384, 1536
+    nbr = torch.cat([selfcheck.local_neighbors(nq, ns, h, g, dev) for _ in range(2)])
+    x = torch.randn((2, ns, ac), generator=g).to(dev, bf)
+    infl = (torch.rand((2, nq, h, 15), generator=g).to(dev) * (nbr < ns)[..., None]).to(bf)
+    x2 = torch.randn((2, ns, ac2), generator=g).to(dev, bf)
+    for i, case in enumerate(K14_CASES):
+        cases.append((case, lambda a=(x, nbr, infl, x2), i=i: wc.gather_wf_max(*a)[i]))
     return cases
 
 

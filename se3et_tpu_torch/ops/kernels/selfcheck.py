@@ -113,7 +113,7 @@ class CheckResult:
     route_ms: Optional[float] = None  # the unfused route's time (K12-K14), a yardstick
     device_ms: Optional[float] = None  # the kernel's own device time per call (profiler)
     two_calls_ms: Optional[float] = None  # two PyTorch calls computing the function (K7)
-    first_ms: Optional[float] = None  # the first design on the same inputs (K2), a yardstick
+    first_ms: Optional[float] = None  # the first design on the same inputs (K2, K14)
 
     @property
     def ok(self) -> bool:
@@ -166,19 +166,23 @@ def _time_ms(fn, reps: int) -> float:
 def device_ms(fn, kernel: str, reps: int = 10) -> Optional[float]:
     """Device time per call of the kernels whose name holds ``kernel``, from
     ``torch.profiler`` over ``reps`` calls of ``fn`` (after one warm-up);
-    None where the profiler records none."""
+    a profile that lists none is taken once more, and None is returned
+    where neither lists the kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and kernel in e.key]
-    if not events:
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and kernel in e.key]
+        if events:
+            break
+    else:
         return None
     attr = "self_device_time_total" if hasattr(events[0], "self_device_time_total") \
         else "self_cuda_time_total"
@@ -702,7 +706,7 @@ def skip_reuse(nbr: torch.Tensor, ns: int, tile: int = 64) -> dict:
 
 
 def check_fused_conv(name, nbr, ns, ac, ac_out=0, ac2=0, k=15, dtype=torch.bfloat16,
-                     seed=11, reps=5, device_kernel=None):
+                     seed=11, reps=5, device_kernel=None, first=False):
     """K12 (``name`` "gather_wf_mm"), K13 ("gather_wf_max_mm") or K14
     ("gather_wf_max") on random x (B, ns, ac), influence, expanded weight
     (K*ac, ac_out) and skip payload (B, ns, ac2) for the given neighbours.
@@ -714,7 +718,8 @@ def check_fused_conv(name, nbr, ns, ac, ac_out=0, ac2=0, k=15, dtype=torch.bfloa
     (K1 + ``torch.matmul`` (+ K2) for K12/K13, K1 + K2 for K14), a
     yardstick of several library calls, not one.  With ``device_kernel`` (a
     substring of the kernel's name) ``device_ms`` is its device time per
-    call from the profiler."""
+    call from the profiler; with ``first`` (K14) ``first_ms`` times its
+    first design on the same inputs."""
     g = torch.Generator().manual_seed(seed)
     dev = nbr.device
     b, nq, h = nbr.shape
@@ -749,11 +754,14 @@ def check_fused_conv(name, nbr, ns, ac, ac_out=0, ac2=0, k=15, dtype=torch.bfloa
         ms, plain_ms = _time_ms(kernel_fn, reps), _time_ms(plain_fn, reps)
         route_ms = _time_ms(route_fn, reps)
         dev_ms = None if device_kernel is None else device_ms(kernel_fn, device_kernel)
+        first_ms = None if not first else _time_ms(
+            lambda: wc._gather_wf_max_forward(x, nbr, infl, x2, "first"), reps)
     skip = f" skip{tuple(x2.shape)}" if name != "gather_wf_mm" else ""
-    mm = f" W({k * ac}, {ac_out})" if name != "gather_wf_max" else f" K={k}"
+    mm = f" W({k * ac}, {ac_out})" if name != "gather_wf_max" else \
+        f" K={k} ({wc.gather_wf_max_form(h, dtype, ac, x2.shape[2])} form)"
     res = CheckResult(name, f"x{tuple(x.shape)} nbr{tuple(nbr.shape)}{mm}{skip} {dtype} "
                       "(error relative to output scale)", err, tol, ms, plain_ms,
-                      route_ms=route_ms, device_ms=dev_ms)
+                      route_ms=route_ms, device_ms=dev_ms, first_ms=first_ms)
     nvalid = int((nbr < ns).sum())
     esz = x.element_size()
     nbytes = _nbytes(x, nbr, infl)

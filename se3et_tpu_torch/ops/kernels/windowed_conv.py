@@ -19,9 +19,10 @@ drop no neighbours).  Their JAX counterpart is the exact gather route of
   replaces ``windowed_gather_wf_mm`` (gather + weight product, no wf
   tensor written); :func:`gather_wf_max_mm` (K13, same source) replaces
   ``windowed_gather_wf_max_mm`` (K12 + the strided skip's max);
-  :func:`gather_wf_max` (K14, ``csrc/gather_wf_max.cu``) replaces
-  ``windowed_gather_wf_max`` (wf and the skip max in one pass; the weight
-  product follows as a ``torch.matmul``).  Which conv takes which form is
+  :func:`gather_wf_max` (K14, ``csrc/gather_wf_max.cu``, in two forms
+  chosen by :func:`gather_wf_max_form`) replaces ``windowed_gather_wf_max``
+  (wf and the skip max in one launch; the weight product follows as a
+  ``torch.matmul``).  Which conv takes which form is
   :func:`gather_wf_mm_fits`, :func:`gather_wf_max_mm_fits` and
   :func:`gather_wf_max_fits`.
 
@@ -407,9 +408,11 @@ neighbor_max_bwd.launches = 0
 # neighbour rows outgrow registers and shared memory); wider neighbour
 # sets and the float32 K12 and K13 read it as 16 padded weights per (query,
 # neighbour).  K13's tensor-core form keeps the skip maxima of a row in
-# registers, at most 6 16-byte units for each of a warp's 32 lanes, and K14
-# those of its 4 query rows, at most 6 groups of 8 channels for each of its
-# 128 threads: both take A*C2 <= 1536.
+# registers, at most 6 16-byte units for each of a warp's 32 lanes, and
+# K14's first design those of its 4 query rows, at most 6 groups of 8
+# channels for each of its 128 threads: both take A*C2 <= 1536.  K14's tc
+# form slices the payload row as K2 does and keeps the same gate (the JAX
+# package's split pools wider skips in K2).
 MM_MAX_AC_OUT = 384
 MAX_MM_MAX_AC_OUT = 192
 MAX_SKIP_AC = 1536
@@ -614,33 +617,107 @@ def gather_wf_max_mm(x: torch.Tensor, nbr: torch.Tensor, infl: torch.Tensor,
 gather_wf_max_mm.launches = 0
 
 
+# K14's forms (csrc/gather_wf_max.cu, codes as its entry points'): "tc" in
+# bf16 where K1's tensor-core routine takes the conv (H <= 64, AC a multiple
+# of 8) and the payload rows are whole 16-byte units, "first" (the first
+# design) otherwise.  The tc form's plan, as the C plan_for makes it: conv
+# items of GATHER_WF_CHUNK channels with the influence as HS 16-neighbour
+# fragments, skip items as K2's rows plan slices the payload row (at most
+# ROWS_MAX_SU units a lane, the slices balanced, NB = ROWS_LOAD_WORDS / (4
+# SU) rows in flight)
+GATHER_WF_MAX_FORMS = {"tc": 1, "first": 2}
+GATHER_WF_CHUNK = 32
+
+
+class GatherWFMaxPlan(NamedTuple):
+    """How K14 runs: the form, 16-neighbour fragments HS, conv chunks a
+    row, payload units a lane of a slice SU, slices a row and payload rows
+    in flight a lane NB (all 0 in the first form)."""
+    form: str
+    hs: int
+    chunks: int
+    su: int
+    slices: int
+    nb: int
+
+
+def gather_wf_max_plan(h: int, dtype, ac: int, ac2: int) -> GatherWFMaxPlan:
+    """K14's plan for ``h`` neighbours, x of ``ac`` and a payload of ``ac2``
+    channels of ``dtype``, as ``se3et_gather_wf_max_plan`` in
+    ``csrc/gather_wf_max.cu`` makes it."""
+    if dtype != torch.bfloat16 or not 1 <= h <= GATHER_WF_TC_MAX_H or ac < 8 or ac % 8 \
+            or ac2 < 8 or ac2 % 8:
+        return GatherWFMaxPlan("first", 0, 0, 0, 0, 0)
+    units = ac2 // 8
+    slices = -(-units // (32 * ROWS_MAX_SU))
+    su = -(-units // (32 * slices))
+    return GatherWFMaxPlan("tc", -(-h // 16), -(-ac // GATHER_WF_CHUNK), su, slices,
+                           ROWS_LOAD_WORDS // (4 * su))
+
+
+def gather_wf_max_form(h: int, dtype, ac: int, ac2: int) -> str:
+    """Which hand-written K14 kernel takes a strided conv over ``h``
+    neighbours of ``dtype`` features of ``ac`` channels with an
+    ``ac2``-channel skip payload: "tc" (``gather_wf_max_tc_kernel``: bf16, H
+    <= 64, AC and AC2 multiples of 8; the conv by K1's tensor-core routine,
+    the skip max by K2's) or "first" (``gather_wf_max_kernel``, the first
+    design: float32, and bf16 with H > 64 or AC not a multiple of 8).
+    Chosen by shape alone, as the C entry point chooses; neither is a
+    fallback of the other."""
+    return gather_wf_max_plan(h, dtype, ac, ac2).form
+
+
+def _gather_wf_max_forward(x, nbr, infl, x2, form: Optional[str] = None):
+    """K14 on CUDA tensors, on the kernel :func:`gather_wf_max_form` names,
+    or on ``form`` where the caller asks for one that takes the shape
+    ("first" takes any the gate passes)."""
+    b, nq, h = nbr.shape
+    k, ac, ac2 = infl.shape[3], x.shape[2], x2.shape[2]
+    form = form or gather_wf_max_form(h, x.dtype, ac, ac2)
+    x, nbr, x2 = x.contiguous(), nbr.contiguous(), x2.contiguous()
+    wf = torch.empty((b, nq, k * ac), dtype=x.dtype, device=x.device)
+    pooled = torch.empty((b, nq, ac2), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if form == "tc":
+        if x.data_ptr() % 16 or x2.data_ptr() % 16:
+            raise ValueError("K14's tc form reads 16-byte units: x and x2 must start "
+                             "16-byte aligned")
+        # the influence as it lies: its first h of hs columns, cast only
+        # when its dtype differs
+        infl = (infl if infl.dtype == x.dtype else infl.to(x.dtype)).contiguous()
+        work = torch.empty(1, dtype=torch.int32, device=x.device)  # the skip items' counter
+        fn = _build.function("gather_wf_max", "se3et_gather_wf_max_tc_bf16", 7, 8)
+        status = fn(x.data_ptr(), nbr.data_ptr(), infl.data_ptr(), wf.data_ptr(),
+                    x2.data_ptr(), pooled.data_ptr(), work.data_ptr(), b, x.shape[1], nq, h,
+                    infl.shape[2], k, ac, ac2, stream)
+    else:
+        infl = infl[:, :, :h].to(x.dtype).contiguous()
+        fn = _build.function("gather_wf_max", f"se3et_gather_wf_max_{_DTYPES[x.dtype]}", 6, 7)
+        status = fn(x.data_ptr(), nbr.data_ptr(), infl.data_ptr(), wf.data_ptr(),
+                    x2.data_ptr(), pooled.data_ptr(), b, x.shape[1], nq, h, k, ac, ac2, stream)
+    _build.check(status, f"gather_wf_max launch ({form})")
+    gather_wf_max.launches += 1
+    return wf, pooled
+
+
 def gather_wf_max(x: torch.Tensor, nbr: torch.Tensor, infl: torch.Tensor,
                   x2: torch.Tensor):
     """K14 (``csrc/gather_wf_max.cu``, replaces the TPU
     ``windowed_gather_wf_max``): see :func:`gather_wf_max_plain`; returns
-    (wf (B, Nq, K*AC), pooled (B, Nq, AC2)), both in x's dtype, wf
-    bit-identical to K1's first design (the float32 K1, and bf16 with H >
-    64) and pooled to K2.  Forward only; raises on widths
-    :func:`gather_wf_max_fits` refuses.  Bound by device memory; the source
-    notes the design."""
+    (wf (B, Nq, K*AC), pooled (B, Nq, AC2)), both in x's dtype, pooled equal
+    to K2's bit for bit.  The kernel is the one :func:`gather_wf_max_form`
+    names: in bf16 with H <= 64 the tc form (wf equal to K1's tensor-core
+    form bit for bit; x and x2 16-byte aligned, else ``ValueError``),
+    otherwise the first design (wf equal to K1's first design bit for bit).
+    ``infl`` (B, Nq, H' >= H, K) is read in place by the tc form.  Forward
+    only; raises on widths :func:`gather_wf_max_fits` refuses.  Bound by
+    device memory; the source notes the design."""
     _check_fused("gather_wf_max", x, nbr, infl, x2=x2)
     if not gather_wf_max_fits(x2.shape[2], infl.shape[3]):
         raise ValueError(f"gather_wf_max does not take AC2={x2.shape[2]}, K={infl.shape[3]}")
     if x.device.type == "cpu":
         return gather_wf_max_plain(x, nbr, infl, x2)
-    b, nq, h = nbr.shape
-    k, ac, ac2 = infl.shape[3], x.shape[2], x2.shape[2]
-    x, nbr, x2 = x.contiguous(), nbr.contiguous(), x2.contiguous()
-    infl = infl[:, :, :h].to(x.dtype).contiguous()
-    wf = torch.empty((b, nq, k * ac), dtype=x.dtype, device=x.device)
-    pooled = torch.empty((b, nq, ac2), dtype=x.dtype, device=x.device)
-    fn = _build.function("gather_wf_max", f"se3et_gather_wf_max_{_DTYPES[x.dtype]}", 6, 7)
-    _build.check(fn(x.data_ptr(), nbr.data_ptr(), infl.data_ptr(), wf.data_ptr(),
-                    x2.data_ptr(), pooled.data_ptr(), b, x.shape[1], nq, h, k, ac, ac2,
-                    torch.cuda.current_stream(x.device).cuda_stream),
-                 "gather_wf_max launch")
-    gather_wf_max.launches += 1
-    return wf, pooled
+    return _gather_wf_max_forward(x, nbr, infl, x2)
 
 
 gather_wf_max.launches = 0

@@ -121,14 +121,19 @@ def test_gather_wf_max_mm_plain_matches_windowed_kernel(dtype):
     assert (pooled[:, -3:] == 0).all()
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_gather_wf_max_plain_matches_windowed_kernel(dtype):
+@pytest.mark.parametrize("dtype,h,ac2", [
+    ("float32", 9, 384), ("bfloat16", 9, 384),
+    ("float32", 32, 192), ("bfloat16", 32, 192),   # the serving H and AC2 / AC (4)
+], ids=["float32", "bfloat16", "float32-h32", "bfloat16-h32"])
+def test_gather_wf_max_plain_matches_windowed_kernel(dtype, h, ac2):
     """K14 plain == windowed_gather_wf_max (interpret): flat wf within
-    tolerance, the skip max bit for bit."""
+    tolerance, the skip max bit for bit, with sentinel slots and
+    all-sentinel rows (zeros in both outputs)."""
     from se3et_tpu.ops.pallas import windowed_conv as wc
 
     jdt, tdt = _DTYPES[dtype]
-    x, nbr, infl, _, x2 = _inputs(2, ac2=384)
+    x, nbr, infl, _, x2 = _inputs(2, h=h, ac2=ac2)
+    assert (nbr == x.shape[1]).any() and (nbr[:, -3:] == x.shape[1]).all()
     seg_idx, local = _windows(nbr, x.shape[1])
     win = wc.segment_window_gather(jnp.asarray(x, jdt), seg_idx)
     win2 = wc.segment_window_gather(jnp.asarray(x2, jdt), seg_idx)
@@ -139,6 +144,7 @@ def test_gather_wf_max_plain_matches_windowed_kernel(dtype):
     assert wf.dtype == tdt and wf.shape == want.shape
     _close(wf.float().numpy(), want, 1e-5 if dtype == "float32" else 0.03)
     np.testing.assert_array_equal(pooled.float().numpy(), np.asarray(want_pool, np.float32))
+    assert not wf[:, -3:].any() and not pooled[:, -3:].any()
 
 
 def test_wrappers_refuse_what_their_kernels_do_not_take():
@@ -364,6 +370,43 @@ def test_gather_wf_max_mm_form(h, dtype, ac2, form):
     """K13 takes the tensor-core form in bf16 up to H = 32 with payloads of
     16-byte units up to 1536 channels, else the first design."""
     assert wc_k.gather_wf_max_mm_form(h, dtype, ac2) == form
+
+
+@pytest.mark.parametrize("h,dtype,ac,ac2,form", [
+    (32, torch.bfloat16, 384, 1536, "tc"),   # the serving shape (s1 -> s2)
+    (24, torch.bfloat16, 192, 768, "tc"),    # stage-0 widths
+    (64, torch.bfloat16, 384, 1536, "tc"),   # the widest tc H
+    (1, torch.bfloat16, 8, 8, "tc"),
+    (32, torch.float32, 384, 1536, "first"),
+    (65, torch.bfloat16, 384, 1536, "first"),
+    (32, torch.bfloat16, 44, 1536, "first"),  # AC not a multiple of 8
+])
+def test_gather_wf_max_form(h, dtype, ac, ac2, form):
+    """K14 takes the tc form in bf16 up to H = 64 with AC and AC2 multiples
+    of 8, else the first design."""
+    assert wc_k.gather_wf_max_form(h, dtype, ac, ac2) == form
+
+
+@pytest.mark.parametrize("h,ac,ac2,hs,chunks,su,slices", [
+    (32, 384, 1536, 2, 12, 3, 2), (24, 192, 768, 2, 6, 3, 1), (64, 384, 1536, 4, 12, 3, 2),
+    (5, 40, 24, 1, 2, 1, 1), (17, 200, 800, 2, 7, 2, 2), (48, 776, 1528, 3, 25, 3, 2),
+    (1, 8, 8, 1, 1, 1, 1), (33, 384, 3072, 3, 12, 3, 4),
+])
+def test_gather_wf_max_plan_covers_both_outputs(h, ac, ac2, hs, chunks, su, slices):
+    """The tc form's plan covers every channel of both outputs: the conv's
+    32-channel chunks cover AC (the last holds some of it), its fragments
+    every neighbour (16 HS >= H), the skip's slices of 32 x SU 16-byte units
+    every unit of the payload row (the last holds some), with SU and NB as
+    K2's rows plan makes them for the same row."""
+    plan = wc_k.gather_wf_max_plan(h, torch.bfloat16, ac, ac2)
+    assert (plan.form, plan.hs, plan.chunks, plan.su, plan.slices) == (
+        "tc", hs, chunks, su, slices)
+    assert 16 * (plan.hs - 1) < h <= 16 * plan.hs <= 16 * 4
+    assert (plan.chunks - 1) * wc_k.GATHER_WF_CHUNK < ac <= plan.chunks * wc_k.GATHER_WF_CHUNK
+    units = ac2 // 8
+    assert (plan.slices - 1) * 32 * plan.su < units <= plan.slices * 32 * plan.su
+    rows = wc_k.neighbor_max_plan(ac2, torch.bfloat16)
+    assert (plan.su, plan.slices, plan.nb) == (rows.su, rows.slices, rows.nb)
 
 
 def test_gather_wf_max_mm_fits_is_unchanged():

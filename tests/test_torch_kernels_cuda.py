@@ -83,12 +83,15 @@ def test_gather_wf_reads_padded_influence_in_place(cuda):
 @pytest.mark.parametrize("h,dtype", [(24, torch.float32), (38, torch.float32),
                                      (65, torch.bfloat16)])
 def test_gather_wf_first_design_is_bit_identical(cuda, h, dtype):
-    """The first design (the float32 K1, and bf16 with H > 64) equals bit
-    for bit the wf of K14, which carries that design's arithmetic
-    unchanged, with the influence read in place (H' > H)."""
+    """K1's first design (the float32 K1, and bf16 with H > 64) equals bit
+    for bit the wf of K14's first design, which these shapes take too and
+    which carries that design's arithmetic unchanged, with the influence
+    read in place (H' > H).  K14's tc form equals K1's tc form instead
+    (test_gather_wf_max_tc_equals_k1_and_k2)."""
     from se3et_tpu_torch.ops.kernels import windowed_conv as wc
 
     assert wc.gather_wf_form(h, dtype) == "first"
+    assert wc.gather_wf_max_form(h, dtype, 192, 8) == "first"
     g = torch.Generator().manual_seed(22)
     nq, ns = 1003, 2000
     nbr = _conv_neighbors(cuda, nq, ns, h, 22)
@@ -794,6 +797,154 @@ def test_gather_wf_max_kernel(cuda, nq, ns, h, ac, ac2, dtype):
     nbr = _conv_neighbors(cuda, nq, ns, h, 14)
     _assert_ok(selfcheck.check_fused_conv("gather_wf_max", nbr, ns, ac, ac2=ac2,
                                           dtype=dtype, reps=1))
+
+
+@pytest.fixture(scope="module")
+def pair_subsampling_1():
+    """Pair 0's s1 -> s2 neighbour rows (2, 2500, 32) over 10000 points, as
+    chip_smoke.py builds them."""
+    from se3et_tpu_torch.data.pyramid import synthetic_pair
+    from se3et_tpu_torch.experiments.configs import make_cfg, serving_config, synthetic_extent
+
+    cfg = serving_config(make_cfg("se3ete.3dmatch"))
+    pair = synthetic_pair(0, cfg.pipeline, None, cfg.point_limit,
+                          synthetic_extent(cfg.dataset), seed=cfg.seed)
+    return torch.as_tensor(pair["subsampling_1"]).to(torch.int32), pair["points_1"].shape[1]
+
+
+def _k14_inputs(cuda, nbr, ns, ac, ac2, k, seed, payload="normal", hs=None):
+    """x, influence (zero on sentinels; ``hs`` >= H columns, those past H
+    random) and the skip payload, bf16.  ``payload`` "negative": every
+    value below zero (a sentinel's zero row sets the max); "zeros": values
+    below zero with -0.0 in half the channels of the first rows, where a
+    sentinel's +0.0 must win."""
+    g = torch.Generator().manual_seed(seed)
+    b, nq, h = nbr.shape
+    x = torch.randn((b, ns, ac), generator=g).to(cuda, torch.bfloat16)
+    infl = torch.rand((b, nq, hs or h, k), generator=g).to(cuda)
+    infl[:, :, :h] *= (nbr < ns)[..., None]
+    x2 = torch.randn((b, ns, ac2), generator=g)
+    if payload != "normal":
+        x2 = -x2.abs() - 0.01
+    if payload == "zeros":
+        x2[:, :ns // 4, 0::2] = -0.0
+    return x, infl.to(torch.bfloat16), x2.to(cuda, torch.bfloat16)
+
+
+def _k14_neighbors(cuda, pattern, nq, ns, h, seed, pair):
+    """(2, nq, h) neighbour rows: "pair" (pair 0's s1 -> s2 rows), "local"
+    (about a quarter sentinels, rows 5-9 without one, the last 3 all
+    sentinels) or "dense" (no sentinel)."""
+    if pattern == "pair":
+        nbr, pair_ns = pair
+        assert (nq, ns, h) == (nbr.shape[1], pair_ns, nbr.shape[2])
+        return nbr.to(cuda)
+    if pattern == "dense":
+        q = torch.arange(nq, device=cuda)[:, None] * ns // nq
+        return (q + torch.arange(h, device=cuda)).clamp(0, ns - 1).to(torch.int32).expand(
+            2, nq, h).contiguous()
+    return _k2_neighbors(cuda, nq, ns, h, seed)
+
+
+K14_TC_SHAPES = [
+    (2500, 10000, 32, 384, 1536, 15, "pair"),    # the serving shape (s1 -> s2)
+    (2500, 10000, 32, 384, 1536, 15, "local"),
+    (10000, 20000, 24, 192, 768, 15, "local"),   # stage-0 widths
+    (20000, 20000, 24, 192, 768, 15, "dense"),
+    (1, 50, 5, 8, 8, 1, "local"),                # one row, one unit of each
+    (7, 50, 5, 40, 24, 3, "local"),              # fewer items than one warp's share
+    (97, 500, 16, 48, 96, 16, "local"),          # HS 1, K 16
+    (97, 500, 17, 200, 800, 15, "dense"),        # HS 2, SU 2, chunks ragged
+    (1003, 2000, 33, 384, 1536, 15, "local"),    # HS 3
+    (1003, 2000, 48, 776, 1528, 15, "local"),    # AC past the chunks, SU 3 uneven
+    (999, 3000, 64, 384, 1536, 15, "local"),     # HS 4, the widest tc H
+]
+
+
+@pytest.mark.parametrize("nq,ns,h,ac,ac2,k,pattern", K14_TC_SHAPES)
+@pytest.mark.parametrize("payload", ["normal", "negative"])
+def test_gather_wf_max_tc_kernel(cuda, pair_subsampling_1, nq, ns, h, ac, ac2, k, pattern,
+                                 payload):
+    """K14's tc form against its plain version: pooled bit for bit, wf
+    within 1e-2 of its scale (as selfcheck.check_fused_conv), at the
+    serving shape on pair 0 and on local neighbours, at the stage-0 widths
+    and at ragged ones (Nq 1-1003, H 5-64, K 1-16, AC 8-776, AC2 8-1536),
+    with payloads below zero, where a sentinel's zero row sets the max."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    assert wc.gather_wf_max_form(h, torch.bfloat16, ac, ac2) == "tc"
+    nbr = _k14_neighbors(cuda, pattern, nq, ns, h, 31, pair_subsampling_1)
+    x, infl, x2 = _k14_inputs(cuda, nbr, ns, ac, ac2, k, 32, payload)
+    with torch.no_grad():
+        wf, pooled = wc.gather_wf_max(x, nbr, infl, x2)
+        want_wf, want_pooled = wc.gather_wf_max_plain(x, nbr, infl, x2)
+    assert torch.equal(pooled, want_pooled)
+    scale = max(float(want_wf.float().abs().max()), 1e-30)
+    assert float((wf.float() - want_wf.float()).abs().max()) <= 1e-2 * scale
+    if pattern == "local":
+        assert not bool(wf[:, -3:].any()) and not bool(pooled[:, -3:].any())
+
+
+@pytest.mark.parametrize("nq,ns,h,ac,ac2,k,pattern", K14_TC_SHAPES)
+def test_gather_wf_max_tc_equals_k1_and_k2(cuda, pair_subsampling_1, nq, ns, h, ac, ac2, k,
+                                           pattern):
+    """K14's tc form takes K1's tensor-core routine and K2's skip routine,
+    so its wf is K1's (tc form) and its pooled K2's bit for bit, -0.0 and
+    +0.0 included (a payload below zero with -0.0 beside sentinels), the
+    influence read in place from H' = H + 3 columns."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    assert wc.gather_wf_form(h, torch.bfloat16) == "tc"
+    nbr = _k14_neighbors(cuda, pattern, nq, ns, h, 33, pair_subsampling_1)
+    x, infl, x2 = _k14_inputs(cuda, nbr, ns, ac, ac2, k, 34, "zeros", hs=h + 3)
+    with torch.no_grad():
+        wf, pooled = wc.gather_wf_max(x, nbr, infl, x2)
+        assert torch.equal(_bits(wf), _bits(wc.gather_wf(x, nbr, infl)))
+        assert torch.equal(_bits(pooled), _bits(wc.neighbor_max(x2, nbr)))
+
+
+def test_gather_wf_max_tc_raises_on_misaligned_rows(cuda):
+    """The tc form reads 16-byte units: x or x2 starting off a 16-byte
+    boundary raises instead of running another form."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    def off_by_one(*shape):  # contiguous, one element past an aligned start
+        n = shape[0] * shape[1] * shape[2]
+        return torch.randn(n + 1, device=cuda).to(torch.bfloat16)[1:].view(shape)
+
+    nbr = _conv_neighbors(cuda, 64, 128, 5, 35)
+    x, x2 = off_by_one(2, 128, 48), off_by_one(2, 128, 96)
+    assert x.is_contiguous() and x.data_ptr() % 16 and x2.data_ptr() % 16
+    infl = torch.rand((2, 64, 5, 15), device=cuda).to(torch.bfloat16)
+    assert wc.gather_wf_max_form(5, torch.bfloat16, 48, 96) == "tc"
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            wc.gather_wf_max(x, nbr, infl, x2.clone())
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            wc.gather_wf_max(x.clone(), nbr, infl, x2)
+
+
+def test_gather_wf_max_plan_matches_the_kernel(cuda):
+    """The wrapper's plan (form, HS, chunks, SU, slices, NB) is the C entry
+    point's, at every H up to 66, and at the AC and AC2 widths up to 1600 in
+    both dtypes."""
+    import ctypes
+
+    from se3et_tpu_torch.ops.kernels import _build
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    fn = _build._library("gather_wf_max").se3et_gather_wf_max_plan
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    codes = {code: name for name, code in wc.GATHER_WF_MAX_FORMS.items()}
+    shapes = [(h, 384, 1536) for h in range(1, 67)]
+    shapes += [(32, ac, ac2) for ac in (1, 7, 8, 40, 384, 776) for ac2 in range(1, 1601)]
+    for dtype, nbytes in ((torch.bfloat16, 2), (torch.float32, 4)):
+        for h, ac, ac2 in shapes:
+            out = (ctypes.c_int * 6)()
+            form = fn(h, ac, ac2, nbytes, out)
+            assert (codes[form], *out[1:]) == tuple(wc.gather_wf_max_plan(h, dtype, ac, ac2)), \
+                (h, ac, ac2, dtype)
 
 
 def test_fused_conv_kernels_raise_on_grad_and_refused_widths(cuda):
