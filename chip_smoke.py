@@ -50,7 +50,14 @@ Phases, each of which raises (exit code != 0) on failure:
    conv route (``serve_fused_conv=False``), served in turns, and the
    backbone features of the two routes on pair 0; then the section times
    from the ``stop_after`` cuts and the device time by kernel over one
-   served pair (``torch.profiler``);
+   served pair (``torch.profiler``); then the captured forward
+   (``engine/serving.py`` ``capture_forward``): captured on pair 0 with its
+   launch counts checked against the eager pair's, every output of all
+   four pairs replayed equal to the eager forward's bit for bit, the
+   capture time and peak memory, eager and captured served in turns (8
+   pairs each, host load printed before each turn), and the profile of one
+   replayed pair, where every serving kernel must appear with its eager
+   count per pair;
 6. training: hold the four backward kernels (K8-K11) against their plain
    versions at the training shapes with their bounds; one tiny float32
    training step on the card and on the CPU with the same weights and
@@ -70,7 +77,9 @@ Phases, each of which raises (exit code != 0) on failure:
    served in turns with the default route (per pair K15 7), then with
    ``serve_femb=True`` in turns with the default route (per pair K16 5, K3
    0, K5 0), with ms/pair, peak memory, the routes' differences on pair 0
-   and a ``torch.profiler`` breakdown of one femb pair; then
+   and a ``torch.profiler`` breakdown of one femb pair; the
+   device-influence route captured (K15 inside the graph) and replayed on
+   the four pairs, bit for bit against eager; then
    ``se3et_tpu_torch.entry.entry()`` once, with a finite transform, printed
    beside its largest matching score.
 
@@ -85,6 +94,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -126,6 +136,19 @@ SERVING_KERNELS = ("gather_wf_tc_kernel", "neighbor_max_rows_kernel", "embedding
                    "eq_apply_tc_kernel", "gather_wf_mm_tc_kernel", "panels_kernel",
                    "gather_wf_max_mm_tc_kernel", "gather_wf_mm_kernel", "gather_wf_max_kernel",
                    "gather_wf_max_tc_kernel")
+
+# the device kernel each serving wrapper launches on the default route, and
+# its launches per pair there
+SERVING_DEVICE_KERNELS = {
+    "gather_wf": "gather_wf_tc_kernel", "neighbor_max": "neighbor_max_rows_kernel",
+    "geometric_embedding": "embedding_tc_kernel", "sinkhorn": "sinkhorn_rows_kernel",
+    "rpe_self_attention": "rpe_attention_ws_kernel", "eq_attention_stats": "eq_stats_tc_kernel",
+    "eq_attention_apply": "eq_apply_tc_kernel", "gather_wf_mm": "gather_wf_mm_tc_kernel",
+    "gather_wf_max_mm": "gather_wf_max_mm_tc_kernel", "gather_wf_max": "gather_wf_max_tc_kernel"}
+SERVING_LAUNCHES = {**FLASH_LAUNCHES, **FUSED_CONV_LAUNCHES, "geometric_embedding": 1,
+                    "sinkhorn": 1}
+# pairs per turn when the eager and the captured forward are served in turns
+CAPTURED_TURN_PAIRS = 8
 
 
 def _card_line() -> str:
@@ -196,7 +219,9 @@ def _tiny_card_vs_cpu(name, cfg, num_points, extent, dev, host_influence=True):
 def _profile(run, what="one pair", top=15, also=()):
     """Device time by kernel over one call of ``run`` (torch.profiler),
     against its wall time: the ``top`` kernels, then any other whose name
-    holds a string of ``also``."""
+    holds a string of ``also``.  Returns {"wall", "kernels", "idle",
+    "counts": {kernel name: launches}}, or None where the profiler recorded
+    no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -212,7 +237,7 @@ def _profile(run, what="one pair", top=15, also=()):
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     if not events:
         print("profile: the profiler recorded no device time (not measured)", flush=True)
-        return
+        return None
     attr = "self_device_time_total" if hasattr(events[0], "self_device_time_total") \
         else "self_cuda_time_total"
     device_ms = sum(getattr(e, attr) for e in events) / 1e3
@@ -224,6 +249,8 @@ def _profile(run, what="one pair", top=15, also=()):
             print(f"  {getattr(e, attr) / 1e3:8.3f} ms  {e.count:5d} launches  "
                   f"{getattr(e, attr) / 1e3 / max(e.count, 1):.4f} ms each  {e.key[:90]}",
                   flush=True)
+    return {"wall": wall, "kernels": device_ms, "idle": max(0.0, 1 - device_ms / wall),
+            "counts": {e.key: e.count for e in events}}
 
 
 def _tiny_train_card_vs_cpu(cfg, extent, dev):
@@ -402,6 +429,121 @@ def _serve_turns(routes, order, npairs):
     return ms, launches
 
 
+def _bits(t):
+    import torch
+
+    return t.contiguous().reshape(-1).view(torch.uint8) if t.is_floating_point() else t
+
+
+def _require_bitwise(what, got, want):
+    """Every output key of ``want`` in ``got`` with the same dtype, shape
+    and bits (NaNs and signed zeros included)."""
+    import torch
+
+    differ = [k for k, v in want.items() if torch.is_tensor(v) and not (
+        got[k].dtype == v.dtype and got[k].shape == v.shape
+        and torch.equal(_bits(got[k]), _bits(v)))]
+    if set(got) != set(want) or differ:
+        raise RuntimeError(f"{what}: the replay differs from the eager forward in "
+                           f"{differ or sorted(set(got) ^ set(want))}")
+
+
+def _capture_checked(route, model, inputs, per_pair):
+    """``capture_forward`` on pair 0 of ``inputs`` with every counter set to
+    0 just before and read just after: the capture must record ``per_pair``
+    launches (and the warm-up forwards as many each), then every pair's
+    replay must equal the eager forward bit for bit.  Returns the captured
+    forward."""
+    import torch
+
+    from se3et_tpu_torch.engine.serving import capture_forward
+    from se3et_tpu_torch.ops.kernels import selfcheck
+
+    eager = [model(td) for td in inputs]
+    warmup = 3
+    for w in selfcheck.WRAPPERS.values():
+        w.launches = 0
+    served = capture_forward(model, inputs[0], warmup=warmup)
+    counted = {n: w.launches for n, w in selfcheck.WRAPPERS.items()}
+    want = dict.fromkeys(selfcheck.WRAPPERS, 0)
+    want.update(per_pair)
+    if served.launches != want or counted != {n: (warmup + 1) * c for n, c in want.items()}:
+        raise RuntimeError(f"capture of the {route} route recorded {served.launches} "
+                           f"(counted {counted}), expected {want} per pair")
+    for i, td in enumerate(inputs):
+        _require_bitwise(f"{route} route, pair {i}", served(td), eager[i])
+    torch.cuda.synchronize()
+    print(f"captured {route} route: {len(inputs)} pairs replayed, every output equal to the "
+          f"eager forward bit for bit; capture {served.capture_ms:.1f} ms; launches recorded "
+          f"at capture {dict((n, c) for n, c in served.launches.items() if c)}", flush=True)
+    return served
+
+
+def _captured(model, inputs, dev, eager_peak):
+    """Phase 5's captured forward: checks, peak memory, turns, profile."""
+    import torch
+
+    from se3et_tpu_torch.ops.kernels import selfcheck
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    per_pair = dict.fromkeys(selfcheck.ROUTES, 0)
+    per_pair.update(SERVING_LAUNCHES)
+    served = _capture_checked("default", model, inputs, per_pair)
+    peak = torch.cuda.max_memory_allocated(dev)
+    gc.collect()
+    held = torch.cuda.memory_allocated(dev) - resident
+    print(f"captured default route: max_memory_allocated {peak / 2**30:.2f} GiB "
+          f"({(peak - resident) / 2**30:.2f} above the {resident / 2**30:.2f} GiB resident; "
+          f"eager serving in this run {eager_peak / 2**30:.2f} GiB); the graph's static inputs "
+          f"and outputs hold {held / 2**30:.2f} GiB; reserved "
+          f"{torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB", flush=True)
+
+    routes = {"eager": model, "captured": served}
+    ms = {r: [] for r in routes}
+    for route in ("eager", "captured", "captured", "eager"):
+        load = os.getloadavg()
+        turn = []
+        for i in range(CAPTURED_TURN_PAIRS):
+            td = inputs[i % len(inputs)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = routes[route](td)
+            torch.cuda.synchronize()
+            turn.append((time.perf_counter() - t0) * 1e3)
+            tf = out["estimated_transform"]
+            if tf.shape != (4, 4) or not bool(torch.isfinite(tf).all()):
+                raise RuntimeError(f"bad estimated_transform on the {route} forward: {tf}")
+        ms[route] += turn
+        print(f"turn {route}: host load {[round(x, 2) for x in load]}; ms/pair "
+              f"{[round(x, 2) for x in turn]}", flush=True)
+    print("serve ms/pair in turns (eager, captured, captured, eager; "
+          f"{CAPTURED_TURN_PAIRS} pairs each): " + "; ".join(
+              f"{r} median {statistics.median(v):.2f} (range {min(v):.2f}-{max(v):.2f})"
+              for r, v in ms.items()), flush=True)
+
+    # every serving kernel in the replay's profile, with its count per pair
+    # (a second profile where the first lists one short: a profile of an
+    # eager pair once listed no K14 launch)
+    for attempt in (1, 2):
+        prof = _profile(lambda: served(inputs[0]), what="one replayed pair",
+                        also=SERVING_KERNELS)
+        if prof is None:
+            raise RuntimeError("the profiler recorded no device time over a replay")
+        seen = {n: sum(c for key, c in prof["counts"].items()
+                       if re.search(rf"\b{k}\b", key))
+                for n, k in SERVING_DEVICE_KERNELS.items()}
+        short = {n: (seen[n], SERVING_LAUNCHES[n]) for n in seen if seen[n] != SERVING_LAUNCHES[n]}
+        print(f"replay profile (attempt {attempt}): serving kernels {seen}", flush=True)
+        if not short:
+            break
+    if short:
+        raise RuntimeError(f"replayed pair's profile: kernels (listed, expected) {short}")
+    return served
+
+
 def _require_launches(route, launches, per_pair, pairs_served):
     want = {n: c * pairs_served for n, c in per_pair.items()}
     got = {n: launches[n] for n in want}
@@ -489,7 +631,13 @@ def _routes(cfg, pairs, bare_pairs, extent, dev):
     print(f"backbone feats_c, device vs host influence (pair 0, valid rows, bf16): "
           f"max|diff| / max|host| = {d:.3e}", flush=True)
     _profile(lambda: model(bare[0]), what="one pair, device-influence route", top=40)
-    del a, b, routes["device influence"], bare
+    per_pair = dict.fromkeys(selfcheck.ROUTES, 0)
+    per_pair.update(SERVING_LAUNCHES)
+    per_pair.update(DEVICE_INFLUENCE_LAUNCHES)
+    served = _capture_checked("device-influence", model, bare, per_pair)
+    del a, b, routes["device influence"], bare, served
+    gc.collect()
+    torch.cuda.empty_cache()
 
     ms, launches = _serve_turns(routes, ("default", "femb", "femb", "default"), NUM_PAIRS)
     _require_launches("femb", launches["femb"], FEMB_LAUNCHES, 2 * NUM_PAIRS)
@@ -819,7 +967,10 @@ def main() -> int:
           flush=True)
 
     _profile(lambda: model(inputs[0]), also=SERVING_KERNELS)
-    del model, outs
+
+    # the captured forward against the eager one
+    served = _captured(model, inputs, dev, peak)
+    del model, outs, served
 
     # 6. training
     checks.update(_training(cfg, pairs, extent, dev))

@@ -24,7 +24,9 @@ def compose_transform(rotation: torch.Tensor, translation: torch.Tensor) -> torc
                       device=rotation.device)
     out[..., :3, :3] = rotation
     out[..., :3, 3] = translation
-    out[..., 3, 3] = 1.0
+    # fill_ takes the scalar as an argument; assigning it copies a host tensor
+    # into a 0-d view, which waits for the card
+    out[..., 3, 3].fill_(1.0)
     return out
 
 

@@ -1,5 +1,5 @@
-r"""The single-pair training step (port of ``make_train_step`` in
-:mod:`se3et_tpu.engine.steps`).
+r"""The single-pair training step and the serving forward (ports of
+``make_train_step`` and ``make_forward`` in :mod:`se3et_tpu.engine.steps`).
 
 One step runs the model's training forward (``train=True``,
 ``with_registration=False``), :func:`~se3et_tpu_torch.nn.loss.overall_loss`,
@@ -48,3 +48,20 @@ def make_train_step(model, loss_cfg: loss_lib.LossConfig, optimizer: Optimizer,
         return losses
 
     return train_step
+
+
+def make_forward(model, eval_cfg=None):
+    """``forward(data) -> out``: the model's serving forward with the
+    registration (``train=False, with_registration=True``), the function the
+    JAX package jits and :func:`se3et_tpu_torch.engine.serving.capture_forward`
+    captures.  The in-graph evaluation metrics (JAX ``nn/loss.py``
+    ``evaluate``, added under ``out["metrics"]`` when ``eval_cfg`` is given)
+    are not ported: a non-None ``eval_cfg`` raises."""
+    if eval_cfg is not None:
+        raise NotImplementedError("make_forward: eval_cfg needs loss.evaluate, which is not "
+                                  "ported")
+
+    def forward(data):
+        return model(data, train=False, with_registration=True)
+
+    return forward

@@ -209,7 +209,8 @@ def local_global_registration(ref_knn_points, src_knn_points, ref_knn_masks,
     residual = torch.linalg.norm(ref_corr[None] - aligned, dim=-1)
     inliers = (residual < acceptance_radius) & corr_valid[None]
     counts = inliers.sum(dim=1).masked_fill(~patch_valid, -1)
-    best_inliers = inliers[torch.argmax(counts)]
+    # selected on the card: indexing by a 0-d tensor reads its value to the host
+    best_inliers = inliers.index_select(0, torch.argmax(counts).reshape(1))[0]
     corr_inliers = torch.where(patch_valid.any(), best_inliers, corr_valid)
     # the fits weight the inliers' scores and give the others 0 by selection
     # (as JAX's jitted score * mask does), so an overflowed score outside

@@ -36,10 +36,11 @@ def gather_with_sentinel(values: torch.Tensor, indices: torch.Tensor,
     n = values.shape[0]
     safe = indices.clamp(0, n - 1).long()
     out = values[safe]
-    mask = (indices >= 0) & (indices < n)
-    mask = mask.reshape(mask.shape + (1,) * (out.ndim - mask.ndim))
-    return torch.where(mask, out, torch.as_tensor(pad_value, dtype=out.dtype,
-                                                  device=out.device))
+    outside = (indices < 0) | (indices >= n)
+    outside = outside.reshape(outside.shape + (1,) * (out.ndim - outside.ndim))
+    # the scalar goes to the fill kernel as an argument: a tensor made from
+    # it would be a copy from host memory, which waits for the card
+    return out.masked_fill(outside, pad_value)
 
 
 def batched_gather_rows(values: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
