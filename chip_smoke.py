@@ -21,8 +21,8 @@ Phases, each of which raises (exit code != 0) on failure:
    its times before the redesign, and at the three strided skips of the
    unfused route (bf16) and of training (float32), each beside its first
    design's time on the same inputs; K5 at
-   its two self-layer shapes beside its times before the redesign, with
-   its total per served pair (as K1's); K6 and K7 by events over 20
+   its two self-layer shapes by events and device time beside its times
+   before the redesign, with its total per served pair (as K1's); K6 and K7 by events over 20
    launches and by their device time (profiler), with their totals per
    served pair and their bounds, beside their times before the redesign,
    and for K7 the time of the two PyTorch calls that compute its function
@@ -79,7 +79,12 @@ Phases, each of which raises (exit code != 0) on failure:
    0, K5 0), with ms/pair, peak memory, the routes' differences on pair 0
    and a ``torch.profiler`` breakdown of one femb pair; the
    device-influence route captured (K15 inside the graph) and replayed on
-   the four pairs, bit for bit against eager; then
+   the four pairs, bit for bit against eager; K16's two shapes by events and
+   device time beside its first design's times and K5's (phase 3, now with
+   its device time too), with their totals per served pair; the default
+   and femb routes captured (each replay bit for bit against eager, the
+   peak memory of each) and served in turns, captured default / femb /
+   femb / default, 8 pairs each with the host load before each turn; then
    ``se3et_tpu_torch.entry.entry()`` once, with a finite transform, printed
    beside its largest matching score.
 
@@ -551,10 +556,63 @@ def _require_launches(route, launches, per_pair, pairs_served):
         raise RuntimeError(f"the {route} route launched {got}, expected {want}")
 
 
-def _routes(cfg, pairs, bare_pairs, extent, dev):
-    """Phase 7: K15 and K16 checked against their plain versions, tiny
-    card-vs-CPU runs of both routes, both routes served at full width in
-    turns with the default route, and ``entry()``; returns the checks."""
+def _ms(x):
+    return "not measured" if x is None else f"{x:.4f}"
+
+
+def _captured_femb(model, femb, inputs, dev):
+    """Phase 7's captured routes: the default and the femb route each
+    captured (launch counts at capture, every replay equal to eager bit for
+    bit), with the peak memory above the resident over its checks and
+    capture, then served in turns (default, femb, femb, default; 8 pairs
+    each, host load printed before each turn)."""
+    import torch
+
+    from se3et_tpu_torch.ops.kernels import selfcheck
+
+    served, peak = {}, {}
+    for route, net in (("default", model), ("femb", femb)):
+        per_pair = dict.fromkeys(selfcheck.ROUTES, 0)
+        per_pair.update(SERVING_LAUNCHES)
+        if route == "femb":
+            per_pair.update(FEMB_LAUNCHES)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        resident = torch.cuda.memory_allocated(dev)
+        served[route] = _capture_checked(route, net, inputs, per_pair)
+        peak[route] = (torch.cuda.max_memory_allocated(dev) - resident) / 2**30
+    ms = {r: [] for r in served}
+    for route in ("default", "femb", "femb", "default"):
+        load = os.getloadavg()
+        turn = []
+        for i in range(CAPTURED_TURN_PAIRS):
+            td = inputs[i % len(inputs)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = served[route](td)
+            torch.cuda.synchronize()
+            turn.append((time.perf_counter() - t0) * 1e3)
+            tf = out["estimated_transform"]
+            if tf.shape != (4, 4) or not bool(torch.isfinite(tf).all()):
+                raise RuntimeError(f"bad estimated_transform on the captured {route} route: {tf}")
+        ms[route] += turn
+        print(f"turn captured {route}: host load {[round(x, 2) for x in load]}; ms/pair "
+              f"{[round(x, 2) for x in turn]}", flush=True)
+    print("serve ms/pair in turns (captured default, femb, femb, default; "
+          f"{CAPTURED_TURN_PAIRS} pairs each): " + "; ".join(
+              f"{r} median {statistics.median(v):.2f} (range {min(v):.2f}-{max(v):.2f}), "
+              f"peak {peak[r]:.2f} GiB above the resident over its checks and capture"
+              for r, v in ms.items()), flush=True)
+
+
+def _routes(cfg, pairs, bare_pairs, extent, dev, k5):
+    """Phase 7: K15 and K16 checked against their plain versions (K16
+    beside its first design's times and ``k5``, K5's phase-3 checks at the
+    same two shapes), tiny card-vs-CPU runs of both routes, both routes
+    served at full width in turns with the default route, both captured
+    (the femb route served in turns with the captured default route), and
+    ``entry()``; returns the checks."""
     import torch
 
     from se3et_tpu_torch.data.influence import _kernel_points_for
@@ -577,7 +635,8 @@ def _routes(cfg, pairs, bare_pairs, extent, dev):
                                                mode=m.epn.kp_influence, reps=20),
         # self_eq layers: A*H anchor-heads with the SH term
         "rpe_self_attention_femb": selfcheck.check_rpe_attention_femb(
-            pts_c, masks_c, m.kanchor * heads, reps=10, **emb_kw),
+            pts_c, masks_c, m.kanchor * heads, reps=10,
+            device_kernel="rpe_attention_femb_ws_kernel", **emb_kw),
     }
     extra = [
         # the s0 -> s1 strided set (stage-1 queries over stage-0 points)
@@ -585,10 +644,30 @@ def _routes(cfg, pairs, bare_pairs, extent, dev):
                                   m.init_sigma, mode=m.epn.kp_influence, reps=20),
         # plain self layers: H heads, no SH term
         selfcheck.check_rpe_attention_femb(pts_c, masks_c, heads, with_sh=False, reps=10,
+                                           device_kernel="rpe_attention_femb_ws_kernel",
                                            **emb_kw),
     ]
     for res in list(checks.values()) + extra:
         _print_check(res)
+    # K16 beside its first design's times (NVIDIA H100 80GB HBM3, 700 W: by
+    # events 1.6898 / 0.7501 ms, device 1.6046 / 0.6943) and K5's at the
+    # same shapes in this run, with their totals per served pair (2 self_eq
+    # and 3 plain self launches)
+    k16 = [(2, checks["rpe_self_attention_femb"], (1.6898, 1.6046), k5[0]),
+           (3, extra[1], (0.7501, 0.6943), k5[1])]
+    for _, res, first, k5res in k16:
+        print(f"K16 {res.shape}: events {res.ms:.4f} ms (first design {first[0]:.4f}), device "
+              f"{_ms(res.device_ms)} ms ({first[1]:.4f}); K5 at this shape: events "
+              f"{k5res.ms:.4f} ms, device {_ms(k5res.device_ms)} ms; bound {res.bound_ms:.4f} "
+              f"ms ({res.bound_by})", flush=True)
+    per_pair = {who: [sum(n * getattr(r, attr) for n, r in rows)
+                      if all(getattr(r, attr) is not None for _, r in rows) else None
+                      for attr in ("ms", "device_ms")]
+                for who, rows in (("K16", [(n, r) for n, r, _, _ in k16]),
+                                  ("K5", [(n, r) for n, _, _, r in k16]))}
+    print(f"K16 per served pair (5 launches): events {_ms(per_pair['K16'][0])} ms, device "
+          f"{_ms(per_pair['K16'][1])} ms (first design 5.2907 device); K5 events "
+          f"{_ms(per_pair['K5'][0])}, device {_ms(per_pair['K5'][1])} ms", flush=True)
     bad = [r.name for r in list(checks.values()) + extra if not r.ok]
     if bad:
         raise RuntimeError(f"route kernels disagree with their plain versions: {bad}")
@@ -663,6 +742,7 @@ def _routes(cfg, pairs, bare_pairs, extent, dev):
               f"max|diff| / max|default| = {d:.3e}", flush=True)
     del a, b
     _profile(lambda: femb(inputs[0]), what="one pair, femb route")
+    _captured_femb(model, femb, inputs, dev)
     del model, femb, inputs, routes
 
     fn, (net, data) = entry()
@@ -762,7 +842,8 @@ def main() -> int:
             reps=20, device_kernel="sinkhorn_rows_kernel"),
         # self_eq layers: A*H anchor-heads with the SH term
         "rpe_self_attention": selfcheck.check_rpe_attention(
-            pts_c, masks_c, m.kanchor * heads, c=head_dim, cc=m.gt_hidden_dim, reps=10),
+            pts_c, masks_c, m.kanchor * heads, c=head_dim, cc=m.gt_hidden_dim, reps=10,
+            device_kernel="rpe_attention_ws_kernel"),
         # 20 launches per timing: with 3 the first call's host time shows
         "eq_attention_stats": selfcheck.check_eq_stats(
             masks_c[0], masks_c[1], a=m.kanchor, h=heads, c=head_dim, reps=20,
@@ -796,7 +877,9 @@ def main() -> int:
     k5_serving = [(2, checks["rpe_self_attention"], 0.8990),
                   (3, selfcheck.check_rpe_attention(pts_c, masks_c, heads, c=head_dim,
                                                     cc=m.gt_hidden_dim, with_sh=False,
-                                                    reps=10), 0.6492)]
+                                                    reps=10,
+                                                    device_kernel="rpe_attention_ws_kernel"),
+                   0.6492)]
     extra.append(k5_serving[1][1])
     # K1 where it serves on the fused route, with its launches per pair:
     # the stage-2 bottleneck convs (x2, A*128), the s2 -> s3 strided conv
@@ -833,8 +916,9 @@ def main() -> int:
               f"{res.first_ms:.4f} ms; bound {res.bound_ms:.4f} ms ({res.bound_by}); "
               f"embedding_bag max {res.library_ms:.4f} ms", flush=True)
     for _, res, before in k5_serving:
-        print(f"K5 {res.shape}: {res.ms:.4f} ms (first design: {before:.4f}), bound "
-              f"{res.bound_ms:.4f} ms", flush=True)
+        dev_ms = "not measured" if res.device_ms is None else f"{res.device_ms:.4f}"
+        print(f"K5 {res.shape}: {res.ms:.4f} ms (first design: {before:.4f}), device {dev_ms} "
+              f"ms, bound {res.bound_ms:.4f} ms", flush=True)
     print(f"K5 per served pair ({sum(n for n, _, _ in k5_serving)} launches): "
           f"{sum(n * r.ms for n, r, _ in k5_serving):.4f} ms (first design: 3.745), bound "
           f"{sum(n * r.bound_ms for n, r, _ in k5_serving):.4f} ms", flush=True)
@@ -976,7 +1060,8 @@ def main() -> int:
     checks.update(_training(cfg, pairs, extent, dev))
 
     # 7. the device-influence and femb routes, and entry()
-    checks.update(_routes(cfg, pairs, bare_pairs, extent, dev))
+    checks.update(_routes(cfg, pairs, bare_pairs, extent, dev,
+                          [res for _, res, _ in k5_serving]))
 
     kernels = []
     for name, res in checks.items():

@@ -118,6 +118,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// four 8x8 bf16 matrices: lanes 8i .. 8i + 7 give the 16-byte rows of
+// matrix i, r[i] holds lane (g, t)'s elements 2t, 2t + 1 of its row g (or,
+// transposed, of its column g)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* smem) {
   const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -182,21 +192,6 @@ __device__ __forceinline__ void pv_tile(const float (&s)[NK / 8][4],
   }
 }
 
-// copy an NK-key tile of rows of HC bf16 into shared memory (row stride
-// `stride`), zero past mlen; thread `tid` of `nthreads` cooperating
-template <int HC, int NK>
-__device__ __forceinline__ void stage_rows(const __nv_bfloat16* src, int mlen, int key0,
-                                           __nv_bfloat16* dst, int stride, int tid,
-                                           int nthreads) {
-  for (int idx = tid; idx < NK * HC / 8; idx += nthreads) {
-    const int row = idx / (HC / 8);
-    const int col = (idx - row * (HC / 8)) * 8;
-    const int key = key0 + row;
-    *reinterpret_cast<uint4*>(dst + row * stride + col) =
-        ld16(src + (long long)key * HC + col, key < mlen);
-  }
-}
-
 // cp.async: 16-byte global -> shared copies that complete in the
 // background (zero-filled when !ok), committed and waited for in groups
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool ok) {
@@ -215,7 +210,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-// stage_rows with cp.async (rows past mlen zero-filled)
+// copy an NK-key tile of rows of HC bf16 into shared memory (row stride
+// `stride`) with cp.async, rows past mlen zero-filled; thread `tid` of
+// `nthreads` cooperating
 template <int HC, int NK>
 __device__ __forceinline__ void stage_rows_async(const __nv_bfloat16* src, int mlen,
                                                  int key0, __nv_bfloat16* dst, int stride,

@@ -1,8 +1,10 @@
 // The geometric embedding's tile projection on the tensor cores, shared by
-// K3 (geometric_embedding.cu, bf16 output), its backward K10 (the angle
-// argmax in bf16) and K16 (rpe_attention_femb.cu).  Roundings of the TPU
-// kernel's bf16 chain (se3et_tpu/ops/pallas/embedding.py _cheb_project):
-// the Chebyshev bases and the folded G in bf16, products summed in float32.
+// K3 (geometric_embedding.cu, bf16 output) and its backward K10 (the angle
+// argmax in bf16); K16's ws form (rpe_attention_femb_ws.cuh) writes its
+// basis rows with key_basis and projects with fragments of its own.
+// Roundings of the TPU kernel's bf16 chain
+// (se3et_tpu/ops/pallas/embedding.py _cheb_project): the Chebyshev bases
+// and the folded G in bf16, products summed in float32.
 //
 // Layouts: a warp holds the bases of its keys in shared basis rows of
 // kBStride bf16, [distance (40, zero-padded to 48) | KA angles x 16 | pad];

@@ -42,9 +42,6 @@ template <typename T>
 struct EmbRows {
   const T* emb;
 
-  size_t smem_bytes(int) const { return 0; }
-  __device__ void init(char*, int) const {}
-
   template <typename TT, int AH>
   __device__ __forceinline__ void lane_scores(int b, int n, int row, int m, int cc,
                                               const float* my_qp, float (&s)[AH]) const {

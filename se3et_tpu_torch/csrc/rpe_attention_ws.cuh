@@ -54,7 +54,9 @@ constexpr int kKeys = 32;        // keys per tile: one slab per query row
 constexpr int kFlashWarps = 8;
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can have
 
-template <int AH, int HC>
+// FW flash warps (K5: kFlashWarps; K16's ws form, rpe_attention_femb_ws.cuh,
+// takes 4 at AH = 4)
+template <int AH, int HC, int FW = kFlashWarps>
 struct Layout {
   // positional warps: 5 at AH = 4; 3 at AH = 24, so that the 12 warps of a
   // block get 168 registers each (14 get 128, and AH = 24's flash warps
@@ -63,10 +65,10 @@ struct Layout {
   // full / empty mbarriers be waited on by phase parity.
   static constexpr int kPosWarps = AH >= kFlashWarps ? 3 : 5;
   static constexpr int kSlots = kPosWarps;
-  static constexpr int kThreads = (1 + kPosWarps + kFlashWarps) * 32;
-  static_assert(AH % kFlashWarps == 0 || kFlashWarps % AH == 0, "AH vs the flash warps");
-  static constexpr int kHeads = AH >= kFlashWarps ? AH / kFlashWarps : 1;  // per flash warp
-  static constexpr int kSplit = AH >= kFlashWarps ? 1 : kFlashWarps / AH;  // flash warps per head
+  static constexpr int kThreads = (1 + kPosWarps + FW) * 32;
+  static_assert(AH % FW == 0 || FW % AH == 0, "AH vs the flash warps");
+  static constexpr int kHeads = AH >= FW ? AH / FW : 1;  // per flash warp
+  static constexpr int kSplit = AH >= FW ? 1 : FW / AH;  // flash warps per head
   static_assert(kSplit <= 2, "the end merge takes at most two warps per head");
   static constexpr int kWarpKeys = kKeys / kSplit;  // keys of a tile per flash warp
   static constexpr int kNT = (AH + 7) / 8;          // anchor-head n-tiles of a slab
@@ -85,7 +87,7 @@ struct Layout {
     return scores(cc) + 2 * (size_t)kScoreFloats * sizeof(float);
   }
   __host__ __device__ static size_t qws(int cc) {
-    return vtiles(cc) + (size_t)kFlashWarps * kWarpKeys * kVStride * sizeof(bf16);
+    return vtiles(cc) + (size_t)FW * kWarpKeys * kVStride * sizeof(bf16);
   }
   __host__ __device__ static size_t bars(int cc) {
     return qws(cc) + (size_t)kRows * 3 * AH * sizeof(float);
@@ -215,8 +217,8 @@ __device__ __forceinline__ void positional(int pw, int lane, int b, int row0, in
   }
 }
 
-// flash warp fw
-template <int AH, int HC>
+// flash warp fw of FW
+template <int AH, int HC, int FW = kFlashWarps>
 __device__ __forceinline__ void flash(int fw, int lane, int b, int row0, int n, int ntiles,
                                       const bf16* __restrict__ q, const bf16* __restrict__ k,
                                       const bf16* __restrict__ v,
@@ -224,13 +226,13 @@ __device__ __forceinline__ void flash(int fw, int lane, int b, int row0, int n, 
                                       bf16* my_v, float* xch, uint64_t* sfull,
                                       uint64_t* sempty, float* __restrict__ out,
                                       float* __restrict__ lse, float scale) {
-  using L = Layout<AH, HC>;
+  using L = Layout<AH, HC, FW>;
   constexpr int kHeads = L::kHeads, NK = L::kWarpKeys, NJ = NK / 8;
   constexpr int kRS = L::kRowStride;
   const int g = lane >> 2, t = lane & 3;
   const int ra = row0 + g, rb = ra + 8;
   const int koff = L::kSplit > 1 ? (fw / AH) * NK : 0;  // this warp's keys of a tile
-  auto head_of = [&](int i) { return L::kSplit > 1 ? fw % AH : fw + kFlashWarps * i; };
+  auto head_of = [&](int i) { return L::kSplit > 1 ? fw % AH : fw + FW * i; };
   auto stage_v = [&](int i, int key0) {
     stage_rows_async<HC, NK>(v + ((long long)b * AH + head_of(i)) * n * HC, n,
                              key0 + koff, my_v, L::kVStride, lane, 32);
@@ -335,7 +337,7 @@ __device__ __forceinline__ void flash(int fw, int lane, int b, int row0, int n, 
       mine[HC / 2 + 2] = lrun[0][0];
       mine[HC / 2 + 3] = lrun[0][1];
     }
-    asm volatile("bar.sync 1, %0;\n" ::"n"(kFlashWarps * 32) : "memory");
+    asm volatile("bar.sync 1, %0;\n" ::"n"(FW * 32) : "memory");
     if (fw >= AH) return;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {

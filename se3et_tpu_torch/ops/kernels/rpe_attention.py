@@ -34,7 +34,10 @@ Gradients flow to q, k, v, qp, emb and qw, in their own dtypes.
 replaces the TPU ``rpe_self_attention_femb``; serving only) is the same
 attention with the embedding rows recomputed inside the kernel from the
 coordinates (K3's function without its biases, which are softmax no-ops),
-so the (B, N, N, C) embedding is never written.
+so the (B, N, N, C) embedding is never written; its bf16 serving form
+("ws", ``csrc/rpe_attention_femb_ws.cuh``) builds each 32-key tile of a
+row's embedding on the tensor cores and contracts it at once, beside K5's
+flash warps.
 """
 
 from __future__ import annotations
@@ -78,6 +81,33 @@ def ws_smem_bytes(ah: int, hc: int, cc: int) -> int:
     return ring + scores + vtiles + qw + (2 * slots + 4) * 8
 
 
+def femb_ws_groups(ah: int) -> int:
+    """(Key tile, query row) items K16's ws form keeps in flight, a group of
+    positional warps each: 4 pairs of warps (a 16-key m-tile each) at AH =
+    24 beside K5's 8 flash warps, 12 single warps at AH = 4 beside 4 flash
+    warps, one a head."""
+    return 4 if ah >= WS_FLASH_WARPS else 12
+
+
+def femb_ws_smem_bytes(ah: int, hc: int, cc: int) -> int:
+    """Shared memory of K16's ws form at (AH, head width, C), in bytes, as
+    ``femb_ws::Layout<AH, HC>::bytes`` lays it out: G resident (C rows of
+    72 bf16); per group (:func:`femb_ws_groups`) 32 basis rows of 104 bf16
+    and a ring of 4 chunks of qp (AH x 32 bf16); then K5's two
+    float32 score buffers (:func:`ws_smem_bytes`), a v tile of 32 keys per
+    flash warp (8 at AH = 24, 4 at AH = 4), the block's SH queries, 16 rows'
+    geometry (16 floats each) and 4 mbarriers."""
+    flash = WS_FLASH_WARPS if ah >= WS_FLASH_WARPS else 4  # one or more heads a warp
+    g = cc * 72 * 2
+    basis = femb_ws_groups(ah) * WS_KEYS * 104 * 2
+    qp = femb_ws_groups(ah) * 4 * ah * 32 * 2
+    scores = 2 * WS_ROWS * (ah * WS_KEYS + 8) * 4
+    vtiles = flash * WS_KEYS * (hc + 8) * 2
+    qw = WS_ROWS * 3 * ah * 4
+    rowgeo = WS_ROWS * 16 * 4
+    return g + basis + qp + scores + vtiles + qw + rowgeo + 4 * 8
+
+
 def cuda_smem_bytes(ah: int, cc: int) -> int:
     """Shared memory of the CUDA-core form (``rpe::launch``): 8 query rows'
     AH folded queries as float32 and their 32 softmax weights."""
@@ -88,9 +118,11 @@ def rpe_attention_form(ah: int, hc: int, cc: int, dtype, *, femb: bool = False) 
     """Which hand-written kernel takes a flash RPE self-attention of AH
     anchor-heads, head width ``hc`` and embedding width ``cc`` in ``dtype``:
 
-    * "ws": K5 in bf16 with head width 64 and C % 32 == 0 (the serving
-      form, ``csrc/rpe_attention_ws.cuh``), where its plan fits a block;
-    * "tc": K16 (``femb``) in the same shapes (``rpe_attention_tc_kernel``);
+    * "ws": in bf16 with head width 64 and C % 32 == 0, where the plan fits
+      a block, the warp-specialised serving form: K5's
+      (``csrc/rpe_attention_ws.cuh``, :func:`ws_smem_bytes`) or, with
+      ``femb``, K16's (``csrc/rpe_attention_femb_ws.cuh``,
+      :func:`femb_ws_smem_bytes`);
     * "cuda": the CUDA-core kernel (float32, the other widths).
 
     Chosen by shape alone, as the C entry points choose; none is a
@@ -101,9 +133,8 @@ def rpe_attention_form(ah: int, hc: int, cc: int, dtype, *, femb: bool = False) 
                          f"built for AH in {KERNEL_AH}, head width in {KERNEL_HEAD_DIMS}, "
                          f"C % 16 == 0, bf16 or float32")
     if dtype == torch.bfloat16 and hc == 64 and cc % 32 == 0:
-        if femb:
-            return "tc"
-        if ws_smem_bytes(ah, hc, cc) <= SMEM_LIMIT:
+        plan = femb_ws_smem_bytes if femb else ws_smem_bytes
+        if plan(ah, hc, cc) <= SMEM_LIMIT:
             return "ws"
     if femb or cuda_smem_bytes(ah, cc) <= SMEM_LIMIT:
         return "cuda"
@@ -409,8 +440,8 @@ def rpe_self_attention_femb_plain(q, k, v, qp, k_masks, qw, points, knn_points, 
 
 def _femb_tables(wd, wa, sigma_a, dtype):
     """(deg_d, deg_a, g (64, C) float32 rows [Gd | 0 | Ga] rounded to
-    ``dtype``, its (C, 64) bf16 transpose for the tensor-core kernel or
-    None): the distance basis padded to 48 rows, three k-steps of 16."""
+    ``dtype``, its (C, 64) bf16 transpose for the ws form or None): the
+    distance basis padded to 48 rows, three k-steps of 16."""
     deg_d, deg_a, gd, ga = embedding._folded_projections(wd, wa, sigma_a)
     if (deg_d, deg_a) != (40, 16):
         raise ValueError(f"K16 is built for 40 distance and 16 angle basis terms, got "
@@ -428,8 +459,9 @@ def rpe_self_attention_femb(q, k, v, qp, k_masks, qw, points, knn_points, wd, wa
     """K16 (``csrc/rpe_attention_femb.cu``, replaces the TPU
     ``rpe_self_attention_femb``): see :func:`rpe_self_attention_femb_plain`.
     Serving only: inputs that require grad raise, as the TPU kernel has no
-    VJP.  Bound by the tensor-core operations of the in-kernel projections;
-    the source notes the design."""
+    VJP.  The kernel is the one :func:`rpe_attention_form` names with
+    ``femb`` (serving in bf16: "ws").  Bound by the tensor-core operations
+    of the in-kernel projections; the source notes the design."""
     if any(t is not None and t.requires_grad for t in (q, k, v, qp, qw, wd, wa)) \
             and torch.is_grad_enabled():
         raise ValueError("rpe_self_attention_femb has no backward (serving only)")

@@ -371,12 +371,13 @@ def check_sinkhorn(b=256, m=65, n=65, iters=100, device="cuda", reps=5, device_k
 
 
 def check_rpe_attention(points, masks, ah, c=64, cc=256, with_sh=True,
-                        dtype=torch.bfloat16, seed=4, reps=3):
+                        dtype=torch.bfloat16, seed=4, reps=3, device_kernel=None):
     """K5 on the coarse points (B, N, 3) and key masks (B, N): random q, k,
     v (B, AH, N, c), qp (B, N, AH, C), emb (B, N, N, C) in ``dtype`` and,
     with ``with_sh``, qw (B, 3, AH, N).  Tolerance on valid query rows
     1e-2 * max|out| in bf16 (p rounded to bf16 at other running maxima,
-    float32 sums in another order) and 1e-4 * max|out| in float32."""
+    float32 sums in another order) and 1e-4 * max|out| in float32.  With
+    ``device_kernel``, also that kernel's device time per call."""
     g = torch.Generator().manual_seed(seed)
     dev = points.device
     b, n, _ = points.shape
@@ -389,14 +390,17 @@ def check_rpe_attention(points, masks, ah, c=64, cc=256, with_sh=True,
     scale = 1.0 / math.sqrt(c)
     rows = masks[:, None, :, None].expand(b, ah, n, c)
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    kernel_fn = lambda: rpe_attention.rpe_self_attention(  # noqa: E731
+        q, k, v, qp, emb, masks, qw, pts, scale=scale)
     res = _compare(
         "rpe_self_attention",
         f"q(B={b}, AH={ah}, N={n}, c={c}) emb C={cc} {'with' if with_sh else 'no'} SH {dtype}",
-        lambda: rpe_attention.rpe_self_attention(q, k, v, qp, emb, masks, qw, pts,
-                                                 scale=scale),
+        kernel_fn,
         lambda: rpe_attention.rpe_self_attention_plain(q, k, v, qp, emb, masks, qw, pts,
                                                        scale=scale),
         lambda w: tol * float(w[rows].abs().max()), reps, mask=rows)
+    if device_kernel is not None:
+        res.device_ms = device_ms(kernel_fn, device_kernel)
     nkeys = int(masks.sum())  # valid keys of the B clouds
     ops = 2.0 * ah * n * nkeys * (2 * c + cc) + (8.0 * ah * n * nkeys if with_sh else 0.0)
     nbytes = _nbytes(q, k, v, qp, emb, masks) + b * ah * n * c * 4
@@ -806,14 +810,16 @@ def check_influence(q_points, s_points, nbr, kernel_points, sigma, mode="linear"
 
 
 def check_rpe_attention_femb(points, masks, ah, c=64, cc=256, k=3, sigma_d=0.2, sigma_a=15.0,
-                             with_sh=True, dtype=torch.bfloat16, seed=12, reps=3):
+                             with_sh=True, dtype=torch.bfloat16, seed=12, reps=3,
+                             device_kernel=None):
     """K16 on the coarse points (B, N, 3) and key masks (B, N): random q, k,
     v (B, AH, N, c), qp (B, N, AH, C) in ``dtype``, random projections
     (C, C) and, with ``with_sh``, qw (B, 3, AH, N); the k nearest valid
     neighbours of each point.  Tolerance on valid query rows 1e-2 *
     max|out| in bf16 (K5's; the kernel and the plain version round the same
     bases, G and rows, their float32 sums differ in order, so a row can
-    land an ulp apart) and 1e-4 * max|out| in float32."""
+    land an ulp apart) and 1e-4 * max|out| in float32.  With
+    ``device_kernel``, also that kernel's device time per call."""
     g = torch.Generator().manual_seed(seed)
     dev = points.device
     b, n, _ = points.shape
@@ -831,14 +837,17 @@ def check_rpe_attention_femb(points, masks, ah, c=64, cc=256, k=3, sigma_d=0.2, 
     rows = masks[:, None, :, None].expand(b, ah, n, c)
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
     kw = dict(scale=scale, sigma_d=sigma_d, sigma_a=sigma_a)
+    kernel_fn = lambda: rpe_attention.rpe_self_attention_femb(  # noqa: E731
+        q, kk, v, qp, masks, qw, pts, knn, wd, wa, **kw)
     res = _compare(
         "rpe_self_attention_femb",
         f"q(B={b}, AH={ah}, N={n}, c={c}) C={cc} {'with' if with_sh else 'no'} SH {dtype}",
-        lambda: rpe_attention.rpe_self_attention_femb(q, kk, v, qp, masks, qw, pts, knn, wd,
-                                                      wa, **kw),
+        kernel_fn,
         lambda: rpe_attention.rpe_self_attention_femb_plain(q, kk, v, qp, masks, qw, pts, knn,
                                                             wd, wa, **kw),
         lambda w: tol * float(w[rows].abs().max()), reps, mask=rows)
+    if device_kernel is not None:
+        res.device_ms = device_ms(kernel_fn, device_kernel)
     deg_d, deg_a, _, _ = embedding._folded_projections(wd, wa, sigma_a)
     nkeys = int(masks.sum())  # valid keys of the B clouds
     # per (query, valid key): the distance and k angle projections (deg_d +

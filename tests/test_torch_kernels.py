@@ -104,14 +104,43 @@ def test_gather_wf_form(h, dtype, form):
 ])
 def test_rpe_attention_form(ah, hc, cc, dtype, form):
     """K5 takes the ws form in bf16 with head width 64 and C % 32 == 0, the
-    CUDA-core form otherwise; never "tc", which is K16's."""
+    CUDA-core form otherwise."""
     assert rpe_k.rpe_attention_form(ah, hc, cc, dtype) == form
 
 
-@pytest.mark.parametrize("ah,hc,cc,form", [(24, 64, 256, "tc"), (4, 64, 256, "tc"),
+@pytest.mark.parametrize("ah,hc,cc,form", [(24, 64, 256, "ws"), (4, 64, 256, "ws"),
                                            (24, 16, 64, "cuda")])
 def test_rpe_attention_form_of_femb(ah, hc, cc, form):
+    """K16 takes its own ws form in bf16 at the serving shapes."""
     assert rpe_k.rpe_attention_form(ah, hc, cc, torch.bfloat16, femb=True) == form
+
+
+@pytest.mark.parametrize("femb", [False, True])
+def test_rpe_attention_forms_are_ws_or_cuda(femb):
+    """Every shape a kernel takes goes to "ws" or "cuda": K16's first
+    tensor-core form ("tc") is gone."""
+    forms = set()
+    for ah in rpe_k.KERNEL_AH:
+        for hc in rpe_k.KERNEL_HEAD_DIMS:
+            for cc in (16, 32, 48, 64, 256, 512):
+                for dtype in (torch.bfloat16, torch.float32):
+                    try:
+                        forms.add(rpe_k.rpe_attention_form(ah, hc, cc, dtype, femb=femb))
+                    except ValueError:
+                        pass
+    assert forms == {"ws", "cuda"}
+
+
+@pytest.mark.parametrize("ah", [4, 24])
+def test_rpe_attention_femb_ws_plan_fits_a_block(ah):
+    """K16's ws form at the serving width C = 256 fits one block of an H100
+    (232,448 bytes) with G resident and its positional groups' basis rows
+    beside K5's score buffers and v tiles: the rest of its plan is smaller
+    than K5's ws plan, which holds a ring of embedding slabs."""
+    plan = rpe_k.femb_ws_smem_bytes(ah, 64, 256)
+    resident = 256 * 72 * 2 + rpe_k.femb_ws_groups(ah) * 32 * 104 * 2
+    assert resident < plan <= 232448 == rpe_k.SMEM_LIMIT
+    assert plan - resident < rpe_k.ws_smem_bytes(ah, 64, 256)
 
 
 @pytest.mark.parametrize("ah", [4, 24])

@@ -988,17 +988,47 @@ def test_influence_kernel(cuda, nq, ns, h, mode, out_dtype):
                                          out_dtype=out_dtype, reps=1))
 
 
-@pytest.mark.parametrize("n,ah,c,cc,with_sh,dtype", [
-    (1024, 24, 64, 256, True, torch.bfloat16),    # self_eq layers
-    (1024, 4, 64, 256, False, torch.bfloat16),    # plain self layers
-    (1024, 24, 64, 256, False, torch.bfloat16),
-    (1024, 4, 64, 256, True, torch.bfloat16),
-    (1003, 24, 64, 256, True, torch.bfloat16),    # ragged N
-    (128, 24, 16, 64, True, torch.float32),       # tiny card-vs-CPU widths
-    (128, 4, 16, 64, False, torch.float32),
-    (128, 24, 64, 64, True, torch.float32),       # float32 at the serving head width
+# runs of masked keys inside key tiles (cloud, first key, end): inside one
+# tile, up to a tile's end, across a tile boundary, a single key
+FEMB_MASK_RUNS = ((0, 37, 45), (1, 100, 128), (0, 500, 532), (1, 70, 71))
+
+
+@pytest.mark.parametrize("n,ah,c,cc,with_sh,dtype,pad,runs", [
+    (1024, 24, 64, 256, True, torch.bfloat16, 40, False),    # self_eq layers
+    (1024, 4, 64, 256, False, torch.bfloat16, 40, False),    # plain self layers
+    (1024, 24, 64, 256, False, torch.bfloat16, 40, False),
+    (1024, 4, 64, 256, True, torch.bfloat16, 40, False),
+    (1003, 24, 64, 256, True, torch.bfloat16, 40, False),    # ragged N
+    (128, 24, 16, 64, True, torch.float32, 40, False),       # tiny card-vs-CPU widths
+    (128, 4, 16, 64, False, torch.float32, 40, False),
+    (128, 24, 64, 64, True, torch.float32, 40, False),       # float32 at the serving head width
+    (1000, 24, 64, 256, True, torch.bfloat16, 8, False),     # N not a multiple of the key
+    (1000, 4, 64, 256, False, torch.bfloat16, 8, False),     # tile, its last tile masked
+    (1000, 24, 64, 256, True, torch.bfloat16, 72, False),    # the last two tiles masked
+    (1024, 24, 64, 256, True, torch.bfloat16, 40, True),     # masked runs inside tiles
+    (1024, 4, 64, 256, False, torch.bfloat16, 40, True),
+    (12, 24, 64, 256, True, torch.bfloat16, 3, False),       # fewer rows than positional
+    (12, 4, 64, 256, False, torch.bfloat16, 3, False),       # warps (AH = 4: 8 of them)
 ])
-def test_rpe_attention_femb_kernel(cuda, n, ah, c, cc, with_sh, dtype):
-    points, masks = _cloud(cuda, n, 18)
+def test_rpe_attention_femb_kernel(cuda, n, ah, c, cc, with_sh, dtype, pad, runs):
+    points, masks = _cloud(cuda, n, 18, pad=pad)
+    if runs:
+        for cloud, m0, m1 in FEMB_MASK_RUNS:
+            masks[cloud, m0:m1] = False
     _assert_ok(selfcheck.check_rpe_attention_femb(points, masks, ah, c=c, cc=cc,
                                                   with_sh=with_sh, dtype=dtype, reps=1))
+
+
+def test_rpe_attention_femb_ws_plan_matches_the_kernel(cuda):
+    """The wrapper's shared-memory plan of K16's ws form is the kernel's."""
+    import ctypes
+
+    from se3et_tpu_torch.ops.kernels import _build
+    from se3et_tpu_torch.ops.kernels import rpe_attention as rpe
+
+    fn = getattr(_build._library("rpe_attention_femb"), "se3et_rpe_attention_femb_ws_smem")
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    for ah, hc, cc in ((24, 64, 256), (4, 64, 256), (24, 64, 64), (4, 64, 512)):
+        assert fn(ah, hc, cc) == rpe.femb_ws_smem_bytes(ah, hc, cc)
+    assert fn(24, 16, 64) == 0 and fn(24, 64, 48) == 0
