@@ -59,7 +59,10 @@ Phases, each of which raises (exit code != 0) on failure:
    replayed pair, where every serving kernel must appear with its eager
    count per pair;
 6. training: hold the four backward kernels (K8-K11) against their plain
-   versions at the training shapes with their bounds; one tiny float32
+   versions at the training shapes with their bounds, K11 (its bf16 form
+   "tc") at both self-layer shapes by events and device time (the kernel
+   and the whole call, its products included) beside its first design's
+   times before the redesign and in this run; one tiny float32
    training step on the card and on the CPU with the same weights and
    target noise, agreeing on the losses and every parameter's gradient;
    then ``make_train_step`` at full se3ete.3dmatch width (float32, the JAX
@@ -124,6 +127,8 @@ TRAIN_LAUNCHES = {"gather_wf": 10, "neighbor_max": 3, "geometric_embedding": 1,
                   "rpe_attention_bwd": 5, "gather_wf_mm": 0, "gather_wf_max_mm": 0,
                   "gather_wf_max": 0}
 TRAIN_STEPS = 3
+# K11's device kernel at the bf16 training shapes (its tc form)
+K11_KERNEL = "rpe_attention_bwd_tc_kernel"
 # launches per served pair on the routes of phase 7: device influence (7
 # (stage, neighbour set) pairs), and serve_femb (5 self layers, no
 # embedding written, no K5)
@@ -344,12 +349,23 @@ def _training(cfg, pairs, extent, dev):
         # self_eq layers (A*H anchor-heads with the SH term); training feeds
         # K5/K11 the embedding's dtype, bf16
         "rpe_attention_bwd": selfcheck.check_rpe_attention_bwd(
-            pts_c, masks_c, m.kanchor * heads, c=head_dim, cc=m.gt_hidden_dim),
+            pts_c, masks_c, m.kanchor * heads, c=head_dim, cc=m.gt_hidden_dim,
+            device_kernel=K11_KERNEL, first=True),
     }
     extra = [selfcheck.check_rpe_attention_bwd(pts_c, masks_c, heads, c=head_dim,
-                                               cc=m.gt_hidden_dim, with_sh=False)]
+                                               cc=m.gt_hidden_dim, with_sh=False,
+                                               device_kernel=K11_KERNEL, first=True)]
     for res in list(checks.values()) + extra:
         _print_check(res)
+    # K11 at both training shapes beside its first design: its times before
+    # the redesign (NVIDIA H100 80GB HBM3, 700 W: 19.7523 / 9.3540 ms by
+    # events, 6.1515 device ms of the self_eq kernel) and in this run
+    for res, before in ((checks["rpe_attention_bwd"], 19.7523), (extra[0], 9.3540)):
+        print(f"K11 {res.shape}: events {res.ms:.4f} ms (first design {before:.4f}; in this "
+              f"run {_ms(res.first_ms)}), device: the kernel {_ms(res.device_ms)} ms, the "
+              f"whole call {_ms(res.call_device_ms)} ms, the first design's kernel "
+              f"{_ms(res.first_device_ms)} ms; bound {res.bound_ms:.4f} ms ({res.bound_by})",
+              flush=True)
     bad = [r.name for r in list(checks.values()) + extra if not r.ok]
     if bad:
         raise RuntimeError(f"backward kernels disagree with their plain versions: {bad}")
@@ -401,7 +417,7 @@ def _training(cfg, pairs, extent, dev):
           f"{statistics.median(step_ms):.2f}); losses {vals}; launches {launches}; "
           f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
     _profile(lambda: step(inputs[0], generator=gen), what="one training step", top=25,
-             also=("neighbor_max_rows_kernel",))
+             also=("neighbor_max_rows_kernel", K11_KERNEL))
     return checks
 
 
@@ -1072,8 +1088,9 @@ def main() -> int:
                "plain_ms": res.plain_ms, "bound_ms": res.bound_ms,
                "bound_by": res.bound_by, "library_ms": res.library_ms}
         # yardsticks measured beside some kernels: device time (profiler),
-        # the unfused route (K12-K14), the first design (K2, K14)
-        row.update({key: getattr(res, key) for key in ("device_ms", "route_ms", "first_ms")
+        # the unfused route (K12-K14), the first design (K2, K11, K14)
+        row.update({key: getattr(res, key) for key in ("device_ms", "route_ms", "first_ms",
+                                                       "call_device_ms", "first_device_ms")
                     if getattr(res, key) is not None})
         kernels.append(row)
     print(card)

@@ -1,4 +1,4 @@
-// Backward score recompute of the flash RPE self-attention (K11).
+// Backward of the flash RPE self-attention (K11).
 //
 // For the scores s of K5 (rpe_attention.cu), recomputed from (q, k, qp,
 // emb, the SH term, the key mask) exactly as K5 defines them, and the row
@@ -7,20 +7,26 @@
 //   dS[b,ah,n,m] = P * (dO[b,ah,n] . v[b,ah,m] - D[b,ah,n])
 // with D = rowsum(dO * out) from the float32 forward output.  Replaces the
 // TPU kernel se3et_tpu/ops/pallas/rpe_attention.py _rpe_bwd, whose Pallas
-// piece (_bwd_p_kernel) writes P; here dS is formed in the same pass.  The
-// gradient contractions over P and dS (dv, dk, dq, dqp, d_emb, dqw) run as
-// matmuls in the wrapper, as the JAX package runs them as XLA einsums.
+// piece (_bwd_p_kernel) writes P and whose gradient contractions (dv, dk,
+// dq, dqp, d_emb, dqw) run as XLA einsums.
 //
-// Bound: the embedding's bytes (1.07 GB per launch at B=2, N=1024, C=256,
-// bf16) and the two (B, AH, N, N) float32 outputs.  Design: K5's CUDA-core
-// layout -- a block owns kWarps query rows and all AH anchor-heads, so each
-// emb[b,n,m,:] row is streamed once; one warp per query row, one lane per
-// key of a 32-key tile, the block's folded positional queries in shared
-// memory as float32.  Each lane writes its P and dS entries, so a warp
-// stores 32 consecutive keys.  Float32 FMA on the CUDA cores throughout; a
-// tensor-core version that also runs the contractions in-kernel is later
-// work.
+// Bound: the embedding's bytes, read once, and d_emb's, written once (2 x
+// 1.07 GB per launch at B=2, N=1024, C=256, bf16).  Two forms, chosen by
+// shape (the wrapper's rpe_attention_bwd_form mirrors the choice):
+// * "tc" (bf16, head width 64, C = 256: the training path):
+//   rpe_attention_bwd_tc.cuh.  Also forms dqp, d_emb and dqw from dS' =
+//   scale * dS on the tensor cores, and writes P and dS' in bf16 for the
+//   wrapper's three matrix products (dq, dk, dv);
+// * "cuda" (float32 and the other widths), the first design below: writes
+//   P and dS in float32 and leaves every contraction to the wrapper.  K5's
+//   CUDA-core layout -- a block owns kWarps query rows and all AH
+//   anchor-heads, so each emb[b,n,m,:] row is streamed once; one warp per
+//   query row, one lane per key of a 32-key tile, the block's folded
+//   positional queries in shared memory as float32.  Each lane writes its P
+//   and dS entries, so a warp stores 32 consecutive keys.  Float32 FMA on
+//   the CUDA cores throughout.
 #include "attention_common.cuh"
+#include "rpe_attention_bwd_tc.cuh"
 
 namespace {
 
@@ -212,4 +218,20 @@ extern "C" int se3et_rpe_attention_bwd_f32(
     int pts_rows, float scale, void* stream) {
   return dispatch<float>(q, k, v, qp, emb, kmask, qw, pts, dout, lse, dd, p_out, ds_out,
                          batch, ah, n, hc, cc, pts_rows, scale, stream);
+}
+
+extern "C" int se3et_rpe_attention_bwd_tc_bf16(
+    const void* q, const void* k, const void* v, const void* qp, const void* emb,
+    const void* kmask, const void* qw, const void* pts, const void* dout, const void* lse,
+    const void* dd, void* p_out, void* ds_out, void* dqp, void* demb, void* dqw, int batch,
+    int ah, int n, int hc, int cc, int pts_rows, float scale, void* stream) {
+  return se3et::rpe_bwd_tc::dispatch(q, k, v, qp, emb, kmask, qw, pts, dout, lse, dd, p_out,
+                                     ds_out, dqp, demb, dqw, batch, ah, n, hc, cc, pts_rows,
+                                     scale, (cudaStream_t)stream);
+}
+
+// the shared memory of the tc form at (ah, hc, cc), 0 where it is not built
+// (the wrapper's rpe_attention.bwd_tc_smem_bytes is held against it)
+extern "C" long long se3et_rpe_attention_bwd_tc_smem(int ah, int hc, int cc) {
+  return (long long)se3et::rpe_bwd_tc::smem_bytes(ah, hc, cc);
 }

@@ -21,6 +21,10 @@ shapes of se3ete.3dmatch (bf16) and the tiny float32 widths:
   (skip (2, 20000, 768)), its conv output and its skip max as two cases
   (the conv timed and held within its ``TOLERANCES``, the max bit for
   bit);
+* K11 (the backward of K5) on K5's output and row log-sum-exp (computed
+  once, before the timing) for a random float32 cotangent, at AH = 24 with SH and AH = 4 without, at both widths
+  (the bf16 ones, the training shapes, timed and held within their
+  ``TOLERANCES``; the float32 ones bit for bit), all six gradients;
 * K16 (fused-embedding attention) at AH = 24 with SH and AH = 4 without,
   at both widths (the bf16 ones, the serving shapes, timed and held within
   their ``TOLERANCES``);
@@ -48,6 +52,12 @@ Each case is held bit for bit unless ``TOLERANCES`` names it: then the
 largest difference over the other checkout's largest magnitude must stay
 within the stated bound.  Prints one line per case, the times per turn,
 the card's name and power limit, and exits non-zero if any case fails.
+
+With ``--train-steps N`` each turn also times N full-width training steps
+(``make_train_step`` on se3ete.3dmatch's serving cut, one synthetic pair
+at point_limit 20000 with the host's influence, seeded weights, one
+warm-up step first) and prints the median step ms per turn: the step of
+each checkout, with its own kernels and training code, in turns.
 """
 
 import argparse
@@ -61,6 +71,7 @@ import torch
 
 K5_BF16 = ("K5 AH=24 SH N=1024 C=256 bf16", "K5 AH=4 no SH N=1024 C=256 bf16")
 K16_BF16 = ("K16 AH=24 SH N=1024 C=256 bf16", "K16 AH=4 no SH N=1024 C=256 bf16")
+K11_BF16 = ("K11 AH=24 SH N=1024 C=256 bf16", "K11 AH=4 no SH N=1024 C=256 bf16")
 K6_BF16 = "K6 N=M=1024 c=64 bf16"
 K7_BF16 = "K7 N=M=1024 c=64 bf16"
 K4_CASES = ("K4 (256, 65, 65) f32", "K4 (6, 17, 13) f32")
@@ -69,11 +80,12 @@ K2_CASES = ("K2 s2 -> s3 bf16", "K2 s0 -> s1 float32")
 K14_CASES = ("K14 s1 -> s2 wf", "K14 s1 -> s2 pooled")
 K1_BF16 = ("K1 stage 2", "K1 s2 -> s3", "K1 stage 3")
 TIMED = K5_BF16 + K16_BF16 + (K6_BF16, K7_BF16, K4_CASES[0], K13_CASES[0]) + K2_CASES + K14_CASES \
-    + K1_BF16
+    + K1_BF16 + K11_BF16
 # held by their bit patterns (-0.0 apart from +0.0), where the others are
 # held by value
 BITS = K2_CASES + K14_CASES[1:]
 REPS = 20  # launches per timing
+TRAIN_STEP = "training step (median)"
 # kernels changed on purpose, with their bound against the other build: the
 # bf16 K5 (the ws form; 1e-2, as its kernel-vs-plain check states) at AH = 4
 # runs each head's softmax in two halves of the keys, merged at the end, so
@@ -96,8 +108,13 @@ REPS = 20  # launches per timing
 # stays bit for bit) builds its embedding tiles in the ws form since its
 # redesign, which starts each distance sum at the rounded angle max and
 # contracts the tile on other fragments, so a tile element rounds to bf16 an
-# ulp apart where the orders round apart
-TOLERANCES = {**dict.fromkeys(K5_BF16 + K16_BF16, 1e-2), K6_BF16: 1e-3, K7_BF16: 1e-3,
+# ulp apart where the orders round apart; the bf16 K11 (1e-2 of each
+# gradient's scale, as its kernel-vs-plain check states; its float32 form,
+# the first design, stays bit for bit) runs in its tc form since its
+# redesign, which rounds P, dS and dO to bf16 before the products where the
+# first design kept them in float32
+TOLERANCES = {**dict.fromkeys(K5_BF16 + K16_BF16 + K11_BF16, 1e-2), K6_BF16: 1e-3,
+              K7_BF16: 1e-3,
               **dict.fromkeys(K4_CASES, 1e-5), K13_CASES[0]: 1e-3, K14_CASES[0]: 1e-2}
 
 
@@ -136,6 +153,14 @@ def _cases(dev):
             cases.append((f"K5 AH={ah} {sh} N={n} C={cc} {tag}",
                            lambda a=args, hc=hc: rpe_attention.rpe_self_attention_with_lse(
                                *a, scale=hc ** -0.5)))
+            # K11 on this build's K5 output and row statistics (K5 stays bit
+            # for bit against the other build), so that its time is K11's
+            saved = args + (torch.randn((2, ah, n, hc), generator=g).to(dev),) \
+                + rpe_attention.rpe_self_attention_with_lse(*args, scale=hc ** -0.5)
+            cases.append((f"K11 AH={ah} {sh} N={n} C={cc} {tag}",
+                          lambda a=saved, hc=hc: tuple(
+                              t for t in rpe_attention.rpe_attention_bwd(*a, scale=hc ** -0.5)
+                              if t is not None)))
             femb = (q, k, v, qp, masks, qw, pts, knn, w[0], w[2])
             cases.append((f"K16 AH={ah} {sh} N={n} C={cc} {tag}",
                           lambda a=femb, hc=hc: rpe_attention.rpe_self_attention_femb(
@@ -202,9 +227,41 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
 
 
-def _worker(tree: str, out: str, save: bool) -> None:
+def _train_step_ms(steps: int) -> float:
+    """Median ms of ``steps`` synchronised full-width training steps, after
+    one warm-up step, in the checkout on ``sys.path[0]``."""
+    import time
+
+    from se3et_tpu_torch.data.influence import precompute_influence
+    from se3et_tpu_torch.data.pyramid import synthetic_pair
+    from se3et_tpu_torch.engine.steps import make_train_step
+    from se3et_tpu_torch.engine.trainer import make_optimizer
+    from se3et_tpu_torch.experiments.configs import make_cfg, serving_config, synthetic_extent
+    from se3et_tpu_torch.nn.model import SE3ETModel, pyramid_to_tensors
+
+    cfg = serving_config(make_cfg("se3ete.3dmatch"))
+    pair = precompute_influence(
+        synthetic_pair(0, cfg.pipeline, None, cfg.point_limit, synthetic_extent(cfg.dataset),
+                       seed=cfg.seed), cfg.model)
+    dev = torch.device("cuda", 0)
+    model = SE3ETModel(cfg.model, seed=cfg.seed)
+    step = make_train_step(model, cfg.loss, make_optimizer(model.parameters(), cfg.optim, 1))
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    inputs = pyramid_to_tensors(pair, dev)
+    step(inputs, generator=gen)
+    ms = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(inputs, generator=gen)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms)
+
+
+def _worker(tree: str, out: str, save: bool, train_steps: int) -> None:
     """One run in checkout ``tree``: the outputs (saved when ``save``) and
-    the ms of the ``TIMED`` cases."""
+    the ms of the ``TIMED`` cases (and of ``train_steps`` training steps)."""
     sys.path[0] = tree  # in place of this script's directory
     from se3et_tpu_torch.ops.kernels import _build, selfcheck
 
@@ -217,6 +274,9 @@ def _worker(tree: str, out: str, save: bool) -> None:
             outs[name] = [t.cpu() for t in (got if isinstance(got, tuple) else (got,))]
         torch.cuda.synchronize()
         ms = {name: selfcheck._time_ms(cases[name], REPS) for name in TIMED}
+    del cases
+    if train_steps:
+        ms[TRAIN_STEP] = _train_step_ms(train_steps)
     if save:
         torch.save(outs, out + ".pt")
     with open(out + ".json", "w") as f:
@@ -234,12 +294,14 @@ def main() -> int:
     parser.add_argument("--other", help="root of the other checkout")
     parser.add_argument("--worker", nargs=2, metavar=("TREE", "OUT"), help=argparse.SUPPRESS)
     parser.add_argument("--save", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--train-steps", type=int, default=0,
+                        help="also time this many full-width training steps a turn")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("bit_identity: no CUDA device", file=sys.stderr)
         return 1
     if args.worker:
-        _worker(*args.worker, args.save)
+        _worker(*args.worker, args.save, args.train_steps)
         return 0
     if not args.other:
         parser.error("--other is required")
@@ -252,8 +314,8 @@ def main() -> int:
     times = {"this": [], "other": []}
     for i, (who, tree) in enumerate(turns):
         out = os.path.join(work, f"turn{i}")
-        cmd = [sys.executable, os.path.abspath(__file__), "--worker", tree, out] + (
-            ["--save"] if i < 2 else [])
+        cmd = [sys.executable, os.path.abspath(__file__), "--worker", tree, out,
+               "--train-steps", str(args.train_steps)] + (["--save"] if i < 2 else [])
         subprocess.run(cmd, check=True, cwd=tree)
         with open(out + ".json") as f:
             times[who].append(json.load(f))
@@ -277,7 +339,7 @@ def main() -> int:
             verdict = "bit-identical" if same else f"DIFFERS (max |diff| / max |other| {diff:.3e})"
         print(f"{name}: {verdict}", flush=True)
         bad += not ok
-    for name in TIMED:
+    for name in TIMED + ((TRAIN_STEP,) if args.train_steps else ()):
         print(f"{name} ms in turns (other, this, this, other): "
               f"other {[round(t[name], 4) for t in times['other']]} (median "
               f"{statistics.median(t[name] for t in times['other']):.4f}), this "

@@ -26,9 +26,13 @@ Training differentiates through it (:func:`rpe_self_attention` under
 autograd): the forward also returns the row log-sum-exp, and the backward
 is kernel K11 (:func:`rpe_attention_bwd`, ``csrc/rpe_attention_bwd.cu``,
 replaces the TPU ``_rpe_bwd``), which recomputes the softmax P and forms
-``dS = P * (dO . v^T - rowsum(dO * out))``; the gradient contractions over
-P and dS run as matmuls, as the JAX package runs them as XLA einsums.
-Gradients flow to q, k, v, qp, emb and qw, in their own dtypes.
+``dS = P * (dO . v^T - rowsum(dO * out))``.  Its bf16 form ("tc",
+``csrc/rpe_attention_bwd_tc.cuh``, :func:`rpe_attention_bwd_form`) also
+forms dqp, d_emb and dqw on the tensor cores, reading the embedding once,
+and leaves dq, dk and dv to matrix products over its bf16 P and dS; the
+first design ("cuda": float32, other widths) leaves every contraction to
+matmuls over float32 P and dS, as the JAX package runs them as XLA
+einsums.  Gradients flow to q, k, v, qp, emb and qw, in their own dtypes.
 
 :func:`rpe_self_attention_femb` (K16, ``csrc/rpe_attention_femb.cu``,
 replaces the TPU ``rpe_self_attention_femb``; serving only) is the same
@@ -140,6 +144,59 @@ def rpe_attention_form(ah: int, hc: int, cc: int, dtype, *, femb: bool = False) 
         return "cuda"
     raise ValueError(f"no flash RPE kernel fits AH={ah}, C={cc} in {dtype}: the CUDA-core "
                      f"form needs {cuda_smem_bytes(ah, cc)} bytes of shared memory")
+
+
+# K11's tc form (csrc/rpe_attention_bwd_tc.cuh): query rows per block, keys
+# per tile, and the one head width and embedding width it is built for
+BWD_TC_ROWS, BWD_TC_KEYS, BWD_TC_HC, BWD_TC_C = 4, 32, 64, 256
+
+
+def bwd_tc_smem_bytes(ah: int, hc: int, cc: int) -> int:
+    """Shared memory of K11's tc form at (AH, head width, C), in bytes, as
+    ``rpe_bwd_tc::Layout<AH>::bytes`` lays it out, 0 where it is not built
+    (head width 64 and C = 256 only, AH 4 or 24): two buffers of the
+    block's 4 rows' 32-key embedding slabs, the rows' folded queries qp (AH
+    padded to a multiple of 8), their q and dO (bf16), the positional
+    scores (float32, [AH][4 x 36 + 4]), dS' (bf16, [4][AH padded][40]), the
+    SH geometry (4 x 32 float4), the SH queries and the row statistics lse
+    and D."""
+    if hc != BWD_TC_HC or cc != BWD_TC_C or ah not in KERNEL_AH:
+        return 0
+    ahp = -(-ah // 8) * 8
+    rows, keys = BWD_TC_ROWS, BWD_TC_KEYS
+    return (2 * rows * keys * cc * 2 + rows * ahp * cc * 2 + 2 * ah * rows * hc * 2
+            + ah * (rows * 36 + 4) * 4 + rows * ahp * 40 * 2 + rows * keys * 16
+            + rows * 3 * ah * 4 + 2 * ah * rows * 4)
+
+
+def bwd_cuda_smem_bytes(ah: int, cc: int) -> int:
+    """Shared memory of K11's first design: 8 query rows' AH folded queries
+    as float32."""
+    return 8 * ah * cc * 4
+
+
+def rpe_attention_bwd_form(ah: int, hc: int, cc: int, dtype) -> str:
+    """Which hand-written kernel takes K11 at AH anchor-heads, head width
+    ``hc`` and embedding width ``cc`` in ``dtype``:
+
+    * "tc": in bf16 where :func:`bwd_tc_smem_bytes` names a plan that fits
+      a block (head width 64, C = 256: the training shapes), the
+      tensor-core form (``csrc/rpe_attention_bwd_tc.cuh``);
+    * "cuda": the first design (float32, and bf16 at the other widths).
+
+    Chosen by shape alone, as the C entry points choose; neither is a
+    fallback of the other.  Raises ``ValueError`` where no form takes the
+    shape."""
+    if dtype not in _DTYPES or ah not in KERNEL_AH or hc not in KERNEL_HEAD_DIMS or cc % 16:
+        raise ValueError(f"no K11 kernel for AH={ah}, head width {hc}, C={cc}, {dtype}: "
+                         f"built for AH in {KERNEL_AH}, head width in {KERNEL_HEAD_DIMS}, "
+                         f"C % 16 == 0, bf16 or float32")
+    if dtype == torch.bfloat16 and 0 < bwd_tc_smem_bytes(ah, hc, cc) <= SMEM_LIMIT:
+        return "tc"
+    if bwd_cuda_smem_bytes(ah, cc) <= SMEM_LIMIT:
+        return "cuda"
+    raise ValueError(f"no K11 kernel fits AH={ah}, C={cc} in {dtype}: the first design "
+                     f"needs {bwd_cuda_smem_bytes(ah, cc)} bytes of shared memory")
 
 
 def fold_equivariant_query(qe: torch.Tensor, wigner_d1: torch.Tensor) -> torch.Tensor:
@@ -362,9 +419,22 @@ def rpe_self_attention_with_lse(q, k, v, qp, emb, k_masks, qw=None, points=None,
 
 def rpe_attention_bwd(q, k, v, qp, emb, k_masks, qw, points, dout, out, lse, *, scale):
     """K11 (``csrc/rpe_attention_bwd.cu``, replaces the TPU ``_rpe_bwd``):
-    recomputes P and dS on the card, then runs the contractions of
-    :func:`rpe_attention_bwd_plain`.  Bound by the embedding's bytes and the
-    two (B, AH, N, N) float32 outputs; the source notes the design."""
+    the gradients of :func:`rpe_attention_bwd_plain`, on the form
+    :func:`rpe_attention_bwd_form` names.  In bf16 ("tc") the kernel
+    recomputes P and dS, forms dqp, d_emb and dqw, and writes P and scale *
+    dS in bf16, from which dq, dk and dv are three matrix products (P, dS
+    and dO rounded to bf16 before each product, float32 sums); the first
+    design writes P and dS in float32 and runs every contraction as a
+    matmul.  Bound by the embedding's bytes, read once, and d_emb's; the
+    sources note the designs."""
+    return _rpe_attention_bwd(q, k, v, qp, emb, k_masks, qw, points, dout, out, lse, scale)
+
+
+def _rpe_attention_bwd(q, k, v, qp, emb, k_masks, qw, points, dout, out, lse, scale,
+                       form=None):
+    """K11 on the form :func:`rpe_attention_bwd_form` names, or on ``form``
+    where the caller asks for one that takes the shape ("cuda" takes every
+    shape the check below lets through)."""
     if q.device.type == "cpu":
         return rpe_attention_bwd_plain(q, k, v, qp, emb, k_masks, qw, points, dout, out,
                                        lse, scale=scale)
@@ -376,6 +446,7 @@ def rpe_attention_bwd(q, k, v, qp, emb, k_masks, qw, points, dout, out, lse, *, 
         raise ValueError("bad rpe_attention_bwd gradient shapes")
     if out.dtype != torch.float32 or lse.dtype != torch.float32:
         raise TypeError("rpe_attention_bwd takes K5's float32 output and row log-sum-exp")
+    form = form or rpe_attention_bwd_form(ah, c, emb.shape[-1], q.dtype)
     with_sh = qw is not None
     qwc = qw.float().contiguous() if with_sh else None
     ptsc = points.float().contiguous() if with_sh else None
@@ -384,6 +455,27 @@ def rpe_attention_bwd(q, k, v, qp, emb, k_masks, qw, points, dout, out, lse, *, 
     do32 = dout.float().contiguous()
     dd = (do32 * out).sum(dim=-1).contiguous()
     lse = lse.contiguous()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if form == "tc":
+        do_b = dout.to(torch.bfloat16).contiguous()
+        p = torch.empty((b, ah, n, n), dtype=torch.bfloat16, device=q.device)
+        ds = torch.empty_like(p)
+        dqp, demb = torch.empty_like(qpc), torch.empty_like(embc)
+        dqw = torch.zeros(qw.shape, dtype=torch.float32, device=q.device) if with_sh else None
+        fn = _build.function("rpe_attention_bwd", "se3et_rpe_attention_bwd_tc_bf16", 16, 6, 1)
+        _build.check(fn(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), qpc.data_ptr(),
+                        embc.data_ptr(), km.data_ptr(), qwc.data_ptr() if with_sh else None,
+                        ptsc.data_ptr() if with_sh else None, do_b.data_ptr(), lse.data_ptr(),
+                        dd.data_ptr(), p.data_ptr(), ds.data_ptr(), dqp.data_ptr(),
+                        demb.data_ptr(), dqw.data_ptr() if with_sh else None, b, ah, n, c,
+                        emb.shape[-1], ptsc.shape[1] if with_sh else 0, float(scale), stream),
+                     "rpe_attention_bwd launch (tc)")
+        rpe_attention_bwd.launches += 1
+        # ds holds scale * dS
+        dq = torch.matmul(ds, kc)
+        dk = torch.matmul(ds.transpose(-1, -2), qc)
+        dv = torch.matmul(p.transpose(-1, -2), do_b)
+        return dq, dk, dv, dqp, demb, dqw
     p = torch.empty((b, ah, n, n), dtype=torch.float32, device=q.device)
     ds = torch.empty_like(p)
     fn = _build.function("rpe_attention_bwd",
@@ -391,9 +483,7 @@ def rpe_attention_bwd(q, k, v, qp, emb, k_masks, qw, points, dout, out, lse, *, 
     _build.check(fn(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), qpc.data_ptr(),
                     embc.data_ptr(), km.data_ptr(), qwc.data_ptr() if with_sh else None,
                     ptsc.data_ptr() if with_sh else None, do32.data_ptr(), lse.data_ptr(),
-                    dd.data_ptr(), p.data_ptr(), ds.data_ptr(), b, ah, n, c, emb.shape[-1],
-                    ptsc.shape[1] if with_sh else 0, float(scale),
-                    torch.cuda.current_stream(q.device).cuda_stream),
+                    dd.data_ptr(), p.data_ptr(), ds.data_ptr(), b, ah, n, c, emb.shape[-1], ptsc.shape[1] if with_sh else 0, float(scale), stream),
                  "rpe_attention_bwd launch")
     rpe_attention_bwd.launches += 1
     return _grads_from_p_ds(p, ds, q, k, qp, emb, qw, points, dout, scale)

@@ -113,7 +113,11 @@ class CheckResult:
     route_ms: Optional[float] = None  # the unfused route's time (K12-K14), a yardstick
     device_ms: Optional[float] = None  # the kernel's own device time per call (profiler)
     two_calls_ms: Optional[float] = None  # two PyTorch calls computing the function (K7)
-    first_ms: Optional[float] = None  # the first design on the same inputs (K2, K14)
+    first_ms: Optional[float] = None  # the first design on the same inputs (K2, K11, K14)
+    # every device kernel of one wrapper call (K11: its products too), and
+    # the first design's kernel, per call (profiler)
+    call_device_ms: Optional[float] = None
+    first_device_ms: Optional[float] = None
 
     @property
     def ok(self) -> bool:
@@ -164,7 +168,8 @@ def _time_ms(fn, reps: int) -> float:
 
 
 def device_ms(fn, kernel: str, reps: int = 10) -> Optional[float]:
-    """Device time per call of the kernels whose name holds ``kernel``, from
+    """Device time per call of the kernels whose name holds ``kernel`` ("":
+    every device kernel of the call), from
     ``torch.profiler`` over ``reps`` calls of ``fn`` (after one warm-up);
     a profile that lists none is taken once more, and None is returned
     where neither lists the kernel."""
@@ -604,12 +609,18 @@ def check_embedding_bwd(points, masks, c=256, k=3, sigma_d=0.2, sigma_a=15.0,
 
 
 def check_rpe_attention_bwd(points, masks, ah, c=64, cc=256, with_sh=True,
-                            dtype=torch.bfloat16, seed=10, reps=3):
+                            dtype=torch.bfloat16, seed=10, reps=3, device_kernel=None,
+                            first=False, qw_scale=0.3):
     """K11 (and the contractions after it) on the inputs of
     :func:`check_rpe_attention` with K5's own output and row log-sum-exp
     and a random float32 cotangent.  Error relative to each gradient's
-    scale, tolerance 1e-2 in bf16 (d_emb rounded to bf16 from float32 sums
-    in another order) and 1e-4 in float32."""
+    scale, tolerance 1e-2 in bf16 (the tc form rounds P, dS, dO and the
+    embedding to bf16 before each product, with float32 sums; d_emb and
+    the bf16 gradients rounded from float32 sums in another order) and
+    1e-4 in float32.  With ``device_kernel`` (a kernel name) also that
+    kernel's device time per call and that of every kernel of the call;
+    with ``first`` the first design's time on the same inputs (events, and
+    its kernel's device time where ``device_kernel`` is given)."""
     g = torch.Generator().manual_seed(seed)
     dev = points.device
     b, n, _ = points.shape
@@ -617,19 +628,29 @@ def check_rpe_attention_bwd(points, masks, ah, c=64, cc=256, with_sh=True,
     q, k, v = rnd(b, ah, n, c), rnd(b, ah, n, c), rnd(b, ah, n, c)
     qp = rnd(b, n, ah, cc, sc=cc ** -0.5)
     emb = rnd(b, n, n, cc)
-    qw = (torch.randn((b, 3, ah, n), generator=g) * 0.3).to(dev) if with_sh else None
+    qw = (torch.randn((b, 3, ah, n), generator=g) * qw_scale).to(dev) if with_sh else None
     pts = rpe_attention.point_rows(points) if with_sh else None
     scale = 1.0 / math.sqrt(c)
     out, lse = rpe_attention.rpe_self_attention_with_lse(q, k, v, qp, emb, masks, qw, pts,
                                                          scale=scale)
     dout = torch.randn((b, ah, n, c), generator=g).to(dev)
     args = (q, k, v, qp, emb, masks, qw, pts, dout, out, lse)
+    kernel_fn = lambda: rpe_attention.rpe_attention_bwd(*args, scale=scale)  # noqa: E731
+    form = rpe_attention.rpe_attention_bwd_form(ah, c, cc, dtype)
     res = _compare_many(
         "rpe_attention_bwd",
-        f"q(B={b}, AH={ah}, N={n}, c={c}) emb C={cc} {'with' if with_sh else 'no'} SH {dtype}",
-        lambda: rpe_attention.rpe_attention_bwd(*args, scale=scale),
-        lambda: rpe_attention.rpe_attention_bwd_plain(*args, scale=scale),
+        f"q(B={b}, AH={ah}, N={n}, c={c}) emb C={cc} {'with' if with_sh else 'no'} SH {dtype} "
+        f"({form} form)",
+        kernel_fn, lambda: rpe_attention.rpe_attention_bwd_plain(*args, scale=scale),
         1e-2 if dtype == torch.bfloat16 else 1e-4, reps)
+    first_fn = lambda: rpe_attention._rpe_attention_bwd(*args, scale, form="cuda")  # noqa: E731
+    if device_kernel is not None:
+        res.device_ms = device_ms(kernel_fn, device_kernel)
+        res.call_device_ms = device_ms(kernel_fn, "")
+    if first:
+        res.first_ms = _time_ms(first_fn, reps)
+        if device_kernel is not None:
+            res.first_device_ms = device_ms(first_fn, "rpe_attention_bwd_kernel")
     nkeys = int(masks.sum())
     # recompute q.k, qp.emb, dO.v; contractions dv, dk, dq (c each), dqp and
     # d_emb (C each); the SH term's few operations per pair are left out

@@ -164,6 +164,47 @@ def test_rpe_attention_form_refuses_shapes_no_kernel_takes(ah, hc, cc, dtype):
         rpe_k.rpe_attention_form(ah, hc, cc, dtype)
 
 
+@pytest.mark.parametrize("ah,hc,cc,dtype,form", [
+    (24, 64, 256, torch.bfloat16, "tc"),    # self_eq layers in training
+    (4, 64, 256, torch.bfloat16, "tc"),     # plain self layers in training
+    (24, 64, 256, torch.float32, "cuda"), (4, 64, 256, torch.float32, "cuda"),
+    (24, 16, 64, torch.bfloat16, "cuda"),   # the tiny card-vs-CPU widths
+    (4, 16, 64, torch.float32, "cuda"),
+    (24, 64, 128, torch.bfloat16, "cuda"),  # tc is built for C = 256 only
+    (4, 64, 512, torch.bfloat16, "cuda"),
+])
+def test_rpe_attention_bwd_form(ah, hc, cc, dtype, form):
+    """K11 takes its tc form in bf16 with head width 64 and C = 256 (the
+    training shapes), the first design otherwise."""
+    assert rpe_k.rpe_attention_bwd_form(ah, hc, cc, dtype) == form
+
+
+@pytest.mark.parametrize("ah", [4, 24])
+def test_rpe_attention_bwd_tc_plan_fits_a_block(ah):
+    """K11's tc plan at C = 256 fits one block of an H100 (232,448 bytes):
+    two buffers of 4 rows' 32-key embedding slabs (128 KB) beside the rows'
+    resident qp, q and dO, and the tile's score and dS' buffers; the plan is
+    0 where the form is not built."""
+    plan = rpe_k.bwd_tc_smem_bytes(ah, 64, 256)
+    slabs = 2 * rpe_k.BWD_TC_ROWS * rpe_k.BWD_TC_KEYS * 256 * 2
+    resident = rpe_k.BWD_TC_ROWS * (-(-ah // 8) * 8) * 256 * 2
+    assert slabs + resident < plan <= 232448 == rpe_k.SMEM_LIMIT
+    assert rpe_k.bwd_tc_smem_bytes(ah, 64, 128) == rpe_k.bwd_tc_smem_bytes(ah, 16, 256) == 0
+
+
+@pytest.mark.parametrize("ah,hc,cc,dtype", [
+    (24, 64, 512, torch.bfloat16),   # the first design's float32 qp does not fit
+    (24, 64, 512, torch.float32),
+    (8, 64, 256, torch.bfloat16),    # no kernel for AH = 8
+    (24, 32, 256, torch.bfloat16),   # nor head width 32
+    (24, 64, 40, torch.float32),     # C % 16 != 0
+    (24, 64, 256, torch.float16),
+])
+def test_rpe_attention_bwd_form_refuses_shapes_no_kernel_takes(ah, hc, cc, dtype):
+    with pytest.raises(ValueError):
+        rpe_k.rpe_attention_bwd_form(ah, hc, cc, dtype)
+
+
 @pytest.mark.parametrize("h,c,dtype,form", [
     (4, 64, torch.bfloat16, "tc"),      # the EQ cross layers in serving
     (4, 64, torch.float32, "cuda"),

@@ -564,6 +564,7 @@ def test_geometric_embedding_bwd_kernel(cuda, n, c, grad_dtype):
     (1024, 24, 64, 256, True, torch.bfloat16),    # self_eq layers
     (1024, 4, 64, 256, False, torch.bfloat16),    # plain self layers
     (1003, 24, 64, 256, True, torch.bfloat16),    # ragged N
+    (1003, 4, 64, 256, False, torch.bfloat16),
     (128, 24, 16, 64, True, torch.bfloat16),      # tiny card-vs-CPU widths (training: bf16)
     (128, 4, 16, 64, False, torch.float32),
 ])
@@ -571,6 +572,107 @@ def test_rpe_attention_bwd_kernel(cuda, n, ah, c, cc, with_sh, dtype):
     points, masks = _cloud(cuda, n, 10)
     _assert_ok(selfcheck.check_rpe_attention_bwd(points, masks, ah, c=c, cc=cc,
                                                  with_sh=with_sh, dtype=dtype, reps=1))
+
+
+# (N, padded keys at the end of cloud 1) for K11's tc form: 72 padded keys
+# at N = 1003 mask the whole tiles 960-991 and 992-1002 (ragged) of cloud 1;
+# the training shape; one key past a tile; fewer rows than a block (4) in
+# the last block
+RPE_BWD_EDGES = [(1003, 72), (1024, 40), (33, 5), (13, 3)]
+
+
+@pytest.mark.parametrize("n,pad", RPE_BWD_EDGES)
+@pytest.mark.parametrize("ah,with_sh", [(24, True), (4, False)])
+def test_rpe_attention_bwd_tc_edges(cuda, n, ah, with_sh, pad):
+    """K11's tc form at ragged N and masked key tails, within 1e-2 of each
+    gradient's scale of the plain version."""
+    points, masks = _cloud(cuda, n, 10, pad=pad)
+    res = selfcheck.check_rpe_attention_bwd(points, masks, ah, with_sh=with_sh, reps=1)
+    assert res.shape.endswith("(tc form) (error relative to output scale)"), res.shape
+    _assert_ok(res)
+
+
+def test_rpe_attention_bwd_tc_sh_diagonal(cuda):
+    """The SH term where it is 0: on the n == m diagonal (rinv set to 0 by
+    index) and at coincident points off it (cloud 0's second half repeats
+    its first; cloud 1's padded points all sit at the origin), with the SH
+    queries 10x the check's, so that the SH term leads the scores and dqw
+    is large: the tc form within 1e-2 of each gradient's scale, dqw
+    finite."""
+    points, masks = _cloud(cuda, 64, 12, pad=8)
+    points[0, 32:] = points[0, :32]
+    _assert_ok(selfcheck.check_rpe_attention_bwd(points, masks, 24, reps=1, qw_scale=3.0))
+
+
+def _rpe_bwd_args(cuda, n, ah, with_sh, seed):
+    """K11's inputs as ``selfcheck.check_rpe_attention_bwd`` makes them
+    (bf16, C = 256, head width 64), with K5's output and row statistics."""
+    from se3et_tpu_torch.ops.kernels import rpe_attention as rpe
+
+    points, masks = _cloud(cuda, n, seed)
+    g = torch.Generator().manual_seed(seed)
+    b = 2
+    rnd = lambda *s: torch.randn(s, generator=g).to(cuda, torch.bfloat16)  # noqa: E731
+    q, k, v, qp, emb = rnd(b, ah, n, 64), rnd(b, ah, n, 64), rnd(b, ah, n, 64), \
+        rnd(b, n, ah, 256) * 0.0625, rnd(b, n, n, 256)
+    qw = (torch.randn((b, 3, ah, n), generator=g) * 0.3).to(cuda) if with_sh else None
+    pts = rpe.point_rows(points) if with_sh else None
+    out, lse = rpe.rpe_self_attention_with_lse(q, k, v, qp, emb, masks, qw, pts, scale=0.125)
+    dout = torch.randn((b, ah, n, 64), generator=g).to(cuda)
+    return q, k, v, qp, emb, masks, qw, pts, dout, out, lse
+
+
+@pytest.mark.parametrize("ah,with_sh", [(24, True), (4, True), (4, False)])
+def test_rpe_attention_bwd_tc_is_deterministic(cuda, ah, with_sh):
+    """Two calls of K11's tc form on the same inputs give the same gradients
+    bit for bit: the kernel sums in one order (dqw gets at most two addends
+    onto zero: at AH = 4 from two warps), and so do the products after it."""
+    from se3et_tpu_torch.ops.kernels import rpe_attention as rpe
+
+    args = _rpe_bwd_args(cuda, 1003, ah, with_sh, 13)
+    first = rpe.rpe_attention_bwd(*args, scale=0.125)
+    second = rpe.rpe_attention_bwd(*args, scale=0.125)
+    for name, a, b in zip(("dq", "dk", "dv", "dqp", "demb", "dqw"), first, second):
+        assert (a is None) == (b is None) == (name == "dqw" and not with_sh), name
+        if a is not None:
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype,form,kernel,other", [
+    (torch.bfloat16, "tc", "rpe_attention_bwd_tc_kernel", "rpe_attention_bwd_kernel"),
+    (torch.float32, "cuda", "rpe_attention_bwd_kernel", "rpe_attention_bwd_tc_kernel"),
+])
+def test_rpe_attention_bwd_launches_its_form(cuda, dtype, form, kernel, other):
+    """At the self_eq training shape K11 launches the tc form's kernel in
+    bf16 and the first design's in float32 (profiler), and agrees with the
+    plain version (1e-2 / 1e-4 of each gradient's scale)."""
+    from se3et_tpu_torch.ops.kernels import rpe_attention as rpe
+
+    assert rpe.rpe_attention_bwd_form(24, 64, 256, dtype) == form
+    args = [t.to(dtype) if t is not None and t.dtype == torch.bfloat16 else t
+            for t in _rpe_bwd_args(cuda, 256, 24, True, 14)]
+    call = lambda: rpe.rpe_attention_bwd(*args, scale=0.125)  # noqa: E731
+    assert selfcheck.device_ms(call, kernel, reps=1) is not None
+    assert selfcheck.device_ms(call, other, reps=1) is None
+    points, masks = _cloud(cuda, 256, 14)
+    res = selfcheck.check_rpe_attention_bwd(points, masks, 24, dtype=dtype, reps=1)
+    assert f"({form} form)" in res.shape
+    _assert_ok(res)
+
+
+def test_rpe_attention_bwd_tc_plan_matches_the_kernel(cuda):
+    """The wrapper's shared-memory plan of K11's tc form is the kernel's."""
+    import ctypes
+
+    from se3et_tpu_torch.ops.kernels import _build
+    from se3et_tpu_torch.ops.kernels import rpe_attention as rpe
+
+    fn = getattr(_build._library("rpe_attention_bwd"), "se3et_rpe_attention_bwd_tc_smem")
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    for ah, hc, cc in ((24, 64, 256), (4, 64, 256), (24, 16, 64), (24, 64, 128), (8, 64, 256)):
+        assert fn(ah, hc, cc) == rpe.bwd_tc_smem_bytes(ah, hc, cc)
+    assert fn(24, 64, 256) > 0 and fn(4, 64, 256) > 0 and fn(24, 64, 128) == 0
 
 
 @pytest.mark.parametrize("n,pad", RPE_EDGES)

@@ -12,7 +12,9 @@ CPU at small shapes, from numpy inputs made with a seed:
   and near-tied angles;
 * K11 ``rpe_attention_bwd`` against ``jax.vjp`` of
   ``rpe_self_attention_trainable`` (interpret mode), with and without the SH
-  term, with masked keys, at N = 128;
+  term, with masked keys, at N = 128; and the precision plan of its bf16
+  tc form (operands rounded to bf16 before each product) against the same
+  VJP at the training widths;
 * the Sinkhorn backward (the VJP of the scan form) against ``jax.vjp`` of
   ``_sinkhorn_scan``.
 
@@ -272,6 +274,71 @@ def test_rpe_attention_bwd_matches_jax(with_sh):
     o.backward(torch.from_numpy(d_out))
     for t, g in zip(leaves, got):
         np.testing.assert_allclose(t.grad.numpy(), g.numpy(), rtol=0, atol=0)
+
+
+def _tc_model(q, k, v, qp, emb, masks, qw, pts, d_out, out, lse, scale):
+    """K11's tc form as its precision plan states it, on the CPU: the
+    scores and P in float32 from the bf16 inputs, dP from dO rounded to
+    bf16, dS' = scale * P * (dP - D) rounded to bf16 (dqw takes it
+    unrounded), P rounded to bf16; dq = dS' k, dk = dS'^T q, dv = P^T dO,
+    dqp = dS' emb and d_emb = dS'^T qp with float32 sums, each rounded to
+    bf16 (dqw float32)."""
+    from se3et_tpu_torch.ops.kernels import rpe_attention as rpe
+
+    bf = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    n = q.shape[2]
+    s = rpe._scores(q, k, qp, emb, masks, qw, pts, 0, n, scale)
+    p = torch.exp(s - lse[..., None]) * masks[:, None, None, :]
+    do_b = bf(d_out)
+    dpv = torch.einsum("banc,bamc->banm", do_b, v)
+    ds = scale * p * (dpv - (d_out * out).sum(-1)[..., None])
+    ds_b, p_b = bf(ds), bf(p)
+    dqw = None
+    if qw is not None:
+        rinv, dyzx = rpe._sh_geometry(pts, 0, n)
+        dqw = torch.einsum("banm,bdnm->bdan", ds * rinv[:, None], dyzx)
+    return (bf(ds_b @ k), bf(ds_b.transpose(-1, -2) @ q), bf(p_b.transpose(-1, -2) @ do_b),
+            bf(torch.einsum("banm,bnmd->bnad", ds_b, emb)),
+            bf(torch.einsum("banm,bnad->bnmd", ds_b, qp)), dqw)
+
+
+@pytest.mark.parametrize("ah,with_sh", [(24, True), (4, False), (4, True)])
+def test_rpe_attention_bwd_tc_rounding_matches_jax(ah, with_sh):
+    """The precision plan of K11's tc form (P, dS, dO and the embedding
+    rounded to bf16 before each product, float32 sums; :func:`_tc_model`)
+    against the JAX VJP of ``rpe_self_attention_trainable`` (interpret
+    mode, float32 at HIGHEST precision) on the same bf16-valued inputs, at
+    the training widths (head width 64, C = 256) and N = 128 with masked
+    keys: within 1e-2 of each gradient's scale, the tolerance the card's
+    check holds the kernel to against the plain version."""
+    from se3et_tpu.ops.pallas.rpe_attention import rpe_self_attention_trainable
+    from se3et_tpu_torch.ops.kernels import rpe_attention as rpe
+
+    rounded = lambda a: np.asarray(  # noqa: E731
+        torch.from_numpy(a).to(torch.bfloat16).float().numpy())
+    q, k, v, qp, emb, masks, qw, pts = _rpe_inputs(with_sh, seed=15, ah=ah, c=64, cc=256)
+    q, k, v, qp, emb = (rounded(a) for a in (q, k, v, qp, emb))
+    scale = 0.125
+    d_out = np.random.RandomState(16).randn(*q.shape).astype(np.float32)
+    diff = (q, k, v, qp, emb) + ((qw,) if with_sh else ())
+
+    def jfn(*a):
+        return rpe_self_attention_trainable(a[0], a[1], a[2], a[3], a[4], masks,
+                                            a[5] if with_sh else None,
+                                            pts if with_sh else None, scale, 64, 128, True)
+
+    _, vjp = jax.vjp(jfn, *diff)
+    want = vjp(d_out)
+    tq = [torch.from_numpy(a) for a in diff]
+    tm = torch.from_numpy(masks)
+    tqw, tpts = (tq[5], torch.from_numpy(pts)) if with_sh else (None, None)
+    out, lse = rpe.rpe_self_attention_plain(*tq[:5], tm, tqw, tpts, scale=scale, with_lse=True)
+    got = _tc_model(*tq[:5], tm, tqw, tpts, torch.from_numpy(d_out), out, lse, scale)
+    for name, g, w in zip(("dq", "dk", "dv", "dqp", "demb", "dqw"), got, want):
+        if name == "dqw" and not with_sh:
+            assert g is None
+            continue
+        _close(g, w, 1e-2)
 
 
 def test_sinkhorn_backward_matches_jax_scan():
