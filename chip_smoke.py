@@ -62,7 +62,8 @@ Phases, each of which raises (exit code != 0) on failure:
    versions at the training shapes with their bounds, K11 (its bf16 form
    "tc") at both self-layer shapes by events and device time (the kernel
    and the whole call, its products included) beside its first design's
-   times before the redesign and in this run; one tiny float32
+   times before the redesign and in this run, and K10 (its bf16 form "tc")
+   at d_emb (2, 1024, 1024, 256) the same way; one tiny float32
    training step on the card and on the CPU with the same weights and
    target noise, agreeing on the losses and every parameter's gradient;
    then ``make_train_step`` at full se3ete.3dmatch width (float32, the JAX
@@ -71,7 +72,9 @@ Phases, each of which raises (exit code != 0) on failure:
    checked after (K8 10, K9 3, K10 1, K11 5 per step; forward K1 10, K2 3,
    K3 1, K4 1, K5 5), finite losses and gradient norm, the step time, the
    forward + loss time alone, peak memory and a ``torch.profiler``
-   breakdown of one step (with K2's float32 line);
+   breakdown of one step (with K2's float32 line, K10's tc kernel, which
+   must appear once, and the device ms per launch of K8, K9, the float32
+   K1 and K10);
 7. the routes off the default one: K15 (device influence) against its plain
    version at the stage-0 same-level and the stage-1 strided set of pair 0,
    K16 (``serve_femb``) at the self_eq (AH = 24, SH) and plain self (AH =
@@ -127,8 +130,18 @@ TRAIN_LAUNCHES = {"gather_wf": 10, "neighbor_max": 3, "geometric_embedding": 1,
                   "rpe_attention_bwd": 5, "gather_wf_mm": 0, "gather_wf_max_mm": 0,
                   "gather_wf_max": 0}
 TRAIN_STEPS = 3
-# K11's device kernel at the bf16 training shapes (its tc form)
+# K11's and K10's device kernels at the bf16 training shapes (their tc forms)
 K11_KERNEL = "rpe_attention_bwd_tc_kernel"
+K10_KERNEL = "embedding_bwd_tc_kernel"
+# K10 at the training shape before its redesign (first design, bf16; NVIDIA
+# H100 80GB HBM3, 700 W): ms by events, device ms of the kernel
+K10_BEFORE = (6.7367, 6.4331)
+# the training kernels' device kernels in the step profile, with launches of
+# their wrapper per step: K8 and K9 two kernels a launch, K1 the float32
+# first design
+STEP_KERNELS = {"K8": (("slot_grad_kernel", "source_sum_kernel"), 10),
+                "K9": (("share_kernel", "tie_sum_kernel"), 3),
+                "K1 (float32)": (("gather_wf_kernel",), 10), "K10": ((K10_KERNEL,), 1)}
 # launches per served pair on the routes of phase 7: device influence (7
 # (stage, neighbour set) pairs), and serve_femb (5 self layers, no
 # embedding written, no K5)
@@ -260,7 +273,8 @@ def _profile(run, what="one pair", top=15, also=()):
                   f"{getattr(e, attr) / 1e3 / max(e.count, 1):.4f} ms each  {e.key[:90]}",
                   flush=True)
     return {"wall": wall, "kernels": device_ms, "idle": max(0.0, 1 - device_ms / wall),
-            "counts": {e.key: e.count for e in events}}
+            "counts": {e.key: e.count for e in events},
+            "ms": {e.key: getattr(e, attr) / 1e3 for e in events}}
 
 
 def _tiny_train_card_vs_cpu(cfg, extent, dev):
@@ -343,9 +357,10 @@ def _training(cfg, pairs, extent, dev):
         # stage-1 strided skip: x (2, 20000, A*128)
         "neighbor_max_bwd": selfcheck.check_neighbor_max_bwd(p0["subsampling_0"], ns0,
                                                              6 * 128),
+        # the bf16 cotangent of training's bf16 embedding (its tc form)
         "geometric_embedding_bwd": selfcheck.check_embedding_bwd(
             pts_c, masks_c, c=m.gt_hidden_dim, k=m.angle_k, sigma_d=m.sigma_d,
-            sigma_a=m.sigma_a),
+            sigma_a=m.sigma_a, device_kernel=K10_KERNEL, first=True),
         # self_eq layers (A*H anchor-heads with the SH term); training feeds
         # K5/K11 the embedding's dtype, bf16
         "rpe_attention_bwd": selfcheck.check_rpe_attention_bwd(
@@ -366,6 +381,14 @@ def _training(cfg, pairs, extent, dev):
               f"whole call {_ms(res.call_device_ms)} ms, the first design's kernel "
               f"{_ms(res.first_device_ms)} ms; bound {res.bound_ms:.4f} ms ({res.bound_by})",
               flush=True)
+    # K10 beside its first design, before the redesign and in this run
+    res = checks["geometric_embedding_bwd"]
+    print(f"K10 {res.shape}: events {res.ms:.4f} ms (before the redesign {K10_BEFORE[0]:.4f}; "
+          f"first design in this run {_ms(res.first_ms)}), device: the kernel "
+          f"{_ms(res.device_ms)} ms (before {K10_BEFORE[1]:.4f}; predicted 0.45-0.9), the "
+          f"whole call {_ms(res.call_device_ms)} ms, the first design's kernel "
+          f"{_ms(res.first_device_ms)} ms; bound {res.bound_ms:.4f} ms ({res.bound_by})",
+          flush=True)
     bad = [r.name for r in list(checks.values()) + extra if not r.ok]
     if bad:
         raise RuntimeError(f"backward kernels disagree with their plain versions: {bad}")
@@ -416,8 +439,27 @@ def _training(cfg, pairs, extent, dev):
     print(f"train ms/step: {[round(x, 2) for x in step_ms]} (median "
           f"{statistics.median(step_ms):.2f}); losses {vals}; launches {launches}; "
           f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
-    _profile(lambda: step(inputs[0], generator=gen), what="one training step", top=25,
-             also=("neighbor_max_rows_kernel", K11_KERNEL))
+    # one step's profile, with the training kernels' device ms per launch;
+    # K10's tc kernel must appear once (a profile that lists it short is
+    # taken once more)
+    also = ("neighbor_max_rows_kernel", K11_KERNEL) + tuple(
+        name for names, _ in STEP_KERNELS.values() for name in names)
+    for _ in range(2):
+        prof = _profile(lambda: step(inputs[0], generator=gen), what="one training step",
+                        top=25, also=also)
+        if prof is None:
+            return checks
+        k10 = sum(c for key, c in prof["counts"].items() if K10_KERNEL in key)
+        if k10 == TRAIN_LAUNCHES["geometric_embedding_bwd"]:
+            break
+    else:
+        raise RuntimeError(f"the step profile lists {K10_KERNEL} {k10} times, expected 1")
+    per_launch = {
+        what: sum(ms for key, ms in prof["ms"].items() if any(n in key for n in names)) / count
+        for what, (names, count) in STEP_KERNELS.items()}
+    print("step profile, device ms per launch: " + ", ".join(
+        f"{what} {ms:.4f} (x {STEP_KERNELS[what][1]})" for what, ms in per_launch.items()),
+        flush=True)
     return checks
 
 

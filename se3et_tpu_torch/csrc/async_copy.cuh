@@ -1,6 +1,7 @@
 // mbarriers and 1-D bulk copies (cp.async.bulk, sm_90), shared by the
 // kernels that stream through a ring of shared-memory slots: K12's weight
-// panels (gather_wf_mm.cu) and K5's embedding slabs (rpe_attention_ws.cuh).
+// panels (gather_wf_mm.cu) and K5's embedding slabs (rpe_attention_ws.cuh);
+// and 16-byte cp.async under an L2 policy (K10's and K11's streams).
 // A slot's "full" barrier completes when its bytes have landed (one arrival
 // with expect_tx, then the copy's complete_tx); its "empty" barrier when
 // every consumer has arrived.
@@ -75,6 +76,13 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
       " [%0], [%1], %2, [%3], %4;\n"
       ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy) : "memory");
+}
+
+// cp.async of 16 bytes under an L2 policy, zero-filled where !ok
+__device__ __forceinline__ void cp_async16_hint(void* smem, const void* gmem, bool ok,
+                                                uint64_t policy) {
+  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n"
+               ::"r"(smem_u32(smem)), "l"(gmem), "r"(ok ? 16 : 0), "l"(policy));
 }
 
 }  // namespace se3et

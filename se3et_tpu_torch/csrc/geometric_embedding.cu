@@ -35,21 +35,26 @@
 // then every thread runs the two projections for its channel and writes
 // one coalesced C-wide output row per support point.
 //
-// The backward (K10, embedding_bwd_kernel below) replaces the TPU kernel
+// The backward (K10) replaces the TPU kernel
 // se3et_tpu/ops/pallas/embedding.py _emb_bwd_call.  The forward is linear
 // in G, so the gradient of the projections is accumulated in basis space:
 //   dGd = sum_{b,n,m} T_d(dist)^T d_emb,  dGa = sum_{b,n,m} T_a(angle_k*)^T d_emb,
 //   db  = sum_{b,n,m} d_emb,
 // with k* the FIRST k attaining the angle max of each (b, n, m, c).  The
-// wrapper forms d_W = A^T dG and d_bd = d_ba = db.  The bases and the
-// angle projections are recomputed by the same device functions as the
-// forward (float32: tile_bases, project; bf16: the tensor-core projection
-// on the same bf16 bases), so the max and its first argmax are exact.  Bound: fp32 FMA throughput (40 + 16 accumulations and 3 x 16
-// recompute FMAs per d_emb element) over one read of d_emb.  One block per
-// query row (b, n), one thread per channel; each block writes its partial
-// sums, which the wrapper adds in a fixed order (no atomics).
+// wrapper forms d_W = A^T dG and d_bd = d_ba = db.  Bound: one read of
+// d_emb.  A bf16 d_emb at C = 64, 128 or 256 (training's embedding) takes
+// the tensor-core form "tc" (embedding_bwd_tc.cuh, the design noted there).
+// float32 (the tiny card-vs-CPU checks) and bf16 at other widths take the
+// first design (embedding_bwd_kernel below): the bases and, in float32, the
+// angle projections recomputed by the forward's device functions (tile_bases,
+// project), in bf16 the argmax from K3's tensor-core projection on the same
+// bf16 bases; then 40 + 16 + 1 float32 FMAs per d_emb element on the CUDA
+// cores, one block per query row (b, n), one thread per channel, each block
+// writing its partial sums, which the wrapper adds in a fixed order (no
+// atomics).
 #include <algorithm>
 
+#include "embedding_bwd_tc.cuh"
 #include "embedding_tc.cuh"
 
 namespace {
@@ -433,7 +438,48 @@ int launch_bwd(const void* points, const void* knn, const void* ga, const void* 
   return (int)cudaGetLastError();
 }
 
+// bf16 at C = 64, 128, 256: the tc form, `blocks` persistent blocks (one an
+// SM), each writing (kParts, C) float32 partials
+template <int C>
+int launch_bwd_tc(const void* points, const void* knn, const void* gt, const void* dout,
+                  void* part, long long tiles, int n_pts, int blocks, float inv_d, float inv_a,
+                  void* stream) {
+  auto fn = emb_bwd_tc::embedding_bwd_tc_kernel<C>;
+  constexpr size_t smem = emb_bwd_tc::smem_bytes<C>();
+  const cudaError_t e =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  fn<<<blocks, C, smem, (cudaStream_t)stream>>>(
+      (const float*)points, (const float*)knn, (const __nv_bfloat16*)gt,
+      (const __nv_bfloat16*)dout, (float*)part, n_pts, tiles, inv_d, inv_a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int se3et_geometric_embedding_bwd_tc(
+    const void* points, const void* knn, const void* gt, const void* dout, void* part,
+    int batch, int n_pts, int c_dim, int blocks, int deg_d, int deg_a, int ka, float inv_d,
+    float inv_a, void* stream) {
+  const long long tiles = (long long)batch * n_pts * ((n_pts + emb_bwd_tc::kKeys - 1) /
+                                                      emb_bwd_tc::kKeys);
+  if (deg_d != emb::kDD || deg_a != emb::kDA || ka != emb::kKA || batch < 1 || n_pts < 1 ||
+      blocks < 1 || blocks > tiles)
+    return (int)cudaErrorInvalidValue;
+  switch (c_dim) {
+    case 64:
+      return launch_bwd_tc<64>(points, knn, gt, dout, part, tiles, n_pts, blocks, inv_d, inv_a,
+                               stream);
+    case 128:
+      return launch_bwd_tc<128>(points, knn, gt, dout, part, tiles, n_pts, blocks, inv_d,
+                                inv_a, stream);
+    case 256:
+      return launch_bwd_tc<256>(points, knn, gt, dout, part, tiles, n_pts, blocks, inv_d,
+                                inv_a, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
 
 extern "C" int se3et_geometric_embedding_bwd_bf16(
     const void* points, const void* knn, const void* ga, const void* ba, const void* gt,

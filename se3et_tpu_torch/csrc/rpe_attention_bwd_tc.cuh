@@ -148,13 +148,6 @@ __device__ __forceinline__ void mma_k8(float* d, uint32_t a0, uint32_t a1, uint3
       : "r"(a0), "r"(a1), "r"(b0));
 }
 
-// cp.async of 16 bytes under an L2 policy, zero-filled where !ok
-__device__ __forceinline__ void cp_async16_hint(void* smem, const void* gmem, bool ok,
-                                                uint64_t policy) {
-  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n"
-               ::"r"(smem_u32(smem)), "l"(gmem), "r"(ok ? 16 : 0), "l"(policy));
-}
-
 // A 4 x 4 transpose of 32-bit words across the four lanes of a quad (t =
 // lane & 3): lane t gives w[0..3] and gets (lane 0's w[t], lane 1's w[t],
 // lane 2's w[t], lane 3's w[t]); two butterfly stages of two shuffles

@@ -25,6 +25,10 @@ shapes of se3ete.3dmatch (bf16) and the tiny float32 widths:
   once, before the timing) for a random float32 cotangent, at AH = 24 with SH and AH = 4 without, at both widths
   (the bf16 ones, the training shapes, timed and held within their
   ``TOLERANCES``; the float32 ones bit for bit), all six gradients;
+* K10 (the backward of K3) for a random cotangent at N = 1024, C = 256 in
+  bf16 (the training shape; timed, held within its ``TOLERANCES``) and N =
+  128, C = 64 in float32 (bit for bit), the four gradients, on inputs of
+  their own generator;
 * K16 (fused-embedding attention) at AH = 24 with SH and AH = 4 without,
   at both widths (the bf16 ones, the serving shapes, timed and held within
   their ``TOLERANCES``);
@@ -72,6 +76,7 @@ import torch
 K5_BF16 = ("K5 AH=24 SH N=1024 C=256 bf16", "K5 AH=4 no SH N=1024 C=256 bf16")
 K16_BF16 = ("K16 AH=24 SH N=1024 C=256 bf16", "K16 AH=4 no SH N=1024 C=256 bf16")
 K11_BF16 = ("K11 AH=24 SH N=1024 C=256 bf16", "K11 AH=4 no SH N=1024 C=256 bf16")
+K10_CASES = ("K10 N=1024 C=256 bf16", "K10 N=128 C=64 float32")
 K6_BF16 = "K6 N=M=1024 c=64 bf16"
 K7_BF16 = "K7 N=M=1024 c=64 bf16"
 K4_CASES = ("K4 (256, 65, 65) f32", "K4 (6, 17, 13) f32")
@@ -80,7 +85,7 @@ K2_CASES = ("K2 s2 -> s3 bf16", "K2 s0 -> s1 float32")
 K14_CASES = ("K14 s1 -> s2 wf", "K14 s1 -> s2 pooled")
 K1_BF16 = ("K1 stage 2", "K1 s2 -> s3", "K1 stage 3")
 TIMED = K5_BF16 + K16_BF16 + (K6_BF16, K7_BF16, K4_CASES[0], K13_CASES[0]) + K2_CASES + K14_CASES \
-    + K1_BF16 + K11_BF16
+    + K1_BF16 + K11_BF16 + K10_CASES[:1]
 # held by their bit patterns (-0.0 apart from +0.0), where the others are
 # held by value
 BITS = K2_CASES + K14_CASES[1:]
@@ -112,8 +117,13 @@ TRAIN_STEP = "training step (median)"
 # gradient's scale, as its kernel-vs-plain check states; its float32 form,
 # the first design, stays bit for bit) runs in its tc form since its
 # redesign, which rounds P, dS and dO to bf16 before the products where the
-# first design kept them in float32
-TOLERANCES = {**dict.fromkeys(K5_BF16 + K16_BF16 + K11_BF16, 1e-2), K6_BF16: 1e-3,
+# first design kept them in float32; the bf16 K10 (1e-2 of each gradient's
+# scale, as its kernel-vs-plain check states; its float32 form, the first
+# design, stays bit for bit) runs in its tc form since its redesign, which
+# rounds the bases to bf16 before the products and sums on the tensor cores
+# per block, where the first design summed float32 bases per query row
+TOLERANCES = {**dict.fromkeys(K5_BF16 + K16_BF16 + K11_BF16 + K10_CASES[:1], 1e-2),
+              K6_BF16: 1e-3,
               K7_BF16: 1e-3,
               **dict.fromkeys(K4_CASES, 1e-5), K13_CASES[0]: 1e-3, K14_CASES[0]: 1e-2}
 
@@ -165,6 +175,19 @@ def _cases(dev):
             cases.append((f"K16 AH={ah} {sh} N={n} C={cc} {tag}",
                           lambda a=femb, hc=hc: rpe_attention.rpe_self_attention_femb(
                               *a, scale=hc ** -0.5, sigma_d=0.2, sigma_a=15.0)))
+    g10 = torch.Generator().manual_seed(10)
+    for name, (n, cc, dtype) in zip(K10_CASES, ((1024, 256, torch.bfloat16),
+                                                (128, 64, torch.float32))):
+        points = (torch.rand((2, n, 3), generator=g10) * 4 - 2).to(dev)
+        sq = torch.cdist(points, points)
+        idx = torch.topk(-sq, 4, dim=-1).indices[:, :, 1:]
+        knn = torch.gather(points, 1, idx.reshape(2, -1, 1).expand(-1, -1, 3)).reshape(
+            2, n, 3, 3)
+        w = [((torch.rand(s, generator=g10) * 2 - 1) * cc ** -0.5).to(dev)
+             for s in ((cc, cc), (cc,), (cc, cc), (cc,))]
+        d_emb = torch.randn((2, n, n, cc), generator=g10).to(dev, dtype)
+        cases.append((name, lambda a=(d_emb, points, knn, *w): embedding.geometric_embedding_bwd(
+            *a, 0.2, 15.0)))
     bf = torch.bfloat16
     for name, nq, ns, h, ac, ac2 in (("K12 stage 0", 20000, 20000, 24, 192, 0),
                                      ("K12 stage 1", 10000, 10000, 32, 384, 0),

@@ -17,7 +17,8 @@ the reference's expanded ``|q|^2 - 2 q.p + |p|^2`` form.
 The projection parameters are differentiable (training): the backward is
 kernel K10 (:func:`geometric_embedding_bwd`, in the same source; replaces
 the TPU ``_emb_bwd_call``), which accumulates the gradient in basis space
-with the angle max routed to its first argmax.  Points take no gradient.
+with the angle max routed to its first argmax, on the form
+:func:`geometric_embedding_bwd_form` names.  Points take no gradient.
 """
 
 from __future__ import annotations
@@ -34,6 +35,12 @@ from se3et_tpu_torch.ops.kernels import _build
 DEG = 64  # largest Chebyshev basis considered by pick_deg
 D_INDEX_MAX = 48.0  # distance-index range of the fit (indices = dist / sigma_d)
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+# K10's tc form: the embedding widths it is built for, and its (distance,
+# angle) basis sizes and angle neighbours (csrc/embedding_bwd_tc.cuh)
+BWD_TC_WIDTHS = (64, 128, 256)
+BWD_TC_KEYS = 64  # keys a tile of the tc form
+BWD_BASES = (40, 16, 3)
+BWD_PARTS = 57  # partial rows of a block or query row: dGd (40), dGa (16), db
 
 
 @functools.lru_cache(maxsize=None)
@@ -169,15 +176,21 @@ def geometric_embedding_bwd_plain(d_emb, points, knn_points, wd, bd, wa, ba, sig
     Accumulated in basis space, ``dGd = sum T_d^T d_emb``, ``dGa = sum_k
     T_a(k)^T (d_emb * first_argmax_k)``, ``db = sum d_emb``, then ``d_wd =
     A_d^T dGd``, ``d_wa = A_a^T dGa`` and ``d_bd = d_ba = db``.  The angle
-    max is routed to the FIRST k attaining it, recomputed with the forward's
-    arithmetic for an output of d_emb's dtype (bf16: the forward's bf16
-    chain), as the JAX package's VJP routes it; ``torch.amax``'s own backward
-    would split ties instead.  The accumulations take the float32 bases.
+    max is routed to the FIRST k attaining it, as the JAX package's VJP
+    routes it; ``torch.amax``'s own backward would split ties instead.
+
+    bf16 d_emb: the TPU kernel's chain, which the tc form runs: the
+    projections recomputed as the forward's bf16 chain and compared before
+    the bias (the forward adds it after the max), the bases rounded to bf16
+    before the products, float32 sums.  float32: the first design's, nothing
+    rounded, the projections compared with the bias added.
     Returns float32 (d_wd, d_bd, d_wa, d_ba)."""
     b, n, _ = points.shape
     deg_d, deg_a, _, ga = _folded_projections(wd, wa, sigma_a)
     inv_d = 2.0 / (D_INDEX_MAX * sigma_d)
     inv_a = 2.0 / math.pi
+    dtype = d_emb.dtype
+    bias = 0.0 if dtype == torch.bfloat16 else ba.float()
     points = points.float()
     dist = torch.sqrt(pairwise_distance(points, points))
     c = wd.shape[1]
@@ -188,10 +201,10 @@ def geometric_embedding_bwd_plain(d_emb, points, knn_points, wd, bd, wa, ba, sig
         r1 = min(n, r0 + row_block)
         g = d_emb[:, r0:r1].float()  # (B, R, N, C)
         ang = _pair_geometry(points, knn_points, r0, r1)
-        first = torch.argmax(_cheb_project(ang, inv_a, ga, ba.float(), d_emb.dtype),
-                             dim=3)  # (B, R, N, C)
-        basis_a = _cheb_basis(ang, inv_a, deg_a)  # (B, R, N, k, deg_a)
-        dgd += torch.einsum("brnj,brnc->jc", _cheb_basis(dist[:, r0:r1], inv_d, deg_d), g)
+        first = torch.argmax(_cheb_project(ang, inv_a, ga, bias, dtype), dim=3)  # (B, R, N, C)
+        basis_a = _rnd(_cheb_basis(ang, inv_a, deg_a), dtype)  # (B, R, N, k, deg_a)
+        basis_d = _rnd(_cheb_basis(dist[:, r0:r1], inv_d, deg_d), dtype)
+        dgd += torch.einsum("brnj,brnc->jc", basis_d, g)
         for kk in range(ang.shape[3]):
             dga += torch.einsum("brnj,brnc->jc", basis_a[:, :, :, kk], g * (first == kk))
         db += g.sum(dim=(0, 1, 2))
@@ -281,14 +294,44 @@ def geometric_embedding(points, knn_points, wd, bd, wa, ba, sigma_d, sigma_a,
 geometric_embedding.launches = 0
 
 
+def geometric_embedding_bwd_form(c: int, dtype, deg_d: int = 40, deg_a: int = 16,
+                                 k: int = 3) -> str:
+    """Which hand-written kernel takes K10 at embedding width ``c`` for a
+    cotangent of ``dtype`` with (deg_d, deg_a) basis terms and ``k`` angle
+    neighbours:
+
+    * "tc": bf16 at C in :data:`BWD_TC_WIDTHS` (training's embedding), the
+      tensor-core form (``csrc/embedding_bwd_tc.cuh``);
+    * "cuda": the first design (float32, and bf16 at other widths).
+
+    Chosen by shape alone, as the C entry points check; neither is a
+    fallback of the other.  Raises ``ValueError`` where no kernel takes the
+    shape."""
+    if (dtype not in _DTYPES or (deg_d, deg_a, k) != BWD_BASES or not 1 <= c <= 1024
+            or (dtype == torch.bfloat16 and c % 16)):
+        raise ValueError(f"no K10 kernel for C={c}, {dtype}, bases ({deg_d}, {deg_a}), "
+                         f"k={k}: built for bases {BWD_BASES[:2]}, k={BWD_BASES[2]}, C <= 1024 "
+                         f"(bf16: C % 16 == 0), bf16 or float32")
+    return "tc" if dtype == torch.bfloat16 and c in BWD_TC_WIDTHS else "cuda"
+
+
 def geometric_embedding_bwd(d_emb, points, knn_points, wd, bd, wa, ba, sigma_d, sigma_a):
     """K10 (``csrc/geometric_embedding.cu``, replaces the TPU
     ``_emb_bwd_call``): see :func:`geometric_embedding_bwd_plain`; d_emb in
-    bf16 or float32.  Per-row partial sums are added by ``torch.sum`` in a
-    fixed order; ``d_W = A^T dG`` stays a matmul, as in the JAX package.
-    With a bf16 d_emb the angle argmax comes from K3's tensor-core
-    projections.  Bound by fp32 FMA throughput; the source notes the
-    design."""
+    bf16 or float32, on the form :func:`geometric_embedding_bwd_form` names.
+    The kernel's partial sums (per persistent block in the tc form, per
+    query row in the first design) are added by ``torch.sum`` in a fixed
+    order; ``d_W = A^T dG`` stays a matmul, as in the JAX package.  Bound
+    by one read of d_emb; the sources note the designs."""
+    return _geometric_embedding_bwd(d_emb, points, knn_points, wd, bd, wa, ba, sigma_d,
+                                    sigma_a)
+
+
+def _geometric_embedding_bwd(d_emb, points, knn_points, wd, bd, wa, ba, sigma_d, sigma_a,
+                             form=None):
+    """K10 on the form :func:`geometric_embedding_bwd_form` names, or on
+    ``form`` where the caller asks for one ("cuda" takes every shape the
+    form check lets through)."""
     if points.device.type == "cpu":
         return geometric_embedding_bwd_plain(d_emb, points, knn_points, wd, bd, wa, ba,
                                              sigma_d, sigma_a)
@@ -302,26 +345,43 @@ def geometric_embedding_bwd(d_emb, points, knn_points, wd, bd, wa, ba, sigma_d, 
     if d_emb.shape != (b, n, n, c) or knn_points.shape != (b, n, k, 3):
         raise ValueError("bad embedding backward input shapes")
     deg_d, deg_a, gd, ga = _folded_projections(wd, wa, sigma_a)
+    chosen = geometric_embedding_bwd_form(c, d_emb.dtype, deg_d, deg_a, k)
+    form = form or chosen
+    if form == "tc" and chosen != "tc":
+        raise ValueError(f"K10's tc form does not take C={c} in {d_emb.dtype}")
     points = points.float().contiguous()
     knn_points = knn_points.float().contiguous()
-    ga, ba = ga.contiguous(), ba.float().contiguous()
     d_emb = d_emb.contiguous()
-    part = torch.empty((b * n, deg_d + deg_a + 1, c), dtype=torch.float32,
-                       device=points.device)
-    scalars = (b, n, c, deg_d, deg_a, k, 2.0 / (D_INDEX_MAX * sigma_d), 2.0 / math.pi,
-               torch.cuda.current_stream(points.device).cuda_stream)
-    if d_emb.dtype == torch.bfloat16:
-        # the argmax over the forward's tensor-core projections
+    inv = (2.0 / (D_INDEX_MAX * sigma_d), 2.0 / math.pi)
+    stream = torch.cuda.current_stream(points.device).cuda_stream
+    if form == "tc":
+        if d_emb.data_ptr() % 16:
+            raise ValueError("K10's tc form reads d_emb in 16-byte units: misaligned tensor")
+        # one persistent block an SM over the (query row, key tile) tiles
+        blocks = min(torch.cuda.get_device_properties(points.device).multi_processor_count,
+                     b * n * -(-n // BWD_TC_KEYS))
+        part = torch.empty((blocks, BWD_PARTS, c), dtype=torch.float32, device=points.device)
         gt = tc_table(gd, ga)
-        fn = _build.function("geometric_embedding", "se3et_geometric_embedding_bwd_bf16", 7, 6,
-                             2)
-        status = fn(points.data_ptr(), knn_points.data_ptr(), ga.data_ptr(), ba.data_ptr(),
-                    gt.data_ptr(), d_emb.data_ptr(), part.data_ptr(), *scalars)
+        fn = _build.function("geometric_embedding", "se3et_geometric_embedding_bwd_tc", 5, 7, 2)
+        status = fn(points.data_ptr(), knn_points.data_ptr(), gt.data_ptr(), d_emb.data_ptr(),
+                    part.data_ptr(), b, n, c, blocks, deg_d, deg_a, k, *inv, stream)
     else:
-        fn = _build.function("geometric_embedding", "se3et_geometric_embedding_bwd_f32", 6, 6, 2)
-        status = fn(points.data_ptr(), knn_points.data_ptr(), ga.data_ptr(), ba.data_ptr(),
-                    d_emb.data_ptr(), part.data_ptr(), *scalars)
-    _build.check(status, "geometric_embedding_bwd launch")
+        ga, ba = ga.contiguous(), ba.float().contiguous()
+        part = torch.empty((b * n, BWD_PARTS, c), dtype=torch.float32, device=points.device)
+        scalars = (b, n, c, deg_d, deg_a, k, *inv, stream)
+        if d_emb.dtype == torch.bfloat16:
+            # the argmax over the forward's tensor-core projections
+            gt = tc_table(gd, ga)
+            fn = _build.function("geometric_embedding", "se3et_geometric_embedding_bwd_bf16",
+                                 7, 6, 2)
+            status = fn(points.data_ptr(), knn_points.data_ptr(), ga.data_ptr(), ba.data_ptr(),
+                        gt.data_ptr(), d_emb.data_ptr(), part.data_ptr(), *scalars)
+        else:
+            fn = _build.function("geometric_embedding", "se3et_geometric_embedding_bwd_f32", 6,
+                                 6, 2)
+            status = fn(points.data_ptr(), knn_points.data_ptr(), ga.data_ptr(), ba.data_ptr(),
+                        d_emb.data_ptr(), part.data_ptr(), *scalars)
+    _build.check(status, f"geometric_embedding_bwd launch ({form})")
     geometric_embedding_bwd.launches += 1
     tot = part.sum(dim=0)
     return _basis_to_weights(tot[:deg_d], tot[deg_d:deg_d + deg_a], tot[deg_d + deg_a], wd,

@@ -113,7 +113,7 @@ class CheckResult:
     route_ms: Optional[float] = None  # the unfused route's time (K12-K14), a yardstick
     device_ms: Optional[float] = None  # the kernel's own device time per call (profiler)
     two_calls_ms: Optional[float] = None  # two PyTorch calls computing the function (K7)
-    first_ms: Optional[float] = None  # the first design on the same inputs (K2, K11, K14)
+    first_ms: Optional[float] = None  # the first design on the same inputs (K2, K10, K11, K14)
     # every device kernel of one wrapper call (K11: its products too), and
     # the first design's kernel, per call (profiler)
     call_device_ms: Optional[float] = None
@@ -576,12 +576,23 @@ def check_neighbor_max_bwd(nbr, ns, ac, seed=8, reps=5):
 
 
 def check_embedding_bwd(points, masks, c=256, k=3, sigma_d=0.2, sigma_a=15.0,
-                        grad_dtype=torch.bfloat16, seed=9, reps=3):
+                        grad_dtype=torch.bfloat16, seed=9, reps=3, device_kernel=None,
+                        first=False, ties=False):
     """K10 on the coarse points with a random cotangent d_emb (B, N, N, C)
-    in ``grad_dtype``.  Error relative to each output's scale, tolerance
-    1e-2: float32 sums over B*N*N pairs in another order, and where two of
-    the k angle projections of an element agree to rounding the kernel (K3's
-    arithmetic) and the plain version (its own) may route to different k."""
+    in ``grad_dtype``, on the form ``embedding.geometric_embedding_bwd_form``
+    names.  Error relative to each output's scale, tolerance 1e-2: float32
+    sums over B*N*N pairs in another order (the tc form: per block on the
+    tensor cores, then over blocks), and where two of the k angle
+    projections of an element agree to rounding the kernel (K3's arithmetic)
+    and the plain version (its own) may route to different k.  With
+    ``ties`` the second neighbour of every third query row repeats the first
+    (exact ties), the third neighbour of the next rows lies 1e-4 beside the
+    first (near ties), and every seventh column of wa is 0, so that in those
+    channels the three projections are all 0 and the first argmax sends the
+    whole gradient to T_a(angle_0).  With ``device_kernel`` (a kernel name)
+    also that kernel's device time per call and that of every kernel of the
+    call; with ``first`` the first design's time on the same inputs (events,
+    and its kernel's device time where ``device_kernel`` is given)."""
     g = torch.Generator().manual_seed(seed)
     dev = points.device
     b, n, _ = points.shape
@@ -593,12 +604,25 @@ def check_embedding_bwd(points, masks, c=256, k=3, sigma_d=0.2, sigma_a=15.0,
     idx = torch.topk(-sq, k + 1, dim=-1).indices[:, :, 1:]
     knn = torch.gather(points, 1, idx.reshape(b, -1, 1).expand(-1, -1, 3)).reshape(
         b, n, k, 3)
+    if ties:
+        knn[:, ::3, 1] = knn[:, ::3, 0]
+        knn[:, 1::3, 2] = knn[:, 1::3, 0] + 1e-4
+        wa[:, ::7] = 0.0
     d_emb = torch.randn((b, n, n, c), generator=g).to(dev, grad_dtype)
     args = (d_emb, points, knn, wd, bd, wa, ba, sigma_d, sigma_a)
+    kernel_fn = lambda: embedding.geometric_embedding_bwd(*args)  # noqa: E731
+    form = embedding.geometric_embedding_bwd_form(c, grad_dtype)
     res = _compare_many(
-        "geometric_embedding_bwd", f"d_emb{tuple(d_emb.shape)} {grad_dtype}",
-        lambda: embedding.geometric_embedding_bwd(*args),
-        lambda: embedding.geometric_embedding_bwd_plain(*args), 1e-2, reps)
+        "geometric_embedding_bwd", f"d_emb{tuple(d_emb.shape)} {grad_dtype} ({form} form)",
+        kernel_fn, lambda: embedding.geometric_embedding_bwd_plain(*args), 1e-2, reps)
+    first_fn = lambda: embedding._geometric_embedding_bwd(*args, form="cuda")  # noqa: E731
+    if device_kernel is not None:
+        res.device_ms = device_ms(kernel_fn, device_kernel)
+        res.call_device_ms = device_ms(kernel_fn, "")
+    if first:
+        res.first_ms = _time_ms(first_fn, reps)
+        if device_kernel is not None:
+            res.first_device_ms = device_ms(first_fn, "embedding_bwd_kernel")
     deg_d, deg_a, _, _ = embedding._folded_projections(wd, wa, sigma_a)
     # per d_emb element: deg_d + deg_a basis accumulations and the k angle
     # projections recomputed for the argmax, one FMA (2 operations) each, at

@@ -205,6 +205,38 @@ def test_rpe_attention_bwd_form_refuses_shapes_no_kernel_takes(ah, hc, cc, dtype
         rpe_k.rpe_attention_bwd_form(ah, hc, cc, dtype)
 
 
+@pytest.mark.parametrize("c,dtype,form", [
+    (256, torch.bfloat16, "tc"),    # training's embedding (se3ete.3dmatch)
+    (128, torch.bfloat16, "tc"),
+    (64, torch.bfloat16, "tc"),     # the tiny card-vs-CPU widths in bf16
+    (256, torch.float32, "cuda"),   # float32 keeps the first design
+    (64, torch.float32, "cuda"),
+    (40, torch.float32, "cuda"),
+    (192, torch.bfloat16, "cuda"),  # tc is built for 64, 128 and 256 only
+    (512, torch.bfloat16, "cuda"),
+    (16, torch.bfloat16, "cuda"),
+])
+def test_geometric_embedding_bwd_form(c, dtype, form):
+    """K10 takes its tc form in bf16 at C = 64, 128 and 256, the first
+    design otherwise."""
+    assert emb_k.geometric_embedding_bwd_form(c, dtype) == form
+
+
+@pytest.mark.parametrize("c,dtype,bases", [
+    (2048, torch.float32, (40, 16, 3)),   # one thread a channel: C <= 1024
+    (0, torch.float32, (40, 16, 3)),
+    (40, torch.bfloat16, (40, 16, 3)),    # bf16: C % 16 == 0
+    (256, torch.float16, (40, 16, 3)),
+    (256, torch.bfloat16, (48, 16, 3)),   # the kernels' basis sizes and k are fixed
+    (256, torch.bfloat16, (40, 24, 3)),
+    (256, torch.bfloat16, (40, 16, 4)),
+    (256, torch.float32, (40, 16, 2)),
+])
+def test_geometric_embedding_bwd_form_refuses_shapes_no_kernel_takes(c, dtype, bases):
+    with pytest.raises(ValueError):
+        emb_k.geometric_embedding_bwd_form(c, dtype, *bases)
+
+
 @pytest.mark.parametrize("h,c,dtype,form", [
     (4, 64, torch.bfloat16, "tc"),      # the EQ cross layers in serving
     (4, 64, torch.float32, "cuda"),

@@ -560,6 +560,136 @@ def test_geometric_embedding_bwd_kernel(cuda, n, c, grad_dtype):
                                              reps=1))
 
 
+# (N, padded points at the end of cloud 1) for K10's tc form: the training
+# shape; ragged N; fewer keys than one 64-key tile; a last tile of 8 keys
+EMB_BWD_EDGES = [(1024, 40), (1003, 40), (40, 5), (200, 17)]
+
+
+@pytest.mark.parametrize("n,pad", EMB_BWD_EDGES)
+def test_geometric_embedding_bwd_tc_ties(cuda, n, pad):
+    """K10's tc form on a cloud with repeated and near-tied neighbours and
+    channels whose three angle projections are all 0 (``ties``), within
+    1e-2 of each gradient's scale of the plain version."""
+    points, masks = _cloud(cuda, n, 15, pad=pad)
+    res = selfcheck.check_embedding_bwd(points, masks, ties=True, reps=1)
+    assert res.shape.endswith("(tc form) (error relative to output scale)"), res.shape
+    _assert_ok(res)
+
+
+def _emb_bwd_args(cuda, n, c, dtype, seed, zero_cols=None):
+    """K10's inputs as ``selfcheck.check_embedding_bwd`` makes them, with
+    the columns ``zero_cols`` of wa set to 0."""
+    points, masks = _cloud(cuda, n, seed)
+    g = torch.Generator().manual_seed(seed)
+    w = [((torch.rand(s, generator=g) * 2 - 1) * c ** -0.5).to(cuda)
+         for s in ((c, c), (c,), (c, c), (c,))]
+    if zero_cols is not None:
+        w[2][:, zero_cols] = 0.0
+    sq = torch.cdist(points, points).masked_fill(~masks[:, None, :], 1e10)
+    idx = torch.topk(-sq, 4, dim=-1).indices[:, :, 1:]
+    knn = torch.gather(points, 1, idx.reshape(2, -1, 1).expand(-1, -1, 3)).reshape(2, n, 3, 3)
+    d_emb = torch.randn((2, n, n, c), generator=g).to(cuda, dtype)
+    return (d_emb, points, knn, *w, 0.2, 15.0)
+
+
+def test_geometric_embedding_bwd_tc_routes_ties_to_the_first_k(cuda):
+    """Where a channel's three angle projections are all 0 (a zero column
+    of wa), the tc form sends its whole gradient to T_a(angle_0), as the
+    plain version does: those columns of d_wa within 1e-2 of their own
+    scale of the plain version's, while routing them to angle_1 instead
+    (the plain version with neighbours 0 and 1 swapped) moves them by more
+    than 10 % of it."""
+    from se3et_tpu_torch.ops.kernels import embedding
+
+    cols = slice(0, None, 5)
+    args = _emb_bwd_args(cuda, 1003, 256, torch.bfloat16, 17, zero_cols=cols)
+    got = embedding.geometric_embedding_bwd(*args)[2][:, cols]
+    want = embedding.geometric_embedding_bwd_plain(*args)[2][:, cols]
+    swapped = list(args)
+    swapped[2] = args[2][:, :, [1, 0, 2]]
+    other = embedding.geometric_embedding_bwd_plain(*swapped)[2][:, cols]
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-2 * scale
+    assert float((other - want).abs().max()) > 0.1 * scale
+
+
+def test_geometric_embedding_bwd_tc_is_deterministic(cuda):
+    """Two calls of K10's tc form on the same inputs give the same gradients
+    bit for bit: each block sums its fixed run of tiles in one order, and
+    the wrapper adds the blocks' partials in a fixed order."""
+    from se3et_tpu_torch.ops.kernels import embedding
+
+    args = _emb_bwd_args(cuda, 1003, 256, torch.bfloat16, 18)
+    first = embedding.geometric_embedding_bwd(*args)
+    second = embedding.geometric_embedding_bwd(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+_PROFILE_K10 = """
+import json, sys
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+sys.path.insert(0, sys.argv[1])
+from tests.test_torch_kernels_cuda import _emb_bwd_args
+from se3et_tpu_torch.ops.kernels import embedding
+n, c, dtype, seed = int(sys.argv[2]), int(sys.argv[3]), getattr(torch, sys.argv[4]), int(sys.argv[5])
+args = _emb_bwd_args(torch.device("cuda"), n, c, dtype, seed)
+embedding.geometric_embedding_bwd(*args)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    embedding.geometric_embedding_bwd(*args)
+    torch.cuda.synchronize()
+print(json.dumps([e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]))
+"""
+
+
+def _k10_kernels(n, c, dtype, seed):
+    """The device kernels one K10 call on ``_emb_bwd_args(n, c, dtype,
+    seed)`` launches, from torch.profiler in a process of its own: a
+    profiler session in this process would leave the later sessions of K11's
+    launch test lossy on the card (they then lose kernel records)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", _PROFILE_K10, root, str(n), str(c),
+                          str(dtype).split(".")[-1], str(seed)],
+                         capture_output=True, text=True, timeout=600, cwd=root)
+    assert run.returncode == 0, run.stderr[-2000:]
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("dtype,form,kernel,other", [
+    (torch.bfloat16, "tc", "embedding_bwd_tc_kernel", "embedding_bwd_kernel"),
+    (torch.float32, "cuda", "embedding_bwd_kernel", "embedding_bwd_tc_kernel"),
+])
+def test_geometric_embedding_bwd_launches_its_form(cuda, dtype, form, kernel, other):
+    """At the training shape (N = 1024, C = 256) K10 launches the tc form's
+    kernel for a bf16 cotangent and the first design's for a float32 one
+    (profiler)."""
+    from se3et_tpu_torch.ops.kernels import embedding
+
+    assert embedding.geometric_embedding_bwd_form(256, dtype) == form
+    names = _k10_kernels(1024, 256, dtype, 19)
+    assert any(kernel in k for k in names) and not any(other in k for k in names), names
+
+
+def test_geometric_embedding_bwd_tc_refuses_other_widths(cuda):
+    """K10 asked for its tc form at a width it is not built for raises;
+    at that width a bf16 cotangent takes the first design (profiler)."""
+    from se3et_tpu_torch.ops.kernels import embedding
+
+    args = _emb_bwd_args(cuda, 100, 192, torch.bfloat16, 20)
+    with pytest.raises(ValueError, match="tc form"):
+        embedding._geometric_embedding_bwd(*args, form="tc")
+    names = _k10_kernels(100, 192, torch.bfloat16, 20)
+    assert any("embedding_bwd_kernel" in k for k in names), names
+
+
 @pytest.mark.parametrize("n,ah,c,cc,with_sh,dtype", [
     (1024, 24, 64, 256, True, torch.bfloat16),    # self_eq layers
     (1024, 4, 64, 256, False, torch.bfloat16),    # plain self layers

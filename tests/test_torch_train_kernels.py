@@ -9,7 +9,8 @@ CPU at small shapes, from numpy inputs made with a seed:
   forced ties;
 * K10 ``geometric_embedding_bwd`` against ``jax.vjp`` of
   ``geometric_embedding_trainable`` (Pallas in interpret mode), with tied
-  and near-tied angles;
+  and near-tied angles, and the rounding of its bf16 tc form at the
+  training width on a cotangent that leaves near-tied angle maxima out;
 * K11 ``rpe_attention_bwd`` against ``jax.vjp`` of
   ``rpe_self_attention_trainable`` (interpret mode), with and without the SH
   term, with masked keys, at N = 128; and the precision plan of its bf16
@@ -172,13 +173,14 @@ def test_reverse_index_is_shared_per_neighbour_tensor():
     assert len(wc._REVERSE) == count - 2
 
 
-def _embedding_inputs(seed=3, b=2, n=16, c=32, k=3):
+def _embedding_inputs(seed=3, b=2, n=16, c=32, k=3, ties=True):
     rng = np.random.RandomState(seed)
     points = (rng.rand(b, n, 3) * 1.5).astype(np.float32)
     idx = np.stack([rng.choice(n, k, replace=False) for _ in range(b * n)]).reshape(b, n, k)
     knn = np.stack([points[bi][idx[bi]] for bi in range(b)]).astype(np.float32)
-    knn[:, ::3, 1] = knn[:, ::3, 0]  # tied angles: a repeated neighbour
-    knn[:, 1::3, 2] = knn[:, 1::3, 0] + 1e-4  # near-tied angles
+    if ties:
+        knn[:, ::3, 1] = knn[:, ::3, 0]  # tied angles: a repeated neighbour
+        knn[:, 1::3, 2] = knn[:, 1::3, 0] + 1e-4  # near-tied angles
     bound = 1.0 / np.sqrt(c)
     wd, wa = (rng.uniform(-bound, bound, (c, c)).astype(np.float32) for _ in range(2))
     bd, ba = (rng.uniform(-bound, bound, (c,)).astype(np.float32) for _ in range(2))
@@ -189,10 +191,12 @@ def test_geometric_embedding_bwd_matches_jax():
     """K10's plain version (and K3's autograd wrapper) against the JAX VJP of
     ``geometric_embedding_trainable`` (Pallas interpret, bf16 output, the
     backward's basis products in bf16).  Tolerance 2e-2 of each gradient's
-    scale: the JAX kernel rounds the Chebyshev bases and the cotangent to
-    bf16 before its products, the port keeps the bases in float32; on
-    (near-)tied angles the two may pick different k, whose bases are
-    (nearly) the same."""
+    scale: both round the Chebyshev bases to bf16 before their products,
+    but JAX's angle is a polynomial atan2 (error up to 1e-5 rad) and its
+    distance the direct form, so the bases of the two round apart here and
+    there, and where two of the k angle projections of an element agree to
+    within that the two pick different k (on tied and near-tied angles
+    their bases are (nearly) the same)."""
     from se3et_tpu.ops.pallas.embedding import geometric_embedding_trainable
     from se3et_tpu_torch.ops.kernels import embedding as emb_lib
 
@@ -214,6 +218,44 @@ def test_geometric_embedding_bwd_matches_jax():
     out.backward(dt)
     for p, g in zip(params, got):
         np.testing.assert_array_equal(p.grad.numpy(), g.numpy())
+
+
+def test_geometric_embedding_bwd_tc_rounding_matches_jax():
+    """The chain K10's tc form runs (its plain version on a bf16 cotangent:
+    the forward's bf16 angle projections compared before the bias, the
+    bases rounded to bf16 before the products, float32 sums) against the JAX
+    VJP of ``geometric_embedding_trainable`` (Pallas interpret), at the
+    training width C = 256, N = 32, on inputs without ties: the cotangent is
+    0 wherever the two largest angle projections of an element lie within
+    1e-3 of the projections' scale (self-pairs, where every angle is 0, and
+    near-ties, about 7 % of the elements), so that JAX's polynomial atan2
+    cannot move the argmax.  Tolerance 1e-3 of each gradient's scale
+    (measured: 1.8e-4 for d_wa, 6.5e-5 for d_wd; float32 bases, the first
+    design's chain, give 7.9e-3 for d_wa at C = 64): the bases of the two round to
+    bf16 apart where JAX's angle and direct distance differ from the port's
+    in the last bits."""
+    from se3et_tpu.ops.pallas.embedding import geometric_embedding_trainable
+    from se3et_tpu_torch.ops.kernels import embedding as emb_lib
+
+    b, n, c = 2, 32, 256
+    points, knn, wd, bd, wa, ba = _embedding_inputs(seed=7, b=b, n=n, c=c, ties=False)
+    sigma_d, sigma_a = 0.2, 15.0
+    args = [torch.from_numpy(a) for a in (points, knn, wd, bd, wa, ba)]
+    _, _, _, ga = emb_lib._folded_projections(args[2], args[4], sigma_a)
+    proj = emb_lib._cheb_project(emb_lib._pair_geometry(args[0], args[1], 0, n), 2 / np.pi,
+                                 ga, 0.0, torch.bfloat16)  # (B, N, N, k, C)
+    top = torch.topk(proj, 2, dim=3).values
+    apart = (top[:, :, :, 0] - top[:, :, :, 1] > 1e-3 * float(proj.abs().max())).numpy()
+    assert 0.9 < apart.mean() < 0.97
+    d_out = jnp.asarray(np.random.RandomState(4).randn(b, n, n, c) * apart, jnp.bfloat16)
+    _, vjp = jax.vjp(lambda *w: geometric_embedding_trainable(
+        points, knn, *w, sigma_d, sigma_a, 48.0, True), wd, bd, wa, ba)
+    want = vjp(d_out)
+    dt = torch.from_numpy(np.array(d_out.astype(jnp.float32))).to(torch.bfloat16)
+    got = emb_lib.geometric_embedding_bwd_plain(dt, *args, sigma_d, sigma_a)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        _close(g, w, 1e-3)
 
 
 def _rpe_inputs(with_sh, seed=5, b=2, ah=4, n=128, c=16, cc=32):
