@@ -59,7 +59,13 @@ Phases, each of which raises (exit code != 0) on failure:
    replayed pair, where every serving kernel must appear with its eager
    count per pair;
 6. training: hold the four backward kernels (K8-K11) against their plain
-   versions at the training shapes with their bounds, K11 (its bf16 form
+   versions at the training shapes with their bounds, K8 (its form
+   "tiles") at the seven training shapes on pair 0's neighbour sets by
+   events and device time beside its first design in the same run (bit
+   for bit against it and against a second call of itself), with its bound,
+   the share of it, the re-read factor and its total per step, and its tile
+   plan (merged on the card from the set's reverse index) against its plain
+   version, with its build time; K11 (its bf16 form
    "tc") at both self-layer shapes by events and device time (the kernel
    and the whole call, its products included) beside its first design's
    times before the redesign and in this run, and K10 (its bf16 form "tc")
@@ -73,8 +79,8 @@ Phases, each of which raises (exit code != 0) on failure:
    K3 1, K4 1, K5 5), finite losses and gradient norm, the step time, the
    forward + loss time alone, peak memory and a ``torch.profiler``
    breakdown of one step (with K2's float32 line, K10's tc kernel, which
-   must appear once, and the device ms per launch of K8, K9, the float32
-   K1 and K10);
+   must appear once, and the device ms per launch of K8's tiles kernel,
+   K9, the float32 K1 and K10);
 7. the routes off the default one: K15 (device influence) against its plain
    version at the stage-0 same-level and the stage-1 strided set of pair 0,
    K16 (``serve_femb``) at the self_eq (AH = 24, SH) and plain self (AH =
@@ -136,10 +142,21 @@ K10_KERNEL = "embedding_bwd_tc_kernel"
 # K10 at the training shape before its redesign (first design, bf16; NVIDIA
 # H100 80GB HBM3, 700 W): ms by events, device ms of the kernel
 K10_BEFORE = (6.7367, 6.4331)
+# K8's device kernel at the training shapes (its tiles form), its time at
+# the stage-0 shape before the redesign (first design; NVIDIA H100 80GB
+# HBM3, 700 W: ms by events), and its training shapes on pair 0: (what,
+# neighbour set, source stage, channels A*C of the conv's input, launches
+# per step)
+K8_KERNEL = "gather_wf_bwd_tiles_kernel"
+K8_BEFORE = 0.6996
+K8_SHAPES = (("stage-0 same", "neighbors_0", 0, 192, 1), ("s0 -> s1", "subsampling_0", 0, 192, 1),
+             ("stage-1 same", "neighbors_1", 1, 384, 2), ("s1 -> s2", "subsampling_1", 1, 384, 1),
+             ("stage-2 same", "neighbors_2", 2, 768, 2), ("s2 -> s3", "subsampling_2", 2, 768, 1),
+             ("stage-3 same", "neighbors_3", 3, 1536, 2))
 # the training kernels' device kernels in the step profile, with launches of
-# their wrapper per step: K8 and K9 two kernels a launch, K1 the float32
-# first design
-STEP_KERNELS = {"K8": (("slot_grad_kernel", "source_sum_kernel"), 10),
+# their wrapper per step: K9 two kernels a launch, K1 the float32 first
+# design
+STEP_KERNELS = {"K8": ((K8_KERNEL,), 10),
                 "K9": (("share_kernel", "tie_sum_kernel"), 3),
                 "K1 (float32)": (("gather_wf_kernel",), 10), "K10": ((K10_KERNEL,), 1)}
 # launches per served pair on the routes of phase 7: device influence (7
@@ -351,9 +368,16 @@ def _training(cfg, pairs, extent, dev):
     pts_c, masks_c = p0["points_3"], p0["masks_3"]
     ns0 = p0["points_0"].shape[1]
     heads, head_dim = m.num_heads, m.gt_hidden_dim // m.num_heads
+    # K8 at each training shape on pair 0's neighbour sets, beside its first
+    # design (bit for bit, and its times in this run)
+    k8 = [(what, launches, selfcheck.check_gather_wf_bwd(
+        p0[key], p0[f"points_{src}"].shape[1], ac, device_kernel=K8_KERNEL, first=True))
+        for what, key, src, ac, launches in K8_SHAPES]
+    if sum(n for _, n, _ in k8) != TRAIN_LAUNCHES["gather_wf_bwd"]:
+        raise RuntimeError("K8_SHAPES does not cover the step's K8 launches")
     checks = {
         # stage-0 bottleneck conv: x (2, 20000, A*32), K = 15
-        "gather_wf_bwd": selfcheck.check_gather_wf_bwd(p0["neighbors_0"], ns0, 6 * 32),
+        "gather_wf_bwd": k8[0][2],
         # stage-1 strided skip: x (2, 20000, A*128)
         "neighbor_max_bwd": selfcheck.check_neighbor_max_bwd(p0["subsampling_0"], ns0,
                                                              6 * 128),
@@ -370,8 +394,38 @@ def _training(cfg, pairs, extent, dev):
     extra = [selfcheck.check_rpe_attention_bwd(pts_c, masks_c, heads, c=head_dim,
                                                cc=m.gt_hidden_dim, with_sh=False,
                                                device_kernel=K11_KERNEL, first=True)]
-    for res in list(checks.values()) + extra:
+    for res in list(checks.values()) + extra + [r for _, _, r in k8[1:]]:
         _print_check(res)
+    # K8 ("tiles") at the seven shapes: events and device ms beside the first
+    # design in this run, the bound, the share of it and the re-read factor
+    for what, launches, res in k8:
+        print(f"K8 {what} (x {launches} a step) {res.shape}: events {res.ms:.4f} ms (first "
+              f"design in this run {_ms(res.first_ms)}"
+              + (f", before the redesign {K8_BEFORE:.4f}" if what == "stage-0 same" else "")
+              + f"), device: the kernel {_ms(res.device_ms)} ms, the whole call "
+              f"{_ms(res.call_device_ms)} ms, the first design's call "
+              f"{_ms(res.first_device_ms)} ms; bound {res.bound_ms:.4f} ms ({res.bound_by}), "
+              f"{res.bound_ms / res.ms:.1%} of it by events; re-read factor {res.reread:.3f}; "
+              f"bit for bit against the first design and itself: {res.bitwise}; tile plan "
+              f"from the reverse index {_ms(res.plan_ms)} ms, equal to its plain version: "
+              f"{res.plan_ok}", flush=True)
+    per_step = {name: sum(n * v for _, n, v in vals) for name, vals in (
+        ("events", [(w, n, r.ms) for w, n, r in k8]),
+        ("first design events", [(w, n, r.first_ms) for w, n, r in k8]),
+        ("device", [(w, n, r.device_ms or math.nan) for w, n, r in k8]),
+        ("first design device", [(w, n, r.first_device_ms or math.nan) for w, n, r in k8]),
+        ("bound", [(w, n, r.bound_ms) for w, n, r in k8]))}
+    # one plan a neighbour set a step (its convs share it)
+    per_step["tile plans (7 sets)"] = sum(r.plan_ms or math.nan for _, _, r in k8)
+    print("K8 per step (10 launches, ms): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in per_step.items()) + " (predicted: stage-0 call 0.22-0.30 "
+        "ms by events, 1.5-2.3 device ms a step)", flush=True)
+    if any(r.form != "tiles" for _, _, r in k8):
+        raise RuntimeError(f"K8 took another form than tiles at a training shape: "
+                           f"{[(w, r.form) for w, _, r in k8 if r.form != 'tiles']}")
+    if not all(r.bitwise and r.ok for _, _, r in k8):
+        raise RuntimeError(f"K8 differs from its first design or its plain version: "
+                           f"{[w for w, _, r in k8 if not (r.bitwise and r.ok)]}")
     # K11 at both training shapes beside its first design: its times before
     # the redesign (NVIDIA H100 80GB HBM3, 700 W: 19.7523 / 9.3540 ms by
     # events, 6.1515 device ms of the self_eq kernel) and in this run
@@ -440,25 +494,29 @@ def _training(cfg, pairs, extent, dev):
           f"{statistics.median(step_ms):.2f}); losses {vals}; launches {launches}; "
           f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
     # one step's profile, with the training kernels' device ms per launch;
-    # K10's tc kernel must appear once (a profile that lists it short is
-    # taken once more)
+    # K10's tc kernel must appear once and K8's tiles kernel 10 times (a
+    # profile that lists either short is taken once more)
     also = ("neighbor_max_rows_kernel", K11_KERNEL) + tuple(
         name for names, _ in STEP_KERNELS.values() for name in names)
+    want = {K10_KERNEL: TRAIN_LAUNCHES["geometric_embedding_bwd"],
+            K8_KERNEL: TRAIN_LAUNCHES["gather_wf_bwd"]}
     for _ in range(2):
         prof = _profile(lambda: step(inputs[0], generator=gen), what="one training step",
                         top=25, also=also)
         if prof is None:
             return checks
-        k10 = sum(c for key, c in prof["counts"].items() if K10_KERNEL in key)
-        if k10 == TRAIN_LAUNCHES["geometric_embedding_bwd"]:
+        seen = {name: sum(c for key, c in prof["counts"].items() if name in key)
+                for name in want}
+        if seen == want:
             break
     else:
-        raise RuntimeError(f"the step profile lists {K10_KERNEL} {k10} times, expected 1")
+        raise RuntimeError(f"the step profile lists {seen}, expected {want}")
     per_launch = {
         what: sum(ms for key, ms in prof["ms"].items() if any(n in key for n in names)) / count
         for what, (names, count) in STEP_KERNELS.items()}
     print("step profile, device ms per launch: " + ", ".join(
-        f"{what} {ms:.4f} (x {STEP_KERNELS[what][1]})" for what, ms in per_launch.items()),
+        f"{what} {ms:.4f} (x {STEP_KERNELS[what][1]})" for what, ms in per_launch.items())
+        + f"; K8 per step {per_launch['K8'] * STEP_KERNELS['K8'][1]:.4f} ms (predicted 1.5-2.3)",
         flush=True)
     return checks
 
@@ -1130,9 +1188,11 @@ def main() -> int:
                "plain_ms": res.plain_ms, "bound_ms": res.bound_ms,
                "bound_by": res.bound_by, "library_ms": res.library_ms}
         # yardsticks measured beside some kernels: device time (profiler),
-        # the unfused route (K12-K14), the first design (K2, K11, K14)
+        # the unfused route (K12-K14), the first design (K2, K11, K14), K8's
+        # tile plan's build
         row.update({key: getattr(res, key) for key in ("device_ms", "route_ms", "first_ms",
-                                                       "call_device_ms", "first_device_ms")
+                                                       "call_device_ms", "first_device_ms",
+                                                       "plan_ms")
                     if getattr(res, key) is not None})
         kernels.append(row)
     print(card)

@@ -1,6 +1,6 @@
 // Backward of the E2PN conv gather with respect to the features (K8).
 //
-//   dx[b, s, ac] = sum_{(q, h): nbr[b, q, h] = s} sum_k infl[b, q, h, k] * dwf[b, q, k, ac]
+//   dx[b, s, ac] = sum_{(q, h): nbr[b, q, h] = s} sum_k infl[b, q, h, k] * dwf[b, q, k*AC + ac]
 //
 // the transpose of K1 (gather_wf.cu).  Replaces the TPU kernel
 // se3et_tpu/ops/pallas/windowed_conv.py _wf_bwd_win (the backward of
@@ -9,9 +9,15 @@
 // sentinel rows zeroed), so a sentinel neighbour receives nothing.
 //
 // Bound: device memory.  The TPU kernel scatters through one-hot matmuls
-// over a window; here each source row is owned by one block and summed in
-// a fixed order, so the gradient is the same bits from run to run (no
-// atomics).  Two kernels:
+// over a window; here each source row is summed in a fixed order, so the
+// gradient is the same bits from run to run (no atomics).  Two forms,
+// windowed_conv.gather_wf_bwd_form names the one a shape takes:
+//  * "tiles" (gather_wf_bwd_tiles.cuh, the redesign): a warp owns a tile of
+//    consecutive source rows and a slice of channels, walks the tile's
+//    slots in (q, h) order from a tile plan (merged by tile_plan_kernel
+//    from the set's reverse index, below) and keeps the sums in shared
+//    memory; dwf is read once per (tile, query), nothing is written but dx;
+//  * "first" (the first design, below), two kernels:
 //  1. per (query, neighbour slot): g[b, q*H + h, ac] = sum_k infl * dwf,
 //     one thread per (query, channel) with the K dwf values of its column
 //     in registers, the block's influence rows in shared memory;
@@ -19,8 +25,12 @@
 //     walked in the order of a reverse (CSR) index of the neighbour set --
 //     entries sorted stably by source, so by (q, h) within a source --
 //     built once per neighbour set by the wrapper and shared by its convs.
-// Each dwf element is read once and each g row is written and read once.
+//  Each dwf element is read once and each g row is written and read once.
+//  Both forms compute each slot's value by the same FMA chain and add a
+//  source's values in ascending slot order from 0.f: the same bits.
 #include <cuda_runtime.h>
+
+#include "gather_wf_bwd_tiles.cuh"
 
 namespace {
 
@@ -78,7 +88,7 @@ __global__ void source_sum_kernel(const float* __restrict__ g, const int* __rest
 
 }  // namespace
 
-// dwf (B, Nq, K*AC) f32; infl (B, Nq, H, K) f32; order (B, Nq*H) int32 and
+// The first design: dwf (B, Nq, K*AC) f32; infl (B, Nq, H, K) f32; order (B, Nq*H) int32 and
 // offsets (B, Ns+1) int32 the reverse index; g (B, Nq*H, AC) f32 scratch;
 // dx (B, Ns, AC) f32.
 extern "C" int se3et_gather_wf_bwd_f32(const void* dwf, const void* infl, const void* order,
@@ -95,4 +105,33 @@ extern "C" int se3et_gather_wf_bwd_f32(const void* dwf, const void* infl, const 
   source_sum_kernel<<<dim3(ns, batch), threads, 0, st>>>(
       (const float*)g, (const int*)order, (const int*)offsets, (float*)dx, ns, nq * h, ac);
   return (int)cudaGetLastError();
+}
+
+// The tiles form: dwf (B, Nq, K*AC) f32, AC a multiple of 4 and dwf 16-byte
+// aligned; infl (B, Nq, hs >= H, K) f32 read in place; ent (B, Nq*H) and off
+// (B, ceil(Ns / tile) + 1) int32 the tile plan, built for tiles of `tile`
+// rows, which must be the kernel's (32 as shipped); dx (B, Ns, AC) f32; work one int of
+// scratch (the items' counter, zeroed on the stream before the launch).
+// Another tile, K > 16, H > 64, Nq >= 2^19, AC not a multiple of 4 or dwf
+// not 16-byte aligned give cudaErrorInvalidValue without launching.
+extern "C" int se3et_gather_wf_bwd_tiles_f32(const void* dwf, const void* infl, const void* ent,
+                                             const void* off, void* dx, void* work, int batch,
+                                             int ns, int nq, int h, int hs, int k, int ac,
+                                             int tile, void* stream) {
+  if (tile != k8_tiles::kTile) return (int)cudaErrorInvalidValue;
+  k8_tiles::Args a{(const float*)dwf, (const float*)infl, (const int*)ent, (const int*)off,
+                   (float*)dx, (int*)work, batch, ns, nq, h, hs, k, ac};
+  return k8_tiles::launch(a, (cudaStream_t)stream);
+}
+
+// The tile plan of a neighbour set (B, Nq, H) over Ns source rows from its
+// reverse index: order (B, Nq*H) and offsets (B, Ns+1) int32; ent (B, Nq*H)
+// and off (B, ceil(Ns / tile) + 1) int32, out.  tile must be the kernel's;
+// H > 64 or Nq >= 2^19 give cudaErrorInvalidValue without launching.
+extern "C" int se3et_gather_wf_bwd_tile_plan(const void* order, const void* offsets, void* ent,
+                                             void* off, int batch, int ns, int nq, int h,
+                                             int tile, void* stream) {
+  if (tile != k8_tiles::kTile) return (int)cudaErrorInvalidValue;
+  return k8_tiles::launch_tile_plan((const int*)order, (const int*)offsets, (int*)ent,
+                                    (int*)off, batch, ns, nq, h, (cudaStream_t)stream);
 }

@@ -45,6 +45,11 @@ shapes of se3ete.3dmatch (bf16) and the tiny float32 widths:
 * K2 (neighbour max) in bf16 at the fused serving route's s2 -> s3 skip (x
   (2, 2500, 3072), H 36) and in float32 at the training s0 -> s1 skip (x
   (2, 20000, 768), H 24), both timed and held by their bit patterns;
+* K8 (the backward of K1, float32) at the stage-0 same-level (dwf (2,
+  20000, 15 * 192), H 24), s0 -> s1 strided (10000 queries over 20000
+  sources) and stage-1 same-level (dwf (2, 10000, 15 * 384), H 32)
+  training shapes on local neighbours, timed (its index built by the first
+  call, before the timing) and held bit for bit;
 * K14 (fused conv gather + skip max) at the s1 -> s2 strided shape (x (2,
   10000, 384), H 32, K 15, skip (2, 10000, 1536), bf16), its wf and its
   pooled as two cases, both timed: wf held within its ``TOLERANCES``,
@@ -60,8 +65,13 @@ the card's name and power limit, and exits non-zero if any case fails.
 With ``--train-steps N`` each turn also times N full-width training steps
 (``make_train_step`` on se3ete.3dmatch's serving cut, one synthetic pair
 at point_limit 20000 with the host's influence, seeded weights, one
-warm-up step first) and prints the median step ms per turn: the step of
-each checkout, with its own kernels and training code, in turns.
+warm-up step first; each step on fresh device tensors of the pair, so its
+neighbour indexes are built anew, as on a new pair) and prints the median
+step ms per turn: the step of each checkout, with its own kernels and
+training code, in turns.  One more step a turn is profiled
+(``torch.profiler``, device time by kernel): it prints the kernels' total
+per turn and the kernels whose device ms moved most between the two
+checkouts (medians over their turns).
 """
 
 import argparse
@@ -84,13 +94,15 @@ K13_CASES = ("K13 s0 -> s1 out", "K13 s0 -> s1 pooled")
 K2_CASES = ("K2 s2 -> s3 bf16", "K2 s0 -> s1 float32")
 K14_CASES = ("K14 s1 -> s2 wf", "K14 s1 -> s2 pooled")
 K1_BF16 = ("K1 stage 2", "K1 s2 -> s3", "K1 stage 3")
+K8_CASES = ("K8 stage 0 float32", "K8 s0 -> s1 float32", "K8 stage 1 float32")
 TIMED = K5_BF16 + K16_BF16 + (K6_BF16, K7_BF16, K4_CASES[0], K13_CASES[0]) + K2_CASES + K14_CASES \
-    + K1_BF16 + K11_BF16 + K10_CASES[:1]
+    + K1_BF16 + K11_BF16 + K10_CASES[:1] + K8_CASES
 # held by their bit patterns (-0.0 apart from +0.0), where the others are
 # held by value
 BITS = K2_CASES + K14_CASES[1:]
 REPS = 20  # launches per timing
 TRAIN_STEP = "training step (median)"
+STEP_KERNELS = "training step kernels (device ms by kernel)"
 # kernels changed on purpose, with their bound against the other build: the
 # bf16 K5 (the ws form; 1e-2, as its kernel-vs-plain check states) at AH = 4
 # runs each head's softmax in two halves of the keys, merged at the end, so
@@ -213,6 +225,13 @@ def _cases(dev):
         infl = (torch.rand((2, nq, h, 15), generator=g).to(dev)
                 * (nbr < ns)[..., None]).to(dtype)
         cases.append((name, lambda a=(x, nbr, infl): wc.gather_wf(*a)))
+    g8 = torch.Generator().manual_seed(8)
+    for name, nq, ns, h, ac in zip(K8_CASES, (20000, 10000, 10000), (20000, 20000, 10000),
+                                   (24, 24, 32), (192, 192, 384)):
+        nbr = torch.cat([selfcheck.local_neighbors(nq, ns, h, g8, dev) for _ in range(2)])
+        dwf = torch.randn((2, nq, 15 * ac), generator=g8).to(dev)
+        infl = torch.rand((2, nq, h, 15), generator=g8).to(dev) * (nbr < ns)[..., None]
+        cases.append((name, lambda a=(dwf, nbr, infl, ns): wc.gather_wf_bwd(*a)))
     for n, c, dtype in ((1024, 64, bf), (128, 16, torch.float32)):
         q = torch.randn((6, 4, n, c), generator=g).to(dev, dtype)
         k = torch.randn((6, 4, n, c), generator=g).to(dev, dtype)
@@ -250,10 +269,15 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
 
 
-def _train_step_ms(steps: int) -> float:
+def _train_step_ms(steps: int):
     """Median ms of ``steps`` synchronised full-width training steps, after
-    one warm-up step, in the checkout on ``sys.path[0]``."""
+    one warm-up step, in the checkout on ``sys.path[0]``, each on fresh
+    device tensors of the pair; and {kernel: device ms} of one more step
+    under ``torch.profiler``."""
     import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     from se3et_tpu_torch.data.influence import precompute_influence
     from se3et_tpu_torch.data.pyramid import synthetic_pair
@@ -270,16 +294,26 @@ def _train_step_ms(steps: int) -> float:
     model = SE3ETModel(cfg.model, seed=cfg.seed)
     step = make_train_step(model, cfg.loss, make_optimizer(model.parameters(), cfg.optim, 1))
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-    inputs = pyramid_to_tensors(pair, dev)
-    step(inputs, generator=gen)
+    step(pyramid_to_tensors(pair, dev), generator=gen)
     ms = []
     for _ in range(steps):
+        inputs = pyramid_to_tensors(pair, dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step(inputs, generator=gen)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(ms)
+    inputs = pyramid_to_tensors(pair, dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(inputs, generator=gen)
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            kernels[e.key] = (e.self_cuda_time_total if t is None else t) / 1e3
+    return statistics.median(ms), kernels
 
 
 def _worker(tree: str, out: str, save: bool, train_steps: int) -> None:
@@ -299,11 +333,27 @@ def _worker(tree: str, out: str, save: bool, train_steps: int) -> None:
         ms = {name: selfcheck._time_ms(cases[name], REPS) for name in TIMED}
     del cases
     if train_steps:
-        ms[TRAIN_STEP] = _train_step_ms(train_steps)
+        ms[TRAIN_STEP], ms[STEP_KERNELS] = _train_step_ms(train_steps)
     if save:
         torch.save(outs, out + ".pt")
     with open(out + ".json", "w") as f:
         json.dump(ms, f)
+
+
+def _print_step_kernels(times, top=12) -> None:
+    """The profiled steps' kernel totals per turn, and the ``top`` kernels
+    whose device ms moved most (median this - median other)."""
+    per = {who: [t[STEP_KERNELS] for t in times[who]] for who in times}
+    print("step kernels ms, profiled, per turn: other "
+          f"{[round(sum(k.values()), 2) for k in per['other']]}, this "
+          f"{[round(sum(k.values()), 2) for k in per['this']]}", flush=True)
+    names = set().union(*(k for who in per for k in per[who]))
+    med = {who: {n: statistics.median(k.get(n, 0.0) for k in per[who]) for n in names}
+           for who in per}
+    moved = sorted(names, key=lambda n: abs(med["this"][n] - med["other"][n]), reverse=True)
+    for n in moved[:top]:
+        print(f"  {med['this'][n] - med['other'][n]:+9.4f} ms  (other {med['other'][n]:.4f}, "
+              f"this {med['this'][n]:.4f})  {n[:100]}", flush=True)
 
 
 def _card() -> str:
@@ -368,6 +418,8 @@ def main() -> int:
               f"{statistics.median(t[name] for t in times['other']):.4f}), this "
               f"{[round(t[name], 4) for t in times['this']]} (median "
               f"{statistics.median(t[name] for t in times['this']):.4f})", flush=True)
+    if args.train_steps:
+        _print_step_kernels(times)
     print(_card())
     return 1 if bad else 0
 

@@ -118,10 +118,20 @@ class CheckResult:
     # the first design's kernel, per call (profiler)
     call_device_ms: Optional[float] = None
     first_device_ms: Optional[float] = None
+    # K8: the form its shape took, whether its output equals its first
+    # design's and its own on a second call bit for bit, and distinct (tile,
+    # query) pairs over B * Nq
+    form: Optional[str] = None
+    bitwise: Optional[bool] = None
+    reread: Optional[float] = None
+    # K8's tiles form on the card: its tile plan's build from the reverse
+    # index (ms by events) and whether it equals the plain version's
+    plan_ms: Optional[float] = None
+    plan_ok: Optional[bool] = None
 
     @property
     def ok(self) -> bool:
-        return self.max_abs_err <= self.tol
+        return self.max_abs_err <= self.tol and self.plan_ok is not False
 
 
 def bound(nbytes: float, ops: float, dtype, exps: float = 0.0) -> tuple[float, str]:
@@ -521,23 +531,79 @@ def _compare_many(name, shape, kernel_fn, plain_fn, tol, reps):
     return CheckResult(name, shape + " (error relative to output scale)", err, tol, ms, plain_ms)
 
 
-def check_gather_wf_bwd(nbr, ns, ac, k=15, seed=7, reps=5):
-    """K8 in float32 on dwf (B, Nq, K*ac) for the given neighbours (the
+def tile_rereads(nbr, ns, tile) -> float:
+    """Distinct (source tile, query) pairs of a neighbour set over B * Nq:
+    how often K8's tiles form reads a dwf row, on average."""
+    b, nq, h = nbr.shape
+    valid = (nbr >= 0) & (nbr < ns)
+    q = torch.arange(nq, device=nbr.device)[None, :, None].expand(b, nq, h)
+    key = (torch.arange(b, device=nbr.device)[:, None, None] * (ns // tile + 1)
+           + nbr.long() // tile) * nq + q
+    return torch.unique(key[valid]).numel() / (b * nq)
+
+
+def tile_plan_matches(nbr, ns) -> bool:
+    """K8's tile plan built on the card from the reverse index of ``nbr``
+    equals :func:`windowed_conv.tile_plan` (its plain version) in ``off``
+    and in the entries it lists."""
+    b, nq, h = nbr.shape
+    ent, off = windowed_conv.tile_plan_from_reverse_index(
+        *windowed_conv.reverse_index(nbr, ns), nq, h, ns)
+    want_ent, want_off = windowed_conv.tile_plan(nbr, ns, windowed_conv.GATHER_WF_BWD_TILE)
+    return torch.equal(off, want_off) and all(
+        torch.equal(ent[i, lo:hi], want_ent[i, lo:hi])
+        for i, (lo, hi) in enumerate(off[:, [0, -1]].tolist()))
+
+
+def check_gather_wf_bwd(nbr, ns, ac, k=15, seed=7, reps=5, device_kernel=None, first=False):
+    """K8 in float32 on dwf (B, Nq, K*ac) for the given neighbours, on the
+    form ``windowed_conv.gather_wf_bwd_form`` names (its tile plan or
     reverse index is built by the first call, before the timing, as the
     first backward over a neighbour set builds it for all its convs);
-    tolerance 1e-5 * max|dx| (float32 sums in another order).  Library: the
-    backward of the ``F.embedding_bag`` sum that :func:`check_gather_wf`
-    times for K1."""
+    tolerance 1e-5 * max|dx| (float32 sums in another order).  Library:
+    the backward of the ``F.embedding_bag`` sum that :func:`check_gather_wf`
+    times for K1.  On the card the tiles form's plan is held against its
+    plain version (``plan_ok``) and its build from the set's reverse index
+    timed (``plan_ms``).  With ``device_kernel`` (a kernel name) also that
+    kernel's device time per call and that of every kernel of the call;
+    with ``first`` the first design's time on the same inputs (events, and
+    its two kernels' device time where ``device_kernel`` is given) and
+    ``bitwise``: the form's dx equals the first design's and a second call
+    of its own bit for bit.  ``reread``: :func:`tile_rereads` at the
+    tiles form's tile."""
     g = torch.Generator().manual_seed(seed)
     dev = nbr.device
     b, nq, h = nbr.shape
     dwf = torch.randn((b, nq, k * ac), generator=g).to(dev)
     infl = torch.rand((b, nq, h, k), generator=g).to(dev) * (nbr < ns)[..., None]
+    form = windowed_conv.gather_wf_bwd_form(nq, h, k, ac)
+    kernel_fn = lambda: windowed_conv.gather_wf_bwd(dwf, nbr, infl, ns)  # noqa: E731
     res = _compare(
-        "gather_wf_bwd", f"dwf{tuple(dwf.shape)} nbr{tuple(nbr.shape)} Ns={ns} float32",
-        lambda: windowed_conv.gather_wf_bwd(dwf, nbr, infl, ns),
-        lambda: windowed_conv.gather_wf_bwd_plain(dwf, nbr, infl, ns),
+        "gather_wf_bwd",
+        f"dwf{tuple(dwf.shape)} nbr{tuple(nbr.shape)} Ns={ns} float32 ({form} form)",
+        kernel_fn, lambda: windowed_conv.gather_wf_bwd_plain(dwf, nbr, infl, ns),
         lambda w: 1e-5 * float(w.abs().max()), reps)
+    first_fn = lambda: windowed_conv._gather_wf_bwd(dwf, nbr, infl, ns,  # noqa: E731
+                                                    form="first")
+    if device_kernel is not None:
+        res.device_ms = device_ms(kernel_fn, device_kernel)
+        res.call_device_ms = device_ms(kernel_fn, "")
+    if first:
+        got = kernel_fn()
+        res.bitwise = bool(torch.equal(got.view(torch.int32), first_fn().view(torch.int32))
+                           and torch.equal(got.view(torch.int32),
+                                           kernel_fn().view(torch.int32)))
+        res.first_ms = _time_ms(first_fn, reps)
+        if device_kernel is not None:
+            res.first_device_ms = device_ms(first_fn, "")
+    res.form = form
+    if form == "tiles":
+        res.reread = tile_rereads(nbr, ns, windowed_conv.GATHER_WF_BWD_TILE)
+        if dev.type == "cuda":
+            res.plan_ok = tile_plan_matches(nbr, ns)
+            order, offsets = windowed_conv._shared_reverse_index(nbr, ns)
+            res.plan_ms = _time_ms(lambda: windowed_conv.tile_plan_from_reverse_index(
+                order, offsets, nq, h, ns), reps)
     table, idx = _bag_inputs(torch.zeros((b, ns, ac), device=dev), nbr)
     table.requires_grad_(True)
     idx_k = idx[:, :, None, :].expand(b, nq, k, h).reshape(-1, h)
@@ -545,8 +611,8 @@ def check_gather_wf_bwd(nbr, ns, ac, k=15, seed=7, reps=5):
     bag = F.embedding_bag(idx_k, table, per_sample_weights=w_k, mode="sum")
     d_bag = dwf.reshape(-1, ac)
     nvalid = int((nbr < ns).sum())
-    # one neighbour structure: the reverse index (order, offsets) the kernel
-    # reads in place of nbr
+    # one neighbour structure: the index the kernel reads in place of nbr
+    # (the reverse index, or the tile plan, of the same size)
     rev_bytes = 4 * (b * nq * h + b * (ns + 1))
     nbytes = _nbytes(dwf, infl) + rev_bytes + b * ns * ac * 4
     return _with_bound(res, nbytes, 2.0 * nvalid * k * ac, torch.float32,

@@ -28,12 +28,14 @@ drop no neighbours).  Their JAX counterpart is the exact gather route of
 
 K1 and K2 are differentiable with respect to the features (training): their
 backwards are kernels too, :func:`gather_wf_bwd` (K8,
-``csrc/gather_wf_bwd.cu``, replaces ``_wf_bwd_win``) and
-:func:`neighbor_max_bwd` (K9, ``csrc/neighbor_max_bwd.cu``, replaces
-``_max_bwd_win``).  They sum into source rows in a fixed order through a
-reverse index of the neighbour set (:func:`reverse_index`, built at the
+``csrc/gather_wf_bwd.cu``, replaces ``_wf_bwd_win``, in two forms chosen
+by :func:`gather_wf_bwd_form`) and :func:`neighbor_max_bwd` (K9,
+``csrc/neighbor_max_bwd.cu``, replaces ``_max_bwd_win``).  They sum into
+source rows in a fixed order through the reverse index of the neighbour
+set (:func:`reverse_index`; K8's tiles form through a tile plan merged
+from it on the card, :func:`tile_plan_from_reverse_index`), built at the
 first backward over a neighbour tensor and shared by every later one, so
-once per set for all its convs), so gradients are reproducible bit for
+one sort per set for all its convs; so gradients are reproducible bit for
 bit.  Influence is geometry and takes no gradient.
 
 :func:`influence` (K15, ``csrc/influence.cu``) replaces
@@ -103,6 +105,95 @@ def _shared_reverse_index(nbr: torch.Tensor, ns: int):
         memo = (key, reverse_index(nbr, ns))
         _REVERSE[nbr] = memo
     return memo[1]
+
+
+# K8's tiles form (csrc/gather_wf_bwd_tiles.cuh): a tile plan entry packs
+# the slot's query, its neighbour column and its source row within the tile
+# as q << 12 | h << 6 | local, so H <= 64, tiles of at most 64 rows, and
+# Nq < 2^19
+TILE_Q_SHIFT = 12
+TILE_H_SHIFT = 6
+TILE_MAX_ROWS = 1 << TILE_H_SHIFT
+TILES_MAX_H = 1 << (TILE_Q_SHIFT - TILE_H_SHIFT)
+TILES_MAX_NQ = 1 << (31 - TILE_Q_SHIFT)
+# source rows of a tile of the tiles form, as its kernels are compiled
+# (GATHER_WF_BWD_TILES_T in csrc/gather_wf_bwd_tiles.cuh)
+GATHER_WF_BWD_TILE = 32
+
+
+def tile_plan(nbr: torch.Tensor, ns: int, tile: int):
+    """The tile plan of a neighbour set nbr (B, Nq, H) over ``ns`` source
+    rows for K8's tiles form: ``ent`` (B, Nq*H) int32, the flat (q*H + h)
+    slots sorted stably by their source's tile ``nbr // tile`` -- so by
+    (q, h) within a tile -- each packed as ``q << 12 | h << 6 | nbr % tile``;
+    and ``off`` (B, ceil(ns / tile) + 1) int32, so that the slots of tile t
+    are ``ent[b, off[b, t]:off[b, t + 1]]``.  Slots outside [0, ns) lie
+    outside ``ent[b, off[b, 0]:off[b, -1]]`` (negative ones before it,
+    sentinels after it) and are never read.  One sort and one
+    ``searchsorted``, on the tensor's device: the plain version of
+    :func:`tile_plan_from_reverse_index`, which the card runs."""
+    b, nq, h = nbr.shape
+    if not 1 <= tile <= TILE_MAX_ROWS:
+        raise ValueError(f"tile_plan: tiles of 1-{TILE_MAX_ROWS} rows, not {tile}")
+    ntiles = -(-ns // tile)
+    flat = nbr.reshape(b, -1).to(torch.int32)
+    # negative slots take negative keys (floor division), sentinels ntiles
+    key = torch.where(flat < ns, torch.div(flat, tile, rounding_mode="floor"), ntiles)
+    keys, order = torch.sort(key, dim=1, stable=True)
+    bounds = torch.arange(ntiles + 1, dtype=keys.dtype, device=nbr.device).expand(b, -1)
+    off = torch.searchsorted(keys, bounds.contiguous(), out_int32=True)
+    slot = torch.arange(nq * h, dtype=torch.int32, device=nbr.device)
+    packed = (((slot // h) << TILE_Q_SHIFT) | ((slot % h) << TILE_H_SHIFT)) | (flat % tile)
+    return torch.gather(packed, 1, order).contiguous(), off
+
+
+def tile_plan_from_reverse_index(order: torch.Tensor, offsets: torch.Tensor, nq: int, h: int,
+                                 ns: int):
+    """K8's tile plan of a neighbour set (B, nq, h) over ``ns`` rows, built
+    on the card (``csrc/gather_wf_bwd_tiles.cuh`` ``tile_plan_kernel``, a
+    merge of each tile's CSR lists in slot order) from its reverse index
+    ``(order, offsets)`` (:func:`reverse_index`), so that the set's one sort
+    serves K8, K9 and the first design.  Equal to :func:`tile_plan` at
+    :data:`GATHER_WF_BWD_TILE` in ``off`` and in ``ent[b, off[b, 0]:off[b,
+    -1]]``; the rest of ``ent`` is not written."""
+    if order.device.type != "cuda":
+        raise ValueError("tile_plan_from_reverse_index runs on the card; tile_plan is its "
+                         "plain version")
+    b = order.shape[0]
+    ent = torch.empty_like(order)
+    off = torch.empty((b, -(-ns // GATHER_WF_BWD_TILE) + 1), dtype=torch.int32,
+                      device=order.device)
+    fn = _build.function("gather_wf_bwd", "se3et_gather_wf_bwd_tile_plan", 4, 5)
+    _build.check(fn(order.data_ptr(), offsets.data_ptr(), ent.data_ptr(), off.data_ptr(), b, ns,
+                    nq, h, GATHER_WF_BWD_TILE,
+                    torch.cuda.current_stream(order.device).cuda_stream),
+                 "gather_wf_bwd tile plan launch")
+    return ent, off
+
+
+# neighbour tensor -> (version, {ns: its tile plan}), dropped with the tensor
+_TILE_PLANS = WeakIdKeyDictionary()
+
+
+def _shared_tile_plan(nbr: torch.Tensor, ns: int):
+    """The tile plan of ``nbr`` at :data:`GATHER_WF_BWD_TILE`, built on first
+    use and reused while the same tensor lives unchanged (keyed as
+    :func:`_shared_reverse_index`): on the card from the set's shared
+    reverse index (:func:`tile_plan_from_reverse_index`), elsewhere by
+    :func:`tile_plan`."""
+    memo = _TILE_PLANS.get(nbr)
+    if memo is None or memo[0] != nbr._version:
+        memo = (nbr._version, {})
+        _TILE_PLANS[nbr] = memo
+    plan = memo[1].get(ns)
+    if plan is None:
+        if nbr.device.type == "cuda":
+            b, nq, h = nbr.shape
+            plan = tile_plan_from_reverse_index(*_shared_reverse_index(nbr, ns), nq, h, ns)
+        else:
+            plan = tile_plan(nbr, ns, GATHER_WF_BWD_TILE)
+        memo[1][ns] = plan
+    return plan
 
 
 def _scatter_rows(rows: torch.Tensor, nbr: torch.Tensor, ns: int) -> torch.Tensor:
@@ -231,12 +322,32 @@ def gather_wf(x: torch.Tensor, nbr: torch.Tensor, infl: torch.Tensor) -> torch.T
 gather_wf.launches = 0
 
 
+def gather_wf_bwd_form(nq: int, h: int, k: int, ac: int) -> str:
+    """Which hand-written K8 kernel takes the backward of a gather of ``nq``
+    query rows over ``h`` neighbours and ``k`` kernel points of ``ac``
+    channels (float32 gradients, the only ones K8 takes): "tiles" (the
+    redesign, ``csrc/gather_wf_bwd_tiles.cuh``) where K <= 16, H <= 64 and
+    Nq < 2^19 (what its plan entries hold) and AC is a multiple of 4: every
+    training shape; else "first" (the first design).  Chosen by shape
+    alone; neither is a fallback of the other."""
+    return ("tiles" if 1 <= k <= _KP and h <= TILES_MAX_H and nq < TILES_MAX_NQ and ac % 4 == 0
+            else "first")
+
+
 def gather_wf_bwd(dwf: torch.Tensor, nbr: torch.Tensor, infl: torch.Tensor,
                   ns: int) -> torch.Tensor:
     """K8 (``csrc/gather_wf_bwd.cu``, replaces the TPU ``_wf_bwd_win``): see
-    :func:`gather_wf_bwd_plain`; float32.  Reads the reverse index of
-    ``nbr`` (built at its first backward, then shared).  Bound by device
-    memory; the source notes the design."""
+    :func:`gather_wf_bwd_plain`; float32, on the form
+    :func:`gather_wf_bwd_form` names.  The tiles form reads the tile plan of
+    ``nbr`` (:func:`tile_plan`), the first design its reverse index; each
+    is built at the first backward over the tensor, then shared.  Both give
+    the same bits.  Bound by device memory; the sources note the designs."""
+    return _gather_wf_bwd(dwf, nbr, infl, ns)
+
+
+def _gather_wf_bwd(dwf, nbr, infl, ns, form: Optional[str] = None):
+    """K8 on the form :func:`gather_wf_bwd_form` names, or on ``form`` where
+    the caller asks for one ("first" takes every shape with K <= 16)."""
     if dwf.device.type == "cpu":
         return gather_wf_bwd_plain(dwf, nbr, infl, ns)
     if dwf.device.type != "cuda":
@@ -248,16 +359,33 @@ def gather_wf_bwd(dwf: torch.Tensor, nbr: torch.Tensor, infl: torch.Tensor,
     ac = dwf.shape[2] // k
     if dwf.shape != (b, nq, k * ac) or infl.shape[:2] != (b, nq) or infl.shape[2] < h:
         raise ValueError("bad gather_wf_bwd input shapes")
-    order, offsets = _shared_reverse_index(nbr, ns)
+    chosen = gather_wf_bwd_form(nq, h, k, ac)
+    form = form or chosen
+    if form == "tiles" and chosen != "tiles":
+        raise ValueError(f"K8's tiles form does not take Nq={nq}, H={h}, K={k}, AC={ac}")
     dwf = dwf.contiguous()
-    infl = infl[:, :, :h].float().contiguous()
-    g = torch.empty((b, nq * h, ac), dtype=torch.float32, device=dwf.device)
     dx = torch.empty((b, ns, ac), dtype=torch.float32, device=dwf.device)
-    fn = _build.function("gather_wf_bwd", "se3et_gather_wf_bwd_f32", 6, 6)
-    _build.check(fn(dwf.data_ptr(), infl.data_ptr(), order.data_ptr(), offsets.data_ptr(),
-                    g.data_ptr(), dx.data_ptr(), b, ns, nq, h, k, ac,
-                    torch.cuda.current_stream(dwf.device).cuda_stream),
-                 "gather_wf_bwd launch")
+    stream = torch.cuda.current_stream(dwf.device).cuda_stream
+    if form == "tiles":
+        if dwf.data_ptr() % 16:  # a view into a buffer: its rows must be 16-byte aligned
+            dwf = dwf.clone()
+        ent, off = _shared_tile_plan(nbr, ns)
+        # the influence as it lies: its first h of hs columns, cast only when
+        # its dtype differs
+        infl = (infl if infl.dtype == torch.float32 else infl.float()).contiguous()
+        work = torch.empty(1, dtype=torch.int32, device=dwf.device)  # the items' counter
+        fn = _build.function("gather_wf_bwd", "se3et_gather_wf_bwd_tiles_f32", 6, 8)
+        status = fn(dwf.data_ptr(), infl.data_ptr(), ent.data_ptr(), off.data_ptr(),
+                    dx.data_ptr(), work.data_ptr(), b, ns, nq, h, infl.shape[2], k, ac,
+                    GATHER_WF_BWD_TILE, stream)
+    else:
+        order, offsets = _shared_reverse_index(nbr, ns)
+        infl = infl[:, :, :h].float().contiguous()
+        g = torch.empty((b, nq * h, ac), dtype=torch.float32, device=dwf.device)
+        fn = _build.function("gather_wf_bwd", "se3et_gather_wf_bwd_f32", 6, 6)
+        status = fn(dwf.data_ptr(), infl.data_ptr(), order.data_ptr(), offsets.data_ptr(),
+                    g.data_ptr(), dx.data_ptr(), b, ns, nq, h, k, ac, stream)
+    _build.check(status, f"gather_wf_bwd launch ({form})")
     gather_wf_bwd.launches += 1
     return dx
 

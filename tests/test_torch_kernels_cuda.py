@@ -542,6 +542,149 @@ def test_gather_wf_bwd_kernel(cuda, nq, ns, h, ac):
     _assert_ok(selfcheck.check_gather_wf_bwd(nbr, ns, ac, reps=1))
 
 
+def _k8_neighbors(cuda, nq, ns, h, kind, seed):
+    """Two clouds of neighbour rows for K8: local (about a quarter
+    sentinels), "random" over all sources (no locality), "sentinel_rows"
+    (local, every fifth row and the last 3 all sentinels) or "empty_range"
+    (local, no slot in the middle third of the sources: whole empty tiles)."""
+    g = torch.Generator().manual_seed(seed)
+    if kind == "random":
+        nbr = torch.randint(0, ns, (2, nq, h), generator=g).to(torch.int32)
+        nbr[torch.rand((2, nq, h), generator=g) < 0.25] = ns
+        return nbr.to(cuda)
+    nbr = torch.cat([selfcheck.local_neighbors(nq, ns, h, g, cuda) for _ in range(2)])
+    if kind == "sentinel_rows":
+        nbr[:, ::5] = ns
+        nbr[:, -3:] = ns
+    elif kind == "empty_range":
+        lo, hi = ns // 3, 2 * ns // 3
+        nbr[(nbr >= lo) & (nbr < hi)] = ns
+    return nbr
+
+
+@pytest.mark.parametrize("nq,ns,h,ac,kind", [
+    (20000, 20000, 24, 192, "local"),        # stage-0 bottleneck conv
+    (10000, 20000, 24, 192, "local"),        # stage-1 strided conv
+    (1024, 1024, 38, 1536, "local"),         # stage-3 conv
+    (250, 997, 7, 48, "local"),              # ragged, tiny
+    (10000, 10000, 32, 384, "random"),       # no locality: a run a slot
+    (2500, 2500, 36, 768, "sentinel_rows"),  # all-sentinel query rows
+    (2500, 10000, 32, 384, "empty_range"),   # sources no slot reaches
+    (1003, 2000, 64, 44, "local"),           # H at the plan's limit, AC not of 8
+    (1003, 2000, 24, 45, "local"),           # AC not of 4: the first design
+])
+def test_gather_wf_bwd_tiles_is_bit_identical(cuda, nq, ns, h, ac, kind):
+    """K8 on the form its shape takes (the tiles form but at AC 45) against
+    its plain version (1e-5 of scale), bit for bit against its first design
+    and against a second call of itself."""
+    nbr = _k8_neighbors(cuda, nq, ns, h, kind, 31)
+    res = selfcheck.check_gather_wf_bwd(nbr, ns, ac, reps=1, first=True)
+    _assert_ok(res)
+    assert res.bitwise, res.shape
+
+
+@pytest.mark.parametrize("nq,ns,h,ac,kind", [(1003, 2000, 24, 192, "local"),
+                                             (997, 997, 36, 776, "sentinel_rows")])
+def test_gather_wf_bwd_tiles_reads_padded_influence_in_place(cuda, nq, ns, h, ac, kind):
+    """The tiles form reads an influence of H' = H + 3 columns in place (its
+    stride over H') and gives the first design's bits, on ragged local
+    neighbours and on ones with all-sentinel rows."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    g = torch.Generator().manual_seed(32)
+    nbr = _k8_neighbors(cuda, nq, ns, h, kind, 32)
+    dwf = torch.randn((2, nq, 15 * ac), generator=g).to(cuda)
+    infl = torch.rand((2, nq, h + 3, 15), generator=g).to(cuda) * torch.nn.functional.pad(
+        (nbr < ns), (0, 3))[..., None]
+    assert wc.gather_wf_bwd_form(nq, h, 15, ac) == "tiles"
+    want = wc._gather_wf_bwd(dwf, nbr, infl, ns, form="first")
+    got = wc.gather_wf_bwd(dwf, nbr, infl, ns)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("nq,ns,h,kind", [
+    (20000, 20000, 24, "local"),          # stage-0 set
+    (10000, 20000, 24, "local"),          # strided: fewer queries than sources
+    (250, 997, 7, "local"),               # ragged: Ns not a multiple of the tile
+    (10000, 10000, 32, "random"),         # no locality
+    (2500, 2500, 36, "sentinel_rows"),
+    (2500, 10000, 32, "empty_range"),     # whole tiles no slot reaches
+    (1003, 2000, 64, "local"),            # H at the plan's limit
+    (1003, 2000, 24, "negative"),         # negative slots, dropped
+])
+def test_gather_wf_bwd_tile_plan_kernel(cuda, nq, ns, h, kind):
+    """The tile plan merged on the card from the reverse index equals its
+    plain version (``windowed_conv.tile_plan``: a sort of its own) in its
+    offsets and in every entry it lists; the K8 call on it gives the first
+    design's bits."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    nbr = _k8_neighbors(cuda, nq, ns, h, "local" if kind == "negative" else kind, 35)
+    if kind == "negative":
+        nbr[:, ::7, 3] = -1
+    assert selfcheck.tile_plan_matches(nbr, ns)
+    g = torch.Generator().manual_seed(35)
+    dwf = torch.randn((2, nq, 15 * 16), generator=g).to(cuda)
+    infl = torch.rand((2, nq, h, 15), generator=g).to(cuda)
+    want = wc._gather_wf_bwd(dwf, nbr, infl, ns, form="first")
+    got = wc.gather_wf_bwd(dwf, nbr, infl, ns)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_gather_wf_bwd_tiles_allocates_no_slot_tensor(cuda):
+    """At the stage-0 shape the tiles call (its plan built) allocates dx and
+    a counter, nothing of the first design's (B, Nq*H, AC) slot tensor."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    nq, h, ac, k = 20000, 24, 192, 15
+    g = torch.Generator().manual_seed(33)
+    nbr = torch.cat([selfcheck.local_neighbors(nq, nq, h, g, cuda) for _ in range(2)])
+    dwf = torch.randn((2, nq, k * ac), generator=g).to(cuda)
+    infl = torch.rand((2, nq, h, k), generator=g).to(cuda)
+    peaks = {}
+    for form in ("tiles", "first"):
+        wc._gather_wf_bwd(dwf, nbr, infl, nq, form=form)  # the plan or reverse index
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(cuda)
+        torch.cuda.reset_peak_memory_stats(cuda)
+        dx = wc._gather_wf_bwd(dwf, nbr, infl, nq, form=form)
+        torch.cuda.synchronize()
+        peaks[form] = torch.cuda.max_memory_allocated(cuda) - base
+        del dx
+    dx_bytes, slot_bytes = 2 * nq * ac * 4, 2 * nq * h * ac * 4
+    assert peaks["tiles"] <= dx_bytes + (1 << 20), peaks
+    assert peaks["first"] - peaks["tiles"] >= slot_bytes, peaks
+
+
+def test_gather_wf_bwd_tiles_takes_an_unaligned_view(cuda):
+    """dwf as a view 4 bytes into a buffer (rows not 16-byte aligned): the
+    tiles form copies it and gives the first design's bits."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    nq, ns, h, ac = 250, 997, 7, 48
+    g = torch.Generator().manual_seed(34)
+    nbr = _k8_neighbors(cuda, nq, ns, h, "local", 34)
+    buf = torch.randn((2 * nq * 15 * ac + 1,), generator=g).to(cuda)
+    dwf = buf[1:].view(2, nq, 15 * ac)
+    infl = torch.rand((2, nq, h, 15), generator=g).to(cuda) * (nbr < ns)[..., None]
+    assert dwf.data_ptr() % 16
+    want = wc._gather_wf_bwd(dwf, nbr, infl, ns, form="first")
+    got = wc.gather_wf_bwd(dwf, nbr, infl, ns)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_gather_wf_bwd_tiles_refuses_what_its_plan_cannot_hold(cuda):
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    nbr = torch.zeros((1, 4, 65), dtype=torch.int32, device=cuda)
+    dwf = torch.zeros((1, 4, 15 * 8), device=cuda)
+    infl = torch.zeros((1, 4, 65, 15), device=cuda)
+    assert wc.gather_wf_bwd_form(4, 65, 15, 8) == "first"
+    with pytest.raises(ValueError, match="tiles form"):
+        wc._gather_wf_bwd(dwf, nbr, infl, 10, form="tiles")
+    assert wc.gather_wf_bwd(dwf, nbr, infl, 10).shape == (1, 10, 8)
+
+
 @pytest.mark.parametrize("nq,ns,h,ac", [(10000, 20000, 24, 768), (1024, 2500, 38, 3072),
                                         (97, 250, 5, 40)])
 def test_neighbor_max_bwd_kernel(cuda, nq, ns, h, ac):

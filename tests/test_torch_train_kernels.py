@@ -6,7 +6,9 @@ CPU at small shapes, from numpy inputs made with a seed:
   exact gather route of ``se3et_tpu/nn/epn.py`` (the conv's
   ``take_along_axis`` + sentinel ``where`` + influence einsum, and
   ``max_pool_neighbors``), with sentinel neighbours, repeated neighbours and
-  forced ties;
+  forced ties; K8's tile plan against a brute-force listing, its sharing
+  per neighbour tensor, a model of its tiles form's summation order against
+  the first design's and the plain version, and its form selection;
 * K10 ``geometric_embedding_bwd`` against ``jax.vjp`` of
   ``geometric_embedding_trainable`` (Pallas in interpret mode), with tied
   and near-tied angles, and the rounding of its bf16 tc form at the
@@ -171,6 +173,145 @@ def test_reverse_index_is_shared_per_neighbour_tensor():
     del nbr, other
     gc.collect()
     assert len(wc._REVERSE) == count - 2
+
+
+def _plan_neighbors(rng, b, nq, ns, h, empty=None):
+    """_neighbors with all-sentinel rows, a negative (dropped) index, and,
+    where ``empty`` is a (lo, hi) range of sources, no slot in it."""
+    nbr = _neighbors(rng, b, nq, ns, h)
+    nbr[:, -3:] = ns
+    nbr[0, 1, 2] = -1
+    if empty is not None:
+        lo, hi = empty
+        inside = (nbr >= lo) & (nbr < hi)
+        nbr[inside] = np.where(rng.rand(int(inside.sum())) < 0.5, ns, lo - 1)
+    return nbr
+
+
+@pytest.mark.parametrize("nq,ns,h,tile,empty", [
+    (40, 40, 7, 16, None),        # same-level set
+    (20, 40, 7, 16, None),        # strided set (fewer queries than sources)
+    (33, 77, 5, 8, None),         # ragged: Ns not a multiple of the tile
+    (33, 77, 5, 32, None),
+    (50, 130, 9, 64, (64, 128)),  # a source range with no slot: empty tiles
+    (50, 130, 9, 64, None),
+    (30, 25, 64, 4, None),        # H at the plan's limit, tiles of 4 rows
+    (12, 5, 3, 64, None),         # one tile, larger than Ns
+])
+def test_tile_plan_matches_a_brute_force_listing(nq, ns, h, tile, empty):
+    """K8's tile plan lists every valid slot exactly once, in its source's
+    tile, in ascending (q, h) order within the tile, with its source row
+    within the tile; sentinel and negative slots are listed nowhere, and a
+    tile no slot reaches is empty."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    rng = np.random.RandomState(nq + ns + tile)
+    nbr = _plan_neighbors(rng, 2, nq, ns, h, empty)
+    ent, off = wc.tile_plan(torch.from_numpy(nbr), ns, tile)
+    ntiles = -(-ns // tile)
+    assert ent.dtype == off.dtype == torch.int32
+    assert ent.shape == (2, nq * h) and off.shape == (2, ntiles + 1)
+    for bi in range(2):
+        assert off[bi, 0] == int((nbr[bi] < 0).sum())  # negative slots first, unread
+        assert off[bi, ntiles] - off[bi, 0] == int(((nbr[bi] >= 0) & (nbr[bi] < ns)).sum())
+        for t in range(ntiles):
+            want = [(q, hh, int(nbr[bi, q, hh]) - t * tile)
+                    for q in range(nq) for hh in range(h)
+                    if t * tile <= nbr[bi, q, hh] < min(ns, (t + 1) * tile)]
+            e = ent[bi, off[bi, t]:off[bi, t + 1]].numpy().astype(np.int64)
+            got = list(zip((e >> wc.TILE_Q_SHIFT).tolist(),
+                           ((e >> wc.TILE_H_SHIFT) & 63).tolist(),
+                           (e & (wc.TILE_MAX_ROWS - 1)).tolist()))
+            assert got == want, (bi, t)
+            if empty is not None and empty[0] <= t * tile and (t + 1) * tile <= empty[1]:
+                assert off[bi, t] == off[bi, t + 1]
+
+
+def test_tile_plan_is_shared_per_neighbour_tensor():
+    """The tile plan is built once per (neighbour tensor, Ns) and reused by
+    every backward over it, rebuilt after an in-place write, and dropped
+    with the tensor."""
+    import gc
+
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    rng = np.random.RandomState(5)
+    nbr = torch.from_numpy(_neighbors(rng, 2, 12, 40, 4))
+    first = wc._shared_tile_plan(nbr, 40)
+    assert wc._shared_tile_plan(nbr, 40) is first
+    assert wc._shared_tile_plan(nbr, 41) is not first
+    assert wc._shared_tile_plan(nbr, 40) is first
+    other = torch.from_numpy(nbr.numpy().copy())
+    assert wc._shared_tile_plan(other, 40) is not first
+    nbr[0, 0, 0] = 40  # now a sentinel slot
+    rebuilt = wc._shared_tile_plan(nbr, 40)
+    assert rebuilt is not first
+    for got, want in zip(rebuilt, wc.tile_plan(nbr, 40, wc.GATHER_WF_BWD_TILE)):
+        assert torch.equal(got, want)
+    count = len(wc._TILE_PLANS)
+    del nbr, other
+    gc.collect()
+    assert len(wc._TILE_PLANS) == count - 2
+
+
+@pytest.mark.parametrize("nq,ns,h,tile", [(40, 40, 7, 16), (20, 40, 7, 8), (33, 77, 5, 64),
+                                         (40, 300, 9, 32)])
+def test_tiles_summation_order_gives_the_first_designs_sums(nq, ns, h, tile):
+    """A model of K8's tiles form: every slot's value (float32), added to its
+    source's sum from 0 in the order the tile plan walks its tile.  It is
+    bit for bit the model of the first design, which adds the same values
+    per source in the reverse index's order, and equals the plain version
+    to float32 rounding (1e-5 of the gradient's scale: sums in another
+    order)."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    rng = np.random.RandomState(6)
+    b, hp, k, ac = 2, h + 2, 5, 6
+    nbr = _plan_neighbors(rng, b, nq, ns, h)
+    infl = (rng.rand(b, nq, hp, k) * np.pad((nbr >= 0) & (nbr < ns),
+                                            ((0, 0), (0, 0), (0, hp - h)))[..., None])
+    dwf = rng.randn(b, nq, k * ac).astype(np.float32)
+    dwf_t, nbr_t = torch.from_numpy(dwf), torch.from_numpy(nbr)
+    infl_t = torch.from_numpy(infl.astype(np.float32))
+    v = torch.einsum("bqhk,bqkc->bqhc", infl_t[:, :, :h], dwf_t.reshape(b, nq, k, ac))
+    v = v.reshape(b, nq * h, ac)
+    ent, off = wc.tile_plan(nbr_t, ns, tile)
+    tiles = torch.zeros((b, ns, ac))
+    for bi in range(b):
+        for t in range(off.shape[1] - 1):
+            for e in ent[bi, off[bi, t]:off[bi, t + 1]].tolist():
+                q, hh = e >> wc.TILE_Q_SHIFT, (e >> wc.TILE_H_SHIFT) & 63
+                r = e & (wc.TILE_MAX_ROWS - 1)
+                tiles[bi, t * tile + r] = tiles[bi, t * tile + r] + v[bi, q * h + hh]
+    order, offsets = wc.reverse_index(nbr_t, ns)
+    csr = torch.zeros((b, ns, ac))
+    for bi in range(b):
+        for s in range(ns):
+            for slot in order[bi, offsets[bi, s]:offsets[bi, s + 1]].tolist():
+                csr[bi, s] = csr[bi, s] + v[bi, slot]
+    assert torch.equal(tiles.view(torch.int32), csr.view(torch.int32))
+    _close(tiles, wc.gather_wf_bwd_plain(dwf_t, nbr_t, infl_t, ns).numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("nq,h,k,ac,form", [
+    (20000, 24, 15, 192, "tiles"),   # the training convs of se3ete.3dmatch
+    (10000, 32, 15, 384, "tiles"),
+    (1024, 38, 15, 1536, "tiles"),
+    (40, 7, 1, 4, "tiles"),
+    (997, 64, 16, 776, "tiles"),
+    (997, 65, 15, 192, "first"),     # the plan packs h in 6 bits
+    ((1 << 19) - 1, 8, 15, 192, "tiles"),
+    (1 << 19, 8, 15, 192, "first"),  # ... and q in 19
+    (997, 24, 15, 45, "first"),      # AC % 4 == 0
+    (997, 24, 15, 42, "first"),
+    (997, 24, 17, 192, "first"),     # neither takes K > 16 (the first design refuses it)
+])
+def test_gather_wf_bwd_form(nq, h, k, ac, form):
+    """K8 takes its tiles form wherever the plan's entries hold the slot
+    and AC is a multiple of 4."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    assert wc.gather_wf_bwd_form(nq, h, k, ac) == form
 
 
 def _embedding_inputs(seed=3, b=2, n=16, c=32, k=3, ties=True):
