@@ -65,7 +65,12 @@ Phases, each of which raises (exit code != 0) on failure:
    for bit against it and against a second call of itself), with its bound,
    the share of it, the re-read factor and its total per step, and its tile
    plan (merged on the card from the set's reverse index) against its plain
-   version, with its build time; K11 (its bf16 form
+   version, with its build time; K1 in float32 (its form "rows") at the same
+   seven shapes the same way (events and device time beside its first
+   design in this run, bit for bit against it and against a second call of
+   itself, bound, share, launches a step and the ``embedding_bag`` sum's
+   time), with its total per step; K9 at the three strided skips with their
+   bounds; K11 (its bf16 form
    "tc") at both self-layer shapes by events and device time (the kernel
    and the whole call, its products included) beside its first design's
    times before the redesign and in this run, and K10 (its bf16 form "tc")
@@ -78,9 +83,12 @@ Phases, each of which raises (exit code != 0) on failure:
    checked after (K8 10, K9 3, K10 1, K11 5 per step; forward K1 10, K2 3,
    K3 1, K4 1, K5 5), finite losses and gradient norm, the step time, the
    forward + loss time alone, peak memory and a ``torch.profiler``
-   breakdown of one step (with K2's float32 line, K10's tc kernel, which
-   must appear once, and the device ms per launch of K8's tiles kernel,
-   K9, the float32 K1 and K10);
+   breakdown of one step (kernels only: device-side profiler ranges such as
+   ``Optimizer.step#AdamW.step`` are printed apart and left out of the sum
+   and the idle share, here and in every profile; with K2's float32 line,
+   K10's tc kernel, which must appear once, K8's tiles kernel and K1's rows
+   kernel, 10 times each, K1's first design never, and the device ms per
+   launch of K8's tiles kernel, K9, the float32 K1 and K10);
 7. the routes off the default one: K15 (device influence) against its plain
    version at the stage-0 same-level and the stage-1 strided set of pair 0,
    K16 (``serve_femb``) at the self_eq (AH = 24, SH) and plain self (AH =
@@ -153,12 +161,19 @@ K8_SHAPES = (("stage-0 same", "neighbors_0", 0, 192, 1), ("s0 -> s1", "subsampli
              ("stage-1 same", "neighbors_1", 1, 384, 2), ("s1 -> s2", "subsampling_1", 1, 384, 1),
              ("stage-2 same", "neighbors_2", 2, 768, 2), ("s2 -> s3", "subsampling_2", 2, 768, 1),
              ("stage-3 same", "neighbors_3", 3, 1536, 2))
+# K1's float32 device kernel at the training shapes (its rows form), its
+# device time per launch before the redesign (the first design's mean over
+# the 10 launches of a step profile; NVIDIA H100 80GB HBM3, 700 W), and its
+# training shapes: the forwards of K8's ten convs
+K1_F32_KERNEL = "gather_wf_rows_kernel"
+K1_F32_FIRST_KERNEL = "gather_wf_kernel"
+K1_F32_BEFORE = 0.3913
+K1_F32_SHAPES = K8_SHAPES
 # the training kernels' device kernels in the step profile, with launches of
-# their wrapper per step: K9 two kernels a launch, K1 the float32 first
-# design
+# their wrapper per step: K9 two kernels a launch
 STEP_KERNELS = {"K8": ((K8_KERNEL,), 10),
                 "K9": (("share_kernel", "tie_sum_kernel"), 3),
-                "K1 (float32)": (("gather_wf_kernel",), 10), "K10": ((K10_KERNEL,), 1)}
+                "K1 (float32)": ((K1_F32_KERNEL,), 10), "K10": ((K10_KERNEL,), 1)}
 # launches per served pair on the routes of phase 7: device influence (7
 # (stage, neighbour set) pairs), and serve_femb (5 self layers, no
 # embedding written, no K5)
@@ -273,8 +288,16 @@ def _profile(run, what="one pair", top=15, also=()):
         wall = (time.perf_counter() - t0) * 1e3
     from torch.autograd import DeviceType
 
-    # kernels (device-side events) only: operator rows would count them twice
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # kernels (device-side events) only: operator rows would count them
+    # twice, and the device-side spans of user annotations and profiler
+    # ranges (``Optimizer.step#AdamW.step``: its kernels and the host's gaps
+    # between them) are not kernels; such a span is marked as one, or has a
+    # host-side event of the same name
+    rows = prof.key_averages()
+    host = {e.key for e in rows if e.device_type != DeviceType.CUDA}
+    device = [e for e in rows if e.device_type == DeviceType.CUDA]
+    spans = [e for e in device if getattr(e, "is_user_annotation", False) or e.key in host]
+    events = [e for e in device if not any(e is r for r in spans)]
     if not events:
         print("profile: the profiler recorded no device time (not measured)", flush=True)
         return None
@@ -283,6 +306,9 @@ def _profile(run, what="one pair", top=15, also=()):
     device_ms = sum(getattr(e, attr) for e in events) / 1e3
     print(f"profile ({what}, profiler on): wall {wall:.2f} ms, kernels {device_ms:.2f} ms, "
           f"device idle {max(0.0, 1 - device_ms / wall):.1%}", flush=True)
+    print("  device-side ranges, not kernels (left out of the sum and the idle share): "
+          + (", ".join(f"{e.key[:60]} {getattr(e, attr) / 1e3:.3f} ms" for e in spans)
+             or "none"), flush=True)
     ranked = sorted(events, key=lambda e: getattr(e, attr), reverse=True)
     for i, e in enumerate(ranked):
         if i < top or any(a in e.key for a in also):
@@ -366,7 +392,6 @@ def _training(cfg, pairs, extent, dev):
     m = cfg.model
     p0 = pyramid_to_tensors(pairs[0], dev)
     pts_c, masks_c = p0["points_3"], p0["masks_3"]
-    ns0 = p0["points_0"].shape[1]
     heads, head_dim = m.num_heads, m.gt_hidden_dim // m.num_heads
     # K8 at each training shape on pair 0's neighbour sets, beside its first
     # design (bit for bit, and its times in this run)
@@ -375,12 +400,25 @@ def _training(cfg, pairs, extent, dev):
         for what, key, src, ac, launches in K8_SHAPES]
     if sum(n for _, n, _ in k8) != TRAIN_LAUNCHES["gather_wf_bwd"]:
         raise RuntimeError("K8_SHAPES does not cover the step's K8 launches")
+    # K1 in float32 (its rows form) at the same ten convs, beside its first
+    # design (bit for bit, and its times in this run)
+    k1 = [(what, launches, selfcheck.check_gather_wf(
+        p0[key], p0[f"points_{src}"].shape[1], ac, dtype=torch.float32,
+        device_kernel=K1_F32_KERNEL, first=True))
+        for what, key, src, ac, launches in K1_F32_SHAPES]
+    if sum(n for _, n, _ in k1) != TRAIN_LAUNCHES["gather_wf"]:
+        raise RuntimeError("K1_F32_SHAPES does not cover the step's K1 launches")
+    # K9 at the three strided skips: x (2, Ns, A*128 << i) over stage i's points
+    k9 = [selfcheck.check_neighbor_max_bwd(p0[f"subsampling_{i}"],
+                                           p0[f"points_{i}"].shape[1], 6 * 128 << i)
+          for i in range(3)]
     checks = {
         # stage-0 bottleneck conv: x (2, 20000, A*32), K = 15
         "gather_wf_bwd": k8[0][2],
+        # its forward in float32, K1's rows form
+        "gather_wf (float32)": k1[0][2],
         # stage-1 strided skip: x (2, 20000, A*128)
-        "neighbor_max_bwd": selfcheck.check_neighbor_max_bwd(p0["subsampling_0"], ns0,
-                                                             6 * 128),
+        "neighbor_max_bwd": k9[0],
         # the bf16 cotangent of training's bf16 embedding (its tc form)
         "geometric_embedding_bwd": selfcheck.check_embedding_bwd(
             pts_c, masks_c, c=m.gt_hidden_dim, k=m.angle_k, sigma_d=m.sigma_d,
@@ -394,7 +432,8 @@ def _training(cfg, pairs, extent, dev):
     extra = [selfcheck.check_rpe_attention_bwd(pts_c, masks_c, heads, c=head_dim,
                                                cc=m.gt_hidden_dim, with_sh=False,
                                                device_kernel=K11_KERNEL, first=True)]
-    for res in list(checks.values()) + extra + [r for _, _, r in k8[1:]]:
+    extra += k9[1:]
+    for res in list(checks.values()) + extra + [r for _, _, r in k8[1:] + k1[1:]]:
         _print_check(res)
     # K8 ("tiles") at the seven shapes: events and device ms beside the first
     # design in this run, the bound, the share of it and the re-read factor
@@ -426,6 +465,29 @@ def _training(cfg, pairs, extent, dev):
     if not all(r.bitwise and r.ok for _, _, r in k8):
         raise RuntimeError(f"K8 differs from its first design or its plain version: "
                            f"{[w for w, _, r in k8 if not (r.bitwise and r.ok)]}")
+    # K1 in float32 ("rows") at the seven shapes, the same way
+    for what, launches, res in k1:
+        print(f"K1 float32 {what} (x {launches} a step) {res.shape}: events {res.ms:.4f} ms "
+              f"(first design in this run {_ms(res.first_ms)}), device: the kernel "
+              f"{_ms(res.device_ms)} ms, the first design's {_ms(res.first_device_ms)} ms; "
+              f"bound {res.bound_ms:.4f} ms ({res.bound_by}), {res.bound_ms / res.ms:.1%} of it "
+              f"by events; bit for bit against the first design and itself: {res.bitwise}; "
+              f"embedding_bag sum {_ms(res.library_ms)} ms", flush=True)
+    per_step = {name: sum(n * v for _, n, v in vals) for name, vals in (
+        ("events", [(w, n, r.ms) for w, n, r in k1]),
+        ("first design events", [(w, n, r.first_ms) for w, n, r in k1]),
+        ("device", [(w, n, r.device_ms or math.nan) for w, n, r in k1]),
+        ("first design device", [(w, n, r.first_device_ms or math.nan) for w, n, r in k1]),
+        ("bound", [(w, n, r.bound_ms) for w, n, r in k1]))}
+    print("K1 float32 per step (10 launches, ms): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in per_step.items())
+        + f" (before the redesign {10 * K1_F32_BEFORE:.4f} device)", flush=True)
+    if any(r.form != "rows" for _, _, r in k1):
+        raise RuntimeError(f"K1 took another form than rows at a float32 training shape: "
+                           f"{[(w, r.form) for w, _, r in k1 if r.form != 'rows']}")
+    if not all(r.bitwise and r.ok for _, _, r in k1):
+        raise RuntimeError(f"K1 (float32) differs from its first design or its plain version: "
+                           f"{[w for w, _, r in k1 if not (r.bitwise and r.ok)]}")
     # K11 at both training shapes beside its first design: its times before
     # the redesign (NVIDIA H100 80GB HBM3, 700 W: 19.7523 / 9.3540 ms by
     # events, 6.1515 device ms of the self_eq kernel) and in this run
@@ -443,9 +505,13 @@ def _training(cfg, pairs, extent, dev):
           f"whole call {_ms(res.call_device_ms)} ms, the first design's kernel "
           f"{_ms(res.first_device_ms)} ms; bound {res.bound_ms:.4f} ms ({res.bound_by})",
           flush=True)
+    for i, res in enumerate(k9):
+        print(f"K9 s{i} -> s{i + 1} {res.shape}: events {res.ms:.4f} ms; bound "
+              f"{res.bound_ms:.4f} ms ({res.bound_by}), {res.bound_ms / res.ms:.1%} of it",
+              flush=True)
     bad = [r.name for r in list(checks.values()) + extra if not r.ok]
     if bad:
-        raise RuntimeError(f"backward kernels disagree with their plain versions: {bad}")
+        raise RuntimeError(f"training kernels disagree with their plain versions: {bad}")
     del p0
 
     _tiny_train_card_vs_cpu(cfg, extent, dev)
@@ -478,6 +544,7 @@ def _training(cfg, pairs, extent, dev):
         raise RuntimeError(f"training step launched {launches}, expected {expected}")
     for name in selfcheck.TRAINING:
         checks[name].launches = launches[name]
+    checks["gather_wf (float32)"].launches = launches["gather_wf"]
     # forward + loss alone (the graph built, no backward), to split the step
     fwd_ms = []
     for _ in range(3):
@@ -494,30 +561,35 @@ def _training(cfg, pairs, extent, dev):
           f"{statistics.median(step_ms):.2f}); losses {vals}; launches {launches}; "
           f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
     # one step's profile, with the training kernels' device ms per launch;
-    # K10's tc kernel must appear once and K8's tiles kernel 10 times (a
-    # profile that lists either short is taken once more)
-    also = ("neighbor_max_rows_kernel", K11_KERNEL) + tuple(
+    # K10's tc kernel must appear once, K8's tiles kernel and K1's rows
+    # kernel 10 times each and K1's first design never (a profile that lists
+    # one short is taken once more)
+    also = ("neighbor_max_rows_kernel", K11_KERNEL, K1_F32_FIRST_KERNEL) + tuple(
         name for names, _ in STEP_KERNELS.values() for name in names)
     want = {K10_KERNEL: TRAIN_LAUNCHES["geometric_embedding_bwd"],
-            K8_KERNEL: TRAIN_LAUNCHES["gather_wf_bwd"]}
+            K8_KERNEL: TRAIN_LAUNCHES["gather_wf_bwd"],
+            K1_F32_KERNEL: TRAIN_LAUNCHES["gather_wf"], K1_F32_FIRST_KERNEL: 0}
     for _ in range(2):
         prof = _profile(lambda: step(inputs[0], generator=gen), what="one training step",
                         top=25, also=also)
         if prof is None:
             return checks
-        seen = {name: sum(c for key, c in prof["counts"].items() if name in key)
+        seen = {name: sum(c for key, c in prof["counts"].items()
+                          if re.search(rf"\b{name}\b", key))
                 for name in want}
         if seen == want:
             break
     else:
         raise RuntimeError(f"the step profile lists {seen}, expected {want}")
     per_launch = {
-        what: sum(ms for key, ms in prof["ms"].items() if any(n in key for n in names)) / count
+        what: sum(ms for key, ms in prof["ms"].items()
+                  if any(re.search(rf"\b{n}\b", key) for n in names)) / count
         for what, (names, count) in STEP_KERNELS.items()}
     print("step profile, device ms per launch: " + ", ".join(
         f"{what} {ms:.4f} (x {STEP_KERNELS[what][1]})" for what, ms in per_launch.items())
-        + f"; K8 per step {per_launch['K8'] * STEP_KERNELS['K8'][1]:.4f} ms (predicted 1.5-2.3)",
-        flush=True)
+        + f"; K8 per step {per_launch['K8'] * STEP_KERNELS['K8'][1]:.4f} ms, K1 float32 per "
+        f"step {per_launch['K1 (float32)'] * STEP_KERNELS['K1 (float32)'][1]:.4f} ms (before "
+        f"the redesign {10 * K1_F32_BEFORE:.4f})", flush=True)
     return checks
 
 
@@ -1181,7 +1253,7 @@ def main() -> int:
 
     kernels = []
     for name, res in checks.items():
-        source, replaces = selfcheck.SOURCES[name]
+        source, replaces = selfcheck.SOURCES[name.split(" (")[0]]
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": res.launches,
                "max_abs_err": res.max_abs_err, "ms": res.ms,

@@ -42,8 +42,45 @@
 // ring (two items ahead) the same: copies in flight are not the limit; the
 // kernel moves 4.0-4.6 TB/s of gathered reads and output writes through L2.
 //
-// The first design (gather_wf_kernel, float32 for the training step and
-// the card-vs-CPU checks, and bf16 for H > 64): a block takes kQB query
+// The rows form (rows::gather_wf_rows_kernel, float32 with K <= 16,
+// H <= 64, AC a multiple of 4: every conv of the training step), bound by
+// bytes like the tc form: at the stage-0 training conv (x (2, 20000, 192),
+// H 24, K 15) wf is 461 MB against 46 MB of x, indices and influence.  The
+// first design spent a shared-memory load on every FMA, walked every slot
+// (74 % sentinels at stage 0) with one load in flight a thread, and staged
+// 4 query rows a block behind a block barrier.  Here
+//  * warps are persistent, no block barrier: warp w of n takes rows w,
+//    w + n, .. and all the slices of each, so the warps in flight write
+//    neighbouring rows of wf and gather from neighbouring sources (a
+//    contiguous run of rows a warp ran 1.2 times longer over a step); a
+//    slice is at most 32 16-byte units of the row, a lane one unit (4
+//    channels) and its 4 x K float32 sums in registers (K = 15 compiled
+//    apart, other K as 16), the slices of a row balanced (plan_for,
+//    mirrored by ops/kernels/windowed_conv.py gather_wf_rows_plan);
+//  * a row's H indices and its influence, K padded to 16 with zeros, are
+//    staged by cp.async in the warp's shared memory, the next row's while
+//    this one computes (two buffers a warp); a neighbour's influence is
+//    read as 4 float4 broadcasts for 4 K FMAs;
+//  * the valid slots are compacted by a ballot over the row's indices and
+//    taken NB = 4 at a time: their rows' units loaded straight into
+//    registers (16 bytes a lane), the next batch's loads issued before this
+//    batch's FMAs; a sentinel costs no load;
+//  * wf goes out by 16-byte streaming stores (st.global.cs: it does not fit
+//    in L2 and is read back only by the weight product);
+//  * 128 registers a thread (a few bytes spilled), so 16 warps an SM: 154
+//    without the cap (12 warps) ran 6 % slower over a step.
+// Each (q, k, channel) sum is the first design's chain: 0.f, then fmaf over
+// the valid h in ascending order, so wf is the first design's bits.  Over
+// a step's ten launches it takes 1.61 times the bytes bound; at stages 2-3
+// the gathered loads and the FMAs add up rather than overlap
+// (scripts/probe_gather_wf_f32.py, PERF.md).  The probe builds copies with
+// other cuts (-DGATHER_WF_ROWS_NB, _PIPE, _WARPS, _MINB, _ORDER) and cut at
+// one stage by GATHER_WF_ROWS_STAGE (wrong outputs, timing only): 0 the wf
+// stream alone (no gather), 1 the gather alone (no stores), 2 the whole
+// form (the default), 3 the loads and stores without the FMAs.
+//
+// The first design (gather_wf_kernel, float32 outside the rows form's
+// limits, and bf16 for H > 64): a block takes kQB query
 // rows; their neighbour indices and influence rows are staged in shared
 // memory, and each thread owns one (query, channel) column, keeps the K
 // sums in registers (fp32) and streams the H neighbour values of its
@@ -219,6 +256,266 @@ int launch(const void* x, const void* nbr, const void* infl, void* out, int batc
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// The rows form (float32).  Rows are the flattened (b, q) rows of nbr /
+// infl / out; items the (row, slice) pairs.
+#ifndef GATHER_WF_ROWS_STAGE
+#define GATHER_WF_ROWS_STAGE 2
+#endif
+#ifndef GATHER_WF_ROWS_NB
+#define GATHER_WF_ROWS_NB 4
+#endif
+#ifndef GATHER_WF_ROWS_WARPS
+#define GATHER_WF_ROWS_WARPS 4
+#endif
+#ifndef GATHER_WF_ROWS_ORDER
+#define GATHER_WF_ROWS_ORDER 1
+#endif
+#ifndef GATHER_WF_ROWS_PIPE
+#define GATHER_WF_ROWS_PIPE 1
+#endif
+#ifndef GATHER_WF_ROWS_MINB
+#define GATHER_WF_ROWS_MINB 4
+#endif
+#ifndef GATHER_WF_ROWS_K15
+#define GATHER_WF_ROWS_K15 1
+#endif
+
+namespace rows {
+
+constexpr int kWarps = GATHER_WF_ROWS_WARPS;  // warps per block (each independent)
+constexpr int kThreads = kWarps * 32;
+constexpr int kNB = GATHER_WF_ROWS_NB;        // valid neighbour rows in flight a lane
+constexpr int kMaxH = 64;                     // two 32-slot ballot words
+constexpr int kKP = 16;                       // K padded
+
+struct Plan {
+  int form, slices, width;  // form 1 where the rows form takes the shape, else 0
+};
+
+// slices of a row and 16-byte units a slice (at most 32, balanced)
+Plan plan_for(int h, int k, int ac) {
+  if (k < 1 || k > kKP || h < 1 || h > kMaxH || ac < 4 || ac % 4) return {0, 0, 0};
+  const int units = ac / 4;
+  const int slices = (units + 31) / 32;
+  return {1, slices, (units + slices - 1) / slices};
+}
+
+// 4-byte words of one staged row: its (H, 16) influence, then its H
+// indices, rounded up to 16 bytes
+__host__ __device__ constexpr int row_words(int h) { return h * kKP + ((h + 3) & ~3); }
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool ok) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(dst), "l"(gmem), "r"(ok ? 4 : 0));
+}
+
+// row `row`'s influence (zero past k) and indices into `buf` by cp.async,
+// uncommitted
+__device__ __forceinline__ void stage_row(float* buf, const int* nbr, const float* infl,
+                                          long long row, int h, int hs, int k, int lane) {
+  const float* w = infl + row * hs * k;
+  for (int i = lane; i < h * kKP; i += 32) {
+    const int kk = i & (kKP - 1);
+    const bool ok = kk < k;
+    cp_async4(buf + i, ok ? w + (i >> 4) * k + kk : w, ok);
+  }
+  const int* idx = nbr + row * h;
+  for (int i = lane; i < h; i += 32) cp_async4(buf + h * kKP + i, idx + i, true);
+}
+
+// pop up to kNB valid slots off `m` (ascending) and load this lane's unit of
+// their source rows (none for an empty entry, hn -1, or an idle lane)
+__device__ __forceinline__ void load_batch(float4 (&v)[kNB], int (&hn)[kNB],
+                                           unsigned long long& m, const int* idx,
+                                           const float4* xb, int units, int u, bool active) {
+#pragma unroll
+  for (int j = 0; j < kNB; ++j) {
+    hn[j] = m ? __ffsll((long long)m) - 1 : -1;
+    m &= m - 1;
+    v[j] = hn[j] >= 0 && active ? __ldg(xb + (long long)idx[hn[j]] * units + u)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// the batch's FMAs, slot by slot in ascending order: acc[kk][c] =
+// fmaf(w[h][kk], x[h][c], acc[kk][c]), the first design's chain
+template <int KC>
+__device__ __forceinline__ void take_batch(float (&acc)[KC][4], const float4 (&v)[kNB],
+                                           const int (&hn)[kNB], const float* w) {
+#pragma unroll
+  for (int j = 0; j < kNB; ++j) {
+    if (hn[j] < 0) break;  // the same for every lane
+#if GATHER_WF_ROWS_STAGE == 3
+    // diagnostic: the loads without the FMAs
+    acc[0][0] += v[j].x; acc[0][1] += v[j].y; acc[0][2] += v[j].z; acc[0][3] += v[j].w;
+#else
+    const float4* wr = reinterpret_cast<const float4*>(w + hn[j] * kKP);
+#pragma unroll
+    for (int q = 0; q < (KC + 3) / 4; ++q) {
+      const float4 t = wr[q];
+      const float wq[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (4 * q + e < KC) {
+          acc[4 * q + e][0] = fmaf(wq[e], v[j].x, acc[4 * q + e][0]);
+          acc[4 * q + e][1] = fmaf(wq[e], v[j].y, acc[4 * q + e][1]);
+          acc[4 * q + e][2] = fmaf(wq[e], v[j].z, acc[4 * q + e][2]);
+          acc[4 * q + e][3] = fmaf(wq[e], v[j].w, acc[4 * q + e][3]);
+        }
+      }
+    }
+#endif
+  }
+}
+
+// every warp takes its own run of the items: its rows gw, gw + nwarps, ..
+// with all their slices (ORDER 1), or a contiguous run (ORDER 0).  KC sums
+// a lane's channel: 15 (the model's K) or 16 (any K <= 16, the rest zero)
+template <int KC>
+__global__ void __launch_bounds__(kThreads, GATHER_WF_ROWS_MINB)
+gather_wf_rows_kernel(const float* __restrict__ x, const int* __restrict__ nbr,
+                      const float* __restrict__ infl, float* __restrict__ out, int ns, int nq,
+                      int h, int hs, int k, int ac, int slices, int width, int items,
+                      int nwarps) {
+  extern __shared__ __align__(16) float smem_rows[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long gw = (long long)blockIdx.x * kWarps + warp;
+#if GATHER_WF_ROWS_ORDER == 0
+  const int i0 = (int)(items * gw / nwarps), i1 = (int)(items * (gw + 1) / nwarps);
+  if (i0 >= i1) return;
+  const int rstep = 1, r_last = (i1 - 1) / slices;
+  int r = i0 / slices, s = i0 - r * slices, n = i1 - i0;
+#else
+  const int rows = items / slices;
+  if (gw >= rows) return;
+  const int rstep = nwarps, r_last = (int)gw + (rows - 1 - (int)gw) / nwarps * nwarps;
+  int r = (int)gw, s = 0, n = (r_last - r) / nwarps * slices + slices;
+#endif
+  const int words = row_words(h), units = ac >> 2;
+  float* bufs = smem_rows + 2 * words * warp;  // this row's buffer and the next's
+  stage_row(bufs, nbr, infl, r, h, hs, k, lane);
+  se3et::cp_async_commit();
+  const float* w = bufs;  // the current row's influence, then its indices
+  const int* idx = nullptr;
+  const float4* xb = nullptr;
+  unsigned long long valid = 0ull;
+  int buf = 0;
+  bool fresh = true;  // the item starts a row
+  for (; n > 0; --n) {
+    if (fresh) {
+      __syncwarp();  // every lane is done with the buffer the next row takes
+      if (r + rstep <= r_last)
+        stage_row(bufs + (buf ^ 1) * words, nbr, infl, r + rstep, h, hs, k, lane);
+      se3et::cp_async_commit();
+      se3et::cp_async_wait<1>();
+      __syncwarp();
+      w = bufs + buf * words;
+      idx = reinterpret_cast<const int*>(w + h * kKP);
+      const int ja = lane < h ? idx[lane] : ns, jb = lane + 32 < h ? idx[lane + 32] : ns;
+      valid = (unsigned long long)__ballot_sync(0xffffffffu, ja >= 0 && ja < ns) |
+              (unsigned long long)__ballot_sync(0xffffffffu, jb >= 0 && jb < ns) << 32;
+      xb = reinterpret_cast<const float4*>(x) + (long long)(r / nq) * ns * units;
+    }
+    const int u = s * width + lane;  // this lane's unit
+    const bool active = lane < width && u < units;
+    float acc[KC][4];
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) acc[kk][0] = acc[kk][1] = acc[kk][2] = acc[kk][3] = 0.f;
+#if GATHER_WF_ROWS_STAGE >= 1
+    unsigned long long m = valid;
+#if GATHER_WF_ROWS_PIPE
+    // two batches: the next one's loads in flight while this one's FMAs run
+    float4 va[kNB], vb[kNB];
+    int ha[kNB], hb[kNB];
+    load_batch(va, ha, m, idx, xb, units, u, active);
+    while (ha[0] >= 0) {
+      load_batch(vb, hb, m, idx, xb, units, u, active);
+      take_batch<KC>(acc, va, ha, w);
+      if (hb[0] < 0) break;
+      load_batch(va, ha, m, idx, xb, units, u, active);
+      take_batch<KC>(acc, vb, hb, w);
+    }
+#else
+    while (m) {
+      float4 v[kNB];
+      int hn[kNB];
+      load_batch(v, hn, m, idx, xb, units, u, active);
+      take_batch<KC>(acc, v, hn, w);
+    }
+#endif
+#endif
+#if GATHER_WF_ROWS_STAGE == 1
+    if (active && ns < 0) {  // never: the gather without the stores
+#else
+    if (active) {
+#endif
+      float* o = out + (long long)r * k * ac + 4 * u;
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk)
+        if (kk < k)
+          __stcs(reinterpret_cast<float4*>(o + (long long)kk * ac),
+                 make_float4(acc[kk][0], acc[kk][1], acc[kk][2], acc[kk][3]));
+    }
+    fresh = ++s == slices;
+    if (fresh) {
+      s = 0;
+      r += rstep;
+      buf ^= 1;
+    }
+  }
+  se3et::cp_async_wait<0>();
+}
+
+template <int KC>
+int launch_kc(const void* x, const void* nbr, const void* infl, void* out, int ns, int nq,
+              int h, int hs, int k, int ac, const Plan& p, long long items,
+              cudaStream_t stream) {
+  auto fn = gather_wf_rows_kernel<KC>;
+  const size_t smem = (size_t)kWarps * 2 * row_words(h) * sizeof(float);
+  // blocks resident per SM, found once for each H (the grid holds that many)
+  static int per_sm[kMaxH + 1] = {};
+  cudaError_t e;
+  if (per_sm[h] == 0) {
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)(kWarps * 2 * row_words(kMaxH) * sizeof(float)));
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[h], fn, kThreads, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm[h] < 1) return (int)cudaErrorInvalidConfiguration;
+  }
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  // every warp takes at least 4 items where there are that few
+  const long long want = (items + 4 * kWarps - 1) / (4 * kWarps);
+  const int nblocks = (int)(want < (long long)per_sm[h] * sms ? want : (long long)per_sm[h] * sms);
+  fn<<<nblocks, kThreads, smem, stream>>>((const float*)x, (const int*)nbr, (const float*)infl,
+                                          (float*)out, ns, nq, h, hs, k, ac, p.slices, p.width,
+                                          (int)items, nblocks * kWarps);
+  return (int)cudaGetLastError();
+}
+
+int launch(const void* x, const void* nbr, const void* infl, void* out, int batch, int ns,
+           int nq, int h, int hs, int k, int ac, void* stream) {
+  const Plan p = plan_for(h, k, ac);
+  if (!p.form || hs < h || (reinterpret_cast<uintptr_t>(x) & 15) ||
+      (reinterpret_cast<uintptr_t>(out) & 15))
+    return (int)cudaErrorInvalidValue;
+  if (batch < 1 || nq < 1) return 0;
+  const long long items = (long long)batch * nq * p.slices;
+  if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+#if GATHER_WF_ROWS_K15
+  if (k == 15) return launch_kc<15>(x, nbr, infl, out, ns, nq, h, hs, k, ac, p, items, st);
+#endif
+  return launch_kc<16>(x, nbr, infl, out, ns, nq, h, hs, k, ac, p, items, st);
+}
+
+}  // namespace rows
+
 }  // namespace
 
 // K1 in bf16 on the tensor cores, H <= 64, AC a multiple of 8, x and out
@@ -228,6 +525,25 @@ extern "C" int se3et_gather_wf_tc_bf16(const void* x, const void* nbr, const voi
                                        void* out, int batch, int ns, int nq, int h, int hs,
                                        int k, int ac, void* stream) {
   return tc::launch(x, nbr, infl, out, batch, ns, nq, h, hs, k, ac, stream);
+}
+
+// K1 in float32, the rows form: K <= 16, H <= 64, AC a multiple of 4, x and
+// out 16-byte aligned (else cudaErrorInvalidValue without launching);
+// influence (B, Nq, hs, K) read in place (its first h columns)
+extern "C" int se3et_gather_wf_rows_f32(const void* x, const void* nbr, const void* infl,
+                                        void* out, int batch, int ns, int nq, int h, int hs,
+                                        int k, int ac, void* stream) {
+  return rows::launch(x, nbr, infl, out, batch, ns, nq, h, hs, k, ac, stream);
+}
+
+// The rows form's plan for H neighbours, K kernel points and AC channels:
+// fills plan[0..1] with the slices of a row and the 16-byte units of a
+// slice; returns 1 where the rows form takes the shape, else 0 (and zeros)
+extern "C" int se3et_gather_wf_rows_plan(int h, int k, int ac, int* plan) {
+  const rows::Plan p = rows::plan_for(h, k, ac);
+  plan[0] = p.slices;
+  plan[1] = p.width;
+  return p.form;
 }
 
 // the first design in bf16 (H > 64) and float32

@@ -34,7 +34,9 @@ shapes of se3ete.3dmatch (bf16) and the tiny float32 widths:
   their ``TOLERANCES``);
 * K1 (conv gather) in bf16 at the stage-2 (x (2, 2500, 768), H 36), s2 ->
   s3 (the same x, 1024 queries) and stage-3 (x (2, 1024, 1536), H 38)
-  shapes, and in float32 at the stage-0 shape (x (2, 20000, 192), H 24);
+  shapes, and in float32 (the rows form) at the seven training shapes
+  (the forwards of K8's ten convs: stage 0 same-level x (2, 20000, 192), H
+  24, through stage 3 x (2, 1024, 1536), H 38), all timed;
 * K6 (EQ cross-attention stats) and K7 (apply) at the serving shape, q, k,
   v (6, 4, 1024, 64) in bf16 (timed, held within their ``TOLERANCES``), and
   at N = M = 128, head width 16 in float32;
@@ -55,7 +57,6 @@ shapes of se3ete.3dmatch (bf16) and the tiny float32 widths:
   pooled as two cases, both timed: wf held within its ``TOLERANCES``,
   pooled by its bit pattern.
 
-The bf16 K1 cases are timed too.
 
 Each case is held bit for bit unless ``TOLERANCES`` names it: then the
 largest difference over the other checkout's largest magnitude must stay
@@ -71,7 +72,12 @@ step ms per turn: the step of each checkout, with its own kernels and
 training code, in turns.  One more step a turn is profiled
 (``torch.profiler``, device time by kernel): it prints the kernels' total
 per turn and the kernels whose device ms moved most between the two
-checkouts (medians over their turns).
+checkouts (medians over their turns).  Each turn also takes N steps after
+a warm-up on a fresh model with ``torch.use_deterministic_algorithms`` on
+(warn only: the operations still without a deterministic implementation
+are printed) and keeps the last one's losses, gradients and parameters:
+this checkout's are held bit for bit against the other's (a case like the
+others), and each checkout's two turns are compared too (run to run).
 """
 
 import argparse
@@ -94,12 +100,23 @@ K13_CASES = ("K13 s0 -> s1 out", "K13 s0 -> s1 pooled")
 K2_CASES = ("K2 s2 -> s3 bf16", "K2 s0 -> s1 float32")
 K14_CASES = ("K14 s1 -> s2 wf", "K14 s1 -> s2 pooled")
 K1_BF16 = ("K1 stage 2", "K1 s2 -> s3", "K1 stage 3")
+# K1 in float32 at the training shapes: (name, Nq, Ns, H, AC)
+K1_F32 = (("K1 float32 stage 0", 20000, 20000, 24, 192),
+          ("K1 float32 s0 -> s1", 10000, 20000, 24, 192),
+          ("K1 float32 stage 1", 10000, 10000, 32, 384),
+          ("K1 float32 s1 -> s2", 2500, 10000, 32, 384),
+          ("K1 float32 stage 2", 2500, 2500, 36, 768),
+          ("K1 float32 s2 -> s3", 1024, 2500, 36, 768),
+          ("K1 float32 stage 3", 1024, 1024, 38, 1536))
 K8_CASES = ("K8 stage 0 float32", "K8 s0 -> s1 float32", "K8 stage 1 float32")
 TIMED = K5_BF16 + K16_BF16 + (K6_BF16, K7_BF16, K4_CASES[0], K13_CASES[0]) + K2_CASES + K14_CASES \
-    + K1_BF16 + K11_BF16 + K10_CASES[:1] + K8_CASES
+    + K1_BF16 + tuple(c[0] for c in K1_F32) + K11_BF16 + K10_CASES[:1] + K8_CASES
+# the last timed training step's outputs (with --train-steps)
+TRAIN_OUTPUTS = ("training step: losses", "training step: gradients",
+                 "training step: parameters")
 # held by their bit patterns (-0.0 apart from +0.0), where the others are
 # held by value
-BITS = K2_CASES + K14_CASES[1:]
+BITS = K2_CASES + K14_CASES[1:] + TRAIN_OUTPUTS
 REPS = 20  # launches per timing
 TRAIN_STEP = "training step (median)"
 STEP_KERNELS = "training step kernels (device ms by kernel)"
@@ -218,8 +235,7 @@ def _cases(dev):
     for name, nq, ns, h, ac, dtype in (("K1 stage 2", 2500, 2500, 36, 768, bf),
                                        ("K1 s2 -> s3", 1024, 2500, 36, 768, bf),
                                        ("K1 stage 3", 1024, 1024, 38, 1536, bf),
-                                       ("K1 stage 0 float32", 20000, 20000, 24, 192,
-                                        torch.float32)):
+                                       *((*c, torch.float32) for c in K1_F32)):
         nbr = torch.cat([selfcheck.local_neighbors(nq, ns, h, g, dev) for _ in range(2)])
         x = torch.randn((2, ns, ac), generator=g).to(dev, dtype)
         infl = (torch.rand((2, nq, h, 15), generator=g).to(dev)
@@ -269,12 +285,22 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
 
 
+def _same_bits(a, b) -> bool:
+    """Two lists of tensors of the same shapes and bit patterns."""
+    return len(a) == len(b) and all(x.shape == y.shape and torch.equal(_bits(x), _bits(y))
+                                    for x, y in zip(a, b))
+
+
 def _train_step_ms(steps: int):
     """Median ms of ``steps`` synchronised full-width training steps, after
     one warm-up step, in the checkout on ``sys.path[0]``, each on fresh
-    device tensors of the pair; and {kernel: device ms} of one more step
-    under ``torch.profiler``."""
+    device tensors of the pair; {kernel: device ms} of one more step under
+    ``torch.profiler``; and, from as many steps again on a fresh model with
+    ``torch.use_deterministic_algorithms`` on (warn only; the operations it
+    warns about are printed), the last step's losses, gradients and
+    parameters ({name: [CPU tensors]}, in the model's parameter order)."""
     import time
+    import warnings
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -291,10 +317,35 @@ def _train_step_ms(steps: int):
         synthetic_pair(0, cfg.pipeline, None, cfg.point_limit, synthetic_extent(cfg.dataset),
                        seed=cfg.seed), cfg.model)
     dev = torch.device("cuda", 0)
-    model = SE3ETModel(cfg.model, seed=cfg.seed)
-    step = make_train_step(model, cfg.loss, make_optimizer(model.parameters(), cfg.optim, 1))
-    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-    step(pyramid_to_tensors(pair, dev), generator=gen)
+
+    def fresh():
+        model = SE3ETModel(cfg.model, seed=cfg.seed)
+        step = make_train_step(model, cfg.loss, make_optimizer(model.parameters(), cfg.optim, 1))
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        step(pyramid_to_tensors(pair, dev), generator=gen)
+        return model, step, gen
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            model, step, gen = fresh()
+            for _ in range(steps):
+                losses = step(pyramid_to_tensors(pair, dev), generator=gen)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    params = [p for _, p in model.named_parameters()]
+    state = dict(zip(TRAIN_OUTPUTS, (
+        [losses[k].cpu() for k in sorted(losses)], [p.grad.cpu() for p in params],
+        [p.detach().cpu() for p in params])))
+    warned = sorted({str(w.message).split(" does not have a deterministic")[0].split("\n")[0]
+                     for w in caught if "deterministic" in str(w.message)})
+    print(f"deterministic training steps ({sys.path[0]}): operations warned about: "
+          f"{warned or 'none'}", flush=True)
+    del model, step, params
+
+    model, step, gen = fresh()
     ms = []
     for _ in range(steps):
         inputs = pyramid_to_tensors(pair, dev)
@@ -313,7 +364,7 @@ def _train_step_ms(steps: int):
         if e.device_type == DeviceType.CUDA:
             t = getattr(e, "self_device_time_total", None)
             kernels[e.key] = (e.self_cuda_time_total if t is None else t) / 1e3
-    return statistics.median(ms), kernels
+    return statistics.median(ms), kernels, state
 
 
 def _worker(tree: str, out: str, save: bool, train_steps: int) -> None:
@@ -333,7 +384,8 @@ def _worker(tree: str, out: str, save: bool, train_steps: int) -> None:
         ms = {name: selfcheck._time_ms(cases[name], REPS) for name in TIMED}
     del cases
     if train_steps:
-        ms[TRAIN_STEP], ms[STEP_KERNELS] = _train_step_ms(train_steps)
+        ms[TRAIN_STEP], ms[STEP_KERNELS], state = _train_step_ms(train_steps)
+        torch.save(state, out + ".train.pt")
     if save:
         torch.save(outs, out + ".pt")
     with open(out + ".json", "w") as f:
@@ -394,11 +446,20 @@ def main() -> int:
             times[who].append(json.load(f))
     theirs = torch.load(os.path.join(work, "turn0.pt"))
     ours = torch.load(os.path.join(work, "turn1.pt"))
+    if args.train_steps:
+        train = [torch.load(os.path.join(work, f"turn{i}.train.pt")) for i in range(4)]
+        theirs.update(train[0])
+        ours.update(train[1])
+        for who, (i, j) in (("other", (0, 3)), ("this", (1, 2))):
+            same = {name: _same_bits(train[i][name], train[j][name]) for name in TRAIN_OUTPUTS}
+            print(f"training step outputs, {who} run to run: " + ", ".join(
+                f"{name} {'bit-identical' if ok else 'DIFFER'}" for name, ok in same.items()),
+                flush=True)
     bad = 0
     for name, a in ours.items():
         b = theirs[name]
         if name in BITS:
-            same = all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b))
+            same = _same_bits(a, b)
         else:
             same = all(torch.equal(x, y) for x, y in zip(a, b))
         diff = max(float((x.float() - y.float()).abs().max()) / max(

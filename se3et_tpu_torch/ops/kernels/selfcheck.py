@@ -113,14 +113,15 @@ class CheckResult:
     route_ms: Optional[float] = None  # the unfused route's time (K12-K14), a yardstick
     device_ms: Optional[float] = None  # the kernel's own device time per call (profiler)
     two_calls_ms: Optional[float] = None  # two PyTorch calls computing the function (K7)
-    first_ms: Optional[float] = None  # the first design on the same inputs (K2, K10, K11, K14)
+    first_ms: Optional[float] = None  # the first design on the same inputs (K1, K2, K8, K10,
+    # K11, K14)
     # every device kernel of one wrapper call (K11: its products too), and
     # the first design's kernel, per call (profiler)
     call_device_ms: Optional[float] = None
     first_device_ms: Optional[float] = None
-    # K8: the form its shape took, whether its output equals its first
-    # design's and its own on a second call bit for bit, and distinct (tile,
-    # query) pairs over B * Nq
+    # K1 and K8: the form its shape took, whether its output equals its
+    # first design's and its own on a second call bit for bit; K8: distinct
+    # (tile, query) pairs over B * Nq
     form: Optional[str] = None
     bitwise: Optional[bool] = None
     reread: Optional[float] = None
@@ -229,9 +230,16 @@ def local_neighbors(nq, ns, h, generator, device, spread=64):
     return torch.where(drop, torch.full_like(nbr, ns), nbr).to(torch.int32)[None]
 
 
-def check_gather_wf(nbr, ns, ac, k=15, dtype=torch.bfloat16, seed=0, reps=10):
-    """K1 on x (B, ns, ac) with the given (B, Nq, H) neighbours; bf16 tolerance
-    1e-2 * max|out| (fp32 sums in a different order, one bf16 rounding)."""
+def check_gather_wf(nbr, ns, ac, k=15, dtype=torch.bfloat16, seed=0, reps=10,
+                    device_kernel=None, first=False):
+    """K1 on x (B, ns, ac) with the given (B, Nq, H) neighbours, on the form
+    ``windowed_conv.gather_wf_form`` names; bf16 tolerance 1e-2 * max|out|
+    (fp32 sums in a different order, one bf16 rounding), float32 1e-5 *
+    max|out|.  With ``device_kernel`` (a kernel name) also that kernel's
+    device time per call; with ``first`` the first design's time on the
+    same inputs (events, and its kernel's device time where
+    ``device_kernel`` is given) and ``bitwise``: the output equals the
+    first design's and a second call of its own bit for bit."""
     g = torch.Generator().manual_seed(seed)
     dev = nbr.device
     b, nq, h = nbr.shape
@@ -240,10 +248,23 @@ def check_gather_wf(nbr, ns, ac, k=15, dtype=torch.bfloat16, seed=0, reps=10):
             * (nbr < ns)[..., None]).to(dtype)
     tol = (lambda w: 1e-2 * float(w.float().abs().max())) if dtype == torch.bfloat16 \
         else (lambda w: 1e-5 * float(w.abs().max()))
+    form = windowed_conv.gather_wf_form(h, dtype, k, ac)
+    kernel_fn = lambda: windowed_conv.gather_wf(x, nbr, infl)  # noqa: E731
     res = _compare(
-        "gather_wf", f"x{tuple(x.shape)} nbr{tuple(nbr.shape)} K={k} {dtype}",
-        lambda: windowed_conv.gather_wf(x, nbr, infl),
-        lambda: windowed_conv.gather_wf_plain(x, nbr, infl), tol, reps)
+        "gather_wf", f"x{tuple(x.shape)} nbr{tuple(nbr.shape)} K={k} {dtype} ({form} form)",
+        kernel_fn, lambda: windowed_conv.gather_wf_plain(x, nbr, infl), tol, reps)
+    res.form = form
+    if device_kernel is not None:
+        res.device_ms = device_ms(kernel_fn, device_kernel)
+    if first:
+        first_fn = lambda: windowed_conv._gather_wf_forward(x, nbr, infl,  # noqa: E731
+                                                            form="first")
+        got = kernel_fn()
+        res.bitwise = bool(torch.equal(_bits(got), _bits(first_fn()))
+                           and torch.equal(_bits(got), _bits(kernel_fn())))
+        res.first_ms = _time_ms(first_fn, reps)
+        if device_kernel is not None:
+            res.first_device_ms = device_ms(first_fn, "gather_wf_kernel")
     # library: one embedding_bag sum per (query, kernel point) over its
     # neighbours, weighted by the influence
     table, idx = _bag_inputs(x, nbr)
@@ -254,6 +275,11 @@ def check_gather_wf(nbr, ns, ac, k=15, dtype=torch.bfloat16, seed=0, reps=10):
     return _with_bound(res, _nbytes(x, nbr, infl) + out_bytes, 2.0 * nvalid * k * ac, dtype,
                        lambda: F.embedding_bag(idx_k, table, per_sample_weights=w_k,
                                                mode="sum"))
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The bit patterns of a 2- or 4-byte tensor (-0.0 apart from +0.0)."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
 def check_neighbor_max(nbr, ns, ac, dtype=torch.bfloat16, seed=1, reps=10,

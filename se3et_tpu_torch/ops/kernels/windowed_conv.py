@@ -8,7 +8,7 @@ drop no neighbours).  Their JAX counterpart is the exact gather route of
 ``se3et_tpu/nn/epn.py`` (``KPConvInterSO3`` without ``window``, and
 ``max_pool_neighbors``).
 
-* :func:`gather_wf` (K1, ``csrc/gather_wf.cu``, in two forms chosen by
+* :func:`gather_wf` (K1, ``csrc/gather_wf.cu``, in three forms chosen by
   :func:`gather_wf_form`) replaces
   ``windowed_gather_wf``; the E2PN weight matmul after it stays a
   ``torch.matmul`` (as the JAX exact route leaves it to XLA).
@@ -246,38 +246,78 @@ def _check_common(x, nbr):
 
 # K1's tensor-core form holds a row's influence as mma A fragments of 16
 # neighbours each, at most 4 of them (H <= 64), and stages neighbour rows in
-# 16-byte units (AC a multiple of 8); the float32 K1 and wider neighbour sets
-# take the first design
+# 16-byte units (AC a multiple of 8).  Its float32 "rows" form keeps 4
+# channels x K <= 16 kernel points of sums a lane and compacts a row's
+# valid slots by two 32-slot ballots (H <= 64, AC a multiple of 4); a warp
+# takes every slice of its rows, a slice at most 32 16-byte units of the
+# row, the slices of a row balanced.  Wider neighbour sets take the first
+# design in either dtype.
 GATHER_WF_TC_MAX_H = 64
+GATHER_WF_ROWS_MAX_H = 64
 
 
-def gather_wf_form(h: int, dtype) -> str:
-    """Which hand-written K1 kernel takes a gather over ``h`` neighbours of
-    ``dtype`` features: "tc" (bf16, H <= 64: the tensor-core form) or
-    "first" (the first design: float32, and bf16 with H > 64).  Chosen by
-    shape alone; both are kernels, neither a fallback of the other."""
-    return "tc" if dtype == torch.bfloat16 and h <= GATHER_WF_TC_MAX_H else "first"
+class GatherWFRowsPlan(NamedTuple):
+    """How K1's rows form runs on a shape: the form ("rows", or "first"
+    where the rows form does not take it), slices of a row and 16-byte units
+    of a slice (0 in the first form)."""
+    form: str
+    slices: int
+    width: int
 
 
-def _gather_wf_forward(x, nbr, infl):
+def gather_wf_rows_plan(h: int, k: int, ac: int) -> GatherWFRowsPlan:
+    """K1's float32 plan for ``h`` neighbours, ``k`` kernel points and
+    ``ac`` channels, as ``se3et_gather_wf_rows_plan`` in
+    ``csrc/gather_wf.cu`` makes it."""
+    if not (1 <= k <= _KP and 1 <= h <= GATHER_WF_ROWS_MAX_H and ac >= 4 and ac % 4 == 0):
+        return GatherWFRowsPlan("first", 0, 0)
+    units = ac // 4
+    slices = -(-units // 32)
+    return GatherWFRowsPlan("rows", slices, -(-units // slices))
+
+
+def gather_wf_form(h: int, dtype, k: int, ac: int) -> str:
+    """Which hand-written K1 kernel takes a gather over ``h`` neighbours and
+    ``k`` kernel points of ``ac`` channels of ``dtype`` features: "tc" (bf16,
+    H <= 64: the tensor-core form), "rows" (float32 where
+    :func:`gather_wf_rows_plan` takes the shape: every conv of the training
+    step) or "first" (the first design: bf16 with H > 64, float32 outside
+    the rows form's limits).  Chosen by shape alone; none is a fallback of
+    another."""
+    if dtype == torch.bfloat16:
+        return "tc" if h <= GATHER_WF_TC_MAX_H else "first"
+    return gather_wf_rows_plan(h, k, ac).form
+
+
+_GATHER_WF_SYMBOLS = {"tc": "se3et_gather_wf_tc_bf16", "rows": "se3et_gather_wf_rows_f32",
+                      "first": "se3et_gather_wf_{}"}
+
+
+def _gather_wf_forward(x, nbr, infl, form: Optional[str] = None):
+    """K1 on the kernel :func:`gather_wf_form` names, or on ``form`` where
+    the caller asks for one ("first" takes every shape with K <= 16)."""
     if x.device.type == "cpu":
         return gather_wf_plain(x, nbr, infl)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     b, nq, h = nbr.shape
-    k = infl.shape[3]
+    k, ac = infl.shape[3], x.shape[2]
+    chosen = gather_wf_form(h, x.dtype, k, ac)
+    form = form or chosen
+    if form != "first" and form != chosen:
+        raise ValueError(f"K1's {form} form does not take H={h}, K={k}, AC={ac}, {x.dtype}")
     x, nbr = x.contiguous(), nbr.contiguous()
+    if form == "rows" and x.data_ptr() % 16:  # a view into a buffer: rows must be 16-byte aligned
+        x = x.clone()
     # the influence as it lies: its first h of hs columns, cast only when
     # its dtype differs
     infl = (infl if infl.dtype == x.dtype else infl.to(x.dtype)).contiguous()
-    out = torch.empty((b, nq, k * x.shape[2]), dtype=x.dtype, device=x.device)
-    symbol = "se3et_gather_wf_tc_bf16" if gather_wf_form(h, x.dtype) == "tc" \
-        else f"se3et_gather_wf_{_DTYPES[x.dtype]}"
-    fn = _build.function("gather_wf", symbol, 4, 7)
+    out = torch.empty((b, nq, k * ac), dtype=x.dtype, device=x.device)
+    fn = _build.function("gather_wf", _GATHER_WF_SYMBOLS[form].format(_DTYPES[x.dtype]), 4, 7)
     _build.check(fn(x.data_ptr(), nbr.data_ptr(), infl.data_ptr(), out.data_ptr(),
-                    b, x.shape[1], nq, h, infl.shape[2], k, x.shape[2],
+                    b, x.shape[1], nq, h, infl.shape[2], k, ac,
                     torch.cuda.current_stream(x.device).cuda_stream),
-                 "gather_wf launch")
+                 f"gather_wf launch ({form})")
     gather_wf.launches += 1
     return out
 
@@ -302,15 +342,18 @@ def gather_wf(x: torch.Tensor, nbr: torch.Tensor, infl: torch.Tensor) -> torch.T
     see :func:`gather_wf_plain`; ``infl`` (B, Nq, H' >= H, K <= 16) is read
     in place, cast to x's dtype where it differs.  The kernel is the one
     :func:`gather_wf_form` names: in bf16 with H <= 64 the tensor-core form
-    (AC a multiple of 8, else ``ValueError``), otherwise the first design.
-    Bound by device memory (the wf output); the source notes the design.
+    (AC a multiple of 8, else ``ValueError``), in float32 with H <= 64 and
+    AC a multiple of 4 the rows form (bit for bit the first design's
+    output; x copied where its rows are not 16-byte aligned), otherwise the
+    first design.  Bound by device memory (the wf output); the source notes
+    the designs.
     Differentiable in ``x`` (backward K8, :func:`gather_wf_bwd`)."""
     _check_common(x, nbr)
     b, nq, h = nbr.shape
     if infl.ndim != 4 or infl.shape[:2] != (b, nq) or infl.shape[2] < h \
             or not 1 <= infl.shape[3] <= _KP:
         raise ValueError(f"gather_wf: bad influence shape {tuple(infl.shape)}")
-    if gather_wf_form(h, x.dtype) == "tc" and x.shape[2] % 8:
+    if gather_wf_form(h, x.dtype, infl.shape[3], x.shape[2]) == "tc" and x.shape[2] % 8:
         raise ValueError(f"gather_wf: AC={x.shape[2]} is not a multiple of 8")
     if infl.requires_grad:
         raise ValueError("gather_wf: influence is geometry and takes no gradient")

@@ -84,15 +84,41 @@ def test_gather_wf_plain_matches_windowed_kernel():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("h,dtype,form", [
-    (1, torch.bfloat16, "tc"), (36, torch.bfloat16, "tc"), (64, torch.bfloat16, "tc"),
-    (65, torch.bfloat16, "first"), (24, torch.float32, "first"),
-    (65, torch.float32, "first"),
+@pytest.mark.parametrize("h,dtype,k,ac,form", [
+    (1, torch.bfloat16, 15, 192, "tc"), (36, torch.bfloat16, 15, 768, "tc"),
+    (64, torch.bfloat16, 15, 192, "tc"), (65, torch.bfloat16, 15, 192, "first"),
+    (24, torch.float32, 15, 192, "rows"), (38, torch.float32, 15, 1536, "rows"),
+    (1, torch.float32, 1, 4, "rows"), (64, torch.float32, 16, 44, "rows"),
+    (65, torch.float32, 15, 192, "first"), (24, torch.float32, 15, 6, "first"),
+    (24, torch.float32, 17, 192, "first"),
 ])
-def test_gather_wf_form(h, dtype, form):
-    """K1 takes the tensor-core form in bf16 up to H = 64, else the first
-    design."""
-    assert wc_k.gather_wf_form(h, dtype) == form
+def test_gather_wf_form(h, dtype, k, ac, form):
+    """K1 takes the tensor-core form in bf16 up to H = 64, the rows form in
+    float32 up to H = 64 and K = 16 with AC a multiple of 4 (every training
+    conv), else the first design."""
+    assert wc_k.gather_wf_form(h, dtype, k, ac) == form
+
+
+@pytest.mark.parametrize("ac,slices,width", [
+    (4, 1, 1), (12, 1, 3), (192, 2, 24), (768, 6, 32), (1536, 12, 32), (776, 7, 28),
+])
+def test_gather_wf_rows_plan_covers_the_row(ac, slices, width):
+    """The rows form's slices cover every 16-byte unit (4 channels) of a row
+    exactly once: slice s gives lane l the unit s * width + l, for the
+    lanes below the slice's width and the units below the row's; a slice is
+    one warp's 32 lanes at most, and the slices are balanced (the last one
+    holds more than all but one lane's share)."""
+    plan = wc_k.gather_wf_rows_plan(24, 15, ac)
+    assert plan == ("rows", slices, width)
+    units = ac // 4
+    seen = np.zeros(units, int)
+    for s in range(plan.slices):
+        for lane in range(32):
+            u = s * plan.width + lane
+            if lane < plan.width and u < units:
+                seen[u] += 1
+    assert (seen == 1).all()
+    assert plan.width <= 32 and units - (plan.slices - 1) * plan.width > plan.width - plan.slices
 
 
 @pytest.mark.parametrize("ah,hc,cc,dtype,form", [
@@ -386,17 +412,21 @@ def test_gather_wf_refuses_bad_shapes_on_the_cpu(ac, infl_shape):
         wc_k.gather_wf(x, nbr, torch.zeros(infl_shape, dtype=torch.bfloat16))
 
 
-@pytest.mark.parametrize("h,dtype", [(65, torch.bfloat16), (7, torch.float32)])
-def test_gather_wf_first_design_takes_any_ac(h, dtype):
+@pytest.mark.parametrize("h,dtype,form", [(65, torch.bfloat16, "first"),
+                                          (7, torch.float32, "first")])
+def test_gather_wf_first_design_takes_any_ac(h, dtype, form):
     """The first design's forms take AC = 12 (not a multiple of 8) and read
-    the first H of H' > H influence columns, as the plain version does."""
+    the first H of H' > H influence columns, as the plain version does; the
+    float32 case (a shape the rows form takes) asks for the first design by
+    name."""
     rng = np.random.RandomState(3)
     x = torch.from_numpy(rng.normal(size=(2, 10, 12)).astype(np.float32)).to(dtype)
     nbr = torch.from_numpy(_neighbors(rng, 2, 5, 10, h))
     infl = torch.from_numpy(rng.rand(2, 5, h + 3, 15).astype(np.float32)).to(dtype)
-    got = wc_k.gather_wf(x, nbr, infl)
+    got = wc_k._gather_wf_forward(x, nbr, infl, form=form)
     assert got.shape == (2, 5, 15 * 12) and got.dtype == dtype
     assert torch.equal(got, wc_k.gather_wf_plain(x, nbr, infl[:, :, :h].contiguous()))
+    assert torch.equal(got, wc_k.gather_wf(x, nbr, infl))
 
 
 @pytest.mark.parametrize("dtype,h,rows", [

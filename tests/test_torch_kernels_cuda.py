@@ -83,14 +83,13 @@ def test_gather_wf_reads_padded_influence_in_place(cuda):
 @pytest.mark.parametrize("h,dtype", [(24, torch.float32), (38, torch.float32),
                                      (65, torch.bfloat16)])
 def test_gather_wf_first_design_is_bit_identical(cuda, h, dtype):
-    """K1's first design (the float32 K1, and bf16 with H > 64) equals bit
-    for bit the wf of K14's first design, which these shapes take too and
-    which carries that design's arithmetic unchanged, with the influence
-    read in place (H' > H).  K14's tc form equals K1's tc form instead
-    (test_gather_wf_max_tc_equals_k1_and_k2)."""
+    """K1's first design (asked for by name: the float32 shapes here take
+    the rows form) equals bit for bit the wf of K14's first design, which
+    these shapes take and which carries that design's arithmetic unchanged,
+    with the influence read in place (H' > H).  K14's tc form equals K1's
+    tc form instead (test_gather_wf_max_tc_equals_k1_and_k2)."""
     from se3et_tpu_torch.ops.kernels import windowed_conv as wc
 
-    assert wc.gather_wf_form(h, dtype) == "first"
     assert wc.gather_wf_max_form(h, dtype, 192, 8) == "first"
     g = torch.Generator().manual_seed(22)
     nq, ns = 1003, 2000
@@ -100,7 +99,137 @@ def test_gather_wf_first_design_is_bit_identical(cuda, h, dtype):
     infl[:, :, :h] *= (nbr < ns)[..., None]
     x2 = torch.randn((2, ns, 8), generator=g).to(cuda, dtype)
     want, _ = wc.gather_wf_max(x, nbr, infl, x2)
-    assert torch.equal(wc.gather_wf(x, nbr, infl), want)
+    assert torch.equal(wc._gather_wf_forward(x, nbr, infl, form="first"), want)
+
+
+@pytest.fixture(scope="module")
+def pair0():
+    """Pair 0's pyramid as chip_smoke.py builds it (synthetic se3ete.3dmatch
+    pair at point_limit 20000, host pipeline, exact neighbours)."""
+    from se3et_tpu_torch.data.pyramid import synthetic_pair
+    from se3et_tpu_torch.experiments.configs import make_cfg, serving_config, synthetic_extent
+
+    cfg = serving_config(make_cfg("se3ete.3dmatch"))
+    return synthetic_pair(0, cfg.pipeline, None, cfg.point_limit, synthetic_extent(cfg.dataset),
+                          seed=cfg.seed)
+
+
+# the float32 K1 (and K8) training shapes: (neighbour set, source stage, A*C)
+K1_TRAIN_SHAPES = (("neighbors_0", 0, 192), ("subsampling_0", 0, 192), ("neighbors_1", 1, 384),
+                   ("subsampling_1", 1, 384), ("neighbors_2", 2, 768),
+                   ("subsampling_2", 2, 768), ("neighbors_3", 3, 1536))
+
+
+@pytest.mark.parametrize("key,src,ac", K1_TRAIN_SHAPES)
+def test_gather_wf_rows_is_bit_identical(cuda, pair0, key, src, ac):
+    """K1 in float32 takes the rows form at the seven training convs on pair
+    0's neighbour sets: within 1e-5 of scale of its plain version, and bit
+    for bit the first design's output and its own on a second call."""
+    nbr = torch.as_tensor(pair0[key]).to(cuda, torch.int32)
+    res = selfcheck.check_gather_wf(nbr, pair0[f"points_{src}"].shape[1], ac,
+                                    dtype=torch.float32, reps=1, first=True)
+    _assert_ok(res)
+    assert res.form == "rows" and res.bitwise, res.shape
+
+
+@pytest.mark.parametrize("nq,ns,h,ac,k", [
+    (250, 997, 24, 192, 1),      # K 1 and 16
+    (250, 997, 24, 192, 16),
+    (250, 997, 1, 192, 15),      # H 1, 17 (past 16) and 64 (two full ballot words)
+    (250, 997, 17, 192, 15),
+    (1003, 2000, 64, 192, 15),
+    (250, 997, 36, 44, 15),      # AC of 4 but not of the slice: one slice of 11 units
+    (250, 997, 36, 776, 15),     # 7 slices of 28 units, the last of 26
+    (250, 997, 5, 4, 15),        # one unit a row
+    (1003, 2000, 24, 196, 15),   # 49 units: 2 slices of 25, the last of 24
+    (7, 50, 5, 40, 3),           # fewer items than warps
+])
+def test_gather_wf_rows_edges(cuda, nq, ns, h, ac, k):
+    """K1's rows form at ragged widths, with about a quarter sentinel
+    neighbours and the last 3 query rows all sentinels: within 1e-5 of
+    scale of the plain version, bit for bit against the first design and a
+    second call of itself."""
+    nbr = _conv_neighbors(cuda, nq, ns, h, 23)
+    res = selfcheck.check_gather_wf(nbr, ns, ac, k=k, dtype=torch.float32, reps=1, first=True)
+    _assert_ok(res)
+    assert res.form == "rows" and res.bitwise, res.shape
+
+
+def test_gather_wf_rows_reads_padded_influence_in_place(cuda):
+    """The rows form reads the first H of H' > H influence columns as they
+    lie, skips sentinels (== Ns) and negative indices whatever their
+    influence, gives the first design's bits on these inputs and on the
+    unpadded copy, and exactly +0.0 on all-sentinel rows."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    g = torch.Generator().manual_seed(24)
+    nq, ns, h = 1003, 2000, 36
+    nbr = _conv_neighbors(cuda, nq, ns, h, 24)
+    nbr[:, ::7, 3] = -1
+    x = torch.randn((2, ns, 768), generator=g).to(cuda)
+    infl = torch.rand((2, nq, h + 12, 15), generator=g).to(cuda)  # weights on sentinels too
+    got = wc.gather_wf(x, nbr, infl)
+    assert wc.gather_wf_form(h, torch.float32, 15, 768) == "rows"
+    assert torch.equal(_bits(got), _bits(wc._gather_wf_forward(x, nbr, infl, form="first")))
+    assert torch.equal(_bits(got), _bits(wc.gather_wf(x, nbr, infl[:, :, :h].contiguous())))
+    assert not bool(_bits(got[:, -3:]).any())
+    valid = (nbr >= 0) & (nbr < ns)
+    want = wc.gather_wf_plain(x, nbr.clamp(0, ns), infl[:, :, :h] * valid[..., None])
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("offset", [1, 4])
+def test_gather_wf_rows_takes_a_view_at_an_offset(cuda, offset):
+    """x as a view ``offset`` floats into a buffer: rows off 16-byte
+    boundaries (offset 1) are copied by the wrapper, aligned ones (offset
+    4) read in place; both give the first design's bits."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    g = torch.Generator().manual_seed(25)
+    nq, ns, h, ac = 250, 997, 24, 192
+    nbr = _conv_neighbors(cuda, nq, ns, h, 25)
+    buf = torch.randn((2 * ns * ac + offset,), generator=g).to(cuda)
+    x = buf[offset:].view(2, ns, ac)
+    infl = torch.rand((2, nq, h, 15), generator=g).to(cuda) * (nbr < ns)[..., None]
+    assert (x.data_ptr() % 16 != 0) == (offset == 1)
+    got = wc.gather_wf(x, nbr, infl)
+    assert torch.equal(_bits(got), _bits(wc._gather_wf_forward(x, nbr, infl, form="first")))
+
+
+def test_gather_wf_rows_refuses_what_it_cannot_take(cuda):
+    """No fallback: the rows form asked for at H 65 or in bf16 raises; the
+    first design takes H 65 in float32."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    nbr = torch.zeros((1, 4, 65), dtype=torch.int32, device=cuda)
+    x = torch.zeros((1, 10, 8), device=cuda)
+    infl = torch.zeros((1, 4, 65, 15), device=cuda)
+    assert wc.gather_wf_form(65, torch.float32, 15, 8) == "first"
+    with pytest.raises(ValueError, match="rows form"):
+        wc._gather_wf_forward(x, nbr, infl, form="rows")
+    with pytest.raises(ValueError, match="rows form"):
+        wc._gather_wf_forward(x.to(torch.bfloat16), nbr[:, :, :8], infl[:, :, :8], form="rows")
+    assert wc.gather_wf(x, nbr, infl).shape == (1, 4, 15 * 8)
+
+
+def test_gather_wf_rows_plan_matches_the_kernel(cuda):
+    """The wrapper's plan (form, slices, units a slice) is the C entry
+    point's, at H 0-66, K 0-17 and AC 0-1600."""
+    import ctypes
+
+    from se3et_tpu_torch.ops.kernels import _build
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    fn = _build._library("gather_wf").se3et_gather_wf_rows_plan
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    shapes = [(h, k, 192) for h in range(67) for k in range(18)]
+    shapes += [(24, 15, ac) for ac in range(1601)]
+    for h, k, ac in shapes:
+        out = (ctypes.c_int * 2)()
+        form = fn(h, k, ac, out)
+        assert ({1: "rows", 0: "first"}[form], *out) == tuple(wc.gather_wf_rows_plan(h, k, ac)), \
+            (h, k, ac)
 
 
 def _bits(t):
@@ -1269,7 +1398,7 @@ def test_gather_wf_max_tc_equals_k1_and_k2(cuda, pair_subsampling_1, nq, ns, h, 
     influence read in place from H' = H + 3 columns."""
     from se3et_tpu_torch.ops.kernels import windowed_conv as wc
 
-    assert wc.gather_wf_form(h, torch.bfloat16) == "tc"
+    assert wc.gather_wf_form(h, torch.bfloat16, k, ac) == "tc"
     nbr = _k14_neighbors(cuda, pattern, nq, ns, h, 33, pair_subsampling_1)
     x, infl, x2 = _k14_inputs(cuda, nbr, ns, ac, ac2, k, 34, "zeros", hs=h + 3)
     with torch.no_grad():
