@@ -69,8 +69,11 @@ Phases, each of which raises (exit code != 0) on failure:
    seven shapes the same way (events and device time beside its first
    design in this run, bit for bit against it and against a second call of
    itself, bound, share, launches a step and the ``embedding_bag`` sum's
-   time), with its total per step; K9 at the three strided skips with their
-   bounds; K11 (its bf16 form
+   time), with its total per step; K9 (its form "tiles") at the three
+   strided skips the same way (events and device time beside its first
+   design before the redesign and in this run, bit for bit against it and
+   against a second call of itself, bound, share, re-read factor), with its
+   total per step; K11 (its bf16 form
    "tc") at both self-layer shapes by events and device time (the kernel
    and the whole call, its products included) beside its first design's
    times before the redesign and in this run, and K10 (its bf16 form "tc")
@@ -87,8 +90,9 @@ Phases, each of which raises (exit code != 0) on failure:
    ``Optimizer.step#AdamW.step`` are printed apart and left out of the sum
    and the idle share, here and in every profile; with K2's float32 line,
    K10's tc kernel, which must appear once, K8's tiles kernel and K1's rows
-   kernel, 10 times each, K1's first design never, and the device ms per
-   launch of K8's tiles kernel, K9, the float32 K1 and K10);
+   kernel, 10 times each, K9's two tiles kernels 3 times each, K1's and
+   K9's first designs never, and the device ms per launch of K8's tiles
+   kernel, K9, the float32 K1 and K10);
 7. the routes off the default one: K15 (device influence) against its plain
    version at the stage-0 same-level and the stage-1 strided set of pair 0,
    K16 (``serve_femb``) at the self_eq (AH = 24, SH) and plain self (AH =
@@ -169,10 +173,18 @@ K1_F32_KERNEL = "gather_wf_rows_kernel"
 K1_F32_FIRST_KERNEL = "gather_wf_kernel"
 K1_F32_BEFORE = 0.3913
 K1_F32_SHAPES = K8_SHAPES
+# K9's device kernels at the training shapes (its tiles form: the shares,
+# then the sums), its first design's, and its times before the redesign
+# (the first design; NVIDIA H100 80GB HBM3, 700 W): ms by events at the
+# s0 -> s1, s1 -> s2 and s2 -> s3 skips, device ms per launch (the mean of
+# the step profile's 3, two kernels a launch)
+K9_KERNELS = ("max_bwd_share_rows_kernel", "max_bwd_tiles_kernel")
+K9_FIRST_KERNELS = ("share_kernel", "tie_sum_kernel")
+K9_BEFORE = ((0.6020, 0.5769, 0.7396), 0.6159)
 # the training kernels' device kernels in the step profile, with launches of
 # their wrapper per step: K9 two kernels a launch
 STEP_KERNELS = {"K8": ((K8_KERNEL,), 10),
-                "K9": (("share_kernel", "tie_sum_kernel"), 3),
+                "K9": (K9_KERNELS, 3),
                 "K1 (float32)": ((K1_F32_KERNEL,), 10), "K10": ((K10_KERNEL,), 1)}
 # launches per served pair on the routes of phase 7: device influence (7
 # (stage, neighbour set) pairs), and serve_femb (5 self layers, no
@@ -408,9 +420,11 @@ def _training(cfg, pairs, extent, dev):
         for what, key, src, ac, launches in K1_F32_SHAPES]
     if sum(n for _, n, _ in k1) != TRAIN_LAUNCHES["gather_wf"]:
         raise RuntimeError("K1_F32_SHAPES does not cover the step's K1 launches")
-    # K9 at the three strided skips: x (2, Ns, A*128 << i) over stage i's points
+    # K9 at the three strided skips: x (2, Ns, A*128 << i) over stage i's
+    # points, beside its first design (bit for bit, and its times in this run)
     k9 = [selfcheck.check_neighbor_max_bwd(p0[f"subsampling_{i}"],
-                                           p0[f"points_{i}"].shape[1], 6 * 128 << i)
+                                           p0[f"points_{i}"].shape[1], 6 * 128 << i,
+                                           device_kernel="max_bwd_", first=True)
           for i in range(3)]
     checks = {
         # stage-0 bottleneck conv: x (2, 20000, A*32), K = 15
@@ -505,10 +519,31 @@ def _training(cfg, pairs, extent, dev):
           f"whole call {_ms(res.call_device_ms)} ms, the first design's kernel "
           f"{_ms(res.first_device_ms)} ms; bound {res.bound_ms:.4f} ms ({res.bound_by})",
           flush=True)
+    # K9 ("tiles") at the three skips: events and device ms beside the first
+    # design before the redesign and in this run, the bound and the share of it
     for i, res in enumerate(k9):
-        print(f"K9 s{i} -> s{i + 1} {res.shape}: events {res.ms:.4f} ms; bound "
-              f"{res.bound_ms:.4f} ms ({res.bound_by}), {res.bound_ms / res.ms:.1%} of it",
-              flush=True)
+        print(f"K9 s{i} -> s{i + 1} (x 1 a step) {res.shape}: events {res.ms:.4f} ms (first "
+              f"design before the redesign {K9_BEFORE[0][i]:.4f}, in this run "
+              f"{_ms(res.first_ms)}), device: the two kernels {_ms(res.device_ms)} ms, the "
+              f"whole call {_ms(res.call_device_ms)} ms, the first design's call "
+              f"{_ms(res.first_device_ms)} ms; bound {res.bound_ms:.4f} ms ({res.bound_by}), "
+              f"{res.bound_ms / res.ms:.1%} of it by events; re-read factor {res.reread:.3f}; "
+              f"bit for bit against the first design and itself: {res.bitwise}", flush=True)
+    per_step = {name: sum(vals) for name, vals in (
+        ("events", [r.ms for r in k9]), ("first design events", [r.first_ms for r in k9]),
+        ("device", [r.device_ms or math.nan for r in k9]),
+        ("first design device", [r.first_device_ms or math.nan for r in k9]),
+        ("bound", [r.bound_ms for r in k9]))}
+    print("K9 per step (3 launches, ms): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in per_step.items())
+        + f" (before the redesign {3 * K9_BEFORE[1]:.4f} device; predicted 0.19-0.33 ms a "
+        "launch by events, 0.6-0.9 device ms a step)", flush=True)
+    if any(r.form != "tiles" for r in k9):
+        raise RuntimeError(f"K9 took another form than tiles at a training skip: "
+                           f"{[r.shape for r in k9 if r.form != 'tiles']}")
+    if not all(r.bitwise and r.ok for r in k9):
+        raise RuntimeError(f"K9 differs from its first design or its plain version: "
+                           f"{[r.shape for r in k9 if not (r.bitwise and r.ok)]}")
     bad = [r.name for r in list(checks.values()) + extra if not r.ok]
     if bad:
         raise RuntimeError(f"training kernels disagree with their plain versions: {bad}")
@@ -562,13 +597,16 @@ def _training(cfg, pairs, extent, dev):
           f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
     # one step's profile, with the training kernels' device ms per launch;
     # K10's tc kernel must appear once, K8's tiles kernel and K1's rows
-    # kernel 10 times each and K1's first design never (a profile that lists
-    # one short is taken once more)
-    also = ("neighbor_max_rows_kernel", K11_KERNEL, K1_F32_FIRST_KERNEL) + tuple(
-        name for names, _ in STEP_KERNELS.values() for name in names)
+    # kernel 10 times each, K9's two tiles kernels 3 times each, and K1's
+    # and K9's first designs never (a profile that lists one short is taken
+    # once more)
+    also = ("neighbor_max_rows_kernel", K11_KERNEL, K1_F32_FIRST_KERNEL) + K9_FIRST_KERNELS \
+        + tuple(name for names, _ in STEP_KERNELS.values() for name in names)
     want = {K10_KERNEL: TRAIN_LAUNCHES["geometric_embedding_bwd"],
             K8_KERNEL: TRAIN_LAUNCHES["gather_wf_bwd"],
-            K1_F32_KERNEL: TRAIN_LAUNCHES["gather_wf"], K1_F32_FIRST_KERNEL: 0}
+            K1_F32_KERNEL: TRAIN_LAUNCHES["gather_wf"], K1_F32_FIRST_KERNEL: 0,
+            **dict.fromkeys(K9_KERNELS, TRAIN_LAUNCHES["neighbor_max_bwd"]),
+            **dict.fromkeys(K9_FIRST_KERNELS, 0)}
     for _ in range(2):
         prof = _profile(lambda: step(inputs[0], generator=gen), what="one training step",
                         top=25, also=also)
@@ -589,7 +627,9 @@ def _training(cfg, pairs, extent, dev):
         f"{what} {ms:.4f} (x {STEP_KERNELS[what][1]})" for what, ms in per_launch.items())
         + f"; K8 per step {per_launch['K8'] * STEP_KERNELS['K8'][1]:.4f} ms, K1 float32 per "
         f"step {per_launch['K1 (float32)'] * STEP_KERNELS['K1 (float32)'][1]:.4f} ms (before "
-        f"the redesign {10 * K1_F32_BEFORE:.4f})", flush=True)
+        f"the redesign {10 * K1_F32_BEFORE:.4f}), K9 per step "
+        f"{per_launch['K9'] * STEP_KERNELS['K9'][1]:.4f} ms (before the redesign "
+        f"{3 * K9_BEFORE[1]:.4f})", flush=True)
     return checks
 
 

@@ -12,13 +12,26 @@
 // backward of windowed_max_pool_trainable).  The tie test compares with the
 // saved forward max in float32, where it is exact.
 //
-// Bound: device memory.  No atomics: two kernels,
-//  1. per (query, channel): count the ties over the H neighbours and write
-//     share[b, q, c] = dout / count;
+// Bound: device memory.  No atomics.  Two forms, each two kernels: first
+// per (query, channel) share[b, q, c] = dout / count, then per source row
+// the sum of the shares of its tied slots, in ascending slot order from
+// +0.f, so both give the same bits; windowed_conv.neighbor_max_bwd_form
+// names the one a shape takes:
+//  * "tiles" (neighbor_max_bwd_tiles.cuh, the redesign): the shares and a
+//    tie bit per valid slot and channel by K2's rows form (16-byte loads
+//    of the valid neighbour rows into registers), the sums by K8's tile
+//    walk over K8's tile plan of the same neighbour set (a query's share
+//    row read once per source tile, not once per reference, and x and out
+//    not again);
+//  * "first" (the first design, below):
+//  1. per (query, channel): count the ties over the H neighbours, one
+//     4-byte load each, and write the share;
 //  2. per source row: walk the reverse (CSR) index of the neighbour set
 //     (entries sorted stably by source) and add share[q, c] where x[s, c]
-//     ties out[q, c], in a fixed order.
+//     ties out[q, c], reading out and share again for every reference.
 #include <cuda_runtime.h>
+
+#include "neighbor_max_bwd_tiles.cuh"
 
 namespace {
 
@@ -97,4 +110,57 @@ extern "C" int se3et_neighbor_max_bwd_f32(const void* x, const void* nbr, const 
       (const float*)x, (const float*)out, (const float*)share, (const int*)order,
       (const int*)offsets, (float*)dx, ns, nq, h, ac);
   return (int)cudaGetLastError();
+}
+
+// The tiles form: x (B, Ns, AC), out and dout (B, Nq, AC) f32, 16-byte
+// aligned, AC a multiple of 4; nbr (B, Nq, H <= 64) int32; ent (B, Nq*H) and
+// off (B, ceil(Ns / tile) + 1) int32 the tile plan of nbr (K8's, built for
+// tiles of `tile` rows, which must be the kernel's: 32 as shipped); share
+// (B, Nq, AC) f32 scratch (2 AC a row where compiled with
+// MAX_BWD_INTERLEAVE); mask (B, Nq*H, ceil(AC / 64)) 16-byte units of
+// scratch, the tie bits (written and read where compiled with
+// MAX_BWD_TIE_MASK, else unused); dx (B, Ns, AC) f32; work one int of scratch (the items' counter,
+// zeroed on the stream before the launch).  passes: 3 both kernels, 1 the
+// shares alone, 2 the sums alone from `share` (and `mask`) as they lie
+// (scripts/probe_neighbor_max_bwd.py times them apart).  Other shapes give
+// cudaErrorInvalidValue without launching.
+extern "C" int se3et_neighbor_max_bwd_tiles_f32(const void* x, const void* nbr, const void* out,
+                                                const void* dout, const void* ent,
+                                                const void* off, void* share, void* mask,
+                                                void* dx, void* work, int batch, int ns,
+                                                int nq, int h, int ac, int tile, int passes,
+                                                void* stream) {
+  using namespace k9_tiles;
+  if (tile != kTile || batch < 1 || ns < 1 || nq < 1 || h < 1 || h > kMaxH || ac < 4 ||
+      ac % 4 || ((long long)nq << kQShift) > 0x7fffffffLL || passes < 1 || passes > 3 ||
+      !aligned16(x) || !aligned16(out) || !aligned16(dout) || !aligned16(share) ||
+      (kMask && (!mask || !aligned16(mask)))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  const int sets = tie_units(ac / 4);  // 16-byte units of tie bits a slot
+  if (passes & 1) {
+    ShareArgs a{(const float*)x, (const int*)nbr, (const float*)out, (const float*)dout,
+                (float*)share, (uint4*)mask, ns, nq, h, ac / 4, 0, sets, 0};
+    const int err = launch_share(a, batch, st);
+    if (err) return err;
+  }
+  if (passes & 2) {
+    TileArgs a{(const float*)x, (const float*)out, (const float*)share, (const uint4*)mask,
+               (const int*)ent, (const int*)off, (float*)dx, (int*)work, batch, ns, nq, h, ac,
+               sets};
+    return launch_tiles(a, st);
+  }
+  return (int)cudaSuccess;
+}
+
+// The tiles form as compiled: cfg[0..5] = rows a tile, channels a lane, ring
+// slots, out and share interleaved (0 / 1), tie bits (MAX_BWD_TIE_MASK), shared memory
+// bytes a warp of the sums kernel; returns rows a tile.
+extern "C" int se3et_neighbor_max_bwd_tiles_config(int* cfg) {
+  using namespace k9_tiles;
+  const int v[6] = {kTile, kVec, kRing, kInterleave ? 1 : 0, kMaskMode,
+                    (int)kTileSmemBytes};
+  for (int i = 0; i < 6; ++i) cfg[i] = v[i];
+  return kTile;
 }

@@ -52,6 +52,11 @@ shapes of se3ete.3dmatch (bf16) and the tiny float32 widths:
   sources) and stage-1 same-level (dwf (2, 10000, 15 * 384), H 32)
   training shapes on local neighbours, timed (its index built by the first
   call, before the timing) and held bit for bit;
+* K9 (the backward of K2, float32) at the three strided skips of training
+  (dout (2, 10000, 768) over x (2, 20000, 768), H 24; (2, 2500, 1536) over
+  (2, 10000, 1536), H 32; (2, 1024, 3072) over (2, 2500, 3072), H 36) on
+  local neighbours with integer-valued x (many ties) and its forward max,
+  timed (its index built by the first call) and held bit for bit;
 * K14 (fused conv gather + skip max) at the s1 -> s2 strided shape (x (2,
   10000, 384), H 32, K 15, skip (2, 10000, 1536), bf16), its wf and its
   pooled as two cases, both timed: wf held within its ``TOLERANCES``,
@@ -109,8 +114,13 @@ K1_F32 = (("K1 float32 stage 0", 20000, 20000, 24, 192),
           ("K1 float32 s2 -> s3", 1024, 2500, 36, 768),
           ("K1 float32 stage 3", 1024, 1024, 38, 1536))
 K8_CASES = ("K8 stage 0 float32", "K8 s0 -> s1 float32", "K8 stage 1 float32")
+# K9 at the strided skips of training: (name, Nq, Ns, H, AC)
+K9_CASES = (("K9 s0 -> s1 float32", 10000, 20000, 24, 768),
+            ("K9 s1 -> s2 float32", 2500, 10000, 32, 1536),
+            ("K9 s2 -> s3 float32", 1024, 2500, 36, 3072))
 TIMED = K5_BF16 + K16_BF16 + (K6_BF16, K7_BF16, K4_CASES[0], K13_CASES[0]) + K2_CASES + K14_CASES \
-    + K1_BF16 + tuple(c[0] for c in K1_F32) + K11_BF16 + K10_CASES[:1] + K8_CASES
+    + K1_BF16 + tuple(c[0] for c in K1_F32) + K11_BF16 + K10_CASES[:1] + K8_CASES \
+    + tuple(c[0] for c in K9_CASES)
 # the last timed training step's outputs (with --train-steps)
 TRAIN_OUTPUTS = ("training step: losses", "training step: gradients",
                  "training step: parameters")
@@ -248,6 +258,13 @@ def _cases(dev):
         dwf = torch.randn((2, nq, 15 * ac), generator=g8).to(dev)
         infl = torch.rand((2, nq, h, 15), generator=g8).to(dev) * (nbr < ns)[..., None]
         cases.append((name, lambda a=(dwf, nbr, infl, ns): wc.gather_wf_bwd(*a)))
+    g9 = torch.Generator().manual_seed(9)
+    for name, nq, ns, h, ac in K9_CASES:
+        nbr = torch.cat([selfcheck.local_neighbors(nq, ns, h, g9, dev) for _ in range(2)])
+        x = torch.randint(-8, 9, (2, ns, ac), generator=g9).float().to(dev)
+        dout = torch.randn((2, nq, ac), generator=g9).to(dev)
+        out = wc.neighbor_max_plain(x, nbr)
+        cases.append((name, lambda a=(dout, x, out, nbr): wc.neighbor_max_bwd(*a)))
     for n, c, dtype in ((1024, 64, bf), (128, 16, torch.float32)):
         q = torch.randn((6, 4, n, c), generator=g).to(dev, dtype)
         k = torch.randn((6, 4, n, c), generator=g).to(dev, dtype)

@@ -113,15 +113,15 @@ class CheckResult:
     route_ms: Optional[float] = None  # the unfused route's time (K12-K14), a yardstick
     device_ms: Optional[float] = None  # the kernel's own device time per call (profiler)
     two_calls_ms: Optional[float] = None  # two PyTorch calls computing the function (K7)
-    first_ms: Optional[float] = None  # the first design on the same inputs (K1, K2, K8, K10,
-    # K11, K14)
+    first_ms: Optional[float] = None  # the first design on the same inputs (K1, K2, K8-K11,
+    # K14)
     # every device kernel of one wrapper call (K11: its products too), and
     # the first design's kernel, per call (profiler)
     call_device_ms: Optional[float] = None
     first_device_ms: Optional[float] = None
-    # K1 and K8: the form its shape took, whether its output equals its
-    # first design's and its own on a second call bit for bit; K8: distinct
-    # (tile, query) pairs over B * Nq
+    # K1, K8 and K9: the form its shape took, whether its output equals its
+    # first design's and its own on a second call bit for bit; K8 and K9:
+    # distinct (tile, query) pairs over B * Nq
     form: Optional[str] = None
     bitwise: Optional[bool] = None
     reread: Optional[float] = None
@@ -559,7 +559,8 @@ def _compare_many(name, shape, kernel_fn, plain_fn, tol, reps):
 
 def tile_rereads(nbr, ns, tile) -> float:
     """Distinct (source tile, query) pairs of a neighbour set over B * Nq:
-    how often K8's tiles form reads a dwf row, on average."""
+    how often K8's tiles form reads a dwf row (and K9's a query's out and
+    share rows), on average."""
     b, nq, h = nbr.shape
     valid = (nbr >= 0) & (nbr < ns)
     q = torch.arange(nq, device=nbr.device)[None, :, None].expand(b, nq, h)
@@ -645,24 +646,52 @@ def check_gather_wf_bwd(nbr, ns, ac, k=15, seed=7, reps=5, device_kernel=None, f
                        lambda: torch.autograd.grad(bag, table, d_bag, retain_graph=True))
 
 
-def check_neighbor_max_bwd(nbr, ns, ac, seed=8, reps=5):
+def check_neighbor_max_bwd(nbr, ns, ac, seed=8, reps=5, device_kernel=None, first=False):
     """K9 in float32 on x (B, ns, ac) with integer-valued entries (so that
-    ties occur) and its forward max; tolerance 1e-5 * max|dx| (shares added
-    in another order).  No single PyTorch call splits ties like this
-    (``embedding_bag``'s max backward routes to one index)."""
+    ties occur) and its forward max, on the form
+    ``windowed_conv.neighbor_max_bwd_form`` names (its tile plan or reverse
+    index built by the first call, before the timing, as the set's first
+    backward builds it); tolerance 1e-5 * max|dx| (shares added in another
+    order).  With ``device_kernel`` (a substring of the kernels' names) also
+    those kernels' device time per call and that of every kernel of the
+    call; with ``first`` the first design's time on the same inputs
+    (events, and its two kernels' device time where ``device_kernel`` is
+    given) and ``bitwise``: the form's dx equals the first design's and a
+    second call of its own bit for bit.  ``reread``: :func:`tile_rereads`
+    at the tile plan's tile (the tiles form reads a query's out and share
+    rows once per source tile).  No single PyTorch call splits ties like
+    this (``embedding_bag``'s max backward routes to one index)."""
     g = torch.Generator().manual_seed(seed)
     dev = nbr.device
-    b, nq, _ = nbr.shape
+    b, nq, h = nbr.shape
     x = torch.randint(-8, 9, (b, ns, ac), generator=g).float().to(dev)
     out = windowed_conv.neighbor_max_plain(x, nbr)
     dout = torch.randn((b, nq, ac), generator=g).to(dev)
+    form = windowed_conv.neighbor_max_bwd_form(nq, h, ac)
+    kernel_fn = lambda: windowed_conv.neighbor_max_bwd(dout, x, out, nbr)  # noqa: E731
     res = _compare(
-        "neighbor_max_bwd", f"dout{tuple(dout.shape)} nbr{tuple(nbr.shape)} Ns={ns} float32",
-        lambda: windowed_conv.neighbor_max_bwd(dout, x, out, nbr),
-        lambda: windowed_conv.neighbor_max_bwd_plain(dout, x, out, nbr),
+        "neighbor_max_bwd",
+        f"dout{tuple(dout.shape)} nbr{tuple(nbr.shape)} Ns={ns} float32 ({form} form)",
+        kernel_fn, lambda: windowed_conv.neighbor_max_bwd_plain(dout, x, out, nbr),
         lambda w: 1e-5 * float(w.abs().max()), reps)
+    res.form = form
+    first_fn = lambda: windowed_conv._neighbor_max_bwd(dout, x, out, nbr,  # noqa: E731
+                                                       form="first")
+    if device_kernel is not None:
+        res.device_ms = device_ms(kernel_fn, device_kernel)
+        res.call_device_ms = device_ms(kernel_fn, "")
+    if first:
+        got = kernel_fn()
+        res.bitwise = bool(torch.equal(_bits(got), _bits(first_fn()))
+                           and torch.equal(_bits(got), _bits(kernel_fn())))
+        res.first_ms = _time_ms(first_fn, reps)
+        if device_kernel is not None:
+            res.first_device_ms = device_ms(first_fn, "")
+    if form == "tiles":
+        res.reread = tile_rereads(nbr, ns, windowed_conv.GATHER_WF_BWD_TILE)
     nvalid = int((nbr < ns).sum())
-    # one neighbour structure, nbr (its reverse index is a derived copy)
+    # one neighbour structure, nbr (its reverse index and tile plan are
+    # derived copies)
     nbytes = _nbytes(x, nbr, out, dout) + b * ns * ac * 4
     return _with_bound(res, nbytes, 2.0 * nvalid * ac, torch.float32)
 

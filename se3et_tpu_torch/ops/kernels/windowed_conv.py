@@ -30,13 +30,14 @@ K1 and K2 are differentiable with respect to the features (training): their
 backwards are kernels too, :func:`gather_wf_bwd` (K8,
 ``csrc/gather_wf_bwd.cu``, replaces ``_wf_bwd_win``, in two forms chosen
 by :func:`gather_wf_bwd_form`) and :func:`neighbor_max_bwd` (K9,
-``csrc/neighbor_max_bwd.cu``, replaces ``_max_bwd_win``).  They sum into
-source rows in a fixed order through the reverse index of the neighbour
-set (:func:`reverse_index`; K8's tiles form through a tile plan merged
-from it on the card, :func:`tile_plan_from_reverse_index`), built at the
-first backward over a neighbour tensor and shared by every later one, so
-one sort per set for all its convs; so gradients are reproducible bit for
-bit.  Influence is geometry and takes no gradient.
+``csrc/neighbor_max_bwd.cu``, replaces ``_max_bwd_win``, in two forms
+chosen by :func:`neighbor_max_bwd_form`).  They sum into source rows in a
+fixed order through the reverse index of the neighbour set
+(:func:`reverse_index`; their tiles forms through a tile plan merged from
+it on the card, :func:`tile_plan_from_reverse_index`), built at the first
+backward over a neighbour tensor and shared by every later one, so one
+sort per set for all its convs and its skip; so gradients are
+reproducible bit for bit.  Influence is geometry and takes no gradient.
 
 :func:`influence` (K15, ``csrc/influence.cu``) replaces
 ``influence_windowed_pallas``: the kernel-point influence weights of a
@@ -107,7 +108,8 @@ def _shared_reverse_index(nbr: torch.Tensor, ns: int):
     return memo[1]
 
 
-# K8's tiles form (csrc/gather_wf_bwd_tiles.cuh): a tile plan entry packs
+# K8's and K9's tiles forms (csrc/gather_wf_bwd_tiles.cuh,
+# csrc/neighbor_max_bwd_tiles.cuh): a tile plan entry packs
 # the slot's query, its neighbour column and its source row within the tile
 # as q << 12 | h << 6 | local, so H <= 64, tiles of at most 64 rows, and
 # Nq < 2^19
@@ -537,31 +539,79 @@ def neighbor_max(x: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
 neighbor_max.launches = 0
 
 
+def neighbor_max_bwd_form(nq: int, h: int, ac: int) -> str:
+    """Which hand-written K9 kernels take the backward of a max over ``h``
+    neighbours of ``nq`` query rows of ``ac`` float32 channels: "tiles"
+    (the redesign, ``csrc/neighbor_max_bwd_tiles.cuh``: the shares and
+    the tie bits by K2's rows, the sums by K8's tile plan) where H <= 64
+    and Nq < 2^19 (what the plan's entries hold) and AC is a multiple of 4:
+    every training shape;
+    else "first" (the first design).  Chosen by shape alone; neither is a
+    fallback of the other."""
+    return ("tiles" if 1 <= h <= TILES_MAX_H and nq < TILES_MAX_NQ and ac >= 4 and ac % 4 == 0
+            else "first")
+
+
 def neighbor_max_bwd(dout: torch.Tensor, x: torch.Tensor, out: torch.Tensor,
                      nbr: torch.Tensor) -> torch.Tensor:
     """K9 (``csrc/neighbor_max_bwd.cu``, replaces the TPU ``_max_bwd_win``):
     see :func:`neighbor_max_bwd_plain`; float32, ``out`` the saved forward
-    max.  Reads the reverse index of ``nbr`` as :func:`gather_wf_bwd` does.
-    Bound by device memory; the source notes the design."""
+    max, on the form :func:`neighbor_max_bwd_form` names.  The tiles form
+    reads the tile plan of ``nbr`` as K8's tiles form does (one plan for the
+    strided conv and its skip), the first design its reverse index; both
+    give the same bits.  Types and shapes are checked on every device.
+    Bound by device memory; the sources note the designs."""
+    return _neighbor_max_bwd(dout, x, out, nbr)
+
+
+def _neighbor_max_bwd(dout, x, out, nbr, form: Optional[str] = None):
+    """K9 on the form :func:`neighbor_max_bwd_form` names, or on ``form``
+    where the caller asks for one ("first" takes every shape)."""
+    if any(t.dtype != torch.float32 for t in (dout, x, out)) or nbr.dtype != torch.int32:
+        raise TypeError("neighbor_max_bwd takes float32 tensors and int32 indices")
+    if x.ndim != 3 or nbr.ndim != 3 or nbr.shape[0] != x.shape[0]:
+        raise ValueError(f"bad neighbor_max_bwd shapes x {tuple(x.shape)} nbr "
+                         f"{tuple(nbr.shape)}")
+    b, ns, ac = x.shape
+    _, nq, h = nbr.shape
+    if dout.shape != (b, nq, ac) or out.shape != (b, nq, ac):
+        raise ValueError(f"bad neighbor_max_bwd shapes dout {tuple(dout.shape)} out "
+                         f"{tuple(out.shape)} for x {tuple(x.shape)} nbr {tuple(nbr.shape)}")
+    if any(t.device != x.device for t in (dout, out, nbr)):
+        raise ValueError("neighbor_max_bwd: inputs on different devices")
     if x.device.type == "cpu":
         return neighbor_max_bwd_plain(dout, x, out, nbr)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if any(t.dtype != torch.float32 for t in (dout, x, out)) or nbr.dtype != torch.int32:
-        raise TypeError("neighbor_max_bwd takes float32 tensors and int32 indices")
-    b, ns, ac = x.shape
-    _, nq, h = nbr.shape
-    if dout.shape != (b, nq, ac) or out.shape != (b, nq, ac):
-        raise ValueError("bad neighbor_max_bwd input shapes")
-    order, offsets = _shared_reverse_index(nbr, ns)
-    x, nbr, out, dout = (t.contiguous() for t in (x, nbr, out, dout))
-    share = torch.empty((b, nq, ac), dtype=torch.float32, device=x.device)
+    chosen = neighbor_max_bwd_form(nq, h, ac)
+    form = form or chosen
+    if form == "tiles" and chosen != "tiles":
+        raise ValueError(f"K9's tiles form does not take Nq={nq}, H={h}, AC={ac}")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     dx = torch.empty((b, ns, ac), dtype=torch.float32, device=x.device)
-    fn = _build.function("neighbor_max_bwd", "se3et_neighbor_max_bwd_f32", 8, 5)
-    _build.check(fn(x.data_ptr(), nbr.data_ptr(), out.data_ptr(), dout.data_ptr(),
+    share = torch.empty((b, nq, ac), dtype=torch.float32, device=x.device)
+    if form == "tiles":
+        ent, off = _shared_tile_plan(nbr, ns)
+        x, nbr, out, dout = (t.contiguous() for t in (x, nbr, out, dout))
+        # rows read by 16-byte units: a view into a buffer is copied
+        x, out, dout = (t.clone() if t.data_ptr() % 16 else t for t in (x, out, dout))
+        work = torch.empty(1, dtype=torch.int32, device=x.device)  # the items' counter
+        # the tie bits of the valid slots, a byte per 4 channels, rows of
+        # whole 16-byte units (written by the shares kernel, read by the sums)
+        bits = torch.empty((b, nq * h, -(-ac // 64), 4), dtype=torch.int32, device=x.device)
+        fn = _build.function("neighbor_max_bwd", "se3et_neighbor_max_bwd_tiles_f32", 10, 7)
+        status = fn(x.data_ptr(), nbr.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                    ent.data_ptr(), off.data_ptr(), share.data_ptr(), bits.data_ptr(),
+                    dx.data_ptr(), work.data_ptr(), b, ns, nq, h, ac, GATHER_WF_BWD_TILE, 3,
+                    stream)
+    else:
+        order, offsets = _shared_reverse_index(nbr, ns)
+        x, nbr, out, dout = (t.contiguous() for t in (x, nbr, out, dout))
+        fn = _build.function("neighbor_max_bwd", "se3et_neighbor_max_bwd_f32", 8, 5)
+        status = fn(x.data_ptr(), nbr.data_ptr(), out.data_ptr(), dout.data_ptr(),
                     order.data_ptr(), offsets.data_ptr(), share.data_ptr(), dx.data_ptr(),
-                    b, ns, nq, h, ac, torch.cuda.current_stream(x.device).cuda_stream),
-                 "neighbor_max_bwd launch")
+                    b, ns, nq, h, ac, stream)
+    _build.check(status, f"neighbor_max_bwd launch ({form})")
     neighbor_max_bwd.launches += 1
     return dx
 

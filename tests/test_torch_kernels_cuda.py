@@ -822,6 +822,141 @@ def test_neighbor_max_bwd_kernel(cuda, nq, ns, h, ac):
     _assert_ok(selfcheck.check_neighbor_max_bwd(nbr, ns, ac, reps=1))
 
 
+# K9's training shapes: (neighbour set, source stage, A*C of the skip)
+K9_TRAIN_SHAPES = (("subsampling_0", 0, 768), ("subsampling_1", 1, 1536),
+                   ("subsampling_2", 2, 3072))
+
+
+@pytest.mark.parametrize("key,src,ac", K9_TRAIN_SHAPES)
+@pytest.mark.parametrize("kind", ["pair0", "local"])
+def test_neighbor_max_bwd_tiles_is_bit_identical(cuda, pair0, key, src, ac, kind):
+    """K9 takes its tiles form at the three strided skips of training, on
+    pair 0's neighbour sets and on local neighbours of the same shape:
+    within 1e-5 of scale of its plain version (integer-valued x, so many
+    ties), and bit for bit the first design's dx and its own on a second
+    call."""
+    nbr = torch.as_tensor(pair0[key]).to(cuda, torch.int32)
+    ns = pair0[f"points_{src}"].shape[1]
+    if kind == "local":
+        g = torch.Generator().manual_seed(40)
+        nbr = torch.cat([selfcheck.local_neighbors(nbr.shape[1], ns, nbr.shape[2], g, cuda)
+                         for _ in range(2)])
+    res = selfcheck.check_neighbor_max_bwd(nbr, ns, ac, reps=1, first=True)
+    _assert_ok(res)
+    assert res.form == "tiles" and res.bitwise, res.shape
+
+
+def _k9_inputs(cuda, nq, ns, h, ac, kind, seed):
+    """(dout, x, out, nbr) for K9 on two clouds of local neighbours (about a
+    quarter sentinels), ``out`` the forward max.  kinds: "local"; "ties"
+    (x in {-1, 0, 1}); "shadow" (x <= 0 with +0 and -0 entries, out's zeros
+    made -0 in every other row, so the shadow zeros of the sentinels tie
+    out of either sign); "sentinel_rows" (every fifth query row and the
+    last 3 all sentinels); "empty_range" (no slot in the middle third of
+    the sources: whole tiles and rows no slot reaches); "negative" (every
+    seventh row's slot 1 is -1, a shadow zero to the kernels)."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    g = torch.Generator().manual_seed(seed)
+    nbr = torch.cat([selfcheck.local_neighbors(nq, ns, h, g, cuda) for _ in range(2)])
+    if kind == "sentinel_rows":
+        nbr[:, ::5] = ns
+        nbr[:, -3:] = ns
+    elif kind == "empty_range":
+        nbr[(nbr >= ns // 3) & (nbr < 2 * ns // 3)] = ns
+    elif kind == "negative" and h > 1:
+        nbr[:, ::7, 1] = -1
+    if kind == "ties":
+        x = torch.randint(-1, 2, (2, ns, ac), generator=g).float()
+    elif kind == "shadow":
+        x = -torch.rand((2, ns, ac), generator=g) - 0.5
+        x[:, ::3] = 0.0
+        x[:, 1::3, ::2] = -0.0
+    else:
+        x = torch.randint(-8, 9, (2, ns, ac), generator=g).float()
+    x = x.to(cuda)
+    out = wc.neighbor_max(x, nbr)
+    if kind == "shadow":
+        out[:, ::2][out[:, ::2] == 0] = -0.0
+    return torch.randn((2, nq, ac), generator=g).to(cuda), x, out, nbr
+
+
+def _k9_against_first(dout, x, out, nbr):
+    """K9 on its tiles form: bit for bit its first design's dx, and within
+    1e-5 of scale of the plain version on the same set with negative
+    indices as sentinels (the kernels' reading of them)."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    ns = x.shape[1]
+    assert wc.neighbor_max_bwd_form(nbr.shape[1], nbr.shape[2], x.shape[2]) == "tiles"
+    got = wc.neighbor_max_bwd(dout, x, out, nbr)
+    want = wc._neighbor_max_bwd(dout, x, out, nbr, form="first")
+    assert torch.equal(_bits(got), _bits(want))
+    plain = wc.neighbor_max_bwd_plain(dout, x, out, torch.where(nbr < 0, ns, nbr))
+    assert float((got - plain).abs().max()) <= 1e-5 * float(plain.abs().max())
+    return got
+
+
+@pytest.mark.parametrize("nq,ns,h,ac,kind", [
+    (250, 997, 1, 48, "local"),          # H 1, 17 and 64
+    (250, 997, 17, 48, "local"),
+    (1003, 2000, 64, 48, "local"),
+    (250, 997, 24, 4, "local"),          # AC 4, 12, and widths that are not whole slices
+    (250, 997, 24, 12, "local"),
+    (250, 997, 24, 200, "local"),
+    (250, 997, 36, 776, "local"),
+    (1, 40, 9, 768, "local"),            # Nq 1
+    (30, 20, 9, 768, "local"),           # Ns under one tile
+    (1003, 997, 24, 768, "ties"),        # Ns not a multiple of 32; many ties
+    (2500, 2500, 36, 768, "shadow"),     # out of +0 and -0 beside sentinels
+    (2500, 2500, 36, 192, "sentinel_rows"),
+    (2500, 10000, 32, 384, "empty_range"),
+    (1003, 2000, 24, 96, "negative"),
+])
+def test_neighbor_max_bwd_tiles_edges(cuda, nq, ns, h, ac, kind):
+    """K9's tiles form at its edges, bit for bit against its first design;
+    source rows no valid slot reaches get exactly +0."""
+    dout, x, out, nbr = _k9_inputs(cuda, nq, ns, h, ac, kind, 41)
+    got = _k9_against_first(dout, x, out, nbr)
+    reached = torch.zeros((2, ns), dtype=torch.bool, device=cuda)
+    valid = (nbr >= 0) & (nbr < ns)
+    for i in range(2):
+        reached[i, nbr[i][valid[i]].long()] = True
+    assert not bool(_bits(got[~reached]).any())
+
+
+@pytest.mark.parametrize("offset", [1, 2])
+def test_neighbor_max_bwd_tiles_takes_views_at_an_offset(cuda, offset):
+    """x, out and dout as views 4 or 8 bytes into their buffers (rows not
+    16-byte aligned): the tiles form copies them and gives the first
+    design's bits."""
+    nq, ns, h, ac = 1003, 2000, 24, 96
+    dout0, x0, out0, nbr = _k9_inputs(cuda, nq, ns, h, ac, "ties", 42)
+    views = []
+    for t in (dout0, x0, out0):
+        buf = torch.empty(t.numel() + offset, device=cuda)
+        buf[offset:] = t.reshape(-1)
+        views.append(buf[offset:].view(t.shape))
+    assert all(v.data_ptr() % 16 for v in views)
+    dout, x, out = views
+    got = _k9_against_first(dout, x, out, nbr)
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    assert torch.equal(_bits(got), _bits(wc.neighbor_max_bwd(dout0, x0, out0, nbr)))
+
+
+def test_neighbor_max_bwd_tiles_refuses_what_its_plan_cannot_hold(cuda):
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    nbr = torch.zeros((1, 4, 65), dtype=torch.int32, device=cuda)
+    x = torch.zeros((1, 10, 8), device=cuda)
+    dout = out = torch.zeros((1, 4, 8), device=cuda)
+    assert wc.neighbor_max_bwd_form(4, 65, 8) == "first"
+    with pytest.raises(ValueError, match="tiles form"):
+        wc._neighbor_max_bwd(dout, x, out, nbr, form="tiles")
+    assert wc.neighbor_max_bwd(dout, x, out, nbr).shape == (1, 10, 8)
+
+
 @pytest.mark.parametrize("n,c,grad_dtype", [(1024, 256, torch.bfloat16),
                                             (1003, 256, torch.bfloat16),
                                             (128, 64, torch.bfloat16),

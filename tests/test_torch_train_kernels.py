@@ -314,6 +314,129 @@ def test_gather_wf_bwd_form(nq, h, k, ac, form):
     assert wc.gather_wf_bwd_form(nq, h, k, ac) == form
 
 
+@pytest.mark.parametrize("nq,h,ac,form", [
+    (10000, 24, 768, "tiles"),          # the strided skips of se3ete.3dmatch's training
+    (2500, 32, 1536, "tiles"),
+    (1024, 36, 3072, "tiles"),
+    (997, 64, 776, "tiles"),
+    (997, 65, 768, "first"),            # the plan packs h in 6 bits
+    (997, 24, 4, "tiles"),              # one 16-byte unit a row
+    (997, 24, 6, "first"),              # AC % 4 == 0
+    ((1 << 19) - 1, 8, 768, "tiles"),
+    (1 << 19, 8, 768, "first"),         # ... and q in 19
+])
+def test_neighbor_max_bwd_form(nq, h, ac, form):
+    """K9 takes its tiles form wherever K8's tile plan holds the slot and
+    AC is a multiple of 4."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    assert wc.TILES_MAX_NQ == 1 << 19 and wc.TILES_MAX_H == 64
+    assert wc.neighbor_max_bwd_form(nq, h, ac) == form
+
+
+def _k9_args(**change):
+    g = torch.Generator().manual_seed(9)
+    args = dict(dout=torch.randn((2, 5, 8), generator=g), x=torch.randn((2, 7, 8), generator=g),
+                out=torch.randn((2, 5, 8), generator=g),
+                nbr=torch.randint(0, 8, (2, 5, 3), generator=g).to(torch.int32))
+    args.update(change)
+    return args
+
+
+@pytest.mark.parametrize("change,error", [
+    (dict(x=torch.zeros((2, 7, 8), dtype=torch.bfloat16)), TypeError),   # float32 only
+    (dict(dout=torch.zeros((2, 5, 8), dtype=torch.float64)), TypeError),
+    (dict(out=torch.zeros((2, 5, 8), dtype=torch.bfloat16)), TypeError),
+    (dict(nbr=torch.zeros((2, 5, 3), dtype=torch.int64)), TypeError),     # int32 indices
+    (dict(out=torch.zeros((2, 5, 9))), ValueError),                       # out of another AC
+    (dict(dout=torch.zeros((2, 4, 8))), ValueError),                      # dout of another Nq
+    (dict(x=torch.zeros((7, 8))), ValueError),                            # not (B, Ns, AC)
+    (dict(nbr=torch.zeros((1, 5, 3), dtype=torch.int32)), ValueError),    # another batch
+])
+def test_neighbor_max_bwd_refuses_bad_inputs_on_the_cpu(change, error):
+    """K9's wrapper checks types and shapes on every device, the CPU (its
+    plain version) included, as on the card; good inputs pass."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    assert wc.neighbor_max_bwd(**_k9_args()).shape == (2, 7, 8)
+    with pytest.raises(error):
+        wc.neighbor_max_bwd(**_k9_args(**change))
+
+
+@pytest.mark.parametrize("nq,ns,h,ac,case", [
+    (20, 40, 7, 8, "integer_ties"),    # strided set, many ties
+    (33, 77, 5, 12, "integer_ties"),   # ragged: Ns not a multiple of the tile
+    (40, 40, 9, 4, "shadow_zeros"),    # out of +0 and -0 beside sentinel slots
+    (12, 5, 3, 8, "shadow_zeros"),     # one tile, larger than Ns
+])
+def test_neighbor_max_bwd_tiles_model_gives_the_first_designs_bits(nq, ns, h, ac, case):
+    """A model of K9's tiles form: the shares from the valid slots' ties and
+    the shadow zeros' count (H - valid where out == 0, -0 too), with a tie
+    bit per valid slot and channel; then each tile's slots walked in the
+    tile plan's order, adding the share where the slot's tie bit is set
+    into its source's sum from +0 (float32).  It equals bit for
+    bit a model of the first design (each (q, c) counts over its H slots
+    with sentinels and negative indices as zeros; each source adds its
+    tied slots' shares in the reverse index's order), and the plain
+    version to float32 rounding (1e-5 of the gradient's scale: sums in
+    another order) on the same set with the negative index as a sentinel,
+    which is what the kernels read it as.  Rows with no slot stay +0."""
+    from se3et_tpu_torch.ops.geometry import batched_gather_rows
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    rng = np.random.RandomState(ns + h)
+    b = 2
+    nbr = _plan_neighbors(rng, b, nq, ns, h)
+    if case == "integer_ties":
+        x = rng.randint(-2, 3, (b, ns, ac)).astype(np.float32)
+    else:
+        x = -rng.rand(b, ns, ac).astype(np.float32) - 0.5
+        x[:, ::3] = 0.0
+        x[:, 1::3, ::2] = -0.0
+    nbr_t, x_t = torch.from_numpy(nbr), torch.from_numpy(x)
+    out = wc.neighbor_max_plain(x_t, nbr_t)
+    if case == "shadow_zeros":
+        out[:, ::2][out[:, ::2] == 0] = -0.0
+    dout = torch.from_numpy(rng.randn(b, nq, ac).astype(np.float32))
+    valid = (nbr_t >= 0) & (nbr_t < ns)
+    as_sentinel = torch.where(valid, nbr_t, ns)
+    g = batched_gather_rows(x_t, as_sentinel)  # (B, Nq, H, AC), 0 where not valid
+    tie = g == out[:, :, None, :]
+    # the first design: count over every slot, then a CSR walk per source
+    count = tie.sum(dim=2)
+    share = torch.where(count > 0, dout / count.clamp_min(1).float(), torch.zeros(()))
+    order, offsets = wc.reverse_index(nbr_t, ns)
+    csr = torch.zeros((b, ns, ac))
+    for bi in range(b):
+        for s in range(ns):
+            for slot in order[bi, offsets[bi, s]:offsets[bi, s + 1]].tolist():
+                q = slot // h
+                csr[bi, s] = torch.where(x_t[bi, s] == out[bi, q], csr[bi, s] + share[bi, q],
+                                         csr[bi, s])
+    # the tiles form: the tie bits of the valid slots, their count plus the
+    # shadow zeros', then the tile walk on the bits
+    bits = tie & valid[..., None]
+    count_t = bits.sum(dim=2) + (h - valid.sum(dim=2))[..., None] * (out == 0)
+    share_t = torch.where(count_t > 0, dout / count_t.clamp_min(1).float(), torch.zeros(()))
+    assert torch.equal(share_t.view(torch.int32), share.view(torch.int32))
+    tile = wc.GATHER_WF_BWD_TILE
+    ent, off = wc.tile_plan(nbr_t, ns, tile)
+    tiles = torch.zeros((b, ns, ac))
+    for bi in range(b):
+        for t in range(off.shape[1] - 1):
+            for e in ent[bi, off[bi, t]:off[bi, t + 1]].tolist():
+                q, hh = e >> wc.TILE_Q_SHIFT, (e >> wc.TILE_H_SHIFT) & 63
+                s = t * tile + (e & (wc.TILE_MAX_ROWS - 1))
+                tiles[bi, s] = torch.where(bits[bi, q, hh], tiles[bi, s] + share_t[bi, q],
+                                           tiles[bi, s])
+    assert torch.equal(tiles.view(torch.int32), csr.view(torch.int32))
+    reached = torch.zeros((b, ns), dtype=torch.bool)
+    for bi in range(b):
+        reached[bi, nbr_t[bi][valid[bi]].long()] = True
+    assert not bool(tiles[~reached].view(torch.int32).any())
+    _close(tiles, wc.neighbor_max_bwd_plain(dout, x_t, out, as_sentinel).numpy(), 1e-5)
+
+
 def _embedding_inputs(seed=3, b=2, n=16, c=32, k=3, ties=True):
     rng = np.random.RandomState(seed)
     points = (rng.rand(b, n, 3) * 1.5).astype(np.float32)
