@@ -93,24 +93,33 @@ Phases, each of which raises (exit code != 0) on failure:
    kernel, 10 times each, K9's two tiles kernels 3 times each, K1's and
    K9's first designs never, and the device ms per launch of K8's tiles
    kernel, K9, the float32 K1 and K10);
-7. the routes off the default one: K15 (device influence) against its plain
-   version at the stage-0 same-level and the stage-1 strided set of pair 0,
-   K16 (``serve_femb``) at the self_eq (AH = 24, SH) and plain self (AH =
+7. the routes off the default one: K15 (device influence, its form
+   "tiles") against its plain version at the seven (stage, neighbour set)
+   shapes of pair 0 in bf16 and the model's mode, each bit for bit against
+   its first design and a second call of itself, replayed from a CUDA graph
+   of 20 calls (device time, no host), by events and by device time
+   beside the first design in the same run, with its bound, and their sums
+   over a pair (and over the four sets below 0.002 ms of bound); K16
+   (``serve_femb``) at the self_eq (AH = 24, SH) and plain self (AH =
    4) shapes; tiny float32 card-vs-CPU runs with ``serve_femb=True`` and on
    a pyramid without host influence; the four pairs without host influence
-   served in turns with the default route (per pair K15 7), then with
+   served in turns with the default route (per pair K15 7, every launch on
+   its tiles form), then with
    ``serve_femb=True`` in turns with the default route (per pair K16 5, K3
    0, K5 0), with ms/pair, peak memory, the routes' differences on pair 0
-   and a ``torch.profiler`` breakdown of one femb pair; the
-   device-influence route captured (K15 inside the graph) and replayed on
-   the four pairs, bit for bit against eager; K16's two shapes by events and
+   and a ``torch.profiler`` breakdown of one device-influence pair (K15's
+   kernels counted by form) and one femb pair; the default and
+   device-influence routes captured (K15 inside the graph) and replayed on
+   the four pairs, bit for bit against eager, and served in turns, captured
+   default / device influence / device influence / default, 8 pairs each;
+   K16's two shapes by events and
    device time beside its first design's times and K5's (phase 3, now with
    its device time too), with their totals per served pair; the default
    and femb routes captured (each replay bit for bit against eager, the
    peak memory of each) and served in turns, captured default / femb /
    femb / default, 8 pairs each with the host load before each turn; then
    ``se3et_tpu_torch.entry.entry()`` once, with a finite transform, printed
-   beside its largest matching score.
+   beside its largest matching score (7 K15 launches, all on its tiles form).
 
 Prints timings, then the card's name and power limit, a JSON line with the
 kernels, and as the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -190,6 +199,12 @@ STEP_KERNELS = {"K8": ((K8_KERNEL,), 10),
 # (stage, neighbour set) pairs), and serve_femb (5 self layers, no
 # embedding written, no K5)
 DEVICE_INFLUENCE_LAUNCHES = {"influence": 7}
+# K15's two device kernels: the tiles form and the first design; the first
+# design's times before the redesign (NVIDIA H100 80GB HBM3, 700 W): the
+# stage-0 same-level set by events, and device ms per pair (7 launches at a
+# mean of 0.0596)
+K15_KERNEL, K15_FIRST_KERNEL = "influence_tiles_kernel", "influence_kernel"
+K15_BEFORE = (0.1517, 7 * 0.0596)
 FEMB_LAUNCHES = {"rpe_self_attention_femb": 5, "geometric_embedding": 0,
                  "rpe_self_attention": 0}
 # K4's chain floor per launch at the serving shape: its rows form with each
@@ -810,15 +825,31 @@ def _captured_femb(model, femb, inputs, dev):
         resident = torch.cuda.memory_allocated(dev)
         served[route] = _capture_checked(route, net, inputs, per_pair)
         peak[route] = (torch.cuda.max_memory_allocated(dev) - resident) / 2**30
+    ms = _captured_turns({r: (fn, inputs) for r, fn in served.items()},
+                         ("default", "femb", "femb", "default"))
+    print("serve ms/pair in turns (captured default, femb, femb, default; "
+          f"{CAPTURED_TURN_PAIRS} pairs each): " + "; ".join(
+              f"{r} median {statistics.median(v):.2f} (range {min(v):.2f}-{max(v):.2f}), "
+              f"peak {peak[r]:.2f} GiB above the resident over its checks and capture"
+              for r, v in ms.items()), flush=True)
+
+
+def _captured_turns(served, order):
+    """Serve ``CAPTURED_TURN_PAIRS`` pairs on each captured route of
+    ``order`` in turn (``served``: route -> (captured forward, inputs)),
+    the host load printed before each turn; returns {route: ms per pair}."""
+    import torch
+
     ms = {r: [] for r in served}
-    for route in ("default", "femb", "femb", "default"):
+    for route in order:
+        fn, inputs = served[route]
         load = os.getloadavg()
         turn = []
         for i in range(CAPTURED_TURN_PAIRS):
             td = inputs[i % len(inputs)]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = served[route](td)
+            out = fn(td)
             torch.cuda.synchronize()
             turn.append((time.perf_counter() - t0) * 1e3)
             tf = out["estimated_transform"]
@@ -827,20 +858,84 @@ def _captured_femb(model, femb, inputs, dev):
         ms[route] += turn
         print(f"turn captured {route}: host load {[round(x, 2) for x in load]}; ms/pair "
               f"{[round(x, 2) for x in turn]}", flush=True)
-    print("serve ms/pair in turns (captured default, femb, femb, default; "
-          f"{CAPTURED_TURN_PAIRS} pairs each): " + "; ".join(
-              f"{r} median {statistics.median(v):.2f} (range {min(v):.2f}-{max(v):.2f}), "
-              f"peak {peak[r]:.2f} GiB above the resident over its checks and capture"
+    return ms
+
+
+def _captured_device_influence(model, inputs, bare):
+    """Phase 7's captured device-influence route: it and the default route
+    captured (launch counts at capture, every replay equal to eager bit for
+    bit; K15 inside the graph), then served in turns (default, device
+    influence, device influence, default; 8 pairs each)."""
+    from se3et_tpu_torch.ops.kernels import selfcheck
+
+    per_pair = dict.fromkeys(selfcheck.ROUTES, 0)
+    per_pair.update(SERVING_LAUNCHES)
+    served = {"default": (_capture_checked("default", model, inputs, per_pair), inputs)}
+    per_pair.update(DEVICE_INFLUENCE_LAUNCHES)
+    served["device influence"] = (_capture_checked("device-influence", model, bare, per_pair),
+                                  bare)
+    ms = _captured_turns(served, ("default", "device influence", "device influence",
+                                  "default"))
+    print("serve ms/pair in turns (captured default, device influence, device influence, "
+          f"default; {CAPTURED_TURN_PAIRS} pairs each): " + "; ".join(
+              f"{r} median {statistics.median(v):.2f} (range {min(v):.2f}-{max(v):.2f})"
               for r, v in ms.items()), flush=True)
 
 
+def _influence_sets(num_stages):
+    """The (stage, neighbour set) pairs whose influence a device-influence
+    pair computes, in the backbone's order (``nn/epn.py`` ``forward``):
+    (label, query points, source points, neighbours, radius and sigma
+    multiple of the stage-0 ones)."""
+    sets = [("stage-0 same", "points_0", "points_0", "neighbors_0", 1)]
+    for st in range(1, num_stages):
+        mult = 2 ** (st - 1)
+        sets += [(f"s{st - 1} -> s{st}", f"points_{st}", f"points_{st - 1}",
+                  f"subsampling_{st - 1}", mult),
+                 (f"stage-{st} same", f"points_{st}", f"points_{st}", f"neighbors_{st}",
+                  2 * mult)]
+    return sets
+
+
+def _print_k15(k15):
+    """K15's tiles form at each set beside its first design in this run, and
+    the sums over a pair (one launch a set).  Events time the wrapper call
+    (the host's, at the small sets); replayed ms, the calls replayed from a
+    CUDA graph, time the device as the captured route runs it; the
+    profiler's device ms are printed too, but its later sessions in a
+    process lose kernels (PERF.md, lessons), so they run low here."""
+    for label, res in k15:
+        print(f"K15 {label} {res.shape}: replayed {res.replay_ms:.4f} ms (first design "
+              f"{res.first_replay_ms:.4f}); events {res.ms:.4f} ms ({res.first_ms:.4f}); "
+              f"profiler device {_ms(res.device_ms)} ms ({_ms(res.first_device_ms)}); bound "
+              f"{res.bound_ms:.4f} ms ({res.bound_by}), {res.bound_ms / res.replay_ms:.1%} of it "
+              f"replayed; both outputs bit for bit the first design's: {res.bitwise}",
+              flush=True)
+    rows = [r for _, r in k15]
+
+    def total(attr):
+        vals = [getattr(r, attr) for r in rows]
+        return None if None in vals else sum(vals)
+
+    print(f"K15 per device-influence pair ({len(rows)} launches): replayed "
+          f"{total('replay_ms'):.4f} ms (first design in this run {total('first_replay_ms'):.4f};"
+          f" device before the redesign {K15_BEFORE[1]:.4f}); events {_ms(total('ms'))} ms "
+          f"({_ms(total('first_ms'))}); profiler device {_ms(total('device_ms'))} ms "
+          f"({_ms(total('first_device_ms'))}); bound {total('bound_ms'):.4f} ms", flush=True)
+    rows = rows[-4:]
+    print(f"K15 at the four sets below 0.002 ms of bound: replayed {total('replay_ms'):.4f} ms "
+          f"(first design {total('first_replay_ms'):.4f}), bound {total('bound_ms'):.4f} ms",
+          flush=True)
+
+
 def _routes(cfg, pairs, bare_pairs, extent, dev, k5):
-    """Phase 7: K15 and K16 checked against their plain versions (K16
-    beside its first design's times and ``k5``, K5's phase-3 checks at the
-    same two shapes), tiny card-vs-CPU runs of both routes, both routes
-    served at full width in turns with the default route, both captured
-    (the femb route served in turns with the captured default route), and
-    ``entry()``; returns the checks."""
+    """Phase 7: K15 and K16 checked against their plain versions (K15 at
+    the seven sets of pair 0 beside its first design; K16 beside its first
+    design's times and ``k5``, K5's phase-3 checks at the same two shapes),
+    tiny card-vs-CPU runs of both routes, both routes served at full width
+    in turns with the default route, both captured and served in turns
+    with the captured default route, and ``entry()``; returns the
+    checks."""
     import torch
 
     from se3et_tpu_torch.data.influence import _kernel_points_for
@@ -855,21 +950,21 @@ def _routes(cfg, pairs, bare_pairs, extent, dev, k5):
     heads, head_dim = m.num_heads, m.gt_hidden_dim // m.num_heads
     emb_kw = dict(c=head_dim, cc=m.gt_hidden_dim, k=m.angle_k, sigma_d=m.sigma_d,
                   sigma_a=m.sigma_a)
-    kp0 = _kernel_points_for(m, m.init_radius)
+    # K15 at the seven (stage, neighbour set) pairs of pair 0, in the
+    # backbone's order and radius / sigma schedule, beside its first design
+    k15 = [(label, selfcheck.check_influence(
+        p0[q], p0[s], p0[nbr], _kernel_points_for(m, m.init_radius * mult),
+        m.init_sigma * mult, mode=m.epn.kp_influence, reps=20, device_kernel=K15_KERNEL,
+        first=True, replay=True))
+        for label, q, s, nbr, mult in _influence_sets(cfg.pipeline.num_stages)]
     checks = {
-        # stage-0 same-level set at the stage-0 radius and sigma
-        "influence": selfcheck.check_influence(p0["points_0"], p0["points_0"],
-                                               p0["neighbors_0"], kp0, m.init_sigma,
-                                               mode=m.epn.kp_influence, reps=20),
+        "influence": k15[0][1],
         # self_eq layers: A*H anchor-heads with the SH term
         "rpe_self_attention_femb": selfcheck.check_rpe_attention_femb(
             pts_c, masks_c, m.kanchor * heads, reps=10,
             device_kernel="rpe_attention_femb_ws_kernel", **emb_kw),
     }
-    extra = [
-        # the s0 -> s1 strided set (stage-1 queries over stage-0 points)
-        selfcheck.check_influence(p0["points_1"], p0["points_0"], p0["subsampling_0"], kp0,
-                                  m.init_sigma, mode=m.epn.kp_influence, reps=20),
+    extra = [res for _, res in k15[1:]] + [
         # plain self layers: H heads, no SH term
         selfcheck.check_rpe_attention_femb(pts_c, masks_c, heads, with_sh=False, reps=10,
                                            device_kernel="rpe_attention_femb_ws_kernel",
@@ -877,12 +972,13 @@ def _routes(cfg, pairs, bare_pairs, extent, dev, k5):
     ]
     for res in list(checks.values()) + extra:
         _print_check(res)
+    _print_k15(k15)
     # K16 beside its first design's times (NVIDIA H100 80GB HBM3, 700 W: by
     # events 1.6898 / 0.7501 ms, device 1.6046 / 0.6943) and K5's at the
     # same shapes in this run, with their totals per served pair (2 self_eq
     # and 3 plain self launches)
     k16 = [(2, checks["rpe_self_attention_femb"], (1.6898, 1.6046), k5[0]),
-           (3, extra[1], (0.7501, 0.6943), k5[1])]
+           (3, extra[-1], (0.7501, 0.6943), k5[1])]
     for _, res, first, k5res in k16:
         print(f"K16 {res.shape}: events {res.ms:.4f} ms (first design {first[0]:.4f}), device "
               f"{_ms(res.device_ms)} ms ({first[1]:.4f}); K5 at this shape: events "
@@ -897,8 +993,11 @@ def _routes(cfg, pairs, bare_pairs, extent, dev, k5):
           f"{_ms(per_pair['K16'][1])} ms (first design 5.2907 device); K5 events "
           f"{_ms(per_pair['K5'][0])}, device {_ms(per_pair['K5'][1])} ms", flush=True)
     bad = [r.name for r in list(checks.values()) + extra if not r.ok]
+    bad += [f"influence {label} (form {r.form}, bit for bit {r.bitwise})" for label, r in k15
+            if r.form != "tiles" or not r.bitwise]
     if bad:
-        raise RuntimeError(f"route kernels disagree with their plain versions: {bad}")
+        raise RuntimeError(f"route kernels disagree with their plain versions or first "
+                           f"designs: {bad}")
     del p0
 
     tiny = tiny_flash_config(cfg)
@@ -920,16 +1019,22 @@ def _routes(cfg, pairs, bare_pairs, extent, dev, k5):
     routes = {"default": (model, inputs), "device influence": (model, bare),
               "femb": (femb, inputs)}
     _serve_turns(routes, ("default", "device influence", "femb"), NUM_PAIRS)  # warm-up
+    tiles0 = selfcheck.WRAPPERS["influence"].tiles_launches
     ms, launches = _serve_turns(routes, ("default", "device influence", "device influence",
                                          "default"), NUM_PAIRS)
     _require_launches("device-influence", launches["device influence"],
                       DEVICE_INFLUENCE_LAUNCHES, 2 * NUM_PAIRS)
     if launches["default"]["influence"]:
         raise RuntimeError("the default route (host influence) launched K15")
+    tiles = selfcheck.WRAPPERS["influence"].tiles_launches - tiles0
+    if tiles != launches["device influence"]["influence"]:
+        raise RuntimeError(f"the device-influence route launched K15 {tiles} times on its "
+                           f"tiles form of {launches['device influence']['influence']}")
     checks["influence"].launches = launches["device influence"]["influence"] // 2
     print("serve ms/pair in turns (device influence): " + "; ".join(
         f"{r} {[round(x, 2) for x in ms[r]]} (median {statistics.median(ms[r]):.2f})"
-        for r in ("default", "device influence")), flush=True)
+        for r in ("default", "device influence")) + f"; K15 launches {tiles} over "
+        f"{2 * NUM_PAIRS} pairs, every one on its tiles form", flush=True)
     a = model(inputs[0], stop_after="backbone")
     b = model(bare[0], stop_after="backbone")
     mask = inputs[0]["masks_3"]
@@ -937,12 +1042,14 @@ def _routes(cfg, pairs, bare_pairs, extent, dev, k5):
         a["feats_c"][mask].abs().max())
     print(f"backbone feats_c, device vs host influence (pair 0, valid rows, bf16): "
           f"max|diff| / max|host| = {d:.3e}", flush=True)
-    _profile(lambda: model(bare[0]), what="one pair, device-influence route", top=40)
-    per_pair = dict.fromkeys(selfcheck.ROUTES, 0)
-    per_pair.update(SERVING_LAUNCHES)
-    per_pair.update(DEVICE_INFLUENCE_LAUNCHES)
-    served = _capture_checked("device-influence", model, bare, per_pair)
-    del a, b, routes["device influence"], bare, served
+    prof = _profile(lambda: model(bare[0]), what="one pair, device-influence route", top=40,
+                    also=(K15_KERNEL, K15_FIRST_KERNEL))
+    if prof is not None:
+        seen = {k: sum(c for key, c in prof["counts"].items() if re.search(rf"\b{k}\b", key))
+                for k in (K15_KERNEL, K15_FIRST_KERNEL)}
+        print(f"K15 device kernels in the profiled pair: {seen}", flush=True)
+    _captured_device_influence(model, inputs, bare)
+    del a, b, routes["device influence"], bare
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -976,6 +1083,7 @@ def _routes(cfg, pairs, bare_pairs, extent, dev, k5):
     fn, (net, data) = entry()
     for w in selfcheck.WRAPPERS.values():
         w.launches = 0
+    tiles0 = selfcheck.WRAPPERS["influence"].tiles_launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn(net, data)
@@ -987,11 +1095,14 @@ def _routes(cfg, pairs, bare_pairs, extent, dev, k5):
           f"{tf.cpu().numpy()}", flush=True)
     if tf.shape != (4, 4) or not bool(torch.isfinite(tf).all()):
         raise RuntimeError(f"entry(): bad estimated_transform {tf}")
-    if selfcheck.WRAPPERS["influence"].launches != 7:
-        raise RuntimeError("entry() did not compute the influence on the card")
+    tiles = selfcheck.WRAPPERS["influence"].tiles_launches - tiles0
+    if selfcheck.WRAPPERS["influence"].launches != 7 or tiles != 7:
+        raise RuntimeError(f"entry() did not compute the influence on the card's tiles form: "
+                           f"{selfcheck.WRAPPERS['influence'].launches} K15 launches, {tiles} "
+                           f"on its tiles form")
     print(f"entry(): {(time.perf_counter() - t0) * 1e3:.1f} ms (first call), "
           f"estimated_transform finite, K15 launches "
-          f"{selfcheck.WRAPPERS['influence'].launches}", flush=True)
+          f"{selfcheck.WRAPPERS['influence'].launches}, {tiles} on its tiles form", flush=True)
     return checks
 
 
@@ -1300,11 +1411,11 @@ def main() -> int:
                "plain_ms": res.plain_ms, "bound_ms": res.bound_ms,
                "bound_by": res.bound_by, "library_ms": res.library_ms}
         # yardsticks measured beside some kernels: device time (profiler),
-        # the unfused route (K12-K14), the first design (K2, K11, K14), K8's
-        # tile plan's build
+        # the unfused route (K12-K14), the first design (K2, K11, K14, K15),
+        # K8's tile plan's build, K15's calls replayed from a CUDA graph
         row.update({key: getattr(res, key) for key in ("device_ms", "route_ms", "first_ms",
                                                        "call_device_ms", "first_device_ms",
-                                                       "plan_ms")
+                                                       "plan_ms", "replay_ms", "first_replay_ms")
                     if getattr(res, key) is not None})
         kernels.append(row)
     print(card)

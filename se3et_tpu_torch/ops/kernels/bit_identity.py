@@ -60,7 +60,11 @@ shapes of se3ete.3dmatch (bf16) and the tiny float32 widths:
 * K14 (fused conv gather + skip max) at the s1 -> s2 strided shape (x (2,
   10000, 384), H 32, K 15, skip (2, 10000, 1536), bf16), its wf and its
   pooled as two cases, both timed: wf held within its ``TOLERANCES``,
-  pooled by its bit pattern.
+  pooled by its bit pattern;
+* K15 (device influence weights) at the stage-0 same-level set (points
+  (2, 20000, 3) in a cube of 0.15, local neighbours (2, 20000, 24), the
+  15 kernel points of radius 0.0625, sigma 0.05, linear, bf16), the
+  weights and their H-sums, timed and held by their bit patterns.
 
 
 Each case is held bit for bit unless ``TOLERANCES`` names it: then the
@@ -104,6 +108,7 @@ K4_CASES = ("K4 (256, 65, 65) f32", "K4 (6, 17, 13) f32")
 K13_CASES = ("K13 s0 -> s1 out", "K13 s0 -> s1 pooled")
 K2_CASES = ("K2 s2 -> s3 bf16", "K2 s0 -> s1 float32")
 K14_CASES = ("K14 s1 -> s2 wf", "K14 s1 -> s2 pooled")
+K15_CASE = "K15 stage 0 bf16"
 K1_BF16 = ("K1 stage 2", "K1 s2 -> s3", "K1 stage 3")
 # K1 in float32 at the training shapes: (name, Nq, Ns, H, AC)
 K1_F32 = (("K1 float32 stage 0", 20000, 20000, 24, 192),
@@ -120,13 +125,13 @@ K9_CASES = (("K9 s0 -> s1 float32", 10000, 20000, 24, 768),
             ("K9 s2 -> s3 float32", 1024, 2500, 36, 3072))
 TIMED = K5_BF16 + K16_BF16 + (K6_BF16, K7_BF16, K4_CASES[0], K13_CASES[0]) + K2_CASES + K14_CASES \
     + K1_BF16 + tuple(c[0] for c in K1_F32) + K11_BF16 + K10_CASES[:1] + K8_CASES \
-    + tuple(c[0] for c in K9_CASES)
+    + tuple(c[0] for c in K9_CASES) + (K15_CASE,)
 # the last timed training step's outputs (with --train-steps)
 TRAIN_OUTPUTS = ("training step: losses", "training step: gradients",
                  "training step: parameters")
 # held by their bit patterns (-0.0 apart from +0.0), where the others are
 # held by value
-BITS = K2_CASES + K14_CASES[1:] + TRAIN_OUTPUTS
+BITS = K2_CASES + K14_CASES[1:] + (K15_CASE,) + TRAIN_OUTPUTS
 REPS = 20  # launches per timing
 TRAIN_STEP = "training step (median)"
 STEP_KERNELS = "training step kernels (device ms by kernel)"
@@ -295,6 +300,15 @@ def _cases(dev):
     x2 = torch.randn((2, ns, ac2), generator=g).to(dev, bf)
     for i, case in enumerate(K14_CASES):
         cases.append((case, lambda a=(x, nbr, infl, x2), i=i: wc.gather_wf_max(*a)[i]))
+    from se3et_tpu_torch.core import kernel_points as kp_lib
+
+    g15 = torch.Generator().manual_seed(15)
+    pts = (torch.rand((2, 20000, 3), generator=g15) * 0.15).to(dev)
+    nbr = torch.cat([selfcheck.local_neighbors(20000, 20000, 24, g15, dev) for _ in range(2)])
+    kp = torch.as_tensor(kp_lib.equivariant_kernel_points(0.0625, 15, 6, 4), dtype=torch.float32,
+                         device=dev)
+    cases.append((K15_CASE, lambda a=(pts, pts, nbr, kp): wc.influence(
+        *a, sigma=0.05, mode="linear", out_dtype=bf)))
     return cases
 
 

@@ -114,17 +114,21 @@ class CheckResult:
     device_ms: Optional[float] = None  # the kernel's own device time per call (profiler)
     two_calls_ms: Optional[float] = None  # two PyTorch calls computing the function (K7)
     first_ms: Optional[float] = None  # the first design on the same inputs (K1, K2, K8-K11,
-    # K14)
+    # K14, K15)
     # every device kernel of one wrapper call (K11: its products too), and
     # the first design's kernel, per call (profiler)
     call_device_ms: Optional[float] = None
     first_device_ms: Optional[float] = None
-    # K1, K8 and K9: the form its shape took, whether its output equals its
-    # first design's and its own on a second call bit for bit; K8 and K9:
+    # K1, K8, K9 and K15: the form its shape took, whether its output equals
+    # its first design's and its own on a second call bit for bit; K8 and K9:
     # distinct (tile, query) pairs over B * Nq
     form: Optional[str] = None
     bitwise: Optional[bool] = None
     reread: Optional[float] = None
+    # K15: per call replayed from a CUDA graph (selfcheck.replay_ms), the
+    # form and its first design
+    replay_ms: Optional[float] = None
+    first_replay_ms: Optional[float] = None
     # K8's tiles form on the card: its tile plan's build from the reverse
     # index (ms by events) and whether it equals the plain version's
     plan_ms: Optional[float] = None
@@ -176,6 +180,35 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def replay_ms(fn, reps: int = 20) -> float:
+    """Time per call of ``fn`` replayed from a CUDA graph of ``reps`` calls:
+    device time with the graph's launch gaps, no host time and no profiler
+    (whose later sessions in a process lose kernels).  The smallest of
+    three timed replays, after a warm-up call and one replay."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return min(times)
 
 
 def device_ms(fn, kernel: str, reps: int = 10) -> Optional[float]:
@@ -948,23 +981,47 @@ def check_fused_conv(name, nbr, ns, ac, ac_out=0, ac2=0, k=15, dtype=torch.bfloa
 
 
 def check_influence(q_points, s_points, nbr, kernel_points, sigma, mode="linear",
-                    out_dtype=torch.bfloat16, reps=10):
+                    out_dtype=torch.bfloat16, reps=10, device_kernel=None, first=False,
+                    replay=False):
     """K15 on the given (B, Nq, 3) / (B, Ns, 3) points, (B, Nq, H) neighbours
-    and (K, 3) kernel points.  The error is the largest over (infl, inf_sum)
+    and (K, 3) kernel points, on the form ``windowed_conv.influence_form``
+    names.  The error is the largest over (infl, inf_sum)
     of max|got - want| / max|want|: 1e-2 in bf16 (one rounding of weights
     <= 1; float32 sums in another order may land an ulp apart), 1e-5 in
-    float32."""
+    float32.  With ``device_kernel`` (a kernel name) also that kernel's
+    device time per call; with ``first`` the first design's time on the
+    same inputs (events, and its kernel's device time where
+    ``device_kernel`` is given) and ``bitwise``: both outputs equal the
+    first design's and a second call's of their own bit for bit; with
+    ``replay`` the time per call replayed from a CUDA graph
+    (:func:`replay_ms`; the first design's too with ``first``)."""
     kp = torch.as_tensor(kernel_points, dtype=torch.float32, device=q_points.device)
     args = (q_points, s_points, nbr, kp)
     kw = dict(sigma=sigma, mode=mode, out_dtype=out_dtype)
     b, nq, h = nbr.shape
-    res = _compare_many(
-        "influence", f"q{tuple(q_points.shape)} nbr{tuple(nbr.shape)} K={kp.shape[0]} "
-        f"{mode} {out_dtype}",
-        lambda: windowed_conv.influence(*args, **kw),
-        lambda: windowed_conv.influence_plain(*args, **kw),
-        1e-2 if out_dtype == torch.bfloat16 else 1e-5, reps)
     k = kp.shape[0]
+    form = windowed_conv.influence_form(h, k, out_dtype)
+    kernel_fn = lambda: windowed_conv.influence(*args, **kw)  # noqa: E731
+    res = _compare_many(
+        "influence", f"q{tuple(q_points.shape)} nbr{tuple(nbr.shape)} K={k} "
+        f"{mode} {out_dtype} ({form} form)",
+        kernel_fn, lambda: windowed_conv.influence_plain(*args, **kw),
+        1e-2 if out_dtype == torch.bfloat16 else 1e-5, reps)
+    res.form = form
+    if device_kernel is not None:
+        res.device_ms = device_ms(kernel_fn, device_kernel)
+    if first:
+        first_fn = lambda: windowed_conv.influence(*args, **kw, form="first")  # noqa: E731
+        got, again, want = kernel_fn(), kernel_fn(), first_fn()
+        res.bitwise = all(torch.equal(_bits(x), _bits(y)) and torch.equal(_bits(x), _bits(z))
+                          for x, y, z in zip(got, want, again))
+        res.first_ms = _time_ms(first_fn, reps)
+        if device_kernel is not None:
+            res.first_device_ms = device_ms(first_fn, "influence_kernel")
+        if replay:
+            res.first_replay_ms = replay_ms(first_fn, reps)
+    if replay:
+        res.replay_ms = replay_ms(kernel_fn, reps)
     out_bytes = b * nq * h * k * torch.empty((), dtype=out_dtype).element_size() \
         + b * nq * k * 4
     # per (query, neighbour, kernel point): the offset's dot product with

@@ -39,10 +39,11 @@ backward over a neighbour tensor and shared by every later one, so one
 sort per set for all its convs and its skip; so gradients are
 reproducible bit for bit.  Influence is geometry and takes no gradient.
 
-:func:`influence` (K15, ``csrc/influence.cu``) replaces
-``influence_windowed_pallas``: the kernel-point influence weights of a
-(stage, neighbour set) computed on the card, where the pyramid carries no
-host influence (:mod:`se3et_tpu_torch.data.influence`).
+:func:`influence` (K15, ``csrc/influence.cu``, in two forms chosen by
+:func:`influence_form`) replaces ``influence_windowed_pallas``: the
+kernel-point influence weights of a (stage, neighbour set) computed on the
+card, where the pyramid carries no host influence
+(:mod:`se3et_tpu_torch.data.influence`).
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel (building it on first use) or raises.
@@ -50,6 +51,7 @@ launches its kernel (building it on first use) or raises.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -977,43 +979,115 @@ def influence_plain(q_points: torch.Tensor, s_points: torch.Tensor,
     return w.to(out_dtype), w.sum(dim=2)
 
 
+# K15's tiles form: R query rows a tile (a multiple of 8, so a tile's
+# spans of both outputs start 16-byte aligned), H <= 64, K <= 16
+INFLUENCE_TILES_ROWS = 16
+INFLUENCE_TILES_MAX_H = 64
+# the first design: a block of 256 threads, one a (row, h) slot
+INFLUENCE_FIRST_MAX_H = 256
+
+
+class InfluencePlan(NamedTuple):
+    form: str
+    rows: int  # query rows a tile
+    threads: int  # a block
+    smem_bytes: int  # the float32 staging tile and the valid slots' list
+
+
+def influence_plan(h: int, k: int) -> InfluencePlan:
+    """K15's form and tiles plan for ``h`` neighbours and ``k`` kernel
+    points, as ``se3et_influence_plan`` in ``csrc/influence.cu`` makes it:
+    a thread a (row, h) slot of a tile's R * H, in whole warps (at most
+    1024: H <= 64); shared memory for the float32 staging tile (R * H * K)
+    and the list of valid slots (R * H (slot, index) pairs of int32)."""
+    if not (1 <= h <= INFLUENCE_TILES_MAX_H and 1 <= k <= _KP):
+        return InfluencePlan("first", 0, 0, 0)
+    r = INFLUENCE_TILES_ROWS
+    return InfluencePlan("tiles", r, -(-r * h // 32) * 32, r * h * (k * 4 + 8))
+
+
+def influence_form(h: int, k: int, dtype) -> str:
+    """Which hand-written K15 kernel takes ``h`` neighbours and ``k`` kernel
+    points with ``dtype`` weights: "tiles" (the redesign: H <= 64, K <= 16;
+    every set of the model) or "first" (the first design: 64 < H <= 256).
+    Chosen by shape alone; neither is a fallback of the other.  Raises for
+    shapes no kernel takes (K > 16, H > 256) and for other dtypes."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"unsupported influence dtype {dtype}")
+    if not (1 <= k <= _KP and 1 <= h <= INFLUENCE_FIRST_MAX_H):
+        raise ValueError(f"no K15 kernel takes H={h}, K={k} (K <= {_KP}, "
+                         f"H <= {INFLUENCE_FIRST_MAX_H})")
+    return influence_plan(h, k).form
+
+
+def _padded_empty(shape, dtype, device):
+    """An empty contiguous tensor of ``shape`` whose allocation runs on to a
+    whole 16-byte unit past its last element (K15's tiles form stores whole
+    units); where the tensor ends on one (every set of the model), one plain
+    ``torch.empty``."""
+    n = math.prod(shape)
+    per = 16 // dtype.itemsize
+    if n % per == 0:
+        return torch.empty(shape, dtype=dtype, device=device)
+    return torch.empty(-(-n // per) * per, dtype=dtype, device=device)[:n].view(shape)
+
+
 def influence(q_points: torch.Tensor, s_points: torch.Tensor, neighbor_indices: torch.Tensor,
               kernel_points: torch.Tensor, *, sigma: float, mode: str = "linear",
-              out_dtype=torch.float32):
+              out_dtype=torch.float32, form: Optional[str] = None):
     """K15 (``csrc/influence.cu``, replaces the TPU
     ``influence_windowed_pallas``): see :func:`influence_plain`; ``out_dtype``
-    bf16 or float32.  Geometry: no gradient.  Bound by device memory (the
-    (B, Nq, H, K) output); the source notes the design."""
+    bf16 or float32, on the form :func:`influence_form` names, or on
+    ``form`` where the caller asks for one ("first" takes every shape a
+    K15 kernel takes); both give the same bits.  Types and shapes are
+    checked on every device.  Geometry: no gradient.  Bound by device
+    memory (the (B, Nq, H, K) output); the source notes the design."""
     if mode not in INFLUENCE_MODES:
         raise ValueError(f"unknown influence mode {mode!r}")
+    if neighbor_indices.ndim != 3 or neighbor_indices.dtype.is_floating_point:
+        raise ValueError(f"bad influence neighbour indices {tuple(neighbor_indices.shape)} "
+                         f"{neighbor_indices.dtype}")
+    b, nq, h = neighbor_indices.shape
+    k = kernel_points.shape[0] if kernel_points.ndim == 2 else 0
+    if (q_points.shape != (b, nq, 3) or s_points.ndim != 3 or s_points.shape[0] != b
+            or s_points.shape[2] != 3 or kernel_points.shape != (k, 3)
+            or min(b, nq, h, s_points.shape[1]) < 1):
+        raise ValueError(f"bad influence shapes q {tuple(q_points.shape)} s "
+                         f"{tuple(s_points.shape)} nbr {tuple(neighbor_indices.shape)} kp "
+                         f"{tuple(kernel_points.shape)}")
+    chosen = influence_form(h, k, out_dtype)
+    if any(t.device != q_points.device for t in (s_points, neighbor_indices, kernel_points)):
+        raise ValueError("influence inputs on different devices")
     if q_points.device.type == "cpu":
         return influence_plain(q_points, s_points, neighbor_indices, kernel_points,
                                sigma=sigma, mode=mode, out_dtype=out_dtype)
     if q_points.device.type != "cuda":
         raise ValueError(f"unsupported device {q_points.device}")
-    if out_dtype not in _DTYPES:
-        raise TypeError(f"unsupported influence dtype {out_dtype}")
-    b, nq, h = neighbor_indices.shape
-    k = kernel_points.shape[0]
-    if (q_points.shape != (b, nq, 3) or s_points.ndim != 3 or s_points.shape[0] != b
-            or s_points.shape[2] != 3 or kernel_points.shape != (k, 3)):
-        raise ValueError("bad influence input shapes")
-    if any(t.device != q_points.device for t in (s_points, neighbor_indices, kernel_points)):
-        raise ValueError("influence inputs on different devices")
+    form = form or chosen
+    if form not in ("tiles", "first") or (form == "tiles" and chosen != "tiles"):
+        raise ValueError(f"K15's {form} form does not take H={h}, K={k}")
     q = q_points.float().contiguous()
     sp = s_points.float().contiguous()
     nbr = neighbor_indices.to(torch.int32).contiguous()
     kp = kernel_points.float().contiguous()
-    infl = torch.empty((b, nq, h, k), dtype=out_dtype, device=q.device)
-    inf_sum = torch.empty((b, nq, k), dtype=torch.float32, device=q.device)
-    fn = _build.function("influence", f"se3et_influence_{_DTYPES[out_dtype]}", 6, 6, 1)
+    if form == "tiles":
+        infl = _padded_empty((b, nq, h, k), out_dtype, q.device)
+        inf_sum = _padded_empty((b, nq, k), torch.float32, q.device)
+        symbol = f"se3et_influence_tiles_{_DTYPES[out_dtype]}"
+    else:
+        infl = torch.empty((b, nq, h, k), dtype=out_dtype, device=q.device)
+        inf_sum = torch.empty((b, nq, k), dtype=torch.float32, device=q.device)
+        symbol = f"se3et_influence_{_DTYPES[out_dtype]}"
+    fn = _build.function("influence", symbol, 6, 6, 1)
     _build.check(fn(q.data_ptr(), sp.data_ptr(), nbr.data_ptr(), kp.data_ptr(),
                     infl.data_ptr(), inf_sum.data_ptr(), b, nq, sp.shape[1], h, k,
                     INFLUENCE_MODES[mode], float(sigma),
                     torch.cuda.current_stream(q.device).cuda_stream),
-                 "influence launch")
+                 f"influence launch ({form})")
     influence.launches += 1
+    influence.tiles_launches += form == "tiles"
     return infl, inf_sum
 
 
 influence.launches = 0
+influence.tiles_launches = 0  # of them on the tiles form, never reset

@@ -121,6 +121,89 @@ def test_gather_wf_rows_plan_covers_the_row(ac, slices, width):
     assert plan.width <= 32 and units - (plan.slices - 1) * plan.width > plan.width - plan.slices
 
 
+@pytest.mark.parametrize("h,k,form", [
+    (24, 15, "tiles"), (32, 15, "tiles"), (36, 15, "tiles"), (38, 15, "tiles"),  # the sets
+    (1, 1, "tiles"), (64, 16, "tiles"), (65, 15, "first"), (256, 15, "first"),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_influence_form(h, k, form, dtype):
+    """K15 takes the tiles form up to H = 64 and K = 16 (every set of a
+    pair: H 24, 32, 36, 38), the first design past H = 64, in both dtypes."""
+    assert wc_k.influence_form(h, k, dtype) == form
+
+
+@pytest.mark.parametrize("h,k,dtype,error", [
+    (24, 17, torch.bfloat16, ValueError), (24, 0, torch.float32, ValueError),
+    (257, 15, torch.float32, ValueError), (0, 15, torch.bfloat16, ValueError),
+    (24, 15, torch.float16, TypeError),
+])
+def test_influence_form_refuses_shapes_no_kernel_takes(h, k, dtype, error):
+    with pytest.raises(error):
+        wc_k.influence_form(h, k, dtype)
+
+
+@pytest.mark.parametrize("h", range(1, 65))
+def test_influence_tiles_plan_fits(h):
+    """The tiles plan at every H it takes (K 1-16): R a multiple of 8, so a
+    tile's span of either output starts 16-byte aligned in either dtype;
+    one thread a slot in whole warps (none idle where R * H is a multiple
+    of 32: every set of a pair) within a block of 1024; the staging tile
+    and the list of valid slots within an H100 block's 232,448 bytes of
+    shared memory."""
+    for k in range(1, 17):
+        plan = wc_k.influence_plan(h, k)
+        assert plan.form == "tiles" and plan.rows % 8 == 0
+        for esize in (2, 4):
+            assert (plan.rows * h * k * esize) % 16 == 0
+        assert (plan.rows * k * 4) % 16 == 0
+        slots = plan.rows * h
+        assert plan.threads % 32 == 0 and plan.threads <= 1024
+        assert plan.threads == -(-slots // 32) * 32
+        assert plan.smem_bytes == slots * (k * 4 + 8) <= 232448
+    if h in (24, 32, 36, 38):
+        assert wc_k.influence_plan(h, 15).threads == wc_k.INFLUENCE_TILES_ROWS * h
+
+
+def test_influence_padded_outputs():
+    """The tiles form's outputs: contiguous views of the requested shape over
+    an allocation that runs on to a whole 16-byte unit."""
+    for shape, dtype in (((2, 97, 5, 3), torch.bfloat16), ((2, 97, 3), torch.float32),
+                         ((2, 20000, 24, 15), torch.bfloat16)):
+        t = wc_k._padded_empty(shape, dtype, "cpu")
+        assert t.shape == shape and t.is_contiguous() and t.storage_offset() == 0
+        assert t.untyped_storage().nbytes() % 16 == 0
+        assert 0 <= t.untyped_storage().nbytes() - t.numel() * t.element_size() < 16
+
+
+def _bad_influence_inputs():
+    q = torch.zeros((2, 7, 3))
+    s = torch.zeros((2, 9, 3))
+    nbr = torch.zeros((2, 7, 4), dtype=torch.int32)
+    kp = torch.zeros((15, 3))
+    return {
+        "out_dtype float16": ((q, s, nbr, kp), dict(out_dtype=torch.float16), TypeError),
+        "K 17": ((q, s, nbr, torch.zeros((17, 3))), {}, ValueError),
+        "kernel points (15, 2)": ((q, s, nbr, torch.zeros((15, 2))), {}, ValueError),
+        "q of other rows": ((q[:, :6], s, nbr, kp), {}, ValueError),
+        "s of another batch": ((q, s[:1], nbr, kp), {}, ValueError),
+        "s of 2 coordinates": ((q, s[..., :2], nbr, kp), {}, ValueError),
+        "nbr of 2 dimensions": ((q, s, nbr[0], kp), {}, ValueError),
+        "float nbr": ((q, s, nbr.float(), kp), {}, ValueError),
+        "no source points": ((q, s[:, :0], nbr, kp), {}, ValueError),
+        "H 0": ((q, s, nbr[..., :0], kp), {}, ValueError),
+        "unknown mode": ((q, s, nbr, kp), dict(mode="cubic"), ValueError),
+    }
+
+
+@pytest.mark.parametrize("case", list(_bad_influence_inputs()))
+def test_influence_checks_its_inputs_on_the_cpu(case):
+    """K15's wrapper refuses what no kernel takes on every device: on the
+    CPU too, before its plain version runs."""
+    args, kw, error = _bad_influence_inputs()[case]
+    with pytest.raises(error):
+        wc_k.influence(*args, sigma=0.05, **kw)
+
+
 @pytest.mark.parametrize("ah,hc,cc,dtype,form", [
     (24, 64, 256, torch.bfloat16, "ws"), (4, 64, 256, torch.bfloat16, "ws"),
     (24, 64, 64, torch.bfloat16, "ws"),

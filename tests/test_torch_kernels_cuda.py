@@ -1627,6 +1627,113 @@ def test_influence_kernel(cuda, nq, ns, h, mode, out_dtype):
                                          out_dtype=out_dtype, reps=1))
 
 
+# the seven (stage, neighbour set) shapes of a device-influence pair
+# (Nq, Ns, H): the stage-0 same-level set, s0 -> s1, stage 1, s1 -> s2,
+# stage 2, s2 -> s3, stage 3
+INFLUENCE_SETS = [(20000, 20000, 24), (10000, 20000, 24), (10000, 10000, 32), (2500, 10000, 32),
+                  (2500, 2500, 36), (1024, 2500, 36), (1024, 1024, 38)]
+
+
+def _influence_inputs(cuda, nq, ns, h, seed, k=15):
+    """Points in a cube of 0.15 (the neighbours' offsets reach the kernel
+    points' 0.0625 radius, so most weights are neither 0 nor 1), local
+    neighbour rows (a quarter sentinels, the last 3 rows all sentinels) and
+    K kernel points."""
+    from se3et_tpu_torch.core import kernel_points as kp_lib
+
+    g = torch.Generator().manual_seed(seed)
+    s_points = (torch.rand((2, ns, 3), generator=g) * 0.15).to(cuda)
+    q_points = (torch.rand((2, nq, 3), generator=g) * 0.15).to(cuda)
+    nbr = _conv_neighbors(cuda, nq, ns, h, seed + 1)
+    kp = kp_lib.equivariant_kernel_points(0.0625, 15, 6, 4)[:k] if k <= 15 else \
+        torch.rand((k, 3), generator=g).numpy() * 0.1 - 0.05
+    return q_points, s_points, nbr, kp
+
+
+def _assert_tiles_ok(res):
+    _assert_ok(res)
+    assert res.form == "tiles" and res.bitwise, (res.shape, res.form, res.bitwise)
+
+
+@pytest.mark.parametrize("nq,ns,h", INFLUENCE_SETS)
+@pytest.mark.parametrize("mode", ["linear", "constant", "gaussian"])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_influence_tiles_kernel(cuda, nq, ns, h, mode, out_dtype):
+    """K15's tiles form at the seven sets of a pair: within tolerance of the
+    plain version, and both outputs bit for bit the first design's (and a
+    second call's)."""
+    q_points, s_points, nbr, kp = _influence_inputs(cuda, nq, ns, h, 18)
+    _assert_tiles_ok(selfcheck.check_influence(q_points, s_points, nbr, kp, 0.05, mode=mode,
+                                               out_dtype=out_dtype, reps=1, first=True))
+
+
+@pytest.mark.parametrize("nq,ns,h,k", [
+    (1003, 2000, 24, 15),   # Nq not a multiple of the 16-row tile
+    (5, 50, 24, 15),        # Nq below a tile: one partial tile over both clouds
+    (1003, 2000, 1, 15),    # H 1
+    (300, 2000, 64, 15),    # H at the form's limit: 1024 threads, 60 KB staged
+    (1003, 2000, 24, 1),    # K 1 and 16
+    (1003, 2000, 24, 16),
+    (97, 250, 5, 3),        # spans that end inside a 16-byte unit
+    (100, 1, 24, 15),       # Ns 1
+])
+@pytest.mark.parametrize("mode", ["linear", "constant", "gaussian"])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_influence_tiles_kernel_edges(cuda, nq, ns, h, k, mode, out_dtype):
+    """K15's tiles form at ragged shapes, bit for bit the first design's."""
+    q_points, s_points, nbr, kp = _influence_inputs(cuda, nq, ns, h, 19, k=k)
+    if ns == 1:  # every slot 0 or the sentinel 1
+        nbr = (nbr % 2).to(torch.int32)
+    _assert_tiles_ok(selfcheck.check_influence(q_points, s_points, nbr, kp, 0.05, mode=mode,
+                                               out_dtype=out_dtype, reps=1, first=True))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_influence_tiles_all_sentinel_rows_and_refusals(cuda, out_dtype):
+    """All-sentinel rows (and negative indices) give zero weights and sums
+    in both forms; the tiles form refuses H 65, which the first design
+    takes; no kernel takes K 17."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    q_points, s_points, nbr, kp = _influence_inputs(cuda, 1003, 2000, 24, 20)
+    nbr = torch.where(torch.arange(24, device=cuda) % 2 == 0, 2000, -1).expand(2, 1003, 24)
+    for form in ("tiles", "first"):
+        infl, inf_sum = wc.influence(q_points, s_points, nbr, torch.as_tensor(kp, device=cuda),
+                                     sigma=0.05, out_dtype=out_dtype, form=form)
+        assert not infl.any() and not inf_sum.any()
+        assert not _bits(infl).any() and not _bits(inf_sum).any()  # +0.0, not -0.0
+    q_points, s_points, nbr, kp = _influence_inputs(cuda, 97, 250, 65, 21)
+    assert wc.influence_form(65, 15, out_dtype) == "first"
+    _assert_ok(selfcheck.check_influence(q_points, s_points, nbr, kp, 0.05,
+                                         out_dtype=out_dtype, reps=1))
+    kpt = torch.as_tensor(kp, device=cuda)
+    with pytest.raises(ValueError, match="tiles form does not take"):
+        wc.influence(q_points, s_points, nbr, kpt, sigma=0.05, out_dtype=out_dtype,
+                     form="tiles")
+    with pytest.raises(ValueError, match="no K15 kernel"):
+        wc.influence(q_points, s_points, nbr[..., :24], torch.zeros((17, 3), device=cuda),
+                     sigma=0.05, out_dtype=out_dtype)
+
+
+def test_influence_plan_matches_the_kernel(cuda):
+    """The wrapper's plan (form, rows, threads, staging bytes) is the C entry
+    point's, at H 0-66 and K 0-17."""
+    import ctypes
+
+    from se3et_tpu_torch.ops.kernels import _build
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    fn = _build._library("influence").se3et_influence_plan
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    for h in range(67):
+        for k in range(18):
+            out = (ctypes.c_int * 3)()
+            form = fn(h, k, out)
+            assert ({1: "tiles", 0: "first"}[form], *out) == tuple(wc.influence_plan(h, k)), \
+                (h, k)
+
+
 # runs of masked keys inside key tiles (cloud, first key, end): inside one
 # tile, up to a tile's end, across a tile boundary, a single key
 FEMB_MASK_RUNS = ((0, 37, 45), (1, 100, 128), (0, 500, 532), (1, 70, 71))
