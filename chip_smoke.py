@@ -119,7 +119,18 @@ Phases, each of which raises (exit code != 0) on failure:
    peak memory of each) and served in turns, captured default / femb /
    femb / default, 8 pairs each with the host load before each turn; then
    ``se3et_tpu_torch.entry.entry()`` once, with a finite transform, printed
-   beside its largest matching score (7 K15 launches, all on its tiles form).
+   beside its largest matching score (7 K15 launches, all on its tiles form);
+8. the registry's test path: ``se3eti.3dmatch`` through ``run_test``'s
+   Tester (calibrated limits, the captured eval forward) on 4 synthetic
+   pairs, with every counter set to 0 just before and read just after and
+   an eager eval pair's counters held to ``SE3ETI_LAUNCHES``; every replayed
+   output and metric bit for bit against the eager eval forward; the conv
+   kernels K12, K13, K14, K1 and K2 against their plain versions at the
+   shapes this path gave them (se3eti's caps, the calibrated widths); the
+   same run at the registry's neighbour widths (``--no_calibrate``);
+   ``run_eval`` (lgr, svd) over the dumps, ``run_demo`` on
+   ``se3ete.3dmatch.evalrot``, and K5 at the self_eq layers' shape (AH =
+   24) without the SH term, on its ws form.
 
 Prints timings, then the card's name and power limit, a JSON line with the
 kernels, and as the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -231,6 +242,18 @@ SERVING_LAUNCHES = {**FLASH_LAUNCHES, **FUSED_CONV_LAUNCHES, "geometric_embeddin
                     "sinkhorn": 1}
 # pairs per turn when the eager and the captured forward are served in turns
 CAPTURED_TURN_PAIRS = 8
+# phase 8: the registry's test path on SE3ET-I, and the demo's experiment
+TEST_EXPERIMENT, DEMO_EXPERIMENT = "se3eti.3dmatch", "se3ete.3dmatch.evalrot"
+TEST_PAIRS = 4
+# launches per served se3eti.3dmatch pair: the backbone's as on se3ete's
+# default route, one embedding, three self_eq layers (K5 at AH = 24 without
+# the SH term, one launch over both clouds each), plain dense cross layers
+# (no K6 / K7), one Sinkhorn; host influence (no K15), no serve_femb
+SE3ETI_LAUNCHES = {**FUSED_CONV_LAUNCHES, "geometric_embedding": 1, "sinkhorn": 1,
+                   "rpe_self_attention": 3, "eq_attention_stats": 0, "eq_attention_apply": 0,
+                   "influence": 0, "rpe_self_attention_femb": 0}
+# eager warm-up forwards before capture_forward records the graph
+CAPTURE_WARMUP = 3
 
 
 def _card_line() -> str:
@@ -1106,6 +1129,256 @@ def _routes(cfg, pairs, bare_pairs, extent, dev, k5):
     return checks
 
 
+def _remove(path):
+    import shutil
+
+    if os.path.isdir(path):
+        shutil.rmtree(path)
+    elif os.path.exists(path):
+        os.remove(path)
+
+
+def _tester_split(what, pairs, inputs, served, dev, eager=None):
+    """The Tester's ms/pair split over the pairs twice: the copy-in of a
+    host pyramid, and the replay of a pair already on the card (copy into
+    the static buffers, replay, outputs cloned); with ``eager``, the eager
+    eval forward beside them."""
+    import torch
+
+    from se3et_tpu_torch.nn.model import pyramid_to_tensors
+
+    fns = {"copy-in": lambda p, td: pyramid_to_tensors(p, dev),
+           "replay": lambda p, td: served(td)}
+    if eager is not None:
+        fns["eager"] = lambda p, td: eager(td)
+    split = {k: [] for k in fns}
+    for _ in range(2):
+        for p, td in zip(pairs, inputs):
+            for k, fn in fns.items():
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                fn(p, td)
+                torch.cuda.synchronize()
+                split[k].append((time.perf_counter() - t1) * 1e3)
+    print(f"{what}: ms/pair over the {len(pairs)} pairs twice: " + "; ".join(
+        f"{k} median {statistics.median(v):.2f} (range {min(v):.2f}-{max(v):.2f})"
+        for k, v in split.items()), flush=True)
+
+
+def _test_path(dev):
+    """Phase 8: ``se3eti.3dmatch`` through the registry's test path at full
+    width: ``runner.prepare_test`` (calibrated limits, seeded weights, the
+    captured eval forward) and ``Tester.run`` over 4 synthetic pairs, as
+    ``run_test`` drives them, with every counter set to 0 just before and
+    read just after; an eager eval pair's counters against
+    ``SE3ETI_LAUNCHES``; every output and metric of the replays bit for bit
+    against the eager eval forward; the conv kernels at the shapes of pair
+    0 (:func:`_se3eti_conv_checks`); one more ``Tester.run`` at the
+    registry's neighbour widths (``--no_calibrate``), timed; ``run_eval``
+    (lgr, svd) over the dumps and ``run_demo`` on
+    ``se3ete.3dmatch.evalrot``; K5 at the self_eq layers' shape without the
+    SH term.  Returns {name: CheckResult}."""
+    import torch
+
+    from se3et_tpu_torch.engine.steps import make_forward
+    from se3et_tpu_torch.experiments import configs, runner
+    from se3et_tpu_torch.nn.model import pyramid_to_tensors
+    from se3et_tpu_torch.ops.kernels import rpe_attention, selfcheck
+
+    cfg = configs.make_cfg(TEST_EXPERIMENT)
+    # from no calibration cache and no dumps of an earlier run
+    for stale in ("neighbor_limits.json", "features"):
+        _remove(os.path.join(cfg.output_dir, stale))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    for w in selfcheck.WRAPPERS.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    tester, loader, benchmark = runner.prepare_test(cfg, ["--max_pairs", str(TEST_PAIRS)])
+    setup_s = time.perf_counter() - t0
+    pairs = []
+
+    def kept():
+        for data, meta in loader:
+            pairs.append(dict(data))
+            yield data, meta
+
+    summary = tester.run(kept(), benchmark=benchmark)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0 - setup_s
+    launches = {n: w.launches for n, w in selfcheck.WRAPPERS.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    with open(os.path.join(cfg.output_dir, "neighbor_limits.json")) as f:
+        limits = tuple(json.load(f))
+    served = tester.captured
+    sets = {k: v.shape[1:] for k, v in pairs[0].items()
+            if k.startswith(("neighbors_", "subsampling_"))} if pairs else {}
+    print(f"phase 8 {TEST_EXPERIMENT}: calibrated neighbor limits {limits}; (rows, H) of each "
+          f"neighbour set {sets}; set-up (calibration, weights, model) {setup_s:.1f} s, "
+          f"{len(pairs)} pairs served in {run_s:.1f} s", flush=True)
+    if len(pairs) != TEST_PAIRS or served is None:
+        raise RuntimeError(f"run_test served {len(pairs)} pairs, captured {served}")
+
+    # an eager eval pair's counters: the table the run is held to
+    eager = make_forward(tester.model, tester.eval_cfg)
+    inputs = [pyramid_to_tensors(p, dev) for p in pairs]
+    for w in selfcheck.WRAPPERS.values():
+        w.launches = 0
+    want = [eager(td) for td in inputs[:1]]
+    torch.cuda.synchronize()
+    per_pair = {n: w.launches for n, w in selfcheck.WRAPPERS.items()}
+    print(f"phase 8: one eager eval pair launched {dict((n, c) for n, c in per_pair.items() if c)}",
+          flush=True)
+    table = dict.fromkeys(selfcheck.WRAPPERS, 0)
+    table.update(SE3ETI_LAUNCHES)
+    if per_pair != table:
+        raise RuntimeError(f"an eager se3eti pair launched {per_pair}, expected {table}")
+    # the run: the warm-up forwards and the capture count, replays do not
+    runs = CAPTURE_WARMUP + 1
+    if served.launches != table or launches != {n: runs * c for n, c in table.items()}:
+        raise RuntimeError(f"run_test launched {launches}, recorded {served.launches} at "
+                           f"capture; expected {table} a forward over {runs} forwards")
+    # the self_eq layers' shape takes K5's ws form (chosen by shape alone)
+    m = tester.model_cfg
+    form = rpe_attention.rpe_attention_form(m.kanchor * m.num_heads, m.gt_hidden_dim // m.num_heads,
+                                            m.gt_hidden_dim, torch.bfloat16)
+    if form != "ws":
+        raise RuntimeError(f"K5 at the se3eti self_eq shape takes its {form!r} form, not 'ws'")
+    print(f"phase 8: run_test launched {runs} x the table ({CAPTURE_WARMUP} warm-up forwards "
+          f"and the capture; replays count nothing), K5 on its ws form", flush=True)
+
+    # every output and metric of the replays bit for bit against eager
+    want += [eager(td) for td in inputs[1:]]
+    for i, td in enumerate(inputs):
+        got = served(td)
+        _require_bitwise(f"captured eval forward, pair {i}", got, want[i])
+        _require_bitwise(f"captured eval metrics, pair {i}", got["metrics"], want[i]["metrics"])
+        bad = [k for k, v in got["metrics"].items() if not bool(torch.isfinite(v))]
+        if bad:
+            raise RuntimeError(f"pair {i}: metrics not finite: {bad}")
+    torch.cuda.synchronize()
+    print(f"phase 8: {TEST_PAIRS} pairs replayed, every output and metric equal to the eager "
+          f"eval forward bit for bit, metrics finite; Tester "
+          f"{summary['seconds_per_pair'] * 1e3:.2f} ms/pair (copy-in + replay + synchronise, "
+          f"first pair left out); capture {served.capture_ms:.1f} ms; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB ({(peak - resident) / 2**30:.2f} above the resident); "
+          f"metrics {dict((k, round(v, 4)) for k, v in summary.items())}", flush=True)
+    _tester_split("phase 8", pairs, inputs, served, dev, eager)
+    del want, eager
+    checks = _se3eti_conv_checks(inputs[0], launches, runs)
+
+    # the same run at the registry's neighbour widths (no calibration): the
+    # synthetic pairs' calibrated widths are far below them
+    tester_u, loader_u, _ = runner.prepare_test(
+        cfg, ["--max_pairs", str(TEST_PAIRS), "--no_calibrate"])
+    sets_u, pairs_u = {}, []
+
+    def kept_u():
+        for data, meta in loader_u:
+            sets_u.update((k, v.shape[1:]) for k, v in data.items()
+                          if k.startswith(("neighbors_", "subsampling_")))
+            pairs_u.append(dict(data))
+            yield data, meta
+
+    summary_u = tester_u.run(kept_u(), save_features=False, benchmark=benchmark)
+    print(f"phase 8 at the registry's widths {sets_u} (--no_calibrate): "
+          f"Tester {summary_u['seconds_per_pair'] * 1e3:.2f} ms/pair (copy-in + replay + "
+          f"synchronise, first pair left out); metrics "
+          f"{dict((k, round(v, 4)) for k, v in summary_u.items())}", flush=True)
+    if not all(math.isfinite(v) for v in summary_u.values()):
+        raise RuntimeError(f"run_test --no_calibrate: metrics not finite: {summary_u}")
+    _tester_split("phase 8 at the registry's widths", pairs_u,
+                  [pyramid_to_tensors(p, dev) for p in pairs_u], tester_u.captured, dev)
+    del tester_u, pairs_u
+
+    for method in ("lgr", "svd"):
+        result = runner.run_eval(cfg, ["--method", method])
+        print(f"phase 8: run_eval --method {method} overall "
+              f"{dict((k, round(v, 4)) for k, v in result['overall'].items())}", flush=True)
+        if not all(math.isfinite(v) for v in result["overall"].values()):
+            raise RuntimeError(f"run_eval {method}: metrics not finite")
+    t0 = time.perf_counter()
+    errors = runner.run_demo(configs.make_cfg(DEMO_EXPERIMENT), [])
+    print(f"phase 8: run_demo {DEMO_EXPERIMENT} (random weights: the values show the path "
+          f"runs) in {time.perf_counter() - t0:.1f} s: " + "; ".join(
+              f"{tag} RRE {rre:.3f} deg, RTE {rte:.4f} m" for tag, (rre, rte) in errors.items()),
+          flush=True)
+    if set(errors) != {"original", "rotated src"} or not all(
+            math.isfinite(v) for pair in errors.values() for v in pair):
+        raise RuntimeError(f"run_demo: {errors}")
+
+    # K5 at the self_eq layers' shape without the SH term (pair 0), and
+    # with it (se3ete's self_eq layers) on the same points: replayed from a
+    # CUDA graph beside the profiler's device time, which runs low late in
+    # a process
+    k5 = [selfcheck.check_rpe_attention(
+        inputs[0]["points_3"], inputs[0]["masks_3"], m.kanchor * m.num_heads,
+        c=m.gt_hidden_dim // m.num_heads, cc=m.gt_hidden_dim, with_sh=with_sh, reps=10,
+        device_kernel="rpe_attention_ws_kernel", replay=True) for with_sh in (False, True)]
+    res = k5[0]
+    res.launches = launches["rpe_self_attention"]
+    _print_check(res)
+    for r in k5:
+        dev_ms = "not measured" if r.device_ms is None else f"{r.device_ms:.4f}"
+        print(f"K5 {r.shape}: events {r.ms:.4f} ms, replayed {r.replay_ms:.4f} ms, profiler "
+              f"device {dev_ms} ms, bound {r.bound_ms:.4f} ms ({r.bound_by}), "
+              f"{r.bound_ms / r.replay_ms:.1%} of it replayed", flush=True)
+    print(f"K5 per served se3eti pair (3 launches): replayed {3 * res.replay_ms:.4f} ms, bound "
+          f"{3 * res.bound_ms:.4f} ms", flush=True)
+    if not all(r.ok for r in k5):
+        raise RuntimeError("K5 at AH = 24 disagrees with its plain version")
+    checks["rpe_self_attention (se3eti self_eq, no SH)"] = res
+    return checks
+
+
+# the conv kernels on the se3eti path: (name, what, neighbour set, source
+# stage, A*C of the conv's input, A*C of its output (K12, K13), of the
+# skip payload (K13, K14, K2), launches a forward), at the widths of phase
+# 3's checks at se3ete's shapes
+SE3ETI_CONV_SHAPES = (
+    ("gather_wf_mm", "stage-0 same", "neighbors_0", 0, 6 * 32, 6 * 32, 0, 1),
+    ("gather_wf_mm", "stage-1 same", "neighbors_1", 1, 6 * 64, 6 * 64, 0, 2),
+    ("gather_wf_max_mm", "s0 -> s1", "subsampling_0", 0, 6 * 32, 6 * 32, 6 * 128, 1),
+    ("gather_wf_max", "s1 -> s2", "subsampling_1", 1, 6 * 64, 0, 6 * 256, 1),
+    ("gather_wf", "stage-2 same", "neighbors_2", 2, 6 * 128, 0, 0, 2),
+    ("gather_wf", "s2 -> s3", "subsampling_2", 2, 6 * 128, 0, 0, 1),
+    ("gather_wf", "stage-3 same", "neighbors_3", 3, 6 * 256, 0, 0, 2),
+    ("neighbor_max", "s2 -> s3 skip", "subsampling_2", 2, 0, 0, 6 * 512, 1),
+)
+
+
+def _se3eti_conv_checks(p0, launches, runs):
+    """Phase 8's conv kernels (K12, K13, K14, K1, K2) against their plain
+    versions at the shapes the se3eti path gave them: pair 0's neighbour
+    sets at se3eti's caps and calibrated widths.  Each row's launches are
+    ``runs`` x its launches a forward; their sum per kernel is the run's
+    counter.  Returns {name: CheckResult}; raises on any disagreement."""
+    from se3et_tpu_torch.ops.kernels import selfcheck
+
+    ns = [p0[f"points_{i}"].shape[1] for i in range(4)]
+    checks, per_kernel = {}, {}
+    for name, what, nset, st, ac, ac_out, ac2, n in SE3ETI_CONV_SHAPES:
+        nbr = p0[nset]
+        if name == "gather_wf":
+            res = selfcheck.check_gather_wf(nbr, ns[st], ac)
+        elif name == "neighbor_max":
+            res = selfcheck.check_neighbor_max(nbr, ns[st], ac2)
+        else:
+            res = selfcheck.check_fused_conv(name, nbr, ns[st], ac, ac_out=ac_out, ac2=ac2)
+        res.launches = runs * n
+        per_kernel[name] = per_kernel.get(name, 0) + res.launches
+        _print_check(res)
+        checks[f"{name} (se3eti {what}, H {nbr.shape[-1]})"] = res
+    if any(launches[name] != c for name, c in per_kernel.items()):
+        raise RuntimeError(f"the run launched {launches}, its shapes {per_kernel}")
+    bad = [k for k, r in checks.items() if not r.ok]
+    if bad:
+        raise RuntimeError(f"kernels disagree with their plain versions at se3eti's shapes: {bad}")
+    return checks
+
+
 def main() -> int:
     import torch
 
@@ -1137,11 +1410,11 @@ def main() -> int:
     # 2. host pyramids, without influence (the device-influence route of
     # phase 7) and with the host's influence added (every other phase)
     cfg = serving_config(make_cfg("se3ete.3dmatch"))
-    extent = synthetic_extent(cfg.dataset)
+    extent = synthetic_extent(cfg.data.dataset)
     pairs, bare_pairs, pyramid_ms, influence_ms = [], [], [], []
     for i in range(NUM_PAIRS):
         t0 = time.perf_counter()
-        bare_pairs.append(synthetic_pair(i, cfg.pipeline, None, cfg.point_limit, extent,
+        bare_pairs.append(synthetic_pair(i, cfg.pipeline, None, cfg.data.point_limit, extent,
                                          seed=cfg.seed))
         t1 = time.perf_counter()
         pairs.append(precompute_influence(dict(bare_pairs[-1]), cfg.model))
@@ -1401,6 +1674,10 @@ def main() -> int:
     # 7. the device-influence and femb routes, and entry()
     checks.update(_routes(cfg, pairs, bare_pairs, extent, dev,
                           [res for _, res, _ in k5_serving]))
+
+    # 8. the registry's test path: se3eti.3dmatch through run_test's Tester,
+    # run_eval, run_demo
+    checks.update(_test_path(dev))
 
     kernels = []
     for name, res in checks.items():

@@ -107,8 +107,8 @@ def _pair_subsampling():
     from se3et_tpu_torch.experiments.configs import make_cfg, serving_config, synthetic_extent
 
     cfg = serving_config(make_cfg("se3ete.3dmatch"))
-    pair = synthetic_pair(0, cfg.pipeline, None, cfg.point_limit,
-                          synthetic_extent(cfg.dataset), seed=cfg.seed)
+    pair = synthetic_pair(0, cfg.pipeline, None, cfg.data.point_limit,
+                          synthetic_extent(cfg.data.dataset), seed=cfg.seed)
     return torch.as_tensor(pair["subsampling_0"]).to(torch.int32)
 
 

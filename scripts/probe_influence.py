@@ -140,8 +140,8 @@ def _sets():
 
     cfg = serving_config(make_cfg("se3ete.3dmatch"))
     m = cfg.model
-    p = synthetic_pair(0, cfg.pipeline, None, cfg.point_limit, synthetic_extent(cfg.dataset),
-                       seed=cfg.seed)
+    p = synthetic_pair(0, cfg.pipeline, None, cfg.data.point_limit,
+                       synthetic_extent(cfg.data.dataset), seed=cfg.seed)
     dev = torch.device("cuda")
     t = {k: torch.from_numpy(v).to(dev) for k, v in p.items() if k.startswith(
         ("points_", "neighbors_", "subsampling_"))}

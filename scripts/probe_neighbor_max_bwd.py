@@ -152,8 +152,8 @@ def _pair0():
     from se3et_tpu_torch.experiments.configs import make_cfg, serving_config, synthetic_extent
 
     cfg = serving_config(make_cfg("se3ete.3dmatch"))
-    return synthetic_pair(0, cfg.pipeline, None, cfg.point_limit,
-                          synthetic_extent(cfg.dataset), seed=cfg.seed)
+    return synthetic_pair(0, cfg.pipeline, None, cfg.data.point_limit,
+                          synthetic_extent(cfg.data.dataset), seed=cfg.seed)
 
 
 def _shape(fns, what, nbr, ns, ac, dev, g, totals):

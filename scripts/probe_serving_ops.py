@@ -69,8 +69,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip(), flush=True)
     cfg = serving_config(make_cfg("se3ete.3dmatch"))
-    pair = synthetic_pair(0, cfg.pipeline, None, cfg.point_limit,
-                          synthetic_extent(cfg.dataset), seed=cfg.seed)
+    pair = synthetic_pair(0, cfg.pipeline, None, cfg.data.point_limit,
+                          synthetic_extent(cfg.data.dataset), seed=cfg.seed)
     data = pyramid_to_tensors(precompute_influence(pair, cfg.model), "cuda")
     forward = make_forward(SE3ETModel(cfg.model, seed=cfg.seed).eval())
     for _ in range(2):

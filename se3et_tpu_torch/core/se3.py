@@ -89,3 +89,15 @@ def weighted_procrustes(src_points: torch.Tensor, ref_points: torch.Tensor,
     r = _horn_rotation(h)
     t = ref_centroid[..., 0, :] - (r @ src_centroid[..., 0, :, None])[..., 0]
     return compose_transform(r, t)
+
+
+def isotropic_transform_error(gt_transform: torch.Tensor, est_transform: torch.Tensor):
+    """(RRE in degrees, RTE in metres) of (..., 4, 4) transforms; the cosine
+    is clipped to [-1, 1] before ``arccos``.  No value leaves the device."""
+    gt_r, est_r = gt_transform[..., :3, :3], est_transform[..., :3, :3]
+    gt_t, est_t = gt_transform[..., :3, 3], est_transform[..., :3, 3]
+    trace = (gt_r * est_r).sum(dim=(-2, -1))
+    cos = torch.clamp(0.5 * (trace - 1.0), -1.0, 1.0)
+    rre = torch.rad2deg(torch.arccos(cos))
+    rte = torch.linalg.norm(gt_t - est_t, dim=-1)
+    return rre, rte

@@ -461,3 +461,35 @@ def build_pair_pyramid(
     out["features"] = feats
     out["transform"] = np.asarray(transform, np.float32)
     return out
+
+
+def calibrate_neighbor_limits(
+    sample_pairs,
+    cfg: PyramidConfig,
+    keep_ratio: float = 0.8,
+    sample_threshold: int = 2000,
+) -> tuple[int, ...]:
+    """Pick per-stage neighbor widths covering ``keep_ratio`` of points.
+
+    Port of ``calibrate_neighbors_stack_mode`` (``utils/data.py:212-252``):
+    run the pyramid over samples with a generous width, histogram neighbor
+    counts, choose the width whose CDF reaches ``keep_ratio``.
+
+    Args:
+        sample_pairs: iterable of (ref_points, src_points) numpy arrays.
+    """
+    hist_n = int(np.ceil(4.0 / 3.0 * np.pi * (cfg.search_radius / cfg.voxel_size + 1) ** 3))
+    wide = dataclasses.replace(cfg, neighbor_limits=(hist_n,) * cfg.num_stages)
+    hists = np.zeros((cfg.num_stages, hist_n), dtype=np.int64)
+    for ref_points, src_points in sample_pairs:
+        for pts in (ref_points, src_points):
+            stage_points, _, neighbors, _, _ = build_cloud_pyramid(pts, wide)
+            for s in range(cfg.num_stages):
+                sentinel = stage_points[s].shape[0]
+                counts = np.sum(neighbors[s] < sentinel, axis=1)
+                hists[s] += np.bincount(counts, minlength=hist_n)[:hist_n]
+        if hists.sum(axis=1).min() > sample_threshold:
+            break
+    cum = np.cumsum(hists.T, axis=0)
+    limits = np.sum(cum < keep_ratio * cum[-1], axis=0)
+    return tuple(int(x) for x in np.maximum(limits, 1))

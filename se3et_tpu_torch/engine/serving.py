@@ -13,6 +13,11 @@ serves every pair of a configuration.
     served = capture_forward(model, pyramid_to_tensors(pair0, "cuda"))
     out = served(pyramid_to_tensors(pair, "cuda"))   # fresh tensors
 
+With an ``eval_cfg`` (:class:`~se3et_tpu_torch.nn.loss.EvalConfig`) the
+graph records ``make_forward(model, eval_cfg)``: the forward with the
+ground-truth overlaps and the in-graph metrics, which the replay returns
+under ``out["metrics"]`` with no read-back to the host.
+
 The graph runs on the card only: there is no CPU or eager fallback, and a
 capture that fails raises.
 """
@@ -69,14 +74,22 @@ class CapturedForward:
         for key, buf in self.static_inputs.items():
             buf.copy_(data[key])
         self.graph.replay()
-        return {k: v.clone() if torch.is_tensor(v) else v
-                for k, v in self.static_outputs.items()}
+        return _clone(self.static_outputs)
 
 
-def capture_forward(model, example: dict, *, warmup: int = 3) -> CapturedForward:
-    """Capture ``make_forward(model)`` on static copies of ``example`` (the
-    pair dict of ``pyramid_to_tensors``) into a CUDA graph with its own
-    memory pool.
+def _clone(out):
+    if torch.is_tensor(out):
+        return out.clone()
+    if isinstance(out, dict):
+        return {k: _clone(v) for k, v in out.items()}
+    return out
+
+
+def capture_forward(model, example: dict, eval_cfg=None, *,
+                    warmup: int = 3) -> CapturedForward:
+    """Capture ``make_forward(model, eval_cfg)`` on static copies of
+    ``example`` (the pair dict of ``pyramid_to_tensors``) into a CUDA graph
+    with its own memory pool.
 
     ``warmup`` eager forwards run first on a side stream, as PyTorch's
     CUDA-graph recipe asks: they build every kernel library, set every
@@ -86,7 +99,7 @@ def capture_forward(model, example: dict, *, warmup: int = 3) -> CapturedForward
     if device.type != "cuda":
         raise RuntimeError(f"capture_forward: the model is on {device}; a CUDA graph "
                            "captures a model on a CUDA device")
-    forward = make_forward(model)
+    forward = make_forward(model, eval_cfg)
     with torch.cuda.device(device):
         static_inputs = {k: v.to(device, copy=True) for k, v in example.items()}
         side = torch.cuda.Stream(device)

@@ -54,14 +54,18 @@ def make_forward(model, eval_cfg=None):
     """``forward(data) -> out``: the model's serving forward with the
     registration (``train=False, with_registration=True``), the function the
     JAX package jits and :func:`se3et_tpu_torch.engine.serving.capture_forward`
-    captures.  The in-graph evaluation metrics (JAX ``nn/loss.py``
-    ``evaluate``, added under ``out["metrics"]`` when ``eval_cfg`` is given)
-    are not ported: a non-None ``eval_cfg`` raises."""
-    if eval_cfg is not None:
-        raise NotImplementedError("make_forward: eval_cfg needs loss.evaluate, which is not "
-                                  "ported")
-
-    def forward(data):
-        return model(data, train=False, with_registration=True)
+    captures.  With an ``eval_cfg`` it also computes the ground-truth
+    overlaps (``with_gt=True``, as JAX's ``model.apply`` does by default)
+    and adds the in-graph metrics of :func:`~se3et_tpu_torch.nn.loss.evaluate`
+    under ``out["metrics"]``; without one the serving forward computes no
+    ground truth."""
+    if eval_cfg is None:
+        def forward(data):
+            return model(data, train=False, with_registration=True)
+    else:
+        def forward(data):
+            out = model(data, train=False, with_registration=True, with_gt=True)
+            out["metrics"] = loss_lib.evaluate(out, data, eval_cfg)
+            return out
 
     return forward

@@ -46,7 +46,7 @@ def entry(device="cuda"):
     # registration's weights infinite and its transform meaningless, in JAX
     # too (tests/test_torch_entry_seed0.py)
     model = SE3ETModel(cfg.model, seed=cfg.seed, device=device).eval()
-    pair = synthetic_pair(0, cfg.pipeline, None, ENTRY_POINTS, synthetic_extent(cfg.dataset))
+    pair = synthetic_pair(0, cfg.pipeline, None, ENTRY_POINTS, synthetic_extent(cfg.data.dataset))
     data = pyramid_to_tensors(pair, device)
 
     def fn(model, data):

@@ -1,10 +1,12 @@
-r"""Experiment configuration of the PyTorch port.
+r"""Experiment registry of the PyTorch port.
 
-A torch-side copy of the JAX registry's ``se3ete.3dmatch`` entry
+A torch-side copy of the JAX registry's 3DMatch SE3ET entries
 (``se3et_tpu/experiments/configs.py``), which cannot be imported where JAX
-is absent (it pulls in flax and optax).  ``PyramidConfig`` is the port's
-copy of the numpy pipeline's class.  A test holds these values field-for-field
-equal to the JAX ``make_cfg('se3ete.3dmatch')``.
+is absent (it pulls in flax and optax): ``se3ete.3dmatch``,
+``se3ete.3dmatch.evalrot``, ``se3eti.3dmatch`` and
+``se3eti.3dmatch.evalrot``.  ``PyramidConfig`` is the port's copy of the
+numpy pipeline's class.  A test holds every entry field-for-field equal to
+the JAX ``make_cfg`` of the same name.
 
 :func:`serving_config` applies the setting the port's serving slice runs
 with (exact neighbour indexing); attention takes the JAX default, the
@@ -15,30 +17,60 @@ flash kernels.  The training step runs on the same cut, its routes
 from __future__ import annotations
 
 import dataclasses
+import os.path as osp
+from typing import Optional
 
 from se3et_tpu_torch.data.pipeline import PyramidConfig
 from se3et_tpu_torch.engine.trainer import OptimConfig
 from se3et_tpu_torch.nn.epn import EPNConfig
-from se3et_tpu_torch.nn.loss import LossConfig
+from se3et_tpu_torch.nn.loss import EvalConfig, LossConfig
 from se3et_tpu_torch.nn.model import ModelConfig
+
+REPO_ROOT = osp.dirname(osp.dirname(osp.dirname(osp.abspath(__file__))))
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Field-for-field the JAX ``DataConfig``."""
+
+    dataset: str = "threedmatch"  # 'threedmatch' | 'kitti' | 'modelnet' | 'synthetic'
+    dataset_root: str = osp.join(REPO_ROOT, "data", "3DMatch")
+    train_subset: str = "train"
+    val_subset: str = "val"
+    benchmarks: tuple[str, ...] = ("3DMatch", "3DLoMatch")
+    point_limit: Optional[int] = 20000
+    test_point_limit: Optional[int] = None
+    batch_size: int = 1
+    use_augmentation: bool = True
+    augmentation_noise: float = 0.005
+    augmentation_rotation: float = 1.0
+    rotated: bool = False
+    z_rotated: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     name: str
     seed: int
-    dataset: str
-    point_limit: int
+    data: DataConfig
     pipeline: PyramidConfig
     model: ModelConfig
-    loss: LossConfig = LossConfig()
-    optim: OptimConfig = OptimConfig()
+    loss: LossConfig
+    eval: EvalConfig
+    optim: OptimConfig
+
+    @property
+    def output_dir(self) -> str:
+        """``output/torch/<name>``: the JAX package writes its snapshots and
+        dumps under ``output/<name>``, and each package keeps its own."""
+        return osp.join(REPO_ROOT, "output", "torch", self.name)
 
 
 SE3ET_E_BLOCKS = (
     "self_eq", "cross_a_soft", "self_eq", "cross_r_soft",
     "self", "cross", "self", "cross", "self", "cross",
 )
+SE3ET_I_BLOCKS = ("self_eq", "cross", "self_eq", "cross", "self_eq", "cross")
 
 
 def _threedmatch_pipeline(point_cap: int) -> PyramidConfig:
@@ -70,8 +102,13 @@ def _threedmatch_pipeline(point_cap: int) -> PyramidConfig:
     )
 
 
-def _se3ete_3dmatch() -> ExperimentConfig:
-    point_limit = 20000
+def _se3et_3dmatch(name: str, blocks, point_limit: int, n_level_equiv: int = 0,
+                   attn_r_positive: str = "sq",
+                   attn_r_positive_rot_supervise: str = "sigmoid",
+                   rotated: bool = False) -> ExperimentConfig:
+    """The JAX registry's ``_se3et_3dmatch`` at its full width (``init_dim``
+    64, ``hidden`` 256, ``group_norm`` 32, exact steerability), which every
+    entry of this registry takes."""
     model = ModelConfig(
         compute_dtype="bfloat16",
         backbone="e2pn",
@@ -88,13 +125,13 @@ def _se3ete_3dmatch() -> ExperimentConfig:
         gt_hidden_dim=256,
         gt_output_dim=256,
         num_heads=4,
-        blocks=SE3ET_E_BLOCKS,
+        blocks=tuple(blocks),
         sigma_d=0.2,
         sigma_a=15.0,
         angle_k=3,
-        n_level_equiv=2,
-        attn_r_positive="sq",
-        attn_r_positive_rot_supervise="sigmoid",
+        n_level_equiv=n_level_equiv,
+        attn_r_positive=attn_r_positive,
+        attn_r_positive_rot_supervise=attn_r_positive_rot_supervise,
         ground_truth_matching_radius=0.05,
         num_points_in_patch=64,
         num_sinkhorn_iterations=100,
@@ -109,18 +146,36 @@ def _se3ete_3dmatch() -> ExperimentConfig:
         num_refinement_steps=5,
     )
     return ExperimentConfig(
-        name="se3ete.3dmatch", seed=7351, dataset="threedmatch",
-        point_limit=point_limit, pipeline=_threedmatch_pipeline(min(point_limit, 24576)),
+        name=name, seed=7351,
+        data=DataConfig(dataset="threedmatch", point_limit=point_limit, rotated=rotated),
+        pipeline=_threedmatch_pipeline(min(point_limit, 24576)),
         model=model,
         loss=LossConfig(positive_margin=0.1, negative_margin=1.4, positive_optimal=0.1,
                         negative_optimal=1.4, log_scale=24.0, positive_overlap=0.1,
                         fine_positive_radius=0.05, kanchor=6),
+        eval=EvalConfig(acceptance_overlap=0.0, acceptance_radius=0.1, rmse_threshold=0.2,
+                        rre_threshold=15.0, rte_threshold=0.3),
         optim=OptimConfig(lr=1e-4, lr_decay=0.95, lr_decay_steps=1, weight_decay=1e-6,
                           max_epoch=40),
     )
 
 
-EXPERIMENTS = {"se3ete.3dmatch": _se3ete_3dmatch}
+# SE3ET-I: no equivariant levels (n_level_equiv 0), so its self_eq layers
+# carry no SH term and a plain cross layer follows each; the rotation
+# supervision's positive() mode is set but unread while supervise_rotation
+# is off, in both packages
+_SE3ETI = dict(attn_r_positive="softplus", attn_r_positive_rot_supervise="minus")
+
+EXPERIMENTS = {
+    "se3ete.3dmatch": lambda: _se3et_3dmatch(
+        "se3ete.3dmatch", SE3ET_E_BLOCKS, 20000, n_level_equiv=2),
+    "se3ete.3dmatch.evalrot": lambda: _se3et_3dmatch(
+        "se3ete.3dmatch.evalrot", SE3ET_E_BLOCKS, 20000, n_level_equiv=2, rotated=True),
+    "se3eti.3dmatch": lambda: _se3et_3dmatch(
+        "se3eti.3dmatch", SE3ET_I_BLOCKS, 10000, **_SE3ETI),
+    "se3eti.3dmatch.evalrot": lambda: _se3et_3dmatch(
+        "se3eti.3dmatch.evalrot", SE3ET_I_BLOCKS, 10000, rotated=True, **_SE3ETI),
+}
 
 
 def make_cfg(name: str) -> ExperimentConfig:

@@ -6,6 +6,10 @@ matrix).
 
 The rotation-matching loss waits with ``supervise_rotation``, which the
 port does not run; :func:`overall_loss` refuses it.
+
+:func:`evaluate` is the in-graph evaluator of the serving forward (PIR,
+IR, RRE, RTE, RMSE and RR), made of tensor operations only, so that it runs
+inside the captured serving graph.
 """
 
 from __future__ import annotations
@@ -106,3 +110,60 @@ def overall_loss(output, data, cfg: LossConfig):
     f_loss = fine_matching_loss(output, data["transform"], cfg)
     total = cfg.weight_coarse_loss * c_loss + cfg.weight_fine_loss * f_loss
     return total, {"c_loss": c_loss, "f_loss": f_loss, "loss": total}
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    """Field-for-field the JAX ``EvalConfig``; the ``ransac_*`` fields are
+    the offline evaluator's ``--method ransac`` settings."""
+
+    acceptance_overlap: float = 0.0
+    acceptance_radius: float = 0.1
+    rmse_threshold: float = 0.2
+    rre_threshold: float = 15.0
+    rte_threshold: float = 0.3
+    kitti_registration: bool = False  # RR = (RRE < rre_threshold) & (RTE < rte_threshold)
+    ransac_distance_threshold: float = 0.05
+    ransac_num_points: int = 3
+    ransac_num_iterations: int = 50000
+
+
+def evaluate(output, data, cfg: EvalConfig):
+    """{"PIR", "IR", "RRE", "RTE", "RMSE", "RR"} as 0-d float32 tensors on
+    the outputs' device, from a serving output that carries
+    ``gt_overlap_mat`` (``with_gt=True``).
+
+    PIR: the share of valid coarse correspondences whose ground-truth
+    overlap exceeds ``acceptance_overlap``; IR: the share of valid fine
+    correspondences within ``acceptance_radius`` under the ground-truth
+    transform; RMSE: the mean displacement of the valid source points
+    under ``inv(gt) @ est``; RR: ``RMSE < rmse_threshold``, or with
+    ``kitti_registration`` ``RRE < rre_threshold and RTE < rte_threshold``.
+    Every threshold is a tensor comparison: nothing is read back to the
+    host."""
+    transform = data["transform"]
+    metrics = {}
+    gt_map = output["gt_overlap_mat"] > cfg.acceptance_overlap
+    valid = output["node_corr_valid"]
+    hits = gt_map[output["ref_node_corr_indices"].long(),
+                  output["src_node_corr_indices"].long()] & valid
+    metrics["PIR"] = hits.sum() / valid.sum().clamp_min(1)
+
+    src_corr = se3.apply_transform(output["src_corr_points"], transform)
+    cd = torch.linalg.norm(output["ref_corr_points"] - src_corr, dim=1)
+    cv = output["corr_valid"]
+    metrics["IR"] = ((cd < cfg.acceptance_radius) & cv).sum() / cv.sum().clamp_min(1)
+
+    est = output["estimated_transform"]
+    rre, rte = se3.isotropic_transform_error(transform, est)
+    metrics["RRE"], metrics["RTE"] = rre, rte
+
+    src_points, src_masks = data["points_0"][1], data["masks_0"][1]
+    moved = se3.apply_transform(src_points, se3.inverse_transform(transform) @ est)
+    err = torch.linalg.norm(moved - src_points, dim=1)
+    metrics["RMSE"] = (err * src_masks).sum() / src_masks.sum().clamp_min(1)
+    if cfg.kitti_registration:
+        metrics["RR"] = ((rre < cfg.rre_threshold) & (rte < cfg.rte_threshold)).float()
+    else:
+        metrics["RR"] = (metrics["RMSE"] < cfg.rmse_threshold).float()
+    return metrics

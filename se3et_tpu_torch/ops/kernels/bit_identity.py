@@ -345,8 +345,8 @@ def _train_step_ms(steps: int):
 
     cfg = serving_config(make_cfg("se3ete.3dmatch"))
     pair = precompute_influence(
-        synthetic_pair(0, cfg.pipeline, None, cfg.point_limit, synthetic_extent(cfg.dataset),
-                       seed=cfg.seed), cfg.model)
+        synthetic_pair(0, cfg.pipeline, None, cfg.data.point_limit,
+                       synthetic_extent(cfg.data.dataset), seed=cfg.seed), cfg.model)
     dev = torch.device("cuda", 0)
 
     def fresh():

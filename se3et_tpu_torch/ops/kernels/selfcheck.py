@@ -125,8 +125,8 @@ class CheckResult:
     form: Optional[str] = None
     bitwise: Optional[bool] = None
     reread: Optional[float] = None
-    # K15: per call replayed from a CUDA graph (selfcheck.replay_ms), the
-    # form and its first design
+    # K15 and K5: per call replayed from a CUDA graph (selfcheck.replay_ms),
+    # the form and (K15) its first design
     replay_ms: Optional[float] = None
     first_replay_ms: Optional[float] = None
     # K8's tiles form on the card: its tile plan's build from the reverse
@@ -445,13 +445,16 @@ def check_sinkhorn(b=256, m=65, n=65, iters=100, device="cuda", reps=5, device_k
 
 
 def check_rpe_attention(points, masks, ah, c=64, cc=256, with_sh=True,
-                        dtype=torch.bfloat16, seed=4, reps=3, device_kernel=None):
+                        dtype=torch.bfloat16, seed=4, reps=3, device_kernel=None,
+                        replay=False):
     """K5 on the coarse points (B, N, 3) and key masks (B, N): random q, k,
     v (B, AH, N, c), qp (B, N, AH, C), emb (B, N, N, C) in ``dtype`` and,
     with ``with_sh``, qw (B, 3, AH, N).  Tolerance on valid query rows
     1e-2 * max|out| in bf16 (p rounded to bf16 at other running maxima,
     float32 sums in another order) and 1e-4 * max|out| in float32.  With
-    ``device_kernel``, also that kernel's device time per call."""
+    ``device_kernel``, also that kernel's device time per call; with
+    ``replay``, the call's time replayed from a CUDA graph
+    (:func:`replay_ms`)."""
     g = torch.Generator().manual_seed(seed)
     dev = points.device
     b, n, _ = points.shape
@@ -475,6 +478,8 @@ def check_rpe_attention(points, masks, ah, c=64, cc=256, with_sh=True,
         lambda w: tol * float(w[rows].abs().max()), reps, mask=rows)
     if device_kernel is not None:
         res.device_ms = device_ms(kernel_fn, device_kernel)
+    if replay:
+        res.replay_ms = replay_ms(kernel_fn)
     nkeys = int(masks.sum())  # valid keys of the B clouds
     ops = 2.0 * ah * n * nkeys * (2 * c + cc) + (8.0 * ah * n * nkeys if with_sh else 0.0)
     nbytes = _nbytes(q, k, v, qp, emb, masks) + b * ah * n * c * 4

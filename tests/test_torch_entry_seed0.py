@@ -95,7 +95,7 @@ def _capture():
 
     torch.set_num_threads(1)  # float32 sums in one order
     cfg = entry_config()
-    pair = synthetic_pair(0, cfg.pipeline, None, ENTRY_POINTS, synthetic_extent(cfg.dataset))
+    pair = synthetic_pair(0, cfg.pipeline, None, ENTRY_POINTS, synthetic_extent(cfg.data.dataset))
     model = SE3ETModel(cfg.model, seed=0, device="cpu").eval()
     with torch.no_grad():
         out = model(pyramid_to_tensors(pair, "cpu"), with_registration=True, with_gt=True)

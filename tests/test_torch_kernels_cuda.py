@@ -110,8 +110,8 @@ def pair0():
     from se3et_tpu_torch.experiments.configs import make_cfg, serving_config, synthetic_extent
 
     cfg = serving_config(make_cfg("se3ete.3dmatch"))
-    return synthetic_pair(0, cfg.pipeline, None, cfg.point_limit, synthetic_extent(cfg.dataset),
-                          seed=cfg.seed)
+    return synthetic_pair(0, cfg.pipeline, None, cfg.data.point_limit,
+                          synthetic_extent(cfg.data.dataset), seed=cfg.seed)
 
 
 # the float32 K1 (and K8) training shapes: (neighbour set, source stage, A*C)
@@ -494,11 +494,38 @@ RPE_EDGES = [(1024, 40), (1003, 40), (33, 5), (12, 3), (1003, 72)]
     (1003, 4, 64, 256, False, torch.bfloat16, 72),
     (128, 24, 16, 64, True, torch.float32, 40),       # tiny card-vs-CPU widths
     (128, 4, 16, 64, False, torch.float32, 40),
+    (1024, 24, 64, 256, False, torch.bfloat16, 40),   # se3eti self_eq layers: no SH term
+    (1003, 24, 64, 256, False, torch.bfloat16, 72),   # the same, ragged, two masked tiles
+    (12, 24, 64, 256, False, torch.bfloat16, 3),      # the same, fewer rows than a block
+    (128, 24, 16, 64, False, torch.float32, 40),      # tiny se3eti widths
 ])
 def test_rpe_attention_kernel(cuda, n, ah, c, cc, with_sh, dtype, pad):
     points, masks = _cloud(cuda, n, 4, pad=pad)
     _assert_ok(selfcheck.check_rpe_attention(points, masks, ah, c=c, cc=cc,
                                              with_sh=with_sh, dtype=dtype, reps=1))
+
+
+def test_rpe_attention_ws_form_without_sh(cuda):
+    """At se3eti's self_eq shape (AH = 24, no SH term) K5 takes its ws form,
+    which reserves the block's SH queries and reads none: the output equals
+    a second call bit for bit and stays within tolerance of the plain
+    version."""
+    from se3et_tpu_torch.ops.kernels import rpe_attention as rpe
+
+    assert rpe.rpe_attention_form(24, 64, 256, torch.bfloat16) == "ws"
+    points, masks = _cloud(cuda, 1024, 11, pad=40)
+    g = torch.Generator().manual_seed(11)
+    rnd = lambda *s: torch.randn(s, generator=g).to(cuda, torch.bfloat16)  # noqa: E731
+    q, k, v, emb = rnd(2, 24, 1024, 64), rnd(2, 24, 1024, 64), rnd(2, 24, 1024, 64), \
+        rnd(2, 1024, 1024, 256)
+    qp = rnd(2, 1024, 24, 256) * 0.0625
+    first = rpe.rpe_self_attention(q, k, v, qp, emb, masks, scale=0.125)
+    second = rpe.rpe_self_attention(q, k, v, qp, emb, masks, scale=0.125)
+    assert torch.equal(first, second)
+    want = rpe.rpe_self_attention_plain(q, k, v, qp, emb, masks, scale=0.125)
+    rows = masks[:, None, :, None].expand_as(want)
+    err = float((first - want)[rows].abs().max())
+    assert err <= 1e-2 * float(want[rows].abs().max()), err
 
 
 def test_rpe_attention_ws_plan_matches_the_kernel(cuda):
@@ -1335,8 +1362,8 @@ def pair_subsampling():
     from se3et_tpu_torch.experiments.configs import make_cfg, serving_config, synthetic_extent
 
     cfg = serving_config(make_cfg("se3ete.3dmatch"))
-    pair = synthetic_pair(0, cfg.pipeline, None, cfg.point_limit,
-                          synthetic_extent(cfg.dataset), seed=cfg.seed)
+    pair = synthetic_pair(0, cfg.pipeline, None, cfg.data.point_limit,
+                          synthetic_extent(cfg.data.dataset), seed=cfg.seed)
     return torch.as_tensor(pair["subsampling_0"]).to(torch.int32), pair["points_0"].shape[1]
 
 
@@ -1446,8 +1473,8 @@ def pair_subsampling_1():
     from se3et_tpu_torch.experiments.configs import make_cfg, serving_config, synthetic_extent
 
     cfg = serving_config(make_cfg("se3ete.3dmatch"))
-    pair = synthetic_pair(0, cfg.pipeline, None, cfg.point_limit,
-                          synthetic_extent(cfg.dataset), seed=cfg.seed)
+    pair = synthetic_pair(0, cfg.pipeline, None, cfg.data.point_limit,
+                          synthetic_extent(cfg.data.dataset), seed=cfg.seed)
     return torch.as_tensor(pair["subsampling_1"]).to(torch.int32), pair["points_1"].shape[1]
 
 

@@ -3,7 +3,9 @@
 One tiny SE3ET-E pair goes through both packages in float32 with exact
 math on both sides: neighbours indexed directly (``window_segments=0``)
 and the XLA embedding route (``serve_fused_embedding=False``), on four
-routes:
+routes, and the SE3ET-I block layout (``se3eti.3dmatch``: ``self_eq,
+cross`` three times with no equivariant levels, so its self_eq layers carry
+no SH term) on the first two (``materialised-I``, ``flash-I``):
 
 * ``materialised``: ``__graft_entry__._flagship_configs(tiny=True)``
   (24-point coarse stage, ``serve_fused_attention=False``);
@@ -70,8 +72,19 @@ def _random_params(shapes, seed=0):
 _TRANSFORMER_RTOL = {"flash_femb": 3e-3}
 
 
-@pytest.fixture(scope="module",
-                params=["materialised", "flash", "flash_femb", "device_influence"])
+def _se3eti(jcfg):
+    """``jcfg`` with the SE3ET-I transformer of JAX's ``se3eti.3dmatch``."""
+    from se3et_tpu.experiments import make_cfg as jax_make_cfg
+
+    i = jax_make_cfg("se3eti.3dmatch").model
+    return dataclasses.replace(
+        jcfg, blocks=i.blocks, n_level_equiv=i.n_level_equiv,
+        attn_r_positive=i.attn_r_positive,
+        attn_r_positive_rot_supervise=i.attn_r_positive_rot_supervise)
+
+
+@pytest.fixture(scope="module", params=["materialised", "flash", "flash_femb",
+                                        "device_influence", "materialised-I", "flash-I"])
 def pair(request):
     import __graft_entry__ as ge
     from se3et_tpu.nn.model import SE3ETModel as JaxModel
@@ -83,6 +96,8 @@ def pair(request):
     # host point-to-node partition, as the production pipeline ships it
     pipeline = dataclasses.replace(pipeline, patch_k=jcfg.num_points_in_patch)
     jcfg = dataclasses.replace(jcfg, serve_fused_embedding=False)
+    if request.param.endswith("-I"):
+        jcfg = _se3eti(jcfg)
     num_points = 250
     if request.param.startswith("flash"):
         pipeline = dataclasses.replace(pipeline, stage_caps=(256, 192, 160, 128),
@@ -251,19 +266,24 @@ def test_estimated_transform_matches_jax(pair):
     assert ok, text
 
 
-def test_port_config_matches_jax_registry():
-    """The port's se3ete.3dmatch values equal make_cfg's, field for field
-    (model, pipeline, loss, optimizer)."""
+PORTED_EXPERIMENTS = ("se3ete.3dmatch", "se3ete.3dmatch.evalrot", "se3eti.3dmatch",
+                      "se3eti.3dmatch.evalrot")
+
+
+@pytest.mark.parametrize("name", PORTED_EXPERIMENTS)
+def test_port_config_matches_jax_registry(name):
+    """The port's registry entry equals JAX's ``make_cfg(name)`` field for
+    field (model, pipeline, loss, optimizer, data, eval, name and seed), and
+    its serving cut indexes neighbours directly and keeps the JAX routes."""
     from se3et_tpu.experiments import make_cfg as jax_make_cfg
     from se3et_tpu_torch.experiments.configs import make_cfg, serving_config
 
-    want, got = jax_make_cfg("se3ete.3dmatch"), make_cfg("se3ete.3dmatch")
-    assert dataclasses.asdict(got.model) == dataclasses.asdict(want.model)
-    assert dataclasses.asdict(got.pipeline) == dataclasses.asdict(want.pipeline)
-    assert dataclasses.asdict(got.loss) == dataclasses.asdict(want.loss)
-    assert dataclasses.asdict(got.optim) == dataclasses.asdict(want.optim)
-    assert (got.name, got.seed, got.dataset, got.point_limit) == (
-        want.name, want.seed, want.data.dataset, want.data.point_limit)
+    want, got = jax_make_cfg(name), make_cfg(name)
+    for part in ("model", "pipeline", "loss", "optim", "data", "eval"):
+        assert dataclasses.asdict(getattr(got, part)) == dataclasses.asdict(
+            getattr(want, part)), part
+    assert (got.name, got.seed) == (want.name, want.seed)
+    assert got.output_dir == os.path.join(str(REPO), "output", "torch", name)
     served = serving_config(got)
     assert served.pipeline.window_segments == 0
     assert served.model.serve_fused_attention  # the JAX default: flash kernels
@@ -272,6 +292,17 @@ def test_port_config_matches_jax_registry():
     # the same cut trains on the JAX training routes: the backward kernels, float32
     assert served.model.train_fused_conv and served.model.train_fused_embedding
     assert served.model.train_fused_attention and not served.model.bf16_train
+
+
+def test_port_registry_holds_the_ported_entries_only():
+    """Every other name of the JAX registry raises ``KeyError`` in the port."""
+    from se3et_tpu.experiments.configs import EXPERIMENTS as JAX_EXPERIMENTS
+    from se3et_tpu_torch.experiments.configs import EXPERIMENTS, make_cfg
+
+    assert set(EXPERIMENTS) == set(PORTED_EXPERIMENTS) < set(JAX_EXPERIMENTS)
+    for name in sorted(set(JAX_EXPERIMENTS) - set(PORTED_EXPERIMENTS)) + ["no.such"]:
+        with pytest.raises(KeyError):
+            make_cfg(name)
 
 
 @pytest.mark.parametrize("flash", [False, True])

@@ -81,6 +81,55 @@ def test_weighted_procrustes_and_transforms():
                                np.asarray(se3.inverse_transform(want)), atol=1e-4)
 
 
+def test_isotropic_transform_error_matches_jax():
+    """(RRE, RTE) against JAX's, the clipped cosine at 0 and 180 degrees
+    included."""
+    from se3et_tpu.core import se3
+
+    rng = np.random.RandomState(5)
+    gt = np.tile(np.eye(4, dtype=np.float32), (5, 1, 1))
+    est = gt.copy()
+    for i in range(3):
+        gt[i, :3, :3] = np.linalg.qr(rng.normal(size=(3, 3)))[0] * [1, 1, 1]
+        gt[i, :3, :3] *= np.sign(np.linalg.det(gt[i, :3, :3]))
+        est[i, :3, :3] = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+        est[i, :3, :3] *= np.sign(np.linalg.det(est[i, :3, :3]))
+    est[4, :3, :3] = np.diag([1.0, -1.0, -1.0])  # 180 degrees
+    gt[:, :3, 3] = rng.normal(size=(5, 3))
+    est[:, :3, 3] = rng.normal(size=(5, 3))
+    want = [np.asarray(x) for x in se3.isotropic_transform_error(gt, est)]
+    got = tse3.isotropic_transform_error(_t(gt), _t(est))
+    np.testing.assert_allclose(got[0].numpy(), want[0], atol=1e-3)
+    np.testing.assert_allclose(got[1].numpy(), want[1], atol=1e-6)
+    np.testing.assert_allclose(got[0].numpy()[3:], [0.0, 180.0], atol=1e-3)
+
+
+def test_verify_influence_keeps_the_ports_and_drops_the_rest():
+    """``verify_influence`` keeps influence stamped for this model in the
+    port's layout, and drops, with its stamp, influence of another
+    configuration, unstamped influence and JAX's (bf16, H padded)."""
+    import dataclasses
+
+    import __graft_entry__ as ge
+    from se3et_tpu.data.influence import precompute_influence as jax_influence
+    from se3et_tpu_torch.data.influence import (
+        influence_signature, precompute_influence, verify_influence,
+    )
+
+    _, pipeline, model_cfg = ge._flagship_configs(tiny=True)
+    data = ge._example_pair(pipeline, num_points=250, seed=1)
+    ours = precompute_influence(dict(data), model_cfg)
+    assert np.array_equal(ours["influence_sig"], influence_signature(model_cfg))
+    assert sorted(verify_influence(dict(ours), model_cfg)) == sorted(ours)
+    other = dataclasses.replace(model_cfg, init_sigma=model_cfg.init_sigma * 2)
+    unstamped = {k: v for k, v in ours.items() if k != "influence_sig"}
+    jax_made = jax_influence(dict(data), model_cfg)
+    for pair, cfg in ((ours, other), (unstamped, model_cfg), (jax_made, model_cfg)):
+        with pytest.warns(UserWarning, match="dropping"):
+            kept = verify_influence(dict(pair), cfg)
+        assert sorted(kept) == sorted(data)
+
+
 @pytest.mark.parametrize("anchors", [False, True])
 def test_masked_group_norm(anchors):
     from se3et_tpu.nn.layers import MaskedGroupNorm as JGN
@@ -137,7 +186,7 @@ def test_influence_matches_jax_precompute():
     data = ge._example_pair(pipeline, num_points=250, seed=1)
     want = jax_influence(dict(data), model_cfg)
     got = precompute_influence(dict(data), model_cfg)
-    keys = [k for k in got if k.startswith("influence_")]
+    keys = [k for k in got if k.startswith("influence_") and k != "influence_sig"]
     assert len(keys) == 2 * model_cfg.num_stages - 1
     for key in keys:
         g, w = got[key], np.asarray(want[key], np.float32)
