@@ -127,10 +127,25 @@ Phases, each of which raises (exit code != 0) on failure:
    output and metric bit for bit against the eager eval forward; the conv
    kernels K12, K13, K14, K1 and K2 against their plain versions at the
    shapes this path gave them (se3eti's caps, the calibrated widths); the
-   same run at the registry's neighbour widths (``--no_calibrate``);
+   same run on 2 pairs at the registry's neighbour widths (``--no_calibrate``);
    ``run_eval`` (lgr, svd) over the dumps, ``run_demo`` on
    ``se3ete.3dmatch.evalrot``, and K5 at the self_eq layers' shape (AH =
-   24) without the SH term, on its ws form.
+   24) without the SH term, on its ws form;
+9. the wide-head family (head width 32, the CUDA-core forms of K5, K16,
+   K6 and K7): a tiny float32 card-vs-CPU run of ``se3ete2.3dmatch``'s
+   flash cut; ``se3ete2.3dmatch`` served at full width on 2 synthetic
+   pairs of 30000 points (stage-0 sets at least half their 24576 cap, host
+   influence, random weights from seed 7351): an eager pass held to
+   ``SE3ETE2_LAUNCHES`` a pair, ``capture_forward`` with its counts and
+   every replay bit for bit against eager, eager and captured in turns,
+   peak memory and a replayed pair's profile; K5 at both self-layer
+   shapes, K6, K7 and K3 at the path's shapes against their plain
+   versions, replayed from a CUDA graph beside their bounds; K12, K13,
+   K14, K1 and K2 at the family's conv shapes; one ``serve_femb`` pair and
+   K16 at both shapes; then ``se3eti2.3dmatch`` through ``run_test``'s
+   Tester on 4 pairs (counts, replays and metrics bit for bit against
+   eager) and K5 at its self_eq shape without the SH term.  Prints the
+   phase's wall time and the script's.
 
 Prints timings, then the card's name and power limit, a JSON line with the
 kernels, and as the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -245,6 +260,9 @@ CAPTURED_TURN_PAIRS = 8
 # phase 8: the registry's test path on SE3ET-I, and the demo's experiment
 TEST_EXPERIMENT, DEMO_EXPERIMENT = "se3eti.3dmatch", "se3ete.3dmatch.evalrot"
 TEST_PAIRS = 4
+# pairs of phase 8's second Tester run, at the registry's neighbour widths
+# (cut from 4 when phase 9 came, to hold the script's time)
+NO_CALIBRATE_PAIRS = 2
 # launches per served se3eti.3dmatch pair: the backbone's as on se3ete's
 # default route, one embedding, three self_eq layers (K5 at AH = 24 without
 # the SH term, one launch over both clouds each), plain dense cross layers
@@ -254,6 +272,32 @@ SE3ETI_LAUNCHES = {**FUSED_CONV_LAUNCHES, "geometric_embedding": 1, "sinkhorn": 
                    "influence": 0, "rpe_self_attention_femb": 0}
 # eager warm-up forwards before capture_forward records the graph
 CAPTURE_WARMUP = 3
+# phase 9: the wide-head family (head width 32) served captured, and
+# through the registry's test path
+WIDE_EXPERIMENT, WIDE_TEST_EXPERIMENT = "se3ete2.3dmatch", "se3eti2.3dmatch"
+WIDE_PAIRS, WIDE_TEST_PAIRS = 2, 4
+# launches per served pair of the conv kernels at the family's widths
+# (init_dim 32; nn/epn.py's gates: K12 takes A*Cout <= 384, K13 A*Cout <=
+# 192 with a skip payload): the stage-0 to stage-2 same-level convs K12
+# (1 + 2 + 2), the s0 -> s1 and s1 -> s2 strided blocks K13, s2 -> s3 K14,
+# the stage-3 same-level convs K1; no K2
+WIDE_CONV_LAUNCHES = {"gather_wf_mm": 5, "gather_wf_max_mm": 2, "gather_wf_max": 1,
+                      "gather_wf": 2, "neighbor_max": 0}
+# launches per served se3ete2 pair: the convs, one embedding, 5 self layers
+# (K5: 2 self_eq at AH = 24 with the SH term, 3 plain at AH = 4), 2 EQ
+# cross layers x 2 directions for K6 and for K7, one Sinkhorn
+SE3ETE2_LAUNCHES = {**WIDE_CONV_LAUNCHES, **FLASH_LAUNCHES, "geometric_embedding": 1,
+                    "sinkhorn": 1, "influence": 0, "rpe_self_attention_femb": 0}
+# and per se3eti2 pair: three self_eq layers (K5 at AH = 24 without the SH
+# term), plain dense cross layers (no K6 / K7)
+SE3ETI2_LAUNCHES = {**WIDE_CONV_LAUNCHES, "geometric_embedding": 1, "sinkhorn": 1,
+                    "rpe_self_attention": 3, "eq_attention_stats": 0, "eq_attention_apply": 0,
+                    "influence": 0, "rpe_self_attention_femb": 0}
+# the CUDA-core device kernels of K5 / K16, K6 and K7 (head width 32)
+WIDE_DEVICE_KERNELS = {"rpe_self_attention": "rpe_attention_kernel",
+                       "eq_attention_stats": "eq_stats_kernel",
+                       "eq_attention_apply": "eq_apply_kernel"}
+T_START = time.perf_counter()
 
 
 def _card_line() -> str:
@@ -1173,8 +1217,8 @@ def _test_path(dev):
     read just after; an eager eval pair's counters against
     ``SE3ETI_LAUNCHES``; every output and metric of the replays bit for bit
     against the eager eval forward; the conv kernels at the shapes of pair
-    0 (:func:`_se3eti_conv_checks`); one more ``Tester.run`` at the
-    registry's neighbour widths (``--no_calibrate``), timed; ``run_eval``
+    0 (:func:`_conv_checks`); one more ``Tester.run`` at the
+    registry's neighbour widths (``--no_calibrate``) on 2 pairs, timed; ``run_eval``
     (lgr, svd) over the dumps and ``run_demo`` on
     ``se3ete.3dmatch.evalrot``; K5 at the self_eq layers' shape without the
     SH term.  Returns {name: CheckResult}."""
@@ -1267,12 +1311,12 @@ def _test_path(dev):
           f"metrics {dict((k, round(v, 4)) for k, v in summary.items())}", flush=True)
     _tester_split("phase 8", pairs, inputs, served, dev, eager)
     del want, eager
-    checks = _se3eti_conv_checks(inputs[0], launches, runs)
+    checks = _conv_checks("se3eti", SE3ETI_CONV_SHAPES, inputs[0], launches, runs)
 
     # the same run at the registry's neighbour widths (no calibration): the
     # synthetic pairs' calibrated widths are far below them
     tester_u, loader_u, _ = runner.prepare_test(
-        cfg, ["--max_pairs", str(TEST_PAIRS), "--no_calibrate"])
+        cfg, ["--max_pairs", str(NO_CALIBRATE_PAIRS), "--no_calibrate"])
     sets_u, pairs_u = {}, []
 
     def kept_u():
@@ -1349,18 +1393,39 @@ SE3ETI_CONV_SHAPES = (
 )
 
 
-def _se3eti_conv_checks(p0, launches, runs):
-    """Phase 8's conv kernels (K12, K13, K14, K1, K2) against their plain
-    versions at the shapes the se3eti path gave them: pair 0's neighbour
-    sets at se3eti's caps and calibrated widths.  Each row's launches are
-    ``runs`` x its launches a forward; their sum per kernel is the run's
-    counter.  Returns {name: CheckResult}; raises on any disagreement."""
+# the conv kernels on the se3ete2 path at the family's widths (half
+# se3ete's), in the same layout; K2 is not on it (its skips ride K13 and
+# K14) and is held at the s2 -> s3 skip payload the unfused route would give
+# it
+SE3ETE2_CONV_SHAPES = (
+    ("gather_wf_mm", "stage-0 same", "neighbors_0", 0, 6 * 16, 6 * 16, 0, 1),
+    ("gather_wf_max_mm", "s0 -> s1", "subsampling_0", 0, 6 * 16, 6 * 16, 6 * 64, 1),
+    ("gather_wf_mm", "stage-1 same", "neighbors_1", 1, 6 * 32, 6 * 32, 0, 2),
+    ("gather_wf_max_mm", "s1 -> s2", "subsampling_1", 1, 6 * 32, 6 * 32, 6 * 128, 1),
+    ("gather_wf_mm", "stage-2 same", "neighbors_2", 2, 6 * 64, 6 * 64, 0, 2),
+    ("gather_wf_max", "s2 -> s3", "subsampling_2", 2, 6 * 64, 0, 6 * 256, 1),
+    ("gather_wf", "stage-3 same", "neighbors_3", 3, 6 * 128, 0, 0, 2),
+    ("neighbor_max", "s2 -> s3 skip, unfused route", "subsampling_2", 2, 0, 0, 6 * 256, 0),
+)
+
+
+def _conv_checks(tag, shapes, p0, launches, runs):
+    """The conv kernels (K12, K13, K14, K1, K2) against their plain versions
+    at the shapes a path gave them: pair 0's neighbour sets, at the widths
+    of ``shapes`` (name, what, neighbour set, source stage, A*C of the
+    conv's input, A*C of its output (K12, K13), of the skip payload (K13,
+    K14, K2), launches a forward), each printed with its (rows, H, AC,
+    AC2).  Each row's launches are ``runs`` x its launches a forward; their
+    sum per kernel is the run's counter.  Returns {name: CheckResult} of
+    the shapes the path launched; raises on any disagreement."""
     from se3et_tpu_torch.ops.kernels import selfcheck
 
     ns = [p0[f"points_{i}"].shape[1] for i in range(4)]
-    checks, per_kernel = {}, {}
-    for name, what, nset, st, ac, ac_out, ac2, n in SE3ETI_CONV_SHAPES:
+    held, per_kernel = {}, {}
+    for name, what, nset, st, ac, ac_out, ac2, n in shapes:
         nbr = p0[nset]
+        print(f"{tag} conv {name} {what}: rows {nbr.shape[1]} over {ns[st]}, H {nbr.shape[2]}, "
+              f"AC {ac}, AC2 {ac2}, {n} a forward", flush=True)
         if name == "gather_wf":
             res = selfcheck.check_gather_wf(nbr, ns[st], ac)
         elif name == "neighbor_max":
@@ -1370,12 +1435,249 @@ def _se3eti_conv_checks(p0, launches, runs):
         res.launches = runs * n
         per_kernel[name] = per_kernel.get(name, 0) + res.launches
         _print_check(res)
-        checks[f"{name} (se3eti {what}, H {nbr.shape[-1]})"] = res
+        held[f"{name} ({tag} {what}, H {nbr.shape[-1]})"] = res
     if any(launches[name] != c for name, c in per_kernel.items()):
         raise RuntimeError(f"the run launched {launches}, its shapes {per_kernel}")
+    # the kernels line carries the path's rows (a shape held off the path
+    # is printed above only)
+    checks = {k: r for k, r in held.items() if r.launches}
+    bad = [k for k, r in held.items() if not r.ok]
+    if bad:
+        raise RuntimeError(f"kernels disagree with their plain versions at {tag}'s shapes: {bad}")
+    return checks
+
+
+def _print_replayed(res):
+    if res.replay_ms is not None:
+        print(f"  replayed {res.replay_ms:.4f} ms, bound {res.bound_ms:.4f} ms "
+              f"({res.bound_by}), {res.bound_ms / res.replay_ms:.1%} of it", flush=True)
+
+
+def _wide_head(dev):
+    """Phase 9: the wide-head family (head width 32) at full width.  (a)
+    ``se3ete2.3dmatch`` served captured: a tiny float32 card-vs-CPU run of
+    its flash cut; synthetic pairs whose stage-0 sets fill at least half
+    their cap, random weights from the experiment's seed; an eager pass
+    whose counters (set to 0 just before, read just after) are held to
+    ``SE3ETE2_LAUNCHES`` a pair; ``capture_forward`` (counts at capture,
+    every replay bit for bit against eager); eager and captured served in
+    turns, peak memory and one replayed pair's profile; K5 (both self-layer
+    shapes), K6, K7 and K3 at the path's shapes against their plain
+    versions, with their times replayed from a CUDA graph; the conv kernels
+    at the family's shapes (:func:`_conv_checks`); one ``serve_femb`` pair
+    (K16 5, K3 0, K5 0) and K16 at both shapes.  (b) ``se3eti2.3dmatch``
+    through ``run_test``'s Tester (calibrated limits, the captured eval
+    forward) with counters set to 0 just before and read just after, every
+    replayed output and metric bit for bit against eager, and K5 at its
+    self_eq shape without the SH term.  Returns {name: CheckResult}."""
+    import torch
+
+    from se3et_tpu_torch.data.pyramid import synthetic_pair
+    from se3et_tpu_torch.engine.steps import make_forward
+    from se3et_tpu_torch.experiments import configs, runner
+    from se3et_tpu_torch.nn.model import SE3ETModel, pyramid_to_tensors
+    from se3et_tpu_torch.ops.kernels import eq_attention, rpe_attention, selfcheck
+
+    t_phase = time.perf_counter()
+    cfg = configs.serving_config(configs.make_cfg(WIDE_EXPERIMENT))
+    m = cfg.model
+    heads, hw, cc = m.num_heads, m.gt_hidden_dim // m.num_heads, m.gt_hidden_dim
+    ah = m.kanchor * heads
+    forms = {"K5 self_eq": rpe_attention.rpe_attention_form(ah, hw, cc, torch.bfloat16),
+             "K5 self": rpe_attention.rpe_attention_form(heads, hw, cc, torch.bfloat16),
+             "K16": rpe_attention.rpe_attention_form(ah, hw, cc, torch.bfloat16, femb=True),
+             "K6": eq_attention.eq_attention_stats_form(heads, hw, torch.bfloat16),
+             "K7": eq_attention.eq_attention_apply_form(heads, hw, torch.bfloat16)}
+    print(f"phase 9 {WIDE_EXPERIMENT}: head width {hw}, C {cc}, AH {ah} / {heads}; forms "
+          f"{forms}", flush=True)
+    if hw != 32 or set(forms.values()) != {"cuda"}:
+        raise RuntimeError(f"the wide-head family's attention takes {forms} at head width {hw}")
+    extent = configs.synthetic_extent(cfg.data.dataset)
+    launches = _tiny_card_vs_cpu("flash se3ete2", configs.tiny_flash_config(cfg), 600, extent,
+                                 dev)
+    short = {n: c for n, c in FLASH_LAUNCHES.items() if launches[n] != c}
+    if short:
+        raise RuntimeError(f"tiny flash se3ete2 run did not take the flash kernels: {short}")
+
+    # (a) se3ete2 at full width: pairs of point_limit points, host influence
+    pairs, host_ms = [], []
+    for i in range(WIDE_PAIRS):
+        t0 = time.perf_counter()
+        pairs.append(synthetic_pair(i, cfg.pipeline, m, cfg.data.point_limit, extent,
+                                    seed=cfg.seed))
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    cap0 = cfg.pipeline.stage_caps[0]
+    valid = [[int(v) for v in p["masks_0"].sum(axis=1)] for p in pairs]
+    print(f"phase 9: {WIDE_PAIRS} pairs of {cfg.data.point_limit} points, caps "
+          f"{cfg.pipeline.stage_caps}, host pyramid + influence ms/pair "
+          f"{[round(x, 1) for x in host_ms]}; stage-0 valid points per cloud {valid}; "
+          f"(rows, H) of pair 0's sets "
+          f"{dict((k, v.shape[1:]) for k, v in pairs[0].items() if k.startswith(('neighbors_', 'subsampling_')))}",
+          flush=True)
+    if min(min(v) for v in valid) < cap0 // 2:
+        raise RuntimeError(f"stage-0 sets {valid} fill less than half their cap {cap0}")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    model = SE3ETModel(m, seed=cfg.seed).eval()
+    inputs = [pyramid_to_tensors(p, dev) for p in pairs]
+    table = dict.fromkeys(selfcheck.WRAPPERS, 0)
+    table.update(SE3ETE2_LAUNCHES)
+    for w in selfcheck.WRAPPERS.values():
+        w.launches = 0
+    outs = [model(td) for td in inputs]
+    torch.cuda.synchronize()
+    counted = {n: w.launches for n, w in selfcheck.WRAPPERS.items()}
+    if counted != {n: WIDE_PAIRS * c for n, c in table.items()}:
+        raise RuntimeError(f"{WIDE_PAIRS} eager se3ete2 pairs launched {counted}, expected "
+                           f"{table} a pair")
+    for out in outs:
+        tf = out["estimated_transform"]
+        if tf.shape != (4, 4) or not bool(torch.isfinite(tf).all()):
+            raise RuntimeError(f"se3ete2: bad estimated_transform {tf}")
+    eager_peak = torch.cuda.max_memory_allocated(dev)
+    print(f"phase 9: eager se3ete2 pairs launched {dict((n, c) for n, c in counted.items() if c)}"
+          f" ({WIDE_PAIRS} pairs, the table's); max_memory_allocated "
+          f"{eager_peak / 2**30:.2f} GiB", flush=True)
+    del outs
+    # the main path's run: capture_forward on pair 0 (3 warm-up forwards and
+    # the capture), every replay bit for bit against eager
+    served = _capture_checked("se3ete2 default", model, inputs, SE3ETE2_LAUNCHES)
+    runs = CAPTURE_WARMUP + 1
+    launches = {n: w.launches for n, w in selfcheck.WRAPPERS.items()}
+    if launches != {n: runs * c for n, c in table.items()}:
+        raise RuntimeError(f"the se3ete2 capture launched {launches}, expected {runs} x {table}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"phase 9: captured se3ete2: max_memory_allocated {peak / 2**30:.2f} GiB "
+          f"({(peak - resident) / 2**30:.2f} above the resident, eager and capture)", flush=True)
+    ms = _captured_turns({"eager": (model, inputs), "captured": (served, inputs)},
+                         ("eager", "captured", "captured", "eager"))
+    print(f"phase 9 se3ete2 ms/pair in turns (eager, captured, captured, eager; "
+          f"{CAPTURED_TURN_PAIRS} pairs each): " + "; ".join(
+              f"{r} median {statistics.median(v):.2f} (range {min(v):.2f}-{max(v):.2f})"
+              for r, v in ms.items()), flush=True)
+    prof = _profile(lambda: served(inputs[0]), what="one replayed se3ete2 pair",
+                    also=tuple(WIDE_DEVICE_KERNELS.values()))
+    if prof is None:
+        print("phase 9: the profiler recorded no device time over the replay (idle share "
+              "not measured)", flush=True)
+
+    # the kernels at the path's shapes (pair 0's coarse points), by events
+    # and replayed from a CUDA graph
+    p0 = inputs[0]
+    pts_c, masks_c = p0["points_3"], p0["masks_3"]
+    k5 = {"self_eq": (2, selfcheck.check_rpe_attention(
+              pts_c, masks_c, ah, c=hw, cc=cc, reps=10, replay=True)),
+          "self": (3, selfcheck.check_rpe_attention(
+              pts_c, masks_c, heads, c=hw, cc=cc, with_sh=False, reps=10, replay=True))}
+    checks = {}
+    for what, (n, res) in k5.items():
+        res.launches = runs * n
+        checks[f"rpe_self_attention (se3ete2 {what}, head width {hw})"] = res
+    for name, fn in (("eq_attention_stats", selfcheck.check_eq_stats),
+                     ("eq_attention_apply", selfcheck.check_eq_apply)):
+        kw = dict(two_calls=True) if name == "eq_attention_apply" else {}
+        res = fn(masks_c[0], masks_c[1], a=m.kanchor, h=heads, c=hw, reps=20, replay=True, **kw)
+        res.launches = launches[name]
+        checks[f"{name} (se3ete2, head width {hw})"] = res
+    res = selfcheck.check_embedding(pts_c, masks_c, c=cc, k=m.angle_k, sigma_d=m.sigma_d,
+                                    sigma_a=m.sigma_a)
+    res.launches = launches["geometric_embedding"]
+    checks[f"geometric_embedding (se3ete2, C {cc})"] = res
+    for res in checks.values():
+        _print_check(res)
+        _print_replayed(res)
+    if sum(r.launches for n, r in checks.items() if n.startswith("rpe_self_attention (")) \
+            != launches["rpe_self_attention"]:
+        raise RuntimeError(f"K5's rows do not sum to the run's {launches['rpe_self_attention']}")
+    checks.update(_conv_checks("se3ete2", SE3ETE2_CONV_SHAPES, p0, launches, runs))
+
+    # one serve_femb pair: K16 (the CUDA-core routine K5 shares) in place of
+    # K3 + K5, then K16 at both self-layer shapes
+    femb = SE3ETModel(dataclasses.replace(m, serve_femb=True), seed=cfg.seed).eval()
+    for w in selfcheck.WRAPPERS.values():
+        w.launches = 0
+    out = femb(p0)
+    torch.cuda.synchronize()
+    counted = {n: w.launches for n, w in selfcheck.WRAPPERS.items()}
+    want = dict(table, **FEMB_LAUNCHES)
+    if counted != want or not bool(torch.isfinite(out["estimated_transform"]).all()):
+        raise RuntimeError(f"a se3ete2 femb pair launched {counted}, expected {want}")
+    print(f"phase 9: a se3ete2 serve_femb pair launched "
+          f"{dict((n, c) for n, c in counted.items() if c)}", flush=True)
+    del femb, out
+    for what, n, a, with_sh in (("self_eq", 2, ah, True), ("self", 3, heads, False)):
+        res = selfcheck.check_rpe_attention_femb(pts_c, masks_c, a, c=hw, cc=cc, k=m.angle_k,
+                                                 sigma_d=m.sigma_d, sigma_a=m.sigma_a,
+                                                 with_sh=with_sh, reps=5, replay=True)
+        res.launches = n
+        _print_check(res)
+        _print_replayed(res)
+        checks[f"rpe_self_attention_femb (se3ete2 {what}, head width {hw})"] = res
     bad = [k for k, r in checks.items() if not r.ok]
     if bad:
-        raise RuntimeError(f"kernels disagree with their plain versions at se3eti's shapes: {bad}")
+        raise RuntimeError(f"kernels disagree with their plain versions at head width {hw}: "
+                           f"{bad}")
+    del model, served, inputs, p0
+    wide_a = time.perf_counter() - t_phase
+
+    # (b) se3eti2 through run_test's Tester, from no calibration cache and no
+    # dumps of an earlier run
+    cfg_i = configs.make_cfg(WIDE_TEST_EXPERIMENT)
+    for stale in ("neighbor_limits.json", "features"):
+        _remove(os.path.join(cfg_i.output_dir, stale))
+    gc.collect()
+    torch.cuda.synchronize()
+    for w in selfcheck.WRAPPERS.values():
+        w.launches = 0
+    tester, loader, benchmark = runner.prepare_test(cfg_i, ["--max_pairs", str(WIDE_TEST_PAIRS)])
+    pairs_i = []
+
+    def kept():
+        for data, meta in loader:
+            pairs_i.append(dict(data))
+            yield data, meta
+
+    summary = tester.run(kept(), benchmark=benchmark)
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in selfcheck.WRAPPERS.items()}
+    table = dict.fromkeys(selfcheck.WRAPPERS, 0)
+    table.update(SE3ETI2_LAUNCHES)
+    served = tester.captured
+    if len(pairs_i) != WIDE_TEST_PAIRS or served is None or served.launches != table \
+            or launches != {n: runs * c for n, c in table.items()}:
+        raise RuntimeError(f"run_test on {WIDE_TEST_EXPERIMENT} served {len(pairs_i)} pairs, "
+                           f"launched {launches}, recorded {served and served.launches}; "
+                           f"expected {runs} x {table}")
+    eager = make_forward(tester.model, tester.eval_cfg)
+    inputs = [pyramid_to_tensors(p, dev) for p in pairs_i]
+    for i, td in enumerate(inputs):
+        want, got = eager(td), served(td)
+        _require_bitwise(f"captured se3eti2 eval forward, pair {i}", got, want)
+        _require_bitwise(f"captured se3eti2 eval metrics, pair {i}", got["metrics"],
+                         want["metrics"])
+        if not all(bool(torch.isfinite(v)) for v in got["metrics"].values()):
+            raise RuntimeError(f"se3eti2 pair {i}: metrics not finite")
+    torch.cuda.synchronize()
+    print(f"phase 9 {WIDE_TEST_EXPERIMENT}: run_test launched {runs} x "
+          f"{dict((n, c) for n, c in table.items() if c)}; (rows, H) of pair 0's sets "
+          f"{dict((k, v.shape[1:]) for k, v in pairs_i[0].items() if k.startswith(('neighbors_', 'subsampling_')))}; "
+          f"{WIDE_TEST_PAIRS} pairs replayed equal to the eager eval forward bit for bit, "
+          f"metrics finite; Tester {summary['seconds_per_pair'] * 1e3:.2f} ms/pair (copy-in + "
+          f"replay + synchronise, first pair left out); capture {served.capture_ms:.1f} ms; "
+          f"metrics {dict((k, round(v, 4)) for k, v in summary.items())}", flush=True)
+    _tester_split(f"phase 9 {WIDE_TEST_EXPERIMENT}", pairs_i, inputs, served, dev, eager)
+    res = selfcheck.check_rpe_attention(inputs[0]["points_3"], inputs[0]["masks_3"], ah, c=hw,
+                                        cc=cc, with_sh=False, reps=10, replay=True)
+    res.launches = launches["rpe_self_attention"]
+    _print_check(res)
+    _print_replayed(res)
+    if not res.ok:
+        raise RuntimeError("K5 at se3eti2's self_eq shape disagrees with its plain version")
+    checks[f"rpe_self_attention (se3eti2 self_eq, no SH, head width {hw})"] = res
+    print(f"phase 9: {time.perf_counter() - t_phase:.1f} s ((a) se3ete2 {wide_a:.1f} s)",
+          flush=True)
     return checks
 
 
@@ -1679,6 +1981,10 @@ def main() -> int:
     # run_eval, run_demo
     checks.update(_test_path(dev))
 
+    # 9. the wide-head family at head width 32: se3ete2 served captured,
+    # se3eti2 through run_test's Tester
+    checks.update(_wide_head(dev))
+
     kernels = []
     for name, res in checks.items():
         source, replaces = selfcheck.SOURCES[name.split(" (")[0]]
@@ -1695,6 +2001,7 @@ def main() -> int:
                                                        "plan_ms", "replay_ms", "first_replay_ms")
                     if getattr(res, key) is not None})
         kernels.append(row)
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,12 +24,14 @@
 //   K6 eq_stats_tc_kernel (TMA key tiles, mma.sync, base-2 softmax) and K7
 //   eq_apply_tc_kernel (TMA key and value tiles of one head, wgmma for
 //   q k^T and p v, base-2 exps);
-// * float32 and head width 16: the CUDA-core kernels, one block per
-//   (a[, e], 8 query rows), one warp per query row, one lane per key of a
-//   32-key tile, key rows read through L1 (the block's warps walk the same
-//   tile), the query row as warp-wide broadcasts, K6's softmax statistics
-//   online (running max and rescaled sum), K7's tile probabilities staged in
-//   shared memory for a lane-per-value-pair p . v.
+// * float32, and head widths 16 and 32 in either type (32: the wide-head
+//   family se3ete2): the CUDA-core kernels, one block per (a[, e], 8 query
+//   rows), one warp per query row, one lane per key of a 32-key tile, key
+//   rows read through L1 (the block's warps walk the same tile), the query
+//   row as warp-wide broadcasts, K6's softmax statistics online (running
+//   max and rescaled sum), K7's tile probabilities staged in shared memory
+//   for a lane-per-value-pair p . v (below head width 64 the lanes from
+//   HC / 2 on hold no pair).
 #include <algorithm>
 #include <type_traits>
 
@@ -190,6 +192,7 @@ eq_apply_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   if (row >= n) return;  // no block-wide barrier below
   const float scale = 1.f / sqrtf((float)HC);
   constexpr int kPairs = HC / 2;
+  static_assert(HC % 8 == 0 && kPairs <= 32, "head width: a multiple of 8, at most 64");
   const bool pv_lane = lane < kPairs;
   const T* qa = q + (long long)a * H * n * HC;
 
@@ -1196,7 +1199,8 @@ int stats(const void* q, const void* k, const void* qm, const void* km, const vo
           const void* sk, void* rowmax, void* rowsum, void* gpart, void* spart, int na,
           int ne, int h, int n, int m, int hc, int mode, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  // bf16 at head width 64 takes the tc form, everything else the CUDA cores
+  // bf16 at head width 64 takes the tc form, everything else (float32, head
+  // widths 16 and 32) the CUDA cores
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (h == 4 && hc == 64)
       return eq_tc::launch(q, k, qm, km, sq, sk, rowmax, rowsum, gpart, spart, na, ne, n, m,
@@ -1206,6 +1210,9 @@ int stats(const void* q, const void* k, const void* qm, const void* km, const vo
       return launch_stats<T, 4, 64>(q, k, qm, km, sq, sk, rowmax, rowsum, gpart, spart, na,
                                     ne, n, m, mode, st);
   }
+  if (h == 4 && hc == 32)
+    return launch_stats<T, 4, 32>(q, k, qm, km, sq, sk, rowmax, rowsum, gpart, spart, na,
+                                  ne, n, m, mode, st);
   if (h == 4 && hc == 16)
     return launch_stats<T, 4, 16>(q, k, qm, km, sq, sk, rowmax, rowsum, gpart, spart, na,
                                   ne, n, m, mode, st);
@@ -1228,13 +1235,16 @@ int apply(const void* q, const void* k, const void* v, const void* w, const void
           const void* rowsum, const void* km, void* out, int na, int ne, int h, int n,
           int m, int hc, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  // bf16 at head width 64 takes the tc form, everything else the CUDA cores
+  // bf16 at head width 64 takes the tc form, everything else (float32, head
+  // widths 16 and 32) the CUDA cores
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (h == 4 && hc == 64)
       return eq_tc::launch_apply(q, k, v, w, rowmax, rowsum, km, out, na, ne, n, m, st);
   }
   if (h == 4 && hc == 64)
     return launch_apply<T, 4, 64>(q, k, v, w, rowmax, rowsum, km, out, na, ne, n, m, st);
+  if (h == 4 && hc == 32)
+    return launch_apply<T, 4, 32>(q, k, v, w, rowmax, rowsum, km, out, na, ne, n, m, st);
   if (h == 4 && hc == 16)
     return launch_apply<T, 4, 16>(q, k, v, w, rowmax, rowsum, km, out, na, ne, n, m, st);
   return (int)cudaErrorInvalidValue;
@@ -1277,7 +1287,7 @@ extern "C" int se3et_eq_attention_apply_f32(
 // takes (h, hc, bf16) writes them (the wrapper's
 // eq_attention.eq_attention_stats_parts is held against it); 0 where none
 extern "C" int se3et_eq_attention_stats_parts(int h, int n, int hc, int bf16) {
-  if (h != 4 || (hc != 64 && hc != 16)) return 0;
+  if (h != 4 || (hc != 64 && hc != 32 && hc != 16)) return 0;
   if (bf16 && hc == 64) return (n + eq_tc::kRows - 1) / eq_tc::kRows;
   return (n + kWarps - 1) / kWarps;
 }

@@ -107,7 +107,10 @@ rpe_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     py = pb[n + row];
     pz = pb[2 * n + row];
   }
-  constexpr int kPairs = HC / 2;  // value columns are taken two per lane
+  // value columns are taken two per lane: at head width 16 and 32 the lanes
+  // from HC / 2 on hold no pair and write nothing
+  constexpr int kPairs = HC / 2;
+  static_assert(HC % 8 == 0 && kPairs <= 32, "head width: a multiple of 8, at most 64");
   const bool pv_lane = lane < kPairs;
 
   float mrun[AH], lrun[AH], acc[AH][2];
@@ -214,10 +217,14 @@ int launch(const void* q, const void* k, const void* v, const void* qp, const vo
            const void* qw, const void* pts, void* out, void* lse, int batch, int n, int cc,
            int pts_rows, float scale, const Pos& pos, cudaStream_t stream) {
   const size_t smem = (size_t)kWarps * AH * (cc + 32) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(rpe_attention_kernel<T, AH, HC, Pos>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  static size_t attr = 0;  // the kernel's shared-memory attribute, raised once per size
+  if (smem > attr) {
+    const cudaError_t err = cudaFuncSetAttribute(rpe_attention_kernel<T, AH, HC, Pos>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    attr = smem;
+  }
   const int grid = batch * ((n + kWarps - 1) / kWarps);
   rpe_attention_kernel<T, AH, HC, Pos><<<grid, kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)qp, (const uint8_t*)kmask,
@@ -226,8 +233,9 @@ int launch(const void* q, const void* k, const void* v, const void* qp, const vo
   return (int)cudaGetLastError();
 }
 
-// The CUDA-core kernel for (T, AH, head width hc) with the policy `pos`;
-// cudaErrorInvalidValue where none is built.
+// The CUDA-core kernel for (T, AH, head width hc) with the policy `pos`: AH
+// 4 or 24, head width 16, 32 or 64; cudaErrorInvalidValue where none is
+// built.
 template <typename T, class Pos>
 int dispatch_cuda(const void* q, const void* k, const void* v, const void* qp,
                   const void* kmask, const void* qw, const void* pts, void* out, void* lse,
@@ -238,6 +246,10 @@ int dispatch_cuda(const void* q, const void* k, const void* v, const void* qp,
     return launch<T, 24, 64>(q, k, v, qp, kmask, qw, pts, out, lse, batch, n, cc, pts_rows, scale, pos, s);
   if (ah == 4 && hc == 64)
     return launch<T, 4, 64>(q, k, v, qp, kmask, qw, pts, out, lse, batch, n, cc, pts_rows, scale, pos, s);
+  if (ah == 24 && hc == 32)
+    return launch<T, 24, 32>(q, k, v, qp, kmask, qw, pts, out, lse, batch, n, cc, pts_rows, scale, pos, s);
+  if (ah == 4 && hc == 32)
+    return launch<T, 4, 32>(q, k, v, qp, kmask, qw, pts, out, lse, batch, n, cc, pts_rows, scale, pos, s);
   if (ah == 24 && hc == 16)
     return launch<T, 24, 16>(q, k, v, qp, kmask, qw, pts, out, lse, batch, n, cc, pts_rows, scale, pos, s);
   if (ah == 4 && hc == 16)

@@ -4,9 +4,15 @@ A torch-side copy of the JAX registry's 3DMatch SE3ET entries
 (``se3et_tpu/experiments/configs.py``), which cannot be imported where JAX
 is absent (it pulls in flax and optax): ``se3ete.3dmatch``,
 ``se3ete.3dmatch.evalrot``, ``se3eti.3dmatch`` and
-``se3eti.3dmatch.evalrot``.  ``PyramidConfig`` is the port's copy of the
-numpy pipeline's class.  A test holds every entry field-for-field equal to
-the JAX ``make_cfg`` of the same name.
+``se3eti.3dmatch.evalrot`` at full width (head width 64), and the
+wide-head family at head width 32 (``hidden`` 128 over 4 heads,
+``init_dim`` 32, ``group_norm`` 16, point limit 30000):
+``se3ete2.3dmatch``, ``se3ete2.3dmatch.evalrot``, ``se3eti2.3dmatch``,
+``se3eti2.3dmatch.evalrot`` and ``se3eti2.3dmatch.evalkitti`` (KITTI data
+on the 3DMatch model; its test path raises until the KITTI loader is
+ported).  ``PyramidConfig`` is the port's copy of the numpy pipeline's
+class.  A test holds every entry field-for-field equal to the JAX
+``make_cfg`` of the same name.
 
 :func:`serving_config` applies the setting the port's serving slice runs
 with (exact neighbour indexing); attention takes the JAX default, the
@@ -102,28 +108,30 @@ def _threedmatch_pipeline(point_cap: int) -> PyramidConfig:
     )
 
 
-def _se3et_3dmatch(name: str, blocks, point_limit: int, n_level_equiv: int = 0,
-                   attn_r_positive: str = "sq",
+def _se3et_3dmatch(name: str, blocks, point_limit: int, init_dim: int = 64,
+                   output_dim: int = 256, hidden: int = 256, group_norm: int = 32,
+                   n_level_equiv: int = 0, attn_r_positive: str = "sq",
                    attn_r_positive_rot_supervise: str = "sigmoid",
                    rotated: bool = False) -> ExperimentConfig:
-    """The JAX registry's ``_se3et_3dmatch`` at its full width (``init_dim``
-    64, ``hidden`` 256, ``group_norm`` 32, exact steerability), which every
-    entry of this registry takes."""
+    """The JAX registry's ``_se3et_3dmatch`` (exact steerability) with its
+    width keywords: the defaults are SE3ET-E's and SE3ET-I's (head width
+    64); the wide-head family passes ``init_dim`` 32, ``output_dim`` and
+    ``hidden`` 128 and ``group_norm`` 16 (head width 32)."""
     model = ModelConfig(
         compute_dtype="bfloat16",
         backbone="e2pn",
         num_stages=4,
-        init_dim=64,
-        output_dim=256,
+        init_dim=init_dim,
+        output_dim=output_dim,
         kernel_size=15,
         init_radius=0.0625,
         init_sigma=0.05,
-        group_norm=32,
+        group_norm=group_norm,
         epn=EPNConfig(kanchor=6, quotient_factor=4, num_kernel_points=15,
                       steerability="exact"),
-        gt_input_dim=64 * 16,
-        gt_hidden_dim=256,
-        gt_output_dim=256,
+        gt_input_dim=init_dim * 16,
+        gt_hidden_dim=hidden,
+        gt_output_dim=hidden,
         num_heads=4,
         blocks=tuple(blocks),
         sigma_d=0.2,
@@ -165,6 +173,8 @@ def _se3et_3dmatch(name: str, blocks, point_limit: int, n_level_equiv: int = 0,
 # supervision's positive() mode is set but unread while supervise_rotation
 # is off, in both packages
 _SE3ETI = dict(attn_r_positive="softplus", attn_r_positive_rot_supervise="minus")
+# the wide-head family (se3ete2 / se3eti2): head width 32
+_WIDE = dict(init_dim=32, output_dim=128, hidden=128, group_norm=16)
 
 EXPERIMENTS = {
     "se3ete.3dmatch": lambda: _se3et_3dmatch(
@@ -175,6 +185,21 @@ EXPERIMENTS = {
         "se3eti.3dmatch", SE3ET_I_BLOCKS, 10000, **_SE3ETI),
     "se3eti.3dmatch.evalrot": lambda: _se3et_3dmatch(
         "se3eti.3dmatch.evalrot", SE3ET_I_BLOCKS, 10000, rotated=True, **_SE3ETI),
+    "se3ete2.3dmatch": lambda: _se3et_3dmatch(
+        "se3ete2.3dmatch", SE3ET_E_BLOCKS, 30000, n_level_equiv=2, **_WIDE),
+    "se3ete2.3dmatch.evalrot": lambda: _se3et_3dmatch(
+        "se3ete2.3dmatch.evalrot", SE3ET_E_BLOCKS, 30000, n_level_equiv=2, rotated=True,
+        **_WIDE),
+    "se3eti2.3dmatch": lambda: _se3et_3dmatch(
+        "se3eti2.3dmatch", SE3ET_I_BLOCKS, 30000, **_WIDE, **_SE3ETI),
+    "se3eti2.3dmatch.evalrot": lambda: _se3et_3dmatch(
+        "se3eti2.3dmatch.evalrot", SE3ET_I_BLOCKS, 30000, rotated=True, **_WIDE, **_SE3ETI),
+    # the 3DMatch model on KITTI's test sequences (the JAX entry replaces
+    # the data only); the KITTI loader is not ported, so its test path raises
+    "se3eti2.3dmatch.evalkitti": lambda: dataclasses.replace(
+        make_cfg("se3eti2.3dmatch"), name="se3eti2.3dmatch.evalkitti",
+        data=DataConfig(dataset="kitti", dataset_root=osp.join(REPO_ROOT, "data", "Kitti"),
+                        benchmarks=("test",), point_limit=30000)),
 }
 
 
@@ -196,20 +221,34 @@ def serving_config(cfg: ExperimentConfig) -> ExperimentConfig:
         cfg, pipeline=dataclasses.replace(cfg.pipeline, window_segments=0))
 
 
+# the tiny cut's widths by the entry's transformer width: SE3ET-E / SE3ET-I
+# (hidden 256) at __graft_entry__'s tiny flagship widths (head width 16);
+# the wide-head family (hidden 128) keeps its head width 32 and group norm
+# of 16 groups, so its init_dim 32 (the stage-0 bottleneck's 16 channels)
+_TINY_WIDTHS = {
+    256: dict(init_dim=16, gt_input_dim=256, gt_hidden_dim=64, gt_output_dim=64,
+              group_norm=8),
+    128: dict(init_dim=32, gt_input_dim=512, gt_hidden_dim=128, gt_output_dim=128,
+              group_norm=16),
+}
+
+
 def tiny_config(cfg: ExperimentConfig) -> ExperimentConfig:
     """A few-point, narrow float32 cut of ``cfg`` for CPU tests and the
     card-vs-CPU check: the values of the JAX package's
     ``__graft_entry__._flagship_configs(tiny=True)`` (exact neighbours,
-    materialised attention) with the host point-to-node partition on."""
+    materialised attention) with the host point-to-node partition on; for
+    the wide-head family the transformer keeps its width 128 (head width 32)
+    and the backbone its group norm of 16 groups (:data:`_TINY_WIDTHS`)."""
     pipeline = PyramidConfig(
         num_stages=4, voxel_size=0.14, search_radius=0.35,
         neighbor_limits=(8, 8, 8, 8), stage_caps=(128, 64, 32, 24),
         coarse_point_cap=24, window_segments=0, patch_k=8,
     )
     model = dataclasses.replace(
-        cfg.model, compute_dtype="float32", init_dim=16, output_dim=64,
-        gt_input_dim=256, gt_hidden_dim=64, gt_output_dim=64, init_radius=0.35,
-        init_sigma=0.28, group_norm=8, num_points_in_patch=8,
+        cfg.model, compute_dtype="float32", output_dim=64,
+        **_TINY_WIDTHS[cfg.model.gt_hidden_dim], init_radius=0.35,
+        init_sigma=0.28, num_points_in_patch=8,
         num_sinkhorn_iterations=5, num_targets=8, num_correspondences=12,
         gt_candidates=8, correspondence_limit=64, train_fused_conv=False,
         train_fused_embedding=False, train_fused_attention=False,

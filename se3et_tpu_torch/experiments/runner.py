@@ -51,9 +51,13 @@ def build_dataset(cfg: ExperimentConfig, subset: str, training: bool):
     """The 3DMatch loader where ``<dataset_root>/metadata/<subset>.pkl``
     exists, else the synthetic pair generator (32 training pairs, 8 test
     pairs of at most 6000 points), as the JAX runner falls back.  The KITTI
-    and ModelNet loaders are not ported: their datasets raise where their
-    metadata exists."""
+    and ModelNet loaders are not ported: a KITTI dataset raises always (no
+    synthetic pairs stand in for its sweeps: ``se3eti2.3dmatch.evalkitti``
+    waits for the loader), a ModelNet one where its metadata exists."""
     d = cfg.data
+    if d.dataset in ("kitti", "kitti_test"):
+        raise NotImplementedError(
+            f"{cfg.name}: the KITTI loader ({d.dataset}) is not ported (ROADMAP §A5)")
     if d.dataset == "threedmatch":
         if osp.isfile(osp.join(d.dataset_root, "metadata", f"{subset}.pkl")):
             return ds_lib.ThreeDMatchPairDataset(
@@ -64,10 +68,8 @@ def build_dataset(cfg: ExperimentConfig, subset: str, training: bool):
                 augmentation_rotation=d.augmentation_rotation,
                 rotated=d.rotated, z_rotated=d.z_rotated,
             )
-    elif d.dataset in ("kitti", "kitti_test", "modelnet"):
-        meta = (osp.join(d.dataset_root, f"{subset}.pkl") if d.dataset == "modelnet"
-                else osp.join(d.dataset_root, "metadata", f"{subset}.pkl"))
-        if osp.isfile(meta):
+    elif d.dataset == "modelnet":
+        if osp.isfile(osp.join(d.dataset_root, f"{subset}.pkl")):
             raise NotImplementedError(f"the {d.dataset} loader is not ported (ROADMAP §A5)")
     get_logger().warning(f"dataset {d.dataset}/{subset} not found under {d.dataset_root}; "
                          "falling back to the synthetic pair generator")
@@ -193,10 +195,10 @@ def prepare_test(cfg: ExperimentConfig, argv=None):
     if not args.no_calibrate:
         cfg = with_calibrated_limits(cfg)
     benchmark = args.benchmark or cfg.data.benchmarks[0]
+    test_ds = build_dataset(cfg, benchmark, training=False)  # raises for KITTI
     params = _load_params(cfg, _resolve_snapshot(cfg, args))
     tester = Tester(cfg.model, cfg.eval, cfg.output_dir, device=args.device)
     tester.build(params)
-    test_ds = build_dataset(cfg, benchmark, training=False)
 
     def loader():
         for i, item in enumerate(pyramid_loader(test_ds, cfg, with_meta=True)):

@@ -31,7 +31,7 @@ _NEG = -1e9
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 POSITIVE_MODES = (None, "sq", "abs", "relu", "sigmoid", "leakyrelu", "softplus", "minus")
 KERNEL_HEADS = (4,)
-KERNEL_HEAD_DIMS = (16, 64)
+KERNEL_HEAD_DIMS = (16, 32, 64)  # 32: the wide-head family se3ete2, on the CUDA cores
 SMEM_LIMIT = 232448  # dynamic shared memory one block can have on Hopper, bytes
 # K6's forms (csrc/eq_attention.cu): query rows behind one pooled partial
 # slot, and the tc form's plan: keys per staged tile, ring slots, consumer
@@ -56,8 +56,8 @@ def eq_attention_stats_form(h: int, c: int, dtype) -> str:
     * "tc": bf16, H = 4, head width 64 (the serving form,
       ``eq_tc::eq_stats_tc_kernel``: TMA key tiles, mma.sync, base-2
       softmax);
-    * "cuda": the CUDA-core kernel (float32, and head width 16 in either
-      type).
+    * "cuda": the CUDA-core kernel (float32, and head widths 16 and 32 in
+      either type).
 
     Chosen by shape alone, as the C entry point chooses; neither is a
     fallback of the other.  Raises ``ValueError`` where no form takes the
@@ -71,8 +71,8 @@ def eq_attention_apply_form(h: int, c: int, dtype) -> str:
     * "tc": bf16, H = 4, head width 64 (the serving form,
       ``eq_tc::eq_apply_tc_kernel``: TMA key and value tiles of one head,
       wgmma for q k^T and p v, base-2 exps);
-    * "cuda": the CUDA-core kernel (float32, and head width 16 in either
-      type).
+    * "cuda": the CUDA-core kernel (float32, and head widths 16 and 32 in
+      either type).
 
     Chosen by shape alone, as the C entry point chooses; neither is a
     fallback of the other.  Raises ``ValueError`` where no form takes the

@@ -57,7 +57,10 @@ _NEG = -1e9
 SH1_C = math.sqrt(3.0 / (4.0 * math.pi))  # real_sh degree-1 coefficient
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 KERNEL_AH = (4, 24)  # anchor-heads per launch the kernel is built for
-KERNEL_HEAD_DIMS = (16, 64)
+# head widths of the forward kernels K5 and K16 (32: the wide-head family
+# se3ete2 / se3eti2, on the CUDA-core form) and of the backward K11
+KERNEL_HEAD_DIMS = (16, 32, 64)
+BWD_HEAD_DIMS = (16, 64)
 SMEM_LIMIT = 232448  # dynamic shared memory one block can have on Hopper, bytes
 # the ws form's plan (csrc/rpe_attention_ws.cuh): query rows per block, keys
 # per tile, flash warps
@@ -127,7 +130,8 @@ def rpe_attention_form(ah: int, hc: int, cc: int, dtype, *, femb: bool = False) 
       (``csrc/rpe_attention_ws.cuh``, :func:`ws_smem_bytes`) or, with
       ``femb``, K16's (``csrc/rpe_attention_femb_ws.cuh``,
       :func:`femb_ws_smem_bytes`);
-    * "cuda": the CUDA-core kernel (float32, the other widths).
+    * "cuda": the CUDA-core kernel (float32, and head widths 16 and 32 in
+      either type).
 
     Chosen by shape alone, as the C entry points choose; none is a
     fallback of another.  Raises ``ValueError`` where no form takes the
@@ -186,10 +190,11 @@ def rpe_attention_bwd_form(ah: int, hc: int, cc: int, dtype) -> str:
 
     Chosen by shape alone, as the C entry points choose; neither is a
     fallback of the other.  Raises ``ValueError`` where no form takes the
-    shape."""
-    if dtype not in _DTYPES or ah not in KERNEL_AH or hc not in KERNEL_HEAD_DIMS or cc % 16:
+    shape: K11 is built for head widths :data:`BWD_HEAD_DIMS` (not 32,
+    whose forward K5 takes)."""
+    if dtype not in _DTYPES or ah not in KERNEL_AH or hc not in BWD_HEAD_DIMS or cc % 16:
         raise ValueError(f"no K11 kernel for AH={ah}, head width {hc}, C={cc}, {dtype}: "
-                         f"built for AH in {KERNEL_AH}, head width in {KERNEL_HEAD_DIMS}, "
+                         f"built for AH in {KERNEL_AH}, head width in {BWD_HEAD_DIMS}, "
                          f"C % 16 == 0, bf16 or float32")
     if dtype == torch.bfloat16 and 0 < bwd_tc_smem_bytes(ah, hc, cc) <= SMEM_LIMIT:
         return "tc"
@@ -329,7 +334,8 @@ def rpe_attention_bwd_plain(q, k, v, qp, emb, k_masks, qw, points, dout, out, ls
 
 
 def _check_inputs(q, k, v, qp, emb, k_masks, qw, points, cc=None):
-    """Checks of K5, K11 and K16 (``emb`` None and its width ``cc`` for K16)."""
+    """Checks of K5, K11 and K16 (``emb`` None and its width ``cc`` for K16;
+    K11's head widths by :func:`rpe_attention_bwd_form`)."""
     b, ah, n, c = q.shape
     cc = emb.shape[-1] if emb is not None else cc
     dtype = q.dtype
@@ -339,7 +345,7 @@ def _check_inputs(q, k, v, qp, emb, k_masks, qw, points, cc=None):
             or (emb is not None and emb.shape != (b, n, n, cc)) or k_masks.shape != (b, n)):
         raise ValueError("bad rpe_self_attention input shapes")
     if ah not in KERNEL_AH or c not in KERNEL_HEAD_DIMS or cc % 16:
-        raise ValueError(f"K5/K11 are built for AH in {KERNEL_AH}, head width in "
+        raise ValueError(f"K5/K16 are built for AH in {KERNEL_AH}, head width in "
                          f"{KERNEL_HEAD_DIMS} and C % 16 == 0, got {ah}, {c}, {cc}")
     if qw is not None:
         if qw.shape != (b, 3, ah, n) or points is None or points.shape[:1] != (b,) \
@@ -442,11 +448,14 @@ def _rpe_attention_bwd(q, k, v, qp, emb, k_masks, qw, points, dout, out, lse, sc
         raise ValueError(f"unsupported device {q.device}")
     _check_inputs(q, k, v, qp, emb, k_masks, qw, points)
     b, ah, n, c = q.shape
+    # raises before any launch where K11 is not built for the shape (head
+    # width 32 among them), whichever form the caller names
+    named = rpe_attention_bwd_form(ah, c, emb.shape[-1], q.dtype)
     if dout.shape != q.shape or out.shape != q.shape or lse.shape != (b, ah, n):
         raise ValueError("bad rpe_attention_bwd gradient shapes")
     if out.dtype != torch.float32 or lse.dtype != torch.float32:
         raise TypeError("rpe_attention_bwd takes K5's float32 output and row log-sum-exp")
-    form = form or rpe_attention_bwd_form(ah, c, emb.shape[-1], q.dtype)
+    form = form or named
     with_sh = qw is not None
     qwc = qw.float().contiguous() if with_sh else None
     ptsc = points.float().contiguous() if with_sh else None

@@ -125,8 +125,8 @@ class CheckResult:
     form: Optional[str] = None
     bitwise: Optional[bool] = None
     reread: Optional[float] = None
-    # K15 and K5: per call replayed from a CUDA graph (selfcheck.replay_ms),
-    # the form and (K15) its first design
+    # K15, K5-K7 and K16: per call replayed from a CUDA graph
+    # (selfcheck.replay_ms), the form and (K15) its first design
     replay_ms: Optional[float] = None
     first_replay_ms: Optional[float] = None
     # K8's tiles form on the card: its tile plan's build from the reverse
@@ -502,13 +502,15 @@ def _eq_inputs(q_masks, k_masks, a, h, c, dtype, seed):
 
 
 def check_eq_stats(q_masks, k_masks, a=6, h=4, c=64, with_sup=False, positive="sq",
-                   dtype=torch.bfloat16, seed=5, reps=3, device_kernel=None):
+                   dtype=torch.bfloat16, seed=5, reps=3, device_kernel=None, replay=False):
     """K6 on random q (A, H, N, c), k (A, H, M, c) with the given masks and
     ``positive`` mode.  The error reported is the largest over the outputs
     (row max, row sum, attn_ae[, sup]) of max|got - want| / max|want|,
     tolerance 1e-3: float32 sums in another order, the row sum accumulated
     online in base 2 (ex2.approx in the bf16 form).  With ``device_kernel``
-    (a kernel name) also the device time of that kernel per call."""
+    (a kernel name) also the device time of that kernel per call; with
+    ``replay``, the call's time replayed from a CUDA graph
+    (:func:`replay_ms`)."""
     q, k, _, sup_q, sup_k = _eq_inputs(q_masks, k_masks, a, h, c, dtype, seed)
     sq, sk = (sup_q, sup_k) if with_sup else (None, None)
     kern = lambda: eq_attention.eq_attention_stats(  # noqa: E731
@@ -527,6 +529,8 @@ def check_eq_stats(q_masks, k_masks, a=6, h=4, c=64, with_sup=False, positive="s
             err, 1e-3, _time_ms(kern, reps), _time_ms(plain, reps))
         if device_kernel is not None:
             res.device_ms = device_ms(kern, device_kernel)
+        if replay:
+            res.replay_ms = replay_ms(kern)
     e, m, n = k.shape[0], k.shape[2], q.shape[2]
     nbytes = _nbytes(q, k, q_masks, k_masks) + 2 * a * e * h * n * 4 + a * e * 4
     ops = 2.0 * a * e * h * n * m * c
@@ -536,7 +540,7 @@ def check_eq_stats(q_masks, k_masks, a=6, h=4, c=64, with_sup=False, positive="s
 
 
 def check_eq_apply(q_masks, k_masks, a=6, h=4, c=64, dtype=torch.bfloat16, seed=6,
-                   reps=3, device_kernel=None, two_calls=False, zero_rows=()):
+                   reps=3, device_kernel=None, two_calls=False, zero_rows=(), replay=False):
     """K7 on random q, k, v, the plain version's row statistics and
     normalised random weights w (A, E), the anchors in ``zero_rows`` with
     all-zero weights; tolerance 1e-2 * max|out| in bf16 (p rounded to bf16,
@@ -545,7 +549,8 @@ def check_eq_apply(q_masks, k_masks, a=6, h=4, c=64, dtype=torch.bfloat16, seed=
     ``two_calls`` the time of two PyTorch calls computing the same function
     (``scaled_dot_product_attention`` over the A * E * H heads with the key
     mask, then the w-weighted sum over e; the heads expanded beforehand),
-    a yardstick the port never calls."""
+    a yardstick the port never calls; with ``replay``, the call's time
+    replayed from a CUDA graph (:func:`replay_ms`)."""
     q, k, v, _, _ = _eq_inputs(q_masks, k_masks, a, h, c, dtype, seed)
     rowmax, rowsum, _ = eq_attention.eq_attention_stats_plain(q, k, q_masks, k_masks)
     g = torch.Generator().manual_seed(seed + 1)
@@ -564,6 +569,8 @@ def check_eq_apply(q_masks, k_masks, a=6, h=4, c=64, dtype=torch.bfloat16, seed=
     e, m, n = k.shape[0], k.shape[2], q.shape[2]
     if device_kernel is not None:
         res.device_ms = device_ms(kern, device_kernel)
+    if replay:
+        res.replay_ms = replay_ms(kern)
     if two_calls:
         qe = q[:, None].expand(a, e, h, n, c).reshape(a * e * h, n, c)
         ke = k[None].expand(a, e, h, m, c).reshape(a * e * h, m, c)
@@ -1039,7 +1046,7 @@ def check_influence(q_points, s_points, nbr, kernel_points, sigma, mode="linear"
 
 def check_rpe_attention_femb(points, masks, ah, c=64, cc=256, k=3, sigma_d=0.2, sigma_a=15.0,
                              with_sh=True, dtype=torch.bfloat16, seed=12, reps=3,
-                             device_kernel=None):
+                             device_kernel=None, replay=False):
     """K16 on the coarse points (B, N, 3) and key masks (B, N): random q, k,
     v (B, AH, N, c), qp (B, N, AH, C) in ``dtype``, random projections
     (C, C) and, with ``with_sh``, qw (B, 3, AH, N); the k nearest valid
@@ -1047,7 +1054,9 @@ def check_rpe_attention_femb(points, masks, ah, c=64, cc=256, k=3, sigma_d=0.2, 
     max|out| in bf16 (K5's; the kernel and the plain version round the same
     bases, G and rows, their float32 sums differ in order, so a row can
     land an ulp apart) and 1e-4 * max|out| in float32.  With
-    ``device_kernel``, also that kernel's device time per call."""
+    ``device_kernel``, also that kernel's device time per call; with
+    ``replay``, the call's time replayed from a CUDA graph
+    (:func:`replay_ms`)."""
     g = torch.Generator().manual_seed(seed)
     dev = points.device
     b, n, _ = points.shape
@@ -1076,6 +1085,8 @@ def check_rpe_attention_femb(points, masks, ah, c=64, cc=256, k=3, sigma_d=0.2, 
         lambda w: tol * float(w[rows].abs().max()), reps, mask=rows)
     if device_kernel is not None:
         res.device_ms = device_ms(kernel_fn, device_kernel)
+    if replay:
+        res.replay_ms = replay_ms(kernel_fn)
     deg_d, deg_a, _, _ = embedding._folded_projections(wd, wa, sigma_a)
     nkeys = int(masks.sum())  # valid keys of the B clouds
     # per (query, valid key): the distance and k angle projections (deg_d +

@@ -210,15 +210,17 @@ def test_influence_checks_its_inputs_on_the_cpu(case):
     (24, 64, 256, torch.float32, "cuda"), (4, 64, 256, torch.float32, "cuda"),
     (24, 16, 64, torch.bfloat16, "cuda"), (4, 16, 64, torch.bfloat16, "cuda"),
     (24, 16, 64, torch.float32, "cuda"), (24, 64, 48, torch.bfloat16, "cuda"),
+    (24, 32, 128, torch.bfloat16, "cuda"), (4, 32, 128, torch.bfloat16, "cuda"),  # se3ete2
+    (24, 32, 128, torch.float32, "cuda"),
 ])
 def test_rpe_attention_form(ah, hc, cc, dtype, form):
     """K5 takes the ws form in bf16 with head width 64 and C % 32 == 0, the
-    CUDA-core form otherwise."""
+    CUDA-core form otherwise (head width 32, the wide-head family, too)."""
     assert rpe_k.rpe_attention_form(ah, hc, cc, dtype) == form
 
 
 @pytest.mark.parametrize("ah,hc,cc,form", [(24, 64, 256, "ws"), (4, 64, 256, "ws"),
-                                           (24, 16, 64, "cuda")])
+                                           (24, 16, 64, "cuda"), (24, 32, 128, "cuda")])
 def test_rpe_attention_form_of_femb(ah, hc, cc, form):
     """K16 takes its own ws form in bf16 at the serving shapes."""
     assert rpe_k.rpe_attention_form(ah, hc, cc, torch.bfloat16, femb=True) == form
@@ -264,7 +266,7 @@ def test_rpe_attention_ws_plan_fits_a_block(ah):
 @pytest.mark.parametrize("ah,hc,cc,dtype", [
     (24, 64, 512, torch.bfloat16),   # neither form's plan fits a block
     (8, 64, 256, torch.bfloat16),    # no kernel for AH = 8
-    (24, 32, 256, torch.bfloat16),   # nor head width 32
+    (24, 128, 256, torch.bfloat16),  # nor head width 128
     (24, 64, 40, torch.float32),     # C % 16 != 0
     (24, 64, 256, torch.float16),
 ])
@@ -351,6 +353,8 @@ def test_geometric_embedding_bwd_form_refuses_shapes_no_kernel_takes(c, dtype, b
     (4, 64, torch.float32, "cuda"),
     (4, 16, torch.float32, "cuda"),     # the tiny card-vs-CPU widths
     (4, 16, torch.bfloat16, "cuda"),
+    (4, 32, torch.bfloat16, "cuda"),    # the wide-head family's EQ cross layers
+    (4, 32, torch.float32, "cuda"),
 ])
 def test_eq_attention_stats_form(h, c, dtype, form):
     """K6 takes the tc form in bf16 with H = 4 and head width 64, the
@@ -361,7 +365,7 @@ def test_eq_attention_stats_form(h, c, dtype, form):
 @pytest.mark.parametrize("h,c,dtype", [
     (8, 64, torch.bfloat16),    # no kernel for H = 8
     (2, 16, torch.float32),     # nor H = 2
-    (4, 32, torch.bfloat16),    # nor head width 32
+    (4, 128, torch.bfloat16),   # nor head width 128
     (4, 64, torch.float16),
 ])
 def test_eq_attention_stats_form_refuses_shapes_no_kernel_takes(h, c, dtype):
@@ -373,7 +377,8 @@ def test_eq_attention_stats_form_refuses_shapes_no_kernel_takes(h, c, dtype):
     (1024, 64, torch.bfloat16, 64), (1003, 64, torch.bfloat16, 63),
     (17, 64, torch.bfloat16, 2), (1, 64, torch.bfloat16, 1),
     (1024, 64, torch.float32, 128), (17, 16, torch.float32, 3),
-    (17, 16, torch.bfloat16, 3),
+    (17, 16, torch.bfloat16, 3), (1024, 32, torch.bfloat16, 128),
+    (1003, 32, torch.float32, 126),
 ])
 def test_eq_attention_stats_parts(n, c, dtype, parts):
     """One pooled partial slot per 16 query rows in the tc form, per 8 in
@@ -424,6 +429,8 @@ def test_eq_attention_stats_refuses_bad_inputs_on_the_cpu(change, error):
     (4, 64, torch.float32, "cuda"),
     (4, 16, torch.float32, "cuda"),     # the tiny card-vs-CPU widths
     (4, 16, torch.bfloat16, "cuda"),
+    (4, 32, torch.bfloat16, "cuda"),    # the wide-head family's EQ cross layers
+    (4, 32, torch.float32, "cuda"),
 ])
 def test_eq_attention_apply_form(h, c, dtype, form):
     """K7 takes the tc form in bf16 with H = 4 and head width 64, the
@@ -434,7 +441,7 @@ def test_eq_attention_apply_form(h, c, dtype, form):
 @pytest.mark.parametrize("h,c,dtype", [
     (8, 64, torch.bfloat16),    # no kernel for H = 8
     (2, 16, torch.float32),     # nor H = 2
-    (4, 32, torch.bfloat16),    # nor head width 32
+    (4, 128, torch.bfloat16),   # nor head width 128
     (4, 64, torch.float16),
 ])
 def test_eq_attention_apply_form_refuses_shapes_no_kernel_takes(h, c, dtype):

@@ -498,6 +498,16 @@ RPE_EDGES = [(1024, 40), (1003, 40), (33, 5), (12, 3), (1003, 72)]
     (1003, 24, 64, 256, False, torch.bfloat16, 72),   # the same, ragged, two masked tiles
     (12, 24, 64, 256, False, torch.bfloat16, 3),      # the same, fewer rows than a block
     (128, 24, 16, 64, False, torch.float32, 40),      # tiny se3eti widths
+    # head width 32 (the wide-head family, C = 128): the CUDA-core form
+    (1024, 24, 32, 128, True, torch.bfloat16, 40),    # se3ete2 self_eq layers
+    (1024, 4, 32, 128, False, torch.bfloat16, 40),    # its plain self layers
+    (1024, 24, 32, 128, False, torch.bfloat16, 40),   # se3eti2 self_eq layers: no SH
+    (1003, 24, 32, 128, True, torch.bfloat16, 72),    # ragged, two masked key tiles
+    (1003, 4, 32, 128, False, torch.bfloat16, 72),
+    (33, 24, 32, 128, True, torch.bfloat16, 5),       # one key past a tile
+    (12, 4, 32, 128, False, torch.bfloat16, 3),       # fewer rows than a block
+    (1024, 24, 32, 128, True, torch.float32, 40),     # float32 at the family's widths
+    (128, 4, 32, 128, False, torch.float32, 40),
 ])
 def test_rpe_attention_kernel(cuda, n, ah, c, cc, with_sh, dtype, pad):
     points, masks = _cloud(cuda, n, 4, pad=pad)
@@ -550,7 +560,10 @@ EQ_MODES = ("sq", None, "abs", "relu", "sigmoid", "leakyrelu", "softplus", "minu
     (1024, 1024, 64, torch.bfloat16, "sq"),   # EQ cross layers
     (1003, 997, 64, torch.bfloat16, "sq"),    # ragged N and M
     (128, 128, 16, torch.float32, "sq"),      # tiny card-vs-CPU widths
-] + [(1024, 1024, 64, torch.bfloat16, mode) for mode in EQ_MODES[1:]])
+    # head width 32 (se3ete2's EQ cross layers): the CUDA-core form
+    (1003, 997, 32, torch.bfloat16, "sq"), (1024, 1024, 32, torch.float32, "sq"),
+] + [(1024, 1024, 64, torch.bfloat16, mode) for mode in EQ_MODES[1:]]
+  + [(1024, 1024, 32, torch.bfloat16, mode) for mode in EQ_MODES])
 @pytest.mark.parametrize("with_sup", [False, True])
 def test_eq_attention_stats_kernel(cuda, n, m, c, dtype, positive, with_sup):
     """K6 against its plain version in every positive() mode at the serving
@@ -585,7 +598,8 @@ def _eq_edge_masks(case, n, m, device):
     (1024, 1024, "masked tiles"), (1003, 997, "masked tiles"),
     (1024, 1024, "no query row"), (1024, 1024, "one key"), (17, 63, "one key"),
 ])
-@pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 64), (torch.float32, 16)])
+@pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 64), (torch.float32, 16),
+                                     (torch.bfloat16, 32), (torch.float32, 32)])
 @pytest.mark.parametrize("with_sup", [False, True])
 def test_eq_attention_stats_kernel_edges(cuda, n, m, case, dtype, c, with_sup):
     """K6 (both forms) at shapes and masks off the serving path: N = 1 and
@@ -610,10 +624,10 @@ def test_eq_attention_stats_plan_matches_the_kernel(cuda):
     parts.restype = ctypes.c_int
     for n in (1, 17, 1003, 1024):
         for c, dtype in ((64, torch.bfloat16), (16, torch.bfloat16), (64, torch.float32),
-                         (16, torch.float32)):
+                         (16, torch.float32), (32, torch.bfloat16), (32, torch.float32)):
             assert parts(4, n, c, int(dtype == torch.bfloat16)) == \
                 eq.eq_attention_stats_parts(4, n, c, dtype)
-    assert parts(8, 1024, 64, 1) == 0 and parts(4, 1024, 32, 1) == 0
+    assert parts(8, 1024, 64, 1) == 0 and parts(4, 1024, 128, 1) == 0
     smem = lib.se3et_eq_attention_stats_smem
     smem.argtypes = [ctypes.c_int]
     smem.restype = ctypes.c_longlong
@@ -629,6 +643,9 @@ def test_eq_attention_stats_plan_matches_the_kernel(cuda):
     (1024, 1024, 64, torch.bfloat16),
     (1003, 997, 64, torch.bfloat16),
     (128, 128, 16, torch.float32),
+    (1024, 1024, 32, torch.bfloat16),   # head width 32 (se3ete2): the CUDA-core form
+    (1003, 997, 32, torch.bfloat16),
+    (1024, 1024, 32, torch.float32),
 ])
 def test_eq_attention_apply_kernel(cuda, n, m, c, dtype):
     qm = torch.arange(n, device=cuda) < n - 24
@@ -644,7 +661,8 @@ def test_eq_attention_apply_kernel(cuda, n, m, c, dtype):
     (1024, 1024, "no key"), (17, 63, "no key"),
     (1024, 1024, "zero w row"),
 ])
-@pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 64), (torch.float32, 16)])
+@pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 64), (torch.float32, 16),
+                                     (torch.bfloat16, 32), (torch.float32, 32)])
 def test_eq_attention_apply_kernel_edges(cuda, n, m, case, dtype, c):
     """K7 (both forms) at shapes and masks off the serving path: N = 1, 17
     and 1003, M = 1, 63 and 997, whole masked key tiles (skipped by the tc
@@ -1224,6 +1242,38 @@ def test_rpe_attention_bwd_launches_its_form(cuda, dtype, form, kernel, other):
     _assert_ok(res)
 
 
+@pytest.mark.parametrize("ah,with_sh", [(24, True), (4, False)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rpe_attention_bwd_refuses_head_width_32(cuda, ah, with_sh, dtype):
+    """K5 serves head width 32 (the wide-head family), K11 is not built for
+    it: a backward through K5 at 32, by the wrapper, by a named form or by
+    autograd, raises a ValueError naming K11 and the width before any
+    launch."""
+    from se3et_tpu_torch.ops.kernels import rpe_attention as rpe
+
+    n, c, cc = 256, 32, 128
+    points, masks = _cloud(cuda, n, 15)
+    g = torch.Generator().manual_seed(15)
+    rnd = lambda *s: torch.randn(s, generator=g).to(cuda, dtype)  # noqa: E731
+    q, k, v, qp, emb = rnd(2, ah, n, c), rnd(2, ah, n, c), rnd(2, ah, n, c), \
+        rnd(2, n, ah, cc) * 0.0625, rnd(2, n, n, cc)
+    qw = (torch.randn((2, 3, ah, n), generator=g) * 0.3).to(cuda) if with_sh else None
+    pts = rpe.point_rows(points) if with_sh else None
+    out, lse = rpe.rpe_self_attention_with_lse(q, k, v, qp, emb, masks, qw, pts, scale=0.125)
+    dout = torch.randn((2, ah, n, c), generator=g).to(cuda)
+    before = rpe.rpe_attention_bwd.launches
+    with pytest.raises(ValueError, match="K11.*head width 32"):
+        rpe.rpe_attention_bwd(q, k, v, qp, emb, masks, qw, pts, dout, out, lse, scale=0.125)
+    with pytest.raises(ValueError, match="K11.*head width 32"):
+        rpe._rpe_attention_bwd(q, k, v, qp, emb, masks, qw, pts, dout, out, lse, 0.125,
+                               form="cuda")
+    q.requires_grad_(True)
+    with pytest.raises(ValueError, match="K11.*head width 32"):
+        rpe.rpe_self_attention(q, k, v, qp, emb, masks, qw, pts, scale=0.125).sum().backward()
+    torch.cuda.synchronize()
+    assert rpe.rpe_attention_bwd.launches == before
+
+
 def test_rpe_attention_bwd_tc_plan_matches_the_kernel(cuda):
     """The wrapper's shared-memory plan of K11's tc form is the kernel's."""
     import ctypes
@@ -1782,6 +1832,13 @@ FEMB_MASK_RUNS = ((0, 37, 45), (1, 100, 128), (0, 500, 532), (1, 70, 71))
     (1024, 4, 64, 256, False, torch.bfloat16, 40, True),
     (12, 24, 64, 256, True, torch.bfloat16, 3, False),       # fewer rows than positional
     (12, 4, 64, 256, False, torch.bfloat16, 3, False),       # warps (AH = 4: 8 of them)
+    # head width 32 (the wide-head family, C = 128): the CUDA-core form
+    (1024, 24, 32, 128, True, torch.bfloat16, 40, False),    # se3ete2 self_eq layers
+    (1024, 4, 32, 128, False, torch.bfloat16, 40, False),    # its plain self layers
+    (1003, 24, 32, 128, True, torch.bfloat16, 72, False),    # ragged, masked tiles
+    (1024, 24, 32, 128, True, torch.bfloat16, 40, True),     # masked runs inside tiles
+    (128, 24, 32, 128, True, torch.float32, 40, False),      # float32
+    (128, 4, 32, 128, False, torch.float32, 40, False),
 ])
 def test_rpe_attention_femb_kernel(cuda, n, ah, c, cc, with_sh, dtype, pad, runs):
     points, masks = _cloud(cuda, n, 18, pad=pad)

@@ -267,7 +267,9 @@ def test_estimated_transform_matches_jax(pair):
 
 
 PORTED_EXPERIMENTS = ("se3ete.3dmatch", "se3ete.3dmatch.evalrot", "se3eti.3dmatch",
-                      "se3eti.3dmatch.evalrot")
+                      "se3eti.3dmatch.evalrot", "se3ete2.3dmatch", "se3ete2.3dmatch.evalrot",
+                      "se3eti2.3dmatch", "se3eti2.3dmatch.evalrot",
+                      "se3eti2.3dmatch.evalkitti")
 
 
 @pytest.mark.parametrize("name", PORTED_EXPERIMENTS)
