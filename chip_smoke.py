@@ -145,7 +145,25 @@ Phases, each of which raises (exit code != 0) on failure:
    K16 at both shapes; then ``se3eti2.3dmatch`` through ``run_test``'s
    Tester on 4 pairs (counts, replays and metrics bit for bit against
    eager) and K5 at its self_eq shape without the SH term.  Prints the
-   phase's wall time and the script's.
+   phase's wall time;
+10. the wide-head family trained: K11 at head width 32 (its first design,
+   "cuda") against its plain version at se3ete2's self_eq shape (q (2, 24,
+   1024, 32), emb (2, 1024, 1024, 128), SH), its plain self shape (AH 4)
+   and se3eti2's self_eq shape (AH 24, no SH), in bf16 and float32, by
+   events and device time (the kernel and the whole call) beside its bound;
+   a tiny float32 card-vs-CPU training step of se3ete2's flash cut;
+   ``make_train_step`` at full se3ete2 width on phase 9's two pairs (one
+   warm-up and three timed steps, every counter set to 0 just before and
+   read just after, held to ``SE3ETE2_TRAIN_LAUNCHES`` a step; finite
+   losses and gradient norm, ms/step, forward + loss ms, peak memory); the
+   float32 K1 ("rows"), K8 and K9 ("tiles") and K10 (C 128, "tc") against
+   their plain versions at the family's training shapes; the registry's
+   ``trainval`` on ``se3eti2.3dmatch`` through ``runner.main`` (an epoch of
+   2 steps, validation on 2 pairs, snapshots), ``--resume`` to epoch 2
+   (each call's backward launches held to one epoch's), and ``test
+   --snapshot .../latest`` on 2 pairs with finite metrics; last, the
+   profile of one se3ete2 training step.  Prints the phase's wall time and
+   the script's.
 
 Prints timings, then the card's name and power limit, a JSON line with the
 kernels, and as the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -297,6 +315,32 @@ SE3ETI2_LAUNCHES = {**WIDE_CONV_LAUNCHES, "geometric_embedding": 1, "sinkhorn": 
 WIDE_DEVICE_KERNELS = {"rpe_self_attention": "rpe_attention_kernel",
                        "eq_attention_stats": "eq_stats_kernel",
                        "eq_attention_apply": "eq_apply_kernel"}
+# phase 10: the wide-head family trained.  Launches per se3ete2 training
+# step, read from the code as TRAIN_LAUNCHES (the same blocks at half the
+# channels): 10 gathering convs (K1 in float32, K8), 3 strided skips (K2,
+# K9), one embedding (K3, K10 on its tc form at C 128), one Sinkhorn, 5 self
+# layers (K5 / K11: 2 at AH = 24 with the SH term, 3 at AH = 4, on their
+# "cuda" forms at head width 32); the EQ cross layers are materialised
+SE3ETE2_TRAIN_LAUNCHES = {**TRAIN_LAUNCHES}
+# and of the backward kernels per se3eti2 step: three self_eq layers (K11 at
+# AH = 24 without the SH term)
+SE3ETI2_TRAIN_BWD_LAUNCHES = {"gather_wf_bwd": 10, "neighbor_max_bwd": 3,
+                              "geometric_embedding_bwd": 1, "rpe_attention_bwd": 3}
+# se3ete2's training shapes of K8 and of the float32 K1 in K8_SHAPES' layout
+# (A*C of the conv's input at the family's widths, half se3ete's), and the
+# A*C of its three strided skips (K9)
+SE3ETE2_K8_SHAPES = (("stage-0 same", "neighbors_0", 0, 96, 1),
+                     ("s0 -> s1", "subsampling_0", 0, 96, 1),
+                     ("stage-1 same", "neighbors_1", 1, 192, 2),
+                     ("s1 -> s2", "subsampling_1", 1, 192, 1),
+                     ("stage-2 same", "neighbors_2", 2, 384, 2),
+                     ("s2 -> s3", "subsampling_2", 2, 384, 1),
+                     ("stage-3 same", "neighbors_3", 3, 768, 2))
+SE3ETE2_SKIP_AC = (6 * 64, 6 * 128, 6 * 256)
+# K11's first design's device kernel (its form "cuda", head width 32)
+K11_FIRST_KERNEL = "rpe_attention_bwd_kernel"
+# trainval on se3eti2: steps an epoch (and validation pairs), test pairs
+TRAINVAL_STEPS, TRAINVAL_TEST_PAIRS = 2, 2
 T_START = time.perf_counter()
 
 
@@ -1230,8 +1274,8 @@ def _test_path(dev):
     from se3et_tpu_torch.ops.kernels import rpe_attention, selfcheck
 
     cfg = configs.make_cfg(TEST_EXPERIMENT)
-    # from no calibration cache and no dumps of an earlier run
-    for stale in ("neighbor_limits.json", "features"):
+    # from no calibration cache, no dumps and no snapshots of an earlier run
+    for stale in ("neighbor_limits.json", "features", "snapshots"):
         _remove(os.path.join(cfg.output_dir, stale))
     gc.collect()
     torch.cuda.synchronize()
@@ -1469,7 +1513,8 @@ def _wide_head(dev):
     through ``run_test``'s Tester (calibrated limits, the captured eval
     forward) with counters set to 0 just before and read just after, every
     replayed output and metric bit for bit against eager, and K5 at its
-    self_eq shape without the SH term.  Returns {name: CheckResult}."""
+    self_eq shape without the SH term.  Returns ({name: CheckResult}, the
+    se3ete2 pairs)."""
     import torch
 
     from se3et_tpu_torch.data.pyramid import synthetic_pair
@@ -1622,10 +1667,10 @@ def _wide_head(dev):
     del model, served, inputs, p0
     wide_a = time.perf_counter() - t_phase
 
-    # (b) se3eti2 through run_test's Tester, from no calibration cache and no
-    # dumps of an earlier run
+    # (b) se3eti2 through run_test's Tester, from no calibration cache, no
+    # dumps and no snapshots of an earlier run
     cfg_i = configs.make_cfg(WIDE_TEST_EXPERIMENT)
-    for stale in ("neighbor_limits.json", "features"):
+    for stale in ("neighbor_limits.json", "features", "snapshots"):
         _remove(os.path.join(cfg_i.output_dir, stale))
     gc.collect()
     torch.cuda.synchronize()
@@ -1678,6 +1723,235 @@ def _wide_head(dev):
     checks[f"rpe_self_attention (se3eti2 self_eq, no SH, head width {hw})"] = res
     print(f"phase 9: {time.perf_counter() - t_phase:.1f} s ((a) se3ete2 {wide_a:.1f} s)",
           flush=True)
+    return checks, pairs
+
+
+def _wide_training(dev, pairs):
+    """Phase 10: the wide-head family trained on the card.  K11 at head
+    width 32 (its first design, "cuda") against its plain version at
+    se3ete2's self_eq shape (AH = 24, SH), its plain self shape (AH = 4)
+    and se3eti2's self_eq shape (AH = 24, no SH), in bf16 and float32, by
+    events and device time (the kernel and the whole call), with its bound;
+    a tiny float32 card-vs-CPU training step of se3ete2's flash cut;
+    ``make_train_step`` at full se3ete2 width on phase 9's pairs (one
+    warm-up and three timed steps, counters set to 0 just before and read
+    just after, held to ``SE3ETE2_TRAIN_LAUNCHES``; ms/step, forward + loss
+    ms, peak memory); the float32 K1, K8, K9 and K10 against their plain
+    versions at the family's training shapes; ``trainval`` on se3eti2
+    through ``main`` (an epoch of 2 steps with validation on 2 pairs and
+    snapshots, then ``--resume`` to epoch 2, each call's backward launches
+    held to ``SE3ETI2_TRAIN_BWD_LAUNCHES``), then ``test --snapshot
+    .../latest`` on 2 pairs with finite metrics; last, the profile of one
+    se3ete2 training step.  Returns {name: CheckResult} of the path's
+    rows."""
+    import torch
+
+    from se3et_tpu_torch.engine.steps import make_train_step
+    from se3et_tpu_torch.engine.trainer import make_optimizer
+    from se3et_tpu_torch.experiments import configs, runner
+    from se3et_tpu_torch.nn.loss import overall_loss
+    from se3et_tpu_torch.nn.model import SE3ETModel, pyramid_to_tensors
+    from se3et_tpu_torch.ops.kernels import embedding, rpe_attention, selfcheck
+
+    t_phase = time.perf_counter()
+    cfg = configs.serving_config(configs.make_cfg(WIDE_EXPERIMENT))
+    m = cfg.model
+    heads, hw, cc = m.num_heads, m.gt_hidden_dim // m.num_heads, m.gt_hidden_dim
+    ah = m.kanchor * heads
+    forms = {f"K11 AH {a} {dt}": rpe_attention.rpe_attention_bwd_form(a, hw, cc, dt)
+             for a in (ah, heads) for dt in (torch.bfloat16, torch.float32)}
+    forms["K10 C 128 bf16"] = embedding.geometric_embedding_bwd_form(cc, torch.bfloat16)
+    print(f"phase 10 {WIDE_EXPERIMENT} training: head width {hw}, C {cc}; forms {forms}",
+          flush=True)
+    if set(v for k, v in forms.items() if k.startswith("K11")) != {"cuda"} \
+            or forms["K10 C 128 bf16"] != "tc":
+        raise RuntimeError(f"the wide-head family's training takes {forms}")
+    _tiny_train_card_vs_cpu(cfg, configs.synthetic_extent(cfg.data.dataset), dev)
+    split = {"tiny step": time.perf_counter() - t_phase}
+
+    # se3ete2's training step at full width on phase 9's pairs
+    gc.collect()
+    torch.cuda.synchronize()
+    model = SE3ETModel(m, seed=cfg.seed)
+    step = make_train_step(model, cfg.loss, make_optimizer(model.parameters(), cfg.optim,
+                                                            len(pairs)))
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    inputs = [pyramid_to_tensors(p, dev) for p in pairs]
+    step(inputs[-1], generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for w in selfcheck.WRAPPERS.values():
+        w.launches = 0
+    step_ms, losses = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(inputs[i % len(inputs)], generator=gen))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {n: w.launches for n, w in selfcheck.WRAPPERS.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    vals = [{k: float(v) for k, v in ls.items()} for ls in losses]
+    if not all(math.isfinite(x) for v in vals for x in v.values()):
+        raise RuntimeError(f"se3ete2: non-finite training losses or gradient norm: {vals}")
+    table = dict.fromkeys(selfcheck.WRAPPERS, 0)
+    table.update(SE3ETE2_TRAIN_LAUNCHES)
+    if launches != {n: TRAIN_STEPS * c for n, c in table.items()}:
+        raise RuntimeError(f"{TRAIN_STEPS} se3ete2 training steps launched {launches}, "
+                           f"expected {table} a step")
+    fwd_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model(inputs[0], train=True, with_registration=False, generator=gen)
+        overall_loss(out, inputs[0], cfg.loss)
+        torch.cuda.synchronize()
+        fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        del out
+    print(f"phase 10 se3ete2 train ms/step: {[round(x, 2) for x in step_ms]} (median "
+          f"{statistics.median(step_ms):.2f}); forward + loss (no backward) "
+          f"{[round(x, 2) for x in fwd_ms]} (median {statistics.median(fwd_ms):.2f}); losses "
+          f"{vals}; launches {dict((n, c) for n, c in launches.items() if c)} ({TRAIN_STEPS} "
+          f"steps, the table's); max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
+    split["full-width step"] = time.perf_counter() - t_phase - sum(split.values())
+
+    # the training kernels at the family's shapes (pair 0), against their
+    # plain versions; K11 also in float32 (off the path: training feeds it
+    # the embedding's dtype, bf16)
+    p0 = inputs[0]
+    pts_c, masks_c = p0["points_3"], p0["masks_3"]
+    checks, held = {}, []
+    for what, a, with_sh, per_step in (("se3ete2 self_eq", ah, True, 2),
+                                       ("se3ete2 self", heads, False, 3),
+                                       ("se3eti2 self_eq", ah, False, None)):
+        for dt in (torch.bfloat16, torch.float32):
+            res = selfcheck.check_rpe_attention_bwd(pts_c, masks_c, a, c=hw, cc=cc,
+                                                    with_sh=with_sh, dtype=dt,
+                                                    device_kernel=K11_FIRST_KERNEL)
+            _print_check(res)
+            print(f"K11 {what} {res.shape}: events {res.ms:.4f} ms, device: the kernel "
+                  f"{_ms(res.device_ms)} ms, the whole call {_ms(res.call_device_ms)} ms; "
+                  f"bound {res.bound_ms:.4f} ms ({res.bound_by}), {res.bound_ms / res.ms:.1%} "
+                  f"of it by events; plain {res.plain_ms:.4f} ms; library none", flush=True)
+            held.append(res)
+            if dt == torch.bfloat16:
+                res.launches = TRAIN_STEPS * per_step if per_step else 0
+                checks[f"rpe_attention_bwd ({what}, head width {hw})"] = res
+    split["K11 checks"] = time.perf_counter() - t_phase - sum(split.values())
+    k8 = [(what, n, selfcheck.check_gather_wf_bwd(p0[key], p0[f"points_{src}"].shape[1], ac))
+          for what, key, src, ac, n in SE3ETE2_K8_SHAPES]
+    k1 = [(what, n, selfcheck.check_gather_wf(p0[key], p0[f"points_{src}"].shape[1], ac,
+                                              dtype=torch.float32))
+          for what, key, src, ac, n in SE3ETE2_K8_SHAPES]
+    for name, rows in (("gather_wf_bwd", k8), ("gather_wf", k1)):
+        if sum(n for _, n, _ in rows) != SE3ETE2_TRAIN_LAUNCHES[name]:
+            raise RuntimeError(f"SE3ETE2_K8_SHAPES does not cover the step's {name} launches")
+    for what, n, res in k8:
+        res.launches = TRAIN_STEPS * n
+        checks[f"gather_wf_bwd (se3ete2 {what})"] = res
+    for what, n, res in k1:
+        res.launches = TRAIN_STEPS * n
+        checks[f"gather_wf (float32, se3ete2 {what})"] = res
+    for i, ac in enumerate(SE3ETE2_SKIP_AC):
+        res = selfcheck.check_neighbor_max_bwd(p0[f"subsampling_{i}"],
+                                               p0[f"points_{i}"].shape[1], ac)
+        res.launches = TRAIN_STEPS
+        checks[f"neighbor_max_bwd (se3ete2 s{i} -> s{i + 1})"] = res
+    res = selfcheck.check_embedding_bwd(pts_c, masks_c, c=cc, k=m.angle_k, sigma_d=m.sigma_d,
+                                        sigma_a=m.sigma_a, device_kernel=K10_KERNEL)
+    res.launches = TRAIN_STEPS
+    checks[f"geometric_embedding_bwd (se3ete2, C {cc})"] = res
+    for name, res in checks.items():
+        if not name.startswith("rpe_attention_bwd"):
+            _print_check(res)
+    forms = {name: res.form for name, res in checks.items() if res.form is not None}
+    print(f"phase 10: forms at se3ete2's training shapes {forms}", flush=True)
+    want = {"gather_wf_bwd": "tiles", "gather_wf": "rows", "neighbor_max_bwd": "tiles"}
+    off = {k: f for k, f in forms.items() if f != want[k.split(" (")[0]]}
+    if off:
+        raise RuntimeError(f"training kernels took other forms at se3ete2's shapes: {off}")
+    bad = [r.name + " " + r.shape for r in list(checks.values()) + held if not r.ok]
+    if bad:
+        raise RuntimeError(f"training kernels disagree with their plain versions at head "
+                           f"width {hw}: {bad}")
+    per_step = {"K11 (events)": sum(n * r.ms for n, r in ((2, held[0]), (3, held[2]))),
+                "K11 (device)": sum(n * (r.device_ms or math.nan)
+                                    for n, r in ((2, held[0]), (3, held[2]))),
+                "K11 bound": sum(n * r.bound_ms for n, r in ((2, held[0]), (3, held[2]))),
+                "K8 (events)": sum(n * r.ms for _, n, r in k8),
+                "K1 float32 (events)": sum(n * r.ms for _, n, r in k1)}
+    print("phase 10 se3ete2 per step (ms): " + ", ".join(f"{k} {v:.4f}"
+                                                       for k, v in per_step.items()),
+          flush=True)
+    split["K1, K8, K9, K10 checks"] = time.perf_counter() - t_phase - sum(split.values())
+
+    # se3eti2 through the registry's trainval (its calibrated limits, cached
+    # by phase 9), --resume, then test from the snapshot
+    t0 = time.perf_counter()
+    cfg_i = configs.make_cfg(WIDE_TEST_EXPERIMENT)
+    for stale in ("snapshots", "events", "features"):
+        _remove(os.path.join(cfg_i.output_dir, stale))
+    args = ["--max_steps_per_epoch", str(TRAINVAL_STEPS)]
+    runs = []
+    for extra in (["--max_epoch", "1"], ["--max_epoch", "2", "--resume"]):
+        gc.collect()
+        torch.cuda.synchronize()
+        for w in selfcheck.WRAPPERS.values():
+            w.launches = 0
+        trainer = runner.main([WIDE_TEST_EXPERIMENT, "trainval"] + extra + args)
+        torch.cuda.synchronize()
+        launches = {n: w.launches for n, w in selfcheck.WRAPPERS.items()}
+        want = {n: TRAINVAL_STEPS * c for n, c in SE3ETI2_TRAIN_BWD_LAUNCHES.items()}
+        if {n: launches[n] for n in want} != want:
+            raise RuntimeError(f"trainval {extra} launched {launches}, expected {want} of the "
+                               "backward kernels (one epoch)")
+        runs.append((trainer.epoch, trainer.iteration, launches))
+        del trainer
+    if [r[:2] for r in runs] != [(1, TRAINVAL_STEPS), (2, 2 * TRAINVAL_STEPS)]:
+        raise RuntimeError(f"trainval then --resume reached (epoch, iteration) "
+                           f"{[r[:2] for r in runs]}")
+    se3eti2_k11 = runs[0][2]["rpe_attention_bwd"] + runs[1][2]["rpe_attention_bwd"]
+    checks[f"rpe_attention_bwd (se3eti2 self_eq, head width {hw})"].launches = se3eti2_k11
+    with open(os.path.join(cfg_i.output_dir, "events", "events.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    val = [e for e in events if "val/loss" in e]
+    if len(val) != 2 or not all(math.isfinite(v) for e in val for v in e.values()):
+        raise RuntimeError(f"trainval's validation lines: {val}")
+    snap = os.path.join(cfg_i.output_dir, "snapshots", "latest")
+    for w in selfcheck.WRAPPERS.values():
+        w.launches = 0
+    summary = runner.main([WIDE_TEST_EXPERIMENT, "test", "--snapshot", snap, "--max_pairs",
+                           str(TRAINVAL_TEST_PAIRS)])
+    torch.cuda.synchronize()
+    if not all(math.isfinite(v) for v in summary.values()):
+        raise RuntimeError(f"test from the trained snapshot: metrics {summary}")
+    t_trainval = time.perf_counter() - t0
+    split["trainval and test"] = t_trainval
+    print(f"phase 10 {WIDE_TEST_EXPERIMENT}: trainval (epoch 1, {TRAINVAL_STEPS} steps, "
+          f"validation on {TRAINVAL_STEPS} pairs) then --resume to epoch 2: (epoch, "
+          f"iteration) {[r[:2] for r in runs]}, backward launches per call "
+          f"{[{n: r[2][n] for n in SE3ETI2_TRAIN_BWD_LAUNCHES} for r in runs]}; validation "
+          f"{[{k: round(v, 4) for k, v in e.items() if k.startswith('val/')} for e in val]}; "
+          f"test --snapshot latest on {TRAINVAL_TEST_PAIRS} pairs: "
+          f"{dict((k, round(v, 4)) for k, v in summary.items())}; {t_trainval:.1f} s",
+          flush=True)
+
+    # last in the phase (a profiler session makes later ones in the process
+    # lossy): one se3ete2 training step's device time by kernel
+    also = (K11_FIRST_KERNEL, K8_KERNEL, K1_F32_KERNEL, K10_KERNEL) + K9_KERNELS
+    prof = _profile(lambda: step(inputs[0], generator=gen),
+                    what="one se3ete2 training step", top=20, also=also)
+    if prof is not None:
+        per = {what: sum(ms for key, ms in prof["ms"].items()
+                         if any(re.search(rf"\b{n}\b", key) for n in names))
+               for what, names in (("K11", (K11_FIRST_KERNEL,)), ("K8", (K8_KERNEL,)),
+                                   ("K1 float32", (K1_F32_KERNEL,)), ("K9", K9_KERNELS),
+                                   ("K10", (K10_KERNEL,)))}
+        print("phase 10 se3ete2 step profile, device ms per step: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in per.items()), flush=True)
+    split["profile"] = time.perf_counter() - t_phase - sum(split.values())
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in split.items()) + ")", flush=True)
     return checks
 
 
@@ -1983,7 +2257,13 @@ def main() -> int:
 
     # 9. the wide-head family at head width 32: se3ete2 served captured,
     # se3eti2 through run_test's Tester
-    checks.update(_wide_head(dev))
+    wide_checks, wide_pairs = _wide_head(dev)
+    checks.update(wide_checks)
+
+    # 10. the wide-head family trained: se3ete2's training step at full
+    # width on phase 9's pairs, se3eti2 through trainval, --resume and test
+    checks.update(_wide_training(dev, wide_pairs))
+    del wide_pairs
 
     kernels = []
     for name, res in checks.items():

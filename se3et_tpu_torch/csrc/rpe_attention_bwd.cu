@@ -17,7 +17,8 @@
 //   rpe_attention_bwd_tc.cuh.  Also forms dqp, d_emb and dqw from dS' =
 //   scale * dS on the tensor cores, and writes P and dS' in bf16 for the
 //   wrapper's three matrix products (dq, dk, dv);
-// * "cuda" (float32 and the other widths), the first design below: writes
+// * "cuda" (float32, and head widths 16 and 32 in either type: the
+//   wide-head family's training), the first design below: writes
 //   P and dS in float32 and leaves every contraction to the wrapper.  K5's
 //   CUDA-core layout -- a block owns kWarps query rows and all AH
 //   anchor-heads, so each emb[b,n,m,:] row is streamed once; one warp per
@@ -196,6 +197,12 @@ int dispatch(const void* q, const void* k, const void* v, const void* qp, const 
                              batch, n, cc, pts_rows, scale, s);
   if (ah == 4 && hc == 16)
     return launch<T, 4, 16>(q, k, v, qp, emb, kmask, qw, pts, dout, lse, dd, p_out, ds_out,
+                            batch, n, cc, pts_rows, scale, s);
+  if (ah == 24 && hc == 32)
+    return launch<T, 24, 32>(q, k, v, qp, emb, kmask, qw, pts, dout, lse, dd, p_out, ds_out,
+                             batch, n, cc, pts_rows, scale, s);
+  if (ah == 4 && hc == 32)
+    return launch<T, 4, 32>(q, k, v, qp, emb, kmask, qw, pts, dout, lse, dd, p_out, ds_out,
                             batch, n, cc, pts_rows, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,23 +1,31 @@
-r"""Experiment entry points of the PyTorch port: test / eval / eval_dgr / demo
-(port of :mod:`se3et_tpu.experiments.runner`'s test path).
+r"""Experiment entry points of the PyTorch port: trainval / test / eval /
+eval_dgr / demo (port of :mod:`se3et_tpu.experiments.runner`).
 
+    python -m se3et_tpu_torch.experiments.runner se3eti2.3dmatch trainval --max_epoch 1
     python -m se3et_tpu_torch.experiments.runner se3eti.3dmatch test --max_pairs 4
     python -m se3et_tpu_torch.experiments.runner se3eti.3dmatch eval --method lgr
     python -m se3et_tpu_torch.experiments.runner se3ete.3dmatch.evalrot demo
 
+``trainval`` trains the experiment with the port's
+:class:`~se3et_tpu_torch.engine.trainer.Trainer` (an epoch of training
+pairs, validation, the snapshots ``epoch-<n>`` and ``latest`` under
+``output/torch/<name>/snapshots``; ``--resume`` starts from ``latest``).
 ``test`` serves the benchmark's pairs through the captured eval forward on
 the card (:class:`~se3et_tpu_torch.engine.tester.Tester`) and dumps their
 features under ``output/torch/<name>/features``; ``eval`` and ``eval_dgr``
 evaluate those dumps offline; ``demo`` registers one pair and the same pair
-with its source rotated, and writes PLYs.  ``--device cpu`` runs ``test``
-and ``demo`` on the CPU; without it they need a CUDA device.
+with its source rotated, and writes PLYs.  ``--device cpu`` runs
+``trainval``, ``test`` and ``demo`` on the CPU; without it they need a CUDA
+device.
 
 The configuration takes the port's serving cut (:func:`serving_config`:
-neighbours indexed directly).  Where the dataset's metadata is absent the
-pairs come from the synthetic generator, as in the JAX runner.  Weights are
-drawn from the experiment's seed: loading a snapshot (``--snapshot``,
-``--test_epoch``, ``--test_iter``) raises until the port has snapshots
-(ROADMAP §A5).  The JAX runner's ``trainval`` is not ported (§A4-A5).
+neighbours indexed directly), which training runs on too.  Where the
+dataset's metadata is absent the pairs come from the synthetic generator,
+as in the JAX runner.  ``test`` and ``demo`` take the weights of a snapshot
+of the port (``--snapshot``, ``--test_epoch``, ``--test_iter``, else
+``latest`` where it exists), or draw them from the experiment's seed; a
+snapshot of the JAX package (orbax) raises until its importer is ported
+(ROADMAP §A5).
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from se3et_tpu_torch.data import pipeline as pipe_lib
 from se3et_tpu_torch.data.pyramid import build_pair
 from se3et_tpu_torch.engine.steps import make_forward
 from se3et_tpu_torch.engine.tester import Tester, evaluate_benchmark
+from se3et_tpu_torch.engine.trainer import SNAPSHOT_FILE, Trainer
 from se3et_tpu_torch.experiments.configs import (
     ExperimentConfig, make_cfg, serving_config, synthetic_extent,
 )
@@ -105,9 +114,11 @@ def with_calibrated_limits(cfg: ExperimentConfig, max_pairs: int = 8):
         cfg, pipeline=dataclasses.replace(cfg.pipeline, neighbor_limits=limits))
 
 
-def pyramid_loader(dataset, cfg: ExperimentConfig, with_meta=False, workers=4):
+def pyramid_loader(dataset, cfg: ExperimentConfig, with_meta=False, workers=4, limit=None):
     """Generator of the dataset's padded pyramids with the host's influence
-    weights, built in a pool of ``workers`` threads and prefetched."""
+    weights, built in a pool of ``workers`` threads and prefetched; with
+    ``limit``, of its first ``limit`` pairs only (nothing is built past
+    them)."""
 
     def build(i):
         item = dataset[i]
@@ -117,7 +128,7 @@ def pyramid_loader(dataset, cfg: ExperimentConfig, with_meta=False, workers=4):
                 if k not in ("ref_points", "src_points", "transform")}
         return (data, meta) if with_meta else data
 
-    indices = list(range(len(dataset)))
+    indices = list(range(len(dataset)))[:limit]
     with cf.ThreadPoolExecutor(max_workers=workers) as ex:
         futures = [ex.submit(build, i) for i in indices[: 2 * workers]]
         next_submit = len(futures)
@@ -129,14 +140,59 @@ def pyramid_loader(dataset, cfg: ExperimentConfig, with_meta=False, workers=4):
                 next_submit += 1
 
 
+def run_trainval(cfg: ExperimentConfig, argv=None):
+    """Train the experiment (the JAX runner's ``run_trainval``, argument for
+    argument, plus ``--device``) on its serving cut with calibrated limits
+    unless ``--no_calibrate``; ``--max_steps_per_epoch`` cuts the training
+    and the validation loaders alike.  Returns the trainer."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--resume", action="store_true")
+    parser.add_argument("--max_epoch", type=int, default=None)
+    parser.add_argument("--max_steps_per_epoch", type=int, default=None)
+    parser.add_argument("--no_calibrate", action="store_true",
+                        help="skip neighbor-limit calibration")
+    parser.add_argument("--device", type=str, default="cuda")
+    args = parser.parse_args(argv)
+
+    cfg = serving_config(cfg)
+    if not args.no_calibrate:
+        cfg = with_calibrated_limits(cfg)
+    optim = cfg.optim
+    if args.max_epoch is not None:
+        optim = dataclasses.replace(optim, max_epoch=args.max_epoch)
+
+    train_ds = build_dataset(cfg, cfg.data.train_subset, training=True)
+    val_ds = build_dataset(cfg, cfg.data.val_subset, training=False)
+    trainer = Trainer(cfg.model, cfg.loss, cfg.eval, optim, cfg.output_dir, seed=cfg.seed,
+                      batch_size=cfg.data.batch_size, device=args.device)
+    steps = len(train_ds)
+    if args.max_steps_per_epoch:
+        steps = min(steps, args.max_steps_per_epoch)
+    # the port's weights do not depend on an example pair
+    trainer.initialize(None, steps_per_epoch=steps)
+
+    limit = args.max_steps_per_epoch or None
+    trainer.run(lambda: pyramid_loader(train_ds, cfg, limit=limit),
+                lambda: pyramid_loader(val_ds, cfg, limit=limit), resume=args.resume)
+    return trainer
+
+
 def _load_params(cfg: ExperimentConfig, snapshot: str | None) -> dict:
-    """The model's weights: drawn from ``cfg.seed``.  A snapshot raises:
-    the port has no snapshots and no importer of the JAX package's orbax
-    ones yet (ROADMAP §A5)."""
-    if snapshot:
-        raise NotImplementedError(f"loading the snapshot {snapshot!r}: the port has no "
-                                  "snapshots yet (ROADMAP §A5)")
-    return SE3ETModel(cfg.model, seed=cfg.seed, device="cpu").state_dict()
+    """The model's weights (its ``state_dict``): the port's snapshot
+    ``<snapshot>/snapshot.pt`` (or the file itself), else, without a
+    snapshot, drawn from ``cfg.seed``.  A directory without the port's file
+    (an orbax snapshot of the JAX package) raises: its importer is not
+    ported (ROADMAP §A5)."""
+    if not snapshot:
+        return SE3ETModel(cfg.model, seed=cfg.seed, device="cpu").state_dict()
+    path = osp.join(snapshot, SNAPSHOT_FILE) if osp.isdir(snapshot) else snapshot
+    if osp.isfile(path):
+        return torch.load(path, map_location="cpu", weights_only=True)["model"]
+    if osp.isdir(snapshot):
+        raise NotImplementedError(
+            f"{snapshot!r} is not a snapshot of the port (no {SNAPSHOT_FILE}): the importer "
+            "of the JAX package's orbax snapshots is not ported (ROADMAP §A5)")
+    raise FileNotFoundError(f"no snapshot at {snapshot!r}")
 
 
 def apply_cfg_overrides(cfg: ExperimentConfig, overrides: dict) -> ExperimentConfig:
@@ -172,9 +228,10 @@ def _resolve_snapshot(cfg: ExperimentConfig, args) -> str | None:
 
 def prepare_test(cfg: ExperimentConfig, argv=None):
     """``run_test``'s set-up: (tester, loader, benchmark).  The tester is
-    built with the seed's weights on the configuration's serving cut with
-    calibrated limits; ``loader`` yields the benchmark's (pyramid, meta)
-    pairs up to ``--max_pairs``."""
+    built with the snapshot's weights (:func:`_resolve_snapshot`), else the
+    seed's, on the configuration's serving cut with calibrated limits;
+    ``loader`` yields the benchmark's (pyramid, meta) pairs up to
+    ``--max_pairs``."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--snapshot", type=str, default=None)
     parser.add_argument("--test_epoch", type=int, default=None)
@@ -200,13 +257,8 @@ def prepare_test(cfg: ExperimentConfig, argv=None):
     tester = Tester(cfg.model, cfg.eval, cfg.output_dir, device=args.device)
     tester.build(params)
 
-    def loader():
-        for i, item in enumerate(pyramid_loader(test_ds, cfg, with_meta=True)):
-            if args.max_pairs and i >= args.max_pairs:
-                break
-            yield item
-
-    return tester, loader(), benchmark
+    return tester, pyramid_loader(test_ds, cfg, with_meta=True,
+                                  limit=args.max_pairs or None), benchmark
 
 
 def run_test(cfg: ExperimentConfig, argv=None):
@@ -334,11 +386,12 @@ def run_demo(cfg: ExperimentConfig, argv=None):
     return errors
 
 
-COMMANDS = {"test": run_test, "eval": run_eval, "eval_dgr": run_eval_dgr, "demo": run_demo}
+COMMANDS = {"trainval": run_trainval, "test": run_test, "eval": run_eval,
+            "eval_dgr": run_eval_dgr, "demo": run_demo}
 
 
 def main(argv=None):
-    """``<experiment> {test,eval,eval_dgr,demo} [command arguments]``."""
+    """``<experiment> {trainval,test,eval,eval_dgr,demo} [command arguments]``."""
     argv = sys.argv[1:] if argv is None else argv
     if len(argv) < 2 or argv[1] not in COMMANDS:
         raise SystemExit(f"usage: python -m se3et_tpu_torch.experiments.runner <experiment> "

@@ -30,9 +30,9 @@ replaces the TPU ``_rpe_bwd``), which recomputes the softmax P and forms
 ``csrc/rpe_attention_bwd_tc.cuh``, :func:`rpe_attention_bwd_form`) also
 forms dqp, d_emb and dqw on the tensor cores, reading the embedding once,
 and leaves dq, dk and dv to matrix products over its bf16 P and dS; the
-first design ("cuda": float32, other widths) leaves every contraction to
-matmuls over float32 P and dS, as the JAX package runs them as XLA
-einsums.  Gradients flow to q, k, v, qp, emb and qw, in their own dtypes.
+first design ("cuda": float32, head widths 16 and 32) leaves every
+contraction to matmuls over float32 P and dS, as the JAX package runs
+them as XLA einsums.  Gradients flow to q, k, v, qp, emb and qw, in their own dtypes.
 
 :func:`rpe_self_attention_femb` (K16, ``csrc/rpe_attention_femb.cu``,
 replaces the TPU ``rpe_self_attention_femb``; serving only) is the same
@@ -57,10 +57,10 @@ _NEG = -1e9
 SH1_C = math.sqrt(3.0 / (4.0 * math.pi))  # real_sh degree-1 coefficient
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 KERNEL_AH = (4, 24)  # anchor-heads per launch the kernel is built for
-# head widths of the forward kernels K5 and K16 (32: the wide-head family
-# se3ete2 / se3eti2, on the CUDA-core form) and of the backward K11
+# head widths of the forward kernels K5 and K16 and of the backward K11
+# (32: the wide-head family se3ete2 / se3eti2, on their CUDA-core forms)
 KERNEL_HEAD_DIMS = (16, 32, 64)
-BWD_HEAD_DIMS = (16, 64)
+BWD_HEAD_DIMS = (16, 32, 64)
 SMEM_LIMIT = 232448  # dynamic shared memory one block can have on Hopper, bytes
 # the ws form's plan (csrc/rpe_attention_ws.cuh): query rows per block, keys
 # per tile, flash warps
@@ -186,12 +186,12 @@ def rpe_attention_bwd_form(ah: int, hc: int, cc: int, dtype) -> str:
     * "tc": in bf16 where :func:`bwd_tc_smem_bytes` names a plan that fits
       a block (head width 64, C = 256: the training shapes), the
       tensor-core form (``csrc/rpe_attention_bwd_tc.cuh``);
-    * "cuda": the first design (float32, and bf16 at the other widths).
+    * "cuda": the first design (float32, and bf16 at head widths 16 and
+      32: the wide-head family's training).
 
     Chosen by shape alone, as the C entry points choose; neither is a
     fallback of the other.  Raises ``ValueError`` where no form takes the
-    shape: K11 is built for head widths :data:`BWD_HEAD_DIMS` (not 32,
-    whose forward K5 takes)."""
+    shape (head widths other than :data:`BWD_HEAD_DIMS`)."""
     if dtype not in _DTYPES or ah not in KERNEL_AH or hc not in BWD_HEAD_DIMS or cc % 16:
         raise ValueError(f"no K11 kernel for AH={ah}, head width {hc}, C={cc}, {dtype}: "
                          f"built for AH in {KERNEL_AH}, head width in {BWD_HEAD_DIMS}, "
@@ -448,8 +448,8 @@ def _rpe_attention_bwd(q, k, v, qp, emb, k_masks, qw, points, dout, out, lse, sc
         raise ValueError(f"unsupported device {q.device}")
     _check_inputs(q, k, v, qp, emb, k_masks, qw, points)
     b, ah, n, c = q.shape
-    # raises before any launch where K11 is not built for the shape (head
-    # width 32 among them), whichever form the caller names
+    # raises before any launch where K11 is not built for the shape,
+    # whichever form the caller names
     named = rpe_attention_bwd_form(ah, c, emb.shape[-1], q.dtype)
     if dout.shape != q.shape or out.shape != q.shape or lse.shape != (b, ah, n):
         raise ValueError("bad rpe_attention_bwd gradient shapes")

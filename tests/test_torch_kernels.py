@@ -283,10 +283,13 @@ def test_rpe_attention_form_refuses_shapes_no_kernel_takes(ah, hc, cc, dtype):
     (4, 16, 64, torch.float32, "cuda"),
     (24, 64, 128, torch.bfloat16, "cuda"),  # tc is built for C = 256 only
     (4, 64, 512, torch.bfloat16, "cuda"),
+    (24, 32, 128, torch.bfloat16, "cuda"),  # the wide-head family's training
+    (4, 32, 128, torch.float32, "cuda"),
+    (24, 32, 256, torch.bfloat16, "cuda"),
 ])
 def test_rpe_attention_bwd_form(ah, hc, cc, dtype, form):
     """K11 takes its tc form in bf16 with head width 64 and C = 256 (the
-    training shapes), the first design otherwise."""
+    training shapes), the first design otherwise (head width 32 too)."""
     assert rpe_k.rpe_attention_bwd_form(ah, hc, cc, dtype) == form
 
 
@@ -307,7 +310,7 @@ def test_rpe_attention_bwd_tc_plan_fits_a_block(ah):
     (24, 64, 512, torch.bfloat16),   # the first design's float32 qp does not fit
     (24, 64, 512, torch.float32),
     (8, 64, 256, torch.bfloat16),    # no kernel for AH = 8
-    (24, 32, 256, torch.bfloat16),   # nor head width 32
+    (24, 48, 256, torch.bfloat16),   # nor head width 48
     (24, 64, 40, torch.float32),     # C % 16 != 0
     (24, 64, 256, torch.float16),
 ])

@@ -1244,15 +1244,23 @@ def test_rpe_attention_bwd_launches_its_form(cuda, dtype, form, kernel, other):
 
 @pytest.mark.parametrize("ah,with_sh", [(24, True), (4, False)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_rpe_attention_bwd_refuses_head_width_32(cuda, ah, with_sh, dtype):
-    """K5 serves head width 32 (the wide-head family), K11 is not built for
-    it: a backward through K5 at 32, by the wrapper, by a named form or by
-    autograd, raises a ValueError naming K11 and the width before any
-    launch."""
+@pytest.mark.parametrize("n", [256, 1003])
+def test_rpe_attention_bwd_kernel_at_head_width_32(cuda, ah, with_sh, dtype, n):
+    """K11 at head width 32 (the wide-head family's training, C = 128) on
+    its first design ("cuda"): against its plain version within 1e-2 of
+    each gradient's scale in bf16 and 1e-4 in float32 (N 256, and 1003 with
+    a ragged key tile), its first design's kernel launched (profiler) and
+    its counter raised once a call; a second call gives the same gradients
+    bit for bit, and so does a backward through K5 by autograd."""
     from se3et_tpu_torch.ops.kernels import rpe_attention as rpe
 
-    n, c, cc = 256, 32, 128
+    c, cc = 32, 128
+    assert rpe.rpe_attention_bwd_form(ah, c, cc, dtype) == "cuda"
     points, masks = _cloud(cuda, n, 15)
+    res = selfcheck.check_rpe_attention_bwd(points, masks, ah, c=c, cc=cc, with_sh=with_sh,
+                                            dtype=dtype, reps=1)
+    assert "(cuda form)" in res.shape
+    _assert_ok(res)
     g = torch.Generator().manual_seed(15)
     rnd = lambda *s: torch.randn(s, generator=g).to(cuda, dtype)  # noqa: E731
     q, k, v, qp, emb = rnd(2, ah, n, c), rnd(2, ah, n, c), rnd(2, ah, n, c), \
@@ -1261,17 +1269,24 @@ def test_rpe_attention_bwd_refuses_head_width_32(cuda, ah, with_sh, dtype):
     pts = rpe.point_rows(points) if with_sh else None
     out, lse = rpe.rpe_self_attention_with_lse(q, k, v, qp, emb, masks, qw, pts, scale=0.125)
     dout = torch.randn((2, ah, n, c), generator=g).to(cuda)
+    args = (q, k, v, qp, emb, masks, qw, pts, dout, out, lse)
+    call = lambda: rpe.rpe_attention_bwd(*args, scale=0.125)  # noqa: E731
     before = rpe.rpe_attention_bwd.launches
-    with pytest.raises(ValueError, match="K11.*head width 32"):
-        rpe.rpe_attention_bwd(q, k, v, qp, emb, masks, qw, pts, dout, out, lse, scale=0.125)
-    with pytest.raises(ValueError, match="K11.*head width 32"):
-        rpe._rpe_attention_bwd(q, k, v, qp, emb, masks, qw, pts, dout, out, lse, 0.125,
-                               form="cuda")
-    q.requires_grad_(True)
-    with pytest.raises(ValueError, match="K11.*head width 32"):
-        rpe.rpe_self_attention(q, k, v, qp, emb, masks, qw, pts, scale=0.125).sum().backward()
-    torch.cuda.synchronize()
-    assert rpe.rpe_attention_bwd.launches == before
+    first, second = call(), call()
+    assert rpe.rpe_attention_bwd.launches == before + 2
+    for name, a, b in zip(("dq", "dk", "dv", "dqp", "demb", "dqw"), first, second):
+        assert (a is None) == (b is None) == (name == "dqw" and not with_sh), name
+        if a is not None:
+            assert torch.equal(a, b), name
+            assert bool(torch.isfinite(a.float()).all()), name
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, qp, emb)]
+    lqw = qw.clone().requires_grad_(True) if with_sh else None
+    rpe.rpe_self_attention(*leaves, masks, lqw, pts, scale=0.125).backward(dout)
+    for t, a in zip(leaves + ([lqw] if with_sh else []), first):
+        assert torch.equal(t.grad, a)
+    if n == 256:
+        assert selfcheck.device_ms(call, "rpe_attention_bwd_kernel", reps=1) is not None
+        assert selfcheck.device_ms(call, "rpe_attention_bwd_tc_kernel", reps=1) is None
 
 
 def test_rpe_attention_bwd_tc_plan_matches_the_kernel(cuda):

@@ -95,11 +95,12 @@ def _body(module):
     return "".join(src.splitlines(keepends=True)[doc.end_lineno:])
 
 
-@pytest.mark.parametrize("name", ["eval.benchmark", "utils.pointcloud_io", "utils.summary"])
+@pytest.mark.parametrize("name", ["eval.benchmark", "utils.pointcloud_io", "utils.summary",
+                                  "utils.metrics_writer"])
 def test_copied_module_source_matches(name):
-    """The port's copies of the numpy-only modules of the test path equal the
-    originals line for line after their docstrings, up to the summary
-    module's ``get_logger``, which differs (its test follows)."""
+    """The port's copies of the numpy-only modules of the test and training
+    paths equal the originals line for line after their docstrings, up to
+    the summary module's ``get_logger``, which differs (its test follows)."""
     import importlib
 
     want = _body(importlib.import_module(f"se3et_tpu.{name}"))

@@ -223,15 +223,32 @@ def test_runner_test_eval_and_demo_on_the_cpu(tmp_path, monkeypatch):
 @pytest.mark.parametrize("argv", [["--snapshot", "snap"], ["--test_epoch", "3"],
                                   ["--test_iter", "10"]])
 def test_runner_refuses_snapshots(tmp_path, monkeypatch, argv):
-    """Weights come from the seed: a snapshot raises until the port has
-    snapshots (``run_test``, and ``run_demo`` for ``--snapshot``)."""
+    """The port reads its own snapshots only: a snapshot of the JAX package
+    (an orbax directory, written here by the JAX trainer's checkpointer) at
+    the path ``--snapshot`` / ``--test_epoch`` / ``--test_iter`` names
+    raises ``NotImplementedError`` naming the importer still to come
+    (``run_test``, and ``run_demo`` for ``--snapshot``); a path with no
+    snapshot raises ``FileNotFoundError``."""
+    import orbax.checkpoint as ocp
+
     from se3et_tpu_torch.experiments import runner
 
-    cfg, _ = _tiny_experiment(tmp_path, monkeypatch)
-    with pytest.raises(NotImplementedError, match="snapshot"):
+    cfg, outdir = _tiny_experiment(tmp_path, monkeypatch)
+    with pytest.raises(FileNotFoundError, match="no snapshot"):
+        runner.run_test(cfg, argv + ["--no_calibrate", "--device", "cpu"])
+    snap_dir = osp.join(outdir, "snapshots")
+    path = {"--snapshot": str(tmp_path / "snap"), "--test_epoch": osp.join(snap_dir, "epoch-3"),
+            "--test_iter": osp.join(snap_dir, "iter-10")}[argv[0]]
+    if argv[0] == "--snapshot":
+        argv = ["--snapshot", path]
+    ckptr = ocp.StandardCheckpointer()
+    ckptr.save(osp.abspath(path), {"params": {"w": np.ones((2, 3), np.float32)}, "epoch": 3,
+                                   "iteration": 10})
+    ckptr.wait_until_finished()
+    with pytest.raises(NotImplementedError, match="orbax snapshots .*A5"):
         runner.run_test(cfg, argv + ["--no_calibrate", "--device", "cpu"])
     if argv[0] == "--snapshot":
-        with pytest.raises(NotImplementedError, match="snapshot"):
+        with pytest.raises(NotImplementedError, match="orbax snapshots .*A5"):
             runner.run_demo(cfg, argv + ["--device", "cpu"])
 
 

@@ -1,8 +1,10 @@
 """The PyTorch port's training step against the JAX ``make_train_step``, on
 the CPU.
 
-One tiny SE3ET-E pair (``tiny_flash_config``: 128-point coarse stage, 600
-input points, float32 training) goes through both packages with the
+One tiny pair of SE3ET-E (``tiny_flash_config``: 128-point coarse stage,
+600 input points, float32 training), and of the wide-head family's
+se3ete2 and se3eti2 at their head width 32 (transformer width 128,
+``init_dim`` 32: K5 and K11 at 32), goes through both packages with the
 training routes on (``train_fused_conv``, ``train_fused_embedding``,
 ``train_fused_attention``): the exact gather route with the K8/K9
 backwards' plain versions against JAX's gather gradients, K3 + K10 plain
@@ -55,12 +57,13 @@ def _grab_grads():
         update=lambda g, s, p=None: (jax.tree.map(jnp.zeros_like, g), g))
 
 
-@pytest.fixture(scope="module")
-def step_pair():
+@pytest.fixture(scope="module", params=["se3ete", "se3ete2", "se3eti2"])
+def step_pair(request):
     import __graft_entry__ as ge
     from se3et_tpu.engine.steps import make_train_step as jax_train_step
     from se3et_tpu.nn import loss as jloss
     from se3et_tpu.nn import matching as jmatching
+    from se3et_tpu.ops import geometry as jgeometry
     from se3et_tpu.nn.model import SE3ETModel as JaxModel
     from se3et_tpu_torch.convert import flax_to_state_dict, load_flax_params
     from se3et_tpu_torch.engine.steps import make_train_step
@@ -70,9 +73,15 @@ def step_pair():
     from se3et_tpu_torch.nn.loss import LossConfig
     from se3et_tpu_torch.nn.model import ModelConfig, SE3ETModel, pyramid_to_tensors
 
-    _, pipeline, jcfg = ge._flagship_configs(tiny=True)
-    pipeline = dataclasses.replace(pipeline, patch_k=jcfg.num_points_in_patch,
-                                   stage_caps=(256, 192, 160, 128), coarse_point_cap=128)
+    if request.param == "se3ete":
+        _, pipeline, jcfg = ge._flagship_configs(tiny=True)
+        pipeline = dataclasses.replace(pipeline, patch_k=jcfg.num_points_in_patch,
+                                       stage_caps=(256, 192, 160, 128), coarse_point_cap=128)
+    else:  # the wide-head family's tiny flash cut (tests/test_torch_wide_head.py)
+        from tests.test_torch_wide_head import _jax_tiny
+
+        jcfg, pipeline = _jax_tiny(f"{request.param}.3dmatch", flash=True)
+        assert jcfg.gt_hidden_dim // jcfg.num_heads == 32
     jcfg = dataclasses.replace(jcfg, serve_fused_attention=True, train_fused_conv=True,
                                train_fused_embedding=True, train_fused_attention=True)
     data = ge._example_pair(pipeline, num_points=600, seed=0, model_cfg=jcfg)
@@ -94,9 +103,14 @@ def step_pair():
                    jnp.asarray(noise, dtype))
         _, jgrads, jlosses = jax.jit(jstep)(params, _grab_grads().init(params), data,
                                             jax.random.PRNGKey(1))
-        jout = jax.jit(lambda p, d: jmodel.apply(
-            p, d, train=True, with_registration=False, rngs={"targets": rngs["targets"]})
-        )(params, data)
+        # the JAX model's ground-truth overlaps (its train=True forward calls
+        # node_correspondences on the host partition's patches), without
+        # compiling the whole forward again
+        jout = {"gt_overlap_mat": jax.jit(lambda d: jmatching.node_correspondences(
+            d["points_3"][0], d["points_3"][1],
+            *jax.vmap(jgeometry.gather_with_sentinel)(d["points_1"], d["node_knn_indices"]),
+            d["transform"], jcfg.ground_truth_matching_radius, *d["patch_node_masks"],
+            *d["node_knn_masks"], num_candidates=jcfg.gt_candidates))(data)}
         jtargets = jmatching.superpoint_targets(
             rngs["targets"], jout["gt_overlap_mat"], jcfg.num_targets, jcfg.overlap_threshold)
 
@@ -215,7 +229,7 @@ def test_adamw_update_matches_optax():
                                            rtol=1e-5, atol=1e-7)
 
 
-def test_non_finite_gradient_skips_the_update(step_pair):
+def test_non_finite_gradient_skips_the_update():
     """A step whose gradient norm is not finite (loss scaled by inf) leaves
     the parameters, the AdamW state and the schedule as they were."""
     from se3et_tpu_torch.engine.steps import make_train_step

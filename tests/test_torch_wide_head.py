@@ -10,8 +10,9 @@ whole forward of a tiny cut of ``se3ete2.3dmatch`` and of
 width 32) and group norm of 16 groups (``tiny_config``), on the
 materialised and flash routes, cut at each ``stop_after`` point and held
 against the JAX forward with converted weights, as ``tests/test_torch_model.py``
-holds SE3ET-E and SE3ET-I.  Also: K11 is not built at head width 32 and
-says so before any launch, and the KITTI entry's test path raises.
+holds SE3ET-E and SE3ET-I.  Also: K11's plain version at head width 32
+(its first design's form) against the JAX VJP, and the KITTI entry's test
+path raises.
 """
 
 import dataclasses
@@ -102,15 +103,64 @@ def test_eq_attention_apply_plain_matches_pallas_at_head_width_32():
     _close(got, want, 1e-5)
 
 
-@pytest.mark.parametrize("ah", [24, 4])
+@pytest.mark.parametrize("ah,with_sh", [(24, True), (4, False), (24, False)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_k11_refuses_head_width_32(ah, dtype):
-    """K11 (the backward of K5) is not built at head width 32: its form
-    raises a ValueError naming K11 and the width, which the wrapper asks
-    before any launch, whatever form a caller names."""
-    with pytest.raises(ValueError, match="K11.*head width 32"):
-        rpe_k.rpe_attention_bwd_form(ah, HEAD_WIDTH, 128, dtype)
-    assert HEAD_WIDTH in rpe_k.KERNEL_HEAD_DIMS and HEAD_WIDTH not in rpe_k.BWD_HEAD_DIMS
+def test_k11_plain_matches_jax_vjp_at_head_width_32(ah, with_sh, dtype):
+    """K11 at head width 32 (the wide-head family's training: se3ete2's
+    self_eq layers at AH = 24 with the SH term, its plain self layers at AH
+    = 4, se3eti2's self_eq layers at AH = 24 without): its form is the first
+    design ("cuda"), and its plain version with the contractions after it
+    (what the wrapper takes on the CPU, and K5's autograd backward) matches
+    the JAX VJP of ``rpe_self_attention_trainable`` (interpret mode, block
+    64 x 128) at N = 128, C = 128 with masked keys, in every gradient (dq,
+    dk, dv, dqp, d_emb, dqw).  float32: within 1e-4 of each gradient's
+    scale (the head-width-16 test's); bf16 (inputs rounded to bf16 on both
+    sides, the port's gradients returned in bf16): within 1e-2 of each
+    gradient's scale, the tolerance of K11 in bf16."""
+    from se3et_tpu.ops.pallas.rpe_attention import rpe_self_attention_trainable
+    from tests.test_torch_train_kernels import _close as _close_scaled
+    from tests.test_torch_train_kernels import _rpe_inputs as _rpe_bwd_inputs
+
+    cc = 128
+    assert rpe_k.rpe_attention_bwd_form(ah, HEAD_WIDTH, cc, dtype) == "cuda"
+    q, k, v, qp, emb, masks, qw, pts = _rpe_bwd_inputs(True, seed=40 + ah, ah=ah,
+                                                       c=HEAD_WIDTH, cc=cc)
+    if not with_sh:
+        qw = pts = None
+    if dtype == torch.bfloat16:
+        q, k, v, qp, emb = (torch.from_numpy(a).to(dtype).float().numpy()
+                            for a in (q, k, v, qp, emb))
+    scale = HEAD_WIDTH ** -0.5
+    d_out = np.random.RandomState(41).randn(*q.shape).astype(np.float32)
+    diff = (q, k, v, qp, emb) + ((qw,) if with_sh else ())
+
+    def jfn(*a):
+        return rpe_self_attention_trainable(a[0], a[1], a[2], a[3], a[4], masks,
+                                            a[5] if with_sh else None, pts, scale, 64, 128,
+                                            True)
+
+    _, vjp = jax.vjp(jfn, *diff)
+    want = vjp(d_out)
+    tq = [torch.from_numpy(a).to(dtype) for a in diff[:5]]
+    tqw = torch.from_numpy(qw) if with_sh else None
+    tpts = torch.from_numpy(pts) if with_sh else None
+    tm = torch.from_numpy(masks)
+    out, lse = rpe_k.rpe_self_attention_plain(*tq, tm, tqw, tpts, scale=scale, with_lse=True)
+    got = rpe_k.rpe_attention_bwd(*tq, tm, tqw, tpts, torch.from_numpy(d_out), out, lse,
+                                  scale=scale)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    for name, g, w in zip(("dq", "dk", "dv", "dqp", "demb", "dqw"), got, want):
+        if name == "dqw" and not with_sh:
+            assert g is None
+            continue
+        assert g.dtype == (torch.float32 if name == "dqw" else dtype), name
+        _close_scaled(g.float(), w, tol)
+    leaves = [t.clone().requires_grad_(True) for t in tq]
+    lqw = tqw.clone().requires_grad_(True) if with_sh else None
+    o = rpe_k.rpe_self_attention(*leaves, tm, lqw, tpts, scale=scale)
+    o.backward(torch.from_numpy(d_out))
+    for t, g in zip(leaves + ([lqw] if with_sh else []), got):
+        assert torch.equal(t.grad, g)
 
 
 def test_evalkitti_test_path_raises():
