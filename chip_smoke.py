@@ -131,8 +131,9 @@ Phases, each of which raises (exit code != 0) on failure:
    ``run_eval`` (lgr, svd) over the dumps, ``run_demo`` on
    ``se3ete.3dmatch.evalrot``, and K5 at the self_eq layers' shape (AH =
    24) without the SH term, on its ws form;
-9. the wide-head family (head width 32, the CUDA-core forms of K5, K16,
-   K6 and K7): a tiny float32 card-vs-CPU run of ``se3ete2.3dmatch``'s
+9. the wide-head family (head width 32: K7 on its tc form, the CUDA-core
+   forms of K5, K16 and K6): a tiny float32 card-vs-CPU run of
+   ``se3ete2.3dmatch``'s
    flash cut; ``se3ete2.3dmatch`` served at full width on 2 synthetic
    pairs of 30000 points (stage-0 sets at least half their 24576 cap, host
    influence, random weights from seed 7351): an eager pass held to
@@ -140,7 +141,9 @@ Phases, each of which raises (exit code != 0) on failure:
    every replay bit for bit against eager, eager and captured in turns,
    peak memory and a replayed pair's profile; K5 at both self-layer
    shapes, K6, K7 and K3 at the path's shapes against their plain
-   versions, replayed from a CUDA graph beside their bounds; K12, K13,
+   versions, replayed from a CUDA graph beside their bounds (K7 also beside
+   its first design in the same run, by events and replayed, and beside
+   its times before its tc form took the shape); K12, K13,
    K14, K1 and K2 at the family's conv shapes; one ``serve_femb`` pair and
    K16 at both shapes; then ``se3eti2.3dmatch`` through ``run_test``'s
    Tester on 4 pairs (counts, replays and metrics bit for bit against
@@ -311,10 +314,11 @@ SE3ETE2_LAUNCHES = {**WIDE_CONV_LAUNCHES, **FLASH_LAUNCHES, "geometric_embedding
 SE3ETI2_LAUNCHES = {**WIDE_CONV_LAUNCHES, "geometric_embedding": 1, "sinkhorn": 1,
                     "rpe_self_attention": 3, "eq_attention_stats": 0, "eq_attention_apply": 0,
                     "influence": 0, "rpe_self_attention_femb": 0}
-# the CUDA-core device kernels of K5 / K16, K6 and K7 (head width 32)
+# the device kernels of K5 / K16, K6 (their CUDA-core forms) and K7 (its tc
+# form, the eq_apply_tc_kernel<32> instance) at head width 32
 WIDE_DEVICE_KERNELS = {"rpe_self_attention": "rpe_attention_kernel",
                        "eq_attention_stats": "eq_stats_kernel",
-                       "eq_attention_apply": "eq_apply_kernel"}
+                       "eq_attention_apply": "eq_apply_tc_kernel"}
 # phase 10: the wide-head family trained.  Launches per se3ete2 training
 # step, read from the code as TRAIN_LAUNCHES (the same blocks at half the
 # channels): 10 gathering convs (K1 in float32, K8), 3 strided skips (K2,
@@ -1535,8 +1539,9 @@ def _wide_head(dev):
              "K7": eq_attention.eq_attention_apply_form(heads, hw, torch.bfloat16)}
     print(f"phase 9 {WIDE_EXPERIMENT}: head width {hw}, C {cc}, AH {ah} / {heads}; forms "
           f"{forms}", flush=True)
-    if hw != 32 or set(forms.values()) != {"cuda"}:
-        raise RuntimeError(f"the wide-head family's attention takes {forms} at head width {hw}")
+    if hw != 32 or forms != {**dict.fromkeys(forms, "cuda"), "K7": "tc"}:
+        raise RuntimeError(f"the wide-head family's attention takes {forms} at head width {hw}:"
+                           f" K7 should take its tc form, the others their CUDA-core forms")
     extent = configs.synthetic_extent(cfg.data.dataset)
     launches = _tiny_card_vs_cpu("flash se3ete2", configs.tiny_flash_config(cfg), 600, extent,
                                  dev)
@@ -1622,10 +1627,20 @@ def _wide_head(dev):
         checks[f"rpe_self_attention (se3ete2 {what}, head width {hw})"] = res
     for name, fn in (("eq_attention_stats", selfcheck.check_eq_stats),
                      ("eq_attention_apply", selfcheck.check_eq_apply)):
-        kw = dict(two_calls=True) if name == "eq_attention_apply" else {}
+        kw = dict(two_calls=True, first=True) if name == "eq_attention_apply" else {}
         res = fn(masks_c[0], masks_c[1], a=m.kanchor, h=heads, c=hw, reps=20, replay=True, **kw)
         res.launches = launches[name]
         checks[f"{name} (se3ete2, head width {hw})"] = res
+    k7 = checks[f"eq_attention_apply (se3ete2, head width {hw})"]
+    print(f"phase 9 K7 at head width {hw} ({forms['K7']} form): {k7.ms:.4f} ms by events "
+          f"(first design in this run {k7.first_ms:.4f}), replayed {k7.replay_ms:.4f} "
+          f"({k7.first_replay_ms:.4f}); two "
+          f"PyTorch calls {k7.two_calls_ms:.4f}; bound {k7.bound_ms:.4f} ({k7.bound_by}), "
+          f"{k7.bound_ms / k7.replay_ms:.1%} of it replayed; per se3ete2 pair "
+          f"{FLASH_LAUNCHES['eq_attention_apply']} x replayed "
+          f"{FLASH_LAUNCHES['eq_attention_apply'] * k7.replay_ms:.4f} ms "
+          f"(first design {FLASH_LAUNCHES['eq_attention_apply'] * k7.first_replay_ms:.4f})",
+          flush=True)
     res = selfcheck.check_embedding(pts_c, masks_c, c=cc, k=m.angle_k, sigma_d=m.sigma_d,
                                     sigma_a=m.sigma_a)
     res.launches = launches["geometric_embedding"]

@@ -1,7 +1,7 @@
 """What holds the tc forms of K6 and K7 back, and how their tiling and warp
 split move them.
 
-    python scripts/probe_eq_attention.py [--kernel k6|k7|both]   # on a CUDA card
+    python scripts/probe_eq_attention.py [--kernel k6|k7|k7w|all]   # on a CUDA card
 
 Builds variants of the bf16 K6 and K7 (``eq_tc`` in
 ``se3et_tpu_torch/csrc/eq_attention.cu``) into
@@ -27,7 +27,7 @@ K6 (``eq_stats_tc_kernel``):
   of: ``no_exp`` (each exp a multiply) and ``no_mma`` (no tensor-core
   products; the fragments still read).
 
-K7 (``eq_apply_tc_kernel``):
+K7 at head width 64 (``eq_apply_tc_kernel<64>``, ``--kernel k7``):
 
 * ``committed``: the source as it stands (wgmma, three warpgroups of 64
   query rows per block, 64-key k and v tiles in 4 ring slots, q in
@@ -38,18 +38,33 @@ K7 (``eq_apply_tc_kernel``):
 * ablations: ``no_exp`` (each exp a multiply) and ``no_mma`` (no products:
   each wgmma an integer mix of its register operand, k and v not read).
 
-At the serving shape of se3ete.3dmatch (q, k, v (6, 4, 1024, 64) bf16, 24
-query rows and 40 keys masked at the end) it times each variant's C entry
-point with CUDA events in turns (the list forward, then backward; the
-smaller time kept), checks each against the plain version (K6: every
-output within 1e-3 of its scale; K7: within 1e-2 of max |out|, its
-kernel-vs-plain tolerance), and prints per variant the blocks resident per
-SM, the grid, and the bytes the kernel moves through L2 per launch (K6:
-k[e] once per pass and staged tile of each block; K7: k[e, h] and v[e, h]
-for every e once per pass of each block; q once, the row statistics,
-partials and outputs once) with their rate, and the exponential rate (one
-per score with a valid key) against the card's 4.18e12/s.  Prints the card
-first.
+K7 at head width 32 (``eq_apply_tc_kernel<32>``, ``--kernel k7w``; the
+``kApply32*`` settings):
+
+* ``committed``: the source as it stands (128-key tiles under the 64-byte
+  swizzle, q k^T on m64n128k16, in 6 ring slots; three warpgroups; every
+  consumer branch warp-uniform);
+* ``keys64`` / ``keys32``: 64- or 32-key tiles;
+* ``stages2`` / ``stages4``: 2 or 4 ring slots; ``warps8``: two consumer
+  warpgroups (two passes);
+* ``per_item``: one block per (head, pass, block) item;
+* ablations ``no_exp`` and ``no_mma`` as at 64;
+* ``first``: the first design (the CUDA-core ``eq_apply_kernel<bf16, 4,
+  32>``, ``se3et_eq_attention_apply_cuda_bf16``) of the committed build.
+
+At the serving shapes of se3ete.3dmatch (q, k, v (6, 4, 1024, 64) bf16)
+and se3ete2.3dmatch (head width 32), 24 query rows and 40 keys masked at
+the end, it times each variant's C entry point with CUDA events in turns
+(the list forward, then backward; the smaller time kept), checks each
+against the plain version (K6: every output within 1e-3 of its scale; K7:
+within 1e-2 of max |out|, its kernel-vs-plain tolerance), and prints per
+variant its registers, spills and any ptxas line about wgmma (a
+serialisation), the blocks resident per SM, the grid, and the bytes the
+kernel moves through L2 per launch (K6: k[e] once per pass and staged tile
+of each block; K7: k[e, h] and v[e, h] for every e once per pass of each
+block; q once, the row statistics, partials and outputs once) with their
+rate, and the exponential rate (one per score with a valid key) against
+the card's 4.18e12/s.  Prints the card first.
 """
 
 import argparse
@@ -97,30 +112,57 @@ K6_VARIANTS = {
 A_STAGES = "constexpr int kApplyStages = 4;"
 A_WARPS = "constexpr int kApplyConsumers = 12;"
 A_PERSISTENT = "constexpr bool kApplyPersistent = true;"
-A_QK = "for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(&s[0][0], qf[kk], dk + 2 * kk);  // +32 bytes"
-A_PV = "wgmma_rs<1>(&o[0][0], p, dv + 128 * kc);  // +16 keys: 2048 bytes"
+A_QK64 = "wgmma_rs<0>(&s[8 * c][0], qf[kk], d);"
+A_QK32 = "wgmma_rs_n32<0>(&s[4 * c][0], qf[kk], d);"
+A_QK128 = "wgmma_rs_n128<0>(&s[16 * c][0], qf[kk], d);"
+A_PV64 = "wgmma_rs<1>(&o[0][0], p, d);"
+A_PV32 = "wgmma_rs_n32<1>(&o[0][0], p, d);"
+# ablations of K7 (outputs differ): the exps as a multiply; no products,
+# each wgmma an integer mix of its register operand (of every score, and of
+# every p, so that no exp is folded or dead; k and v are not read)
+QK_MIX = ("\n#pragma unroll\n"
+          "for (int i = 0; i < P::kChunk / 2; ++i) (&s[P::kChunk / 8 * c][0])[i] += "
+          "__uint_as_float((qf[kk][i & 3] + i) & 0x3f7fffffu);")
+A_NO_MMA = ((A_QK64, QK_MIX), (A_QK32, QK_MIX), (A_QK128, QK_MIX),
+            (A_PV64, "o[0][kc] += __uint_as_float((p[0] ^ p[1] ^ p[2] ^ p[3]) & 0x3f7fffffu);"),
+            (A_PV32, "o[0][kc] += __uint_as_float((p[0] ^ p[1] ^ p[2] ^ p[3]) & 0x3f7fffffu);"))
 K7_VARIANTS = {
     "committed": (),
     "warps8": ((A_WARPS, "constexpr int kApplyConsumers = 8;"),),
     "stages8": ((A_STAGES, "constexpr int kApplyStages = 8;"),),
     "per_item": ((A_PERSISTENT, "constexpr bool kApplyPersistent = false;"),),
-    # ablations (outputs differ): the exps as a multiply; no products, each
-    # wgmma an integer mix of its register operand (k and v are not read)
     "no_exp": NO_EXP,
-    "no_mma": ((A_QK, "for (int kk = 0; kk < 4; ++kk) "
-                      "s[0][kk] += __uint_as_float(qf[kk][0] & 0x3f7fffffu);"),
-               (A_PV, "o[0][kc] += __uint_as_float(p[3] & 0x3f7fffffu);")),
+    "no_mma": A_NO_MMA,
 }
+W_KEYS = "constexpr int kApply32Keys = 128;"
+W_STAGES = "constexpr int kApply32Stages = 6;"
+W_WARPS = "constexpr int kApply32Consumers = 12;"
+K7W_VARIANTS = {
+    "committed": (),
+    "keys64": ((W_KEYS, "constexpr int kApply32Keys = 64;"),),
+    "keys32": ((W_KEYS, "constexpr int kApply32Keys = 32;"),),
+    "stages2": ((W_STAGES, "constexpr int kApply32Stages = 2;"),),
+    "stages4": ((W_STAGES, "constexpr int kApply32Stages = 4;"),),
+    "warps8": ((W_WARPS, "constexpr int kApply32Consumers = 8;"),),
+    "per_item": ((A_PERSISTENT, "constexpr bool kApplyPersistent = false;"),),
+    "no_exp": NO_EXP,
+    "no_mma": A_NO_MMA,
+}
+# K7's first design, timed beside the head-width-32 variants from the
+# committed build
+FIRST = "first"
 # per kernel: variants, the entry function whose registers are printed,
-# the C entry point (pointers, ints) and the occupancy query
+# the C entry point (pointers, ints), the occupancy query and the head width
 KERNELS = {
     "k6": (K6_VARIANTS, "eq_stats_tc_kernelILi1ELb0E", "se3et_eq_attention_stats_bf16", 10, 7,
-           "se3et_eq_attention_stats_blocks_per_sm"),
-    "k7": (K7_VARIANTS, "eq_apply_tc_kernel", "se3et_eq_attention_apply_bf16", 8, 6,
-           "se3et_eq_attention_apply_blocks_per_sm"),
+           "se3et_eq_attention_stats_blocks_per_sm", 64),
+    "k7": (K7_VARIANTS, "eq_apply_tc_kernelILi64E", "se3et_eq_attention_apply_bf16", 8, 6,
+           "se3et_eq_attention_apply_blocks_per_sm", 64),
+    "k7w": (K7W_VARIANTS, "eq_apply_tc_kernelILi32E", "se3et_eq_attention_apply_bf16", 8, 6,
+            "se3et_eq_attention_apply_blocks_per_sm", 32),
 }
 A = E = 6
-H, N, M, C = 4, 1024, 1024, 64
+H, N, M = 4, 1024, 1024
 
 
 def _setting(edits, line, default):
@@ -130,8 +172,21 @@ def _setting(edits, line, default):
     return default
 
 
+def _usage(lines, entry):
+    """Registers and spills of the kernel whose mangled name holds ``entry``
+    in an ``-Xptxas -v`` log."""
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and entry in line:
+            after = "\n".join(lines[i + 1:i + 5])
+            spill = re.search(r"(\d+) bytes spill stores", after)
+            regs = re.search(r"Used (\d+) registers", after)
+            return (f"{regs.group(1) if regs else '?'} registers, "
+                    f"{spill.group(1) if spill else '?'} bytes spilled")
+    return "?"
+
+
 def _build_variants(kernel):
-    variants, entry, symbol, n_ptr, n_int, occupancy = KERNELS[kernel]
+    variants, entry, symbol, n_ptr, n_int, occupancy, c = KERNELS[kernel]
     out_dir = os.path.join(_build.BUILD_DIR, "probe_eq", kernel)
     shutil.rmtree(out_dir, ignore_errors=True)
     procs = {}
@@ -157,22 +212,26 @@ def _build_variants(kernel):
         if proc.returncode:
             sys.exit(f"nvcc failed for {kernel} {name}:\n{log}")
         lines = log.splitlines()
-        usage[name] = "?"
-        for i, line in enumerate(lines):
-            if "Compiling entry function" in line and entry in line:
-                after = "\n".join(lines[i + 1:i + 5])
-                spill = re.search(r"(\d+) bytes spill stores", after)
-                regs = re.search(r"Used (\d+) registers", after)
-                usage[name] = (f"{regs.group(1) if regs else '?'} registers, "
-                               f"{spill.group(1) if spill else '?'} bytes spilled")
+        usage[name] = _usage(lines, entry)
+        serial = sorted({line.strip() for line in lines if "wgmma" in line})
+        if serial:
+            usage[name] += "; ptxas: " + " | ".join(serial)
         lib = ctypes.CDLL(os.path.join(src, "lib.so"))
         fn = getattr(lib, symbol)
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         occ = getattr(lib, occupancy)
-        occ.argtypes = [ctypes.c_int]
+        occ.argtypes = [ctypes.c_int] * (1 if kernel == "k6" else 2)
         occ.restype = ctypes.c_int
-        libs[name] = (fn, occ)
+        blocks = (lambda m, occ=occ: occ(m)) if kernel == "k6" else \
+            (lambda m, occ=occ: occ(m, c))
+        libs[name] = (fn, blocks)
+        if kernel == "k7w" and name == "committed":  # the first design, same build
+            first = lib.se3et_eq_attention_apply_cuda_bf16
+            first.argtypes = fn.argtypes
+            first.restype = ctypes.c_int
+            libs[FIRST] = (first, lambda m: None)
+            usage[FIRST] = _usage(lines, "eq_apply_kernelI13__nv_bfloat16Li4ELi32E")
     return libs, usage
 
 
@@ -190,25 +249,33 @@ def _block_passes(units, warps, groups, sms):
 
 
 def grid_and_l2(kernel, edits, km, sms):
-    """(blocks, passes, bytes through L2 per launch) of a variant."""
-    q_bytes = A * H * N * C * 2
+    """(blocks, passes, bytes through L2 per launch) of a variant (K7's
+    first design: None, None and the bytes of one read of each input)."""
+    c = KERNELS[kernel][6]
+    q_bytes = A * H * N * c * 2
     if kernel == "k6":
         keys = _setting(edits, KEYS, 32)
         units = A * -(-N // (16 * _setting(edits, MT, 1)))
         bpe, passes, busy = _block_passes(units, _setting(edits, WARPS, 9), E, sms)
-        kv_bytes = E * busy * _valid_tiles(km, keys) * H * keys * C * 2
+        kv_bytes = E * busy * _valid_tiles(km, keys) * H * keys * c * 2
         out_bytes = 2 * A * E * H * N * 4 + 2 * A * E * -(-N // 16) * 4
         return E * bpe, passes, kv_bytes + q_bytes + out_bytes
-    keys = 64
+    io_bytes = 2 * A * E * H * N * 4 + A * H * N * c * 4
+    if edits is None:
+        return None, None, q_bytes + 2 * E * H * M * c * 2 + io_bytes
+    if kernel == "k7":
+        keys, warps = 64, _setting(edits, A_WARPS, 12)
+    else:
+        keys, warps = _setting(edits, W_KEYS, 128), _setting(edits, W_WARPS, 12)
     units = A * -(-N // 64)  # warpgroup units of 64 query rows
-    bph, passes, busy = _block_passes(units, _setting(edits, A_WARPS, 12) // 4, H, sms)
-    kv_bytes = H * busy * E * _valid_tiles(km, keys) * 2 * keys * C * 2
-    io_bytes = 2 * A * E * H * N * 4 + A * H * N * C * 4
+    bph, passes, busy = _block_passes(units, warps // 4, H, sms)
+    kv_bytes = H * busy * E * _valid_tiles(km, keys) * 2 * keys * c * 2
     return H * bph, passes, kv_bytes + q_bytes + io_bytes
 
 
 def _runs(kernel, libs, dev):
     """{variant: (launch, outputs)} and the plain version's outputs."""
+    C = KERNELS[kernel][6]
     g = torch.Generator().manual_seed(0)
     q = torch.randn((A, H, N, C), generator=g).to(dev, torch.bfloat16)
     k = torch.randn((E, H, M, C), generator=g).to(dev, torch.bfloat16)
@@ -262,18 +329,21 @@ def probe(kernel, dev, sms):
         diff = max(float((x - y).abs().max()) / float(y.abs().max())
                    for x, y in zip(outputs(), want))
         t = min(ms[name])
-        blocks, passes, l2 = grid_and_l2(kernel, KERNELS[kernel][0][name], kmask.cpu(), sms)
+        blocks, passes, l2 = grid_and_l2(kernel, KERNELS[kernel][0].get(name), kmask.cpu(),
+                                         sms)
         flag = "" if diff <= tol else f" DIFFERS {diff:.2e}"
+        grid = ("the first design's own grid" if blocks is None else
+                f"{libs[name][1](M)} block(s) per SM, grid {blocks} x {passes} pass(es)")
         print(f"{kernel} {name}: {t:.4f} ms ({', '.join(f'{x:.4f}' for x in ms[name])}); "
-              f"{usage[name]}; {libs[name][1](M)} block(s) per SM, grid {blocks} x {passes} "
-              f"pass(es); L2 {l2 / 1e6:.1f} MB per launch, {l2 / (t * 1e-3) / 1e12:.2f} TB/s; "
+              f"{usage[name]}; {grid}; "
+              f"L2 {l2 / 1e6:.1f} MB per launch, {l2 / (t * 1e-3) / 1e12:.2f} TB/s; "
               f"exps {exps / (t * 1e-3) / 1e12:.2f}e12/s (card {selfcheck.EXP_RATE / 1e12:.2f}"
               f"e12/s); max diff / scale {diff:.2e}{flag}", flush=True)
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--kernel", choices=("k6", "k7", "both"), default="both")
+    parser.add_argument("--kernel", choices=("k6", "k7", "k7w", "all"), default="all")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("probe_eq_attention: no CUDA device")
@@ -282,7 +352,7 @@ def main():
                          capture_output=True, text=True, check=True).stdout.strip())
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for kernel in (("k6", "k7") if args.kernel == "both" else (args.kernel,)):
+    for kernel in (("k6", "k7", "k7w") if args.kernel == "all" else (args.kernel,)):
         probe(kernel, dev, sms)
 
 

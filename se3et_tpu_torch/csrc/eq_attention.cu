@@ -20,18 +20,22 @@
 //
 // Two implementations of each, chosen by shape (the wrapper's
 // eq_attention_stats_form and eq_attention_apply_form name them):
-// * bf16, H = 4, head width 64 (the serving path): the "tc" forms below,
-//   K6 eq_stats_tc_kernel (TMA key tiles, mma.sync, base-2 softmax) and K7
-//   eq_apply_tc_kernel (TMA key and value tiles of one head, wgmma for
-//   q k^T and p v, base-2 exps);
-// * float32, and head widths 16 and 32 in either type (32: the wide-head
-//   family se3ete2): the CUDA-core kernels, one block per (a[, e], 8 query
-//   rows), one warp per query row, one lane per key of a 32-key tile, key
-//   rows read through L1 (the block's warps walk the same tile), the query
-//   row as warp-wide broadcasts, K6's softmax statistics online (running
-//   max and rescaled sum), K7's tile probabilities staged in shared memory
-//   for a lane-per-value-pair p . v (below head width 64 the lanes from
-//   HC / 2 on hold no pair).
+// * the "tc" forms, bf16 with H = 4: K6 eq_stats_tc_kernel at head width 64
+//   (TMA key tiles, mma.sync, base-2 softmax); K7 eq_apply_tc_kernel<HC> at
+//   head widths 64 (se3ete) and 32 (the wide-head family se3ete2): TMA key
+//   and value tiles of one head, wgmma for q k^T and p v, base-2 exps (at
+//   32 in 128-key tiles under the 64-byte swizzle, on warp-uniform
+//   branches);
+// * the "cuda" forms, everything else (float32; head width 16 in either
+//   type; K6 at head width 32 in either type): the CUDA-core kernels, one
+//   block per (a[, e], 8 query rows), one warp per query row, one lane per
+//   key of a 32-key tile, key rows read through L1 (the block's warps walk
+//   the same tile), the query row as warp-wide broadcasts, K6's softmax
+//   statistics online (running max and rescaled sum), K7's tile
+//   probabilities staged in shared memory for a lane-per-value-pair p . v
+//   (below head width 64 the lanes from HC / 2 on hold no pair).  K7's
+//   first design, kept for float32 and head width 16, is also reachable in
+//   bf16 through se3et_eq_attention_apply_cuda_bf16.
 #include <algorithm>
 #include <type_traits>
 
@@ -753,18 +757,22 @@ static int sm_count() {
   return sms;
 }
 
-// A TMA map of x (E, 4, M, 64) bf16 (16-byte aligned) whose box is `keys`
-// keys of `heads` heads of one anchor, 128-byte swizzled; 0 or a CUDA error
-static int encode_map(CUtensorMap* map, const void* x, int ne, int m, int keys, int heads) {
+// A TMA map of x (E, 4, M, hc) bf16 (16-byte aligned; hc 64, or 32 for K7)
+// whose box is `keys` keys of `heads` heads of one anchor, each row swizzled
+// over its own width (128 bytes at hc 64, 64 bytes at 32); 0 or a CUDA error
+static int encode_map(CUtensorMap* map, const void* x, int ne, int m, int keys, int heads,
+                      int hc = kHC) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)kHC, (cuuint64_t)m, (cuuint64_t)kH, (cuuint64_t)ne};
-  const cuuint64_t strides[3] = {kHC * sizeof(bf16), (cuuint64_t)m * kHC * sizeof(bf16),
-                                 (cuuint64_t)kH * m * kHC * sizeof(bf16)};
-  const cuuint32_t box[4] = {(cuuint32_t)kHC, (cuuint32_t)keys, (cuuint32_t)heads, 1};
+  const cuuint64_t dims[4] = {(cuuint64_t)hc, (cuuint64_t)m, (cuuint64_t)kH, (cuuint64_t)ne};
+  const cuuint64_t strides[3] = {hc * sizeof(bf16), (cuuint64_t)m * hc * sizeof(bf16),
+                                 (cuuint64_t)kH * m * hc * sizeof(bf16)};
+  const cuuint32_t box[4] = {(cuuint32_t)hc, (cuuint32_t)keys, (cuuint32_t)heads, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      hc == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
-             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
       CUDA_SUCCESS)
     return (int)cudaErrorInvalidValue;
@@ -839,42 +847,62 @@ inline int blocks_per_sm(int m) {
 }
 
 // ---------------------------------------------------------------------------
-// K7's serving form, "tc" (bf16, H = 4, head width 64).
+// K7's serving forms, "tc" (bf16, H = 4, head width 64 or 32).
 //
 // out[a,h,n] = sum_e w[a,e] / max(rowsum[a,e,h,n], 1e-30)
 //              * sum_m round_bf16(exp(s_aeh[n,m] - rowmax[a,e,h,n]) kmask[m]) v[e,h,m]
 // (the unscaled probability rounded to bf16 before p v, as on the TPU).
 //
-// Bound: at the serving shape the products (q k^T and p v, 38.7 GFLOP) take
-// 39 us at the tensor-core peak and the exps (151 M) 36 us.  On mma.sync,
-// with k and v fragments read by ldmatrix, a 16-row warp reads 16 bytes of
-// shared memory per score (a floor of ~72 us at 128 bytes per clock per
-// SM); wgmma reads k and v once per 64-row warpgroup, a quarter of that,
-// and runs the products at the full tensor-core rate.  What is left is the
-// chain within a warpgroup, q k^T -> exp -> p v, each step waiting for the
-// one before (scripts/probe_eq_attention.py: the variants and ablations).
+// Bound at head width 64 (se3ete): the products (q k^T and p v, 38.7 GFLOP)
+// take 39 us at the tensor-core peak and the exps (151 M) 36 us.  On
+// mma.sync, with k and v fragments read by ldmatrix, a 16-row warp reads 16
+// bytes of shared memory per score (a floor of ~72 us at 128 bytes per
+// clock per SM); wgmma reads k and v once per 64-row warpgroup, a quarter
+// of that, and runs the products at the full tensor-core rate.  What is
+// left is the chain within a warpgroup, q k^T -> exp -> p v, each step
+// waiting for the one before (scripts/probe_eq_attention.py: the variants
+// and ablations).
+//
+// At head width 32 (se3ete2) the products halve (19.3 GFLOP, 20 us) and
+// the exps do not (151 M, 36 us at 16 per clock per SM): the SFU bounds the
+// kernel.  Rows of k and v are 64 bytes there: their tiles are staged under
+// the 64-byte swizzle (16-byte chunk c of key row r at c ^ ((r >> 1) & 3),
+// 512-byte atoms of 8 rows); tiles of 128 keys halve the waits per key
+// (q k^T one wgmma.m64n128k16 per k-step, p v on wgmma.m64n32k16).  What
+// the chain leaves to the SFU depends on the tensor cores taking every
+// wgmma without a wait in between: ptxas serialises a kernel's wgmma where
+// one sits on a branch it cannot prove warp-uniform (the warp index, the
+// mask words read per lane, lane 0's arrival: C7520), where its printf is
+// (mbar_wait_or_trap's message), or where another instruction writes an
+// accumulator in flight.  So at 32 the consumers branch on values
+// broadcast from lane 0 or voted (ApplyPlan::kUniform), every lane arrives
+// on an empty barrier, and the waits trap without a message.  A warpgroup
+// that pipelines its tiles (tile j + 1's q k^T issued before tile j's exps)
+// needs two score tiles a thread, more than the 128 registers that 13 warps
+// leave it, and ptxas then serialises the wgmma again (C7512): it lost to
+// the plain chain (PERF.md).
 //
 // Work: per head h, A * ceil(N / 64) units (anchor a, 64 query rows), one
 // per warpgroup, each looping over every key anchor e; each warp owns 16 of
-// the unit's rows: its o (16 x 64 float32) sums one e's p v, and at the end
+// the unit's rows: its o (16 x HC float32) sums one e's p v, and at the end
 // of each e its acc takes w[a,e] / rowsum * o.  One block per SM, grouped
 // by head: H x bph blocks (bph = SMs / H), each of one producer warp and
-// kApplyConsumers consumer warps (three warpgroups) that all take units of
-// one head; in each pass the block streams k[e, h] and v[e, h] once for
-// every e and each warpgroup computes one unit (at the serving shape 96
-// units per head over 32 x 3 warpgroups: one pass, ~212 MB through L2 per
-// launch).  No block barrier after the set-up:
+// kConsumers consumer warps (three warpgroups) that all take units of one
+// head; in each pass the block streams k[e, h] and v[e, h] once for every e
+// and each warpgroup computes one unit (at the serving shape 96 units per
+// head over 32 x 3 warpgroups: one pass, ~212 MB through L2 per launch at
+// head width 64).  No block barrier after the set-up:
 // * producer (one lane): per pass and e, every key tile holding a valid
-//   key, as two TMA tensor copies (k and v, kApplyKeys keys x 64 channels,
-//   the 128-byte swizzle) into one slot of a ring of kApplyStages, with
+//   key, as two TMA tensor copies (k and v, kKeys keys x HC channels, the
+//   swizzle of their row width) into one slot of a ring of kStages, with
 //   full / empty mbarriers;
 // * consumers: q in registers (the A operand), fetched once per unit;
-//   rowmax and rowsum read once per (unit, e); per tile S = q k^T by
-//   wgmma.m64n64k16 (k read from the swizzled slot as a K-major B), p =
-//   2^(s scale log2 e - rowmax log2 e) (one FFMA, one ex2.approx), the mask
-//   a select from the staged bits, p rounded to bf16 straight from the
-//   accumulators into A fragments, o += p v by wgmma (v read from the slot
-//   as an MN-major B).
+//   rowmax and rowsum read once per (unit, e); per tile S = q k^T by wgmma
+//   (k read from the swizzled slot as a K-major B), p = 2^(s scale log2 e
+//   - rowmax log2 e) (one FFMA, one ex2.approx), the mask a select from the
+//   staged bits, p rounded to bf16 straight
+//   from the accumulators into A fragments, o += p v by wgmma (v read from
+//   the slot as an MN-major B).
 // The key mask is staged once per block as bits: tiles without a valid key
 // are skipped by producer and consumers alike.  Rows >= N are neither read
 // nor written.
@@ -882,38 +910,71 @@ constexpr int kApplyKeys = 64;  // keys per staged k / v tile: one wgmma N
 constexpr int kApplyStages = 4;  // ring slots
 constexpr int kApplyConsumers = 12;  // consumer warps per block, whole warpgroups
 constexpr bool kApplyPersistent = true;  // one block walks every pass
-constexpr int kApplyThreads = (kApplyConsumers + 1) * 32;
-constexpr int kAUnitsPerBlock = kApplyConsumers / 4;
+// head width 32: keys per tile (32, or whole 64-key chunks), ring slots,
+// consumer warps
+constexpr int kApply32Keys = 128;
+constexpr int kApply32Stages = 6;
+constexpr int kApply32Consumers = 12;
 constexpr int kAUnitRows = 4 * kRows;  // query rows of a warpgroup
-constexpr int kANT = kApplyKeys / 8;  // key n-tiles per tile
-constexpr int kAWords = kApplyKeys / 32;  // key-mask words per tile
-constexpr uint32_t kATileBytes = (uint32_t)kApplyKeys * kHC * sizeof(bf16);  // k or v
-constexpr uint32_t kASlotBytes = 2 * kATileBytes;
-static_assert(kANT == 8 && kHC / 8 == 8 && kApplyConsumers % 4 == 0,
-              "wgmma.m64n64k16 tiles: 64 keys, 64 channels, whole warpgroups");
 
-// K7's shared-memory plan, byte offsets from the block's 1024-aligned base
-// (mirrored by the wrapper's eq_attention.eq_apply_smem_bytes): the ring
-// (each slot a k tile, then a v tile), the key-mask bits, 2 * kApplyStages
-// mbarriers
+// K7's plan at head width HC (64: se3ete's EQ cross layers, 32: se3ete2's)
+template <int HC>
+struct ApplyPlan {
+  static constexpr bool k64 = HC == 64;
+  static constexpr int kKeys = k64 ? kApplyKeys : kApply32Keys;
+  static constexpr int kStages = k64 ? kApplyStages : kApply32Stages;
+  static constexpr int kConsumers = k64 ? kApplyConsumers : kApply32Consumers;
+  // every branch of a consumer warp on a value ptxas can prove the same in
+  // all its lanes (else ptxas serialises the kernel's wgmma, C7520)
+  static constexpr bool kUniform = !k64;
+  static constexpr int kThreads = (kConsumers + 1) * 32;
+  static constexpr int kUnitsPerBlock = kConsumers / 4;
+  static constexpr int kNT = kKeys / 8;  // key n-tiles per tile
+  static constexpr int kWords = kKeys / 32;  // key-mask words per tile
+  static constexpr int kKSteps = HC / 16;  // k-steps of q k^T
+  static constexpr uint32_t kRowBytes = HC * sizeof(bf16);  // a key row: the swizzle span
+  static constexpr uint32_t kTileBytes = (uint32_t)kKeys * kRowBytes;  // k or v
+  static constexpr uint32_t kSlotBytes = 2 * kTileBytes;
+  static constexpr int kChunk = kKeys < 128 ? kKeys : 128;  // keys of one q k^T wgmma
+  static_assert((HC == 64 || HC == 32) && kKeys % kChunk == 0 &&
+                    (kChunk == 32 || kChunk == 64 || kChunk == 128) &&
+                    kKeys <= 256 && kConsumers % 4 == 0,
+                "wgmma tiles: chunks of 32, 64 or 128 keys (a TMA box of at most 256 keys), "
+                "64 or 32 channels, whole warpgroups");
+};
+
+// K7's shared-memory plan at head width HC, byte offsets from the block's
+// 1024-aligned base (mirrored by the wrapper's eq_attention.eq_apply_smem_bytes):
+// the ring (each slot a k tile, then a v tile), the key-mask bits,
+// 2 * kStages mbarriers
+template <int HC>
 __host__ __device__ inline size_t apply_mask_off() {
-  return (size_t)kApplyStages * kASlotBytes;
+  return (size_t)ApplyPlan<HC>::kStages * ApplyPlan<HC>::kSlotBytes;
 }
-__host__ __device__ inline int apply_tiles(int m) { return (m + kApplyKeys - 1) / kApplyKeys; }
+template <int HC>
+__host__ __device__ inline int apply_tiles(int m) {
+  return (m + ApplyPlan<HC>::kKeys - 1) / ApplyPlan<HC>::kKeys;
+}
+template <int HC>
 __host__ __device__ inline size_t apply_bar_off(int m) {
-  return apply_mask_off() + (((size_t)apply_tiles(m) * kAWords * 4 + 7) & ~(size_t)7);
+  return apply_mask_off<HC>() +
+         (((size_t)apply_tiles<HC>(m) * ApplyPlan<HC>::kWords * 4 + 7) & ~(size_t)7);
 }
+template <int HC>
 __host__ __device__ inline size_t apply_smem_bytes(int m) {
-  return 1024 + apply_bar_off(m) + 2 * kApplyStages * sizeof(uint64_t);
+  return 1024 + apply_bar_off<HC>(m) + 2 * ApplyPlan<HC>::kStages * sizeof(uint64_t);
 }
 
-// A wgmma descriptor of a 128-byte swizzled tile of 128-byte rows at shared
-// address `addr` (1024-byte aligned atoms of 8 rows, 1024 bytes apart), read
-// K-major (k: the channels of a key contiguous) or MN-major (v as B of p v:
-// the channels contiguous along N)
+// A wgmma descriptor of a swizzled tile of HC-channel rows at shared address
+// `addr`: 2 HC-byte rows under the swizzle of that span (128 bytes at 64
+// channels, 64 at 32), atoms of 8 rows 16 HC bytes apart, tiles 1024-byte
+// aligned; read K-major (k: the channels of a key contiguous) or MN-major
+// (v as B of p v: the channels contiguous along N, one atom wide)
+template <int HC>
 __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3ffff) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
+  constexpr uint64_t atom = 8 * 2 * HC, layout = HC == 64 ? 1 : 2;
+  return (uint64_t)((addr & 0x3ffff) >> 4) | ((uint64_t)1 << 16) | ((atom >> 4) << 32) |
+         (layout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -925,11 +986,12 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
-// keeps the compiler from moving reads or writes of the 32 accumulators at
+// keeps the compiler from moving reads or writes of the kN accumulators at
 // `d` across the asynchronous products
+template <int kN>
 __device__ __forceinline__ void fence_regs(float* d) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x 64: 32 floats, each warp its 16 rows in the mma.sync accumulator
@@ -952,30 +1014,143 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4], uint6
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(kTransB), "r"(1));
 }
 
-// o += p v for one staged tile (k at `slot`, v kATileBytes after it) and the
-// warpgroup's 64 query rows (this warp's 16): q from registers `qf`
-// ([k-step][a0..a3]); nb[r] = -rowmax log2 e of rows g / g + 8; kMasked:
-// only the tile's valid keys (bits in w) count.
-template <bool kMasked>
-__device__ __forceinline__ void apply_step(uint32_t slot, const uint32_t (&qf)[4][4],
-                                           const uint32_t* w, int t, float c2,
-                                           const float (&nb)[2], float (&o)[kHC / 8][4]) {
-  float s[kANT][4];
+// the same at N = 32: d (64 x 32, 16 floats) += a . b (16 x 32 behind `desc`)
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n .reg .pred acc;\n setp.ne.b32 acc, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, acc, 1, 1, %21;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(kTransB), "r"(1));
+}
+
+// the same at N = 128: d (64 x 128, 64 floats) += a . b (16 x 128 behind `desc`)
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n .reg .pred acc;\n setp.ne.b32 acc, %70, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, acc, 1, 1, %69;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(kTransB), "r"(1));
+}
+
+// `b` at head width HC, where ApplyPlan<HC>::kUniform as lane 0 of the warp
+// holds it: a value ptxas can prove the same in every lane, so that a branch
+// on it is no divergent path among the warpgroup's wgmma
+template <int HC>
+__device__ __forceinline__ int uniform(int b) {
+  if constexpr (ApplyPlan<HC>::kUniform)
+    return __shfl_sync(0xffffffffu, b, 0);
+  else
+    return b;
+}
+
+// mbar_wait that traps after about 2^33 cycles, without mbar_wait_or_trap's
+// message: its printf, an extern call, would make ptxas serialise every
+// wgmma of the kernel.  kWarp: the whole warp waits, and leaves when every
+// lane has seen the phase complete, by a vote (a uniform branch)
+template <bool kWarp>
+__device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  while (true) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (kWarp ? __all_sync(0xffffffffu, done) : done) return;
+    if (clock64() - t0 > (1ll << 33)) __trap();
+  }
+}
+
+// a ring wait of K7's form at head width HC, by the producer's lane
+// (`what` 0) or a whole consumer warp (`what` 1); named in the message at 64
+template <int HC>
+__device__ __forceinline__ void apply_wait(uint64_t* bar, uint32_t parity, int what) {
+  if constexpr (HC == 64)
+    mbar_wait_or_trap(bar, parity, what);
+  else if (what == 0)
+    mbar_wait_bounded<false>(bar, parity);
+  else
+    mbar_wait_bounded<ApplyPlan<HC>::kUniform>(bar, parity);
+}
+
+// S (64 x kKeys: this warp's 16 rows, n-tile j at s[j]) += q k^T for the k
+// tile at `slot`, issued and not waited: per chunk of kChunk keys (one
+// wgmma N), HC / 16 k-steps (+32 bytes each within the swizzled rows)
+template <int HC>
+__device__ __forceinline__ void issue_scores(float (&s)[ApplyPlan<HC>::kNT][4], uint32_t slot,
+                                             const uint32_t (&qf)[HC / 16][4]) {
+  using P = ApplyPlan<HC>;
+  const uint64_t dk = gmma_desc<HC>(slot);
 #pragma unroll
-  for (int jn = 0; jn < kANT; ++jn) s[jn][0] = s[jn][1] = s[jn][2] = s[jn][3] = 0.f;
-  const uint64_t dk = gmma_desc(slot);
-  fence_regs(&s[0][0]);
-  wgmma_fence();
+  for (int c = 0; c < P::kKeys / P::kChunk; ++c)
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(&s[0][0], qf[kk], dk + 2 * kk);  // +32 bytes
-  wgmma_commit();
-  wgmma_wait_all();
-  fence_regs(&s[0][0]);
-  uint32_t bits[kAWords];
+    for (int kk = 0; kk < P::kKSteps; ++kk) {
+      const uint64_t d = dk + (uint64_t)c * (P::kChunk * P::kRowBytes >> 4) + 2 * kk;
+      if constexpr (P::kChunk == 128)
+        wgmma_rs_n128<0>(&s[16 * c][0], qf[kk], d);
+      else if constexpr (P::kChunk == 64)
+        wgmma_rs<0>(&s[8 * c][0], qf[kk], d);
+      else
+        wgmma_rs_n32<0>(&s[4 * c][0], qf[kk], d);
+    }
+}
+
+// o += p v for the tile's scores turned probabilities `s` and the v tile at
+// `vslot`, issued and not waited: p rounded to bf16 straight into A
+// fragments, one wgmma per 16 keys
+template <int HC>
+__device__ __forceinline__ void issue_pv(float (&o)[HC / 8][4],
+                                         const float (&s)[ApplyPlan<HC>::kNT][4],
+                                         uint32_t vslot) {
+  using P = ApplyPlan<HC>;
+  const uint64_t dv = gmma_desc<HC>(vslot);
 #pragma unroll
-  for (int i = 0; i < kAWords; ++i) bits[i] = w[i] >> (2 * t);
+  for (int kc = 0; kc < P::kKeys / 16; ++kc) {
+    const uint32_t p[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
+                           pack_bf16(s[2 * kc][2], s[2 * kc][3]),
+                           pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+                           pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+    const uint64_t d = dv + (uint64_t)kc * (16 * P::kRowBytes >> 4);  // +16 key rows
+    if constexpr (HC == 64)
+      wgmma_rs<1>(&o[0][0], p, d);
+    else
+      wgmma_rs_n32<1>(&o[0][0], p, d);
+  }
+}
+
+// p = 2^(s c2 + nb[row]) in place, nb[r] = -rowmax log2 e of rows g / g + 8;
+// kMasked: 0 where the tile's key is masked (bits in w)
+template <int HC, bool kMasked>
+__device__ __forceinline__ void probs(float (&s)[ApplyPlan<HC>::kNT][4], const uint32_t* w,
+                                      int t, float c2, const float (&nb)[2]) {
+  using P = ApplyPlan<HC>;
+  uint32_t bits[P::kWords];
 #pragma unroll
-  for (int jn = 0; jn < kANT; ++jn)
+  for (int i = 0; i < P::kWords; ++i) bits[i] = w[i] >> (2 * t);
+#pragma unroll
+  for (int jn = 0; jn < P::kNT; ++jn)
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const float p = ex2(fmaf(s[jn][c], c2, nb[c >> 1]));
@@ -984,38 +1159,62 @@ __device__ __forceinline__ void apply_step(uint32_t slot, const uint32_t (&qf)[4
       else
         s[jn][c] = p;
     }
-  const uint64_t dv = gmma_desc(slot + kATileBytes);
-  fence_regs(&o[0][0]);
-  wgmma_fence();
-#pragma unroll
-  for (int kc = 0; kc < kApplyKeys / 16; ++kc) {
-    const uint32_t p[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                           pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                           pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                           pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-    wgmma_rs<1>(&o[0][0], p, dv + 128 * kc);  // +16 keys: 2048 bytes
-  }
-  wgmma_commit();
-  wgmma_wait_all();
-  fence_regs(&o[0][0]);
 }
 
-// q (A,H,N,64), k / v (E,H,M,64) behind kmap / vmap, w (A,E), rowmax/rowsum
-// (A,E,H,N), kmask (M) as bytes; out (A,H,N,64) float32.
-__global__ void __launch_bounds__(kApplyThreads, 1)
+// o += p v for one staged tile (k at `slot`, v kTileBytes after it) and the
+// warpgroup's 64 query rows (this warp's 16), each product waited for: q
+// from registers `qf` ([k-step][a0..a3]); kMasked: only the tile's valid
+// keys (bits in w) count.
+template <int HC, bool kMasked>
+__device__ __forceinline__ void apply_step(uint32_t slot, const uint32_t (&qf)[HC / 16][4],
+                                           const uint32_t* w, int t, float c2,
+                                           const float (&nb)[2], float (&o)[HC / 8][4]) {
+  using P = ApplyPlan<HC>;
+  float s[P::kNT][4];
+#pragma unroll
+  for (int jn = 0; jn < P::kNT; ++jn) s[jn][0] = s[jn][1] = s[jn][2] = s[jn][3] = 0.f;
+  fence_regs<P::kNT * 4>(&s[0][0]);
+  wgmma_fence();
+  issue_scores<HC>(s, slot, qf);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs<P::kNT * 4>(&s[0][0]);
+  probs<HC, kMasked>(s, w, t, c2, nb);
+  fence_regs<HC / 2>(&o[0][0]);
+  wgmma_fence();
+  issue_pv<HC>(o, s, slot + P::kTileBytes);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs<HC / 2>(&o[0][0]);
+}
+
+// a consumer warp's arrival on an empty barrier: lane 0's, or with
+// ApplyPlan::kUniform every lane's (no divergent path; the barrier then
+// counts 32 arrivals a warp)
+template <int HC>
+__device__ __forceinline__ void warp_arrive(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (ApplyPlan<HC>::kUniform || lane == 0) mbar_arrive(bar);
+}
+
+// q (A,H,N,HC), k / v (E,H,M,HC) behind kmap / vmap, w (A,E), rowmax/rowsum
+// (A,E,H,N), kmask (M) as bytes; out (A,H,N,HC) float32.
+template <int HC>
+__global__ void __launch_bounds__(ApplyPlan<HC>::kThreads, 1)
 eq_apply_tc_kernel(const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, const bf16* __restrict__ q,
                    const float* __restrict__ w, const float* __restrict__ rowmax,
                    const float* __restrict__ rowsum, const uint8_t* __restrict__ kmask,
                    float* __restrict__ out, int na, int ne, int n, int mlen, int bph,
                    int passes) {
+  using P = ApplyPlan<HC>;
   extern __shared__ char smem_raw[];
   char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint32_t* mask_s = reinterpret_cast<uint32_t*>(base + apply_mask_off());
-  uint64_t* full = reinterpret_cast<uint64_t*>(base + apply_bar_off(mlen));
-  uint64_t* empty = full + kApplyStages;
+  uint32_t* mask_s = reinterpret_cast<uint32_t*>(base + apply_mask_off<HC>());
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + apply_bar_off<HC>(mlen));
+  uint64_t* empty = full + P::kStages;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = uniform<HC>(threadIdx.x / 32), lane = threadIdx.x % 32;
   const int per_pass = kH * bph;
   const int p0 = kApplyPersistent ? 0 : blockIdx.x / per_pass;
   const int p_end = kApplyPersistent ? passes : p0 + 1;
@@ -1023,88 +1222,86 @@ eq_apply_tc_kernel(const __grid_constant__ CUtensorMap kmap,
   const int h = bid / bph, lb = bid - h * bph;
   const int rblocks = (n + kAUnitRows - 1) / kAUnitRows;
   const int units = na * rblocks;  // per head
-  const int ntiles = apply_tiles(mlen);
+  const int ntiles = apply_tiles<HC>(mlen);
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kApplyStages; ++s) {
+    for (int s = 0; s < P::kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kApplyConsumers);
+      mbar_init(&empty[s], P::kConsumers * (P::kUniform ? 32 : 1));
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   // the key mask as bits (zero past mlen)
-  for (int wd = warp; wd < ntiles * kAWords; wd += kApplyConsumers + 1) {
+  for (int wd = warp; wd < ntiles * P::kWords; wd += P::kConsumers + 1) {
     const int key = 32 * wd + lane;
     const uint32_t b = __ballot_sync(0xffffffffu, key < mlen && kmask[key] != 0);
     if (lane == 0) mask_s[wd] = b;
   }
   __syncthreads();
 
-  if (warp == kApplyConsumers) {  // the producer
+  if (warp == P::kConsumers) {  // the producer
     if (lane != 0) return;
     int s = 0;
-    for (int pass = p0; pass < p_end && (pass * bph + lb) * kAUnitsPerBlock < units; ++pass)
+    for (int pass = p0; pass < p_end && (pass * bph + lb) * P::kUnitsPerBlock < units; ++pass)
       for (int e = 0; e < ne; ++e)
         for (int j = 0; j < ntiles; ++j) {
-          if (tile_empty<kAWords>(mask_s + j * kAWords)) continue;
-          const int slot = s % kApplyStages;
-          if (s >= kApplyStages)
-            mbar_wait_or_trap(&empty[slot], ((s / kApplyStages) - 1) & 1, 0);
-          mbar_expect_tx(&full[slot], kASlotBytes);
-          char* dst = base + (size_t)slot * kASlotBytes;
-          load_tile(dst, &kmap, j * kApplyKeys, h, e, &full[slot]);
-          load_tile(dst + kATileBytes, &vmap, j * kApplyKeys, h, e, &full[slot]);
+          if (tile_empty<P::kWords>(mask_s + j * P::kWords)) continue;
+          const int slot = s % P::kStages;
+          if (s >= P::kStages) apply_wait<HC>(&empty[slot], ((s / P::kStages) - 1) & 1, 0);
+          mbar_expect_tx(&full[slot], P::kSlotBytes);
+          char* dst = base + (size_t)slot * P::kSlotBytes;
+          load_tile(dst, &kmap, j * P::kKeys, h, e, &full[slot]);
+          load_tile(dst + P::kTileBytes, &vmap, j * P::kKeys, h, e, &full[slot]);
           ++s;
         }
     return;
   }
 
   const int g = lane >> 2, t = lane & 3;
-  const float c2 = 0.125f * kLog2e;  // 1 / sqrt(64) in base 2
+  const float c2 = (1.f / sqrtf((float)HC)) * kLog2e;  // the score scale in base 2
   int s = 0;
-  for (int pass = p0; pass < p_end && (pass * bph + lb) * kAUnitsPerBlock < units; ++pass) {
-    const int unit = (pass * bph + lb) * kAUnitsPerBlock + warp / 4;
+  for (int pass = p0; pass < p_end && (pass * bph + lb) * P::kUnitsPerBlock < units; ++pass) {
+    const int unit = (pass * bph + lb) * P::kUnitsPerBlock + warp / 4;
     const bool active = unit < units;  // the same for the warpgroup's four warps
     const int a = active ? unit / rblocks : 0;
     const int ra = (unit - a * rblocks) * kAUnitRows + (warp % 4) * kRows + g, rb = ra + 8;
     const bool va = active && ra < n, vb = active && rb < n;
-    const bf16* qh = q + ((long long)a * kH + h) * n * kHC;
+    const bf16* qh = q + ((long long)a * kH + h) * n * HC;
     auto q32 = [&](bool ok, int row, int c) -> uint32_t {
-      return ok ? __ldg(reinterpret_cast<const unsigned int*>(qh + (long long)row * kHC + c))
+      return ok ? __ldg(reinterpret_cast<const unsigned int*>(qh + (long long)row * HC + c))
                 : 0u;
     };
-    uint32_t qf[4][4];  // the A fragments of this warp's rows: a0..a3 per k-step
+    uint32_t qf[HC / 16][4];  // the A fragments of this warp's rows: a0..a3 per k-step
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < HC / 16; ++kk) {
       qf[kk][0] = q32(va, ra, 16 * kk + 2 * t);
       qf[kk][1] = q32(vb, rb, 16 * kk + 2 * t);
       qf[kk][2] = q32(va, ra, 16 * kk + 8 + 2 * t);
       qf[kk][3] = q32(vb, rb, 16 * kk + 8 + 2 * t);
     }
-    float acc[kHC / 8][4];
+    float acc[HC / 8][4];
 #pragma unroll
-    for (int j = 0; j < kHC / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int j = 0; j < HC / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
     for (int e = 0; e < ne; ++e) {
       const long long srow = (((long long)a * ne + e) * kH + h) * n;
       const float nb[2] = {va ? -rowmax[srow + ra] * kLog2e : 0.f,
                            vb ? -rowmax[srow + rb] * kLog2e : 0.f};
-      float o[kHC / 8][4];
+      float o[HC / 8][4];
 #pragma unroll
-      for (int j = 0; j < kHC / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+      for (int j = 0; j < HC / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
       for (int j = 0; j < ntiles; ++j) {
-        const uint32_t* wd = mask_s + j * kAWords;
-        if (tile_empty<kAWords>(wd)) continue;
-        const int slot = s % kApplyStages;
-        mbar_wait_or_trap(&full[slot], (s / kApplyStages) & 1, 1);
+        const uint32_t* wd = mask_s + j * P::kWords;
+        if (uniform<HC>(tile_empty<P::kWords>(wd))) continue;
+        const int slot = s % P::kStages;
+        apply_wait<HC>(&full[slot], (s / P::kStages) & 1, 1);
         if (active) {
-          const uint32_t sb = smem_u32(base) + (uint32_t)slot * kASlotBytes;
-          if (tile_full<kAWords>(wd))
-            apply_step<false>(sb, qf, wd, t, c2, nb, o);
+          const uint32_t sb = smem_u32(base) + (uint32_t)slot * P::kSlotBytes;
+          if (uniform<HC>(tile_full<P::kWords>(wd)))
+            apply_step<HC, false>(sb, qf, wd, t, c2, nb, o);
           else
-            apply_step<true>(sb, qf, wd, t, c2, nb, o);
+            apply_step<HC, true>(sb, qf, wd, t, c2, nb, o);
         }
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&empty[slot]);
+        warp_arrive<HC>(&empty[slot], lane);
         ++s;
       }
       if (active) {
@@ -1112,7 +1309,7 @@ eq_apply_tc_kernel(const __grid_constant__ CUtensorMap kmap,
         const float fa = va ? we * (1.f / fmaxf(rowsum[srow + ra], 1e-30f)) : 0.f;
         const float fb = vb ? we * (1.f / fmaxf(rowsum[srow + rb], 1e-30f)) : 0.f;
 #pragma unroll
-        for (int j = 0; j < kHC / 8; ++j) {
+        for (int j = 0; j < HC / 8; ++j) {
           acc[j][0] += fa * o[j][0];
           acc[j][1] += fa * o[j][1];
           acc[j][2] += fb * o[j][2];
@@ -1120,61 +1317,68 @@ eq_apply_tc_kernel(const __grid_constant__ CUtensorMap kmap,
         }
       }
     }
-    float* oh = out + ((long long)a * kH + h) * n * kHC;
+    float* oh = out + ((long long)a * kH + h) * n * HC;
 #pragma unroll
-    for (int j = 0; j < kHC / 8; ++j) {
+    for (int j = 0; j < HC / 8; ++j) {
       if (va)
-        *reinterpret_cast<float2*>(oh + (long long)ra * kHC + 8 * j + 2 * t) =
+        *reinterpret_cast<float2*>(oh + (long long)ra * HC + 8 * j + 2 * t) =
             make_float2(acc[j][0], acc[j][1]);
       if (vb)
-        *reinterpret_cast<float2*>(oh + (long long)rb * kHC + 8 * j + 2 * t) =
+        *reinterpret_cast<float2*>(oh + (long long)rb * HC + 8 * j + 2 * t) =
             make_float2(acc[j][2], acc[j][3]);
     }
   }
 }
 
-// (blocks per head, passes) of K7's grid for A anchors and N query rows
+// (blocks per head, passes) of K7's grid at head width HC for A anchors and
+// N query rows
+template <int HC>
 static void apply_plan(int na, int n, int* bph, int* passes) {
+  constexpr int per_block = ApplyPlan<HC>::kUnitsPerBlock;
   const int units = na * ((n + kAUnitRows - 1) / kAUnitRows);
-  const int most = (units + kAUnitsPerBlock - 1) / kAUnitsPerBlock;  // blocks with a unit
+  const int most = (units + per_block - 1) / per_block;  // blocks with a unit
   *bph = std::max(1, std::min(sm_count() / kH, most));
-  *passes = (units + *bph * kAUnitsPerBlock - 1) / (*bph * kAUnitsPerBlock);
+  *passes = (units + *bph * per_block - 1) / (*bph * per_block);
 }
 
-// K7 in the tc form: k, v (E, 4, M, 64) bf16, 16-byte aligned
+// K7 in the tc form: k, v (E, 4, M, HC) bf16, 16-byte aligned
+template <int HC>
 inline int launch_apply(const void* q, const void* k, const void* v, const void* w,
                         const void* rowmax, const void* rowsum, const void* km, void* out,
                         int na, int ne, int n, int m, cudaStream_t st) {
-  const size_t smem = apply_smem_bytes(m);
+  const size_t smem = apply_smem_bytes<HC>(m);
   if (smem > (size_t)kMaxSmem || sm_count() == 0) return (int)cudaErrorInvalidValue;
   CUtensorMap kmap, vmap;
-  int err = encode_map(&kmap, k, ne, m, kApplyKeys, 1);
-  if (!err) err = encode_map(&vmap, v, ne, m, kApplyKeys, 1);
+  int err = encode_map(&kmap, k, ne, m, ApplyPlan<HC>::kKeys, 1, HC);
+  if (!err) err = encode_map(&vmap, v, ne, m, ApplyPlan<HC>::kKeys, 1, HC);
   if (err) return err;
   static size_t attr = 0;  // the kernel's shared-memory attribute, raised once per size
   if (smem > attr) {
     const cudaError_t e = cudaFuncSetAttribute(
-        eq_apply_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        eq_apply_tc_kernel<HC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     attr = smem;
   }
   int bph, passes;
-  apply_plan(na, n, &bph, &passes);
+  apply_plan<HC>(na, n, &bph, &passes);
   const int grid = kH * bph * (kApplyPersistent ? 1 : passes);
-  eq_apply_tc_kernel<<<grid, kApplyThreads, smem, st>>>(
+  eq_apply_tc_kernel<HC><<<grid, ApplyPlan<HC>::kThreads, smem, st>>>(
       kmap, vmap, (const bf16*)q, (const float*)w, (const float*)rowmax, (const float*)rowsum,
       (const uint8_t*)km, (float*)out, na, ne, n, m, bph, passes);
   return (int)cudaGetLastError();
 }
 
-// blocks of K7's kernel resident per SM at M keys
+// blocks of K7's kernel at head width HC resident per SM at M keys (-1 on a
+// CUDA error)
+template <int HC>
 inline int apply_blocks_per_sm(int m) {
-  const size_t smem = apply_smem_bytes(m);
-  if (cudaFuncSetAttribute(eq_apply_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const size_t smem = apply_smem_bytes<HC>(m);
+  if (cudaFuncSetAttribute(eq_apply_tc_kernel<HC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess)
     return -1;
   int nb = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, eq_apply_tc_kernel, kApplyThreads,
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, eq_apply_tc_kernel<HC>,
+                                                    ApplyPlan<HC>::kThreads,
                                                     smem) != cudaSuccess)
     return -1;
   return nb;
@@ -1230,17 +1434,11 @@ int launch_apply(const void* q, const void* k, const void* v, const void* w,
   return (int)cudaGetLastError();
 }
 
+// K7 on the CUDA cores (the first design), at every width it is built for
 template <typename T>
-int apply(const void* q, const void* k, const void* v, const void* w, const void* rowmax,
-          const void* rowsum, const void* km, void* out, int na, int ne, int h, int n,
-          int m, int hc, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  // bf16 at head width 64 takes the tc form, everything else (float32, head
-  // widths 16 and 32) the CUDA cores
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (h == 4 && hc == 64)
-      return eq_tc::launch_apply(q, k, v, w, rowmax, rowsum, km, out, na, ne, n, m, st);
-  }
+int apply_cuda(const void* q, const void* k, const void* v, const void* w, const void* rowmax,
+               const void* rowsum, const void* km, void* out, int na, int ne, int h, int n,
+               int m, int hc, cudaStream_t st) {
   if (h == 4 && hc == 64)
     return launch_apply<T, 4, 64>(q, k, v, w, rowmax, rowsum, km, out, na, ne, n, m, st);
   if (h == 4 && hc == 32)
@@ -1248,6 +1446,22 @@ int apply(const void* q, const void* k, const void* v, const void* w, const void
   if (h == 4 && hc == 16)
     return launch_apply<T, 4, 16>(q, k, v, w, rowmax, rowsum, km, out, na, ne, n, m, st);
   return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int apply(const void* q, const void* k, const void* v, const void* w, const void* rowmax,
+          const void* rowsum, const void* km, void* out, int na, int ne, int h, int n,
+          int m, int hc, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  // bf16 at head widths 64 and 32 takes the tc form, everything else
+  // (float32, head width 16) the CUDA cores
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (h == 4 && hc == 64)
+      return eq_tc::launch_apply<64>(q, k, v, w, rowmax, rowsum, km, out, na, ne, n, m, st);
+    if (h == 4 && hc == 32)
+      return eq_tc::launch_apply<32>(q, k, v, w, rowmax, rowsum, km, out, na, ne, n, m, st);
+  }
+  return apply_cuda<T>(q, k, v, w, rowmax, rowsum, km, out, na, ne, h, n, m, hc, st);
 }
 
 }  // namespace
@@ -1283,6 +1497,17 @@ extern "C" int se3et_eq_attention_apply_f32(
   return apply<float>(q, k, v, w, rowmax, rowsum, km, out, na, ne, h, n, m, hc, stream);
 }
 
+// the bf16 K7 on its first design (the CUDA-core kernel) at any width it is
+// built for, where the tc form takes the shape: for the tests and the
+// timings that hold the two against each other
+extern "C" int se3et_eq_attention_apply_cuda_bf16(
+    const void* q, const void* k, const void* v, const void* w, const void* rowmax,
+    const void* rowsum, const void* km, void* out, int na, int ne, int h, int n, int m,
+    int hc, void* stream) {
+  return apply_cuda<__nv_bfloat16>(q, k, v, w, rowmax, rowsum, km, out, na, ne, h, n, m, hc,
+                                   (cudaStream_t)stream);
+}
+
 // K6's pooled partial slots per (a, e) at N query rows, as the kernel that
 // takes (h, hc, bf16) writes them (the wrapper's
 // eq_attention.eq_attention_stats_parts is held against it); 0 where none
@@ -1302,12 +1527,18 @@ extern "C" int se3et_eq_attention_stats_blocks_per_sm(int m) {
   return eq_tc::blocks_per_sm(m);
 }
 
-// K7's tc form: its shared memory at M keys (eq_attention.eq_apply_smem_bytes)
-extern "C" long long se3et_eq_attention_apply_smem(int m) {
-  return (long long)eq_tc::apply_smem_bytes(m);
+// K7's tc form at head width hc (64 or 32): its shared memory at M keys
+// (eq_attention.eq_apply_smem_bytes); 0 at another width
+extern "C" long long se3et_eq_attention_apply_smem(int m, int hc) {
+  if (hc == 64) return (long long)eq_tc::apply_smem_bytes<64>(m);
+  if (hc == 32) return (long long)eq_tc::apply_smem_bytes<32>(m);
+  return 0;
 }
 
-// blocks of K7's tc form resident per SM at M keys (-1 on a CUDA error)
-extern "C" int se3et_eq_attention_apply_blocks_per_sm(int m) {
-  return eq_tc::apply_blocks_per_sm(m);
+// blocks of K7's tc form at head width hc resident per SM at M keys (-1 on
+// a CUDA error or at another width)
+extern "C" int se3et_eq_attention_apply_blocks_per_sm(int m, int hc) {
+  if (hc == 64) return eq_tc::apply_blocks_per_sm<64>(m);
+  if (hc == 32) return eq_tc::apply_blocks_per_sm<32>(m);
+  return -1;
 }

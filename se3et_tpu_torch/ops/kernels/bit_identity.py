@@ -39,7 +39,9 @@ shapes of se3ete.3dmatch (bf16) and the tiny float32 widths:
   24, through stage 3 x (2, 1024, 1536), H 38), all timed;
 * K6 (EQ cross-attention stats) and K7 (apply) at the serving shape, q, k,
   v (6, 4, 1024, 64) in bf16 (timed, held within their ``TOLERANCES``), and
-  at N = M = 128, head width 16 in float32;
+  at N = M = 128, head width 16 in float32; K7 also at se3ete2's serving
+  shape, head width 32 in bf16 (timed, held within its ``TOLERANCES``), on
+  inputs of its own generator;
 * K4 (Sinkhorn, 100 iterations, float32) on ``selfcheck.sinkhorn_inputs``
   at the serving shape (256, 65, 65) (timed) and at (6, 17, 13), compared
   on valid entries only: the masked ones are zeroed (they hold -1e12 + u +
@@ -104,6 +106,7 @@ K11_BF16 = ("K11 AH=24 SH N=1024 C=256 bf16", "K11 AH=4 no SH N=1024 C=256 bf16"
 K10_CASES = ("K10 N=1024 C=256 bf16", "K10 N=128 C=64 float32")
 K6_BF16 = "K6 N=M=1024 c=64 bf16"
 K7_BF16 = "K7 N=M=1024 c=64 bf16"
+K7_BF16_32 = "K7 N=M=1024 c=32 bf16"
 K4_CASES = ("K4 (256, 65, 65) f32", "K4 (6, 17, 13) f32")
 K13_CASES = ("K13 s0 -> s1 out", "K13 s0 -> s1 pooled")
 K2_CASES = ("K2 s2 -> s3 bf16", "K2 s0 -> s1 float32")
@@ -123,7 +126,8 @@ K8_CASES = ("K8 stage 0 float32", "K8 s0 -> s1 float32", "K8 stage 1 float32")
 K9_CASES = (("K9 s0 -> s1 float32", 10000, 20000, 24, 768),
             ("K9 s1 -> s2 float32", 2500, 10000, 32, 1536),
             ("K9 s2 -> s3 float32", 1024, 2500, 36, 3072))
-TIMED = K5_BF16 + K16_BF16 + (K6_BF16, K7_BF16, K4_CASES[0], K13_CASES[0]) + K2_CASES + K14_CASES \
+TIMED = K5_BF16 + K16_BF16 + (K6_BF16, K7_BF16, K7_BF16_32, K4_CASES[0], K13_CASES[0]) \
+    + K2_CASES + K14_CASES \
     + K1_BF16 + tuple(c[0] for c in K1_F32) + K11_BF16 + K10_CASES[:1] + K8_CASES \
     + tuple(c[0] for c in K9_CASES) + (K15_CASE,)
 # the last timed training step's outputs (with --train-steps)
@@ -142,7 +146,9 @@ STEP_KERNELS = "training step kernels (device ms by kernel)"
 # first design's sums in the same order); the bf16 K6 (1e-3, as its check
 # states) exponentiates in base 2 with ex2.approx and sums in another order;
 # the bf16 K7 (1e-3) exponentiates with ex2.approx, which moves some p by
-# one bf16 ulp before p v, and sums p v on wgmma in another order; K4 (1e-5
+# one bf16 ulp before p v, and sums p v on wgmma in another order (at head
+# width 32 too, since its tc form: against the first design's expf and FMA
+# chains, the same 1e-3); K4 (1e-5
 # of the valid entries' scale, ~K4's 1e-4 absolute at out ~ 10) sums each
 # row and column in two lanes' slices of two FMA chains each, where its
 # first design summed 32 lanes' strided shares; the bf16 K13's conv (1e-3;
@@ -168,7 +174,7 @@ STEP_KERNELS = "training step kernels (device ms by kernel)"
 # per block, where the first design summed float32 bases per query row
 TOLERANCES = {**dict.fromkeys(K5_BF16 + K16_BF16 + K11_BF16 + K10_CASES[:1], 1e-2),
               K6_BF16: 1e-3,
-              K7_BF16: 1e-3,
+              K7_BF16: 1e-3, K7_BF16_32: 1e-3,
               **dict.fromkeys(K4_CASES, 1e-5), K13_CASES[0]: 1e-3, K14_CASES[0]: 1e-2}
 
 
@@ -284,6 +290,14 @@ def _cases(dev):
         cases.append((f"K7 N=M={n} c={c} {tag}",
                       lambda a=(q, k, v, w / w.sum(1, keepdim=True), rowmax, rowsum, km):
                       eq_attention.eq_attention_apply(*a)))
+    g7 = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn((6, 4, 1024, 32), generator=g7).to(dev, bf) for _ in range(3))
+    qm = torch.arange(1024, device=dev) < 1024 - 24
+    km = torch.arange(1024, device=dev) < 1024 - 40
+    rowmax, rowsum, _ = eq_attention.eq_attention_stats_plain(q, k, qm, km)
+    w = torch.rand((6, 6), generator=g7).to(dev)
+    cases.append((K7_BF16_32, lambda a=(q, k, v, w / w.sum(1, keepdim=True), rowmax, rowsum, km):
+                  eq_attention.eq_attention_apply(*a)))
     for name, (b, m, n) in zip(K4_CASES, ((256, 65, 65), (6, 17, 13))):
         padded, mu, nu, valid = selfcheck.sinkhorn_inputs(b, m, n, dev)
         cases.append((name, lambda a=(padded, mu, nu), v=valid: torch.where(

@@ -31,23 +31,26 @@ _NEG = -1e9
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 POSITIVE_MODES = (None, "sq", "abs", "relu", "sigmoid", "leakyrelu", "softplus", "minus")
 KERNEL_HEADS = (4,)
-KERNEL_HEAD_DIMS = (16, 32, 64)  # 32: the wide-head family se3ete2, on the CUDA cores
+# 64: se3ete's EQ cross layers; 32: the wide-head family se3ete2's (K7's tc
+# form in bf16, K6 on the CUDA cores); 16: the tiny card-vs-CPU widths
+KERNEL_HEAD_DIMS = (16, 32, 64)
 SMEM_LIMIT = 232448  # dynamic shared memory one block can have on Hopper, bytes
 # K6's forms (csrc/eq_attention.cu): query rows behind one pooled partial
 # slot, and the tc form's plan: keys per staged tile, ring slots, consumer
 # warps, query rows per consumer warp (q staged in shared memory)
 TC_ROWS, CUDA_ROWS = 16, 8
 TC_KEYS, TC_STAGES, TC_CONSUMERS, TC_UNIT_ROWS = 32, 8, 9, 16
-# K7's tc form (csrc/eq_attention.cu, eq_tc::kApply*): keys per staged k /
-# v tile and ring slots (each a k and a v tile)
-APPLY_KEYS, APPLY_STAGES = 64, 4
+# K7's tc form per head width (csrc/eq_attention.cu, eq_tc::ApplyPlan, from
+# eq_tc::kApply* at 64 and eq_tc::kApply32* at 32): keys per staged k / v
+# tile and ring slots (each a k and a v tile)
+APPLY_PLANS = {64: (64, 4), 32: (128, 6)}
 
 
-def _form(kernel: str, h: int, c: int, dtype) -> str:
+def _form(kernel: str, h: int, c: int, dtype, tc_widths) -> str:
     if dtype not in _DTYPES or h not in KERNEL_HEADS or c not in KERNEL_HEAD_DIMS:
         raise ValueError(f"no {kernel} kernel for H={h}, head width {c}, {dtype}: built for H in "
                          f"{KERNEL_HEADS}, head width in {KERNEL_HEAD_DIMS}, bf16 or float32")
-    return "tc" if dtype == torch.bfloat16 and c == 64 else "cuda"
+    return "tc" if dtype == torch.bfloat16 and c in tc_widths else "cuda"
 
 
 def eq_attention_stats_form(h: int, c: int, dtype) -> str:
@@ -57,27 +60,29 @@ def eq_attention_stats_form(h: int, c: int, dtype) -> str:
       ``eq_tc::eq_stats_tc_kernel``: TMA key tiles, mma.sync, base-2
       softmax);
     * "cuda": the CUDA-core kernel (float32, and head widths 16 and 32 in
-      either type).
+      either type: the wide-head family's EQ cross layers take it).
 
     Chosen by shape alone, as the C entry point chooses; neither is a
     fallback of the other.  Raises ``ValueError`` where no form takes the
     shape."""
-    return _form("K6", h, c, dtype)
+    return _form("K6", h, c, dtype, (64,))
 
 
 def eq_attention_apply_form(h: int, c: int, dtype) -> str:
     """Which hand-written K7 kernel takes H heads of width ``c`` in ``dtype``:
 
-    * "tc": bf16, H = 4, head width 64 (the serving form,
-      ``eq_tc::eq_apply_tc_kernel``: TMA key and value tiles of one head,
-      wgmma for q k^T and p v, base-2 exps);
-    * "cuda": the CUDA-core kernel (float32, and head widths 16 and 32 in
-      either type).
+    * "tc": bf16, H = 4, head width 64 or 32 (the serving forms of se3ete
+      and of the wide-head family se3ete2, ``eq_tc::eq_apply_tc_kernel<64>``
+      and ``<32>``: TMA key and value tiles of one head, wgmma for q k^T and
+      p v, base-2 exps; at 32 under the 64-byte swizzle, in 128-key tiles,
+      every consumer branch warp-uniform);
+    * "cuda": the CUDA-core kernel, the first design (float32, and head
+      width 16 in either type).
 
     Chosen by shape alone, as the C entry point chooses; neither is a
     fallback of the other.  Raises ``ValueError`` where no form takes the
     shape."""
-    return _form("K7", h, c, dtype)
+    return _form("K7", h, c, dtype, tuple(APPLY_PLANS))
 
 
 def eq_attention_stats_parts(h: int, n: int, c: int, dtype) -> int:
@@ -102,15 +107,17 @@ def eq_stats_smem_bytes(m: int) -> int:
     return 1024 + ring + q + mask + 2 * TC_STAGES * 8 + 8
 
 
-def eq_apply_smem_bytes(m: int) -> int:
-    """Shared memory of K7's tc form at M keys, in bytes, as
-    ``eq_tc::apply_smem_bytes`` lays it out: 1024 bytes of alignment slack,
-    the ring of APPLY_STAGES slots (a k and a v tile of APPLY_KEYS keys x 64
-    bf16 each), the key mask as bits (a whole number of tiles, padded to 8
-    bytes) and 2 x APPLY_STAGES mbarriers."""
-    tiles = -(-m // APPLY_KEYS)
-    mask = (tiles * APPLY_KEYS // 8 + 7) // 8 * 8
-    return 1024 + APPLY_STAGES * 2 * APPLY_KEYS * 64 * 2 + mask + 2 * APPLY_STAGES * 8
+def eq_apply_smem_bytes(m: int, c: int = 64) -> int:
+    """Shared memory of K7's tc form at M keys and head width ``c``, in
+    bytes, as ``eq_tc::apply_smem_bytes<c>`` lays it out: 1024 bytes of
+    alignment slack, the ring of ``stages`` slots (a k and a v tile of
+    ``keys`` keys x c bf16 each; ``APPLY_PLANS[c]``), the key mask as bits
+    (a whole number of tiles, padded to 8 bytes) and 2 x ``stages``
+    mbarriers."""
+    keys, stages = APPLY_PLANS[c]
+    tiles = -(-m // keys)
+    mask = (tiles * keys // 8 + 7) // 8 * 8
+    return 1024 + stages * 2 * keys * c * 2 + mask + 2 * stages * 8
 
 
 def _positive(x, mode: Optional[str]):
@@ -278,7 +285,15 @@ def eq_attention_apply(q, k, v, w_ae, rowmax, rowsum, k_masks):
     """K7 (``csrc/eq_attention.cu``, replaces the TPU ``eq_attention_apply``):
     see :func:`eq_attention_apply_plain`.  The kernel is the one
     :func:`eq_attention_apply_form` names (serving in bf16: "tc"); a shape
-    no form takes raises ``ValueError``.  Bound by its products."""
+    no form takes raises ``ValueError``.  Bound by its products at head
+    width 64, by its exponentials at 32."""
+    return _eq_attention_apply(q, k, v, w_ae, rowmax, rowsum, k_masks)
+
+
+def _eq_attention_apply(q, k, v, w_ae, rowmax, rowsum, k_masks, form: Optional[str] = None):
+    """K7 on the kernel :func:`eq_attention_apply_form` names, or on ``form``
+    where the caller asks for one ("cuda", the first design, takes every
+    shape that has a kernel)."""
     _check_apply(q, k, v, w_ae, rowmax, rowsum, k_masks)
     if q.device.type == "cpu":
         return eq_attention_apply_plain(q, k, v, w_ae, rowmax, rowsum, k_masks)
@@ -286,8 +301,11 @@ def eq_attention_apply(q, k, v, w_ae, rowmax, rowsum, k_masks):
         raise ValueError(f"unsupported device {q.device}")
     a, h, n, c = q.shape
     e, _, m, _ = k.shape
-    form = eq_attention_apply_form(h, c, q.dtype)
-    if form == "tc" and eq_apply_smem_bytes(m) > SMEM_LIMIT:
+    chosen = eq_attention_apply_form(h, c, q.dtype)
+    form = form or chosen
+    if form not in ("tc", "cuda") or (form == "tc" and chosen != "tc"):
+        raise ValueError(f"K7's {form} form does not take H={h}, head width {c}, {q.dtype}")
+    if form == "tc" and eq_apply_smem_bytes(m, c) > SMEM_LIMIT:
         raise ValueError(f"K7's tc form does not fit M={m} keys in a block")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if form == "tc":  # tensor copies need 16-byte aligned rows
@@ -297,12 +315,13 @@ def eq_attention_apply(q, k, v, w_ae, rowmax, rowsum, k_masks):
     rowmax, rowsum = rowmax.float().contiguous(), rowsum.float().contiguous()
     km = _mask_bytes(k_masks)
     out = torch.empty((a, h, n, c), dtype=torch.float32, device=q.device)
-    fn = _build.function("eq_attention", f"se3et_eq_attention_apply_{_DTYPES[q.dtype]}",
-                         8, 6)
+    first = form == "cuda" and chosen == "tc"  # the first design where tc takes the shape
+    fn = _build.function("eq_attention", "se3et_eq_attention_apply_"
+                         f"{'cuda_' if first else ''}{_DTYPES[q.dtype]}", 8, 6)
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                     rowmax.data_ptr(), rowsum.data_ptr(), km.data_ptr(), out.data_ptr(),
                     a, e, h, n, m, c, torch.cuda.current_stream(q.device).cuda_stream),
-                 "eq_attention_apply launch")
+                 f"eq_attention_apply launch ({form})")
     eq_attention_apply.launches += 1
     return out
 

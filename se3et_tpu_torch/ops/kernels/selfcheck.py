@@ -540,7 +540,8 @@ def check_eq_stats(q_masks, k_masks, a=6, h=4, c=64, with_sup=False, positive="s
 
 
 def check_eq_apply(q_masks, k_masks, a=6, h=4, c=64, dtype=torch.bfloat16, seed=6,
-                   reps=3, device_kernel=None, two_calls=False, zero_rows=(), replay=False):
+                   reps=3, device_kernel=None, two_calls=False, zero_rows=(), replay=False,
+                   first=False):
     """K7 on random q, k, v, the plain version's row statistics and
     normalised random weights w (A, E), the anchors in ``zero_rows`` with
     all-zero weights; tolerance 1e-2 * max|out| in bf16 (p rounded to bf16,
@@ -550,7 +551,9 @@ def check_eq_apply(q_masks, k_masks, a=6, h=4, c=64, dtype=torch.bfloat16, seed=
     (``scaled_dot_product_attention`` over the A * E * H heads with the key
     mask, then the w-weighted sum over e; the heads expanded beforehand),
     a yardstick the port never calls; with ``replay``, the call's time
-    replayed from a CUDA graph (:func:`replay_ms`)."""
+    replayed from a CUDA graph (:func:`replay_ms`); with ``first``, the
+    first design's (``_eq_attention_apply(..., form="cuda")``) time on the
+    same inputs by events and (with ``replay``) replayed."""
     q, k, v, _, _ = _eq_inputs(q_masks, k_masks, a, h, c, dtype, seed)
     rowmax, rowsum, _ = eq_attention.eq_attention_stats_plain(q, k, q_masks, k_masks)
     g = torch.Generator().manual_seed(seed + 1)
@@ -571,6 +574,12 @@ def check_eq_apply(q_masks, k_masks, a=6, h=4, c=64, dtype=torch.bfloat16, seed=
         res.device_ms = device_ms(kern, device_kernel)
     if replay:
         res.replay_ms = replay_ms(kern)
+    if first:
+        first_fn = lambda: eq_attention._eq_attention_apply(  # noqa: E731
+            q, k, v, w, rowmax, rowsum, k_masks, form="cuda")
+        res.first_ms = _time_ms(first_fn, reps)
+        if replay:
+            res.first_replay_ms = replay_ms(first_fn)
     if two_calls:
         qe = q[:, None].expand(a, e, h, n, c).reshape(a * e * h, n, c)
         ke = k[None].expand(a, e, h, m, c).reshape(a * e * h, m, c)

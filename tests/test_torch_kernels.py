@@ -432,11 +432,11 @@ def test_eq_attention_stats_refuses_bad_inputs_on_the_cpu(change, error):
     (4, 64, torch.float32, "cuda"),
     (4, 16, torch.float32, "cuda"),     # the tiny card-vs-CPU widths
     (4, 16, torch.bfloat16, "cuda"),
-    (4, 32, torch.bfloat16, "cuda"),    # the wide-head family's EQ cross layers
+    (4, 32, torch.bfloat16, "tc"),      # the wide-head family's EQ cross layers
     (4, 32, torch.float32, "cuda"),
 ])
 def test_eq_attention_apply_form(h, c, dtype, form):
-    """K7 takes the tc form in bf16 with H = 4 and head width 64, the
+    """K7 takes the tc form in bf16 with H = 4 and head width 64 or 32, the
     CUDA-core form otherwise."""
     assert eq_k.eq_attention_apply_form(h, c, dtype) == form
 
@@ -452,12 +452,15 @@ def test_eq_attention_apply_form_refuses_shapes_no_kernel_takes(h, c, dtype):
         eq_k.eq_attention_apply_form(h, c, dtype)
 
 
+@pytest.mark.parametrize("c,ring", [(64, 4 * 2 * 64 * 64 * 2), (32, 6 * 2 * 128 * 32 * 2)])
 @pytest.mark.parametrize("m", [1, 1024, 5000])
-def test_eq_attention_apply_plan_fits_a_block(m):
-    """The tc form's shared memory (ring of k and v tiles, the key-mask bits,
-    mbarriers) fits one block of an H100."""
-    plan = eq_k.eq_apply_smem_bytes(m)
-    ring = eq_k.APPLY_STAGES * 2 * eq_k.APPLY_KEYS * 64 * 2
+def test_eq_attention_apply_plan_fits_a_block(m, c, ring):
+    """The tc form's shared memory at head width ``c`` (its ring of k and v
+    tiles: 4 slots of 64 keys at 64, 6 slots of 128 keys at 32; the key-mask
+    bits, mbarriers) fits one block of an H100."""
+    keys, stages = eq_k.APPLY_PLANS[c]
+    assert stages * 2 * keys * c * 2 == ring
+    plan = eq_k.eq_apply_smem_bytes(m, c)
     assert ring + m // 8 < plan <= 232448 == eq_k.SMEM_LIMIT
 
 

@@ -588,6 +588,8 @@ def _eq_edge_masks(case, n, m, device):
         km[m // 2] = True
     elif case == "no key":
         km[:] = False
+    elif case == "masked wide tiles":  # keys 128-383: whole 128-key tiles
+        km[128:384] = False
     return qm, km
 
 
@@ -643,9 +645,9 @@ def test_eq_attention_stats_plan_matches_the_kernel(cuda):
     (1024, 1024, 64, torch.bfloat16),
     (1003, 997, 64, torch.bfloat16),
     (128, 128, 16, torch.float32),
-    (1024, 1024, 32, torch.bfloat16),   # head width 32 (se3ete2): the CUDA-core form
+    (1024, 1024, 32, torch.bfloat16),   # head width 32 (se3ete2): the tc form
     (1003, 997, 32, torch.bfloat16),
-    (1024, 1024, 32, torch.float32),
+    (1024, 1024, 32, torch.float32),    # the CUDA-core form
 ])
 def test_eq_attention_apply_kernel(cuda, n, m, c, dtype):
     qm = torch.arange(n, device=cuda) < n - 24
@@ -657,6 +659,7 @@ def test_eq_attention_apply_kernel(cuda, n, m, c, dtype):
     (1, 1024, "ragged"), (17, 1024, "ragged"), (1003, 1024, "ragged"),  # N off the unit
     (1024, 1, "ragged"), (1024, 63, "ragged"), (1024, 997, "ragged"),   # M off the tile
     (1024, 1024, "masked tiles"), (1003, 997, "masked tiles"),
+    (1024, 1024, "masked wide tiles"), (1003, 997, "masked wide tiles"),
     (1024, 1024, "one key"), (17, 63, "one key"),
     (1024, 1024, "no key"), (17, 63, "no key"),
     (1024, 1024, "zero w row"),
@@ -664,8 +667,10 @@ def test_eq_attention_apply_kernel(cuda, n, m, c, dtype):
 @pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 64), (torch.float32, 16),
                                      (torch.bfloat16, 32), (torch.float32, 32)])
 def test_eq_attention_apply_kernel_edges(cuda, n, m, case, dtype, c):
-    """K7 (both forms) at shapes and masks off the serving path: N = 1, 17
-    and 1003, M = 1, 63 and 997, whole masked key tiles (skipped by the tc
+    """K7 (both forms: bf16 at head widths 64 and 32 the tc form, at 32 in
+    128-key tiles under the 64-byte swizzle; float32 the CUDA-core form) at
+    shapes and masks off the serving path: N = 1, 17 and 1003, M = 1, 63
+    and 997, whole masked key tiles of 64 and of 128 keys (skipped by the tc
     form), a single valid key, no valid key (the output 0 and finite) and
     an anchor whose weights are all zero; within the tolerance of
     ``selfcheck.check_eq_apply``."""
@@ -684,9 +689,11 @@ def test_eq_attention_apply_kernel_edges(cuda, n, m, case, dtype, c):
         assert bool((out == 0).all()), float(out.abs().max())
 
 
-def test_eq_attention_apply_plan_matches_the_kernel(cuda):
-    """The wrapper's shared-memory plan of K7's tc form is the kernel's, and
-    one block of it is resident per SM at the serving M."""
+@pytest.mark.parametrize("c", [64, 32])
+def test_eq_attention_apply_plan_matches_the_kernel(cuda, c):
+    """The wrapper's shared-memory plan of K7's tc form at head width ``c``
+    is the kernel's, and one block of it is resident per SM at the serving
+    M; the C entries take no other width."""
     import ctypes
 
     from se3et_tpu_torch.ops.kernels import _build
@@ -694,14 +701,53 @@ def test_eq_attention_apply_plan_matches_the_kernel(cuda):
 
     lib = _build._library("eq_attention")
     smem = lib.se3et_eq_attention_apply_smem
-    smem.argtypes = [ctypes.c_int]
+    smem.argtypes = [ctypes.c_int] * 2
     smem.restype = ctypes.c_longlong
     for m in (1, 63, 64, 997, 1024, 5000):
-        assert smem(m) == eq.eq_apply_smem_bytes(m)
+        assert smem(m, c) == eq.eq_apply_smem_bytes(m, c)
+    assert smem(1024, 16) == 0
     occupancy = lib.se3et_eq_attention_apply_blocks_per_sm
-    occupancy.argtypes = [ctypes.c_int]
+    occupancy.argtypes = [ctypes.c_int] * 2
     occupancy.restype = ctypes.c_int
-    assert occupancy(1024) == 1
+    assert occupancy(1024, c) == 1
+    assert occupancy(1024, 16) == -1
+
+
+@pytest.mark.parametrize("n,m,case", [
+    (1024, 1024, "ragged"), (1003, 997, "ragged"), (17, 63, "ragged"),
+    (1024, 1024, "masked wide tiles"), (1024, 1024, "one key"), (1024, 1024, "no key"),
+])
+def test_eq_attention_apply_tc_matches_the_first_design_at_head_width_32(cuda, n, m, case):
+    """At head width 32 in bf16 the tc form (the shape's) and the first
+    design (the CUDA-core kernel, by ``_eq_attention_apply(..., form="cuda")``)
+    on the same inputs
+    agree within 1e-2 of the first design's max |out| (p rounded to bf16
+    after ex2.approx against expf, sums in another order), both finite, and
+    each within the plain version's tolerance."""
+    from se3et_tpu_torch.ops.kernels import eq_attention as eq
+
+    assert eq.eq_attention_apply_form(4, 32, torch.bfloat16) == "tc"
+    qm, km = _eq_edge_masks(case, n, m, cuda)
+    g = torch.Generator().manual_seed(32)
+    q, k, v = (torch.randn(s, generator=g).to(cuda, torch.bfloat16)
+               for s in ((6, 4, n, 32), (6, 4, m, 32), (6, 4, m, 32)))
+    w = torch.rand((6, 6), generator=g).to(cuda)
+    w = w / w.sum(dim=1, keepdim=True)
+    rowmax, rowsum, _ = eq.eq_attention_stats_plain(q, k, qm, km)
+    args = (q, k, v, w, rowmax, rowsum, km)
+    before = eq.eq_attention_apply.launches
+    tc, first = eq.eq_attention_apply(*args), eq._eq_attention_apply(*args, form="cuda")
+    plain = eq.eq_attention_apply_plain(*args)
+    torch.cuda.synchronize()
+    assert eq.eq_attention_apply.launches == before + 2
+    assert bool(torch.isfinite(tc).all()) and bool(torch.isfinite(first).all())
+    scale = max(float(first.abs().max()), 1e-30)
+    assert float((tc - first).abs().max()) <= 1e-2 * scale
+    for got in (tc, first):
+        assert float((got - plain).abs().max()) <= 1e-2 * max(float(plain.abs().max()), 1e-30)
+    with pytest.raises(ValueError):
+        eq._eq_attention_apply(*(x.float() if x.dtype == torch.bfloat16 else x for x in args),
+                               form="tc")
 
 
 @pytest.mark.parametrize("nq,ns,h,ac", [

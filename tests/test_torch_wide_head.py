@@ -87,20 +87,30 @@ def test_eq_attention_stats_plain_matches_pallas_at_head_width_32(positive, sup)
         _close(g, w, 1e-5)
 
 
-def test_eq_attention_apply_plain_matches_pallas_at_head_width_32():
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_eq_attention_apply_plain_matches_pallas_at_head_width_32(dtype, tol):
     """K7's plain version == the TPU kernel (interpret mode) at head width
-    32 and H = 4 with the TPU kernel's row statistics and the same weights;
-    rtol 1e-5, atol 1e-5 of the output scale."""
+    32 and H = 4 with the TPU kernel's row statistics and the same weights.
+    float32: rtol 1e-5, atol 1e-5 of the output scale.  bf16 (the serving
+    dtype, whose form on the card is "tc"): q, k, v in bf16 on both sides,
+    p rounded to bf16 before p v on both (the TPU kernel's
+    ``p.astype(v.dtype)``, the plain version's ``.to(v.dtype)``); rtol and
+    atol 1e-2 of the output scale, the bf16 K7's tolerance, since an exp one
+    float32 ulp apart can round p to another bf16 value."""
     x = _eq_inputs(31, h=4, c=HEAD_WIDTH)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jx = {k: jnp.asarray(x[k]).astype(jdt) for k in ("q", "k", "v")}
     rowmax, rowsum, _ = jeq.eq_attention_stats(
-        *(jnp.asarray(x[k]) for k in ("q", "k", "qm", "km")), interpret=True)
+        jx["q"], jx["k"], jnp.asarray(x["qm"]), jnp.asarray(x["km"]), interpret=True)
     want = jeq.eq_attention_apply(
-        *(jnp.asarray(x[k]) for k in ("q", "k", "v", "w")), rowmax, rowsum,
+        jx["q"], jx["k"], jx["v"], jnp.asarray(x["w"]), rowmax, rowsum,
         jnp.asarray(x["km"]), interpret=True)
-    got = eq_k.eq_attention_apply(*(_t(x[k]) for k in ("q", "k", "v", "w")),
-                                  _t(rowmax), _t(rowsum), _t(x["km"]))
-    assert got.shape[-1] == HEAD_WIDTH
-    _close(got, want, 1e-5)
+    got = eq_k.eq_attention_apply(*(_t(x[k]).to(dtype) for k in ("q", "k", "v")),
+                                  _t(x["w"]), _t(rowmax), _t(rowsum), _t(x["km"]))
+    assert got.shape[-1] == HEAD_WIDTH and got.dtype == torch.float32
+    if dtype == torch.bfloat16:
+        assert eq_k.eq_attention_apply_form(4, HEAD_WIDTH, dtype) == "tc"
+    _close(got, np.asarray(want, dtype=np.float32), tol)
 
 
 @pytest.mark.parametrize("ah,with_sh", [(24, True), (4, False), (24, False)])
