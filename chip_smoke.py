@@ -131,8 +131,8 @@ Phases, each of which raises (exit code != 0) on failure:
    ``run_eval`` (lgr, svd) over the dumps, ``run_demo`` on
    ``se3ete.3dmatch.evalrot``, and K5 at the self_eq layers' shape (AH =
    24) without the SH term, on its ws form;
-9. the wide-head family (head width 32: K7 on its tc form, the CUDA-core
-   forms of K5, K16 and K6): a tiny float32 card-vs-CPU run of
+9. the wide-head family (head width 32: K5 on its ws form, K7 on its tc
+   form, the CUDA-core forms of K16 and K6): a tiny float32 card-vs-CPU run of
    ``se3ete2.3dmatch``'s
    flash cut; ``se3ete2.3dmatch`` served at full width on 2 synthetic
    pairs of 30000 points (stage-0 sets at least half their 24576 cap, host
@@ -141,14 +141,14 @@ Phases, each of which raises (exit code != 0) on failure:
    every replay bit for bit against eager, eager and captured in turns,
    peak memory and a replayed pair's profile; K5 at both self-layer
    shapes, K6, K7 and K3 at the path's shapes against their plain
-   versions, replayed from a CUDA graph beside their bounds (K7 also beside
-   its first design in the same run, by events and replayed, and beside
-   its times before its tc form took the shape); K12, K13,
+   versions, replayed from a CUDA graph beside their bounds (K5 and K7 also
+   beside their first designs in the same run, by events and replayed);
+   K12, K13,
    K14, K1 and K2 at the family's conv shapes; one ``serve_femb`` pair and
    K16 at both shapes; then ``se3eti2.3dmatch`` through ``run_test``'s
    Tester on 4 pairs (counts, replays and metrics bit for bit against
-   eager) and K5 at its self_eq shape without the SH term.  Prints the
-   phase's wall time;
+   eager) and K5 at its self_eq shape without the SH term, beside its first
+   design in the same run.  Prints the phase's wall time;
 10. the wide-head family trained: K11 at head width 32 (its first design,
    "cuda") against its plain version at se3ete2's self_eq shape (q (2, 24,
    1024, 32), emb (2, 1024, 1024, 128), SH), its plain self shape (AH 4)
@@ -314,17 +314,19 @@ SE3ETE2_LAUNCHES = {**WIDE_CONV_LAUNCHES, **FLASH_LAUNCHES, "geometric_embedding
 SE3ETI2_LAUNCHES = {**WIDE_CONV_LAUNCHES, "geometric_embedding": 1, "sinkhorn": 1,
                     "rpe_self_attention": 3, "eq_attention_stats": 0, "eq_attention_apply": 0,
                     "influence": 0, "rpe_self_attention_femb": 0}
-# the device kernels of K5 / K16, K6 (their CUDA-core forms) and K7 (its tc
-# form, the eq_apply_tc_kernel<32> instance) at head width 32
-WIDE_DEVICE_KERNELS = {"rpe_self_attention": "rpe_attention_kernel",
+# the device kernels of K5 (its ws form, the rpe_attention_ws_kernel<AH, 32>
+# instances), K6 (its CUDA-core form) and K7 (its tc form, the
+# eq_apply_tc_kernel<32> instance) at head width 32
+WIDE_DEVICE_KERNELS = {"rpe_self_attention": "rpe_attention_ws_kernel",
                        "eq_attention_stats": "eq_stats_kernel",
                        "eq_attention_apply": "eq_apply_tc_kernel"}
 # phase 10: the wide-head family trained.  Launches per se3ete2 training
 # step, read from the code as TRAIN_LAUNCHES (the same blocks at half the
 # channels): 10 gathering convs (K1 in float32, K8), 3 strided skips (K2,
 # K9), one embedding (K3, K10 on its tc form at C 128), one Sinkhorn, 5 self
-# layers (K5 / K11: 2 at AH = 24 with the SH term, 3 at AH = 4, on their
-# "cuda" forms at head width 32); the EQ cross layers are materialised
+# layers (K5 / K11: 2 at AH = 24 with the SH term, 3 at AH = 4; at head
+# width 32 K5 on its ws form with the row log-sum-exp, K11 on its first
+# design, "cuda"); the EQ cross layers are materialised
 SE3ETE2_TRAIN_LAUNCHES = {**TRAIN_LAUNCHES}
 # and of the backward kernels per se3eti2 step: three self_eq layers (K11 at
 # AH = 24 without the SH term)
@@ -1501,6 +1503,16 @@ def _print_replayed(res):
               f"({res.bound_by}), {res.bound_ms / res.replay_ms:.1%} of it", flush=True)
 
 
+def _print_k5_32(what, res):
+    """K5 at head width 32 on its ws form beside its first design in this
+    run (events, replayed)."""
+    print(f"phase 9 K5 at {what} (ws form): {res.ms:.4f} ms by events (first design in this "
+          f"run {res.first_ms:.4f}), replayed {res.replay_ms:.4f} ({res.first_replay_ms:.4f}), "
+          f"{res.first_replay_ms / res.replay_ms:.1f}x the first design replayed; bound "
+          f"{res.bound_ms:.4f} ({res.bound_by}), {res.bound_ms / res.replay_ms:.1%} of it "
+          f"replayed", flush=True)
+
+
 def _wide_head(dev):
     """Phase 9: the wide-head family (head width 32) at full width.  (a)
     ``se3ete2.3dmatch`` served captured: a tiny float32 card-vs-CPU run of
@@ -1511,14 +1523,15 @@ def _wide_head(dev):
     every replay bit for bit against eager); eager and captured served in
     turns, peak memory and one replayed pair's profile; K5 (both self-layer
     shapes), K6, K7 and K3 at the path's shapes against their plain
-    versions, with their times replayed from a CUDA graph; the conv kernels
+    versions, with their times replayed from a CUDA graph (K5 and K7 beside
+    their first designs); the conv kernels
     at the family's shapes (:func:`_conv_checks`); one ``serve_femb`` pair
     (K16 5, K3 0, K5 0) and K16 at both shapes.  (b) ``se3eti2.3dmatch``
     through ``run_test``'s Tester (calibrated limits, the captured eval
     forward) with counters set to 0 just before and read just after, every
     replayed output and metric bit for bit against eager, and K5 at its
-    self_eq shape without the SH term.  Returns ({name: CheckResult}, the
-    se3ete2 pairs)."""
+    self_eq shape without the SH term beside its first design.  Returns
+    ({name: CheckResult}, the se3ete2 pairs)."""
     import torch
 
     from se3et_tpu_torch.data.pyramid import synthetic_pair
@@ -1539,9 +1552,10 @@ def _wide_head(dev):
              "K7": eq_attention.eq_attention_apply_form(heads, hw, torch.bfloat16)}
     print(f"phase 9 {WIDE_EXPERIMENT}: head width {hw}, C {cc}, AH {ah} / {heads}; forms "
           f"{forms}", flush=True)
-    if hw != 32 or forms != {**dict.fromkeys(forms, "cuda"), "K7": "tc"}:
+    want_forms = {"K5 self_eq": "ws", "K5 self": "ws", "K16": "cuda", "K6": "cuda", "K7": "tc"}
+    if hw != 32 or forms != want_forms:
         raise RuntimeError(f"the wide-head family's attention takes {forms} at head width {hw}:"
-                           f" K7 should take its tc form, the others their CUDA-core forms")
+                           f" expected {want_forms}")
     extent = configs.synthetic_extent(cfg.data.dataset)
     launches = _tiny_card_vs_cpu("flash se3ete2", configs.tiny_flash_config(cfg), 600, extent,
                                  dev)
@@ -1618,13 +1632,19 @@ def _wide_head(dev):
     p0 = inputs[0]
     pts_c, masks_c = p0["points_3"], p0["masks_3"]
     k5 = {"self_eq": (2, selfcheck.check_rpe_attention(
-              pts_c, masks_c, ah, c=hw, cc=cc, reps=10, replay=True)),
+              pts_c, masks_c, ah, c=hw, cc=cc, reps=10, replay=True, first=True)),
           "self": (3, selfcheck.check_rpe_attention(
-              pts_c, masks_c, heads, c=hw, cc=cc, with_sh=False, reps=10, replay=True))}
+              pts_c, masks_c, heads, c=hw, cc=cc, with_sh=False, reps=10, replay=True,
+              first=True))}
     checks = {}
     for what, (n, res) in k5.items():
         res.launches = runs * n
         checks[f"rpe_self_attention (se3ete2 {what}, head width {hw})"] = res
+        _print_k5_32(f"se3ete2 {what}", res)
+    print(f"phase 9 K5 per se3ete2 pair (2 + 3 launches): replayed "
+          f"{sum(n * r.replay_ms for n, r in k5.values()):.4f} ms (first design in this run "
+          f"{sum(n * r.first_replay_ms for n, r in k5.values()):.4f}), bound "
+          f"{sum(n * r.bound_ms for n, r in k5.values()):.4f} ms", flush=True)
     for name, fn in (("eq_attention_stats", selfcheck.check_eq_stats),
                      ("eq_attention_apply", selfcheck.check_eq_apply)):
         kw = dict(two_calls=True, first=True) if name == "eq_attention_apply" else {}
@@ -1653,8 +1673,8 @@ def _wide_head(dev):
         raise RuntimeError(f"K5's rows do not sum to the run's {launches['rpe_self_attention']}")
     checks.update(_conv_checks("se3ete2", SE3ETE2_CONV_SHAPES, p0, launches, runs))
 
-    # one serve_femb pair: K16 (the CUDA-core routine K5 shares) in place of
-    # K3 + K5, then K16 at both self-layer shapes
+    # one serve_femb pair: K16 (at head width 32 the CUDA-core routine, K5's
+    # first design) in place of K3 + K5, then K16 at both self-layer shapes
     femb = SE3ETModel(dataclasses.replace(m, serve_femb=True), seed=cfg.seed).eval()
     for w in selfcheck.WRAPPERS.values():
         w.launches = 0
@@ -1729,10 +1749,14 @@ def _wide_head(dev):
           f"metrics {dict((k, round(v, 4)) for k, v in summary.items())}", flush=True)
     _tester_split(f"phase 9 {WIDE_TEST_EXPERIMENT}", pairs_i, inputs, served, dev, eager)
     res = selfcheck.check_rpe_attention(inputs[0]["points_3"], inputs[0]["masks_3"], ah, c=hw,
-                                        cc=cc, with_sh=False, reps=10, replay=True)
+                                        cc=cc, with_sh=False, reps=10, replay=True, first=True)
     res.launches = launches["rpe_self_attention"]
     _print_check(res)
     _print_replayed(res)
+    _print_k5_32("se3eti2 self_eq", res)
+    print(f"phase 9 K5 per se3eti2 pair (3 launches): replayed {3 * res.replay_ms:.4f} ms "
+          f"(first design in this run {3 * res.first_replay_ms:.4f}), bound "
+          f"{3 * res.bound_ms:.4f} ms", flush=True)
     if not res.ok:
         raise RuntimeError("K5 at se3eti2's self_eq shape disagrees with its plain version")
     checks[f"rpe_self_attention (se3eti2 self_eq, no SH, head width {hw})"] = res
@@ -1953,7 +1977,8 @@ def _wide_training(dev, pairs):
 
     # last in the phase (a profiler session makes later ones in the process
     # lossy): one se3ete2 training step's device time by kernel
-    also = (K11_FIRST_KERNEL, K8_KERNEL, K1_F32_KERNEL, K10_KERNEL) + K9_KERNELS
+    k5_ws = WIDE_DEVICE_KERNELS["rpe_self_attention"]
+    also = (K11_FIRST_KERNEL, K8_KERNEL, K1_F32_KERNEL, K10_KERNEL, k5_ws) + K9_KERNELS
     prof = _profile(lambda: step(inputs[0], generator=gen),
                     what="one se3ete2 training step", top=20, also=also)
     if prof is not None:
@@ -1961,9 +1986,14 @@ def _wide_training(dev, pairs):
                          if any(re.search(rf"\b{n}\b", key) for n in names))
                for what, names in (("K11", (K11_FIRST_KERNEL,)), ("K8", (K8_KERNEL,)),
                                    ("K1 float32", (K1_F32_KERNEL,)), ("K9", K9_KERNELS),
-                                   ("K10", (K10_KERNEL,)))}
+                                   ("K10", (K10_KERNEL,)), ("K5", (k5_ws,)))}
         print("phase 10 se3ete2 step profile, device ms per step: " + ", ".join(
             f"{k} {v:.4f}" for k, v in per.items()), flush=True)
+        # K5's forward with the row log-sum-exp takes its ws form: its first
+        # design (the CUDA-core kernel) never runs in the step
+        first = [key for key in prof["counts"] if re.search(r"\brpe_attention_kernel\b", key)]
+        if first:
+            raise RuntimeError(f"the se3ete2 step launched K5's first design: {first}")
     split["profile"] = time.perf_counter() - t_phase - sum(split.values())
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s (" + ", ".join(
         f"{k} {v:.1f}" for k, v in split.items()) + ")", flush=True)

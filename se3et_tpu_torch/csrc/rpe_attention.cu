@@ -17,16 +17,18 @@
 //
 // Two forms, chosen by shape (the wrapper's rpe_attention_form mirrors
 // the choice):
-// * "ws" (bf16, head width 64, C % 32 == 0, the serving path):
-//   rpe_attention_ws.cuh.  A producer warp streams each emb[b,n,m,:] row
-//   from device memory exactly once, as bulk copies into a ring of shared
-//   memory, while positional warps contract it against the AH folded
-//   queries of its row on the tensor cores and flash warps run the softmax
-//   and p.v of the previous key tile;
-// * "cuda" (float32 and the other widths): rpe_attention_core.cuh's
+// * "ws" (bf16, head widths 64 and 32, C % 32 == 0, where its plan fits a
+//   block: the serving path): rpe_attention_ws.cuh.  A producer warp
+//   streams each emb[b,n,m,:] row from device memory exactly once, as bulk
+//   copies into a ring of shared memory, while positional warps contract it
+//   against the AH folded queries of its row on the tensor cores and flash
+//   warps run the softmax and p.v of the previous key tile;
+// * "cuda" (float32 and head width 16): rpe_attention_core.cuh's
 //   CUDA-core kernel with the policy EmbRows below; each lane streams its
 //   own embedding row once and contracts it against the AH folded queries
-//   held in shared memory as float32.
+//   held in shared memory as float32.  It is also the first design of the
+//   bf16 shapes "ws" takes, reachable there only by its own entry
+//   (se3et_rpe_attention_cuda_bf16), for tests and timings.
 // Where lse is not null, the kernel also writes the row log-sum-exp (the
 // row statistics _rpe_fwd returns for the backward, rpe_attention_bwd.cu);
 // serving passes null.
@@ -55,13 +57,16 @@ struct EmbRows {
   }
 };
 
+// first: the CUDA-core kernel whatever the shape
 template <typename T>
 int run(const void* q, const void* k, const void* v, const void* qp, const void* emb,
         const void* kmask, const void* qw, const void* pts, void* out, void* lse, int batch,
-        int ah, int n, int hc, int cc, int pts_rows, float scale, void* stream) {
+        int ah, int n, int hc, int cc, int pts_rows, float scale, void* stream,
+        bool first = false) {
   const cudaStream_t s = (cudaStream_t)stream;
   const size_t ws = rpe_ws::smem_bytes(ah, hc, cc);
-  if (std::is_same<T, __nv_bfloat16>::value && ws != 0 && ws <= (size_t)rpe_ws::kMaxSmem)
+  if (std::is_same<T, __nv_bfloat16>::value && !first && ws != 0
+      && ws <= (size_t)rpe_ws::kMaxSmem)
     return rpe_ws::dispatch(q, k, v, qp, emb, kmask, qw, pts, out, lse, batch, ah, n, hc, cc,
                             pts_rows, scale, s);
   const EmbRows<T> pos{(const T*)emb};
@@ -79,6 +84,17 @@ extern "C" int se3et_rpe_attention_bf16(const void* q, const void* k, const void
                                         float scale, void* stream) {
   return run<__nv_bfloat16>(q, k, v, qp, emb, kmask, qw, pts, out, lse, batch, ah, n, hc, cc,
                             pts_rows, scale, stream);
+}
+
+// the first design (the CUDA-core kernel) at any bf16 shape it takes
+extern "C" int se3et_rpe_attention_cuda_bf16(const void* q, const void* k, const void* v,
+                                             const void* qp, const void* emb,
+                                             const void* kmask, const void* qw,
+                                             const void* pts, void* out, void* lse,
+                                             int batch, int ah, int n, int hc, int cc,
+                                             int pts_rows, float scale, void* stream) {
+  return run<__nv_bfloat16>(q, k, v, qp, emb, kmask, qw, pts, out, lse, batch, ah, n, hc, cc,
+                            pts_rows, scale, stream, true);
 }
 
 extern "C" int se3et_rpe_attention_f32(const void* q, const void* k, const void* v,

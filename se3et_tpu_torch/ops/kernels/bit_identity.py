@@ -15,7 +15,10 @@ shapes of se3ete.3dmatch (bf16) and the tiny float32 widths:
   C = 64 in float32;
 * K5 (flash RPE self-attention) on random inputs: AH = 24 with the SH term
   and AH = 4 without, at both widths (the bf16 ones, the serving shapes,
-  timed and held within their ``TOLERANCES``);
+  timed); and at the wide-head family's three self-layer shapes (head
+  width 32, C = 128, bf16: AH = 24 with and without the SH term, AH = 4
+  without), timed and held within their ``TOLERANCES`` (its ws form there
+  against a build where the first design takes them);
 * K12 (fused conv) at the stage-0 (x (2, 20000, 192), H 24) and stage-1
   (x (2, 10000, 384), H 32) shapes, and K13 at the s0 -> s1 strided shape
   (skip (2, 20000, 768)), its conv output and its skip max as two cases
@@ -38,10 +41,9 @@ shapes of se3ete.3dmatch (bf16) and the tiny float32 widths:
   (the forwards of K8's ten convs: stage 0 same-level x (2, 20000, 192), H
   24, through stage 3 x (2, 1024, 1536), H 38), all timed;
 * K6 (EQ cross-attention stats) and K7 (apply) at the serving shape, q, k,
-  v (6, 4, 1024, 64) in bf16 (timed, held within their ``TOLERANCES``), and
-  at N = M = 128, head width 16 in float32; K7 also at se3ete2's serving
-  shape, head width 32 in bf16 (timed, held within its ``TOLERANCES``), on
-  inputs of its own generator;
+  v (6, 4, 1024, 64) in bf16 (timed), and at N = M = 128, head width 16 in
+  float32; both also at se3ete2's serving shape, head width 32 in bf16
+  (timed), on inputs of their own generator;
 * K4 (Sinkhorn, 100 iterations, float32) on ``selfcheck.sinkhorn_inputs``
   at the serving shape (256, 65, 65) (timed) and at (6, 17, 13), compared
   on valid entries only: the masked ones are zeroed (they hold -1e12 + u +
@@ -107,6 +109,11 @@ K10_CASES = ("K10 N=1024 C=256 bf16", "K10 N=128 C=64 float32")
 K6_BF16 = "K6 N=M=1024 c=64 bf16"
 K7_BF16 = "K7 N=M=1024 c=64 bf16"
 K7_BF16_32 = "K7 N=M=1024 c=32 bf16"
+K6_BF16_32 = "K6 N=M=1024 c=32 bf16"
+# K5 at head width 32: (name, AH, SH term)
+K5_BF16_32 = (("K5 AH=24 SH N=1024 C=128 c=32 bf16", 24, True),
+              ("K5 AH=4 no SH N=1024 C=128 c=32 bf16", 4, False),
+              ("K5 AH=24 no SH N=1024 C=128 c=32 bf16", 24, False))
 K4_CASES = ("K4 (256, 65, 65) f32", "K4 (6, 17, 13) f32")
 K13_CASES = ("K13 s0 -> s1 out", "K13 s0 -> s1 pooled")
 K2_CASES = ("K2 s2 -> s3 bf16", "K2 s0 -> s1 float32")
@@ -126,7 +133,8 @@ K8_CASES = ("K8 stage 0 float32", "K8 s0 -> s1 float32", "K8 stage 1 float32")
 K9_CASES = (("K9 s0 -> s1 float32", 10000, 20000, 24, 768),
             ("K9 s1 -> s2 float32", 2500, 10000, 32, 1536),
             ("K9 s2 -> s3 float32", 1024, 2500, 36, 3072))
-TIMED = K5_BF16 + K16_BF16 + (K6_BF16, K7_BF16, K7_BF16_32, K4_CASES[0], K13_CASES[0]) \
+TIMED = K5_BF16 + tuple(c[0] for c in K5_BF16_32) + K16_BF16 \
+    + (K6_BF16, K7_BF16, K6_BF16_32, K7_BF16_32, K4_CASES[0], K13_CASES[0]) \
     + K2_CASES + K14_CASES \
     + K1_BF16 + tuple(c[0] for c in K1_F32) + K11_BF16 + K10_CASES[:1] + K8_CASES \
     + tuple(c[0] for c in K9_CASES) + (K15_CASE,)
@@ -139,16 +147,13 @@ BITS = K2_CASES + K14_CASES[1:] + (K15_CASE,) + TRAIN_OUTPUTS
 REPS = 20  # launches per timing
 TRAIN_STEP = "training step (median)"
 STEP_KERNELS = "training step kernels (device ms by kernel)"
-# kernels changed on purpose, with their bound against the other build: the
-# bf16 K5 (the ws form; 1e-2, as its kernel-vs-plain check states) at AH = 4
-# runs each head's softmax in two halves of the keys, merged at the end, so
-# its p are rounded to bf16 at other running maxima (at AH = 24 it keeps the
-# first design's sums in the same order); the bf16 K6 (1e-3, as its check
-# states) exponentiates in base 2 with ex2.approx and sums in another order;
-# the bf16 K7 (1e-3) exponentiates with ex2.approx, which moves some p by
-# one bf16 ulp before p v, and sums p v on wgmma in another order (at head
-# width 32 too, since its tc form: against the first design's expf and FMA
-# chains, the same 1e-3); K4 (1e-5
+# kernels changed on purpose, with their bound against the other build
+# (the rest, K5 and K16 at head width 64 and K6 and K7 among them, are held
+# bit for bit): K5 at head width 32 in bf16 (1e-3 of the first design's
+# scale) takes its ws form since it was built there, where the first design
+# took the shape: products summed on the tensor cores in another order, and
+# at AH = 4 each head's softmax in two halves of the keys, merged at the
+# end, so some p round to bf16 at other running maxima; K4 (1e-5
 # of the valid entries' scale, ~K4's 1e-4 absolute at out ~ 10) sums each
 # row and column in two lanes' slices of two FMA chains each, where its
 # first design summed 32 lanes' strided shares; the bf16 K13's conv (1e-3;
@@ -159,22 +164,17 @@ STEP_KERNELS = "training step kernels (device ms by kernel)"
 # stays bit for bit) runs on K1's tensor-core routine since its redesign,
 # whose H contraction sums in another order than the first design's FMA
 # chain, so a sum rounds to bf16 an ulp apart where the orders round apart;
-# the bf16 K16 (1e-2, as its kernel-vs-plain check states; its float32 form
-# stays bit for bit) builds its embedding tiles in the ws form since its
-# redesign, which starts each distance sum at the rounded angle max and
-# contracts the tile on other fragments, so a tile element rounds to bf16 an
-# ulp apart where the orders round apart; the bf16 K11 (1e-2 of each
-# gradient's scale, as its kernel-vs-plain check states; its float32 form,
-# the first design, stays bit for bit) runs in its tc form since its
-# redesign, which rounds P, dS and dO to bf16 before the products where the
-# first design kept them in float32; the bf16 K10 (1e-2 of each gradient's
-# scale, as its kernel-vs-plain check states; its float32 form, the first
-# design, stays bit for bit) runs in its tc form since its redesign, which
-# rounds the bases to bf16 before the products and sums on the tensor cores
-# per block, where the first design summed float32 bases per query row
-TOLERANCES = {**dict.fromkeys(K5_BF16 + K16_BF16 + K11_BF16 + K10_CASES[:1], 1e-2),
-              K6_BF16: 1e-3,
-              K7_BF16: 1e-3, K7_BF16_32: 1e-3,
+# the bf16 K11 (1e-2 of each gradient's scale, as its kernel-vs-plain check
+# states; its float32 form, the first design, stays bit for bit) runs in its
+# tc form since its redesign, which rounds P, dS and dO to bf16 before the
+# products where the first design kept them in float32; the bf16 K10 (1e-2
+# of each gradient's scale, as its kernel-vs-plain check states; its float32
+# form, the first design, stays bit for bit) runs in its tc form since its
+# redesign, which rounds the bases to bf16 before the products and sums on
+# the tensor cores per block, where the first design summed float32 bases
+# per query row
+TOLERANCES = {**dict.fromkeys(K11_BF16 + K10_CASES[:1], 1e-2),
+              **dict.fromkeys((c[0] for c in K5_BF16_32), 1e-3),
               **dict.fromkeys(K4_CASES, 1e-5), K13_CASES[0]: 1e-3, K14_CASES[0]: 1e-2}
 
 
@@ -294,10 +294,23 @@ def _cases(dev):
     q, k, v = (torch.randn((6, 4, 1024, 32), generator=g7).to(dev, bf) for _ in range(3))
     qm = torch.arange(1024, device=dev) < 1024 - 24
     km = torch.arange(1024, device=dev) < 1024 - 40
+    cases.append((K6_BF16_32, lambda a=(q, k, qm, km): eq_attention.eq_attention_stats(*a)))
     rowmax, rowsum, _ = eq_attention.eq_attention_stats_plain(q, k, qm, km)
     w = torch.rand((6, 6), generator=g7).to(dev)
     cases.append((K7_BF16_32, lambda a=(q, k, v, w / w.sum(1, keepdim=True), rowmax, rowsum, km):
                   eq_attention.eq_attention_apply(*a)))
+    g32 = torch.Generator().manual_seed(32)
+    points = (torch.rand((2, 1024, 3), generator=g32) * 4 - 2).to(dev)
+    masks = torch.ones((2, 1024), dtype=torch.bool, device=dev)
+    masks[1, -40:] = False
+    emb = torch.randn((2, 1024, 1024, 128), generator=g32).to(dev, bf)
+    for name, ah, with_sh in K5_BF16_32:
+        q, k, v = (torch.randn((2, ah, 1024, 32), generator=g32).to(dev, bf) for _ in range(3))
+        qp = torch.randn((2, 1024, ah, 128), generator=g32).to(dev, bf) * 128 ** -0.5
+        qw = (torch.randn((2, 3, ah, 1024), generator=g32) * 0.3).to(dev) if with_sh else None
+        pts = rpe_attention.point_rows(points) if with_sh else None
+        cases.append((name, lambda a=(q, k, v, qp, emb, masks, qw, pts):
+                      rpe_attention.rpe_self_attention_with_lse(*a, scale=32 ** -0.5)))
     for name, (b, m, n) in zip(K4_CASES, ((256, 65, 65), (6, 17, 13))):
         padded, mu, nu, valid = selfcheck.sinkhorn_inputs(b, m, n, dev)
         cases.append((name, lambda a=(padded, mu, nu), v=valid: torch.where(

@@ -58,34 +58,51 @@ SH1_C = math.sqrt(3.0 / (4.0 * math.pi))  # real_sh degree-1 coefficient
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 KERNEL_AH = (4, 24)  # anchor-heads per launch the kernel is built for
 # head widths of the forward kernels K5 and K16 and of the backward K11
-# (32: the wide-head family se3ete2 / se3eti2, on their CUDA-core forms)
+# (32: the wide-head family se3ete2 / se3eti2)
 KERNEL_HEAD_DIMS = (16, 32, 64)
 BWD_HEAD_DIMS = (16, 32, 64)
 SMEM_LIMIT = 232448  # dynamic shared memory one block can have on Hopper, bytes
 # the ws form's plan (csrc/rpe_attention_ws.cuh): query rows per block, keys
-# per tile, flash warps
+# per tile, flash warps, and the head widths it is built for
 WS_ROWS, WS_KEYS, WS_FLASH_WARPS = 16, 32, 8
+WS_HEAD_DIMS = (32, 64)
 
 
-def ws_slots(ah: int) -> int:
-    """Embedding slabs in the ws form's ring, one per positional warp."""
-    return 3 if ah >= WS_FLASH_WARPS else 5
+def ws_slots(ah: int, hc: int) -> int:
+    """Embedding slabs in the ws form's ring: one per positional warp (3 at
+    AH = 24, 5 at AH = 4), two at head width 32."""
+    return (3 if ah >= WS_FLASH_WARPS else 5) * (2 if hc == 32 else 1)
+
+
+def ws_qp_resident(ah: int, hc: int) -> bool:
+    """Whether K5's ws form holds the block's folded queries in shared
+    memory for the whole kernel, the ring then carrying only embedding
+    slabs: at head width 32 where that fits beside the two score buffers
+    (AH = 4); elsewhere qp rides the ring beside each slab."""
+    return hc == 32 and ah < WS_FLASH_WARPS
 
 
 def ws_smem_bytes(ah: int, hc: int, cc: int) -> int:
     """Shared memory of K5's ws form at (AH, head width, C), in bytes, as
-    ``rpe_ws::Layout<AH, HC>::bytes`` lays it out: the ring of
-    :func:`ws_slots` slots (an embedding slab of 32 keys and the row's
-    folded queries), two float32 score buffers (rows padded to AH * 32 + 8 floats),
-    a v tile per flash warp (rows of hc + 8 bf16), the block's SH queries
-    and 2 * slots + 4 mbarriers."""
-    split = 1 if ah >= WS_FLASH_WARPS else WS_FLASH_WARPS // ah  # flash warps per head
-    slots = ws_slots(ah)
-    ring = slots * (WS_KEYS + ah) * cc * 2  # a slot: 32 embedding rows and qp[b, n]
+    ``rpe_ws::K5Layout<AH, HC>::bytes`` lays it out: the ring of
+    :func:`ws_slots` slots (an embedding slab of 32 keys and, unless
+    :func:`ws_qp_resident`, the row's folded queries), the block's 16 rows
+    of qp where resident, two float32 score buffers (rows padded to AH * 32
+    + 8 floats), the flash warps' v tiles (128 rows of hc + 8 bf16 in all),
+    the block's SH queries, at head width 32 two buffers of the SH geometry
+    (float4 [16 rows][32 keys]), and 2 * slots + 4 mbarriers (+ 1 for
+    resident qp)."""
+    slots = ws_slots(ah, hc)
+    resident = ws_qp_resident(ah, hc)
+    ring = slots * (WS_KEYS + (0 if resident else ah)) * cc * 2
+    qp = WS_ROWS * ah * cc * 2 if resident else 0
     scores = 2 * WS_ROWS * (ah * WS_KEYS + 8) * 4
-    vtiles = WS_FLASH_WARPS * (WS_KEYS // split) * (hc + 8) * 2
+    # 8 flash warps x 32 keys; at AH = 4, 128 keys too (8 warps x 16 at 64,
+    # 4 x 32 at 32)
+    vtiles = (WS_FLASH_WARPS if ah >= WS_FLASH_WARPS else 4) * WS_KEYS * (hc + 8) * 2
     qw = WS_ROWS * 3 * ah * 4
-    return ring + scores + vtiles + qw + (2 * slots + 4) * 8
+    geo = 2 * WS_ROWS * WS_KEYS * 16 if hc == 32 else 0
+    return ring + qp + scores + vtiles + qw + geo + (2 * slots + 4 + resident) * 8
 
 
 def femb_ws_groups(ah: int) -> int:
@@ -125,22 +142,25 @@ def rpe_attention_form(ah: int, hc: int, cc: int, dtype, *, femb: bool = False) 
     """Which hand-written kernel takes a flash RPE self-attention of AH
     anchor-heads, head width ``hc`` and embedding width ``cc`` in ``dtype``:
 
-    * "ws": in bf16 with head width 64 and C % 32 == 0, where the plan fits
-      a block, the warp-specialised serving form: K5's
+    * "ws": in bf16 with C % 32 == 0, where the plan fits a block, the
+      warp-specialised serving form: K5's at head widths 64 and 32
       (``csrc/rpe_attention_ws.cuh``, :func:`ws_smem_bytes`) or, with
-      ``femb``, K16's (``csrc/rpe_attention_femb_ws.cuh``,
+      ``femb``, K16's at head width 64 (``csrc/rpe_attention_femb_ws.cuh``,
       :func:`femb_ws_smem_bytes`);
-    * "cuda": the CUDA-core kernel (float32, and head widths 16 and 32 in
-      either type).
+    * "cuda": the CUDA-core kernel (float32, head width 16, and K16 at head
+      width 32, in either type).
 
     Chosen by shape alone, as the C entry points choose; none is a
-    fallback of another.  Raises ``ValueError`` where no form takes the
+    fallback of another (K5's CUDA-core first design stays reachable at
+    the "ws" shapes only through ``_rpe_forward(..., form="cuda")``, for
+    tests and timings).  Raises ``ValueError`` where no form takes the
     shape."""
     if dtype not in _DTYPES or ah not in KERNEL_AH or hc not in KERNEL_HEAD_DIMS or cc % 16:
         raise ValueError(f"no flash RPE kernel for AH={ah}, head width {hc}, C={cc}, {dtype}: "
                          f"built for AH in {KERNEL_AH}, head width in {KERNEL_HEAD_DIMS}, "
                          f"C % 16 == 0, bf16 or float32")
-    if dtype == torch.bfloat16 and hc == 64 and cc % 32 == 0:
+    ws_widths = (64,) if femb else WS_HEAD_DIMS
+    if dtype == torch.bfloat16 and hc in ws_widths and cc % 32 == 0:
         plan = femb_ws_smem_bytes if femb else ws_smem_bytes
         if plan(ah, hc, cc) <= SMEM_LIMIT:
             return "ws"
@@ -353,7 +373,10 @@ def _check_inputs(q, k, v, qp, emb, k_masks, qw, points, cc=None):
             raise ValueError("qw must be (B, 3, AH, N) with points (B, 3|4, N)")
 
 
-def _rpe_forward(q, k, v, qp, emb, k_masks, qw, points, scale, with_lse):
+def _rpe_forward(q, k, v, qp, emb, k_masks, qw, points, scale, with_lse, form=None):
+    """K5 on the form :func:`rpe_attention_form` names, or on ``form`` where
+    the caller asks for "cuda", the CUDA-core first design, which takes
+    every shape that has a kernel (for tests and timings)."""
     if q.device.type == "cpu":
         return rpe_self_attention_plain(q, k, v, qp, emb, k_masks, qw, points, scale=scale,
                                         with_lse=with_lse)
@@ -363,7 +386,10 @@ def _rpe_forward(q, k, v, qp, emb, k_masks, qw, points, scale, with_lse):
     b, ah, n, c = q.shape
     # raises where no form takes the shape; the C entry point launches the
     # same form
-    rpe_attention_form(ah, c, emb.shape[-1], q.dtype)
+    chosen = rpe_attention_form(ah, c, emb.shape[-1], q.dtype)
+    if form not in (None, chosen, "cuda"):
+        raise ValueError(f"K5's {form} form does not take AH={ah}, head width {c}, {q.dtype}")
+    first = form == "cuda" and chosen == "ws"  # the first design where ws takes the shape
     with_sh = qw is not None
     if with_sh:
         qw = qw.float().contiguous()
@@ -372,14 +398,15 @@ def _rpe_forward(q, k, v, qp, emb, k_masks, qw, points, scale, with_lse):
     km = k_masks.to(torch.uint8).contiguous()
     out = torch.empty((b, ah, n, c), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, ah, n), dtype=torch.float32, device=q.device) if with_lse else None
-    fn = _build.function("rpe_attention", f"se3et_rpe_attention_{_DTYPES[q.dtype]}", 10, 6, 1)
+    fn = _build.function("rpe_attention", "se3et_rpe_attention_"
+                         f"{'cuda_' if first else ''}{_DTYPES[q.dtype]}", 10, 6, 1)
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(), emb.data_ptr(),
                     km.data_ptr(), qw.data_ptr() if with_sh else None,
                     points.data_ptr() if with_sh else None, out.data_ptr(),
                     lse.data_ptr() if with_lse else None,
                     b, ah, n, c, emb.shape[-1], points.shape[1] if with_sh else 0,
                     float(scale), torch.cuda.current_stream(q.device).cuda_stream),
-                 "rpe_self_attention launch")
+                 f"rpe_self_attention launch ({'cuda' if first else chosen})")
     rpe_self_attention.launches += 1
     return (out, lse) if with_lse else out
 

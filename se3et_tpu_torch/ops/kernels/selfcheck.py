@@ -113,8 +113,8 @@ class CheckResult:
     route_ms: Optional[float] = None  # the unfused route's time (K12-K14), a yardstick
     device_ms: Optional[float] = None  # the kernel's own device time per call (profiler)
     two_calls_ms: Optional[float] = None  # two PyTorch calls computing the function (K7)
-    first_ms: Optional[float] = None  # the first design on the same inputs (K1, K2, K8-K11,
-    # K14, K15)
+    first_ms: Optional[float] = None  # the first design on the same inputs (K1, K2, K5, K7,
+    # K8-K11, K14, K15)
     # every device kernel of one wrapper call (K11: its products too), and
     # the first design's kernel, per call (profiler)
     call_device_ms: Optional[float] = None
@@ -446,7 +446,7 @@ def check_sinkhorn(b=256, m=65, n=65, iters=100, device="cuda", reps=5, device_k
 
 def check_rpe_attention(points, masks, ah, c=64, cc=256, with_sh=True,
                         dtype=torch.bfloat16, seed=4, reps=3, device_kernel=None,
-                        replay=False):
+                        replay=False, first=False):
     """K5 on the coarse points (B, N, 3) and key masks (B, N): random q, k,
     v (B, AH, N, c), qp (B, N, AH, C), emb (B, N, N, C) in ``dtype`` and,
     with ``with_sh``, qw (B, 3, AH, N).  Tolerance on valid query rows
@@ -454,7 +454,10 @@ def check_rpe_attention(points, masks, ah, c=64, cc=256, with_sh=True,
     float32 sums in another order) and 1e-4 * max|out| in float32.  With
     ``device_kernel``, also that kernel's device time per call; with
     ``replay``, the call's time replayed from a CUDA graph
-    (:func:`replay_ms`)."""
+    (:func:`replay_ms`); with ``first``, the first design's
+    (``_rpe_forward(..., form="cuda")``, the CUDA-core kernel) time on the
+    same inputs by events, replayed (with ``replay``) and as its kernel's
+    device time (with ``device_kernel``)."""
     g = torch.Generator().manual_seed(seed)
     dev = points.device
     b, n, _ = points.shape
@@ -480,6 +483,14 @@ def check_rpe_attention(points, masks, ah, c=64, cc=256, with_sh=True,
         res.device_ms = device_ms(kernel_fn, device_kernel)
     if replay:
         res.replay_ms = replay_ms(kernel_fn)
+    if first:
+        first_fn = lambda: rpe_attention._rpe_forward(  # noqa: E731
+            q, k, v, qp, emb, masks, qw, pts, scale, False, form="cuda")
+        res.first_ms = _time_ms(first_fn, reps)
+        if replay:
+            res.first_replay_ms = replay_ms(first_fn)
+        if device_kernel is not None:
+            res.first_device_ms = device_ms(first_fn, "rpe_attention_kernel")
     nkeys = int(masks.sum())  # valid keys of the B clouds
     ops = 2.0 * ah * n * nkeys * (2 * c + cc) + (8.0 * ah * n * nkeys if with_sh else 0.0)
     nbytes = _nbytes(q, k, v, qp, emb, masks) + b * ah * n * c * 4

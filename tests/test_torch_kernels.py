@@ -210,19 +210,23 @@ def test_influence_checks_its_inputs_on_the_cpu(case):
     (24, 64, 256, torch.float32, "cuda"), (4, 64, 256, torch.float32, "cuda"),
     (24, 16, 64, torch.bfloat16, "cuda"), (4, 16, 64, torch.bfloat16, "cuda"),
     (24, 16, 64, torch.float32, "cuda"), (24, 64, 48, torch.bfloat16, "cuda"),
-    (24, 32, 128, torch.bfloat16, "cuda"), (4, 32, 128, torch.bfloat16, "cuda"),  # se3ete2
+    (24, 32, 128, torch.bfloat16, "ws"), (4, 32, 128, torch.bfloat16, "ws"),  # se3ete2
     (24, 32, 128, torch.float32, "cuda"),
+    (24, 32, 256, torch.bfloat16, "cuda"),  # 32's ring of 6 slots does not fit at C 256
 ])
 def test_rpe_attention_form(ah, hc, cc, dtype, form):
-    """K5 takes the ws form in bf16 with head width 64 and C % 32 == 0, the
-    CUDA-core form otherwise (head width 32, the wide-head family, too)."""
+    """K5 takes the ws form in bf16 with head width 64 or 32 and C % 32 ==
+    0 where its plan fits a block (the wide-head family's C = 128 at 32),
+    the CUDA-core form otherwise."""
     assert rpe_k.rpe_attention_form(ah, hc, cc, dtype) == form
 
 
 @pytest.mark.parametrize("ah,hc,cc,form", [(24, 64, 256, "ws"), (4, 64, 256, "ws"),
-                                           (24, 16, 64, "cuda"), (24, 32, 128, "cuda")])
+                                           (24, 16, 64, "cuda"), (24, 32, 128, "cuda"),
+                                           (4, 32, 128, "cuda")])
 def test_rpe_attention_form_of_femb(ah, hc, cc, form):
-    """K16 takes its own ws form in bf16 at the serving shapes."""
+    """K16 takes its own ws form in bf16 at the serving shapes of head
+    width 64, and its CUDA-core form at 32, where K5 takes its ws form."""
     assert rpe_k.rpe_attention_form(ah, hc, cc, torch.bfloat16, femb=True) == form
 
 
@@ -260,7 +264,27 @@ def test_rpe_attention_ws_plan_fits_a_block(ah):
     block of an H100 (232,448 bytes), with its ring of 16 KB embedding
     slabs and their rows' folded queries."""
     plan = rpe_k.ws_smem_bytes(ah, 64, 256)
-    assert rpe_k.ws_slots(ah) * (32 + ah) * 256 * 2 < plan <= 232448 == rpe_k.SMEM_LIMIT
+    assert rpe_k.ws_slots(ah, 64) * (32 + ah) * 256 * 2 < plan <= 232448 == rpe_k.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("ah", [4, 24])
+def test_rpe_attention_ws_plan_fits_a_block_at_head_width_32(ah):
+    """At head width 32 and the wide-head family's C = 128 the ws plan fits
+    one block of an H100 (232,448 bytes) with two ring slots a positional
+    warp: at AH = 4 the block's 16 rows of folded queries resident beside
+    8 KB embedding slabs, at AH = 24 (where 96 KB of resident qp would leave
+    no room for the second score buffer) qp beside each slab, as at 64."""
+    plan = rpe_k.ws_smem_bytes(ah, 32, 128)
+    slots = rpe_k.ws_slots(ah, 32)
+    assert slots == 2 * rpe_k.ws_slots(ah, 64)
+    qp = 16 * ah * 128 * 2
+    scores = 2 * 16 * (ah * 32 + 8) * 4
+    resident = rpe_k.ws_qp_resident(ah, 32)
+    assert resident == (ah == 4) and not rpe_k.ws_qp_resident(ah, 64)
+    ring = slots * (32 + (0 if resident else ah)) * 128 * 2
+    assert ring + scores + (qp if resident else 0) < plan <= 232448 == rpe_k.SMEM_LIMIT
+    # resident qp at AH = 24 would not fit beside two score buffers
+    assert (slots * 32 * 128 * 2 + qp + scores > rpe_k.SMEM_LIMIT - 20480) == (ah == 24)
 
 
 @pytest.mark.parametrize("ah,hc,cc,dtype", [

@@ -498,7 +498,9 @@ RPE_EDGES = [(1024, 40), (1003, 40), (33, 5), (12, 3), (1003, 72)]
     (1003, 24, 64, 256, False, torch.bfloat16, 72),   # the same, ragged, two masked tiles
     (12, 24, 64, 256, False, torch.bfloat16, 3),      # the same, fewer rows than a block
     (128, 24, 16, 64, False, torch.float32, 40),      # tiny se3eti widths
-    # head width 32 (the wide-head family, C = 128): the CUDA-core form
+    # head width 32 (the wide-head family, C = 128): the ws form in bf16
+    # (its plan for 32: qp resident, one score buffer at AH = 24), the
+    # CUDA-core form in float32
     (1024, 24, 32, 128, True, torch.bfloat16, 40),    # se3ete2 self_eq layers
     (1024, 4, 32, 128, False, torch.bfloat16, 40),    # its plain self layers
     (1024, 24, 32, 128, False, torch.bfloat16, 40),   # se3eti2 self_eq layers: no SH
@@ -508,6 +510,11 @@ RPE_EDGES = [(1024, 40), (1003, 40), (33, 5), (12, 3), (1003, 72)]
     (12, 4, 32, 128, False, torch.bfloat16, 3),       # fewer rows than a block
     (1024, 24, 32, 128, True, torch.float32, 40),     # float32 at the family's widths
     (128, 4, 32, 128, False, torch.float32, 40),
+    (1003, 24, 32, 128, False, torch.bfloat16, 72),   # se3eti2's, ragged
+    (12, 24, 32, 128, True, torch.bfloat16, 3),       # fewer rows than a block
+    (33, 4, 32, 128, False, torch.bfloat16, 5),
+    (18, 24, 32, 128, True, torch.bfloat16, 3),       # a last block of 2 rows: 2 of
+    (18, 4, 32, 128, False, torch.bfloat16, 3),       # the 3 / 5 positional warps
 ])
 def test_rpe_attention_kernel(cuda, n, ah, c, cc, with_sh, dtype, pad):
     points, masks = _cloud(cuda, n, 4, pad=pad)
@@ -548,9 +555,82 @@ def test_rpe_attention_ws_plan_matches_the_kernel(cuda):
     fn = getattr(_build._library("rpe_attention"), "se3et_rpe_attention_ws_smem")
     fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_longlong
-    for ah, hc, cc in ((24, 64, 256), (4, 64, 256), (24, 64, 64), (4, 64, 512)):
+    for ah, hc, cc in ((24, 64, 256), (4, 64, 256), (24, 64, 64), (4, 64, 512),
+                       (24, 32, 128), (4, 32, 128), (24, 32, 256), (4, 32, 64)):
         assert fn(ah, hc, cc) == rpe.ws_smem_bytes(ah, hc, cc)
-    assert fn(24, 16, 64) == 0 and fn(24, 64, 48) == 0
+    assert fn(24, 16, 64) == 0 and fn(24, 64, 48) == 0 and fn(24, 32, 48) == 0
+
+
+# (N, AH, SH term, padded keys): the wide-head family's three self-layer
+# shapes (se3ete2 self_eq, plain self, se3eti2 self_eq), ragged N with two
+# wholly masked key tiles, and a last block of 2 rows
+RPE_32_SHAPES = [(1024, 24, True, 40), (1024, 4, False, 40), (1024, 24, False, 40),
+                 (1003, 24, True, 72), (1003, 4, False, 72), (1003, 24, False, 72),
+                 (18, 24, True, 3), (18, 4, False, 3)]
+
+
+def _rpe_32_inputs(cuda, n, ah, with_sh, pad, seed=32):
+    from se3et_tpu_torch.ops.kernels import rpe_attention as rpe
+
+    points, masks = _cloud(cuda, n, seed, pad=pad)
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=g).to(cuda, torch.bfloat16)  # noqa: E731
+    q, k, v, qp, emb = rnd(2, ah, n, 32), rnd(2, ah, n, 32), rnd(2, ah, n, 32), \
+        rnd(2, n, ah, 128) * 128 ** -0.5, rnd(2, n, n, 128)
+    qw = (torch.randn((2, 3, ah, n), generator=g) * 0.3).to(cuda) if with_sh else None
+    return (q, k, v, qp, emb, masks, qw, rpe.point_rows(points) if with_sh else None)
+
+
+@pytest.mark.parametrize("n,ah,with_sh,pad", RPE_32_SHAPES)
+def test_rpe_attention_ws_at_head_width_32_matches_the_first_design(cuda, n, ah, with_sh, pad):
+    """At head width 32, C = 128 in bf16 K5 takes its ws form; on the same
+    inputs it agrees with the first design (the CUDA-core kernel, by
+    ``_rpe_forward(..., form="cuda")``) within 1e-3 of the first design's
+    max |out| on valid rows (p rounded to bf16 at other running maxima at
+    AH = 4, products summed in another order), and its row log-sum-exp
+    within 1e-3 of the first design's scale; each is within 1e-2 of the
+    plain version's scale, the counter rises once a call, and each form's
+    device kernel is the one launched (profiler)."""
+    from se3et_tpu_torch.ops.kernels import rpe_attention as rpe
+
+    assert rpe.rpe_attention_form(ah, 32, 128, torch.bfloat16) == "ws"
+    args = _rpe_32_inputs(cuda, n, ah, with_sh, pad)
+    before = rpe.rpe_self_attention.launches
+    out, lse = rpe._rpe_forward(*args, 32 ** -0.5, True)
+    first, first_lse = rpe._rpe_forward(*args, 32 ** -0.5, True, form="cuda")
+    torch.cuda.synchronize()
+    assert rpe.rpe_self_attention.launches == before + 2
+    want, want_lse = rpe.rpe_self_attention_plain(*args, scale=32 ** -0.5, with_lse=True)
+    rows = args[5][:, None, :, None].expand_as(want)
+    for got, ref, tol in ((out, first, 1e-3), (out, want, 1e-2), (first, want, 1e-2)):
+        assert bool(torch.isfinite(got).all())
+        err = float((got - ref)[rows].abs().max())
+        assert err <= tol * float(ref[rows].abs().max()), err
+    for got, ref, tol in ((lse, first_lse, 1e-3), (lse, want_lse, 1e-3)):
+        err = float((got - ref)[rows[..., 0]].abs().max())
+        assert err <= tol * float(ref[rows[..., 0]].abs().max()), err
+    if n == 1024 and with_sh:
+        call = lambda: rpe.rpe_self_attention(*args, scale=32 ** -0.5)  # noqa: E731
+        assert selfcheck.device_ms(call, "rpe_attention_ws_kernel", reps=1) is not None
+        assert selfcheck.device_ms(call, "rpe_attention_kernel", reps=1) is None
+        with pytest.raises(ValueError):
+            rpe._rpe_forward(*args, 32 ** -0.5, False, form="tc")
+
+
+@pytest.mark.parametrize("n,ah,with_sh,pad", RPE_32_SHAPES)
+def test_rpe_attention_ws_at_head_width_32_is_deterministic(cuda, n, ah, with_sh, pad):
+    """The ws form at head width 32 gives the same output bit for bit on a
+    second call, with and without its row log-sum-exp, and the same output
+    either way (the lse is written beside it, nothing else changes)."""
+    from se3et_tpu_torch.ops.kernels import rpe_attention as rpe
+
+    args = _rpe_32_inputs(cuda, n, ah, with_sh, pad, seed=33)
+    a = rpe.rpe_self_attention(*args, scale=32 ** -0.5)
+    b = rpe.rpe_self_attention(*args, scale=32 ** -0.5)
+    out, lse = rpe.rpe_self_attention_with_lse(*args, scale=32 ** -0.5)
+    out2, lse2 = rpe.rpe_self_attention_with_lse(*args, scale=32 ** -0.5)
+    assert torch.equal(a, b) and torch.equal(a, out) and torch.equal(out, out2)
+    assert torch.equal(lse, lse2)
 
 
 EQ_MODES = ("sq", None, "abs", "relu", "sigmoid", "leakyrelu", "softplus", "minus")
