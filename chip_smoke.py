@@ -131,18 +131,19 @@ Phases, each of which raises (exit code != 0) on failure:
    ``run_eval`` (lgr, svd) over the dumps, ``run_demo`` on
    ``se3ete.3dmatch.evalrot``, and K5 at the self_eq layers' shape (AH =
    24) without the SH term, on its ws form;
-9. the wide-head family (head width 32: K5 on its ws form, K7 on its tc
-   form, the CUDA-core forms of K16 and K6): a tiny float32 card-vs-CPU run of
+9. the wide-head family (head width 32: K5 on its ws form, K6 and K7 on
+   their tc forms, K16 on its CUDA-core form): a tiny float32 card-vs-CPU run of
    ``se3ete2.3dmatch``'s
    flash cut; ``se3ete2.3dmatch`` served at full width on 2 synthetic
    pairs of 30000 points (stage-0 sets at least half their 24576 cap, host
    influence, random weights from seed 7351): an eager pass held to
    ``SE3ETE2_LAUNCHES`` a pair, ``capture_forward`` with its counts and
    every replay bit for bit against eager, eager and captured in turns,
-   peak memory and a replayed pair's profile; K5 at both self-layer
+   peak memory and a replayed pair's profile (K6 on its tc kernel 4 times,
+   its first design never); K5 at both self-layer
    shapes, K6, K7 and K3 at the path's shapes against their plain
-   versions, replayed from a CUDA graph beside their bounds (K5 and K7 also
-   beside their first designs in the same run, by events and replayed);
+   versions, replayed from a CUDA graph beside their bounds (K5, K6 and K7
+   also beside their first designs in the same run, by events and replayed);
    K12, K13,
    K14, K1 and K2 at the family's conv shapes; one ``serve_femb`` pair and
    K16 at both shapes; then ``se3eti2.3dmatch`` through ``run_test``'s
@@ -315,11 +316,13 @@ SE3ETI2_LAUNCHES = {**WIDE_CONV_LAUNCHES, "geometric_embedding": 1, "sinkhorn": 
                     "rpe_self_attention": 3, "eq_attention_stats": 0, "eq_attention_apply": 0,
                     "influence": 0, "rpe_self_attention_femb": 0}
 # the device kernels of K5 (its ws form, the rpe_attention_ws_kernel<AH, 32>
-# instances), K6 (its CUDA-core form) and K7 (its tc form, the
-# eq_apply_tc_kernel<32> instance) at head width 32
+# instances), K6 (its tc form, the eq_stats_tc_kernel<32, ...> instances)
+# and K7 (its tc form, the eq_apply_tc_kernel<32> instance) at head width 32
 WIDE_DEVICE_KERNELS = {"rpe_self_attention": "rpe_attention_ws_kernel",
-                       "eq_attention_stats": "eq_stats_kernel",
+                       "eq_attention_stats": "eq_stats_tc_kernel",
                        "eq_attention_apply": "eq_apply_tc_kernel"}
+# K6's first design (the CUDA-core kernel), which no se3ete2 pair launches
+K6_FIRST_KERNEL = "eq_stats_kernel"
 # phase 10: the wide-head family trained.  Launches per se3ete2 training
 # step, read from the code as TRAIN_LAUNCHES (the same blocks at half the
 # channels): 10 gathering convs (K1 in float32, K8), 3 strided skips (K2,
@@ -1523,8 +1526,8 @@ def _wide_head(dev):
     every replay bit for bit against eager); eager and captured served in
     turns, peak memory and one replayed pair's profile; K5 (both self-layer
     shapes), K6, K7 and K3 at the path's shapes against their plain
-    versions, with their times replayed from a CUDA graph (K5 and K7 beside
-    their first designs); the conv kernels
+    versions, with their times replayed from a CUDA graph (K5, K6 and K7
+    beside their first designs); the conv kernels
     at the family's shapes (:func:`_conv_checks`); one ``serve_femb`` pair
     (K16 5, K3 0, K5 0) and K16 at both shapes.  (b) ``se3eti2.3dmatch``
     through ``run_test``'s Tester (calibrated limits, the captured eval
@@ -1552,7 +1555,7 @@ def _wide_head(dev):
              "K7": eq_attention.eq_attention_apply_form(heads, hw, torch.bfloat16)}
     print(f"phase 9 {WIDE_EXPERIMENT}: head width {hw}, C {cc}, AH {ah} / {heads}; forms "
           f"{forms}", flush=True)
-    want_forms = {"K5 self_eq": "ws", "K5 self": "ws", "K16": "cuda", "K6": "cuda", "K7": "tc"}
+    want_forms = {"K5 self_eq": "ws", "K5 self": "ws", "K16": "cuda", "K6": "tc", "K7": "tc"}
     if hw != 32 or forms != want_forms:
         raise RuntimeError(f"the wide-head family's attention takes {forms} at head width {hw}:"
                            f" expected {want_forms}")
@@ -1621,11 +1624,23 @@ def _wide_head(dev):
           f"{CAPTURED_TURN_PAIRS} pairs each): " + "; ".join(
               f"{r} median {statistics.median(v):.2f} (range {min(v):.2f}-{max(v):.2f})"
               for r, v in ms.items()), flush=True)
-    prof = _profile(lambda: served(inputs[0]), what="one replayed se3ete2 pair",
-                    also=tuple(WIDE_DEVICE_KERNELS.values()))
-    if prof is None:
-        print("phase 9: the profiler recorded no device time over the replay (idle share "
-              "not measured)", flush=True)
+    # K6 on its tc kernel in the replayed pair, its first design never (a
+    # second profile where the first lists one short)
+    k6 = WIDE_DEVICE_KERNELS["eq_attention_stats"]
+    for attempt in (1, 2):
+        prof = _profile(lambda: served(inputs[0]), what="one replayed se3ete2 pair",
+                        also=tuple(WIDE_DEVICE_KERNELS.values()) + (K6_FIRST_KERNEL,))
+        if prof is None:
+            raise RuntimeError("the profiler recorded no device time over a se3ete2 replay")
+        seen = {name: sum(c for key, c in prof["counts"].items()
+                          if re.search(rf"\b{name}\b", key))
+                for name in (k6, K6_FIRST_KERNEL)}
+        print(f"phase 9 replay profile (attempt {attempt}): {seen}", flush=True)
+        if seen == {k6: FLASH_LAUNCHES["eq_attention_stats"], K6_FIRST_KERNEL: 0}:
+            break
+    else:
+        raise RuntimeError(f"a replayed se3ete2 pair launched {seen}, expected K6 on {k6} "
+                           f"{FLASH_LAUNCHES['eq_attention_stats']} times")
 
     # the kernels at the path's shapes (pair 0's coarse points), by events
     # and replayed from a CUDA graph
@@ -1647,10 +1662,20 @@ def _wide_head(dev):
           f"{sum(n * r.bound_ms for n, r in k5.values()):.4f} ms", flush=True)
     for name, fn in (("eq_attention_stats", selfcheck.check_eq_stats),
                      ("eq_attention_apply", selfcheck.check_eq_apply)):
-        kw = dict(two_calls=True, first=True) if name == "eq_attention_apply" else {}
-        res = fn(masks_c[0], masks_c[1], a=m.kanchor, h=heads, c=hw, reps=20, replay=True, **kw)
+        kw = dict(two_calls=True) if name == "eq_attention_apply" else {}
+        res = fn(masks_c[0], masks_c[1], a=m.kanchor, h=heads, c=hw, reps=20, replay=True,
+                 first=True, **kw)
         res.launches = launches[name]
         checks[f"{name} (se3ete2, head width {hw})"] = res
+    k6 = checks[f"eq_attention_stats (se3ete2, head width {hw})"]
+    per_pair = FLASH_LAUNCHES["eq_attention_stats"]
+    print(f"phase 9 K6 at head width {hw} ({forms['K6']} form): {k6.ms:.4f} ms by events "
+          f"(first design in this run {k6.first_ms:.4f}), replayed {k6.replay_ms:.4f} "
+          f"({k6.first_replay_ms:.4f}), {k6.first_replay_ms / k6.replay_ms:.1f}x the first "
+          f"design replayed; bound {k6.bound_ms:.4f} ({k6.bound_by}), "
+          f"{k6.bound_ms / k6.replay_ms:.1%} of it replayed; per se3ete2 pair {per_pair} x "
+          f"replayed {per_pair * k6.replay_ms:.4f} ms (first design "
+          f"{per_pair * k6.first_replay_ms:.4f})", flush=True)
     k7 = checks[f"eq_attention_apply (se3ete2, head width {hw})"]
     print(f"phase 9 K7 at head width {hw} ({forms['K7']} form): {k7.ms:.4f} ms by events "
           f"(first design in this run {k7.first_ms:.4f}), replayed {k7.replay_ms:.4f} "

@@ -1,7 +1,7 @@
 """What holds the tc forms of K6 and K7 back, and how their tiling and warp
 split move them.
 
-    python scripts/probe_eq_attention.py [--kernel k6|k7|k7w|all]   # on a CUDA card
+    python scripts/probe_eq_attention.py [--kernel k6|k6w|k7|k7w|all]   # on a CUDA card
 
 Builds variants of the bf16 K6 and K7 (``eq_tc`` in
 ``se3et_tpu_torch/csrc/eq_attention.cu``) into
@@ -9,23 +9,47 @@ Builds variants of the bf16 K6 and K7 (``eq_tc`` in
 setting changed, compiled with ``-Xptxas -v`` (registers and spills of the
 kernel printed; K6's serving instance, positive "sq" without sup).
 
-K6 (``eq_stats_tc_kernel``):
+K6 at head width 64 (``eq_stats_tc_kernel<64, ...>``, ``--kernel k6``; the
+``kStats*`` settings):
 
 * ``committed``: the source as it stands (32-key tiles in 8 ring slots, 9
   consumer warps of one 16-row m-tile each, q in shared memory, a
   persistent grid of E x SMs / E blocks, a lane's reference max moved only
-  past a slack of 64 in q . k);
+  past a slack of 8 in scale * q . k);
 * ``mt2``: two m-tiles per warp sharing each k fragment (4 slots);
   ``qregs``: q fragments held in registers;
-* ``keys64``: 64-key tiles (4 slots); ``stages4``: 4 ring slots;
+* ``keys64``: 64-key tiles, two 32-key steps each (4 slots); ``stages4``:
+  4 ring slots;
 * ``warps7`` / ``warps12``: 7 or 12 consumer warps;
 * ``per_item``: one block per (e, pass, block) item instead of the
   persistent walk;
-* ``eager``: no slack, the reference max moved whenever a lane's tile max
+* ``eager``: no slack, the reference max moved whenever a lane's step max
   passes it;
 * ablations that compute something else, to show what the time is made
   of: ``no_exp`` (each exp a multiply) and ``no_mma`` (no tensor-core
   products; the fragments still read).
+
+K6 at head width 32 (``eq_stats_tc_kernel<32, ...>``, ``--kernel k6w``; the
+``kStats32*`` settings), each variant a whole plan:
+
+* ``committed``: the source as it stands (a plan below that equals it is
+  not built again: the probe names it);
+* ``plan64``: 64's settings at 32 (32-key tiles, 8 slots, 9 warps, one
+  m-tile, q in shared memory, one rescale vote a step);
+* ``keys32`` / ``keys64`` / ``keys128``: staged tiles of 32, 64 or 128
+  keys (8, 8 and 4 slots: 8, 16 and 32 KB a slot);
+* ``stages2`` / ``stages4`` / ``stages6``: ring slots;
+* ``mt2``: two m-tiles a warp sharing each k fragment (q in shared
+  memory); ``qregs`` / ``qsmem``: q in registers or in shared memory;
+* ``warps7`` / ``warps11`` / ``warps12``: 7, 11 or 12 consumer warps
+  (``warps12_qsmem``: 12 with q in shared memory, under 13 warps' 128
+  registers);
+* ``headvote`` / ``stepvote``: a lane's rescale voted once a head (a
+  head's exps free to start while the later heads' products run) or once a
+  32-key step (64's way);
+* ablations ``no_exp`` and ``no_mma`` as at 64;
+* ``first``: the first design (the CUDA-core ``eq_stats_kernel<bf16, 4,
+  32>``, ``se3et_eq_attention_stats_cuda_bf16``) of the committed build.
 
 K7 at head width 64 (``eq_apply_tc_kernel<64>``, ``--kernel k7``):
 
@@ -82,33 +106,75 @@ sys.path.insert(0, REPO)
 
 from se3et_tpu_torch.ops.kernels import _build, eq_attention, selfcheck  # noqa: E402
 
-KEYS = "constexpr int kKeys = 32;"
-STAGES = "constexpr int kStages = 8;"
-SLACK = "constexpr float kSlack = 64.f;"
-WARPS = "constexpr int kConsumers = 9;"
-MT = "constexpr int kMT = 1;"
-QSMEM = "constexpr bool kQInSmem = true;"
+KEYS = "constexpr int kStatsKeys = 32;"
+STAGES = "constexpr int kStatsStages = 8;"
+WARPS = "constexpr int kStatsConsumers = 9;"
+MT = "constexpr int kStatsMT = 1;"
+QSMEM = "constexpr bool kStatsQInSmem = true;"
+SLACK = "constexpr float kSlackScaled = 8.f;"
 PERSISTENT = "constexpr bool kPersistent = true;"
 EX2 = 'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));'
 MMA0 = "mma_bf16(s[mt][h][jn], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b[0], b[1]);"
 MMA1 = "mma_bf16(s[mt][h][jn + 1], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b[2], b[3]);"
 NO_EXP = ((EX2, "y = x * 0.5f;"),)
+# ablation, not the function: the products as an integer mix of the
+# fragments (outputs differ)
+K6_NO_MMA = ((MMA0, "s[mt][h][jn][0] += __uint_as_float((a[mt][0] ^ b[0]) & 0x3f7fffffu);"),
+             (MMA1, "s[mt][h][jn + 1][0] += __uint_as_float((a[mt][3] ^ b[3]) & 0x3f7fffffu);"))
 K6_VARIANTS = {
     "committed": (),
-    "mt2": ((MT, "constexpr int kMT = 2;"), (STAGES, "constexpr int kStages = 4;")),
-    "qregs": ((QSMEM, "constexpr bool kQInSmem = false;"),),
-    "keys64": ((KEYS, "constexpr int kKeys = 64;"), (STAGES, "constexpr int kStages = 4;")),
-    "stages4": ((STAGES, "constexpr int kStages = 4;"),),
-    "warps7": ((WARPS, "constexpr int kConsumers = 7;"),),
-    "warps12": ((WARPS, "constexpr int kConsumers = 12;"),),
+    "mt2": ((MT, "constexpr int kStatsMT = 2;"), (STAGES, "constexpr int kStatsStages = 4;")),
+    "qregs": ((QSMEM, "constexpr bool kStatsQInSmem = false;"),),
+    "keys64": ((KEYS, "constexpr int kStatsKeys = 64;"),
+               (STAGES, "constexpr int kStatsStages = 4;")),
+    "stages4": ((STAGES, "constexpr int kStatsStages = 4;"),),
+    "warps7": ((WARPS, "constexpr int kStatsConsumers = 7;"),),
+    "warps12": ((WARPS, "constexpr int kStatsConsumers = 12;"),),
     "per_item": ((PERSISTENT, "constexpr bool kPersistent = false;"),),
-    "eager": ((SLACK, "constexpr float kSlack = 0.f;"),),
-    # ablations, not the function: the exps as a multiply, the products as
-    # an integer mix of the fragments (outputs differ)
+    "eager": ((SLACK, "constexpr float kSlackScaled = 0.f;"),),
     "no_exp": NO_EXP,
-    "no_mma": ((MMA0, "s[mt][h][jn][0] += __uint_as_float((a[mt][0] ^ b[0]) & 0x3f7fffffu);"),
-               (MMA1, "s[mt][h][jn + 1][0] += __uint_as_float((a[mt][3] ^ b[3]) & 0x3f7fffffu);")),
+    "no_mma": K6_NO_MMA,
 }
+# K6 at head width 32: each variant sets every kStats32* value it names
+W6 = {"keys": "kStats32Keys", "stages": "kStats32Stages", "warps": "kStats32Consumers",
+      "mt": "kStats32MT", "qsmem": "kStats32QInSmem", "vote": "kStats32HeadVote"}
+
+
+def _w6_line(key, src):
+    """The committed source's line of the head-width-32 setting ``key``."""
+    m = re.search(rf"constexpr (int|bool) {W6[key]} = [^;]+;", src)
+    return m.group(0)
+
+
+def _w6(**plan):
+    """Edits of the source that set the named head-width-32 settings."""
+    src = open(os.path.join(_build.CSRC_DIR, "eq_attention.cu")).read()
+    edits = []
+    for key, value in plan.items():
+        line = _w6_line(key, src)
+        kind = line.split()[1]
+        text = ("true" if value else "false") if kind == "bool" else str(value)
+        new = f"constexpr {kind} {W6[key]} = {text};"
+        if new != line:
+            edits.append((line, new))
+    return tuple(edits)
+
+
+K6W_PLANS = {
+    "committed": {},
+    "plan64": dict(keys=32, stages=8, warps=9, mt=1, qsmem=True, vote=False),
+    "keys32": dict(keys=32, stages=8), "keys64": dict(keys=64, stages=8),
+    "keys128": dict(keys=128, stages=4),
+    "stages2": dict(stages=2), "stages4": dict(stages=4), "stages6": dict(stages=6),
+    "mt2": dict(mt=2, qsmem=True), "qregs": dict(qsmem=False), "qsmem": dict(qsmem=True),
+    "warps7": dict(warps=7), "warps11": dict(warps=11), "warps12": dict(warps=12),
+    "warps12_qsmem": dict(warps=12, qsmem=True),
+    "headvote": dict(vote=True), "stepvote": dict(vote=False),
+}
+# a plan that is the committed one is built and timed once, as "committed"
+K6W_SAME = [name for name, plan in K6W_PLANS.items() if name != "committed" and not _w6(**plan)]
+K6W_VARIANTS = {**{name: _w6(**plan) for name, plan in K6W_PLANS.items() if name not in K6W_SAME},
+                "no_exp": NO_EXP, "no_mma": K6_NO_MMA}
 A_STAGES = "constexpr int kApplyStages = 4;"
 A_WARPS = "constexpr int kApplyConsumers = 12;"
 A_PERSISTENT = "constexpr bool kApplyPersistent = true;"
@@ -148,14 +214,18 @@ K7W_VARIANTS = {
     "no_exp": NO_EXP,
     "no_mma": A_NO_MMA,
 }
-# K7's first design, timed beside the head-width-32 variants from the
-# committed build
+# K6's and K7's first designs, timed beside the head-width-32 variants from
+# the committed build: (C entry point, mangled kernel name)
 FIRST = "first"
+FIRSTS = {"k6w": ("se3et_eq_attention_stats_cuda_bf16", "eq_stats_kernelI13__nv_bfloat16Li4ELi32E"),
+          "k7w": ("se3et_eq_attention_apply_cuda_bf16", "eq_apply_kernelI13__nv_bfloat16Li4ELi32E")}
 # per kernel: variants, the entry function whose registers are printed,
 # the C entry point (pointers, ints), the occupancy query and the head width
 KERNELS = {
-    "k6": (K6_VARIANTS, "eq_stats_tc_kernelILi1ELb0E", "se3et_eq_attention_stats_bf16", 10, 7,
-           "se3et_eq_attention_stats_blocks_per_sm", 64),
+    "k6": (K6_VARIANTS, "eq_stats_tc_kernelILi64ELi1ELb0E", "se3et_eq_attention_stats_bf16", 10,
+           7, "se3et_eq_attention_stats_blocks_per_sm", 64),
+    "k6w": (K6W_VARIANTS, "eq_stats_tc_kernelILi32ELi1ELb0E", "se3et_eq_attention_stats_bf16",
+            10, 7, "se3et_eq_attention_stats_blocks_per_sm", 32),
     "k7": (K7_VARIANTS, "eq_apply_tc_kernelILi64E", "se3et_eq_attention_apply_bf16", 8, 6,
            "se3et_eq_attention_apply_blocks_per_sm", 64),
     "k7w": (K7W_VARIANTS, "eq_apply_tc_kernelILi32E", "se3et_eq_attention_apply_bf16", 8, 6,
@@ -165,11 +235,24 @@ A = E = 6
 H, N, M = 4, 1024, 1024
 
 
-def _setting(edits, line, default):
+def _setting(edits, line):
+    """The value of the setting on source line ``line`` in a variant's
+    build: its edit's, else the line's own."""
     for old, new in edits:
         if old == line:
-            return int(re.search(r"= (\d+)", new).group(1)) if "int" in new else "true" in new
-    return default
+            line = new
+            break
+    value = re.search(r"= ([^;]+);", line).group(1)
+    return value == "true" if " bool " in line else int(value)
+
+
+def _k6_lines(kernel):
+    """K6's source lines of the tile keys, m-tiles and consumer warps of the
+    width ``kernel`` probes."""
+    if kernel == "k6":
+        return KEYS, MT, WARPS
+    src = open(os.path.join(_build.CSRC_DIR, "eq_attention.cu")).read()
+    return tuple(_w6_line(key, src) for key in ("keys", "mt", "warps"))
 
 
 def _usage(lines, entry):
@@ -221,17 +304,16 @@ def _build_variants(kernel):
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         occ = getattr(lib, occupancy)
-        occ.argtypes = [ctypes.c_int] * (1 if kernel == "k6" else 2)
+        occ.argtypes = [ctypes.c_int] * 2
         occ.restype = ctypes.c_int
-        blocks = (lambda m, occ=occ: occ(m)) if kernel == "k6" else \
-            (lambda m, occ=occ: occ(m, c))
-        libs[name] = (fn, blocks)
-        if kernel == "k7w" and name == "committed":  # the first design, same build
-            first = lib.se3et_eq_attention_apply_cuda_bf16
+        libs[name] = (fn, lambda m, occ=occ: occ(m, c))
+        if kernel in FIRSTS and name == "committed":  # the first design, same build
+            symbol_first, entry_first = FIRSTS[kernel]
+            first = getattr(lib, symbol_first)
             first.argtypes = fn.argtypes
             first.restype = ctypes.c_int
             libs[FIRST] = (first, lambda m: None)
-            usage[FIRST] = _usage(lines, "eq_apply_kernelI13__nv_bfloat16Li4ELi32E")
+            usage[FIRST] = _usage(lines, entry_first)
     return libs, usage
 
 
@@ -253,20 +335,22 @@ def grid_and_l2(kernel, edits, km, sms):
     first design: None, None and the bytes of one read of each input)."""
     c = KERNELS[kernel][6]
     q_bytes = A * H * N * c * 2
-    if kernel == "k6":
-        keys = _setting(edits, KEYS, 32)
-        units = A * -(-N // (16 * _setting(edits, MT, 1)))
-        bpe, passes, busy = _block_passes(units, _setting(edits, WARPS, 9), E, sms)
-        kv_bytes = E * busy * _valid_tiles(km, keys) * H * keys * c * 2
+    if kernel in ("k6", "k6w"):
         out_bytes = 2 * A * E * H * N * 4 + 2 * A * E * -(-N // 16) * 4
+        if edits is None:
+            return None, None, q_bytes + E * H * M * c * 2 + out_bytes
+        keys, mt, warps = (_setting(edits, line) for line in _k6_lines(kernel))
+        units = A * -(-N // (16 * mt))
+        bpe, passes, busy = _block_passes(units, warps, E, sms)
+        kv_bytes = E * busy * _valid_tiles(km, keys) * H * keys * c * 2
         return E * bpe, passes, kv_bytes + q_bytes + out_bytes
     io_bytes = 2 * A * E * H * N * 4 + A * H * N * c * 4
     if edits is None:
         return None, None, q_bytes + 2 * E * H * M * c * 2 + io_bytes
     if kernel == "k7":
-        keys, warps = 64, _setting(edits, A_WARPS, 12)
+        keys, warps = 64, _setting(edits, A_WARPS)
     else:
-        keys, warps = _setting(edits, W_KEYS, 128), _setting(edits, W_WARPS, 12)
+        keys, warps = _setting(edits, W_KEYS), _setting(edits, W_WARPS)
     units = A * -(-N // 64)  # warpgroup units of 64 query rows
     bph, passes, busy = _block_passes(units, warps // 4, H, sms)
     kv_bytes = H * busy * E * _valid_tiles(km, keys) * 2 * keys * c * 2
@@ -285,10 +369,14 @@ def _runs(kernel, libs, dev):
     stream = torch.cuda.current_stream().cuda_stream
     qm, km = qmask.to(torch.uint8), kmask.to(torch.uint8)
     runs = {}
-    if kernel == "k6":
+    if kernel in ("k6", "k6w"):
         want = eq_attention.eq_attention_stats_plain(q, k, qmask, kmask)
-        parts = eq_attention.eq_attention_stats_parts(H, N, C, q.dtype)
+        counts = float(qmask.sum()) * float(kmask.sum())
         for name, (fn, _) in libs.items():
+            # the first design writes a slot per 8 rows, its sums not yet
+            # divided by the valid (n, m) count
+            parts, div = (-(-N // 8), counts + 1e-9) if name == FIRST else (
+                eq_attention.eq_attention_stats_parts(H, N, C, q.dtype), 1.0)
             rowmax = torch.empty((A, E, H, N), dtype=torch.float32, device=dev)
             rowsum = torch.empty_like(rowmax)
             gpart = torch.empty((A, E, parts), dtype=torch.float32, device=dev)
@@ -298,7 +386,8 @@ def _runs(kernel, libs, dev):
                 _build.check(fn(q.data_ptr(), k.data_ptr(), qm.data_ptr(), km.data_ptr(), None,
                                 None, *(t.data_ptr() for t in outs), A, E, H, N, M, C, 1,
                                 stream), "K6 variant")
-            runs[name] = (call, lambda o=(rowmax, rowsum, gpart): (o[0], o[1], o[2].sum(dim=-1)))
+            runs[name] = (call, lambda o=(rowmax, rowsum, gpart), d=div:
+                          (o[0], o[1], o[2].sum(dim=-1) / d))
         return runs, want, kmask
     rowmax, rowsum, _ = eq_attention.eq_attention_stats_plain(q, k, qmask, kmask)
     w = torch.rand((A, E), generator=g).to(dev)
@@ -316,6 +405,8 @@ def _runs(kernel, libs, dev):
 
 
 def probe(kernel, dev, sms):
+    if kernel == "k6w":
+        print(f"k6w: {', '.join(K6W_SAME) or 'no plan'} = the committed plan", flush=True)
     libs, usage = _build_variants(kernel)
     runs, want, kmask = _runs(kernel, libs, dev)
     ms = {name: [] for name in runs}
@@ -324,7 +415,7 @@ def probe(kernel, dev, sms):
             ms[name].append(selfcheck._time_ms(runs[name][0], 20))
     exps = A * E * H * N * int(kmask.sum())
     # K6: within 1e-3 of each output's scale; K7: 1e-2 of max |out|
-    tol = 1e-3 if kernel == "k6" else 1e-2
+    tol = 1e-3 if kernel in ("k6", "k6w") else 1e-2
     for name, (_, outputs) in runs.items():
         diff = max(float((x - y).abs().max()) / float(y.abs().max())
                    for x, y in zip(outputs(), want))
@@ -343,7 +434,7 @@ def probe(kernel, dev, sms):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--kernel", choices=("k6", "k7", "k7w", "all"), default="all")
+    parser.add_argument("--kernel", choices=("k6", "k6w", "k7", "k7w", "all"), default="all")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("probe_eq_attention: no CUDA device")
@@ -352,7 +443,7 @@ def main():
                          capture_output=True, text=True, check=True).stdout.strip())
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for kernel in (("k6", "k7", "k7w") if args.kernel == "all" else (args.kernel,)):
+    for kernel in (("k6", "k6w", "k7", "k7w") if args.kernel == "all" else (args.kernel,)):
         probe(kernel, dev, sms)
 
 

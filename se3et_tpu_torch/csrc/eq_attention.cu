@@ -20,22 +20,23 @@
 //
 // Two implementations of each, chosen by shape (the wrapper's
 // eq_attention_stats_form and eq_attention_apply_form name them):
-// * the "tc" forms, bf16 with H = 4: K6 eq_stats_tc_kernel at head width 64
-//   (TMA key tiles, mma.sync, base-2 softmax); K7 eq_apply_tc_kernel<HC> at
-//   head widths 64 (se3ete) and 32 (the wide-head family se3ete2): TMA key
-//   and value tiles of one head, wgmma for q k^T and p v, base-2 exps (at
-//   32 in 128-key tiles under the 64-byte swizzle, on warp-uniform
-//   branches);
+// * the "tc" forms, bf16 with H = 4, at head widths 64 (se3ete) and 32 (the
+//   wide-head family se3ete2): K6 eq_stats_tc_kernel<HC> (TMA key tiles of
+//   all heads, mma.sync, base-2 softmax; each width its plan, StatsPlan<HC>:
+//   at 32 under the 64-byte swizzle, in 128-key tiles, q in registers, a
+//   rescale vote a head, on warp-uniform branches); K7 eq_apply_tc_kernel<HC>: TMA key and value
+//   tiles of one head, wgmma for q k^T and p v, base-2 exps (at 32 in
+//   128-key tiles under the 64-byte swizzle, on warp-uniform branches);
 // * the "cuda" forms, everything else (float32; head width 16 in either
-//   type; K6 at head width 32 in either type): the CUDA-core kernels, one
-//   block per (a[, e], 8 query rows), one warp per query row, one lane per
-//   key of a 32-key tile, key rows read through L1 (the block's warps walk
-//   the same tile), the query row as warp-wide broadcasts, K6's softmax
-//   statistics online (running max and rescaled sum), K7's tile
-//   probabilities staged in shared memory for a lane-per-value-pair p . v
-//   (below head width 64 the lanes from HC / 2 on hold no pair).  K7's
-//   first design, kept for float32 and head width 16, is also reachable in
-//   bf16 through se3et_eq_attention_apply_cuda_bf16.
+//   type): the CUDA-core kernels, one block per (a[, e], 8 query rows), one
+//   warp per query row, one lane per key of a 32-key tile, key rows read
+//   through L1 (the block's warps walk the same tile), the query row as
+//   warp-wide broadcasts, K6's softmax statistics online (running max and
+//   rescaled sum), K7's tile probabilities staged in shared memory for a
+//   lane-per-value-pair p . v (below head width 64 the lanes from HC / 2 on
+//   hold no pair).  The first designs, kept for float32 and head width 16,
+//   are also reachable in bf16 through se3et_eq_attention_stats_cuda_bf16
+//   and se3et_eq_attention_apply_cuda_bf16.
 #include <algorithm>
 #include <type_traits>
 
@@ -260,80 +261,134 @@ eq_apply_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 }
 
 // ---------------------------------------------------------------------------
-// K6's serving form, "tc" (bf16, H = 4, head width 64).
+// K6's serving forms, "tc" (bf16, H = 4, head widths 64 and 32).
 //
 // Bound: exponentials.  Every score with a valid key takes one exp: 151 M at
-// the serving shape, at 16 per clock per SM (132 SMs, 1.98 GHz) 36 us; the
-// products take 19.5 us at the tensor-core peak.  With 16 query rows per
-// warp each warp reads the k tile from shared memory for itself (by
-// ldmatrix, 8 bytes per score and head, plus its q tile, 4 more), which
-// with the exps and the float32 work per score is what the time is made of
-// (scripts/probe_eq_attention.py: the variants and their times).
+// either serving shape, at 16 per clock per SM (132 SMs, 1.98 GHz) 36 us;
+// the products take 19.5 us at the tensor-core peak at head width 64, 9.8
+// at 32.  At 64 (se3ete), with 16 query rows per warp, each warp reads the
+// k tile from shared memory for itself (by ldmatrix, 8 bytes per score and
+// head, plus its q tile, 4 more), which with the exps and the float32 work
+// per score is what the time is made of.  At 32 (the wide-head family
+// se3ete2) a key row is 64 bytes: its k fragments are 4 bytes per score and
+// head, and q sits in registers (4 heads x 2 k-steps x 4 registers a lane),
+// ~18 us of shared memory under the exps' 36.  What holds it there is each
+// warp's chain, products -> maxima -> exps: without the mma a warp runs in
+// ~60 % of the time, without the exps in ~80 % (scripts/probe_eq_attention.py
+// --kernel k6w: the variants and ablations, NVIDIA H100 80GB HBM3, 700 W).
+// So at 32 each head votes on its own rescale: its exps start while the
+// later heads' products are still on the tensor cores (6 % on one vote a
+// step); 128-key tiles (32 KB, 4 slots) take fewer ring waits a key.
 //
-// Work: per key anchor e, A * ceil(N / 16) warp units (anchor a, 16 query
-// rows).  One block per SM: E x bpe blocks, bpe = SMs / E, each of one
-// producer warp and kConsumers consumer warps that all take units of one e;
-// in each pass the block streams k[e] once and each consumer warp computes
-// one unit, passes repeating until e's units are spent (at the serving
-// shape 132 blocks, 384 units per e over 22 x 9 warps: two passes, and no
-// warp takes more than two units).  No block barrier after the set-up:
+// Work: per key anchor e, A * ceil(N / kUnitRows) warp units (anchor a,
+// kUnitRows query rows).  One block per SM: E x bpe blocks, bpe = SMs / E,
+// each of one producer warp and kConsumers consumer warps that all take
+// units of one e; in each pass the block streams k[e] once and each
+// consumer warp computes one unit, passes repeating until e's units are
+// spent (at the serving shape 132 blocks, 384 16-row units per e over 22 x
+// 9 warps: two passes, and no warp takes more than two units).  No block
+// barrier after the set-up:
 // * producer (one lane): per pass every key tile of k[e] that holds a valid
-//   key, as one TMA tensor copy (H heads x kKeys keys x 64 channels, the
-//   128-byte swizzle: 16-byte chunk c of key row r lands at c ^ (r & 7))
-//   into a ring of kStages slots, with full / empty mbarriers;
+//   key, as one TMA tensor copy (H heads x kKeys keys x HC channels, under
+//   the swizzle of the row width: 16-byte chunk c of key row r at c ^ (r &
+//   7) for 128-byte rows, c ^ ((r >> 1) & 3) for 64-byte rows) into a ring
+//   of kStages slots, with full / empty mbarriers;
 // * consumers: the unit's q rows (H heads) copied once into the warp's own
-//   swizzled shared tile; per key tile, every head's S = q k^T first (A and
-//   B fragments by ldmatrix.x4, free of bank conflicts under the swizzle;
-//   mma.sync m16n8k16, 16 independent accumulator chains), then the head
-//   sum for positive() (with sup the weighted one), the masked maxima and
-//   the sums 2^((s - ref) * scale * log2 e): one FFMA and one ex2.approx
-//   (one MUFU op) per score.  Each lane keeps its own reference max per
-//   row, moved (with a rescale of its sum) only when a tile's max passes it
-//   by kSlack, decided by one warp vote per tile; the lanes' sums and true
-//   maxima are merged across the quad once per unit.
+//   swizzled shared tile, or held in registers; per 32 keys of a staged
+//   tile (a step), every head's S = q k^T first (A and B fragments by
+//   ldmatrix.x4, free of bank conflicts under the swizzle; mma.sync
+//   m16n8k16, 16 independent accumulator chains), then the head sum for
+//   positive() (with sup the weighted one), the masked maxima and the sums
+//   2^((s - ref) * scale * log2 e): one FFMA and one ex2.approx (one MUFU
+//   op) per score.  Each lane keeps its own reference max per row, moved
+//   (with a rescale of its sum) only when a step's max passes it by kSlack,
+//   decided by one warp vote per step (at 32 one per step and head); the
+//   lanes' sums and true maxima are merged across the quad once per unit.
 // The key mask is staged once per block as bits: tiles without a valid key
-// are skipped by producer and consumers alike, a partial tile is masked by
-// selection.  rowmax stays in the plain version's units (scale * q . k).
-// Each 16-row m-tile writes one pooled partial, already divided by the
-// valid (n, m) count, so the wrapper only sums them; with sup one partial
-// max.
+// are skipped by producer and consumers alike, steps without one by the
+// consumers, a partial step is masked by selection.  rowmax stays in the
+// plain version's units (scale * q . k).  Each 16-row m-tile writes one
+// pooled partial, already divided by the valid (n, m) count, so the wrapper
+// only sums them; with sup one partial max.  At 32 every consumer branch is
+// warp-uniform (values broadcast from lane 0 or voted, every lane arrives
+// on an empty barrier, the waits trap without a message), as K7's form
+// there.
 namespace eq_tc {
 
 using bf16 = __nv_bfloat16;
 constexpr int kH = 4;
-constexpr int kHC = 64;
-// the design's settings; scripts/probe_eq_attention.py builds the source
-// with each of them changed and times the variants in turns
-constexpr int kKeys = 32;  // keys per staged tile
-constexpr int kStages = 8;  // ring slots
-constexpr float kSlack = 64.f;  // raw q . k: 2^(64 * scale * log2 e) = 2^11.5
-constexpr int kConsumers = 9;  // consumer warps per block
-constexpr int kMT = 1;  // 16-row m-tiles per warp unit, sharing each k fragment
-constexpr bool kQInSmem = true;  // q fragments from shared memory (else registers)
+// K6's plan at head width 64 (se3ete's EQ cross layers) and at 32 (the
+// wide-head family se3ete2's); scripts/probe_eq_attention.py builds the
+// source with each setting changed and times the variants in turns
+constexpr int kStatsKeys = 32;  // keys per staged tile, whole 32-key steps
+constexpr int kStatsStages = 8;  // ring slots
+constexpr int kStatsConsumers = 9;  // consumer warps per block
+constexpr int kStatsMT = 1;  // 16-row m-tiles per warp unit, sharing each k fragment
+constexpr bool kStatsQInSmem = true;  // q fragments from shared memory (else registers)
+constexpr int kStats32Keys = 128;
+constexpr int kStats32Stages = 4;
+constexpr int kStats32Consumers = 9;
+constexpr int kStats32MT = 1;
+constexpr bool kStats32QInSmem = false;
+constexpr bool kStats32HeadVote = true;  // one rescale vote a head (else a step)
 constexpr bool kPersistent = true;  // one block walks every pass
+// a lane's reference max moves only where a step's max passes it by this
+// much in scaled units (scale * q . k), so its sum stays below 2^(8 log2 e)
+// = 2^11.5 between rescales at every width
+constexpr float kSlackScaled = 8.f;
 constexpr int kRows = 16;  // query rows per m-tile (one pooled partial)
-constexpr int kUnitRows = kRows * kMT;
-constexpr int kThreads = (kConsumers + 1) * 32;
-constexpr int kNT = kKeys / 8;
-constexpr int kWords = kKeys / 32;  // key-mask words per tile
-constexpr uint32_t kStageBytes = (uint32_t)kH * kKeys * kHC * sizeof(bf16);
-constexpr uint32_t kQBytes = (uint32_t)kH * kUnitRows * kHC * sizeof(bf16);  // per warp
-static_assert(kQInSmem || kMT == 1, "q in registers holds one m-tile");
+constexpr int kStepKeys = 32;  // keys per consumer step (one key-mask word)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can have
 
-// the shared-memory plan, byte offsets from the block's 1024-aligned base
-// (mirrored by the wrapper's eq_attention.eq_stats_smem_bytes): the ring, q
-// tiles (kQInSmem), the key-mask bits, 2 * kStages mbarriers, two counts
+// K6's plan at head width HC (64: se3ete's EQ cross layers, 32: se3ete2's)
+template <int HC>
+struct StatsPlan {
+  static constexpr bool k64 = HC == 64;
+  static constexpr int kKeys = k64 ? kStatsKeys : kStats32Keys;
+  static constexpr int kStages = k64 ? kStatsStages : kStats32Stages;
+  static constexpr int kConsumers = k64 ? kStatsConsumers : kStats32Consumers;
+  static constexpr int kMT = k64 ? kStatsMT : kStats32MT;
+  static constexpr bool kQInSmem = k64 ? kStatsQInSmem : kStats32QInSmem;
+  static constexpr bool kHeadVote = !k64 && kStats32HeadVote;
+  // every branch of a consumer warp on a value ptxas can prove the same in
+  // all its lanes
+  static constexpr bool kUniform = !k64;
+  static constexpr float kScale = k64 ? 0.125f : 0.17677669529663687f;  // 1 / sqrt(HC)
+  static constexpr float kSlack = kSlackScaled / kScale;  // raw q . k: 64 at 64, 45.25 at 32
+  static constexpr int kUnitRows = kRows * kMT;
+  static constexpr int kThreads = (kConsumers + 1) * 32;
+  static constexpr int kWords = kKeys / kStepKeys;  // key-mask words (steps) per tile
+  static constexpr int kKSteps = HC / 16;  // k-steps of q k^T
+  static constexpr uint32_t kRowBytes = HC * sizeof(bf16);  // a key row: the swizzle span
+  static constexpr uint32_t kStageBytes = (uint32_t)kH * kKeys * kRowBytes;
+  static constexpr uint32_t kQBytes = (uint32_t)kH * kUnitRows * kRowBytes;  // per warp
+  static_assert((HC == 64 || HC == 32) && kKeys % kStepKeys == 0 && kKeys <= 256,
+                "64 or 32 channels, whole 32-key steps, a TMA box of at most 256 keys");
+  static_assert(kQInSmem || kMT == 1, "q in registers holds one m-tile");
+};
+
+// the shared-memory plan at head width HC, byte offsets from the block's
+// 1024-aligned base (mirrored by the wrapper's eq_attention.eq_stats_smem_bytes):
+// the ring, q tiles (kQInSmem), the key-mask bits, 2 * kStages mbarriers,
+// two counts
+template <int HC>
 __host__ __device__ inline size_t mask_off() {
-  return (size_t)kStages * kStageBytes + (kQInSmem ? (size_t)kConsumers * kQBytes : 0);
+  using P = StatsPlan<HC>;
+  return (size_t)P::kStages * P::kStageBytes +
+         (P::kQInSmem ? (size_t)P::kConsumers * P::kQBytes : 0);
 }
-__host__ __device__ inline int tiles(int m) { return (m + kKeys - 1) / kKeys; }
+template <int HC>
+__host__ __device__ inline int tiles(int m) {
+  return (m + StatsPlan<HC>::kKeys - 1) / StatsPlan<HC>::kKeys;
+}
+template <int HC>
 __host__ __device__ inline size_t bar_off(int m) {
-  return mask_off() + (((size_t)tiles(m) * kWords * 4 + 7) & ~(size_t)7);
+  return mask_off<HC>() + (((size_t)tiles<HC>(m) * StatsPlan<HC>::kWords * 4 + 7) & ~(size_t)7);
 }
+template <int HC>
 __host__ __device__ inline size_t smem_bytes(int m) {
-  return 1024 + bar_off(m) + 2 * kStages * sizeof(uint64_t) + 2 * sizeof(int);
+  return 1024 + bar_off<HC>(m) + 2 * StatsPlan<HC>::kStages * sizeof(uint64_t) + 2 * sizeof(int);
 }
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
@@ -364,31 +419,43 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr));
 }
 
-// Fragment addressing of a tile of 128-byte rows (64 bf16) under the
-// 128-byte swizzle (16-byte chunk c of row r at c ^ (r & 7)), for lane
+// the 16-byte chunk at which chunk c of row r of a tile of HC-channel rows
+// lands under the TMA swizzle of its row width: 128 bytes at 64 (c ^ (r &
+// 7)), 64 bytes at 32 (c ^ ((r >> 1) & 3): 512-byte atoms of 8 rows)
+template <int HC>
+__host__ __device__ constexpr int swz(int c, int r) {
+  return HC == 64 ? c ^ (r & 7) : c ^ ((r >> 1) & 3);
+}
+
+// Fragment addressing of a swizzled tile of HC-channel rows, for lane
 // `lane`: the row it addresses within a group of 16 and its chunk offsets
-// for the k-steps kk = 0..3 (channels 16 kk .. 16 kk + 15).
+// for the k-steps kk (channels 16 kk .. 16 kk + 15).
 // * A (16 rows x 16 channels, q): lanes 0-15 rows 0-15 at chunk 2 kk,
 //   lanes 16-31 the same rows at chunk 2 kk + 1: r = a0..a3 of mma.m16n8k16;
 // * B (two n-tiles of 8 keys, k): lanes 0-7 / 8-15 keys 0-7 at chunks 2 kk /
 //   2 kk + 1, lanes 16-23 / 24-31 keys 8-15 the same: r = b0, b1 of the
 //   first n-tile, then of the second.
+// A row's swizzle depends on its index mod 8: lane & 7 for both (written so,
+// ptxas schedules the kernel at 64 as fast as before it took the width as a
+// parameter; with the rows themselves it did not), and rows at a multiple of
+// 8 from these keep their chunk offsets.
+template <int HC>
 struct Frag {
   int a_row, b_row;
-  uint32_t a_off[4], b_off[4];
+  uint32_t a_off[HC / 16], b_off[HC / 16];
   __device__ explicit Frag(int lane) {
     a_row = lane & 15;
     b_row = ((lane >> 4) << 3) + (lane & 7);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      a_off[kk] = (uint32_t)(((2 * kk + (lane >> 4)) ^ (lane & 7)) << 4);
-      b_off[kk] = (uint32_t)(((2 * kk + ((lane >> 3) & 1)) ^ (lane & 7)) << 4);
+    for (int kk = 0; kk < HC / 16; ++kk) {
+      a_off[kk] = (uint32_t)(swz<HC>(2 * kk + (lane >> 4), lane & 7) << 4);
+      b_off[kk] = (uint32_t)(swz<HC>(2 * kk + ((lane >> 3) & 1), lane & 7) << 4);
     }
   }
 };
 
 // whether a tile of kW mask words holds no valid key / only valid keys
-template <int kW = kWords>
+template <int kW>
 __device__ __forceinline__ bool tile_empty(const uint32_t* w) {
   uint32_t any = 0;
 #pragma unroll
@@ -396,7 +463,7 @@ __device__ __forceinline__ bool tile_empty(const uint32_t* w) {
   return any == 0;
 }
 
-template <int kW = kWords>
+template <int kW>
 __device__ __forceinline__ bool tile_full(const uint32_t* w) {
   uint32_t all = ~0u;
 #pragma unroll
@@ -404,35 +471,87 @@ __device__ __forceinline__ bool tile_full(const uint32_t* w) {
   return all == ~0u;
 }
 
+// `b` as lane 0 of the warp holds it where kOn: a value ptxas can prove the
+// same in every lane, so that a branch on it is no divergent path among the
+// warp's (or warpgroup's) products
+template <bool kOn>
+__device__ __forceinline__ uint32_t lane0(uint32_t b) {
+  if constexpr (kOn)
+    return __shfl_sync(0xffffffffu, b, 0);
+  else
+    return b;
+}
+
+// mbar_wait that traps after about 2^33 cycles, without mbar_wait_or_trap's
+// message: its printf, an extern call, would make ptxas serialise every
+// wgmma of a kernel.  kWarp: the whole warp waits, and leaves when every
+// lane has seen the phase complete, by a vote (a uniform branch)
+template <bool kWarp>
+__device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  while (true) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (kWarp ? __all_sync(0xffffffffu, done) : done) return;
+    if (clock64() - t0 > (1ll << 33)) __trap();
+  }
+}
+
+// a ring wait by the producer's lane (`what` 0) or a whole consumer warp
+// (`what` 1): named in mbar_wait_or_trap's message, or with kUniform
+// without one, the consumer warp leaving at once
+template <bool kUniform>
+__device__ __forceinline__ void ring_wait(uint64_t* bar, uint32_t parity, int what) {
+  if constexpr (!kUniform)
+    mbar_wait_or_trap(bar, parity, what);
+  else if (what == 0)
+    mbar_wait_bounded<false>(bar, parity);
+  else
+    mbar_wait_bounded<true>(bar, parity);
+}
+
+// a consumer warp's arrival on an empty barrier: lane 0's, or with
+// kUniform every lane's (no divergent path; the barrier then counts 32
+// arrivals a warp)
+template <bool kUniform>
+__device__ __forceinline__ void ring_arrive(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (kUniform || lane == 0) mbar_arrive(bar);
+}
+
 // a consumer warp's state over one unit, per m-tile, head and row (g /
 // g + 8), in raw q . k units: the lane's sum of 2^((s - ref) * scale *
 // log2 e) over its keys, its reference max `ref` (moved only where a lane's
-// tile max passes ref + kSlack, so the sums stay below 2^(kSlack * scale *
-// log2 e) without a rescale per tile), and its true max; merged across the
+// step max passes ref + kSlack, so the sums stay below 2^(kSlack * scale *
+// log2 e) without a rescale per step), and its true max; merged across the
 // quad at the end
-template <bool kSup>
+template <int HC, bool kSup>
 struct Unit {
+  static constexpr int kMT = StatsPlan<HC>::kMT;
   float l[kMT][kH][2], ref[kMT][kH][2], top[kMT][kH][2];
   float g[kMT][2];    // pooled sums of rows g / g + 8
   float sup[kMT][2];  // raw weighted-head-sum maxima
   float wsup[kH];
 };
 
-// The unit's work on one staged tile (all heads).  kMasked: select the
-// tile's valid keys (bits in w); otherwise every key is valid.  q comes from
-// the warp's swizzled tile `qs` ([head][m-tile][16 rows][64]) or, with one
-// m-tile, from registers `qf`.
-template <int kMode, bool kSup, bool kMasked>
-__device__ __forceinline__ void tile_step(uint32_t slot, const uint32_t (&qf)[kH][4][4],
-                                          uint32_t qs, const Frag& fr, const uint32_t* w,
-                                          int t, float c2, float hscale, int mode,
-                                          Unit<kSup>& u) {
-  uint32_t bits[kWords];
-#pragma unroll
-  for (int i = 0; i < kWords; ++i) bits[i] = w[i] >> (2 * t);
-  auto valid = [&](int jn, int i) -> bool {
-    return (bits[jn >> 2] >> (((jn & 3) << 3) + i)) & 1u;
-  };
+// The unit's work on one 32-key step (all heads) at key `key0` of the
+// staged tile at `slot`.  kMasked: select the step's valid keys (bits in
+// w); otherwise every key is valid.  q comes from the warp's swizzled tile
+// `qs` ([head][m-tile][16 rows][HC]) or, with one m-tile, from registers
+// `qf`.
+template <int HC, int kMode, bool kSup, bool kMasked>
+__device__ __forceinline__ void tile_step(uint32_t slot, int key0,
+                                          const uint32_t (&qf)[kH][HC / 16][4], uint32_t qs,
+                                          const Frag<HC>& fr, uint32_t w, int t, float c2,
+                                          float hscale, int mode, Unit<HC, kSup>& u) {
+  using P = StatsPlan<HC>;
+  constexpr int kMT = P::kMT, kNT = kStepKeys / 8;
+  const uint32_t bits = w >> (2 * t);
+  auto valid = [&](int jn, int i) -> bool { return (bits >> ((jn << 3) + i)) & 1u; };
   // every head's products first: 4 * kNT * kMT independent chains of mma
   float s[kMT][kH][kNT][4];
 #pragma unroll
@@ -445,12 +564,12 @@ __device__ __forceinline__ void tile_step(uint32_t slot, const uint32_t (&qf)[kH
 #pragma unroll
   for (int h = 0; h < kH; ++h)
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < P::kKSteps; ++kk) {
       uint32_t a[kMT][4];
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt) {
-        if constexpr (kQInSmem) {
-          ldsm_x4(a[mt], qs + ((h * kMT + mt) * kRows + fr.a_row) * 128 + fr.a_off[kk]);
+        if constexpr (P::kQInSmem) {
+          ldsm_x4(a[mt], qs + ((h * kMT + mt) * kRows + fr.a_row) * P::kRowBytes + fr.a_off[kk]);
         } else {
 #pragma unroll
           for (int i = 0; i < 4; ++i) a[mt][i] = qf[h][kk][i];
@@ -459,7 +578,8 @@ __device__ __forceinline__ void tile_step(uint32_t slot, const uint32_t (&qf)[kH
 #pragma unroll
       for (int jn = 0; jn < kNT; jn += 2) {
         uint32_t b[4];
-        ldsm_x4(b, slot + (h * kKeys + 8 * jn + fr.b_row) * 128 + fr.b_off[kk]);
+        ldsm_x4(b, slot + (h * P::kKeys + key0 + 8 * jn + fr.b_row) * P::kRowBytes +
+                       fr.b_off[kk]);
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt) {
           mma_bf16(s[mt][h][jn], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b[0], b[1]);
@@ -467,8 +587,30 @@ __device__ __forceinline__ void tile_step(uint32_t slot, const uint32_t (&qf)[kH
         }
       }
     }
-  // head sums, masking, the lanes' maxima; one vote for the whole tile
+  // head sums, masking, the lanes' maxima; one vote for the whole step, or
+  // with kHeadVote one a head, so that a head's exps can start while the
+  // later heads' products are still on the tensor cores
   float hs[kMT][kNT][4], ss[kMT][kNT][4], mx[kMT][kH][2];
+  // head h's rescale, where some lane's max passes its reference by kSlack
+  auto rescale = [&](int mt, int h) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float ref = fmaxf(u.ref[mt][h][r], mx[mt][h][r]);
+      u.l[mt][h][r] *= ex2((u.ref[mt][h][r] - ref) * c2);
+      u.ref[mt][h][r] = ref;
+    }
+  };
+  auto exps = [&](int mt, int h) {
+    const float ca = -u.ref[mt][h][0] * c2, cb = -u.ref[mt][h][1] * c2;
+    float suma = 0.f, sumb = 0.f;
+#pragma unroll
+    for (int jn = 0; jn < kNT; ++jn) {
+      suma += ex2(fmaf(s[mt][h][jn][0], c2, ca)) + ex2(fmaf(s[mt][h][jn][1], c2, ca));
+      sumb += ex2(fmaf(s[mt][h][jn][2], c2, cb)) + ex2(fmaf(s[mt][h][jn][3], c2, cb));
+    }
+    u.l[mt][h][0] += suma;
+    u.l[mt][h][1] += sumb;
+  };
   bool moved = false;
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
@@ -490,36 +632,26 @@ __device__ __forceinline__ void tile_step(uint32_t slot, const uint32_t (&qf)[kH
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         u.top[mt][h][r] = fmaxf(u.top[mt][h][r], mx[mt][h][r]);
-        moved |= mx[mt][h][r] > u.ref[mt][h][r] + kSlack;
+        moved |= mx[mt][h][r] > u.ref[mt][h][r] + P::kSlack;
+      }
+      if constexpr (P::kHeadVote) {
+        if (__any_sync(0xffffffffu, moved)) rescale(mt, h);
+        moved = false;
+        exps(mt, h);
       }
     }
-  // a rescale only where some lane's max passes its reference by kSlack
-  if (__any_sync(0xffffffffu, moved)) {
+  if constexpr (!P::kHeadVote) {
+    if (__any_sync(0xffffffffu, moved)) {
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int h = 0; h < kH; ++h) rescale(mt, h);
+    }
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-      for (int h = 0; h < kH; ++h)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float ref = fmaxf(u.ref[mt][h][r], mx[mt][h][r]);
-          u.l[mt][h][r] *= ex2((u.ref[mt][h][r] - ref) * c2);
-          u.ref[mt][h][r] = ref;
-        }
+      for (int h = 0; h < kH; ++h) exps(mt, h);
   }
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int h = 0; h < kH; ++h) {
-      const float ca = -u.ref[mt][h][0] * c2, cb = -u.ref[mt][h][1] * c2;
-      float suma = 0.f, sumb = 0.f;
-#pragma unroll
-      for (int jn = 0; jn < kNT; ++jn) {
-        suma += ex2(fmaf(s[mt][h][jn][0], c2, ca)) + ex2(fmaf(s[mt][h][jn][1], c2, ca));
-        sumb += ex2(fmaf(s[mt][h][jn][2], c2, cb)) + ex2(fmaf(s[mt][h][jn][3], c2, cb));
-      }
-      u.l[mt][h][0] += suma;
-      u.l[mt][h][1] += sumb;
-    }
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -540,39 +672,40 @@ __device__ __forceinline__ void tile_step(uint32_t slot, const uint32_t (&qf)[kH
       }
 }
 
-// q (A,H,N,64), k (E,H,M,64) behind `map`, qmask (N), kmask (M) as bytes,
+// q (A,H,N,HC), k (E,H,M,HC) behind `map`, qmask (N), kmask (M) as bytes,
 // sup_q (A,H) / sup_k (E,H) when kSup; rowmax/rowsum (A,E,H,N); gpart/spart
 // (A,E,ceil(N/16)).  kMode: the positive() mode, or -1 for `mode` at run time.
-template <int kMode, bool kSup>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int HC, int kMode, bool kSup>
+__global__ void __launch_bounds__(StatsPlan<HC>::kThreads, 1)
 eq_stats_tc_kernel(const __grid_constant__ CUtensorMap map, const bf16* __restrict__ q,
                    const uint8_t* __restrict__ qmask, const uint8_t* __restrict__ kmask,
                    const float* __restrict__ sup_q, const float* __restrict__ sup_k,
                    float* __restrict__ rowmax, float* __restrict__ rowsum,
                    float* __restrict__ gpart, float* __restrict__ spart, int na, int ne, int n,
                    int mlen, int bpe, int passes, int mode) {
+  using P = StatsPlan<HC>;
   extern __shared__ char smem_raw[];
   char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint32_t* mask_s = reinterpret_cast<uint32_t*>(base + mask_off());
-  uint64_t* full = reinterpret_cast<uint64_t*>(base + bar_off(mlen));
-  uint64_t* empty = full + kStages;
-  int* counts = reinterpret_cast<int*>(empty + kStages);  // valid query rows, valid keys
+  uint32_t* mask_s = reinterpret_cast<uint32_t*>(base + mask_off<HC>());
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + bar_off<HC>(mlen));
+  uint64_t* empty = full + P::kStages;
+  int* counts = reinterpret_cast<int*>(empty + P::kStages);  // valid query rows, valid keys
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = lane0<P::kUniform>(threadIdx.x / 32), lane = threadIdx.x % 32;
   const int per_pass = ne * bpe;
   const int p0 = kPersistent ? 0 : blockIdx.x / per_pass;
   const int p_end = kPersistent ? passes : p0 + 1;
   const int bid = blockIdx.x % per_pass;
   const int e = bid / bpe, lb = bid - e * bpe;
-  const int rblocks = (n + kUnitRows - 1) / kUnitRows;
+  const int rblocks = (n + P::kUnitRows - 1) / P::kUnitRows;
   const int units = na * rblocks;  // per e
   const int parts = (n + kRows - 1) / kRows;  // pooled partial slots per (a, e)
-  const int ntiles = tiles(mlen);
+  const int ntiles = tiles<HC>(mlen);
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < P::kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumers);
+      mbar_init(&empty[s], P::kConsumers * (P::kUniform ? 32 : 1));
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     counts[0] = counts[1] = 0;
@@ -580,14 +713,14 @@ eq_stats_tc_kernel(const __grid_constant__ CUtensorMap map, const bf16* __restri
   __syncthreads();
   // the key mask as bits (zero past mlen) and both valid counts
   int kc = 0;
-  for (int wd = warp; wd < ntiles * kWords; wd += kConsumers + 1) {
+  for (int wd = warp; wd < ntiles * P::kWords; wd += P::kConsumers + 1) {
     const int key = 32 * wd + lane;
     const uint32_t b = __ballot_sync(0xffffffffu, key < mlen && kmask[key] != 0);
     if (lane == 0) mask_s[wd] = b;
     kc += __popc(b);
   }
   int qc = 0;
-  for (int i = threadIdx.x; i < n; i += kThreads) qc += qmask[i] != 0;
+  for (int i = threadIdx.x; i < n; i += P::kThreads) qc += qmask[i] != 0;
   qc = __reduce_add_sync(0xffffffffu, qc);
   if (lane == 0) {
     atomicAdd(&counts[0], qc);
@@ -595,60 +728,64 @@ eq_stats_tc_kernel(const __grid_constant__ CUtensorMap map, const bf16* __restri
   }
   __syncthreads();
 
-  if (warp == kConsumers) {  // the producer
+  if (warp == P::kConsumers) {  // the producer
     if (lane != 0) return;
     int s = 0;
-    for (int pass = p0; pass < p_end && (pass * bpe + lb) * kConsumers < units; ++pass)
+    for (int pass = p0; pass < p_end && (pass * bpe + lb) * P::kConsumers < units; ++pass)
       for (int j = 0; j < ntiles; ++j) {
-        if (tile_empty(mask_s + j * kWords)) continue;
-        const int slot = s % kStages;
-        if (s >= kStages) mbar_wait_or_trap(&empty[slot], ((s / kStages) - 1) & 1, 0);
-        mbar_expect_tx(&full[slot], kStageBytes);
-        load_tile(base + (size_t)slot * kStageBytes, &map, j * kKeys, 0, e, &full[slot]);
+        if (tile_empty<P::kWords>(mask_s + j * P::kWords)) continue;
+        const int slot = s % P::kStages;
+        if (s >= P::kStages) ring_wait<P::kUniform>(&empty[slot], ((s / P::kStages) - 1) & 1, 0);
+        mbar_expect_tx(&full[slot], P::kStageBytes);
+        load_tile(base + (size_t)slot * P::kStageBytes, &map, j * P::kKeys, 0, e, &full[slot]);
         ++s;
       }
     return;
   }
 
   const int g = lane >> 2, t = lane & 3;
-  const float scale = 0.125f;  // 1 / sqrt(64)
+  const float scale = P::kScale;
   const float c2 = scale * kLog2e;
   const float hscale = scale / kH;
   const float inv_count = 1.f / ((float)counts[0] * (float)counts[1] + 1e-9f);
-  char* qs = kQInSmem ? base + (size_t)kStages * kStageBytes + (size_t)warp * kQBytes : nullptr;
-  const uint32_t qs_u32 = kQInSmem ? smem_u32(qs) : 0u;
-  const Frag fr(lane);
+  char* qs = P::kQInSmem ? base + (size_t)P::kStages * P::kStageBytes + (size_t)warp * P::kQBytes
+                         : nullptr;
+  const uint32_t qs_u32 = P::kQInSmem ? smem_u32(qs) : 0u;
+  const Frag<HC> fr(lane);
   int s = 0;
-  for (int pass = p0; pass < p_end && (pass * bpe + lb) * kConsumers < units; ++pass) {
-    const int unit = (pass * bpe + lb) * kConsumers + warp;
+  for (int pass = p0; pass < p_end && (pass * bpe + lb) * P::kConsumers < units; ++pass) {
+    const int unit = (pass * bpe + lb) * P::kConsumers + warp;
     const bool active = unit < units;
     const int a = active ? unit / rblocks : 0;
     const int rb = unit - a * rblocks;
-    const int row0 = rb * kUnitRows;
-    const bf16* qa = q + (long long)a * kH * n * kHC;
-    uint32_t qf[kH][4][4];  // q in registers (!kQInSmem): a0..a3 per head and k-step
-    Unit<kSup> u;
+    const int row0 = rb * P::kUnitRows;
+    const bf16* qa = q + (long long)a * kH * n * HC;
+    uint32_t qf[kH][HC / 16][4];  // q in registers (!kQInSmem): a0..a3 per head and k-step
+    Unit<HC, kSup> u;
     if (active) {
-      if constexpr (kQInSmem) {
+      if constexpr (P::kQInSmem) {
+        constexpr int kChunks = HC / 8;  // 16-byte chunks of a row
         __syncwarp();
-        for (int idx = lane; idx < kH * kUnitRows * 8; idx += 32) {
-          const int h = idx / (kUnitRows * 8), r = (idx / 8) % kUnitRows, ch = idx % 8;
+        for (int idx = lane; idx < kH * P::kUnitRows * kChunks; idx += 32) {
+          const int h = idx / (P::kUnitRows * kChunks), r = (idx / kChunks) % P::kUnitRows,
+                    ch = idx % kChunks;
           const int row = row0 + r;
-          *reinterpret_cast<uint4*>(qs + (h * kUnitRows + r) * 128 + ((ch ^ (r & 7)) << 4)) =
-              ld16(qa + ((long long)h * n + row) * kHC + 8 * ch, row < n);
+          *reinterpret_cast<uint4*>(qs + (h * P::kUnitRows + r) * P::kRowBytes +
+                                    (swz<HC>(ch, r) << 4)) =
+              ld16(qa + ((long long)h * n + row) * HC + 8 * ch, row < n);
         }
         __syncwarp();
       } else {
         const int ra = row0 + g, rbw = ra + 8;
         auto q32 = [&](int h, int row, int c) -> uint32_t {
           return row < n ? __ldg(reinterpret_cast<const unsigned int*>(
-                               qa + ((long long)h * n + row) * kHC + c))
+                               qa + ((long long)h * n + row) * HC + c))
                          : 0u;
         };
 #pragma unroll
         for (int h = 0; h < kH; ++h)
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
+          for (int kk = 0; kk < P::kKSteps; ++kk) {
             qf[h][kk][0] = q32(h, ra, 16 * kk + 2 * t);
             qf[h][kk][1] = q32(h, rbw, 16 * kk + 2 * t);
             qf[h][kk][2] = q32(h, ra, 16 * kk + 8 + 2 * t);
@@ -656,7 +793,7 @@ eq_stats_tc_kernel(const __grid_constant__ CUtensorMap map, const bf16* __restri
           }
       }
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
+      for (int mt = 0; mt < P::kMT; ++mt) {
 #pragma unroll
         for (int h = 0; h < kH; ++h) {
           // a finite start, so that 2^((s - ref) * c) stays 0 on masked keys
@@ -671,24 +808,29 @@ eq_stats_tc_kernel(const __grid_constant__ CUtensorMap map, const bf16* __restri
       for (int h = 0; h < kH; ++h) u.wsup[h] = kSup ? sup_q[a * kH + h] * sup_k[e * kH + h] : 0.f;
     }
     for (int j = 0; j < ntiles; ++j) {
-      const uint32_t* w = mask_s + j * kWords;
-      if (tile_empty(w)) continue;
-      const int slot = s % kStages;
-      mbar_wait_or_trap(&full[slot], (s / kStages) & 1, 1);
+      const uint32_t* w = mask_s + j * P::kWords;
+      if (lane0<P::kUniform>(tile_empty<P::kWords>(w))) continue;
+      const int slot = s % P::kStages;
+      ring_wait<P::kUniform>(&full[slot], (s / P::kStages) & 1, 1);
       if (active) {
-        const uint32_t sb = smem_u32(base) + (uint32_t)slot * kStageBytes;
-        if (tile_full(w))
-          tile_step<kMode, kSup, false>(sb, qf, qs_u32, fr, w, t, c2, hscale, mode, u);
-        else
-          tile_step<kMode, kSup, true>(sb, qf, qs_u32, fr, w, t, c2, hscale, mode, u);
+        const uint32_t sb = smem_u32(base) + (uint32_t)slot * P::kStageBytes;
+#pragma unroll 1
+        for (int i = 0; i < P::kWords; ++i) {  // the tile's 32-key steps
+          const uint32_t wd = lane0<P::kUniform>(w[i]);
+          if (wd == ~0u)
+            tile_step<HC, kMode, kSup, false>(sb, kStepKeys * i, qf, qs_u32, fr, wd, t, c2,
+                                              hscale, mode, u);
+          else if (wd != 0u)
+            tile_step<HC, kMode, kSup, true>(sb, kStepKeys * i, qf, qs_u32, fr, wd, t, c2,
+                                             hscale, mode, u);
+        }
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[slot]);
+      ring_arrive<P::kUniform>(&empty[slot], lane);
       ++s;
     }
     if (!active) continue;
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
+    for (int mt = 0; mt < P::kMT; ++mt) {
       const int ra = row0 + mt * kRows + g;
       const int rows[2] = {ra, ra + 8};
 #pragma unroll
@@ -710,7 +852,7 @@ eq_stats_tc_kernel(const __grid_constant__ CUtensorMap map, const bf16* __restri
       const bool qvb = ra + 8 < n && qmask[ra + 8] != 0;
       float gs = warp_sum((qva ? u.g[mt][0] : 0.f) + (qvb ? u.g[mt][1] : 0.f));
       if (kMode == 1) gs *= hscale * hscale;
-      const int part = rb * kMT + mt;
+      const int part = rb * P::kMT + mt;
       const long long out = ((long long)a * ne + e) * parts + part;
       if (lane == 0 && part < parts) gpart[out] = gs * inv_count;
       if constexpr (kSup) {
@@ -757,11 +899,11 @@ static int sm_count() {
   return sms;
 }
 
-// A TMA map of x (E, 4, M, hc) bf16 (16-byte aligned; hc 64, or 32 for K7)
-// whose box is `keys` keys of `heads` heads of one anchor, each row swizzled
-// over its own width (128 bytes at hc 64, 64 bytes at 32); 0 or a CUDA error
+// A TMA map of x (E, 4, M, hc) bf16 (16-byte aligned; hc 64 or 32) whose
+// box is `keys` keys of `heads` heads of one anchor, each row swizzled over
+// its own width (128 bytes at hc 64, 64 bytes at 32); 0 or a CUDA error
 static int encode_map(CUtensorMap* map, const void* x, int ne, int m, int keys, int heads,
-                      int hc = kHC) {
+                      int hc) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)hc, (cuuint64_t)m, (cuuint64_t)kH, (cuuint64_t)ne};
@@ -779,69 +921,74 @@ static int encode_map(CUtensorMap* map, const void* x, int ne, int m, int keys, 
   return 0;
 }
 
-// (blocks per key anchor, passes) of the grid for A anchors, E key anchors,
-// N query rows
+// (blocks per key anchor, passes) of K6's grid at head width HC for A
+// anchors, E key anchors, N query rows
+template <int HC>
 static void plan(int na, int ne, int n, int* bpe, int* passes) {
-  const int units = na * ((n + kUnitRows - 1) / kUnitRows);
-  const int most = (units + kConsumers - 1) / kConsumers;  // blocks with a unit
+  using P = StatsPlan<HC>;
+  const int units = na * ((n + P::kUnitRows - 1) / P::kUnitRows);
+  const int most = (units + P::kConsumers - 1) / P::kConsumers;  // blocks with a unit
   *bpe = std::max(1, std::min(sm_count() / ne, most));
-  *passes = (units + *bpe * kConsumers - 1) / (*bpe * kConsumers);
+  *passes = (units + *bpe * P::kConsumers - 1) / (*bpe * P::kConsumers);
 }
 
 // static: each instance raises its shared-memory attribute once per process
-template <int kMode, bool kSup>
+template <int HC, int kMode, bool kSup>
 static int launch_mode(const CUtensorMap& map, const void* q, const void* qm, const void* km,
                        const void* sq, const void* sk, void* rowmax, void* rowsum,
                        void* gpart, void* spart, int na, int ne, int n, int m, int mode,
                        cudaStream_t st) {
-  const size_t smem = smem_bytes(m);
+  const size_t smem = smem_bytes<HC>(m);
   static size_t attr = 0;
   if (smem > attr) {
     const cudaError_t err = cudaFuncSetAttribute(
-        eq_stats_tc_kernel<kMode, kSup>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        eq_stats_tc_kernel<HC, kMode, kSup>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     attr = smem;
   }
   int bpe, passes;
-  plan(na, ne, n, &bpe, &passes);
+  plan<HC>(na, ne, n, &bpe, &passes);
   const int grid = ne * bpe * (kPersistent ? 1 : passes);
-  eq_stats_tc_kernel<kMode, kSup><<<grid, kThreads, smem, st>>>(
+  eq_stats_tc_kernel<HC, kMode, kSup><<<grid, StatsPlan<HC>::kThreads, smem, st>>>(
       map, (const bf16*)q, (const uint8_t*)qm, (const uint8_t*)km, (const float*)sq,
       (const float*)sk, (float*)rowmax, (float*)rowsum, (float*)gpart, (float*)spart, na, ne,
       n, m, bpe, passes, mode);
   return (int)cudaGetLastError();
 }
 
-// K6 in the tc form: k (E, 4, M, 64) bf16, 16-byte aligned
+// K6 in the tc form at head width HC: k (E, 4, M, HC) bf16, 16-byte aligned
+template <int HC>
 inline int launch(const void* q, const void* k, const void* qm, const void* km,
                   const void* sq, const void* sk, void* rowmax, void* rowsum, void* gpart,
                   void* spart, int na, int ne, int n, int m, int mode, cudaStream_t st) {
-  if (smem_bytes(m) > (size_t)kMaxSmem || sm_count() == 0) return (int)cudaErrorInvalidValue;
+  if (smem_bytes<HC>(m) > (size_t)kMaxSmem || sm_count() == 0) return (int)cudaErrorInvalidValue;
   CUtensorMap map;
-  const int err = encode_map(&map, k, ne, m, kKeys, kH);
+  const int err = encode_map(&map, k, ne, m, StatsPlan<HC>::kKeys, kH, HC);
   if (err) return err;
   const bool sup = sq != nullptr;
   if (mode == 1)
-    return sup ? launch_mode<1, true>(map, q, qm, km, sq, sk, rowmax, rowsum, gpart, spart, na,
-                                      ne, n, m, mode, st)
-               : launch_mode<1, false>(map, q, qm, km, sq, sk, rowmax, rowsum, gpart, spart,
-                                       na, ne, n, m, mode, st);
-  return sup ? launch_mode<-1, true>(map, q, qm, km, sq, sk, rowmax, rowsum, gpart, spart, na,
-                                     ne, n, m, mode, st)
-             : launch_mode<-1, false>(map, q, qm, km, sq, sk, rowmax, rowsum, gpart, spart, na,
-                                      ne, n, m, mode, st);
+    return sup ? launch_mode<HC, 1, true>(map, q, qm, km, sq, sk, rowmax, rowsum, gpart, spart,
+                                          na, ne, n, m, mode, st)
+               : launch_mode<HC, 1, false>(map, q, qm, km, sq, sk, rowmax, rowsum, gpart,
+                                           spart, na, ne, n, m, mode, st);
+  return sup ? launch_mode<HC, -1, true>(map, q, qm, km, sq, sk, rowmax, rowsum, gpart, spart,
+                                         na, ne, n, m, mode, st)
+             : launch_mode<HC, -1, false>(map, q, qm, km, sq, sk, rowmax, rowsum, gpart, spart,
+                                          na, ne, n, m, mode, st);
 }
 
-// blocks of the (sq, no sup) kernel resident per SM at M keys
+// blocks of the (sq, no sup) kernel at head width HC resident per SM at M
+// keys (-1 on a CUDA error)
+template <int HC>
 inline int blocks_per_sm(int m) {
-  const size_t smem = smem_bytes(m);
-  if (cudaFuncSetAttribute(eq_stats_tc_kernel<1, false>,
+  const size_t smem = smem_bytes<HC>(m);
+  if (cudaFuncSetAttribute(eq_stats_tc_kernel<HC, 1, false>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) != cudaSuccess)
     return -1;
   int nb = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, eq_stats_tc_kernel<1, false>, kThreads,
-                                                    smem) != cudaSuccess)
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, eq_stats_tc_kernel<HC, 1, false>,
+                                                    StatsPlan<HC>::kThreads, smem) != cudaSuccess)
     return -1;
   return nb;
 }
@@ -1053,48 +1200,6 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(kTransB), "r"(1));
 }
 
-// `b` at head width HC, where ApplyPlan<HC>::kUniform as lane 0 of the warp
-// holds it: a value ptxas can prove the same in every lane, so that a branch
-// on it is no divergent path among the warpgroup's wgmma
-template <int HC>
-__device__ __forceinline__ int uniform(int b) {
-  if constexpr (ApplyPlan<HC>::kUniform)
-    return __shfl_sync(0xffffffffu, b, 0);
-  else
-    return b;
-}
-
-// mbar_wait that traps after about 2^33 cycles, without mbar_wait_or_trap's
-// message: its printf, an extern call, would make ptxas serialise every
-// wgmma of the kernel.  kWarp: the whole warp waits, and leaves when every
-// lane has seen the phase complete, by a vote (a uniform branch)
-template <bool kWarp>
-__device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar, uint32_t parity) {
-  const long long t0 = clock64();
-  uint32_t done = 0;
-  while (true) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-    if (kWarp ? __all_sync(0xffffffffu, done) : done) return;
-    if (clock64() - t0 > (1ll << 33)) __trap();
-  }
-}
-
-// a ring wait of K7's form at head width HC, by the producer's lane
-// (`what` 0) or a whole consumer warp (`what` 1); named in the message at 64
-template <int HC>
-__device__ __forceinline__ void apply_wait(uint64_t* bar, uint32_t parity, int what) {
-  if constexpr (HC == 64)
-    mbar_wait_or_trap(bar, parity, what);
-  else if (what == 0)
-    mbar_wait_bounded<false>(bar, parity);
-  else
-    mbar_wait_bounded<ApplyPlan<HC>::kUniform>(bar, parity);
-}
-
 // S (64 x kKeys: this warp's 16 rows, n-tile j at s[j]) += q k^T for the k
 // tile at `slot`, issued and not waited: per chunk of kChunk keys (one
 // wgmma N), HC / 16 k-steps (+32 bytes each within the swizzled rows)
@@ -1188,15 +1293,6 @@ __device__ __forceinline__ void apply_step(uint32_t slot, const uint32_t (&qf)[H
   fence_regs<HC / 2>(&o[0][0]);
 }
 
-// a consumer warp's arrival on an empty barrier: lane 0's, or with
-// ApplyPlan::kUniform every lane's (no divergent path; the barrier then
-// counts 32 arrivals a warp)
-template <int HC>
-__device__ __forceinline__ void warp_arrive(uint64_t* bar, int lane) {
-  __syncwarp();
-  if (ApplyPlan<HC>::kUniform || lane == 0) mbar_arrive(bar);
-}
-
 // q (A,H,N,HC), k / v (E,H,M,HC) behind kmap / vmap, w (A,E), rowmax/rowsum
 // (A,E,H,N), kmask (M) as bytes; out (A,H,N,HC) float32.
 template <int HC>
@@ -1214,7 +1310,7 @@ eq_apply_tc_kernel(const __grid_constant__ CUtensorMap kmap,
   uint64_t* full = reinterpret_cast<uint64_t*>(base + apply_bar_off<HC>(mlen));
   uint64_t* empty = full + P::kStages;
 
-  const int warp = uniform<HC>(threadIdx.x / 32), lane = threadIdx.x % 32;
+  const int warp = lane0<P::kUniform>(threadIdx.x / 32), lane = threadIdx.x % 32;
   const int per_pass = kH * bph;
   const int p0 = kApplyPersistent ? 0 : blockIdx.x / per_pass;
   const int p_end = kApplyPersistent ? passes : p0 + 1;
@@ -1247,7 +1343,7 @@ eq_apply_tc_kernel(const __grid_constant__ CUtensorMap kmap,
         for (int j = 0; j < ntiles; ++j) {
           if (tile_empty<P::kWords>(mask_s + j * P::kWords)) continue;
           const int slot = s % P::kStages;
-          if (s >= P::kStages) apply_wait<HC>(&empty[slot], ((s / P::kStages) - 1) & 1, 0);
+          if (s >= P::kStages) ring_wait<P::kUniform>(&empty[slot], ((s / P::kStages) - 1) & 1, 0);
           mbar_expect_tx(&full[slot], P::kSlotBytes);
           char* dst = base + (size_t)slot * P::kSlotBytes;
           load_tile(dst, &kmap, j * P::kKeys, h, e, &full[slot]);
@@ -1291,17 +1387,17 @@ eq_apply_tc_kernel(const __grid_constant__ CUtensorMap kmap,
       for (int j = 0; j < HC / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
       for (int j = 0; j < ntiles; ++j) {
         const uint32_t* wd = mask_s + j * P::kWords;
-        if (uniform<HC>(tile_empty<P::kWords>(wd))) continue;
+        if (lane0<P::kUniform>(tile_empty<P::kWords>(wd))) continue;
         const int slot = s % P::kStages;
-        apply_wait<HC>(&full[slot], (s / P::kStages) & 1, 1);
+        ring_wait<P::kUniform>(&full[slot], (s / P::kStages) & 1, 1);
         if (active) {
           const uint32_t sb = smem_u32(base) + (uint32_t)slot * P::kSlotBytes;
-          if (uniform<HC>(tile_full<P::kWords>(wd)))
+          if (lane0<P::kUniform>(tile_full<P::kWords>(wd)))
             apply_step<HC, false>(sb, qf, wd, t, c2, nb, o);
           else
             apply_step<HC, true>(sb, qf, wd, t, c2, nb, o);
         }
-        warp_arrive<HC>(&empty[slot], lane);
+        ring_arrive<P::kUniform>(&empty[slot], lane);
         ++s;
       }
       if (active) {
@@ -1398,22 +1494,14 @@ int launch_stats(const void* q, const void* k, const void* qm, const void* km,
   return (int)cudaGetLastError();
 }
 
+// K6 on the CUDA cores (the first design), at every width it is built for
 template <typename T>
-int stats(const void* q, const void* k, const void* qm, const void* km, const void* sq,
-          const void* sk, void* rowmax, void* rowsum, void* gpart, void* spart, int na,
-          int ne, int h, int n, int m, int hc, int mode, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  // bf16 at head width 64 takes the tc form, everything else (float32, head
-  // widths 16 and 32) the CUDA cores
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (h == 4 && hc == 64)
-      return eq_tc::launch(q, k, qm, km, sq, sk, rowmax, rowsum, gpart, spart, na, ne, n, m,
-                           mode, st);
-  } else {
-    if (h == 4 && hc == 64)
-      return launch_stats<T, 4, 64>(q, k, qm, km, sq, sk, rowmax, rowsum, gpart, spart, na,
-                                    ne, n, m, mode, st);
-  }
+int stats_cuda(const void* q, const void* k, const void* qm, const void* km, const void* sq,
+               const void* sk, void* rowmax, void* rowsum, void* gpart, void* spart, int na,
+               int ne, int h, int n, int m, int hc, int mode, cudaStream_t st) {
+  if (h == 4 && hc == 64)
+    return launch_stats<T, 4, 64>(q, k, qm, km, sq, sk, rowmax, rowsum, gpart, spart, na,
+                                  ne, n, m, mode, st);
   if (h == 4 && hc == 32)
     return launch_stats<T, 4, 32>(q, k, qm, km, sq, sk, rowmax, rowsum, gpart, spart, na,
                                   ne, n, m, mode, st);
@@ -1421,6 +1509,25 @@ int stats(const void* q, const void* k, const void* qm, const void* km, const vo
     return launch_stats<T, 4, 16>(q, k, qm, km, sq, sk, rowmax, rowsum, gpart, spart, na,
                                   ne, n, m, mode, st);
   return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int stats(const void* q, const void* k, const void* qm, const void* km, const void* sq,
+          const void* sk, void* rowmax, void* rowsum, void* gpart, void* spart, int na,
+          int ne, int h, int n, int m, int hc, int mode, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  // bf16 at head widths 64 and 32 takes the tc form, everything else
+  // (float32, head width 16) the CUDA cores
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (h == 4 && hc == 64)
+      return eq_tc::launch<64>(q, k, qm, km, sq, sk, rowmax, rowsum, gpart, spart, na, ne, n,
+                               m, mode, st);
+    if (h == 4 && hc == 32)
+      return eq_tc::launch<32>(q, k, qm, km, sq, sk, rowmax, rowsum, gpart, spart, na, ne, n,
+                               m, mode, st);
+  }
+  return stats_cuda<T>(q, k, qm, km, sq, sk, rowmax, rowsum, gpart, spart, na, ne, h, n, m,
+                       hc, mode, st);
 }
 
 template <typename T, int H, int HC>
@@ -1508,23 +1615,40 @@ extern "C" int se3et_eq_attention_apply_cuda_bf16(
                                    (cudaStream_t)stream);
 }
 
+// the bf16 K6 on its first design (the CUDA-core kernel) at any width it is
+// built for, where the tc form takes the shape: for the tests and the
+// timings that hold the two against each other
+extern "C" int se3et_eq_attention_stats_cuda_bf16(
+    const void* q, const void* k, const void* qm, const void* km, const void* sq,
+    const void* sk, void* rowmax, void* rowsum, void* gpart, void* spart, int na, int ne,
+    int h, int n, int m, int hc, int mode, void* stream) {
+  return stats_cuda<__nv_bfloat16>(q, k, qm, km, sq, sk, rowmax, rowsum, gpart, spart, na, ne,
+                                   h, n, m, hc, mode, (cudaStream_t)stream);
+}
+
 // K6's pooled partial slots per (a, e) at N query rows, as the kernel that
 // takes (h, hc, bf16) writes them (the wrapper's
 // eq_attention.eq_attention_stats_parts is held against it); 0 where none
 extern "C" int se3et_eq_attention_stats_parts(int h, int n, int hc, int bf16) {
   if (h != 4 || (hc != 64 && hc != 32 && hc != 16)) return 0;
-  if (bf16 && hc == 64) return (n + eq_tc::kRows - 1) / eq_tc::kRows;
+  if (bf16 && (hc == 64 || hc == 32)) return (n + eq_tc::kRows - 1) / eq_tc::kRows;
   return (n + kWarps - 1) / kWarps;
 }
 
-// the tc form's shared memory at M keys (eq_attention.eq_stats_smem_bytes)
-extern "C" long long se3et_eq_attention_stats_smem(int m) {
-  return (long long)eq_tc::smem_bytes(m);
+// K6's tc form at head width hc (64 or 32): its shared memory at M keys
+// (eq_attention.eq_stats_smem_bytes); 0 at another width
+extern "C" long long se3et_eq_attention_stats_smem(int m, int hc) {
+  if (hc == 64) return (long long)eq_tc::smem_bytes<64>(m);
+  if (hc == 32) return (long long)eq_tc::smem_bytes<32>(m);
+  return 0;
 }
 
-// blocks of the tc form resident per SM at M keys (-1 on a CUDA error)
-extern "C" int se3et_eq_attention_stats_blocks_per_sm(int m) {
-  return eq_tc::blocks_per_sm(m);
+// blocks of K6's tc form at head width hc resident per SM at M keys (-1 on
+// a CUDA error or at another width)
+extern "C" int se3et_eq_attention_stats_blocks_per_sm(int m, int hc) {
+  if (hc == 64) return eq_tc::blocks_per_sm<64>(m);
+  if (hc == 32) return eq_tc::blocks_per_sm<32>(m);
+  return -1;
 }
 
 // K7's tc form at head width hc (64 or 32): its shared memory at M keys

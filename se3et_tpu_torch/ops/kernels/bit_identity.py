@@ -43,7 +43,9 @@ shapes of se3ete.3dmatch (bf16) and the tiny float32 widths:
 * K6 (EQ cross-attention stats) and K7 (apply) at the serving shape, q, k,
   v (6, 4, 1024, 64) in bf16 (timed), and at N = M = 128, head width 16 in
   float32; both also at se3ete2's serving shape, head width 32 in bf16
-  (timed), on inputs of their own generator;
+  (timed; K6 held within its ``TOLERANCES``), on inputs of their own
+  generator (K7's row statistics from the plain K6, so K7 is held by
+  itself at both widths);
 * K4 (Sinkhorn, 100 iterations, float32) on ``selfcheck.sinkhorn_inputs``
   at the serving shape (256, 65, 65) (timed) and at (6, 17, 13), compared
   on valid entries only: the masked ones are zeroed (they hold -1e12 + u +
@@ -148,12 +150,17 @@ REPS = 20  # launches per timing
 TRAIN_STEP = "training step (median)"
 STEP_KERNELS = "training step kernels (device ms by kernel)"
 # kernels changed on purpose, with their bound against the other build
-# (the rest, K5 and K16 at head width 64 and K6 and K7 among them, are held
-# bit for bit): K5 at head width 32 in bf16 (1e-3 of the first design's
-# scale) takes its ws form since it was built there, where the first design
-# took the shape: products summed on the tensor cores in another order, and
-# at AH = 4 each head's softmax in two halves of the keys, merged at the
-# end, so some p round to bf16 at other running maxima; K4 (1e-5
+# (the rest, K5 and K16 at head width 64, K6 at 64 and K7 at both widths
+# among them, are held bit for bit): K5 at head width 32 in bf16 (1e-3 of
+# the first design's scale) takes its ws form since it was built there,
+# where the first design took the shape: products summed on the tensor
+# cores in another order, and at AH = 4 each head's softmax in two halves
+# of the keys, merged at the end, so some p round to bf16 at other running
+# maxima; K6 at head width 32 in bf16 (1e-3 of each output's scale, as its
+# kernel-vs-plain check states) takes its tc form since it was built there,
+# where the first design took the shape: products on the tensor cores, the
+# row sums of ex2.approx in base 2 per lane against expf rescaled per tile,
+# merged across the quad; K4 (1e-5
 # of the valid entries' scale, ~K4's 1e-4 absolute at out ~ 10) sums each
 # row and column in two lanes' slices of two FMA chains each, where its
 # first design summed 32 lanes' strided shares; the bf16 K13's conv (1e-3;
@@ -174,7 +181,7 @@ STEP_KERNELS = "training step kernels (device ms by kernel)"
 # the tensor cores per block, where the first design summed float32 bases
 # per query row
 TOLERANCES = {**dict.fromkeys(K11_BF16 + K10_CASES[:1], 1e-2),
-              **dict.fromkeys((c[0] for c in K5_BF16_32), 1e-3),
+              **dict.fromkeys((c[0] for c in K5_BF16_32), 1e-3), K6_BF16_32: 1e-3,
               **dict.fromkeys(K4_CASES, 1e-5), K13_CASES[0]: 1e-3, K14_CASES[0]: 1e-2}
 
 

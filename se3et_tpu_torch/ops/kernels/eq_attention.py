@@ -15,6 +15,12 @@ of shape (A, E, H, N, M); these two passes never materialise it:
   the stats of K6, the scores recomputed.
 
 Both kernels live in ``csrc/eq_attention.cu``; its source notes the design.
+In bf16 both take their "tc" forms at head widths 64 (se3ete) and 32 (the
+wide-head family se3ete2), each width with its own plan (``STATS_PLANS``,
+``APPLY_PLANS``); K6's is bound by its exponentials, and at 32 held by each
+warp's chain of products, maxima and exps.  The CUDA-core first designs
+take float32 and head width 16, and, asked for by ``form="cuda"``, every
+shape, for the tests and the timings.
 """
 
 from __future__ import annotations
@@ -31,15 +37,18 @@ _NEG = -1e9
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 POSITIVE_MODES = (None, "sq", "abs", "relu", "sigmoid", "leakyrelu", "softplus", "minus")
 KERNEL_HEADS = (4,)
-# 64: se3ete's EQ cross layers; 32: the wide-head family se3ete2's (K7's tc
-# form in bf16, K6 on the CUDA cores); 16: the tiny card-vs-CPU widths
+# 64: se3ete's EQ cross layers; 32: the wide-head family se3ete2's (K6's and
+# K7's tc forms in bf16, each width with its own plan); 16: the tiny
+# card-vs-CPU widths
 KERNEL_HEAD_DIMS = (16, 32, 64)
 SMEM_LIMIT = 232448  # dynamic shared memory one block can have on Hopper, bytes
-# K6's forms (csrc/eq_attention.cu): query rows behind one pooled partial
-# slot, and the tc form's plan: keys per staged tile, ring slots, consumer
-# warps, query rows per consumer warp (q staged in shared memory)
+# K6's forms (csrc/eq_attention.cu): query rows behind one pooled partial slot
 TC_ROWS, CUDA_ROWS = 16, 8
-TC_KEYS, TC_STAGES, TC_CONSUMERS, TC_UNIT_ROWS = 32, 8, 9, 16
+# K6's tc form per head width (csrc/eq_attention.cu, eq_tc::StatsPlan, from
+# eq_tc::kStats* at 64 and eq_tc::kStats32* at 32): keys per staged tile,
+# ring slots, consumer warps, query rows per consumer warp, q staged in
+# shared memory (else held in registers)
+STATS_PLANS = {64: (32, 8, 9, 16, True), 32: (128, 4, 9, 16, False)}
 # K7's tc form per head width (csrc/eq_attention.cu, eq_tc::ApplyPlan, from
 # eq_tc::kApply* at 64 and eq_tc::kApply32* at 32): keys per staged k / v
 # tile and ring slots (each a k and a v tile)
@@ -56,16 +65,18 @@ def _form(kernel: str, h: int, c: int, dtype, tc_widths) -> str:
 def eq_attention_stats_form(h: int, c: int, dtype) -> str:
     """Which hand-written K6 kernel takes H heads of width ``c`` in ``dtype``:
 
-    * "tc": bf16, H = 4, head width 64 (the serving form,
-      ``eq_tc::eq_stats_tc_kernel``: TMA key tiles, mma.sync, base-2
-      softmax);
-    * "cuda": the CUDA-core kernel (float32, and head widths 16 and 32 in
-      either type: the wide-head family's EQ cross layers take it).
+    * "tc": bf16, H = 4, head width 64 or 32 (the serving forms of se3ete
+      and of the wide-head family se3ete2, ``eq_tc::eq_stats_tc_kernel<64>``
+      and ``<32>``: TMA key tiles, mma.sync, base-2 softmax; each width its
+      plan, ``STATS_PLANS``; at 32 under the 64-byte swizzle, q in
+      registers, every consumer branch warp-uniform);
+    * "cuda": the CUDA-core kernel, the first design (float32, and head
+      width 16 in either type).
 
     Chosen by shape alone, as the C entry point chooses; neither is a
     fallback of the other.  Raises ``ValueError`` where no form takes the
     shape."""
-    return _form("K6", h, c, dtype, (64,))
+    return _form("K6", h, c, dtype, tuple(STATS_PLANS))
 
 
 def eq_attention_apply_form(h: int, c: int, dtype) -> str:
@@ -89,22 +100,27 @@ def eq_attention_stats_parts(h: int, n: int, c: int, dtype) -> int:
     """Pooled partial slots per (a, e) that K6 writes for N query rows: one
     per 16-row warp unit in the tc form, one per 8-row block in the CUDA-core
     form (``se3et_eq_attention_stats_parts`` in the C source)."""
-    rows = TC_ROWS if eq_attention_stats_form(h, c, dtype) == "tc" else CUDA_ROWS
-    return -(-n // rows)
+    return _stats_parts(n, eq_attention_stats_form(h, c, dtype))
 
 
-def eq_stats_smem_bytes(m: int) -> int:
-    """Shared memory of K6's tc form at M keys, in bytes, as
-    ``eq_tc::smem_bytes`` lays it out: 1024 bytes of alignment slack, the
-    ring of TC_STAGES key tiles (4 heads x TC_KEYS keys x 64 bf16), each
-    consumer warp's q tile (4 heads x TC_UNIT_ROWS rows x 64 bf16), the key
-    mask as bits (a whole number of tiles, padded to 8 bytes), 2 x TC_STAGES
+def _stats_parts(n: int, form: str) -> int:
+    return -(-n // (TC_ROWS if form == "tc" else CUDA_ROWS))
+
+
+def eq_stats_smem_bytes(m: int, c: int = 64) -> int:
+    """Shared memory of K6's tc form at M keys and head width ``c``, in
+    bytes, as ``eq_tc::smem_bytes<c>`` lays it out: 1024 bytes of alignment
+    slack, the ring of ``stages`` key tiles (4 heads x ``keys`` keys x c
+    bf16; ``STATS_PLANS[c]``), each consumer warp's q tile where q is staged
+    in shared memory (4 heads x its query rows x c bf16), the key mask as
+    bits (a whole number of tiles, padded to 8 bytes), 2 x ``stages``
     mbarriers and two counts."""
-    tiles = -(-m // TC_KEYS)
-    mask = (tiles * TC_KEYS // 8 + 7) // 8 * 8
-    ring = TC_STAGES * 4 * TC_KEYS * 64 * 2
-    q = TC_CONSUMERS * 4 * TC_UNIT_ROWS * 64 * 2
-    return 1024 + ring + q + mask + 2 * TC_STAGES * 8 + 8
+    keys, stages, consumers, unit_rows, q_smem = STATS_PLANS[c]
+    tiles = -(-m // keys)
+    mask = (tiles * keys // 8 + 7) // 8 * 8
+    ring = stages * 4 * keys * c * 2
+    q = consumers * 4 * unit_rows * c * 2 if q_smem else 0
+    return 1024 + ring + q + mask + 2 * stages * 8 + 8
 
 
 def eq_apply_smem_bytes(m: int, c: int = 64) -> int:
@@ -236,16 +252,35 @@ def eq_attention_stats(q, k, q_masks, k_masks, sup_q=None, sup_k=None, *,
     no form takes raises ``ValueError``.  The kernel writes every pooled
     partial slot (:func:`eq_attention_stats_parts`); they are reduced here,
     in a fixed order (no atomics).  Bound by its exponentials."""
+    return _eq_attention_stats(q, k, q_masks, k_masks, sup_q, sup_k, positive=positive)
+
+
+def _chosen_form(kernel: str, chosen: str, form: Optional[str], h: int, c: int, dtype) -> str:
+    """``form`` where the caller asks for one ("cuda", the first design,
+    takes every shape that has a kernel; "tc" only the shapes whose form it
+    is), else the shape's own form ``chosen``."""
+    form = form or chosen
+    if form not in ("tc", "cuda") or (form == "tc" and chosen != "tc"):
+        raise ValueError(f"{kernel}'s {form} form does not take H={h}, head width {c}, {dtype}")
+    return form
+
+
+def _eq_attention_stats(q, k, q_masks, k_masks, sup_q=None, sup_k=None, *, positive="sq",
+                        form: Optional[str] = None):
+    """K6 on the kernel :func:`eq_attention_stats_form` names, or on ``form``
+    where the caller asks for one (see :func:`_chosen_form`)."""
     _check_stats(q, k, q_masks, k_masks, sup_q, sup_k, positive)
+    a, h, n, c = q.shape
+    e, _, m, _ = k.shape
+    if form is not None or q.device.type != "cpu":  # the CPU takes any shape, plain
+        chosen = eq_attention_stats_form(h, c, q.dtype)
+        form = _chosen_form("K6", chosen, form, h, c, q.dtype)
     if q.device.type == "cpu":
         return eq_attention_stats_plain(q, k, q_masks, k_masks, sup_q, sup_k,
                                         positive=positive)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    a, h, n, c = q.shape
-    e, _, m, _ = k.shape
-    form = eq_attention_stats_form(h, c, q.dtype)
-    if form == "tc" and eq_stats_smem_bytes(m) > SMEM_LIMIT:
+    if form == "tc" and eq_stats_smem_bytes(m, c) > SMEM_LIMIT:
         raise ValueError(f"K6's tc form does not fit M={m} keys in a block")
     with_sup = sup_q is not None
     if with_sup:
@@ -258,18 +293,18 @@ def eq_attention_stats(q, k, q_masks, k_masks, sup_q=None, sup_k=None, *,
     dev = q.device
     rowmax = torch.empty((a, e, h, n), dtype=torch.float32, device=dev)
     rowsum = torch.empty_like(rowmax)
-    gpart = torch.empty((a, e, eq_attention_stats_parts(h, n, c, q.dtype)),
-                        dtype=torch.float32, device=dev)
+    gpart = torch.empty((a, e, _stats_parts(n, form)), dtype=torch.float32, device=dev)
     spart = torch.empty_like(gpart)
-    fn = _build.function("eq_attention", f"se3et_eq_attention_stats_{_DTYPES[q.dtype]}",
-                         10, 7)
+    first = form == "cuda" and chosen == "tc"  # the first design where tc takes the shape
+    fn = _build.function("eq_attention", "se3et_eq_attention_stats_"
+                         f"{'cuda_' if first else ''}{_DTYPES[q.dtype]}", 10, 7)
     _build.check(fn(q.data_ptr(), k.data_ptr(), qm.data_ptr(), km.data_ptr(),
                     sup_q.data_ptr() if with_sup else None,
                     sup_k.data_ptr() if with_sup else None, rowmax.data_ptr(),
                     rowsum.data_ptr(), gpart.data_ptr(), spart.data_ptr(),
                     a, e, h, n, m, c, POSITIVE_MODES.index(positive),
                     torch.cuda.current_stream(dev).cuda_stream),
-                 "eq_attention_stats launch")
+                 f"eq_attention_stats launch ({form})")
     eq_attention_stats.launches += 1
     if form == "tc":  # the partials come divided by the valid (n, m) count
         attn_ae = gpart.sum(dim=-1)
@@ -292,19 +327,17 @@ def eq_attention_apply(q, k, v, w_ae, rowmax, rowsum, k_masks):
 
 def _eq_attention_apply(q, k, v, w_ae, rowmax, rowsum, k_masks, form: Optional[str] = None):
     """K7 on the kernel :func:`eq_attention_apply_form` names, or on ``form``
-    where the caller asks for one ("cuda", the first design, takes every
-    shape that has a kernel)."""
+    where the caller asks for one (see :func:`_chosen_form`)."""
     _check_apply(q, k, v, w_ae, rowmax, rowsum, k_masks)
+    a, h, n, c = q.shape
+    e, _, m, _ = k.shape
+    if form is not None or q.device.type != "cpu":  # the CPU takes any shape, plain
+        chosen = eq_attention_apply_form(h, c, q.dtype)
+        form = _chosen_form("K7", chosen, form, h, c, q.dtype)
     if q.device.type == "cpu":
         return eq_attention_apply_plain(q, k, v, w_ae, rowmax, rowsum, k_masks)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    a, h, n, c = q.shape
-    e, _, m, _ = k.shape
-    chosen = eq_attention_apply_form(h, c, q.dtype)
-    form = form or chosen
-    if form not in ("tc", "cuda") or (form == "tc" and chosen != "tc"):
-        raise ValueError(f"K7's {form} form does not take H={h}, head width {c}, {q.dtype}")
     if form == "tc" and eq_apply_smem_bytes(m, c) > SMEM_LIMIT:
         raise ValueError(f"K7's tc form does not fit M={m} keys in a block")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()

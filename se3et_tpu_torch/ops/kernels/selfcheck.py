@@ -113,7 +113,7 @@ class CheckResult:
     route_ms: Optional[float] = None  # the unfused route's time (K12-K14), a yardstick
     device_ms: Optional[float] = None  # the kernel's own device time per call (profiler)
     two_calls_ms: Optional[float] = None  # two PyTorch calls computing the function (K7)
-    first_ms: Optional[float] = None  # the first design on the same inputs (K1, K2, K5, K7,
+    first_ms: Optional[float] = None  # the first design on the same inputs (K1, K2, K5-K7,
     # K8-K11, K14, K15)
     # every device kernel of one wrapper call (K11: its products too), and
     # the first design's kernel, per call (profiler)
@@ -126,7 +126,7 @@ class CheckResult:
     bitwise: Optional[bool] = None
     reread: Optional[float] = None
     # K15, K5-K7 and K16: per call replayed from a CUDA graph
-    # (selfcheck.replay_ms), the form and (K15) its first design
+    # (selfcheck.replay_ms), the form and (K5-K7, K15) its first design
     replay_ms: Optional[float] = None
     first_replay_ms: Optional[float] = None
     # K8's tiles form on the card: its tile plan's build from the reverse
@@ -513,7 +513,8 @@ def _eq_inputs(q_masks, k_masks, a, h, c, dtype, seed):
 
 
 def check_eq_stats(q_masks, k_masks, a=6, h=4, c=64, with_sup=False, positive="sq",
-                   dtype=torch.bfloat16, seed=5, reps=3, device_kernel=None, replay=False):
+                   dtype=torch.bfloat16, seed=5, reps=3, device_kernel=None, replay=False,
+                   first=False):
     """K6 on random q (A, H, N, c), k (A, H, M, c) with the given masks and
     ``positive`` mode.  The error reported is the largest over the outputs
     (row max, row sum, attn_ae[, sup]) of max|got - want| / max|want|,
@@ -521,7 +522,10 @@ def check_eq_stats(q_masks, k_masks, a=6, h=4, c=64, with_sup=False, positive="s
     online in base 2 (ex2.approx in the bf16 form).  With ``device_kernel``
     (a kernel name) also the device time of that kernel per call; with
     ``replay``, the call's time replayed from a CUDA graph
-    (:func:`replay_ms`)."""
+    (:func:`replay_ms`); with ``first``, the first design's
+    (``_eq_attention_stats(..., form="cuda")``, the CUDA-core kernel) time
+    on the same inputs by events, replayed (with ``replay``) and as its
+    kernel's device time (with ``device_kernel``)."""
     q, k, _, sup_q, sup_k = _eq_inputs(q_masks, k_masks, a, h, c, dtype, seed)
     sq, sk = (sup_q, sup_k) if with_sup else (None, None)
     kern = lambda: eq_attention.eq_attention_stats(  # noqa: E731
@@ -542,6 +546,14 @@ def check_eq_stats(q_masks, k_masks, a=6, h=4, c=64, with_sup=False, positive="s
             res.device_ms = device_ms(kern, device_kernel)
         if replay:
             res.replay_ms = replay_ms(kern)
+        if first:
+            first_fn = lambda: eq_attention._eq_attention_stats(  # noqa: E731
+                q, k, q_masks, k_masks, sq, sk, positive=positive, form="cuda")
+            res.first_ms = _time_ms(first_fn, reps)
+            if replay:
+                res.first_replay_ms = replay_ms(first_fn)
+            if device_kernel is not None:
+                res.first_device_ms = device_ms(first_fn, "eq_stats_kernel")
     e, m, n = k.shape[0], k.shape[2], q.shape[2]
     nbytes = _nbytes(q, k, q_masks, k_masks) + 2 * a * e * h * n * 4 + a * e * 4
     ops = 2.0 * a * e * h * n * m * c

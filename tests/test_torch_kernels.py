@@ -380,11 +380,11 @@ def test_geometric_embedding_bwd_form_refuses_shapes_no_kernel_takes(c, dtype, b
     (4, 64, torch.float32, "cuda"),
     (4, 16, torch.float32, "cuda"),     # the tiny card-vs-CPU widths
     (4, 16, torch.bfloat16, "cuda"),
-    (4, 32, torch.bfloat16, "cuda"),    # the wide-head family's EQ cross layers
+    (4, 32, torch.bfloat16, "tc"),      # the wide-head family's EQ cross layers
     (4, 32, torch.float32, "cuda"),
 ])
 def test_eq_attention_stats_form(h, c, dtype, form):
-    """K6 takes the tc form in bf16 with H = 4 and head width 64, the
+    """K6 takes the tc form in bf16 with H = 4 and head width 64 or 32, the
     CUDA-core form otherwise."""
     assert eq_k.eq_attention_stats_form(h, c, dtype) == form
 
@@ -404,7 +404,8 @@ def test_eq_attention_stats_form_refuses_shapes_no_kernel_takes(h, c, dtype):
     (1024, 64, torch.bfloat16, 64), (1003, 64, torch.bfloat16, 63),
     (17, 64, torch.bfloat16, 2), (1, 64, torch.bfloat16, 1),
     (1024, 64, torch.float32, 128), (17, 16, torch.float32, 3),
-    (17, 16, torch.bfloat16, 3), (1024, 32, torch.bfloat16, 128),
+    (17, 16, torch.bfloat16, 3), (1024, 32, torch.bfloat16, 64),
+    (1003, 32, torch.bfloat16, 63), (17, 32, torch.bfloat16, 2),
     (1003, 32, torch.float32, 126),
 ])
 def test_eq_attention_stats_parts(n, c, dtype, parts):
@@ -413,14 +414,36 @@ def test_eq_attention_stats_parts(n, c, dtype, parts):
     assert eq_k.eq_attention_stats_parts(4, n, c, dtype) == parts
 
 
+@pytest.mark.parametrize("c", [64, 32])
 @pytest.mark.parametrize("m", [1, 1024, 100_000])
-def test_eq_attention_stats_plan_fits_a_block(m):
-    """The tc form's shared memory (ring of key tiles, each consumer warp's
-    q tile, the key-mask bits, mbarriers) fits one block of an H100."""
-    plan = eq_k.eq_stats_smem_bytes(m)
-    ring = eq_k.TC_STAGES * 4 * eq_k.TC_KEYS * 64 * 2
-    q = eq_k.TC_CONSUMERS * 4 * eq_k.TC_UNIT_ROWS * 64 * 2
+def test_eq_attention_stats_plan_fits_a_block(m, c):
+    """The tc form's shared memory at head width ``c`` (ring of key tiles,
+    each consumer warp's q tile where q is staged there, the key-mask bits,
+    mbarriers) fits one block of an H100."""
+    keys, stages, consumers, unit_rows, q_smem = eq_k.STATS_PLANS[c]
+    plan = eq_k.eq_stats_smem_bytes(m, c)
+    ring = stages * 4 * keys * c * 2
+    q = consumers * 4 * unit_rows * c * 2 if q_smem else 0
+    assert keys % 32 == 0 and unit_rows % eq_k.TC_ROWS == 0
     assert ring + q + m // 8 < plan <= 232448 == eq_k.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("c,dtype", [(16, torch.bfloat16), (16, torch.float32),
+                                     (32, torch.float32), (64, torch.float32)])
+def test_eq_attention_stats_tc_form_refuses_shapes_it_does_not_take(c, dtype):
+    """``_eq_attention_stats(form="tc")`` raises where the tc form does not
+    take the shape (float32, head width 16), on every device; "cuda" and no
+    form take it."""
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((2, 4, 5, c), generator=g).to(dtype)
+    k = torch.randn((3, 4, 7, c), generator=g).to(dtype)
+    masks = (torch.ones(5, dtype=torch.bool), torch.ones(7, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        eq_k._eq_attention_stats(q, k, *masks, form="tc")
+    want = eq_k.eq_attention_stats_plain(q, k, *masks)
+    for form in ("cuda", None):
+        for got, ref in zip(eq_k._eq_attention_stats(q, k, *masks, form=form), want):
+            assert torch.equal(got, ref)
 
 
 def _eq_stats_args(**change):

@@ -581,6 +581,49 @@ def _rpe_32_inputs(cuda, n, ah, with_sh, pad, seed=32):
     return (q, k, v, qp, emb, masks, qw, rpe.point_rows(points) if with_sh else None)
 
 
+def _k5_32_call(cuda, n, ah, with_sh, pad):
+    """One K5 call on ``_rpe_32_inputs(n, ah, with_sh, pad)``."""
+    from se3et_tpu_torch.ops.kernels import rpe_attention as rpe
+
+    args = _rpe_32_inputs(cuda, n, ah, with_sh, pad)
+    return lambda: rpe.rpe_self_attention(*args, scale=32 ** -0.5)
+
+
+_PROFILE_CALL = """
+import json, sys
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+sys.path.insert(0, sys.argv[1])
+import tests.test_torch_kernels_cuda as t
+call = getattr(t, sys.argv[2])(torch.device("cuda"), *json.loads(sys.argv[3]))
+call()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    call()
+    torch.cuda.synchronize()
+print(json.dumps([e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]))
+"""
+
+
+def _child_kernels(setup, *args):
+    """The device kernels one call of ``setup(cuda, *args)``'s callable
+    launches (after one warm-up call), from torch.profiler in a process of
+    its own: a profiler session in this process leaves the later sessions
+    of K11's launch tests lossy on the card (they then lose kernel
+    records)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", _PROFILE_CALL, root, setup, json.dumps(args)],
+                         capture_output=True, text=True, timeout=600, cwd=root)
+    assert run.returncode == 0, run.stderr[-2000:]
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
 @pytest.mark.parametrize("n,ah,with_sh,pad", RPE_32_SHAPES)
 def test_rpe_attention_ws_at_head_width_32_matches_the_first_design(cuda, n, ah, with_sh, pad):
     """At head width 32, C = 128 in bf16 K5 takes its ws form; on the same
@@ -610,9 +653,9 @@ def test_rpe_attention_ws_at_head_width_32_matches_the_first_design(cuda, n, ah,
         err = float((got - ref)[rows[..., 0]].abs().max())
         assert err <= tol * float(ref[rows[..., 0]].abs().max()), err
     if n == 1024 and with_sh:
-        call = lambda: rpe.rpe_self_attention(*args, scale=32 ** -0.5)  # noqa: E731
-        assert selfcheck.device_ms(call, "rpe_attention_ws_kernel", reps=1) is not None
-        assert selfcheck.device_ms(call, "rpe_attention_kernel", reps=1) is None
+        names = _child_kernels("_k5_32_call", n, ah, with_sh, pad)
+        assert any("rpe_attention_ws_kernel" in k for k in names), names
+        assert not any("rpe_attention_kernel" in k for k in names), names
         with pytest.raises(ValueError):
             rpe._rpe_forward(*args, 32 ** -0.5, False, form="tc")
 
@@ -640,7 +683,8 @@ EQ_MODES = ("sq", None, "abs", "relu", "sigmoid", "leakyrelu", "softplus", "minu
     (1024, 1024, 64, torch.bfloat16, "sq"),   # EQ cross layers
     (1003, 997, 64, torch.bfloat16, "sq"),    # ragged N and M
     (128, 128, 16, torch.float32, "sq"),      # tiny card-vs-CPU widths
-    # head width 32 (se3ete2's EQ cross layers): the CUDA-core form
+    # head width 32 (se3ete2's EQ cross layers): the tc form in bf16, the
+    # CUDA-core form in float32
     (1003, 997, 32, torch.bfloat16, "sq"), (1024, 1024, 32, torch.float32, "sq"),
 ] + [(1024, 1024, 64, torch.bfloat16, mode) for mode in EQ_MODES[1:]]
   + [(1024, 1024, 32, torch.bfloat16, mode) for mode in EQ_MODES])
@@ -678,23 +722,27 @@ def _eq_edge_masks(case, n, m, device):
     (1024, 1, "ragged"), (1024, 63, "ragged"),          # M not a multiple of the tile
     (1024, 997, "ragged"),
     (1024, 1024, "masked tiles"), (1003, 997, "masked tiles"),
+    (1024, 1024, "masked wide tiles"), (1003, 997, "masked wide tiles"),
     (1024, 1024, "no query row"), (1024, 1024, "one key"), (17, 63, "one key"),
 ])
 @pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 64), (torch.float32, 16),
                                      (torch.bfloat16, 32), (torch.float32, 32)])
 @pytest.mark.parametrize("with_sup", [False, True])
 def test_eq_attention_stats_kernel_edges(cuda, n, m, case, dtype, c, with_sup):
-    """K6 (both forms) at shapes and masks off the serving path: N = 1 and
-    17, M = 1, 63 and 997, whole masked key tiles (skipped by the tc form),
-    every query row masked, a single valid key; within 1e-3 of each output's
-    scale."""
+    """K6 (both forms; bf16 at head widths 64 and 32 the tc form) at shapes
+    and masks off the serving path: N = 1 and 17, M = 1, 63 and 997, whole
+    masked key tiles of 64 and of 128 keys (skipped by the tc form at either
+    width's staged tile), every query row masked, a single valid key;
+    within 1e-3 of each output's scale."""
     qm, km = _eq_edge_masks(case, n, m, cuda)
     _assert_ok(selfcheck.check_eq_stats(qm, km, c=c, with_sup=with_sup, dtype=dtype, reps=1))
 
 
-def test_eq_attention_stats_plan_matches_the_kernel(cuda):
+@pytest.mark.parametrize("c", [64, 32])
+def test_eq_attention_stats_plan_matches_the_kernel(cuda, c):
     """The wrapper's partial-slot count and the tc form's shared-memory plan
-    are the kernel's."""
+    at head width ``c`` are the kernel's, and one block of it is resident
+    per SM at the serving M; the C entries take no other width."""
     import ctypes
 
     from se3et_tpu_torch.ops.kernels import _build
@@ -711,14 +759,52 @@ def test_eq_attention_stats_plan_matches_the_kernel(cuda):
                 eq.eq_attention_stats_parts(4, n, c, dtype)
     assert parts(8, 1024, 64, 1) == 0 and parts(4, 1024, 128, 1) == 0
     smem = lib.se3et_eq_attention_stats_smem
-    smem.argtypes = [ctypes.c_int]
+    smem.argtypes = [ctypes.c_int] * 2
     smem.restype = ctypes.c_longlong
     for m in (1, 63, 64, 997, 1024, 5000):
-        assert smem(m) == eq.eq_stats_smem_bytes(m)
+        assert smem(m, c) == eq.eq_stats_smem_bytes(m, c)
+    assert smem(1024, 16) == 0
     occupancy = lib.se3et_eq_attention_stats_blocks_per_sm
-    occupancy.argtypes = [ctypes.c_int]
+    occupancy.argtypes = [ctypes.c_int] * 2
     occupancy.restype = ctypes.c_int
-    assert occupancy(1024) == 1
+    assert occupancy(1024, c) == 1
+    assert occupancy(1024, 16) == -1
+
+
+@pytest.mark.parametrize("n,m,case", [
+    (1024, 1024, "ragged"), (1003, 997, "ragged"), (17, 63, "ragged"),
+    (1024, 1024, "masked wide tiles"), (1024, 1024, "one key"),
+    (1024, 1024, "no query row"),
+])
+@pytest.mark.parametrize("with_sup", [False, True])
+def test_eq_attention_stats_tc_matches_the_first_design_at_head_width_32(cuda, n, m, case,
+                                                                         with_sup):
+    """At head width 32 in bf16 the first design (the CUDA-core kernel, by
+    ``_eq_attention_stats(..., form="cuda")``) still agrees with the plain
+    version, and the tc form (the shape's) with it, each output within
+    1e-3 of its scale (ex2.approx against expf, sums in another order), all
+    finite; "tc" refuses float32."""
+    from se3et_tpu_torch.ops.kernels import eq_attention as eq
+
+    assert eq.eq_attention_stats_form(4, 32, torch.bfloat16) == "tc"
+    qm, km = _eq_edge_masks(case, n, m, cuda)
+    g = torch.Generator().manual_seed(32)
+    q, k = (torch.randn(s, generator=g).to(cuda, torch.bfloat16)
+            for s in ((6, 4, n, 32), (6, 4, m, 32)))
+    sup = tuple((torch.rand((6, 4), generator=g) + 0.5).to(cuda) for _ in range(2)) \
+        if with_sup else (None, None)
+    args = (q, k, qm, km, *sup)
+    before = eq.eq_attention_stats.launches
+    tc, first = eq.eq_attention_stats(*args), eq._eq_attention_stats(*args, form="cuda")
+    plain = eq.eq_attention_stats_plain(*args)
+    torch.cuda.synchronize()
+    assert eq.eq_attention_stats.launches == before + 2
+    for got, ref in ((first, plain), (tc, first), (tc, plain)):
+        for x, y in zip(got, ref):
+            assert bool(torch.isfinite(x).all())
+            assert float((x - y).abs().max()) <= 1e-3 * max(float(y.abs().max()), 1e-30)
+    with pytest.raises(ValueError):
+        eq._eq_attention_stats(q.float(), k.float(), qm, km, *sup, form="tc")
 
 
 @pytest.mark.parametrize("n,m,c,dtype", [
@@ -1204,41 +1290,12 @@ def test_geometric_embedding_bwd_tc_is_deterministic(cuda):
         assert torch.equal(a, b)
 
 
-_PROFILE_K10 = """
-import json, sys
-import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
-sys.path.insert(0, sys.argv[1])
-from tests.test_torch_kernels_cuda import _emb_bwd_args
-from se3et_tpu_torch.ops.kernels import embedding
-n, c, dtype, seed = int(sys.argv[2]), int(sys.argv[3]), getattr(torch, sys.argv[4]), int(sys.argv[5])
-args = _emb_bwd_args(torch.device("cuda"), n, c, dtype, seed)
-embedding.geometric_embedding_bwd(*args)
-torch.cuda.synchronize()
-with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-    embedding.geometric_embedding_bwd(*args)
-    torch.cuda.synchronize()
-print(json.dumps([e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]))
-"""
+def _k10_call(cuda, n, c, dtype, seed):
+    """One K10 call on ``_emb_bwd_args(n, c, dtype, seed)`` (``dtype`` by name)."""
+    from se3et_tpu_torch.ops.kernels import embedding
 
-
-def _k10_kernels(n, c, dtype, seed):
-    """The device kernels one K10 call on ``_emb_bwd_args(n, c, dtype,
-    seed)`` launches, from torch.profiler in a process of its own: a
-    profiler session in this process would leave the later sessions of K11's
-    launch test lossy on the card (they then lose kernel records)."""
-    import json
-    import os
-    import subprocess
-    import sys
-
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    run = subprocess.run([sys.executable, "-c", _PROFILE_K10, root, str(n), str(c),
-                          str(dtype).split(".")[-1], str(seed)],
-                         capture_output=True, text=True, timeout=600, cwd=root)
-    assert run.returncode == 0, run.stderr[-2000:]
-    return json.loads(run.stdout.strip().splitlines()[-1])
+    args = _emb_bwd_args(cuda, n, c, getattr(torch, dtype), seed)
+    return lambda: embedding.geometric_embedding_bwd(*args)
 
 
 @pytest.mark.parametrize("dtype,form,kernel,other", [
@@ -1252,7 +1309,7 @@ def test_geometric_embedding_bwd_launches_its_form(cuda, dtype, form, kernel, ot
     from se3et_tpu_torch.ops.kernels import embedding
 
     assert embedding.geometric_embedding_bwd_form(256, dtype) == form
-    names = _k10_kernels(1024, 256, dtype, 19)
+    names = _child_kernels("_k10_call", 1024, 256, str(dtype).split(".")[-1], 19)
     assert any(kernel in k for k in names) and not any(other in k for k in names), names
 
 
@@ -1264,7 +1321,7 @@ def test_geometric_embedding_bwd_tc_refuses_other_widths(cuda):
     args = _emb_bwd_args(cuda, 100, 192, torch.bfloat16, 20)
     with pytest.raises(ValueError, match="tc form"):
         embedding._geometric_embedding_bwd(*args, form="tc")
-    names = _k10_kernels(100, 192, torch.bfloat16, 20)
+    names = _child_kernels("_k10_call", 100, 192, "bfloat16", 20)
     assert any("embedding_bwd_kernel" in k for k in names), names
 
 
