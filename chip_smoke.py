@@ -150,11 +150,13 @@ Phases, each of which raises (exit code != 0) on failure:
    Tester on 4 pairs (counts, replays and metrics bit for bit against
    eager) and K5 at its self_eq shape without the SH term, beside its first
    design in the same run.  Prints the phase's wall time;
-10. the wide-head family trained: K11 at head width 32 (its first design,
-   "cuda") against its plain version at se3ete2's self_eq shape (q (2, 24,
-   1024, 32), emb (2, 1024, 1024, 128), SH), its plain self shape (AH 4)
-   and se3eti2's self_eq shape (AH 24, no SH), in bf16 and float32, by
-   events and device time (the kernel and the whole call) beside its bound;
+10. the wide-head family trained: K11 at head width 32 (its tc form in
+   bf16, beside its first design on the same inputs; the first design in
+   float32) against its plain version at se3ete2's self_eq shape (q (2,
+   24, 1024, 32), emb (2, 1024, 1024, 128), SH), its plain self shape (AH
+   4) and se3eti2's self_eq shape (AH 24, no SH), by events, device time
+   (the kernel and the whole call) and, in bf16, replayed from a CUDA
+   graph, beside its bound;
    a tiny float32 card-vs-CPU training step of se3ete2's flash cut;
    ``make_train_step`` at full se3ete2 width on phase 9's two pairs (one
    warm-up and three timed steps, every counter set to 0 just before and
@@ -328,8 +330,8 @@ K6_FIRST_KERNEL = "eq_stats_kernel"
 # channels): 10 gathering convs (K1 in float32, K8), 3 strided skips (K2,
 # K9), one embedding (K3, K10 on its tc form at C 128), one Sinkhorn, 5 self
 # layers (K5 / K11: 2 at AH = 24 with the SH term, 3 at AH = 4; at head
-# width 32 K5 on its ws form with the row log-sum-exp, K11 on its first
-# design, "cuda"); the EQ cross layers are materialised
+# width 32 K5 on its ws form with the row log-sum-exp, K11 on its tc form
+# with 32's plan); the EQ cross layers are materialised
 SE3ETE2_TRAIN_LAUNCHES = {**TRAIN_LAUNCHES}
 # and of the backward kernels per se3eti2 step: three self_eq layers (K11 at
 # AH = 24 without the SH term)
@@ -346,7 +348,8 @@ SE3ETE2_K8_SHAPES = (("stage-0 same", "neighbors_0", 0, 96, 1),
                      ("s2 -> s3", "subsampling_2", 2, 384, 1),
                      ("stage-3 same", "neighbors_3", 3, 768, 2))
 SE3ETE2_SKIP_AC = (6 * 64, 6 * 128, 6 * 256)
-# K11's first design's device kernel (its form "cuda", head width 32)
+# K11's first design's device kernel (float32; in bf16 timed beside the tc
+# form, never in a training step)
 K11_FIRST_KERNEL = "rpe_attention_bwd_kernel"
 # trainval on se3eti2: steps an epoch (and validation pairs), test pairs
 TRAINVAL_STEPS, TRAINVAL_TEST_PAIRS = 2, 2
@@ -1792,10 +1795,12 @@ def _wide_head(dev):
 
 def _wide_training(dev, pairs):
     """Phase 10: the wide-head family trained on the card.  K11 at head
-    width 32 (its first design, "cuda") against its plain version at
-    se3ete2's self_eq shape (AH = 24, SH), its plain self shape (AH = 4)
-    and se3eti2's self_eq shape (AH = 24, no SH), in bf16 and float32, by
-    events and device time (the kernel and the whole call), with its bound;
+    width 32 (its tc form in bf16, the first design in float32) against
+    its plain version at se3ete2's self_eq shape (AH = 24, SH), its plain
+    self shape (AH = 4) and se3eti2's self_eq shape (AH = 24, no SH), by
+    events, device time (the kernel and the whole call) and, in bf16,
+    replayed from a CUDA graph, with its bound, the bf16 first design timed
+    beside the tc form on the same inputs;
     a tiny float32 card-vs-CPU training step of se3ete2's flash cut;
     ``make_train_step`` at full se3ete2 width on phase 9's pairs (one
     warm-up and three timed steps, counters set to 0 just before and read
@@ -1806,8 +1811,8 @@ def _wide_training(dev, pairs):
     snapshots, then ``--resume`` to epoch 2, each call's backward launches
     held to ``SE3ETI2_TRAIN_BWD_LAUNCHES``), then ``test --snapshot
     .../latest`` on 2 pairs with finite metrics; last, the profile of one
-    se3ete2 training step.  Returns {name: CheckResult} of the path's
-    rows."""
+    se3ete2 training step (K11's tc kernel 5 times, its first design and
+    K5's never).  Returns {name: CheckResult} of the path's rows."""
     import torch
 
     from se3et_tpu_torch.engine.steps import make_train_step
@@ -1827,7 +1832,8 @@ def _wide_training(dev, pairs):
     forms["K10 C 128 bf16"] = embedding.geometric_embedding_bwd_form(cc, torch.bfloat16)
     print(f"phase 10 {WIDE_EXPERIMENT} training: head width {hw}, C {cc}; forms {forms}",
           flush=True)
-    if set(v for k, v in forms.items() if k.startswith("K11")) != {"cuda"} \
+    if any(v != ("tc" if k.endswith("bfloat16") else "cuda")
+           for k, v in forms.items() if k.startswith("K11")) \
             or forms["K10 C 128 bf16"] != "tc":
         raise RuntimeError(f"the wide-head family's training takes {forms}")
     _tiny_train_card_vs_cpu(cfg, configs.synthetic_extent(cfg.data.dataset), dev)
@@ -1880,23 +1886,30 @@ def _wide_training(dev, pairs):
     split["full-width step"] = time.perf_counter() - t_phase - sum(split.values())
 
     # the training kernels at the family's shapes (pair 0), against their
-    # plain versions; K11 also in float32 (off the path: training feeds it
-    # the embedding's dtype, bf16)
+    # plain versions; K11 on its tc form beside its first design in the same
+    # run (its whole call before the redesign beside), and in float32 (off
+    # the path: training feeds it the embedding's dtype, bf16)
     p0 = inputs[0]
     pts_c, masks_c = p0["points_3"], p0["masks_3"]
     checks, held = {}, []
-    for what, a, with_sh, per_step in (("se3ete2 self_eq", ah, True, 2),
-                                       ("se3ete2 self", heads, False, 3),
-                                       ("se3eti2 self_eq", ah, False, None)):
+    for what, a, with_sh, per_step, before in (("se3ete2 self_eq", ah, True, 2, 7.9302),
+                                               ("se3ete2 self", heads, False, 3, 4.6064),
+                                               ("se3eti2 self_eq", ah, False, None, 6.9067)):
         for dt in (torch.bfloat16, torch.float32):
-            res = selfcheck.check_rpe_attention_bwd(pts_c, masks_c, a, c=hw, cc=cc,
-                                                    with_sh=with_sh, dtype=dt,
-                                                    device_kernel=K11_FIRST_KERNEL)
+            bf = dt == torch.bfloat16
+            res = selfcheck.check_rpe_attention_bwd(
+                pts_c, masks_c, a, c=hw, cc=cc, with_sh=with_sh, dtype=dt,
+                device_kernel=K11_KERNEL if bf else K11_FIRST_KERNEL, first=bf, replay=bf)
             _print_check(res)
+            first = (f"; the first design in this run: events {res.first_ms:.4f} ms, its "
+                     f"kernel {_ms(res.first_device_ms)} ms (its whole call before the "
+                     f"redesign {before:.4f} device ms)") if bf else ""
+            replayed = f", replayed {res.replay_ms:.4f} ms" if bf else ""
             print(f"K11 {what} {res.shape}: events {res.ms:.4f} ms, device: the kernel "
-                  f"{_ms(res.device_ms)} ms, the whole call {_ms(res.call_device_ms)} ms; "
-                  f"bound {res.bound_ms:.4f} ms ({res.bound_by}), {res.bound_ms / res.ms:.1%} "
-                  f"of it by events; plain {res.plain_ms:.4f} ms; library none", flush=True)
+                  f"{_ms(res.device_ms)} ms, the whole call {_ms(res.call_device_ms)} ms"
+                  f"{replayed}; bound {res.bound_ms:.4f} ms ({res.bound_by}), "
+                  f"{res.bound_ms / res.ms:.1%} of it by events; plain {res.plain_ms:.4f} ms; "
+                  f"library none{first}", flush=True)
             held.append(res)
             if dt == torch.bfloat16:
                 res.launches = TRAIN_STEPS * per_step if per_step else 0
@@ -1941,6 +1954,10 @@ def _wide_training(dev, pairs):
     per_step = {"K11 (events)": sum(n * r.ms for n, r in ((2, held[0]), (3, held[2]))),
                 "K11 (device)": sum(n * (r.device_ms or math.nan)
                                     for n, r in ((2, held[0]), (3, held[2]))),
+                "K11 calls (device)": sum(n * (r.call_device_ms or math.nan)
+                                          for n, r in ((2, held[0]), (3, held[2]))),
+                "K11 first design (events)": sum(n * r.first_ms
+                                                 for n, r in ((2, held[0]), (3, held[2]))),
                 "K11 bound": sum(n * r.bound_ms for n, r in ((2, held[0]), (3, held[2]))),
                 "K8 (events)": sum(n * r.ms for _, n, r in k8),
                 "K1 float32 (events)": sum(n * r.ms for _, n, r in k1)}
@@ -2001,24 +2018,34 @@ def _wide_training(dev, pairs):
           flush=True)
 
     # last in the phase (a profiler session makes later ones in the process
-    # lossy): one se3ete2 training step's device time by kernel
+    # lossy): one se3ete2 training step's device time by kernel.  K11's tc
+    # kernel runs 5 times; K11's first design and K5's (the CUDA-core
+    # kernel) never (a profile that lists one short is taken once more)
     k5_ws = WIDE_DEVICE_KERNELS["rpe_self_attention"]
-    also = (K11_FIRST_KERNEL, K8_KERNEL, K1_F32_KERNEL, K10_KERNEL, k5_ws) + K9_KERNELS
-    prof = _profile(lambda: step(inputs[0], generator=gen),
-                    what="one se3ete2 training step", top=20, also=also)
+    also = (K11_KERNEL, K11_FIRST_KERNEL, K8_KERNEL, K1_F32_KERNEL, K10_KERNEL, k5_ws) \
+        + K9_KERNELS
+    want = {K11_KERNEL: SE3ETE2_TRAIN_LAUNCHES["rpe_attention_bwd"], K11_FIRST_KERNEL: 0,
+            "rpe_attention_kernel": 0}
+    for _ in range(2):
+        prof = _profile(lambda: step(inputs[0], generator=gen),
+                        what="one se3ete2 training step", top=20, also=also)
+        if prof is None:
+            break
+        seen = {name: sum(c for key, c in prof["counts"].items()
+                          if re.search(rf"\b{name}\b", key))
+                for name in want}
+        if seen == want:
+            break
+    else:
+        raise RuntimeError(f"the se3ete2 step profile lists {seen}, expected {want}")
     if prof is not None:
         per = {what: sum(ms for key, ms in prof["ms"].items()
                          if any(re.search(rf"\b{n}\b", key) for n in names))
-               for what, names in (("K11", (K11_FIRST_KERNEL,)), ("K8", (K8_KERNEL,)),
+               for what, names in (("K11", (K11_KERNEL,)), ("K8", (K8_KERNEL,)),
                                    ("K1 float32", (K1_F32_KERNEL,)), ("K9", K9_KERNELS),
                                    ("K10", (K10_KERNEL,)), ("K5", (k5_ws,)))}
-        print("phase 10 se3ete2 step profile, device ms per step: " + ", ".join(
-            f"{k} {v:.4f}" for k, v in per.items()), flush=True)
-        # K5's forward with the row log-sum-exp takes its ws form: its first
-        # design (the CUDA-core kernel) never runs in the step
-        first = [key for key in prof["counts"] if re.search(r"\brpe_attention_kernel\b", key)]
-        if first:
-            raise RuntimeError(f"the se3ete2 step launched K5's first design: {first}")
+        print(f"phase 10 se3ete2 step profile (launches {seen}), device ms per step: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in per.items()), flush=True)
     split["profile"] = time.perf_counter() - t_phase - sum(split.values())
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s (" + ", ".join(
         f"{k} {v:.1f}" for k, v in split.items()) + ")", flush=True)

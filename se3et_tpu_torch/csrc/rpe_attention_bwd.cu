@@ -13,12 +13,14 @@
 // Bound: the embedding's bytes, read once, and d_emb's, written once (2 x
 // 1.07 GB per launch at B=2, N=1024, C=256, bf16).  Two forms, chosen by
 // shape (the wrapper's rpe_attention_bwd_form mirrors the choice):
-// * "tc" (bf16, head width 64, C = 256: the training path):
-//   rpe_attention_bwd_tc.cuh.  Also forms dqp, d_emb and dqw from dS' =
-//   scale * dS on the tensor cores, and writes P and dS' in bf16 for the
-//   wrapper's three matrix products (dq, dk, dv);
-// * "cuda" (float32, and head widths 16 and 32 in either type: the
-//   wide-head family's training), the first design below: writes
+// * "tc" (bf16, head width 64 with C = 256 and head width 32 with C = 128:
+//   the training path of both families): rpe_attention_bwd_tc.cuh.  Also
+//   forms dqp, d_emb and dqw from dS' = scale * dS on the tensor cores,
+//   and writes P and dS' in bf16 for the wrapper's three matrix products
+//   (dq, dk, dv);
+// * "cuda" (float32, and bf16 at head width 16 and other embedding
+//   widths; bf16 at the tc shapes through its own entry point, for tests
+//   and timings), the first design below: writes
 //   P and dS in float32 and leaves every contraction to the wrapper.  K5's
 //   CUDA-core layout -- a block owns kWarps query rows and all AH
 //   anchor-heads, so each emb[b,n,m,:] row is streamed once; one warp per

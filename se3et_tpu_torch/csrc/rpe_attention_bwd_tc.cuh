@@ -1,5 +1,6 @@
-// K11's bf16 form ("tc"; head width 64, C = 256, AH 4 or 24), included only
-// by rpe_attention_bwd.cu.  For the scores s of K5, recomputed as K5
+// K11's bf16 form ("tc"; AH 4 or 24 at head width 64 with C = 256 and at
+// head width 32 with C = 128, each width its plan), included only by
+// rpe_attention_bwd.cu.  For the scores s of K5, recomputed as K5
 // defines them, and its row log-sum-exp lse:
 //   P   = k_mask[m] ? exp(scale * s - lse) : 0
 //   dS' = scale * P * (dO . v - D),   D = rowsum(dO * out)
@@ -14,45 +15,55 @@
 // 96; reading dS' once more costs ~0.03 ms.
 //
 // Bound: bytes.  The embedding is read once and d_emb written once: 2 x
-// 1.07 GB per launch at B = 2, N = 1024, C = 256, >= 0.64 ms on the card;
-// P and dS' add 2 x 100 MB at AH = 24.  No float32 (B, AH, N, N) tensor and
-// no float32 copy of the embedding is made.
+// 1.07 GB per launch at B = 2, N = 1024, C = 256 (0.54 GB each at C =
+// 128), >= 0.64 ms on the card; P and dS' add 2 x 100 MB at AH = 24.  No
+// float32 (B, AH, N, N) tensor and no float32 copy of the embedding is made.
 //
-// A block owns kRows = 4 query rows of one cloud and all AH anchor-heads,
-// so each embedding row is read from device memory once and dqp[b, n]
-// (AH x C float32, 24 KB a row at AH = 24) stays in registers for the whole
-// key loop: at AH = 24 16 warps (4 a row, 64 channels each, 48
-// accumulators a lane), at AH = 4 8 warps (2 a row).  Per 32-key tile,
-// with the next tile's slabs (kRows x 32 keys x C, 64 KB) already on their
-// way by cp.async (16 bytes a thread, evict-first in L2, chunks
-// XOR-swizzled by key so ldmatrix reads them without bank conflicts),
-// three phases between block barriers, every product on mma.sync with
-// float32 sums:
-// 1. positional, 8 warps: warp w, row w / 2, keys 16 (w & 1) ..: S_pos^T
-//    (16 keys x AH) = slab (ldmatrix) . qp^T (ldmatrix of the row's
-//    resident qp), plus the SH term, into a float32 score buffer; the row's
-//    SH geometry rinv * d_yzx per key into a small table;
-// 2. content, every warp: per (anchor-head, 16-key m-tile) item, 3 a warp
-//    at AH = 24, 1 at AH = 4: S^T = k . q^T and dP^T = v . dO^T (keys as M,
-//    the 4 rows as N, k and v read from L2 as A fragments, q and dO
-//    resident), then P (in place of its positional score) and dS' (rounded
-//    to bf16 into a shared buffer), and dqw's sums in registers;
-// 3. every warp: the tile's P and dS' to device memory in 16-byte stores
-//    (4 threads a (row, head) run of 32 keys); then for its row and
-//    channels: dqp^T += slab^T (ldmatrix.trans) . dS'^T, and d_emb (32 keys
-//    x its channels) = dS'^T (ldmatrix.trans) . qp (ldmatrix.trans), the
-//    anchor-heads as K (16 + an m16n8k8 step at AH = 24, one m16n8k8 step
-//    over 8 padded ones at AH = 4), transposed within each quad of lanes so
-//    that each lane stores 16 contiguous bytes, once.
-// dqw sums over the keys of each item; the two m-tiles of an anchor-head
-// add their sums onto the zeroed output, and two addends onto zero give the
-// same float32 in either order, so the form is deterministic.
+// A block owns kRows query rows of one cloud and all AH anchor-heads, so
+// each embedding row is read from device memory once and dqp[b, n] (AH x
+// C float32) stays in registers for the whole key loop: at AH = 24 16
+// warps, at AH = 4 8 warps, each a slice of one row's channels.  The plan
+// of each width (WidthPlan): C, rows a block, keys a tile, k and v staged
+// or not, rows padded or not -- at 64 4 rows of 32-key tiles (4 warps a
+// row, 64 channels each, 48 dqp accumulators a lane at AH = 24), k and v
+// read from L2; at 32 8 rows of 16-key tiles (a warp a row: 96 dqp
+// accumulators a lane at AH = 24, 255 registers), each tile's k and v of every
+// anchor-head staged in shared memory by cp.async during the previous
+// tile's phase 3, and the geometry's and dS' query rows padded so that the
+// rows 2t, 2t + 1 of a quad's lanes fall in distinct banks
+// (scripts/probe_rpe_attention_bwd.py --head-width 32 chose it over 64's
+// plan halved; PERF.md).  Per tile, with the next tile's slabs (kRows x
+// kKeys keys x C) already on their way by cp.async (16 bytes a thread,
+// evict-first in L2, chunks XOR-swizzled by key so ldmatrix reads them
+// without bank conflicts), three phases between block barriers, every
+// product on mma.sync with float32 sums:
+// 1. positional, a warp per (row, 16-key m-tile): S_pos^T (16 keys x AH) =
+//    slab (ldmatrix) . qp^T (ldmatrix of the row's resident qp), plus the
+//    SH term, into a float32 score buffer; the row's SH geometry rinv *
+//    d_yzx per key into a small table;
+// 2. content, every warp: per (anchor-head, 16-key m-tile) item: S^T = k .
+//    q^T and dP^T = v . dO^T (keys as M, the block's rows as N, k and v
+//    read as A fragments from L2 or the staged tile, q and dO resident),
+//    then P (in place of its positional score) and dS' (rounded to bf16
+//    into a shared buffer), and dqw's sums in registers;
+// 3. every warp: the tile's P and dS' to device memory in 16-byte stores;
+//    then for its row and channels: dqp^T += slab^T (ldmatrix.trans) .
+//    dS'^T, and d_emb (the tile's keys x its channels) = dS'^T
+//    (ldmatrix.trans) . qp (ldmatrix.trans), the anchor-heads as K (16 +
+//    an m16n8k8 step at AH = 24, one m16n8k8 step over 8 padded ones at AH
+//    = 4), transposed within each quad of lanes so that each lane stores
+//    16 contiguous bytes, once.
+// dqw sums over the keys of each item; the m-tiles of an anchor-head (two
+// at 32-key tiles) add their sums onto the zeroed output, and two addends
+// onto zero give the same float32 in either order, so the form is
+// deterministic.
 // What bounds it (scripts/probe_rpe_attention_bwd.py): at AH = 4 the
 // stream of the embedding and d_emb; at AH = 24 the content phase, which
-// reads k and v from L2 once per 4 rows (~3 GB a launch against the
-// embedding's 1.07).  RPE_BWD_TC_STAGE cuts the kernel for the probe's
-// ablations: 0 positional scores only, 1 + the content phase (scores, P,
-// dS'), 2 + dqp, 3 + d_emb, 4 (the form) + the P and dS' stores.
+// reads k and v from L2 once per kRows rows (~3 GB a launch at 64 against
+// the embedding's 1.07).  RPE_BWD_TC_STAGE cuts the kernel for the
+// probe's ablations: 0 positional scores only, 1 + the content phase
+// (scores, P, dS'), 2 + dqp, 3 + d_emb, 4 (the form) + the P and dS'
+// stores; RPE_BWD_TC_NO_CONTENT leaves out the content phase alone.
 #pragma once
 
 #include "async_copy.cuh"
@@ -61,8 +72,30 @@
 #ifndef RPE_BWD_TC_STAGE
 #define RPE_BWD_TC_STAGE 4
 #endif
-#ifndef RPE_BWD_TC_WARPS24  // warps a block at AH = 24 (the probe also tries 8)
+#ifndef RPE_BWD_TC_WARPS24  // warps a block at AH = 24 at 64 (the probe also tries 8)
 #define RPE_BWD_TC_WARPS24 16
+#endif
+#ifndef RPE_BWD_TC_NO_CONTENT  // the probe's ablation: the content phase left out
+#define RPE_BWD_TC_NO_CONTENT 0
+#endif
+// head width 32's plan: query rows a block (4 or 8), keys a tile (16 or
+// 32), k and v of a tile staged in shared memory (or read from L2), the
+// geometry and dS' rows padded against bank conflicts, warps a block at AH
+// = 24; the probe builds the others
+#ifndef RPE_BWD_TC32_ROWS
+#define RPE_BWD_TC32_ROWS 8
+#endif
+#ifndef RPE_BWD_TC32_KEYS
+#define RPE_BWD_TC32_KEYS 16
+#endif
+#ifndef RPE_BWD_TC32_KV_SMEM
+#define RPE_BWD_TC32_KV_SMEM 1
+#endif
+#ifndef RPE_BWD_TC32_PAD
+#define RPE_BWD_TC32_PAD 1
+#endif
+#ifndef RPE_BWD_TC32_WARPS24  // warps a block at AH = 24 at 32
+#define RPE_BWD_TC32_WARPS24 8
 #endif
 
 namespace se3et {
@@ -70,62 +103,110 @@ namespace rpe_bwd_tc {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kRows = 4;    // query rows per block
-constexpr int kKeys = 32;   // keys per tile
-constexpr int kHC = 64;     // head width
-constexpr int kC = 256;     // embedding width
-constexpr int kChunks = kC / 8;  // 16-byte chunks of an embedding row
 constexpr int kMaxSmem = 232448;
 constexpr float kSh1 = 0.48860251190291992f;  // sqrt(3 / (4 pi))
 constexpr int kStage = RPE_BWD_TC_STAGE;
-constexpr int kPosWarps = 2 * kRows;  // phase 1: a warp per (row, 16-key m-tile)
+constexpr bool kContentPhase = RPE_BWD_TC_NO_CONTENT == 0;
 
-template <int AH>
+// each head width its plan: the embedding width C, query rows a block and
+// keys a tile (mirrored by the wrapper's rpe_attention.BWD_TC_PLANS)
+template <int HC>
+struct WidthPlan;
+template <>
+struct WidthPlan<64> {
+  static constexpr int kC = 256, kRows = 4, kKeys = 32, kWarps24 = RPE_BWD_TC_WARPS24;
+  static constexpr bool kKVSmem = false, kPad = false;
+};
+template <>
+struct WidthPlan<32> {
+  static constexpr int kC = 128, kRows = RPE_BWD_TC32_ROWS, kKeys = RPE_BWD_TC32_KEYS;
+  static constexpr int kWarps24 = RPE_BWD_TC32_WARPS24;
+  static constexpr bool kKVSmem = RPE_BWD_TC32_KV_SMEM != 0, kPad = RPE_BWD_TC32_PAD != 0;
+};
+
+template <int AH, int HC>
 struct Layout {
-  // 16 warps at AH = 24 (a block of 512 threads, 128 registers each), 8
-  // at AH = 4
-  static constexpr int kWarps = AH >= 16 ? RPE_BWD_TC_WARPS24 : 8;
+  static constexpr int kC = WidthPlan<HC>::kC;
+  static constexpr int kRows = WidthPlan<HC>::kRows;
+  static constexpr int kKeys = WidthPlan<HC>::kKeys;
+  static constexpr int kChunks = kC / 8;         // 16-byte chunks of an embedding row
+  static constexpr int kMT = kKeys / 16;         // 16-key m-tiles of a tile
+  static constexpr int kKC = kKeys / 8;          // 8-key chunks of a tile
+  static constexpr int kKCShift = kKC == 4 ? 2 : 1;
+  static constexpr int kPosWarps = kRows * kMT;  // phase 1: a warp per (row, m-tile)
+  // at AH = 24 the plan's (at 64 16 warps, a block of 512 threads with 128
+  // registers each; at 32 8 warps, one a row), at AH = 4 8 warps
+  static constexpr int kWarps = AH >= 16 ? WidthPlan<HC>::kWarps24 : 8;
   static constexpr int kThreads = kWarps * 32;
-  static_assert((2 * AH) % kWarps == 0, "content items per warp");
+  static constexpr int kContent = kMT * AH;      // phase 2: (m-tile, anchor-head) items a tile
+  static constexpr int kItems = (kContent + kWarps - 1) / kWarps;  // a warp, of distinct heads
   static constexpr int kSlices = kWarps / kRows;   // phase 3: channel slices a row
-  static constexpr int kSliceC = kC / kSlices;     // channels a slice (64, 128)
+  static constexpr int kSliceC = kC / kSlices;     // channels a slice
   static constexpr int kMC = kSliceC / 16;         // dqp^T m-tiles a warp
   static constexpr int kGroups = kSliceC / 32;     // d_emb groups of 4 n-tiles a warp
   static constexpr int kAHP = (AH + 7) / 8 * 8;  // anchor-heads padded to n-tiles of 8
   static constexpr int kNT = kAHP / 8;
   static constexpr bool kK16 = kAHP >= 16;       // d_emb: one m16n8k16 step over AH
   static constexpr bool kK8 = kAHP % 16 != 0;    // and one m16n8k8 step
-  static constexpr int kItems = 2 * AH / kWarps;  // content items a warp, of distinct heads
-  static constexpr int kSpRow = 36;               // floats per (head, row): = 4 (mod 16)
+  static constexpr int kSpRow = kKeys + 4;       // floats per (head, row): = 4 (mod 16)
   static constexpr int kSpHead = kRows * kSpRow + 4;  // = 4 (mod 16)
-  static constexpr int kDsRow = 40;               // bf16 per (row, head) of dS'
+  static constexpr int kDsRow = kKeys + 8;       // bf16 per (row, head) of dS'
+  // with kPad, the query rows of dS' 16 bytes apart more (so that a quad's
+  // rows 2t, 2t + 1 fall in other banks) and the geometry's keys a float4
+  static constexpr bool kPad = WidthPlan<HC>::kPad;
+  static constexpr int kDsStride = kAHP * kDsRow + (kPad ? 8 : 0);  // bf16 a query row
+  static constexpr int kGeoRow = kKeys + (kPad ? 1 : 0);            // float4 a query row
   static constexpr size_t kSlab = (size_t)kKeys * kC;  // bf16 of one (row, tile) slab
+  static_assert(kKeys == 16 || kKeys == 32, "keys a tile");
+  static_assert(kRows <= 8, "phase 2 takes the block's rows as the N of an m16n8 product");
+  static_assert(kPosWarps <= kWarps && kWarps % kRows == 0 && kSliceC % 32 == 0,
+                "warps of phases 1 and 3");
+  static_assert((size_t)kRows * AH * kC <= 2 * kRows * kSlab, "dqp is staged in the slabs");
   // byte offsets of the shared-memory plan (mirrored by the wrapper's
   // rpe_attention.bwd_tc_smem_bytes)
   static constexpr size_t emb = 0;                                       // [2][kRows] slabs
   static constexpr size_t qp = emb + 2 * kRows * kSlab * 2;              // [kRows][kAHP][kC]
-  static constexpr size_t qd = qp + (size_t)kRows * kAHP * kC * 2;       // [q, dO][AH][kRows][kHC]
-  static constexpr size_t sp = qd + 2 * (size_t)AH * kRows * kHC * 2;    // [AH][kSpHead] f32
-  static constexpr size_t ds = sp + (size_t)AH * kSpHead * 4;            // [kRows][kAHP][kDsRow]
-  static constexpr size_t geo = ds + (size_t)kRows * kAHP * kDsRow * 2;  // [kRows][kKeys] float4
-  static constexpr size_t qw = geo + (size_t)kRows * kKeys * 16;         // [kRows][3][AH] f32
+  static constexpr size_t qd = qp + (size_t)kRows * kAHP * kC * 2;       // [q, dO][AH][kRows][HC]
+  static constexpr size_t sp = qd + 2 * (size_t)AH * kRows * HC * 2;     // [AH][kSpHead] f32
+  static constexpr size_t ds = sp + (size_t)AH * kSpHead * 4;            // [kRows][kDsStride]
+  static constexpr size_t geo = ds + (size_t)kRows * kDsStride * 2;      // [kRows][kGeoRow] float4
+  static constexpr size_t qw = geo + (size_t)kRows * kGeoRow * 16;       // [kRows][3][AH] f32
   static constexpr size_t stats = qw + (size_t)kRows * 3 * AH * 4;       // lse, D [AH][kRows]
-  static constexpr size_t bytes = stats + 2 * (size_t)AH * kRows * 4;
+  static constexpr bool kKVSmem = WidthPlan<HC>::kKVSmem;
+  static constexpr size_t kv = (stats + 2 * (size_t)AH * kRows * 4 + 15) & ~(size_t)15;
+  // [k, v][AH][kKeys][HC] bf16 of one tile, where kKVSmem
+  static constexpr size_t bytes =
+      kKVSmem ? kv + 2 * (size_t)AH * kKeys * HC * 2 : stats + 2 * (size_t)AH * kRows * 4;
 };
 
 // element offsets of 16-byte chunks: an embedding slab's rows (keys) XOR
 // their chunks by key & 7, qp's rows (anchor-heads) by ah & 7, the q / dO
-// rows (128 bytes) by (row & 1) << 2
+// rows by the swizzle of their width: (row & 1) << 2 for 128-byte rows
+// (head width 64), (row >> 1) & 3 for 64-byte rows (32)
+template <int C>
 __device__ __forceinline__ int slab_chunk(int key, int ch) {
-  return key * kC + ((ch ^ (key & 7)) << 3);
+  return key * C + ((ch ^ (key & 7)) << 3);
 }
-template <int AH>
+template <int AH, int HC>
 __device__ __forceinline__ int qp_chunk(int r, int ah, int ch) {
-  return (r * Layout<AH>::kAHP + ah) * kC + ((ch ^ (ah & 7)) << 3);
+  using L = Layout<AH, HC>;
+  return (r * L::kAHP + ah) * L::kC + ((ch ^ (ah & 7)) << 3);
 }
-template <int AH>
+// element offset of dS' at (query row rr, anchor-head ah): kDsStride bf16
+// a row, written so that it folds to the unpadded layout's expression
+template <int AH, int HC>
+__device__ __forceinline__ int ds_row(int rr, int ah) {
+  using L = Layout<AH, HC>;
+  constexpr int kRowPad = L::kDsStride - L::kAHP * L::kDsRow;  // 8 with kPad, else 0
+  return (rr * L::kAHP + ah) * L::kDsRow + (kRowPad ? rr * kRowPad : 0);
+}
+template <int AH, int HC>
 __device__ __forceinline__ int qd_chunk(int which, int ah, int r, int ch) {
-  return ((which * AH + ah) * kRows + r) * kHC + ((ch ^ ((r & 1) << 2)) << 3);
+  constexpr int kRows = Layout<AH, HC>::kRows;
+  if constexpr (HC == 64)
+    return ((which * AH + ah) * kRows + r) * HC + ((ch ^ ((r & 1) << 2)) << 3);
+  else
+    return ((which * AH + ah) * kRows + r) * HC + ((ch ^ ((r >> 1) & 3)) << 3);
 }
 
 __device__ __forceinline__ void ldmatrix_x2(uint32_t* r, const void* smem) {
@@ -164,13 +245,13 @@ __device__ __forceinline__ uint4 quad_transpose(uint32_t w0, uint32_t w1, uint32
   return h ? make_uint4(r0, r1, x2, x3) : make_uint4(x0, x1, r0, r1);
 }
 
-// q, k, v (B, AH, N, 64) bf16; qp (B, N, AH, 256); emb (B, N, N, 256);
-// kmask (B, N); qw (B, 3, AH, N) f32 rows (y, z, x) or null; pts (B,
-// pts_rows, N) f32; dout (B, AH, N, 64) bf16; lse, dd (B, AH, N) f32;
-// p_out, ds_out (B, AH, N, N) bf16; dqp as qp; demb as emb; dqw as qw,
-// zeroed by the caller (null without qw).
-template <int AH>
-__global__ void __launch_bounds__(Layout<AH>::kThreads, 1)
+// q, k, v (B, AH, N, HC) bf16; qp (B, N, AH, C); emb (B, N, N, C); kmask
+// (B, N); qw (B, 3, AH, N) f32 rows (y, z, x) or null; pts (B, pts_rows, N)
+// f32; dout (B, AH, N, HC) bf16; lse, dd (B, AH, N) f32; p_out, ds_out (B,
+// AH, N, N) bf16; dqp as qp; demb as emb; dqw as qw, zeroed by the caller
+// (null without qw).
+template <int AH, int HC>
+__global__ void __launch_bounds__(Layout<AH, HC>::kThreads, 1)
 rpe_attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, const bf16* __restrict__ qp,
                             const bf16* __restrict__ emb, const uint8_t* __restrict__ kmask,
@@ -180,8 +261,10 @@ rpe_attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__
                             bf16* __restrict__ ds_out, bf16* __restrict__ dqp,
                             bf16* __restrict__ demb, float* __restrict__ dqw, int n,
                             int pts_rows, float scale) {
-  using L = Layout<AH>;
+  using L = Layout<AH, HC>;
   constexpr int kWarps = L::kWarps, kThreads = L::kThreads;
+  constexpr int kRows = L::kRows, kKeys = L::kKeys, kC = L::kC, kChunks = L::kChunks;
+  constexpr int kMT = L::kMT, kKC = L::kKC;
   extern __shared__ __align__(128) char bwd_smem[];
   bf16* emb_s = reinterpret_cast<bf16*>(bwd_smem + L::emb);
   bf16* qp_s = reinterpret_cast<bf16*>(bwd_smem + L::qp);
@@ -192,6 +275,7 @@ rpe_attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   float* qw_s = reinterpret_cast<float*>(bwd_smem + L::qw);
   float* lse_s = reinterpret_cast<float*>(bwd_smem + L::stats);  // [AH][kRows]
   float* dd_s = lse_s + AH * kRows;
+  bf16* kv_s = reinterpret_cast<bf16*>(bwd_smem + L::kv);
 
   const int nblk = (n + kRows - 1) / kRows;
   const int b = blockIdx.x / nblk;
@@ -205,8 +289,8 @@ rpe_attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   const uint8_t* km = kmask + (long long)b * n;
   const uint64_t policy = evict_first_policy();
 
-  // the slabs emb[b, row0 + r, key0 .. key0 + 31, :] of tile j into buffer
-  // j & 1, zero past n
+  // the slabs emb[b, row0 + r, key0 .. key0 + kKeys - 1, :] of tile j into
+  // buffer j & 1, zero past n
   auto stage_emb = [&](int j) {
     bf16* dst = emb_s + (size_t)(j & 1) * kRows * L::kSlab;
     const int key0 = j * kKeys;
@@ -215,11 +299,25 @@ rpe_attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__
       const bool ok = row0 + r < n && key0 + key < n;
       const bf16* src =
           ok ? emb + (((long long)b * n + row0 + r) * n + key0 + key) * kC + ch * 8 : emb;
-      cp_async16_hint(dst + r * L::kSlab + slab_chunk(key, ch), src, ok, policy);
+      cp_async16_hint(dst + r * L::kSlab + slab_chunk<kC>(key, ch), src, ok, policy);
     }
     cp_async_commit();
   };
   stage_emb(0);
+  // where kKVSmem: k and v of tile j's keys, every anchor-head, zero past n
+  auto stage_kv = [&](int j) {
+    constexpr int kRowChunks = HC / 8;
+    const int key0 = j * kKeys;
+    for (int i = tid; i < 2 * AH * kKeys * kRowChunks; i += kThreads) {
+      const int ch = i % kRowChunks, key = (i / kRowChunks) % kKeys;
+      const int ah = (i / (kRowChunks * kKeys)) % AH, which = i / (kRowChunks * kKeys * AH);
+      const bool ok = key0 + key < n;
+      const bf16* src = (which ? v : k) + (((long long)b * AH + ah) * n + key0 + key) * HC + ch * 8;
+      cp_async16(kv_s + i * 8, ok ? src : k, ok);
+    }
+    cp_async_commit();
+  };
+  if constexpr (L::kKVSmem) stage_kv(0);
 
   // resident for the block: qp of its rows (zero past n and for the padded
   // anchor-heads), q and dO, the zero rows of dS' past AH, lse, D and qw
@@ -229,21 +327,21 @@ rpe_attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__
     if (row0 + r < n && ah < AH)
       val = __ldg(reinterpret_cast<const uint4*>(
           qp + (((long long)b * n + row0 + r) * AH + ah) * kC + ch * 8));
-    *reinterpret_cast<uint4*>(qp_s + qp_chunk<AH>(r, ah, ch)) = val;
+    *reinterpret_cast<uint4*>(qp_s + qp_chunk<AH, HC>(r, ah, ch)) = val;
   }
-  for (int i = tid; i < 2 * AH * kRows * (kHC / 8); i += kThreads) {
-    const int ch = i % (kHC / 8), r = (i / (kHC / 8)) % kRows;
-    const int ah = (i / (kHC / 8 * kRows)) % AH, which = i / (kHC / 8 * kRows * AH);
+  for (int i = tid; i < 2 * AH * kRows * (HC / 8); i += kThreads) {
+    const int ch = i % (HC / 8), r = (i / (HC / 8)) % kRows;
+    const int ah = (i / (HC / 8 * kRows)) % AH, which = i / (HC / 8 * kRows * AH);
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < n)
       val = __ldg(reinterpret_cast<const uint4*>(
-          (which ? dout : q) + (((long long)b * AH + ah) * n + row0 + r) * kHC + ch * 8));
-    *reinterpret_cast<uint4*>(qd_s + qd_chunk<AH>(which, ah, r, ch)) = val;
+          (which ? dout : q) + (((long long)b * AH + ah) * n + row0 + r) * HC + ch * 8));
+    *reinterpret_cast<uint4*>(qd_s + qd_chunk<AH, HC>(which, ah, r, ch)) = val;
   }
   if constexpr (L::kAHP > AH) {
-    constexpr int kPad = (L::kAHP - AH) * L::kDsRow;
-    for (int i = tid; i < kRows * kPad; i += kThreads)
-      ds_s[((i / kPad) * L::kAHP + AH) * L::kDsRow + i % kPad] = __float2bfloat16(0.f);
+    constexpr int kPadHeads = (L::kAHP - AH) * L::kDsRow;
+    for (int i = tid; i < kRows * kPadHeads; i += kThreads)
+      ds_s[ds_row<AH, HC>(i / kPadHeads, AH) + i % kPadHeads] = __float2bfloat16(0.f);
   }
   for (int i = tid; i < AH * kRows; i += kThreads) {
     const int ah = i / kRows, r = i % kRows;
@@ -261,10 +359,10 @@ rpe_attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__
 
   // phase 1: row pr, keys 16 pm .. (warps < kPosWarps); phase 3: row wr,
   // channels c0 .. c0 + kSliceC - 1
-  const int pr = warp >> 1, pm = warp & 1;
+  const int pr = warp >> (kMT - 1), pm = warp & (kMT - 1);
   const int wr = warp / L::kSlices, c0 = (warp % L::kSlices) * L::kSliceC;
   float px = 0.f, py = 0.f, pz = 0.f;
-  if (with_sh && row0 + pr < n && warp < kPosWarps) {
+  if (with_sh && row0 + pr < n && warp < L::kPosWarps) {
     px = pb[row0 + pr];
     py = pb[n + row0 + pr];
     pz = pb[2 * n + row0 + pr];
@@ -289,7 +387,7 @@ rpe_attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__
     if (j + 1 < ntiles) stage_emb(j + 1);
 
     // 1. positional scores of row pr, keys 16 pm .. 16 pm + 15
-    if (warp < kPosWarps) {
+    if (warp < L::kPosWarps) {
       const bf16* slab = slabs + pr * L::kSlab;
       float acc[L::kNT][4];
 #pragma unroll
@@ -297,12 +395,13 @@ rpe_attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__
 #pragma unroll 4
       for (int kk = 0; kk < kC / 16; ++kk) {
         uint32_t a[4];
-        ldmatrix_x4(a, slab + slab_chunk(16 * pm + (mi & 1) * 8 + mr, 2 * kk + (mi >> 1)));
+        ldmatrix_x4(a, slab + slab_chunk<kC>(16 * pm + (mi & 1) * 8 + mr, 2 * kk + (mi >> 1)));
         uint32_t bq[L::kNT][2];
 #pragma unroll
         for (int nt = 0; nt + 1 < L::kNT; nt += 2) {
           uint32_t r4[4];
-          ldmatrix_x4(r4, qp_s + qp_chunk<AH>(pr, 8 * (nt + (mi >> 1)) + mr, 2 * kk + (mi & 1)));
+          ldmatrix_x4(r4, qp_s + qp_chunk<AH, HC>(pr, 8 * (nt + (mi >> 1)) + mr,
+                                                   2 * kk + (mi & 1)));
           bq[nt][0] = r4[0];
           bq[nt][1] = r4[1];
           bq[nt + 1][0] = r4[2];
@@ -310,7 +409,7 @@ rpe_attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__
         }
         if (L::kNT & 1)
           ldmatrix_x2(bq[L::kNT - 1],
-                      qp_s + qp_chunk<AH>(pr, 8 * (L::kNT - 1) + mr, 2 * kk + (mi & 1)));
+                      qp_s + qp_chunk<AH, HC>(pr, 8 * (L::kNT - 1) + mr, 2 * kk + (mi & 1)));
 #pragma unroll
         for (int nt = 0; nt < L::kNT; ++nt)
           mma_bf16(acc[nt], a[0], a[1], a[2], a[3], bq[nt][0], bq[nt][1]);
@@ -328,7 +427,7 @@ rpe_attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__
           fy = rinv * dy;
           fz = rinv * dz;
         }
-        if (with_sh && t == 0) geo_s[pr * kKeys + kl] = make_float4(fy, fz, fx, 0.f);
+        if (with_sh && t == 0) geo_s[pr * L::kGeoRow + kl] = make_float4(fy, fz, fx, 0.f);
 #pragma unroll
         for (int nt = 0; nt < L::kNT; ++nt)
 #pragma unroll
@@ -348,26 +447,37 @@ rpe_attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__
 
     // 2. content scores, P and dS' of the warp's (anchor-head, m-tile)
     // items: item warp + kWarps it, m-tile item / AH, anchor-head item % AH
-    if (kStage >= 1) {
+    if (kStage >= 1 && kContentPhase) {
       // bit kl: key key0 + kl is valid
       const unsigned kvalid = __ballot_sync(0xffffffffu, key0 + lane < n && km[key0 + lane] != 0);
 #pragma unroll
       for (int it = 0; it < L::kItems; ++it) {
         const int item = warp + kWarps * it;
+        if (L::kContent % kWarps != 0 && item >= L::kContent) break;  // warp-uniform
         const int mt = item / AH, ah = item - mt * AH;
         const long long head = (long long)b * AH + ah;
         const int ka = key0 + 16 * mt + g, kb = ka + 8;
         float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int p = 0; p < kHC / 32; ++p) {
-          const uint4 klo = ld16(k + (head * n + ka) * kHC + 32 * p + 8 * t, ka < n);
-          const uint4 khi = ld16(k + (head * n + kb) * kHC + 32 * p + 8 * t, kb < n);
-          const uint4 vlo = ld16(v + (head * n + ka) * kHC + 32 * p + 8 * t, ka < n);
-          const uint4 vhi = ld16(v + (head * n + kb) * kHC + 32 * p + 8 * t, kb < n);
+        for (int p = 0; p < HC / 32; ++p) {
+          uint4 klo, khi, vlo, vhi;
+          if constexpr (L::kKVSmem) {
+            const bf16* kr = kv_s + ((size_t)ah * kKeys + 16 * mt + g) * HC + 32 * p + 8 * t;
+            const bf16* vr = kr + (size_t)AH * kKeys * HC;
+            klo = *reinterpret_cast<const uint4*>(kr);
+            khi = *reinterpret_cast<const uint4*>(kr + 8 * HC);
+            vlo = *reinterpret_cast<const uint4*>(vr);
+            vhi = *reinterpret_cast<const uint4*>(vr + 8 * HC);
+          } else {
+            klo = ld16(k + (head * n + ka) * HC + 32 * p + 8 * t, ka < n);
+            khi = ld16(k + (head * n + kb) * HC + 32 * p + 8 * t, kb < n);
+            vlo = ld16(v + (head * n + ka) * HC + 32 * p + 8 * t, ka < n);
+            vhi = ld16(v + (head * n + kb) * HC + 32 * p + 8 * t, kb < n);
+          }
           uint4 qb = make_uint4(0u, 0u, 0u, 0u), db = qb;
           if (g < kRows) {
-            qb = *reinterpret_cast<const uint4*>(qd_s + qd_chunk<AH>(0, ah, g, 4 * p + t));
-            db = *reinterpret_cast<const uint4*>(qd_s + qd_chunk<AH>(1, ah, g, 4 * p + t));
+            qb = *reinterpret_cast<const uint4*>(qd_s + qd_chunk<AH, HC>(0, ah, g, 4 * p + t));
+            db = *reinterpret_cast<const uint4*>(qd_s + qd_chunk<AH, HC>(1, ah, g, 4 * p + t));
           }
           mma_bf16_x2(s, klo, khi, qb);
           mma_bf16_x2(dp, vlo, vhi, db);
@@ -384,10 +494,10 @@ rpe_attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__
           const float sv = (s[e] + *spe) * scale;
           const float pv = (kvalid >> kl) & 1u ? expf(sv - lse_s[ah * kRows + rr]) : 0.f;
           const float dsv = scale * pv * (dp[e] - dd_s[ah * kRows + rr]);
-          ds_s[(rr * L::kAHP + ah) * L::kDsRow + kl] = __float2bfloat16(dsv);
+          ds_s[ds_row<AH, HC>(rr, ah) + kl] = __float2bfloat16(dsv);
           *spe = pv;
           if (with_sh) {
-            const float4 f = geo_s[rr * kKeys + kl];
+            const float4 f = geo_s[rr * L::kGeoRow + kl];
             dqw_acc[it][e & 1][0] += dsv * f.x;
             dqw_acc[it][e & 1][1] += dsv * f.y;
             dqw_acc[it][e & 1][2] += dsv * f.z;
@@ -396,19 +506,23 @@ rpe_attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__
       }
     }
     __syncthreads();
+    // the next tile's k and v, landing during phase 3 and the next phase 1
+    if constexpr (L::kKVSmem)
+      if (j + 1 < ntiles) stage_kv(j + 1);
 
     // 3. the tile's P and dS' to device memory (16 bytes a thread), then
     // dqp and d_emb of row wr, channels c0 ..
     if (kStage >= 4) {
       // (which, row, anchor-head, 8-key chunk): P from the score buffer
       // (float32), dS' from its buffer
-      for (int i = tid; i < 2 * kRows * AH * 4; i += kThreads) {
-        const int ch = i & 3, ah = (i >> 2) % AH, rr = (i >> 2) / AH % kRows, which = i / (4 * AH * kRows);
+      for (int i = tid; i < 2 * kRows * AH * kKC; i += kThreads) {
+        const int ch = i & (kKC - 1), ah = (i >> L::kKCShift) % AH;
+        const int rr = (i >> L::kKCShift) / AH % kRows, which = i / (kKC * AH * kRows);
         const int key = key0 + 8 * ch;
         if (row0 + rr >= n || key >= n) continue;
         uint4 val;
         if (which) {
-          val = *reinterpret_cast<const uint4*>(ds_s + (rr * L::kAHP + ah) * L::kDsRow + 8 * ch);
+          val = *reinterpret_cast<const uint4*>(ds_s + ds_row<AH, HC>(rr, ah) + 8 * ch);
         } else {
           const float* pe = sp_s + ah * L::kSpHead + rr * L::kSpRow + 8 * ch;
           const float4 lo = *reinterpret_cast<const float4*>(pe);
@@ -427,18 +541,22 @@ rpe_attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__
     }
     if (kStage >= 2) {
       const bf16* slab = slabs + wr * L::kSlab;
-      const bf16* dsr = ds_s + wr * L::kAHP * L::kDsRow;
-      uint32_t bd[L::kNT][4];  // dS'^T (keys x ah): keys 8 i .. 8 i + 7 in bd[nt][i]
+      const bf16* dsr = ds_s + ds_row<AH, HC>(wr, 0);
+      uint32_t bd[L::kNT][2 * kMT];  // dS'^T (keys x ah): keys 8 i .. 8 i + 7 in bd[nt][i]
 #pragma unroll
-      for (int nt = 0; nt < L::kNT; ++nt)
-        ldmatrix_x4(bd[nt], dsr + (8 * nt + mr) * L::kDsRow + 8 * mi);
+      for (int nt = 0; nt < L::kNT; ++nt) {
+        if constexpr (kMT == 2)
+          ldmatrix_x4(bd[nt], dsr + (8 * nt + mr) * L::kDsRow + 8 * mi);
+        else
+          ldmatrix_x2(bd[nt], dsr + (8 * nt + mr) * L::kDsRow + 8 * (mi & 1));
+      }
 #pragma unroll
       for (int mc = 0; mc < L::kMC; ++mc)
 #pragma unroll
-        for (int ks = 0; ks < 2; ++ks) {
+        for (int ks = 0; ks < kMT; ++ks) {
           uint32_t a[4];  // slab^T: channels c0 + 16 mc .., keys 16 ks ..
-          ldmatrix_x4_trans(a, slab + slab_chunk(16 * ks + (mi >> 1) * 8 + mr,
-                                                 c0 / 8 + 2 * mc + (mi & 1)));
+          ldmatrix_x4_trans(a, slab + slab_chunk<kC>(16 * ks + (mi >> 1) * 8 + mr,
+                                                     c0 / 8 + 2 * mc + (mi & 1)));
 #pragma unroll
           for (int nt = 0; nt < L::kNT; ++nt)
             mma_bf16(dqp_acc[mc][nt], a[0], a[1], a[2], a[3], bd[nt][2 * ks],
@@ -448,7 +566,7 @@ rpe_attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__
         const bool row_ok = row0 + wr < n;
         bf16* drow = demb + ((long long)b * n + row0 + wr) * n * kC;
 #pragma unroll
-        for (int km2 = 0; km2 < 2; ++km2) {  // keys 16 km2 ..
+        for (int km2 = 0; km2 < kMT; ++km2) {  // keys 16 km2 ..
           uint32_t a16[4], a8[2];  // dS'^T (keys x ah)
           if constexpr (L::kK16)
             ldmatrix_x4_trans(a16, dsr + ((mi >> 1) * 8 + mr) * L::kDsRow
@@ -463,8 +581,8 @@ rpe_attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__
 #pragma unroll
               for (int jp = 0; jp < 2; ++jp) {
                 uint32_t r4[4];
-                ldmatrix_x4_trans(r4, qp_s + qp_chunk<AH>(wr, (mi & 1) * 8 + mr,
-                                                           ch0 + 2 * jp + (mi >> 1)));
+                ldmatrix_x4_trans(r4, qp_s + qp_chunk<AH, HC>(wr, (mi & 1) * 8 + mr,
+                                                               ch0 + 2 * jp + (mi >> 1)));
                 b16[2 * jp][0] = r4[0];
                 b16[2 * jp][1] = r4[1];
                 b16[2 * jp + 1][0] = r4[2];
@@ -472,7 +590,7 @@ rpe_attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__
               }
             }
             if constexpr (L::kK8)
-              ldmatrix_x4_trans(b8, qp_s + qp_chunk<AH>(wr, 16 * L::kK16 + mr, ch0 + mi));
+              ldmatrix_x4_trans(b8, qp_s + qp_chunk<AH, HC>(wr, 16 * L::kK16 + mr, ch0 + mi));
             float acc[4][4];
 #pragma unroll
             for (int jn = 0; jn < 4; ++jn) {
@@ -497,8 +615,8 @@ rpe_attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__
     }
   }
 
-  // dqp: staged as [kRows][AH][kC] bf16 in the first slab buffer, then
-  // stored 16 bytes a thread
+  // dqp: staged as [kRows][AH][kC] bf16 in the slab buffers, then stored
+  // 16 bytes a thread
   cp_async_wait<0>();
   __syncthreads();
   bf16* st = emb_s;
@@ -521,11 +639,12 @@ rpe_attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__
           *reinterpret_cast<const uint4*>(st + i * 8);
   }
   if (with_sh) {
-    // dqw: the sum over the keys (lanes g) of each item; the two m-tiles of
-    // an anchor-head are two items, in two warps (or one, twice): two
-    // addends onto the zeroed output, equal in either order
+    // dqw: the sum over the keys (lanes g) of each item; the m-tiles of an
+    // anchor-head are items in distinct warps (or one warp's, in turn):
+    // at most two addends onto the zeroed output, equal in either order
 #pragma unroll
-    for (int it = 0; it < L::kItems; ++it)
+    for (int it = 0; it < L::kItems; ++it) {
+      if (L::kContent % kWarps != 0 && warp + kWarps * it >= L::kContent) break;
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -538,37 +657,41 @@ rpe_attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__
           if (g == 0 && rr < kRows && row0 + rr < n)
             atomicAdd(dqw + (((long long)b * 3 + d) * AH + ah) * n + row0 + rr, val);
         }
+    }
   }
 }
 
 // The shared memory of the (ah, hc, cc) kernel; 0 where none is built.
 inline size_t smem_bytes(int ah, int hc, int cc) {
-  if (hc != kHC || cc != kC) return 0;
-  if (ah == 24) return Layout<24>::bytes;
-  if (ah == 4) return Layout<4>::bytes;
+  if (ah != 24 && ah != 4) return 0;
+  if (hc == 64 && cc == WidthPlan<64>::kC)
+    return ah == 24 ? Layout<24, 64>::bytes : Layout<4, 64>::bytes;
+  if (hc == 32 && cc == WidthPlan<32>::kC)
+    return ah == 24 ? Layout<24, 32>::bytes : Layout<4, 32>::bytes;
   return 0;
 }
 
 // static: internal linkage, so that each library built from this header
 // keeps its own record of the attribute below
-template <int AH>
+template <int AH, int HC>
 static int launch(const void* q, const void* k, const void* v, const void* qp,
                   const void* emb, const void* kmask, const void* qw, const void* pts,
                   const void* dout, const void* lse, const void* dd, void* p_out,
                   void* ds_out, void* dqp, void* demb, void* dqw, int batch, int n,
                   int pts_rows, float scale, cudaStream_t stream) {
-  constexpr size_t smem = Layout<AH>::bytes;
+  using L = Layout<AH, HC>;
+  constexpr size_t smem = L::bytes;
   static_assert(smem <= (size_t)kMaxSmem, "the plan fits a block");
   static bool attr = false;  // raised once per kernel instance
   if (!attr) {
     const cudaError_t err = cudaFuncSetAttribute(
-        rpe_attention_bwd_tc_kernel<AH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        rpe_attention_bwd_tc_kernel<AH, HC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     attr = true;
   }
-  const int grid = batch * ((n + kRows - 1) / kRows);
-  rpe_attention_bwd_tc_kernel<AH><<<grid, Layout<AH>::kThreads, smem, stream>>>(
+  const int grid = batch * ((n + L::kRows - 1) / L::kRows);
+  rpe_attention_bwd_tc_kernel<AH, HC><<<grid, L::kThreads, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)qp, (const bf16*)emb,
       (const uint8_t*)kmask, (const float*)qw, (const float*)pts, (const bf16*)dout,
       (const float*)lse, (const float*)dd, (bf16*)p_out, (bf16*)ds_out, (bf16*)dqp,
@@ -585,11 +708,16 @@ inline int dispatch(const void* q, const void* k, const void* v, const void* qp,
                     int hc, int cc, int pts_rows, float scale, cudaStream_t s) {
   if (smem_bytes(ah, hc, cc) == 0 || (qw != nullptr) != (dqw != nullptr))
     return (int)cudaErrorInvalidValue;
-  if (ah == 24)
-    return launch<24>(q, k, v, qp, emb, kmask, qw, pts, dout, lse, dd, p_out, ds_out, dqp,
-                      demb, dqw, batch, n, pts_rows, scale, s);
-  return launch<4>(q, k, v, qp, emb, kmask, qw, pts, dout, lse, dd, p_out, ds_out, dqp, demb,
-                   dqw, batch, n, pts_rows, scale, s);
+#define SE3ET_K11_TC(AH_, HC_)                                                              \
+  if (ah == AH_ && hc == HC_)                                                               \
+    return launch<AH_, HC_>(q, k, v, qp, emb, kmask, qw, pts, dout, lse, dd, p_out, ds_out, \
+                            dqp, demb, dqw, batch, n, pts_rows, scale, s);
+  SE3ET_K11_TC(24, 64)
+  SE3ET_K11_TC(4, 64)
+  SE3ET_K11_TC(24, 32)
+  SE3ET_K11_TC(4, 32)
+#undef SE3ET_K11_TC
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace rpe_bwd_tc

@@ -25,9 +25,12 @@ shapes of se3ete.3dmatch (bf16) and the tiny float32 widths:
   (the conv timed and held within its ``TOLERANCES``, the max bit for
   bit);
 * K11 (the backward of K5) on K5's output and row log-sum-exp (computed
-  once, before the timing) for a random float32 cotangent, at AH = 24 with SH and AH = 4 without, at both widths
-  (the bf16 ones, the training shapes, timed and held within their
-  ``TOLERANCES``; the float32 ones bit for bit), all six gradients;
+  once, before the timing) for a random float32 cotangent, at AH = 24
+  with SH and AH = 4 without, at both widths (the bf16 ones, the training
+  shapes, timed), and at the wide-head family's three self-layer shapes
+  (head width 32, C = 128, bf16: AH = 24 with and without the SH term, AH
+  = 4 without; timed and held within their ``TOLERANCES``), all six
+  gradients;
 * K10 (the backward of K3) for a random cotangent at N = 1024, C = 256 in
   bf16 (the training shape; timed, held within its ``TOLERANCES``) and N =
   128, C = 64 in float32 (bit for bit), the four gradients, on inputs of
@@ -116,6 +119,10 @@ K6_BF16_32 = "K6 N=M=1024 c=32 bf16"
 K5_BF16_32 = (("K5 AH=24 SH N=1024 C=128 c=32 bf16", 24, True),
               ("K5 AH=4 no SH N=1024 C=128 c=32 bf16", 4, False),
               ("K5 AH=24 no SH N=1024 C=128 c=32 bf16", 24, False))
+# K11 at head width 32: (name, AH, SH term)
+K11_BF16_32 = (("K11 AH=24 SH N=1024 C=128 c=32 bf16", 24, True),
+               ("K11 AH=4 no SH N=1024 C=128 c=32 bf16", 4, False),
+               ("K11 AH=24 no SH N=1024 C=128 c=32 bf16", 24, False))
 K4_CASES = ("K4 (256, 65, 65) f32", "K4 (6, 17, 13) f32")
 K13_CASES = ("K13 s0 -> s1 out", "K13 s0 -> s1 pooled")
 K2_CASES = ("K2 s2 -> s3 bf16", "K2 s0 -> s1 float32")
@@ -138,7 +145,8 @@ K9_CASES = (("K9 s0 -> s1 float32", 10000, 20000, 24, 768),
 TIMED = K5_BF16 + tuple(c[0] for c in K5_BF16_32) + K16_BF16 \
     + (K6_BF16, K7_BF16, K6_BF16_32, K7_BF16_32, K4_CASES[0], K13_CASES[0]) \
     + K2_CASES + K14_CASES \
-    + K1_BF16 + tuple(c[0] for c in K1_F32) + K11_BF16 + K10_CASES[:1] + K8_CASES \
+    + K1_BF16 + tuple(c[0] for c in K1_F32) + K11_BF16 + tuple(c[0] for c in K11_BF16_32) \
+    + K10_CASES[:1] + K8_CASES \
     + tuple(c[0] for c in K9_CASES) + (K15_CASE,)
 # the last timed training step's outputs (with --train-steps)
 TRAIN_OUTPUTS = ("training step: losses", "training step: gradients",
@@ -150,8 +158,8 @@ REPS = 20  # launches per timing
 TRAIN_STEP = "training step (median)"
 STEP_KERNELS = "training step kernels (device ms by kernel)"
 # kernels changed on purpose, with their bound against the other build
-# (the rest, K5 and K16 at head width 64, K6 at 64 and K7 at both widths
-# among them, are held bit for bit): K5 at head width 32 in bf16 (1e-3 of
+# (the rest, K5, K11 and K16 at head width 64, K6 at 64 and K7 at both
+# widths among them, are held bit for bit): K5 at head width 32 in bf16 (1e-3 of
 # the first design's scale) takes its ws form since it was built there,
 # where the first design took the shape: products summed on the tensor
 # cores in another order, and at AH = 4 each head's softmax in two halves
@@ -171,16 +179,17 @@ STEP_KERNELS = "training step kernels (device ms by kernel)"
 # stays bit for bit) runs on K1's tensor-core routine since its redesign,
 # whose H contraction sums in another order than the first design's FMA
 # chain, so a sum rounds to bf16 an ulp apart where the orders round apart;
-# the bf16 K11 (1e-2 of each gradient's scale, as its kernel-vs-plain check
-# states; its float32 form, the first design, stays bit for bit) runs in its
-# tc form since its redesign, which rounds P, dS and dO to bf16 before the
-# products where the first design kept them in float32; the bf16 K10 (1e-2
+# the bf16 K11 at head width 32 (1e-2 of each gradient's scale, as its
+# kernel-vs-plain check states; at 64 and in float32 it stays bit for bit)
+# takes its tc form since it was built there, where the first design took
+# the shape: P, dS and dO rounded to bf16 before the products, where the
+# first design kept them in float32; the bf16 K10 (1e-2
 # of each gradient's scale, as its kernel-vs-plain check states; its float32
 # form, the first design, stays bit for bit) runs in its tc form since its
 # redesign, which rounds the bases to bf16 before the products and sums on
 # the tensor cores per block, where the first design summed float32 bases
 # per query row
-TOLERANCES = {**dict.fromkeys(K11_BF16 + K10_CASES[:1], 1e-2),
+TOLERANCES = {**dict.fromkeys((c[0] for c in K11_BF16_32), 1e-2), K10_CASES[0]: 1e-2,
               **dict.fromkeys((c[0] for c in K5_BF16_32), 1e-3), K6_BF16_32: 1e-3,
               **dict.fromkeys(K4_CASES, 1e-5), K13_CASES[0]: 1e-3, K14_CASES[0]: 1e-2}
 
@@ -318,6 +327,17 @@ def _cases(dev):
         pts = rpe_attention.point_rows(points) if with_sh else None
         cases.append((name, lambda a=(q, k, v, qp, emb, masks, qw, pts):
                       rpe_attention.rpe_self_attention_with_lse(*a, scale=32 ** -0.5)))
+    # K11 at head width 32, on this build's K5 output and row statistics
+    g11 = torch.Generator().manual_seed(11)
+    for name, ah, with_sh in K11_BF16_32:
+        q, k, v = (torch.randn((2, ah, 1024, 32), generator=g11).to(dev, bf) for _ in range(3))
+        qp = torch.randn((2, 1024, ah, 128), generator=g11).to(dev, bf) * 128 ** -0.5
+        qw = (torch.randn((2, 3, ah, 1024), generator=g11) * 0.3).to(dev) if with_sh else None
+        args = (q, k, v, qp, emb, masks, qw, rpe_attention.point_rows(points) if with_sh else None)
+        saved = args + (torch.randn((2, ah, 1024, 32), generator=g11).to(dev),) \
+            + rpe_attention.rpe_self_attention_with_lse(*args, scale=32 ** -0.5)
+        cases.append((name, lambda a=saved: tuple(
+            t for t in rpe_attention.rpe_attention_bwd(*a, scale=32 ** -0.5) if t is not None)))
     for name, (b, m, n) in zip(K4_CASES, ((256, 65, 65), (6, 17, 13))):
         padded, mu, nu, valid = selfcheck.sinkhorn_inputs(b, m, n, dev)
         cases.append((name, lambda a=(padded, mu, nu), v=valid: torch.where(

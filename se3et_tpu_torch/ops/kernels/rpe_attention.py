@@ -27,10 +27,11 @@ autograd): the forward also returns the row log-sum-exp, and the backward
 is kernel K11 (:func:`rpe_attention_bwd`, ``csrc/rpe_attention_bwd.cu``,
 replaces the TPU ``_rpe_bwd``), which recomputes the softmax P and forms
 ``dS = P * (dO . v^T - rowsum(dO * out))``.  Its bf16 form ("tc",
-``csrc/rpe_attention_bwd_tc.cuh``, :func:`rpe_attention_bwd_form`) also
-forms dqp, d_emb and dqw on the tensor cores, reading the embedding once,
-and leaves dq, dk and dv to matrix products over its bf16 P and dS; the
-first design ("cuda": float32, head widths 16 and 32) leaves every
+``csrc/rpe_attention_bwd_tc.cuh``, at head widths 64 and 32,
+:func:`rpe_attention_bwd_form`) also forms dqp, d_emb and dqw on the
+tensor cores, reading the embedding once, and leaves dq, dk and dv to
+matrix products over its bf16 P and dS; the first design ("cuda": float32,
+head width 16) leaves every
 contraction to matmuls over float32 P and dS, as the JAX package runs
 them as XLA einsums.  Gradients flow to q, k, v, qp, emb and qw, in their own dtypes.
 
@@ -47,6 +48,7 @@ flash warps.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -170,27 +172,40 @@ def rpe_attention_form(ah: int, hc: int, cc: int, dtype, *, femb: bool = False) 
                      f"form needs {cuda_smem_bytes(ah, cc)} bytes of shared memory")
 
 
-# K11's tc form (csrc/rpe_attention_bwd_tc.cuh): query rows per block, keys
-# per tile, and the one head width and embedding width it is built for
-BWD_TC_ROWS, BWD_TC_KEYS, BWD_TC_HC, BWD_TC_C = 4, 32, 64, 256
+class BwdTcPlan(NamedTuple):
+    """K11's tc plan of one head width (``rpe_bwd_tc::WidthPlan``)."""
+    c: int          # the embedding width C it is built for
+    rows: int       # query rows a block
+    keys: int       # keys a tile
+    kv_smem: bool   # each tile's k and v staged in shared memory (else read from L2)
+    pad: bool       # dS' rows 16 bytes apart more and the geometry's a float4
+    warps24: int    # warps a block at AH = 24 (8 at AH = 4)
+
+
+# K11's tc form (csrc/rpe_attention_bwd_tc.cuh): each head width its plan
+BWD_TC_PLANS = {64: BwdTcPlan(256, 4, 32, False, False, 16),
+                32: BwdTcPlan(128, 8, 16, True, True, 8)}
 
 
 def bwd_tc_smem_bytes(ah: int, hc: int, cc: int) -> int:
     """Shared memory of K11's tc form at (AH, head width, C), in bytes, as
-    ``rpe_bwd_tc::Layout<AH>::bytes`` lays it out, 0 where it is not built
-    (head width 64 and C = 256 only, AH 4 or 24): two buffers of the
-    block's 4 rows' 32-key embedding slabs, the rows' folded queries qp (AH
-    padded to a multiple of 8), their q and dO (bf16), the positional
-    scores (float32, [AH][4 x 36 + 4]), dS' (bf16, [4][AH padded][40]), the
-    SH geometry (4 x 32 float4), the SH queries and the row statistics lse
-    and D."""
-    if hc != BWD_TC_HC or cc != BWD_TC_C or ah not in KERNEL_AH:
+    ``rpe_bwd_tc::Layout<AH, HC>::bytes`` lays it out, 0 where it is not
+    built (AH 4 or 24 at the (head width, C) of :data:`BWD_TC_PLANS`): two
+    buffers of the block's rows' embedding slabs (a tile of keys each), the
+    rows' folded queries qp (AH padded to a multiple of 8), their q and dO
+    (bf16), the positional scores (float32, [AH][rows x (keys + 4) + 4]),
+    dS' (bf16, [rows][AH padded][keys + 8], + 8 a row with ``pad``), the SH
+    geometry (rows x keys float4, + 1 a row with ``pad``), the SH queries,
+    the row statistics lse and D, and with ``kv_smem`` one tile's k and v
+    (16-byte aligned)."""
+    if hc not in BWD_TC_PLANS or cc != BWD_TC_PLANS[hc].c or ah not in KERNEL_AH:
         return 0
+    _, rows, keys, kv_smem, pad, _ = BWD_TC_PLANS[hc]
     ahp = -(-ah // 8) * 8
-    rows, keys = BWD_TC_ROWS, BWD_TC_KEYS
-    return (2 * rows * keys * cc * 2 + rows * ahp * cc * 2 + 2 * ah * rows * hc * 2
-            + ah * (rows * 36 + 4) * 4 + rows * ahp * 40 * 2 + rows * keys * 16
-            + rows * 3 * ah * 4 + 2 * ah * rows * 4)
+    size = (2 * rows * keys * cc * 2 + rows * ahp * cc * 2 + 2 * ah * rows * hc * 2
+            + ah * (rows * (keys + 4) + 4) * 4 + rows * (ahp * (keys + 8) + 8 * pad) * 2
+            + rows * (keys + pad) * 16 + rows * 3 * ah * 4 + 2 * ah * rows * 4)
+    return -(-size // 16) * 16 + 2 * ah * keys * hc * 2 if kv_smem else size
 
 
 def bwd_cuda_smem_bytes(ah: int, cc: int) -> int:
@@ -204,13 +219,16 @@ def rpe_attention_bwd_form(ah: int, hc: int, cc: int, dtype) -> str:
     ``hc`` and embedding width ``cc`` in ``dtype``:
 
     * "tc": in bf16 where :func:`bwd_tc_smem_bytes` names a plan that fits
-      a block (head width 64, C = 256: the training shapes), the
-      tensor-core form (``csrc/rpe_attention_bwd_tc.cuh``);
-    * "cuda": the first design (float32, and bf16 at head widths 16 and
-      32: the wide-head family's training).
+      a block (head width 64 with C = 256 and head width 32 with C = 128:
+      the training shapes of both families), the tensor-core form
+      (``csrc/rpe_attention_bwd_tc.cuh``);
+    * "cuda": the first design (float32, bf16 at head width 16 and at
+      other embedding widths).
 
     Chosen by shape alone, as the C entry points choose; neither is a
-    fallback of the other.  Raises ``ValueError`` where no form takes the
+    fallback of the other (the first design stays reachable at the "tc"
+    shapes only through ``_rpe_attention_bwd(..., form="cuda")``, for tests
+    and timings).  Raises ``ValueError`` where no form takes the
     shape (head widths other than :data:`BWD_HEAD_DIMS`)."""
     if dtype not in _DTYPES or ah not in KERNEL_AH or hc not in BWD_HEAD_DIMS or cc % 16:
         raise ValueError(f"no K11 kernel for AH={ah}, head width {hc}, C={cc}, {dtype}: "
@@ -467,7 +485,7 @@ def _rpe_attention_bwd(q, k, v, qp, emb, k_masks, qw, points, dout, out, lse, sc
                        form=None):
     """K11 on the form :func:`rpe_attention_bwd_form` names, or on ``form``
     where the caller asks for one that takes the shape ("cuda" takes every
-    shape the check below lets through)."""
+    shape the check below lets through; another form raises ``ValueError``)."""
     if q.device.type == "cpu":
         return rpe_attention_bwd_plain(q, k, v, qp, emb, k_masks, qw, points, dout, out,
                                        lse, scale=scale)
@@ -482,6 +500,9 @@ def _rpe_attention_bwd(q, k, v, qp, emb, k_masks, qw, points, dout, out, lse, sc
         raise ValueError("bad rpe_attention_bwd gradient shapes")
     if out.dtype != torch.float32 or lse.dtype != torch.float32:
         raise TypeError("rpe_attention_bwd takes K5's float32 output and row log-sum-exp")
+    if form not in (None, named, "cuda"):
+        raise ValueError(f"K11's {form} form does not take AH={ah}, head width {c}, "
+                         f"C={emb.shape[-1]}, {q.dtype}")
     form = form or named
     with_sh = qw is not None
     qwc = qw.float().contiguous() if with_sh else None

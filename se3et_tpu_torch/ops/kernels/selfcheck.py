@@ -832,7 +832,7 @@ def check_embedding_bwd(points, masks, c=256, k=3, sigma_d=0.2, sigma_a=15.0,
 
 def check_rpe_attention_bwd(points, masks, ah, c=64, cc=256, with_sh=True,
                             dtype=torch.bfloat16, seed=10, reps=3, device_kernel=None,
-                            first=False, qw_scale=0.3):
+                            first=False, qw_scale=0.3, replay=False):
     """K11 (and the contractions after it) on the inputs of
     :func:`check_rpe_attention` with K5's own output and row log-sum-exp
     and a random float32 cotangent.  Error relative to each gradient's
@@ -841,8 +841,10 @@ def check_rpe_attention_bwd(points, masks, ah, c=64, cc=256, with_sh=True,
     the bf16 gradients rounded from float32 sums in another order) and
     1e-4 in float32.  With ``device_kernel`` (a kernel name) also that
     kernel's device time per call and that of every kernel of the call;
-    with ``first`` the first design's time on the same inputs (events, and
-    its kernel's device time where ``device_kernel`` is given)."""
+    with ``replay`` the call's time replayed from a CUDA graph
+    (:func:`replay_ms`); with ``first`` the first design's time on the same
+    inputs (events, and its kernel's device time where ``device_kernel`` is
+    given)."""
     g = torch.Generator().manual_seed(seed)
     dev = points.device
     b, n, _ = points.shape
@@ -869,6 +871,8 @@ def check_rpe_attention_bwd(points, masks, ah, c=64, cc=256, with_sh=True,
     if device_kernel is not None:
         res.device_ms = device_ms(kernel_fn, device_kernel)
         res.call_device_ms = device_ms(kernel_fn, "")
+    if replay:
+        res.replay_ms = replay_ms(kernel_fn)
     if first:
         res.first_ms = _time_ms(first_fn, reps)
         if device_kernel is not None:

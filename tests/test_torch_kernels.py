@@ -307,27 +307,35 @@ def test_rpe_attention_form_refuses_shapes_no_kernel_takes(ah, hc, cc, dtype):
     (4, 16, 64, torch.float32, "cuda"),
     (24, 64, 128, torch.bfloat16, "cuda"),  # tc is built for C = 256 only
     (4, 64, 512, torch.bfloat16, "cuda"),
-    (24, 32, 128, torch.bfloat16, "cuda"),  # the wide-head family's training
+    (24, 32, 128, torch.bfloat16, "tc"),    # the wide-head family's training
     (4, 32, 128, torch.float32, "cuda"),
-    (24, 32, 256, torch.bfloat16, "cuda"),
+    (24, 32, 256, torch.bfloat16, "cuda"),  # tc at 32 is built for C = 128 only
+    (4, 32, 128, torch.bfloat16, "tc"),
+    (4, 32, 64, torch.bfloat16, "cuda"),
 ])
 def test_rpe_attention_bwd_form(ah, hc, cc, dtype, form):
-    """K11 takes its tc form in bf16 with head width 64 and C = 256 (the
-    training shapes), the first design otherwise (head width 32 too)."""
+    """K11 takes its tc form in bf16 at the training shapes of both
+    families (head width 64 with C = 256, 32 with C = 128), the first
+    design otherwise."""
     assert rpe_k.rpe_attention_bwd_form(ah, hc, cc, dtype) == form
 
 
-@pytest.mark.parametrize("ah", [4, 24])
-def test_rpe_attention_bwd_tc_plan_fits_a_block(ah):
-    """K11's tc plan at C = 256 fits one block of an H100 (232,448 bytes):
-    two buffers of 4 rows' 32-key embedding slabs (128 KB) beside the rows'
-    resident qp, q and dO, and the tile's score and dS' buffers; the plan is
-    0 where the form is not built."""
-    plan = rpe_k.bwd_tc_smem_bytes(ah, 64, 256)
-    slabs = 2 * rpe_k.BWD_TC_ROWS * rpe_k.BWD_TC_KEYS * 256 * 2
-    resident = rpe_k.BWD_TC_ROWS * (-(-ah // 8) * 8) * 256 * 2
+@pytest.mark.parametrize("ah,hc", [pytest.param(4, 64, id="4"), pytest.param(24, 64, id="24"),
+                                   pytest.param(4, 32, id="4-hw32"),
+                                   pytest.param(24, 32, id="24-hw32")])
+def test_rpe_attention_bwd_tc_plan_fits_a_block(ah, hc):
+    """K11's tc plan of each head width (C = 256 at 64, 128 at 32) fits one
+    block of an H100 (232,448 bytes): two buffers of its rows' embedding
+    slabs beside the rows' resident qp, q and dO, and the tile's score and
+    dS' buffers; the plan is 0 where the form is not built."""
+    cc, rows, keys = rpe_k.BWD_TC_PLANS[hc][:3]
+    assert cc == 4 * hc and rows in (4, 8) and keys in (16, 32)
+    plan = rpe_k.bwd_tc_smem_bytes(ah, hc, cc)
+    slabs = 2 * rows * keys * cc * 2
+    resident = rows * (-(-ah // 8) * 8) * cc * 2
     assert slabs + resident < plan <= 232448 == rpe_k.SMEM_LIMIT
     assert rpe_k.bwd_tc_smem_bytes(ah, 64, 128) == rpe_k.bwd_tc_smem_bytes(ah, 16, 256) == 0
+    assert rpe_k.bwd_tc_smem_bytes(ah, 32, 256) == rpe_k.bwd_tc_smem_bytes(ah, 32, 64) == 0
 
 
 @pytest.mark.parametrize("ah,hc,cc,dtype", [

@@ -1369,21 +1369,22 @@ def test_rpe_attention_bwd_tc_sh_diagonal(cuda):
     _assert_ok(selfcheck.check_rpe_attention_bwd(points, masks, 24, reps=1, qw_scale=3.0))
 
 
-def _rpe_bwd_args(cuda, n, ah, with_sh, seed):
+def _rpe_bwd_args(cuda, n, ah, with_sh, seed, hc=64, cc=256, pad=40):
     """K11's inputs as ``selfcheck.check_rpe_attention_bwd`` makes them
-    (bf16, C = 256, head width 64), with K5's output and row statistics."""
+    (bf16; head width 64 and C = 256 unless given), with K5's output and
+    row statistics (scale 0.125)."""
     from se3et_tpu_torch.ops.kernels import rpe_attention as rpe
 
-    points, masks = _cloud(cuda, n, seed)
+    points, masks = _cloud(cuda, n, seed, pad=pad)
     g = torch.Generator().manual_seed(seed)
     b = 2
     rnd = lambda *s: torch.randn(s, generator=g).to(cuda, torch.bfloat16)  # noqa: E731
-    q, k, v, qp, emb = rnd(b, ah, n, 64), rnd(b, ah, n, 64), rnd(b, ah, n, 64), \
-        rnd(b, n, ah, 256) * 0.0625, rnd(b, n, n, 256)
+    q, k, v, qp, emb = rnd(b, ah, n, hc), rnd(b, ah, n, hc), rnd(b, ah, n, hc), \
+        rnd(b, n, ah, cc) * 0.0625, rnd(b, n, n, cc)
     qw = (torch.randn((b, 3, ah, n), generator=g) * 0.3).to(cuda) if with_sh else None
     pts = rpe.point_rows(points) if with_sh else None
     out, lse = rpe.rpe_self_attention_with_lse(q, k, v, qp, emb, masks, qw, pts, scale=0.125)
-    dout = torch.randn((b, ah, n, 64), generator=g).to(cuda)
+    dout = torch.randn((b, ah, n, hc), generator=g).to(cuda)
     return q, k, v, qp, emb, masks, qw, pts, dout, out, lse
 
 
@@ -1425,25 +1426,36 @@ def test_rpe_attention_bwd_launches_its_form(cuda, dtype, form, kernel, other):
     _assert_ok(res)
 
 
+def _k11_call(cuda, n, ah, with_sh, hc, cc, dtype, form):
+    """One K11 call at head width ``hc`` on ``_rpe_bwd_args`` (seed 15) in
+    ``dtype`` (by name), on ``form`` (None: the one its shape names)."""
+    from se3et_tpu_torch.ops.kernels import rpe_attention as rpe
+
+    dt = getattr(torch, dtype)
+    args = [t.to(dt) if t is not None and t.dtype == torch.bfloat16 else t
+            for t in _rpe_bwd_args(cuda, n, ah, with_sh, 15, hc=hc, cc=cc)]
+    return lambda: rpe._rpe_attention_bwd(*args, 0.125, form=form)
+
+
 @pytest.mark.parametrize("ah,with_sh", [(24, True), (4, False)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n", [256, 1003])
 def test_rpe_attention_bwd_kernel_at_head_width_32(cuda, ah, with_sh, dtype, n):
-    """K11 at head width 32 (the wide-head family's training, C = 128) on
-    its first design ("cuda"): against its plain version within 1e-2 of
-    each gradient's scale in bf16 and 1e-4 in float32 (N 256, and 1003 with
-    a ragged key tile), its first design's kernel launched (profiler) and
-    its counter raised once a call; a second call gives the same gradients
-    bit for bit, and so does a backward through K5 by autograd."""
+    """K11's first design at head width 32 (the wide-head family's
+    training, C = 128; the form float32 takes, and in bf16, where the tc
+    form takes the shape, through ``_rpe_attention_bwd(..., form="cuda")``):
+    against its plain version within 1e-2 of each gradient's scale in bf16
+    and 1e-4 in float32 (N 256, and 1003 with a ragged key tile), its
+    counter raised once a call; a second call gives the same gradients bit
+    for bit; in float32 a backward through K5 by autograd gives them too;
+    its kernel launched and the tc form's not (profiler, in a child
+    process)."""
     from se3et_tpu_torch.ops.kernels import rpe_attention as rpe
 
     c, cc = 32, 128
-    assert rpe.rpe_attention_bwd_form(ah, c, cc, dtype) == "cuda"
+    assert rpe.rpe_attention_bwd_form(ah, c, cc, dtype) == (
+        "tc" if dtype == torch.bfloat16 else "cuda")
     points, masks = _cloud(cuda, n, 15)
-    res = selfcheck.check_rpe_attention_bwd(points, masks, ah, c=c, cc=cc, with_sh=with_sh,
-                                            dtype=dtype, reps=1)
-    assert "(cuda form)" in res.shape
-    _assert_ok(res)
     g = torch.Generator().manual_seed(15)
     rnd = lambda *s: torch.randn(s, generator=g).to(cuda, dtype)  # noqa: E731
     q, k, v, qp, emb = rnd(2, ah, n, c), rnd(2, ah, n, c), rnd(2, ah, n, c), \
@@ -1453,27 +1465,120 @@ def test_rpe_attention_bwd_kernel_at_head_width_32(cuda, ah, with_sh, dtype, n):
     out, lse = rpe.rpe_self_attention_with_lse(q, k, v, qp, emb, masks, qw, pts, scale=0.125)
     dout = torch.randn((2, ah, n, c), generator=g).to(cuda)
     args = (q, k, v, qp, emb, masks, qw, pts, dout, out, lse)
-    call = lambda: rpe.rpe_attention_bwd(*args, scale=0.125)  # noqa: E731
+    call = lambda: rpe._rpe_attention_bwd(*args, 0.125, form="cuda")  # noqa: E731
     before = rpe.rpe_attention_bwd.launches
     first, second = call(), call()
     assert rpe.rpe_attention_bwd.launches == before + 2
-    for name, a, b in zip(("dq", "dk", "dv", "dqp", "demb", "dqw"), first, second):
+    want = rpe.rpe_attention_bwd_plain(*args, scale=0.125)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    for name, a, b, w in zip(("dq", "dk", "dv", "dqp", "demb", "dqw"), first, second, want):
         assert (a is None) == (b is None) == (name == "dqw" and not with_sh), name
         if a is not None:
             assert torch.equal(a, b), name
             assert bool(torch.isfinite(a.float()).all()), name
+            err = float((a.float() - w.float()).abs().max())
+            assert err <= tol * float(w.float().abs().max()), (name, err)
+    if dtype == torch.float32:
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v, qp, emb)]
+        lqw = qw.clone().requires_grad_(True) if with_sh else None
+        rpe.rpe_self_attention(*leaves, masks, lqw, pts, scale=0.125).backward(dout)
+        for t, a in zip(leaves + ([lqw] if with_sh else []), first):
+            assert torch.equal(t.grad, a)
+    if n == 256:
+        names = _child_kernels("_k11_call", n, ah, with_sh, c, cc, str(dtype).split(".")[-1],
+                               "cuda")
+        assert any("rpe_attention_bwd_kernel" in k for k in names), names
+        assert not any("rpe_attention_bwd_tc_kernel" in k for k in names), names
+
+
+# K11's tc form at head width 32 (C = 128): (N, padded keys at the end of
+# cloud 1) as RPE_BWD_EDGES, and fewer rows than a block of 8 under one
+# 16-key tile
+RPE_BWD_32_EDGES = RPE_BWD_EDGES + [(6, 2)]
+RPE_BWD_32_SHAPES = [(24, True), (4, False), (24, False)]  # se3ete2 x 2, se3eti2
+
+
+@pytest.mark.parametrize("n,pad", RPE_BWD_32_EDGES)
+@pytest.mark.parametrize("ah,with_sh", RPE_BWD_32_SHAPES)
+def test_rpe_attention_bwd_tc_at_head_width_32_edges(cuda, ah, with_sh, n, pad):
+    """K11's tc form at head width 32, C = 128 (its own plan) at the
+    training shape, ragged N, masked key tails (whole masked tiles at N =
+    1003) and blocks of fewer rows: within 1e-2 of each gradient's scale of
+    the plain version."""
+    points, masks = _cloud(cuda, n, 21, pad=pad)
+    res = selfcheck.check_rpe_attention_bwd(points, masks, ah, c=32, cc=128, with_sh=with_sh,
+                                            reps=1)
+    assert res.shape.endswith("(tc form) (error relative to output scale)"), res.shape
+    _assert_ok(res)
+
+
+def test_rpe_attention_bwd_tc_at_head_width_32_sh_diagonal(cuda):
+    """The SH term where it is 0 (the n == m diagonal, coincident points:
+    cloud 0's second half repeats its first, cloud 1's padded points sit at
+    the origin) with SH queries 10x the check's, so that the SH term leads
+    the scores and dqw is large: the tc form at head width 32 within 1e-2
+    of each gradient's scale."""
+    points, masks = _cloud(cuda, 64, 12, pad=8)
+    points[0, 32:] = points[0, :32]
+    _assert_ok(selfcheck.check_rpe_attention_bwd(points, masks, 24, c=32, cc=128, reps=1,
+                                                 qw_scale=3.0))
+
+
+@pytest.mark.parametrize("ah,with_sh", RPE_BWD_32_SHAPES)
+@pytest.mark.parametrize("n", [1024, 1003])
+def test_rpe_attention_bwd_tc_at_head_width_32(cuda, ah, with_sh, n):
+    """K11's tc form at head width 32 on the wide-head family's shapes:
+    within 1e-2 of each gradient's scale of its first design (``form=
+    "cuda"``) on the same inputs; two calls bit for bit; a backward through
+    K5 by autograd gives the direct call's gradients bit for bit; the
+    counter rises once a call."""
+    from se3et_tpu_torch.ops.kernels import rpe_attention as rpe
+
+    assert rpe.rpe_attention_bwd_form(ah, 32, 128, torch.bfloat16) == "tc"
+    args = _rpe_bwd_args(cuda, n, ah, with_sh, 22, hc=32, cc=128)
+    before = rpe.rpe_attention_bwd.launches
+    got = rpe.rpe_attention_bwd(*args, scale=0.125)
+    again = rpe.rpe_attention_bwd(*args, scale=0.125)
+    assert rpe.rpe_attention_bwd.launches == before + 2
+    first = rpe._rpe_attention_bwd(*args, 0.125, form="cuda")
+    for name, a, b, f in zip(("dq", "dk", "dv", "dqp", "demb", "dqw"), got, again, first):
+        assert (a is None) == (b is None) == (f is None) == (name == "dqw" and not with_sh)
+        if a is None:
+            continue
+        assert torch.equal(a, b), name
+        assert a.dtype == f.dtype, name
+        err = float((a.float() - f.float()).abs().max())
+        assert err <= 1e-2 * float(f.float().abs().max()), (name, err)
+    q, k, v, qp, emb, masks, qw, pts, dout = args[:9]
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v, qp, emb)]
     lqw = qw.clone().requires_grad_(True) if with_sh else None
     rpe.rpe_self_attention(*leaves, masks, lqw, pts, scale=0.125).backward(dout)
-    for t, a in zip(leaves + ([lqw] if with_sh else []), first):
-        assert torch.equal(t.grad, a)
-    if n == 256:
-        assert selfcheck.device_ms(call, "rpe_attention_bwd_kernel", reps=1) is not None
-        assert selfcheck.device_ms(call, "rpe_attention_bwd_tc_kernel", reps=1) is None
+    for name, t, a in zip(("dq", "dk", "dv", "dqp", "demb", "dqw"),
+                          leaves + ([lqw] if with_sh else []), got):
+        assert torch.equal(t.grad, a), name
+
+
+@pytest.mark.parametrize("dtype,kernel,other", [
+    ("bfloat16", "rpe_attention_bwd_tc_kernel", "rpe_attention_bwd_kernel"),
+    ("float32", "rpe_attention_bwd_kernel", "rpe_attention_bwd_tc_kernel"),
+])
+def test_rpe_attention_bwd_at_head_width_32_launches_its_form(cuda, dtype, kernel, other):
+    """At se3ete2's self_eq training shape K11 launches the tc form's kernel
+    in bf16 and the first design's in float32 (profiler, in a child
+    process), and K11 asked for its tc form in float32 raises before any
+    launch."""
+    from se3et_tpu_torch.ops.kernels import rpe_attention as rpe
+
+    names = _child_kernels("_k11_call", 256, 24, True, 32, 128, dtype, None)
+    assert any(kernel in k for k in names) and not any(other in k for k in names), names
+    if dtype == "float32":
+        with pytest.raises(ValueError, match="tc form"):
+            _k11_call(cuda, 64, 24, True, 32, 128, dtype, "tc")()
 
 
 def test_rpe_attention_bwd_tc_plan_matches_the_kernel(cuda):
-    """The wrapper's shared-memory plan of K11's tc form is the kernel's."""
+    """The wrapper's shared-memory plan of K11's tc form is the kernel's, at
+    both head widths."""
     import ctypes
 
     from se3et_tpu_torch.ops.kernels import _build
@@ -1482,9 +1587,12 @@ def test_rpe_attention_bwd_tc_plan_matches_the_kernel(cuda):
     fn = getattr(_build._library("rpe_attention_bwd"), "se3et_rpe_attention_bwd_tc_smem")
     fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_longlong
-    for ah, hc, cc in ((24, 64, 256), (4, 64, 256), (24, 16, 64), (24, 64, 128), (8, 64, 256)):
-        assert fn(ah, hc, cc) == rpe.bwd_tc_smem_bytes(ah, hc, cc)
-    assert fn(24, 64, 256) > 0 and fn(4, 64, 256) > 0 and fn(24, 64, 128) == 0
+    for ah, hc, cc in ((24, 64, 256), (4, 64, 256), (24, 32, 128), (4, 32, 128), (24, 16, 64),
+                       (24, 64, 128), (8, 64, 256), (24, 32, 256), (4, 32, 64), (8, 32, 128)):
+        assert fn(ah, hc, cc) == rpe.bwd_tc_smem_bytes(ah, hc, cc), (ah, hc, cc)
+    for hc, plan in rpe.BWD_TC_PLANS.items():
+        assert fn(24, hc, plan.c) > 0 and fn(4, hc, plan.c) > 0
+    assert fn(24, 64, 128) == fn(24, 32, 256) == 0
 
 
 @pytest.mark.parametrize("n,pad", RPE_EDGES)

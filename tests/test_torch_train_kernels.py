@@ -608,23 +608,34 @@ def _tc_model(q, k, v, qp, emb, masks, qw, pts, d_out, out, lse, scale):
             bf(torch.einsum("banm,bnad->bnmd", ds_b, qp)), dqw)
 
 
-@pytest.mark.parametrize("ah,with_sh", [(24, True), (4, False), (4, True)])
-def test_rpe_attention_bwd_tc_rounding_matches_jax(ah, with_sh):
+@pytest.mark.parametrize("ah,with_sh,hc,cc", [
+    pytest.param(24, True, 64, 256, id="24-True"),
+    pytest.param(4, False, 64, 256, id="4-False"),
+    pytest.param(4, True, 64, 256, id="4-True"),
+    # head width 32, C = 128: se3ete2's self_eq and plain self layers,
+    # se3eti2's self_eq layers
+    pytest.param(24, True, 32, 128, id="hw32-24-True"),
+    pytest.param(24, False, 32, 128, id="hw32-24-False"),
+    pytest.param(4, False, 32, 128, id="hw32-4-False"),
+])
+def test_rpe_attention_bwd_tc_rounding_matches_jax(ah, with_sh, hc, cc):
     """The precision plan of K11's tc form (P, dS, dO and the embedding
     rounded to bf16 before each product, float32 sums; :func:`_tc_model`)
     against the JAX VJP of ``rpe_self_attention_trainable`` (interpret
     mode, float32 at HIGHEST precision) on the same bf16-valued inputs, at
-    the training widths (head width 64, C = 256) and N = 128 with masked
-    keys: within 1e-2 of each gradient's scale, the tolerance the card's
-    check holds the kernel to against the plain version."""
+    the training widths of both families (head width 64 with C = 256, 32
+    with C = 128) and N = 128 with masked keys: within 1e-2 of each
+    gradient's scale, the tolerance the card's check holds the kernel to
+    against the plain version."""
     from se3et_tpu.ops.pallas.rpe_attention import rpe_self_attention_trainable
     from se3et_tpu_torch.ops.kernels import rpe_attention as rpe
 
+    assert rpe.rpe_attention_bwd_form(ah, hc, cc, torch.bfloat16) == "tc"
     rounded = lambda a: np.asarray(  # noqa: E731
         torch.from_numpy(a).to(torch.bfloat16).float().numpy())
-    q, k, v, qp, emb, masks, qw, pts = _rpe_inputs(with_sh, seed=15, ah=ah, c=64, cc=256)
+    q, k, v, qp, emb, masks, qw, pts = _rpe_inputs(with_sh, seed=15, ah=ah, c=hc, cc=cc)
     q, k, v, qp, emb = (rounded(a) for a in (q, k, v, qp, emb))
-    scale = 0.125
+    scale = hc ** -0.5
     d_out = np.random.RandomState(16).randn(*q.shape).astype(np.float32)
     diff = (q, k, v, qp, emb) + ((qw,) if with_sh else ())
 

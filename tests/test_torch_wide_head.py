@@ -118,8 +118,9 @@ def test_eq_attention_apply_plain_matches_pallas_at_head_width_32(dtype, tol):
 def test_k11_plain_matches_jax_vjp_at_head_width_32(ah, with_sh, dtype):
     """K11 at head width 32 (the wide-head family's training: se3ete2's
     self_eq layers at AH = 24 with the SH term, its plain self layers at AH
-    = 4, se3eti2's self_eq layers at AH = 24 without): its form is the first
-    design ("cuda"), and its plain version with the contractions after it
+    = 4, se3eti2's self_eq layers at AH = 24 without): its form is the tc
+    form in bf16 and the first design ("cuda") in float32, and its plain
+    version with the contractions after it
     (what the wrapper takes on the CPU, and K5's autograd backward) matches
     the JAX VJP of ``rpe_self_attention_trainable`` (interpret mode, block
     64 x 128) at N = 128, C = 128 with masked keys, in every gradient (dq,
@@ -132,7 +133,8 @@ def test_k11_plain_matches_jax_vjp_at_head_width_32(ah, with_sh, dtype):
     from tests.test_torch_train_kernels import _rpe_inputs as _rpe_bwd_inputs
 
     cc = 128
-    assert rpe_k.rpe_attention_bwd_form(ah, HEAD_WIDTH, cc, dtype) == "cuda"
+    assert rpe_k.rpe_attention_bwd_form(ah, HEAD_WIDTH, cc, dtype) == (
+        "tc" if dtype == torch.bfloat16 else "cuda")
     q, k, v, qp, emb, masks, qw, pts = _rpe_bwd_inputs(True, seed=40 + ah, ah=ah,
                                                        c=HEAD_WIDTH, cc=cc)
     if not with_sh:
