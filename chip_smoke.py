@@ -132,20 +132,25 @@ Phases, each of which raises (exit code != 0) on failure:
    ``se3ete.3dmatch.evalrot``, and K5 at the self_eq layers' shape (AH =
    24) without the SH term, on its ws form;
 9. the wide-head family (head width 32: K5 on its ws form, K6 and K7 on
-   their tc forms, K16 on its CUDA-core form): a tiny float32 card-vs-CPU run of
+   their tc forms, K16 on its CUDA-core form, K12's stage-2 convs (H 36)
+   on its tc48 form): a tiny float32 card-vs-CPU run of
    ``se3ete2.3dmatch``'s
    flash cut; ``se3ete2.3dmatch`` served at full width on 2 synthetic
    pairs of 30000 points (stage-0 sets at least half their 24576 cap, host
    influence, random weights from seed 7351): an eager pass held to
    ``SE3ETE2_LAUNCHES`` a pair, ``capture_forward`` with its counts and
    every replay bit for bit against eager, eager and captured in turns,
-   peak memory and a replayed pair's profile (K6 on its tc kernel 4 times,
-   its first design never); K5 at both self-layer
+   peak memory and a replayed pair's profile (K6 on its tc kernel 4 times
+   and K12 on its tc48 kernel twice, their first designs never); K5 at
+   both self-layer
    shapes, K6, K7 and K3 at the path's shapes against their plain
    versions, replayed from a CUDA graph beside their bounds (K5, K6 and K7
    also beside their first designs in the same run, by events and replayed);
    K12, K13,
-   K14, K1 and K2 at the family's conv shapes; one ``serve_femb`` pair and
+   K14, K1 and K2 at the family's conv shapes (K12's tc48 form at the
+   stage-2 shape also beside its first design and the unfused route, by
+   events and replayed, with its bound and the share of it reached, and the
+   seconds these take); one ``serve_femb`` pair and
    K16 at both shapes; then ``se3eti2.3dmatch`` through ``run_test``'s
    Tester on 4 pairs (counts, replays and metrics bit for bit against
    eager) and K5 at its self_eq shape without the SH term, beside its first
@@ -265,7 +270,8 @@ K4_CHAIN_FLOOR_MS = 0.0524
 # in float32), whose device time per launch the pair profile always prints
 SERVING_KERNELS = ("gather_wf_tc_kernel", "neighbor_max_rows_kernel", "embedding_tc_kernel",
                    "sinkhorn_rows_kernel", "rpe_attention_ws_kernel", "eq_stats_tc_kernel",
-                   "eq_apply_tc_kernel", "gather_wf_mm_tc_kernel", "panels_kernel",
+                   "eq_apply_tc_kernel", "gather_wf_mm_tc_kernel", "gather_wf_mm_tc48_kernel",
+                   "panels_kernel",
                    "gather_wf_max_mm_tc_kernel", "gather_wf_mm_kernel", "gather_wf_max_kernel",
                    "gather_wf_max_tc_kernel")
 
@@ -325,6 +331,10 @@ WIDE_DEVICE_KERNELS = {"rpe_self_attention": "rpe_attention_ws_kernel",
                        "eq_attention_apply": "eq_apply_tc_kernel"}
 # K6's first design (the CUDA-core kernel), which no se3ete2 pair launches
 K6_FIRST_KERNEL = "eq_stats_kernel"
+# K12's tc48 form, which takes se3ete2's two stage-2 convs (H 36) a pair,
+# and its first design, which no se3ete2 pair launches
+K12_TC48_KERNEL, K12_FIRST_KERNEL = "gather_wf_mm_tc48_kernel", "gather_wf_mm_kernel"
+SE3ETE2_K12_TC48_LAUNCHES = 2
 # phase 10: the wide-head family trained.  Launches per se3ete2 training
 # step, read from the code as TRAIN_LAUNCHES (the same blocks at half the
 # channels): 10 gathering convs (K1 in float32, K8), 3 strided skips (K2,
@@ -1467,14 +1477,19 @@ SE3ETE2_CONV_SHAPES = (
 
 def _conv_checks(tag, shapes, p0, launches, runs):
     """The conv kernels (K12, K13, K14, K1, K2) against their plain versions
-    at the shapes a path gave them: pair 0's neighbour sets, at the widths
+    at the shapes a path gave them (K12 where it takes its tc48 form also
+    beside its first design and the unfused route, by events and replayed,
+    printed with its bound and share): pair 0's neighbour sets, at the widths
     of ``shapes`` (name, what, neighbour set, source stage, A*C of the
     conv's input, A*C of its output (K12, K13), of the skip payload (K13,
     K14, K2), launches a forward), each printed with its (rows, H, AC,
     AC2).  Each row's launches are ``runs`` x its launches a forward; their
     sum per kernel is the run's counter.  Returns {name: CheckResult} of
     the shapes the path launched; raises on any disagreement."""
+    import torch
+
     from se3et_tpu_torch.ops.kernels import selfcheck
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
 
     ns = [p0[f"points_{i}"].shape[1] for i in range(4)]
     held, per_kernel = {}, {}
@@ -1482,15 +1497,31 @@ def _conv_checks(tag, shapes, p0, launches, runs):
         nbr = p0[nset]
         print(f"{tag} conv {name} {what}: rows {nbr.shape[1]} over {ns[st]}, H {nbr.shape[2]}, "
               f"AC {ac}, AC2 {ac2}, {n} a forward", flush=True)
+        t0 = time.perf_counter()
+        tc48 = name == "gather_wf_mm" and \
+            wc.gather_wf_mm_form(nbr.shape[2], torch.bfloat16, ac_out) == "tc48"
         if name == "gather_wf":
             res = selfcheck.check_gather_wf(nbr, ns[st], ac)
         elif name == "neighbor_max":
             res = selfcheck.check_neighbor_max(nbr, ns[st], ac2)
         else:
-            res = selfcheck.check_fused_conv(name, nbr, ns[st], ac, ac_out=ac_out, ac2=ac2)
+            # K12's tc48 form beside its first design and the unfused route,
+            # by events and replayed
+            res = selfcheck.check_fused_conv(name, nbr, ns[st], ac, ac_out=ac_out, ac2=ac2,
+                                             first=tc48, replay=tc48)
         res.launches = runs * n
         per_kernel[name] = per_kernel.get(name, 0) + res.launches
         _print_check(res)
+        if tc48:
+            print(f"{tag} K12 {what} (H {nbr.shape[2]}, {res.form} form): {res.ms:.4f} ms by "
+                  f"events (first design in this run {res.first_ms:.4f}; unfused route "
+                  f"{res.route_ms:.4f}), replayed {res.replay_ms:.4f} (first design "
+                  f"{res.first_replay_ms:.4f}, {res.first_replay_ms / res.replay_ms:.1f}x; "
+                  f"unfused route {res.route_replay_ms:.4f}); bound {res.bound_ms:.4f} "
+                  f"({res.bound_by}), {res.bound_ms / res.replay_ms:.1%} of it replayed; "
+                  f"per {tag} pair {n} x replayed {n * res.replay_ms:.4f} ms (first design "
+                  f"{n * res.first_replay_ms:.4f}); check and timings "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
         held[f"{name} ({tag} {what}, H {nbr.shape[-1]})"] = res
     if any(launches[name] != c for name, c in per_kernel.items()):
         raise RuntimeError(f"the run launched {launches}, its shapes {per_kernel}")
@@ -1531,7 +1562,8 @@ def _wide_head(dev):
     shapes), K6, K7 and K3 at the path's shapes against their plain
     versions, with their times replayed from a CUDA graph (K5, K6 and K7
     beside their first designs); the conv kernels
-    at the family's shapes (:func:`_conv_checks`); one ``serve_femb`` pair
+    at the family's shapes (:func:`_conv_checks`; K12's tc48 form beside
+    its first design and the unfused route); one ``serve_femb`` pair
     (K16 5, K3 0, K5 0) and K16 at both shapes.  (b) ``se3eti2.3dmatch``
     through ``run_test``'s Tester (calibrated limits, the captured eval
     forward) with counters set to 0 just before and read just after, every
@@ -1627,23 +1659,26 @@ def _wide_head(dev):
           f"{CAPTURED_TURN_PAIRS} pairs each): " + "; ".join(
               f"{r} median {statistics.median(v):.2f} (range {min(v):.2f}-{max(v):.2f})"
               for r, v in ms.items()), flush=True)
-    # K6 on its tc kernel in the replayed pair, its first design never (a
-    # second profile where the first lists one short)
+    # K6 on its tc kernel in the replayed pair and K12's two stage-2 convs
+    # (H 36) on tc48, their first designs never (a second profile where the
+    # first lists one short)
     k6 = WIDE_DEVICE_KERNELS["eq_attention_stats"]
+    want_seen = {k6: FLASH_LAUNCHES["eq_attention_stats"], K6_FIRST_KERNEL: 0,
+                 K12_TC48_KERNEL: SE3ETE2_K12_TC48_LAUNCHES, K12_FIRST_KERNEL: 0}
     for attempt in (1, 2):
         prof = _profile(lambda: served(inputs[0]), what="one replayed se3ete2 pair",
-                        also=tuple(WIDE_DEVICE_KERNELS.values()) + (K6_FIRST_KERNEL,))
+                        also=tuple(WIDE_DEVICE_KERNELS.values()) + (
+                            K6_FIRST_KERNEL, K12_TC48_KERNEL, K12_FIRST_KERNEL))
         if prof is None:
             raise RuntimeError("the profiler recorded no device time over a se3ete2 replay")
         seen = {name: sum(c for key, c in prof["counts"].items()
                           if re.search(rf"\b{name}\b", key))
-                for name in (k6, K6_FIRST_KERNEL)}
+                for name in want_seen}
         print(f"phase 9 replay profile (attempt {attempt}): {seen}", flush=True)
-        if seen == {k6: FLASH_LAUNCHES["eq_attention_stats"], K6_FIRST_KERNEL: 0}:
+        if seen == want_seen:
             break
     else:
-        raise RuntimeError(f"a replayed se3ete2 pair launched {seen}, expected K6 on {k6} "
-                           f"{FLASH_LAUNCHES['eq_attention_stats']} times")
+        raise RuntimeError(f"a replayed se3ete2 pair launched {seen}, expected {want_seen}")
 
     # the kernels at the path's shapes (pair 0's coarse points), by events
     # and replayed from a CUDA graph
@@ -2375,7 +2410,8 @@ def main() -> int:
         # K8's tile plan's build, K15's calls replayed from a CUDA graph
         row.update({key: getattr(res, key) for key in ("device_ms", "route_ms", "first_ms",
                                                        "call_device_ms", "first_device_ms",
-                                                       "plan_ms", "replay_ms", "first_replay_ms")
+                                                       "plan_ms", "replay_ms", "first_replay_ms",
+                                                       "route_replay_ms")
                     if getattr(res, key) is not None})
         kernels.append(row)
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all", flush=True)

@@ -52,8 +52,9 @@
 // Within a block the gather and the product still alternate per chunk, and
 // one block runs per SM (the accumulator and the influence fragments take
 // up to 254 registers a thread).  For H > 32 the fragments and the staging
-// outgrow registers and shared memory; that form and the float32 K12 (the
-// tiny card-vs-CPU checks only) keep the first design below.
+// outgrow registers and shared memory: 32 < H <= 48 takes tc48 (its own
+// plan, below the H <= 32 tile); wider sets and the float32 K12 (the tiny
+// card-vs-CPU checks only) keep the first design below.
 //
 // K13 in bf16 (tc::gather_wf_max_mm_tc_kernel, H <= 32, AC2 a multiple of 8
 // up to 1536): K12's tile (conv_tile: its gather and product unchanged, so
@@ -819,6 +820,444 @@ int launch(const void* x, const void* nbr, const void* infl, const void* panels,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// K12 in bf16 on the tensor cores for 32 < H <= 48 (the "tc48" form; its
+// plan is the constants below, mirrored by windowed_conv.gather_wf_mm_tc48_plan).
+// At se3ete2's stage-2 convs (x (2, 3072, 384), H 36, K 15, A*Cout 384) the
+// product is 27.2 GFLOP (0.028 ms at the bf16 peak) and the gather reads
+// ~170 MB of neighbour rows from L2 (x is 4.7 MB).  What the H <= 32 tile
+// cannot do here: three 16-neighbour fragments (H padded to 48) outgrow its
+// shared memory (243 KB) and registers, and its 64-row tiles give 96 blocks
+// on 132 SMs.  The plan:
+//  * 48-row tiles (128 blocks at the target: one wave on 128 of 132 SMs);
+//    each warp gathers 6 rows, whose influence (3 x 4 registers a row) it
+//    holds as the A fragments of the gather, read once in place;
+//  * the gather of a row and chunk is its (16 x 48) @ (48 x 32) product on
+//    mma.sync, B the row's H staged neighbour rows (ldmatrix.trans; the
+//    padding rows read a zero row), rounded per k to bf16 into the A tile as
+//    the H <= 32 tile does (all 16 planes, the ones past K zero); three
+//    staging buffers a warp (two ahead) where they fit, H <= 38, else two;
+//  * the weight product on wgmma: two warpgroups, each m64n192k16 over the
+//    tile's 48 rows and its half of A*Cout, A from registers (ldmatrix of
+//    the A tile; the fourth warp's 16 rows, past the tile, read a zero
+//    padding row and are not stored: a quarter of the product's tensor work
+//    is padding), B the panel in the ring (the panels' 64-byte swizzle is
+//    wgmma's);
+//  * two A tiles: the gather of chunk c + 1 runs between the products of
+//    chunk c, a row while kernel point i K / 6's product is in flight;
+//  * the weight panels stream through a 3-slot ring of bulk copies
+//    (mbarriers), released per panel;
+//  * every branch is warp-uniform (waits by vote, lane 0's copies and
+//    arrivals predicated, not branched): else ptxas serialises the wgmma
+//    (C7520, ROADMAP).
+// Measured (scripts/probe_gather_wf_mm.py, NVIDIA H100 80GB HBM3, 700 W,
+// PERF.md): the gather alone and the product alone each take about half of
+// the kernel; the product alone streams the 566 MB of weight panels (4.4 MB
+// per tile) from L2 at ~7 TB/s, the gather's scattered 64-byte rows run at
+// ~2.5 TB/s, and the two overlap little.  A cluster of 2 blocks sharing the
+// weight stream by multicast halved the L2 reads but ran slower (ROADMAP
+// B.2).  Neither staging the rows through L1 (a 48-row tile references each
+// distinct neighbour row ~6 times) nor one A tile (gather and product in
+// turn, 70 KB more L1) moved the gather.
+namespace tc48 {
+
+using se3et::mbar_init;
+using se3et::smem_u32;
+using tc::bf16;
+using tc::ldsm_x4;
+using tc::pack2;
+using tc::swz;
+
+constexpr int kBM = 48;                  // query rows per block
+constexpr int kThreads = 256;            // two warpgroups
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = kBM / kWarps;      // gather rows per warp: warp + kWarps * i
+constexpr int kHS = 3;                   // 16-neighbour fragments
+constexpr int kHP = 16 * kHS;            // neighbours of the fragments (H padded)
+constexpr int kMinH = 33, kMaxH = kHP;
+constexpr int kCW = tc::kCW;             // channels of one chunk
+constexpr int kPlane = kBM * kCW + 8;    // bf16 per kernel-point plane of an A tile
+constexpr int kNW = 192;                 // output columns per warpgroup
+constexpr int kSlot = 2 * kNW * kCW;     // bf16 per weight slot (A*Cout <= 384 rows)
+constexpr int kStages = 3;               // weight panels in the ring
+constexpr int kAlign = 1024;             // the ring's alignment (wgmma's swizzle)
+// phase bits (the probe's): the gather, the weight product
+constexpr int kGather = 1, kProduct = 2;
+constexpr int kDefaultPhases = kGather | kProduct;
+static_assert(2 * kNW == kMaxAcOutMM, "two warpgroups cover the widest A*Cout");
+
+// lane 0's arrival on the mbarrier `bar` (predicated, no branch)
+__device__ __forceinline__ void arrive_lane0(uint64_t* bar, int lane) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.eq.u32 p, %1, 0;\n"
+      " @p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
+      ::"r"(smem_u32(bar)), "r"(lane) : "memory");
+}
+// until the phase of the given parity has completed, the whole warp leaving
+// together (a vote); traps after ~2^33 cycles (seconds) instead of hanging
+// the card on an arrival that never comes (no message: a printf would make
+// ptxas serialise the wgmma)
+__device__ __forceinline__ void wait_warp(uint64_t* bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  while (true) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (__all_sync(0xffffffffu, done)) return;
+    if (clock64() - t0 > (1ll << 33)) __trap();
+  }
+}
+// lane 0: expect `bytes` on `bar`, and copy `bytes` from `src` to `dst`,
+// signalling `bar` (predicated, no branch)
+__device__ __forceinline__ void issue_lane0(void* dst, const void* src, uint32_t bytes,
+                                            uint64_t* bar, int lane) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.eq.u32 p, %4, 0;\n"
+      " @p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%3], %2;\n"
+      " @p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n}\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)), "r"(lane) : "memory");
+}
+
+// a wgmma descriptor of K-major 64-byte rows under the 64-byte swizzle at
+// shared address `addr` (atoms of 8 rows, 512 bytes apart)
+__device__ __forceinline__ uint64_t desc64(uint32_t addr) {
+  return (uint64_t)((addr & 0x3ffff) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(512 >> 4) << 32) |
+         ((uint64_t)2 << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving reads or writes of the accumulators across
+// the asynchronous products
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < 96; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 192: 96 floats, each warp its 16 rows in the mma.sync accumulator
+// layout, n-tile j at d[4 j .. 4 j + 3]) += a (64 x 16 bf16 in registers, the
+// mma.sync A layout) . b (16 x 192 behind `desc`, K-major)
+__device__ __forceinline__ void wgmma_n192(float* d, const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n .reg .pred acc;\n setp.ne.b32 acc, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, acc, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// the chunk's channels of the h neighbour rows of one query row (row
+// `row` of nbr; none where !live), zero for sentinels and channels past ac,
+// into a staging buffer of h rows; every lane runs the same number of
+// copies (the last ones, past row h, zero-fill the zero row)
+__device__ __forceinline__ void stage_row(bf16* dst, bf16* zero, const bf16* xb,
+                                          const int* __restrict__ nbr, long long row, int h,
+                                          int ns, int c0, int ac, bool live, int lane) {
+  const int n = (h * 4 + 31) >> 5;
+  for (int it = 0; it < n; ++it) {
+    const int i = it * 32 + lane, hh = i >> 2, u = i & 3;
+    const int j = live && hh < h ? __ldg(nbr + row * h + hh) : ns;
+    const bool ok = j >= 0 && j < ns && c0 + 8 * u < ac;
+    se3et::cp_async16(hh < h ? dst + swz(hh, 8 * u) : zero,
+                      ok ? xb + (long long)j * ac + c0 + 8 * u : xb, ok);
+  }
+}
+
+// Rows are the flattened (b, q) rows of nbr / infl / out; block i owns rows
+// 48 i .. 48 i + 47.
+// B: neighbour-row buffers per warp (3 where shared memory allows, H <= 38).
+template <int B>
+__global__ void __launch_bounds__(kThreads, 1)
+gather_wf_mm_tc48_kernel(const bf16* __restrict__ x, const int* __restrict__ nbr,
+                         const bf16* __restrict__ infl, const bf16* __restrict__ panels,
+                         float* __restrict__ out, int ns, int nq, int rows, int h, int hs,
+                         int k, int ac, int ac_out, int phases) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((kAlign - (smem_u32(smem_raw) & (kAlign - 1))) & (kAlign - 1));
+  bf16* s_w = reinterpret_cast<bf16*>(smem);                     // [kStages][384][kCW]
+  bf16* s_a = s_w + kStages * kSlot;                             // [2][kKP][kPlane]
+  bf16* s_x = s_a + 2 * kKP * kPlane;                            // [warp][B][h][kCW]
+  bf16* s_zero = s_x + kWarps * B * h * kCW;                     // [kCW]: zeros
+  bf16* s_pad = s_zero + kCW;                                     // [kCW]: zeros, read only
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_pad + kCW);     // [kStages]
+  uint64_t* empty = full + kStages;                               // [kStages]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = (int)blockIdx.x * kBM;
+  const int nrows = max(0, min(kBM, rows - r0));
+  const int nchunks = (ac + kCW - 1) / kCW;
+  const int npanels = nchunks * k;
+  const int panel_elems = ac_out * kCW;
+  const uint32_t panel_bytes = (uint32_t)panel_elems * 2;
+  const bool gather = phases & kGather, product = phases & kProduct;
+  // warp 0 produces; a value ptxas sees as warp-uniform
+  const bool producer = __shfl_sync(0xffffffffu, warp == 0, 0);
+
+  // the zero row (the staging's padding copies write zeros over it) and
+  // the product's padding row (written here only)
+  if (tid < 2 * kCW / 8) reinterpret_cast<uint4*>(s_zero)[tid] = make_uint4(0u, 0u, 0u, 0u);
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // this warp's rows' influence, read once as it lies in (rows, hs, k): the
+  // A fragments of the gather, A[kp][hh] = infl[r][hh][kp] (zero past k, h
+  // and the tile's rows)
+  uint32_t wf[kRows][kHS][4];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = warp + kWarps * i;
+    const bf16* wr = infl + (long long)min(r0 + r, rows - 1) * hs * k;
+    const bool live = r < nrows;
+    auto w = [&](int kp, int hh) {
+      return live && kp < k && hh < h ? wr[hh * k + kp] : __float2bfloat16(0.f);
+    };
+#pragma unroll
+    for (int s = 0; s < kHS; ++s) {
+      const int ha = 16 * s + 2 * t, hb = ha + 8;
+      wf[i][s][0] = pack2(w(g, ha), w(g, ha + 1));
+      wf[i][s][1] = pack2(w(g + 8, ha), w(g + 8, ha + 1));
+      wf[i][s][2] = pack2(w(g, hb), w(g, hb + 1));
+      wf[i][s][3] = pack2(w(g + 8, hb), w(g + 8, hb + 1));
+    }
+  }
+  __syncthreads();
+
+  // the weight ring: warp 0 keeps kStages - 1 panels in flight; panel p
+  // (chunk p / k, kernel point p % k) lands in slot p % kStages once every
+  // warp has released the slot
+  auto produce = [&](int p) {
+    const int s = p % kStages;
+    if (p >= kStages) wait_warp(&empty[s], ((p / kStages) - 1) & 1);
+    issue_lane0(s_w + s * kSlot, panels + (long long)p * panel_elems, panel_bytes, &full[s],
+                lane);
+  };
+  if (product && producer)
+    for (int p = 0; p < min(kStages - 1, npanels); ++p) produce(p);
+
+  // the gather's neighbour rows: a flat per-warp sequence over (chunk, row),
+  // B - 1 ahead
+  bf16* my_x = s_x + warp * B * h * kCW;
+  const int nloads = nchunks * kRows;
+  auto stage = [&](int q) {
+    const int i = q % kRows, r = warp + kWarps * i;
+    const int b = min(r0 + r, rows - 1) / nq;
+    stage_row(my_x + (q % B) * h * kCW, s_zero, x + (long long)b * ns * ac, nbr,
+              (long long)r0 + r, h, ns, (q / kRows) * kCW, ac, r < nrows, lane);
+  };
+  // row i of chunk ci: the (16 x 48) @ (48 x 32) product of its influence
+  // fragments and its staged neighbour rows (ldmatrix.trans; rows past h
+  // read the zero row), rounded per k into chunk ci's A tile (all 16
+  // planes: past k the sums are zero)
+  auto gather_row = [&](int ci, int i) {
+    const int q = ci * kRows + i;
+    if (q + B - 1 < nloads) stage(q + B - 1);
+    se3et::cp_async_commit();
+    se3et::cp_async_wait<B - 1>();
+    __syncwarp();
+    const int r = warp + kWarps * i;
+    const bf16* xs = my_x + (q % B) * h * kCW;
+    bf16* as = s_a + (ci & 1) * kKP * kPlane;
+    float d[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.f;
+    const int mi = lane >> 3;
+#pragma unroll
+    for (int s = 0; s < kHS; ++s) {
+      // B fragments of n-tiles 2qq, 2qq+1 over neighbour rows 16s..
+      const int hh = 16 * s + (mi & 1) * 8 + (lane & 7);
+      uint32_t bq[2][4];
+#pragma unroll
+      for (int qq = 0; qq < 2; ++qq)
+        se3et::ldmatrix_x4_trans(bq[qq], hh < h ? xs + swz(hh, 8 * (2 * qq + (mi >> 1))) : s_zero);
+#pragma unroll
+      for (int qq = 0; qq < 2; ++qq) {
+        se3et::mma_bf16(d[2 * qq], wf[i][s][0], wf[i][s][1], wf[i][s][2], wf[i][s][3],
+                        bq[qq][0], bq[qq][1]);
+        se3et::mma_bf16(d[2 * qq + 1], wf[i][s][0], wf[i][s][1], wf[i][s][2], wf[i][s][3],
+                        bq[qq][2], bq[qq][3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = 8 * j + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(as + g * kPlane + swz(r, c)) =
+          __floats2bfloat162_rn(d[j][0], d[j][1]);
+      *reinterpret_cast<__nv_bfloat162*>(as + (g + 8) * kPlane + swz(r, c)) =
+          __floats2bfloat162_rn(d[j][2], d[j][3]);
+    }
+    __syncwarp();
+  };
+  if (gather) {
+#pragma unroll
+    for (int q = 0; q < B - 1; ++q) {
+      if (q < nloads) stage(q);
+      se3et::cp_async_commit();
+    }
+  }
+
+  // the product: warpgroup wg the columns wg * 192 .., its warp wq the rows
+  // 16 wq .. (wq 3: rows past the tile, read from the padding row, which
+  // nothing writes after the first barrier, and never stored)
+  const int wq = warp & 3, wg = warp >> 2;
+  float acc[96];
+#pragma unroll
+  for (int i = 0; i < 96; ++i) acc[i] = 0.f;
+  // panel p: keep the ring full, multiply chunk ci's A tile by the panel,
+  // run `shadow` (a gather row, or nothing) while the product runs, then
+  // release the panel's slot
+  auto panel = [&](int ci, int kk, auto shadow) {
+    const int p = ci * k + kk;
+    if (producer && p + kStages - 1 < npanels) produce(p + kStages - 1);
+    const int slot = p % kStages;
+    wait_warp(&full[slot], (p / kStages) & 1);
+    const bf16* as = s_a + ((ci & 1) * kKP + kk) * kPlane;
+    const int mi8 = lane >> 3;
+    uint32_t a0[4], a1[4];
+    const int ar = 16 * wq + (mi8 & 1) * 8 + (lane & 7);
+    ldsm_x4(a0, wq < 3 ? as + swz(ar, 8 * (mi8 >> 1)) : s_pad);
+    ldsm_x4(a1, wq < 3 ? as + swz(ar, 8 * (2 + (mi8 >> 1))) : s_pad);
+    const uint32_t b = smem_u32(s_w + slot * kSlot + wg * kNW * kCW);
+    wgmma_fence();
+    wgmma_n192(acc, a0, desc64(b));
+    wgmma_n192(acc, a1, desc64(b + 32));
+    wgmma_commit();
+    shadow();
+    wgmma_wait_all();
+    arrive_lane0(&empty[slot], lane);
+  };
+  auto nothing = [] {};
+
+  if (gather) {
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) gather_row(0, i);  // chunk 0 alone
+  }
+  __syncthreads();
+  // each later chunk's gather rows between its predecessor's products: row
+  // i in the shadow of kernel point i k / 6 (where k < 6 leaves no kernel
+  // point, alone)
+  const int pk = product ? k : 0;
+#pragma unroll 1
+  for (int ci = 0; ci < nchunks; ++ci) {
+    const bool next = gather && ci + 1 < nchunks;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {  // unrolled: wf[i] stays in registers
+      const int kk0 = i * pk / kRows, kk1 = (i + 1) * pk / kRows;
+      auto row = [&] {
+        if (next) gather_row(ci + 1, i);
+      };
+      if (kk1 > kk0) {
+        panel(ci, kk0, row);
+#pragma unroll 1
+        for (int kk = kk0 + 1; kk < kk1; ++kk) panel(ci, kk, nothing);
+      } else {
+        row();
+      }
+    }
+    __syncthreads();  // chunk ci + 1's A tile is complete, chunk ci's free
+  }
+  fence_acc(acc);
+
+#pragma unroll
+  for (int j = 0; j < kNW / 8; ++j) {
+    const int r = 16 * wq + g, col = wg * kNW + 8 * j + 2 * t;
+    if (col < ac_out) {
+      if (r < nrows)
+        *reinterpret_cast<float2*>(out + (long long)(r0 + r) * ac_out + col) =
+            make_float2(acc[4 * j], acc[4 * j + 1]);
+      if (r + 8 < nrows)
+        *reinterpret_cast<float2*>(out + (long long)(r0 + r + 8) * ac_out + col) =
+            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+}
+
+constexpr size_t kMaxSmem = 232448;  // an H100 block's shared memory
+
+size_t smem_bytes(int h, int b) {
+  return (size_t)kAlign + (size_t)kStages * kSlot * 2 + (size_t)2 * kKP * kPlane * 2 +
+         (size_t)kWarps * b * h * kCW * 2 + (size_t)2 * kCW * 2 + (size_t)2 * kStages * 8;
+}
+// neighbour-row buffers per warp: 3 where they fit, else 2
+int stage_rows(int h) { return smem_bytes(h, 3) <= kMaxSmem ? 3 : 2; }
+
+// the plan for `rows` flattened rows: shared memory, 48-row tiles (one
+// block each)
+void plan(int h, int rows, int* smem, int* tiles) {
+  *smem = (int)smem_bytes(h, stage_rows(h));
+  *tiles = (rows + kBM - 1) / kBM;
+}
+
+template <int B>
+int launch_b(const void* x, const void* nbr, const void* infl, const void* panels, void* out,
+             int ns, int nq, int rows, int h, int hs, int k, int ac, int ac_out, int phases,
+             int tiles, size_t smem, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(gather_wf_mm_tc48_kernel<B>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  gather_wf_mm_tc48_kernel<B><<<tiles, kThreads, smem, stream>>>(
+      (const bf16*)x, (const int*)nbr, (const bf16*)infl, (const bf16*)panels, (float*)out, ns,
+      nq, rows, h, hs, k, ac, ac_out, phases);
+  return (int)cudaGetLastError();
+}
+
+bool takes(int h, int hs, int k, int ac, int ac_out) {
+  return k >= 1 && k <= kKP && h >= kMinH && h <= kMaxH && hs >= h && ac >= 8 && ac % 8 == 0 &&
+         ac_out >= 8 && ac_out % 8 == 0 && ac_out <= kMaxAcOutMM;
+}
+
+// panels: the weight as (chunks, K, A*Cout, 32) bf16, rows swizzled as
+// swz(), zero past AC (the H <= 32 tile's layout)
+int launch(const void* x, const void* nbr, const void* infl, const void* panels, void* out,
+           int batch, int ns, int nq, int h, int hs, int k, int ac, int ac_out, int phases,
+           void* stream) {
+  if (!takes(h, hs, k, ac, ac_out) || (reinterpret_cast<uintptr_t>(panels) & 15))
+    return (int)cudaErrorInvalidValue;
+  if (batch < 1 || nq < 1) return 0;
+  int smem = 0, tiles = 0;
+  plan(h, batch * nq, &smem, &tiles);
+  auto fn = stage_rows(h) == 3 ? &launch_b<3> : &launch_b<2>;
+  return fn(x, nbr, infl, panels, out, ns, nq, batch * nq, h, hs, k, ac, ac_out, phases, tiles,
+            (size_t)smem, (cudaStream_t)stream);
+}
+
+}  // namespace tc48
+
 }  // namespace
 
 // K12's weight panels, (chunks, K, A*Cout, 32) bf16, from rhs_t (A*Cout, K*AC)
@@ -834,8 +1273,8 @@ extern "C" int se3et_gather_wf_mm_panels_bf16(const void* rhs_t, void* panels, i
 }
 
 // K12 in bf16, influence (B, Nq, hs, K) read in place (its first h columns),
-// H <= 32, the weight as the wrapper's panels.  The wide-neighbour form
-// below takes H > 32.
+// H <= 32, the weight as the wrapper's panels.  tc48 below takes 32 < H <=
+// 48, the first design wider sets.
 extern "C" int se3et_gather_wf_mm_bf16(const void* x, const void* nbr, const void* infl,
                                        const void* panels, void* out, int batch, int ns,
                                        int nq, int h, int hs, int k, int ac, int ac_out,
@@ -879,7 +1318,43 @@ extern "C" int se3et_gather_wf_max_mm_tc_bf16_phases(
                     ac2, phases, stream);
 }
 
-// K12 in bf16 for H > 32: the CUDA-core gather of K13 without the skip,
+// K12 in bf16 for 32 < H <= 48 on the tensor cores ("tc48"): the influence
+// (B, Nq, hs, K) read in place (its first h columns), the weight as the
+// H <= 32 form's panels, 48-row tiles
+extern "C" int se3et_gather_wf_mm_tc48_bf16(const void* x, const void* nbr, const void* infl,
+                                            const void* panels, void* out, int batch, int ns,
+                                            int nq, int h, int hs, int k, int ac, int ac_out,
+                                            void* stream) {
+  return tc48::launch(x, nbr, infl, panels, out, batch, ns, nq, h, hs, k, ac, ac_out,
+                      tc48::kDefaultPhases, stream);
+}
+
+// the same with the phases chosen (bits: 1 gather, 2 weight product), for
+// scripts/probe_gather_wf_mm.py
+extern "C" int se3et_gather_wf_mm_tc48_bf16_phases(const void* x, const void* nbr,
+                                                   const void* infl, const void* panels,
+                                                   void* out, int batch, int ns, int nq, int h,
+                                                   int hs, int k, int ac, int ac_out, int phases,
+                                                   void* stream) {
+  return tc48::launch(x, nbr, infl, panels, out, batch, ns, nq, h, hs, k, ac, ac_out, phases,
+                      stream);
+}
+
+// tc48's plan for `rows` flattened query rows: plan[0] shared memory bytes,
+// [1] 48-row tiles (blocks), [2] rows a tile, [3] weight ring slots, [4]
+// neighbour-row buffers a warp; windowed_conv.gather_wf_mm_tc48_plan
+// mirrors it
+extern "C" int se3et_gather_wf_mm_tc48_plan(int h, int k, int ac_out, int rows, int* plan) {
+  if (!tc48::takes(h, h, k, 8, ac_out) || rows < 1) return (int)cudaErrorInvalidValue;
+  tc48::plan(h, rows, &plan[0], &plan[1]);
+  plan[2] = tc48::kBM;
+  plan[3] = tc48::kStages;
+  plan[4] = tc48::stage_rows(h);
+  return 0;
+}
+
+// K12 in bf16 for H > 48 (the first design; also, with form "first" chosen
+// by the caller, for any H): the CUDA-core gather of K13 without the skip,
 // influence padded to 16 per (query, neighbour)
 extern "C" int se3et_gather_wf_mm_wide_bf16(const void* x, const void* nbr, const void* infl,
                                             const void* rhs_t, void* out, int batch, int ns,

@@ -20,10 +20,11 @@ shapes of se3ete.3dmatch (bf16) and the tiny float32 widths:
   without), timed and held within their ``TOLERANCES`` (its ws form there
   against a build where the first design takes them);
 * K12 (fused conv) at the stage-0 (x (2, 20000, 192), H 24) and stage-1
-  (x (2, 10000, 384), H 32) shapes, and K13 at the s0 -> s1 strided shape
-  (skip (2, 20000, 768)), its conv output and its skip max as two cases
-  (the conv timed and held within its ``TOLERANCES``, the max bit for
-  bit);
+  (x (2, 10000, 384), H 32) shapes and at se3ete2's stage-2 shape (x (2,
+  3072, 384), H 36: its tc48 form, held within its ``TOLERANCES``), all
+  timed, and K13 at the s0 -> s1 strided shape (skip (2, 20000, 768)), its
+  conv output and its skip max as two cases (both timed; the conv held
+  within its ``TOLERANCES``, the max bit for bit);
 * K11 (the backward of K5) on K5's output and row log-sum-exp (computed
   once, before the timing) for a random float32 cotangent, at AH = 24
   with SH and AH = 4 without, at both widths (the bf16 ones, the training
@@ -96,6 +97,17 @@ a warm-up on a fresh model with ``torch.use_deterministic_algorithms`` on
 are printed) and keeps the last one's losses, gradients and parameters:
 this checkout's are held bit for bit against the other's (a case like the
 others), and each checkout's two turns are compared too (run to run).
+
+With ``--serve-pairs N`` each turn also serves ``--serve-experiment``
+(se3ete2.3dmatch by default) captured, as ``chip_smoke.py`` phase 9 serves
+se3ete2: the experiment's serving config at full width, its first two
+synthetic pairs of ``point_limit`` points with the host's influence and
+seeded weights, ``capture_forward`` on pair 0, each pair's replay held to
+the eager forward bit for bit (the turn fails otherwise); then N pairs
+served captured (copy-in, replay, outputs cloned, synchronised) by the
+host clock after one untimed pair.  It prints each turn's host load, its
+launches a pair (the wrappers' counters over the capture) and ms/pair, and
+the median ms/pair of each checkout.
 """
 
 import argparse
@@ -125,6 +137,7 @@ K11_BF16_32 = (("K11 AH=24 SH N=1024 C=128 c=32 bf16", 24, True),
                ("K11 AH=24 no SH N=1024 C=128 c=32 bf16", 24, False))
 K4_CASES = ("K4 (256, 65, 65) f32", "K4 (6, 17, 13) f32")
 K13_CASES = ("K13 s0 -> s1 out", "K13 s0 -> s1 pooled")
+K12_CASES = ("K12 stage 0", "K12 stage 1", "K12 se3ete2 stage 2")
 K2_CASES = ("K2 s2 -> s3 bf16", "K2 s0 -> s1 float32")
 K14_CASES = ("K14 s1 -> s2 wf", "K14 s1 -> s2 pooled")
 K15_CASE = "K15 stage 0 bf16"
@@ -143,7 +156,7 @@ K9_CASES = (("K9 s0 -> s1 float32", 10000, 20000, 24, 768),
             ("K9 s1 -> s2 float32", 2500, 10000, 32, 1536),
             ("K9 s2 -> s3 float32", 1024, 2500, 36, 3072))
 TIMED = K5_BF16 + tuple(c[0] for c in K5_BF16_32) + K16_BF16 \
-    + (K6_BF16, K7_BF16, K6_BF16_32, K7_BF16_32, K4_CASES[0], K13_CASES[0]) \
+    + (K6_BF16, K7_BF16, K6_BF16_32, K7_BF16_32, K4_CASES[0]) + K12_CASES + K13_CASES \
     + K2_CASES + K14_CASES \
     + K1_BF16 + tuple(c[0] for c in K1_F32) + K11_BF16 + tuple(c[0] for c in K11_BF16_32) \
     + K10_CASES[:1] + K8_CASES \
@@ -157,6 +170,8 @@ BITS = K2_CASES + K14_CASES[1:] + (K15_CASE,) + TRAIN_OUTPUTS
 REPS = 20  # launches per timing
 TRAIN_STEP = "training step (median)"
 STEP_KERNELS = "training step kernels (device ms by kernel)"
+SERVE = "captured serving ms/pair (median)"
+SERVE_TURN = "captured serving (ms/pair, host load, launches a pair)"
 # kernels changed on purpose, with their bound against the other build
 # (the rest, K5, K11 and K16 at head width 64, K6 at 64 and K7 at both
 # widths among them, are held bit for bit): K5 at head width 32 in bf16 (1e-3 of
@@ -188,10 +203,15 @@ STEP_KERNELS = "training step kernels (device ms by kernel)"
 # form, the first design, stays bit for bit) runs in its tc form since its
 # redesign, which rounds the bases to bf16 before the products and sums on
 # the tensor cores per block, where the first design summed float32 bases
-# per query row
+# per query row; the bf16 K12 at H 36 (1e-2, K12's tolerance in
+# selfcheck.check_fused_conv) takes its tc48 form since it was built, where
+# the first design took the shape: the H contraction summed on the tensor
+# cores in another order before the same per-k rounding to bf16, the weight
+# product on the tensor cores
 TOLERANCES = {**dict.fromkeys((c[0] for c in K11_BF16_32), 1e-2), K10_CASES[0]: 1e-2,
               **dict.fromkeys((c[0] for c in K5_BF16_32), 1e-3), K6_BF16_32: 1e-3,
-              **dict.fromkeys(K4_CASES, 1e-5), K13_CASES[0]: 1e-3, K14_CASES[0]: 1e-2}
+              **dict.fromkeys(K4_CASES, 1e-5), K13_CASES[0]: 1e-3, K14_CASES[0]: 1e-2,
+              K12_CASES[2]: 1e-2}
 
 
 def _cases(dev):
@@ -269,6 +289,14 @@ def _cases(dev):
                               wc.gather_wf_max_mm(*a)[i]))
         else:
             cases.append((name, lambda a=(x, nbr, infl, rhs): wc.gather_wf_mm(*a)))
+    # se3ete2's stage-2 convs (H 36), on inputs of their own
+    g12 = torch.Generator().manual_seed(12)
+    nq, h, ac = 3072, 36, 384
+    nbr = torch.cat([selfcheck.local_neighbors(nq, nq, h, g12, dev) for _ in range(2)])
+    x = torch.randn((2, nq, ac), generator=g12).to(dev, bf)
+    infl = (torch.rand((2, nq, h, 15), generator=g12).to(dev) * (nbr < nq)[..., None]).to(bf)
+    rhs = (torch.randn((ac, 15 * ac), generator=g12) * (15 * ac) ** -0.5).to(dev, bf).t()
+    cases.append((K12_CASES[2], lambda a=(x, nbr, infl, rhs): wc.gather_wf_mm(*a)))
     for name, nq, ns, h, ac, dtype in (("K1 stage 2", 2500, 2500, 36, 768, bf),
                                        ("K1 s2 -> s3", 1024, 2500, 36, 768, bf),
                                        ("K1 stage 3", 1024, 1024, 38, 1536, bf),
@@ -370,6 +398,13 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
 
 
+def _any_bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor of any dtype flattened, floats as their bytes (NaNs and
+    signed zeros included)."""
+    flat = t.detach().contiguous().reshape(-1)
+    return flat.view(torch.uint8) if flat.dtype.is_floating_point else flat
+
+
 def _same_bits(a, b) -> bool:
     """Two lists of tensors of the same shapes and bit patterns."""
     return len(a) == len(b) and all(x.shape == y.shape and torch.equal(_bits(x), _bits(y))
@@ -452,9 +487,54 @@ def _train_step_ms(steps: int):
     return statistics.median(ms), kernels, state
 
 
-def _worker(tree: str, out: str, save: bool, train_steps: int) -> None:
+def _serve_ms(experiment: str, pairs: int):
+    """``pairs`` captured serving ms of ``experiment``'s first two synthetic
+    pairs in turn, after one untimed pair, in the checkout on
+    ``sys.path[0]``, every replay first held to the eager forward bit for
+    bit; and the launches a pair."""
+    import time
+
+    from se3et_tpu_torch.data.pyramid import synthetic_pair
+    from se3et_tpu_torch.engine.serving import capture_forward
+    from se3et_tpu_torch.experiments import configs
+    from se3et_tpu_torch.nn.model import SE3ETModel, pyramid_to_tensors
+    from se3et_tpu_torch.ops.kernels import selfcheck
+
+    dev = torch.device("cuda", 0)
+    cfg = configs.serving_config(configs.make_cfg(experiment))
+    extent = configs.synthetic_extent(cfg.data.dataset)
+    inputs = [pyramid_to_tensors(synthetic_pair(i, cfg.pipeline, cfg.model,
+                                                cfg.data.point_limit, extent, seed=cfg.seed),
+                                 dev) for i in range(2)]
+    model = SE3ETModel(cfg.model, seed=cfg.seed).eval()
+    eager = [model(td) for td in inputs]
+    for w in selfcheck.WRAPPERS.values():
+        w.launches = 0
+    served = capture_forward(model, inputs[0])
+    for i, td in enumerate(inputs):
+        got = served(td)
+        if set(got) != set(eager[i]) or not all(
+                torch.equal(_any_bits(got[k]), _any_bits(v))
+                for k, v in eager[i].items() if torch.is_tensor(v)):
+            raise RuntimeError(f"{sys.path[0]}: pair {i}'s replay differs from the eager forward")
+    served(inputs[0])
+    ms = []
+    for i in range(pairs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = served(inputs[i % 2])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if not bool(torch.isfinite(got["estimated_transform"]).all()):
+            raise RuntimeError(f"{sys.path[0]}: a non-finite transform")
+    return ms, {n: c for n, c in served.launches.items() if c}
+
+
+def _worker(tree: str, out: str, save: bool, train_steps: int, serve_pairs: int,
+            experiment: str) -> None:
     """One run in checkout ``tree``: the outputs (saved when ``save``) and
-    the ms of the ``TIMED`` cases (and of ``train_steps`` training steps)."""
+    the ms of the ``TIMED`` cases (and of ``train_steps`` training steps,
+    and of ``serve_pairs`` pairs of ``experiment`` served captured)."""
     sys.path[0] = tree  # in place of this script's directory
     from se3et_tpu_torch.ops.kernels import _build, selfcheck
 
@@ -471,6 +551,11 @@ def _worker(tree: str, out: str, save: bool, train_steps: int) -> None:
     if train_steps:
         ms[TRAIN_STEP], ms[STEP_KERNELS], state = _train_step_ms(train_steps)
         torch.save(state, out + ".train.pt")
+    if serve_pairs:
+        load = os.getloadavg()
+        pair_ms, launches = _serve_ms(experiment, serve_pairs)
+        ms[SERVE] = statistics.median(pair_ms)
+        ms[SERVE_TURN] = [pair_ms, load, launches]
     if save:
         torch.save(outs, out + ".pt")
     with open(out + ".json", "w") as f:
@@ -506,12 +591,17 @@ def main() -> int:
     parser.add_argument("--save", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--train-steps", type=int, default=0,
                         help="also time this many full-width training steps a turn")
+    parser.add_argument("--serve-pairs", type=int, default=0,
+                        help="also serve this many pairs captured a turn")
+    parser.add_argument("--serve-experiment", default="se3ete2.3dmatch",
+                        help="the experiment served with --serve-pairs")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("bit_identity: no CUDA device", file=sys.stderr)
         return 1
     if args.worker:
-        _worker(*args.worker, args.save, args.train_steps)
+        _worker(*args.worker, args.save, args.train_steps, args.serve_pairs,
+                args.serve_experiment)
         return 0
     if not args.other:
         parser.error("--other is required")
@@ -525,10 +615,16 @@ def main() -> int:
     for i, (who, tree) in enumerate(turns):
         out = os.path.join(work, f"turn{i}")
         cmd = [sys.executable, os.path.abspath(__file__), "--worker", tree, out,
-               "--train-steps", str(args.train_steps)] + (["--save"] if i < 2 else [])
+               "--train-steps", str(args.train_steps), "--serve-pairs", str(args.serve_pairs),
+               "--serve-experiment", args.serve_experiment] + (["--save"] if i < 2 else [])
         subprocess.run(cmd, check=True, cwd=tree)
         with open(out + ".json") as f:
             times[who].append(json.load(f))
+        if args.serve_pairs:
+            pair_ms, load, launches = times[who][-1][SERVE_TURN]
+            print(f"turn {i} {who}: {args.serve_experiment} captured, host load "
+                  f"{[round(x, 2) for x in load]}; launches a pair {launches}; ms/pair "
+                  f"{[round(x, 2) for x in pair_ms]}", flush=True)
     theirs = torch.load(os.path.join(work, "turn0.pt"))
     ours = torch.load(os.path.join(work, "turn1.pt"))
     if args.train_steps:
@@ -558,7 +654,8 @@ def main() -> int:
             verdict = "bit-identical" if same else f"DIFFERS (max |diff| / max |other| {diff:.3e})"
         print(f"{name}: {verdict}", flush=True)
         bad += not ok
-    for name in TIMED + ((TRAIN_STEP,) if args.train_steps else ()):
+    for name in TIMED + ((TRAIN_STEP,) if args.train_steps else ()) \
+            + ((SERVE,) if args.serve_pairs else ()):
         print(f"{name} ms in turns (other, this, this, other): "
               f"other {[round(t[name], 4) for t in times['other']]} (median "
               f"{statistics.median(t[name] for t in times['other']):.4f}), this "

@@ -129,6 +129,7 @@ class CheckResult:
     # (selfcheck.replay_ms), the form and (K5-K7, K15) its first design
     replay_ms: Optional[float] = None
     first_replay_ms: Optional[float] = None
+    route_replay_ms: Optional[float] = None  # K12's unfused route replayed
     # K8's tiles form on the card: its tile plan's build from the reverse
     # index (ms by events) and whether it equals the plain version's
     plan_ms: Optional[float] = None
@@ -957,7 +958,7 @@ def skip_reuse(nbr: torch.Tensor, ns: int, tile: int = 64) -> dict:
 
 
 def check_fused_conv(name, nbr, ns, ac, ac_out=0, ac2=0, k=15, dtype=torch.bfloat16,
-                     seed=11, reps=5, device_kernel=None, first=False):
+                     seed=11, reps=5, device_kernel=None, first=False, replay=False):
     """K12 (``name`` "gather_wf_mm"), K13 ("gather_wf_max_mm") or K14
     ("gather_wf_max") on random x (B, ns, ac), influence, expanded weight
     (K*ac, ac_out) and skip payload (B, ns, ac2) for the given neighbours.
@@ -969,8 +970,10 @@ def check_fused_conv(name, nbr, ns, ac, ac_out=0, ac2=0, k=15, dtype=torch.bfloa
     (K1 + ``torch.matmul`` (+ K2) for K12/K13, K1 + K2 for K14), a
     yardstick of several library calls, not one.  With ``device_kernel`` (a
     substring of the kernel's name) ``device_ms`` is its device time per
-    call from the profiler; with ``first`` (K14) ``first_ms`` times its
-    first design on the same inputs."""
+    call from the profiler; with ``first`` (K12, K14) ``first_ms`` times its
+    first design on the same inputs; with ``replay`` (K12) the kernel, its
+    first design (with ``first``) and the unfused route are also timed
+    replayed from a CUDA graph (:func:`replay_ms`)."""
     g = torch.Generator().manual_seed(seed)
     dev = nbr.device
     b, nq, h = nbr.shape
@@ -1005,14 +1008,22 @@ def check_fused_conv(name, nbr, ns, ac, ac_out=0, ac2=0, k=15, dtype=torch.bfloa
         ms, plain_ms = _time_ms(kernel_fn, reps), _time_ms(plain_fn, reps)
         route_ms = _time_ms(route_fn, reps)
         dev_ms = None if device_kernel is None else device_ms(kernel_fn, device_kernel)
-        first_ms = None if not first else _time_ms(
-            lambda: wc._gather_wf_max_forward(x, nbr, infl, x2, "first"), reps)
+        first_fn = (lambda: wc._gather_wf_mm_forward(x, nbr, infl, rhs, "first")) \
+            if name == "gather_wf_mm" else \
+            (lambda: wc._gather_wf_max_forward(x, nbr, infl, x2, "first"))
+        first_ms = None if not first else _time_ms(first_fn, reps)
+        replays = None if not replay else (
+            replay_ms(kernel_fn), replay_ms(first_fn) if first else None, replay_ms(route_fn))
     skip = f" skip{tuple(x2.shape)}" if name != "gather_wf_mm" else ""
     mm = f" W({k * ac}, {ac_out})" if name != "gather_wf_max" else \
         f" K={k} ({wc.gather_wf_max_form(h, dtype, ac, x2.shape[2])} form)"
     res = CheckResult(name, f"x{tuple(x.shape)} nbr{tuple(nbr.shape)}{mm}{skip} {dtype} "
                       "(error relative to output scale)", err, tol, ms, plain_ms,
                       route_ms=route_ms, device_ms=dev_ms, first_ms=first_ms)
+    if replays:
+        res.replay_ms, res.first_replay_ms, res.route_replay_ms = replays
+    if name == "gather_wf_mm":
+        res.form = wc.gather_wf_mm_form(h, dtype, rhs.shape[1])
     nvalid = int((nbr < ns).sum())
     esz = x.element_size()
     nbytes = _nbytes(x, nbr, infl)

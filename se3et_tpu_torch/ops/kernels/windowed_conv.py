@@ -628,9 +628,11 @@ neighbor_max_bwd.launches = 0
 # K13 takes in both forms.  K12 and K13 in bf16 read the
 # influence in place into registers and gather on the tensor cores for
 # H <= MM_TC_MAX_H (past it the influence fragments and the staged
-# neighbour rows outgrow registers and shared memory); wider neighbour
-# sets and the float32 K12 and K13 read it as 16 padded weights per (query,
-# neighbour).  K13's tensor-core form keeps the skip maxima of a row in
+# neighbour rows outgrow registers and shared memory); K12 in bf16 with
+# MM_TC_MAX_H < H <= MM_TC48_MAX_H takes its own tensor-core plan, "tc48"
+# (:func:`gather_wf_mm_tc48_plan`); wider neighbour sets and the float32 K12
+# and K13 read it as 16 padded weights per (query, neighbour).  K13's
+# tensor-core form keeps the skip maxima of a row in
 # registers, at most 6 16-byte units for each of a warp's 32 lanes, and
 # K14's first design those of its 4 query rows, at most 6 groups of 8
 # channels for each of its 128 threads: both take A*C2 <= 1536.  K14's tc
@@ -640,7 +642,17 @@ MM_MAX_AC_OUT = 384
 MAX_MM_MAX_AC_OUT = 192
 MAX_SKIP_AC = 1536
 MM_TC_MAX_H = 32
+MM_TC48_MAX_H = 48
 _KP = 16
+# tc48's plan (csrc/gather_wf_mm.cu, namespace tc48): 48-row tiles of 8
+# warps (two warpgroups, each a wgmma over half of A*Cout), three
+# 16-neighbour fragments, 32-channel chunks in two A tiles; the weight
+# panels through a ring of MM_TC48_STAGES slots; each warp's neighbour-row
+# buffers (H rows each) three where they fit, else two
+MM_TC48_ROWS = 48
+MM_TC48_WARPS = 8
+MM_TC48_STAGES = 3
+H100_SMEM_PER_BLOCK = 232448
 
 
 def gather_wf_mm_fits(ac: int, ac_out: int, k: int) -> bool:
@@ -673,6 +685,56 @@ def gather_wf_max_mm_form(h: int, dtype, ac2: int) -> str:
     tc = (dtype == torch.bfloat16 and h <= MM_TC_MAX_H and ac2 % 8 == 0
           and 0 < ac2 <= MAX_SKIP_AC)
     return "tc" if tc else "first"
+
+
+def gather_wf_mm_form(h: int, dtype, ac_out: int) -> str:
+    """Which hand-written K12 kernel takes a conv over ``h`` neighbours of
+    ``dtype`` features with ``ac_out`` output channels (within
+    :func:`gather_wf_mm_fits`): "tc" (``tc::gather_wf_mm_tc_kernel``: bf16,
+    H <= MM_TC_MAX_H), "tc48" (``tc48::gather_wf_mm_tc48_kernel``: bf16,
+    MM_TC_MAX_H < H <= MM_TC48_MAX_H) or "first" (``gather_wf_mm_kernel``,
+    the first design: float32, and bf16 with wider neighbour sets).  Chosen
+    by shape alone, as the wrapper launches; each is a kernel, none a
+    fallback of another."""
+    if dtype != torch.bfloat16 or not 0 < ac_out <= MM_MAX_AC_OUT or ac_out % 8:
+        return "first"
+    if h <= MM_TC_MAX_H:
+        return "tc"
+    return "tc48" if h <= MM_TC48_MAX_H else "first"
+
+
+class GatherWFMMTc48Plan(NamedTuple):
+    """How tc48 runs a launch: shared memory bytes, 48-row tiles (one block
+    each), rows a tile, weight ring slots and neighbour-row buffers a
+    warp."""
+    smem: int
+    tiles: int
+    rows: int
+    stages: int
+    stage_rows: int
+
+
+def gather_wf_mm_tc48_plan(h: int, k: int, ac_out: int, rows: int) -> GatherWFMMTc48Plan:
+    """tc48's plan for ``rows`` flattened (b, q) rows, as
+    ``se3et_gather_wf_mm_tc48_plan`` in ``csrc/gather_wf_mm.cu`` makes it:
+    1024 bytes to align the weight ring (wgmma's swizzle), the ring (slots
+    of the widest A*Cout, MM_MAX_AC_OUT rows of 32 channels, whatever K and
+    A*Cout), two A tiles (16 planes of 48 rows x 32 channels, each padded
+    by 16 bytes), each warp's neighbour-row buffers (H rows x 32 channels;
+    three where they fit, else two), the staging's zero row, the
+    product's padding row and two mbarriers a slot."""
+    if not (MM_TC_MAX_H < h <= MM_TC48_MAX_H and 1 <= k <= _KP and rows >= 1
+            and 0 < ac_out <= MM_MAX_AC_OUT and ac_out % 8 == 0):
+        raise ValueError(f"tc48 does not take H={h}, K={k}, A*Cout={ac_out}, rows={rows}")
+    plane = MM_TC48_ROWS * 32 + 8
+
+    def smem_for(stage_rows):
+        return (1024 + MM_TC48_STAGES * MM_MAX_AC_OUT * 32 * 2 + 2 * _KP * plane * 2
+                + MM_TC48_WARPS * stage_rows * h * 32 * 2 + 2 * 32 * 2 + 2 * MM_TC48_STAGES * 8)
+    stage_rows = 3 if smem_for(3) <= H100_SMEM_PER_BLOCK else 2
+    smem = smem_for(stage_rows)
+    tiles = -(-rows // MM_TC48_ROWS)
+    return GatherWFMMTc48Plan(smem, tiles, MM_TC48_ROWS, MM_TC48_STAGES, stage_rows)
 
 
 def gather_wf_mm_plain(x: torch.Tensor, nbr: torch.Tensor, infl: torch.Tensor,
@@ -744,8 +806,14 @@ def mm_panels(rhs: torch.Tensor, k: int, ac: int) -> torch.Tensor:
     return w.permute(2, 1, 0, 3, 4).contiguous()
 
 
-def _launch_mm(name, x, nbr, infl, rhs, x2=None):
-    """K12 (x2 None) or K13 on CUDA tensors; returns (out, pooled or None)."""
+_MM_TC_SYMBOLS = {"tc": "se3et_gather_wf_mm_bf16", "tc48": "se3et_gather_wf_mm_tc48_bf16"}
+
+
+def _launch_mm(name, x, nbr, infl, rhs, x2=None, form: Optional[str] = None):
+    """K12 (x2 None) or K13 on CUDA tensors; returns (out, pooled or None).
+    K12 runs on the form :func:`gather_wf_mm_form` names, or on ``form``
+    where the caller asks for one that takes the shape ("first" takes every
+    shape the gate passes)."""
     b, nq, h = nbr.shape
     k, ac, ac_out = infl.shape[3], x.shape[2], rhs.shape[1]
     x, nbr, rhs = x.contiguous(), nbr.contiguous(), rhs.to(x.dtype)
@@ -757,7 +825,12 @@ def _launch_mm(name, x, nbr, infl, rhs, x2=None):
         pooled = torch.empty((b, nq, x2.shape[2]), dtype=x2.dtype, device=x.device)
         tc = gather_wf_max_mm_form(h, x.dtype, x2.shape[2]) == "tc"
     else:
-        tc = x.dtype == torch.bfloat16 and h <= MM_TC_MAX_H
+        chosen = gather_wf_mm_form(h, x.dtype, ac_out)
+        form = form or chosen
+        if form != "first" and form != chosen:
+            raise ValueError(f"K12's {form} form does not take H={h}, {x.dtype}, "
+                             f"A*Cout={ac_out}")
+        tc = form != "first"
     rhs_t = rhs.t().contiguous()  # (A*Cout, K*AC): free for a transposed view
     if tc:
         # the tensor-core K12 / K13 read the influence as it lies (its first
@@ -767,7 +840,7 @@ def _launch_mm(name, x, nbr, infl, rhs, x2=None):
         _build.check(_build.function("gather_wf_mm", "se3et_gather_wf_mm_panels_bf16", 2, 3)(
             rhs_t.data_ptr(), panels.data_ptr(), k, ac, ac_out, stream), f"{name} panels")
         if x2 is None:
-            fn = _build.function("gather_wf_mm", "se3et_gather_wf_mm_bf16", 5, 8)
+            fn = _build.function("gather_wf_mm", _MM_TC_SYMBOLS[form], 5, 8)
             status = fn(x.data_ptr(), nbr.data_ptr(), w.data_ptr(), panels.data_ptr(),
                         out.data_ptr(), b, x.shape[1], nq, h, w.shape[2], k, ac, ac_out,
                         stream)
@@ -800,15 +873,25 @@ def gather_wf_mm(x: torch.Tensor, nbr: torch.Tensor, infl: torch.Tensor,
     ``windowed_gather_wf_mm``): see :func:`gather_wf_mm_plain`; x (B, Ns,
     AC), rhs (K*AC, A*Cout) cast to x's dtype; returns (B, Nq, A*Cout)
     float32.  Forward only; raises on shapes :func:`gather_wf_mm_fits`
-    refuses.  Bound by the tensor-core product at the serving shapes; the
-    source notes the design."""
+    refuses.  The kernel is the one :func:`gather_wf_mm_form` names: in
+    bf16 the tc form up to H = 32, tc48 up to H = 48, otherwise the first
+    design.  Bound by the tensor-core product at the serving shapes; the
+    source notes the designs."""
     _check_fused("gather_wf_mm", x, nbr, infl, rhs)
     if not gather_wf_mm_fits(x.shape[2], rhs.shape[1], infl.shape[3]):
         raise ValueError(f"gather_wf_mm does not take AC={x.shape[2]}, "
                          f"A*Cout={rhs.shape[1]}, K={infl.shape[3]}")
     if x.device.type == "cpu":
         return gather_wf_mm_plain(x, nbr, infl, rhs)
-    out, _ = _launch_mm("gather_wf_mm", x, nbr, infl, rhs)
+    return _gather_wf_mm_forward(x, nbr, infl, rhs)
+
+
+def _gather_wf_mm_forward(x, nbr, infl, rhs, form: Optional[str] = None):
+    """K12 on CUDA tensors (checked by :func:`gather_wf_mm`), on the kernel
+    :func:`gather_wf_mm_form` names, or on ``form`` ("first" for the first
+    design at any shape; the tests, ``selfcheck`` and ``bit_identity.py``
+    time it beside tc48)."""
+    out, _ = _launch_mm("gather_wf_mm", x, nbr, infl, rhs, form=form)
     gather_wf_mm.launches += 1
     return out
 

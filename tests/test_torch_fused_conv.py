@@ -82,13 +82,16 @@ def _torch(arrays, dtype):
             for a in arrays]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_gather_wf_mm_plain_matches_windowed_kernel(dtype):
+@pytest.mark.parametrize("dtype,h", [
+    ("float32", 9), ("bfloat16", 9),
+    ("float32", 36), ("bfloat16", 36),   # se3ete2's stage-2 H, K12's tc48 form
+], ids=["float32", "bfloat16", "float32-h36", "bfloat16-h36"])
+def test_gather_wf_mm_plain_matches_windowed_kernel(dtype, h):
     """K12 plain == windowed_gather_wf_mm (interpret): (B, Nq, A*Cout) float32."""
     from se3et_tpu.ops.pallas import windowed_conv as wc
 
     jdt, tdt = _DTYPES[dtype]
-    x, nbr, infl, rhs, _ = _inputs(0)
+    x, nbr, infl, rhs, _ = _inputs(0, h=h)
     seg_idx, local = _windows(nbr, x.shape[1])
     windows = wc.segment_window_gather(jnp.asarray(x, jdt), seg_idx)
     want = wc.windowed_gather_wf_mm(local, jnp.asarray(infl, jdt), windows,
@@ -370,6 +373,42 @@ def test_gather_wf_max_mm_form(h, dtype, ac2, form):
     """K13 takes the tensor-core form in bf16 up to H = 32 with payloads of
     16-byte units up to 1536 channels, else the first design."""
     assert wc_k.gather_wf_max_mm_form(h, dtype, ac2) == form
+
+
+@pytest.mark.parametrize("h", [1, 32, 33, 36, 48, 49])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gather_wf_mm_form(h, dtype):
+    """K12 takes its tc form in bf16 up to H = 32, tc48 up to H = 48, else
+    the first design (float32 at every H)."""
+    want = "first" if dtype == torch.float32 or h > 48 else "tc" if h <= 32 else "tc48"
+    for ac_out in (8, 192, 384):
+        assert wc_k.gather_wf_mm_form(h, dtype, ac_out) == want
+    assert wc_k.gather_wf_mm_form(h, dtype, 392) == "first"
+
+
+@pytest.mark.parametrize("h", range(33, 49))
+def test_gather_wf_mm_tc48_plan_fits(h):
+    """tc48's plan at every H it takes, every A*Cout the gate takes and K
+    1-16: the tile's shared memory (weight ring, two A tiles, neighbour-row
+    buffers, zero and padding rows, barriers) within an H100 block's
+    232,448 bytes;
+    16 neighbour rows a fragment covering H; 48-row tiles of 8 warps x 6
+    gather rows covering the rows with none empty, one block a tile; a
+    weight panel a 16-byte multiple (one bulk copy)."""
+    assert 16 * 2 < h <= wc_k.MM_TC48_MAX_H == 16 * 3
+    assert wc_k.MM_TC48_ROWS % wc_k.MM_TC48_WARPS == 0 and wc_k.MM_TC48_ROWS % 16 == 0
+    for k in range(1, 17):
+        for ac_out in range(8, wc_k.MM_MAX_AC_OUT + 1, 8):
+            assert wc_k.gather_wf_mm_fits(384, ac_out, k)
+            for rows in (1, 47, 48, 49, 2020, 6144):
+                plan = wc_k.gather_wf_mm_tc48_plan(h, k, ac_out, rows)
+                assert plan.smem <= wc_k.H100_SMEM_PER_BLOCK
+                assert (plan.tiles - 1) * plan.rows < rows <= plan.tiles * plan.rows
+                assert (ac_out * 32 * 2) % 16 == 0
+    assert wc_k.gather_wf_mm_tc48_plan(h, 15, 384, 6144).tiles == 128
+    assert wc_k.gather_wf_mm_tc48_plan(h, 15, 384, 6144).stage_rows == (3 if h <= 38 else 2)
+    with pytest.raises(ValueError):
+        wc_k.gather_wf_mm_tc48_plan(h, 17, 384, 6144)
 
 
 @pytest.mark.parametrize("h,dtype,ac,ac2,form", [

@@ -1633,8 +1633,14 @@ def _conv_neighbors(cuda, nq, ns, h, seed):
     (9000, 9000, 32, 384, 384),     # a partial half tile in the last wave
     (1003, 2000, 24, 192, 384),     # Nq not a multiple of the 64-row tile
     (997, 2000, 32, 384, 192),
-    (500, 1000, 38, 192, 192),      # H > 32: the CUDA-core gather
+    (500, 1000, 38, 192, 192),      # H > 32: tc48 in bf16
     (250, 997, 7, 48, 48),          # ragged, tiny widths
+    (3072, 3072, 36, 384, 384),     # se3ete2's stage-2 convs (tc48)
+    (1010, 2000, 33, 384, 384),     # 43 tiles, the last of 4 rows
+    (997, 1500, 36, 192, 200),      # ragged columns: 25 n-tiles over 8 warps
+    (500, 1000, 40, 96, 128),       # 2 n-tiles a warp
+    (23, 97, 48, 8, 8),             # one partial tile, a chunk mostly past AC
+    (1003, 2000, 49, 192, 192),     # H > 48: the first design
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_gather_wf_mm_kernel(cuda, nq, ns, h, ac, ac_out, dtype):
@@ -1643,6 +1649,78 @@ def test_gather_wf_mm_kernel(cuda, nq, ns, h, ac, ac_out, dtype):
     nbr = _conv_neighbors(cuda, nq, ns, h, 12)
     _assert_ok(selfcheck.check_fused_conv("gather_wf_mm", nbr, ns, ac, ac_out=ac_out,
                                           dtype=dtype, reps=1))
+
+
+def _k12_inputs(cuda, nq, ns, h, ac, ac_out, seed, hs=None, k=15):
+    """x, influence (B, Nq, hs >= H, K) zero on sentinels and past H, the
+    expanded weight as the model builds it (a transposed view), bf16."""
+    g = torch.Generator().manual_seed(seed)
+    nbr = _conv_neighbors(cuda, nq, ns, h, seed)
+    x = torch.randn((2, ns, ac), generator=g).to(cuda, torch.bfloat16)
+    infl = torch.rand((2, nq, hs or h, k), generator=g).to(cuda)
+    infl[:, :, :h] *= (nbr < ns)[..., None]
+    rhs = (torch.randn((ac_out, k * ac), generator=g) * (k * ac) ** -0.5).to(
+        cuda, torch.bfloat16).t()
+    return nbr, x, infl.to(torch.bfloat16), rhs
+
+
+@pytest.mark.parametrize("nq,ns,h,ac,ac_out", [
+    (3072, 3072, 36, 384, 384), (1010, 2000, 33, 384, 384), (997, 1500, 40, 192, 192),
+    (61, 200, 48, 96, 384),
+])
+def test_gather_wf_mm_tc48_against_the_first_design(cuda, nq, ns, h, ac, ac_out):
+    """tc48 and the first design on the same inputs: both within K12's
+    tolerance of the plain version and of each other (the same per-k bf16
+    rounding, float32 sums in another order); all-sentinel rows give zero
+    rows; two calls of tc48 agree bit for bit; it reads the first H of H' >
+    H influence columns in place."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    assert wc.gather_wf_mm_form(h, torch.bfloat16, ac_out) == "tc48"
+    nbr, x, infl, rhs = _k12_inputs(cuda, nq, ns, h, ac, ac_out, 31, hs=h + 5)
+    want = wc.gather_wf_mm_plain(x, nbr, infl, rhs)
+    got = wc.gather_wf_mm(x, nbr, infl, rhs)
+    first = wc._gather_wf_mm_forward(x, nbr, infl, rhs, form="first")
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-2 * scale
+    assert float((first - want).abs().max()) <= 1e-2 * scale
+    assert float((got - first).abs().max()) <= 1e-2 * scale
+    assert not got[:, -3:].any()
+    assert torch.equal(got, wc.gather_wf_mm(x, nbr, infl, rhs))
+    assert torch.equal(got, wc.gather_wf_mm(x, nbr, infl[:, :, :h].contiguous(), rhs))
+
+
+def test_gather_wf_mm_tc48_refuses_other_forms(cuda):
+    """The wrapper launches tc48 only where gather_wf_mm_form names it."""
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    nbr, x, infl, rhs = _k12_inputs(cuda, 100, 200, 32, 48, 48, 32)
+    with pytest.raises(ValueError, match="tc48"):
+        wc._gather_wf_mm_forward(x, nbr, infl, rhs, form="tc48")
+    nbr, x, infl, rhs = _k12_inputs(cuda, 100, 200, 49, 48, 48, 33)
+    with pytest.raises(ValueError, match="tc48"):
+        wc._gather_wf_mm_forward(x, nbr, infl, rhs, form="tc48")
+
+
+def test_gather_wf_mm_tc48_plan_matches_the_kernel(cuda):
+    """windowed_conv.gather_wf_mm_tc48_plan equals the C entry's plan at
+    every H it takes and the widths of the model, and fits a block."""
+    import ctypes
+
+    from se3et_tpu_torch.ops.kernels import _build
+    from se3et_tpu_torch.ops.kernels import windowed_conv as wc
+
+    fn = _build._library("gather_wf_mm").se3et_gather_wf_mm_tc48_plan
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    for h in range(33, 49):
+        for k in (1, 15, 16):
+            for ac_out, rows in ((384, 6144), (8, 1), (200, 2020), (96, 48)):
+                assert fn(h, k, ac_out, rows, out) == 0
+                assert tuple(out) == tuple(wc.gather_wf_mm_tc48_plan(h, k, ac_out, rows))
+                assert out[0] <= wc.H100_SMEM_PER_BLOCK
+    assert fn(32, 15, 384, 6144, out) != 0 and fn(49, 15, 384, 6144, out) != 0
 
 
 @pytest.mark.parametrize("k,ac,ac_out", [(15, 192, 192), (15, 384, 384), (3, 40, 16)])
