@@ -131,9 +131,9 @@ Phases, each of which raises (exit code != 0) on failure:
    ``run_eval`` (lgr, svd) over the dumps, ``run_demo`` on
    ``se3ete.3dmatch.evalrot``, and K5 at the self_eq layers' shape (AH =
    24) without the SH term, on its ws form;
-9. the wide-head family (head width 32: K5 on its ws form, K6 and K7 on
-   their tc forms, K16 on its CUDA-core form, K12's stage-2 convs (H 36)
-   on its tc48 form): a tiny float32 card-vs-CPU run of
+9. the wide-head family (head width 32: K5 and K16 on their ws forms, K6
+   and K7 on their tc forms, K12's stage-2 convs (H 36) on its tc48
+   form): a tiny float32 card-vs-CPU run of
    ``se3ete2.3dmatch``'s
    flash cut; ``se3ete2.3dmatch`` served at full width on 2 synthetic
    pairs of 30000 points (stage-0 sets at least half their 24576 cap, host
@@ -150,8 +150,14 @@ Phases, each of which raises (exit code != 0) on failure:
    K14, K1 and K2 at the family's conv shapes (K12's tc48 form at the
    stage-2 shape also beside its first design and the unfused route, by
    events and replayed, with its bound and the share of it reached, and the
-   seconds these take); one ``serve_femb`` pair and
-   K16 at both shapes; then ``se3eti2.3dmatch`` through ``run_test``'s
+   seconds these take); the ``serve_femb`` route: one eager pair (K16 5,
+   K3 0, K5 0), captured (every replay bit for bit against eager), served
+   in turns with the captured default route (default / femb / femb /
+   default, 8 pairs each) and one replayed femb pair profiled (K16's ws
+   kernel 5 times, its first design never, device ms per launch); K16 at
+   both self-layer shapes against its plain version, by events and
+   replayed beside its first design in the same run, with its bound and
+   the totals per femb pair; then ``se3eti2.3dmatch`` through ``run_test``'s
    Tester on 4 pairs (counts, replays and metrics bit for bit against
    eager) and K5 at its self_eq shape without the SH term, beside its first
    design in the same run.  Prints the phase's wall time;
@@ -331,6 +337,10 @@ WIDE_DEVICE_KERNELS = {"rpe_self_attention": "rpe_attention_ws_kernel",
                        "eq_attention_apply": "eq_apply_tc_kernel"}
 # K6's first design (the CUDA-core kernel), which no se3ete2 pair launches
 K6_FIRST_KERNEL = "eq_stats_kernel"
+# K16's ws form, which takes the 5 self layers of a se3ete2 serve_femb pair
+# (rpe_attention_femb_ws_kernel<AH, 32>), and its first design there
+# (rpe_attention_core.cuh's CUDA-core kernel), which no such pair launches
+K16_WS_KERNEL, K16_FIRST_KERNEL = "rpe_attention_femb_ws_kernel", "rpe_attention_kernel"
 # K12's tc48 form, which takes se3ete2's two stage-2 convs (H 36) a pair,
 # and its first design, which no se3ete2 pair launches
 K12_TC48_KERNEL, K12_FIRST_KERNEL = "gather_wf_mm_tc48_kernel", "gather_wf_mm_kernel"
@@ -1563,8 +1573,10 @@ def _wide_head(dev):
     versions, with their times replayed from a CUDA graph (K5, K6 and K7
     beside their first designs); the conv kernels
     at the family's shapes (:func:`_conv_checks`; K12's tc48 form beside
-    its first design and the unfused route); one ``serve_femb`` pair
-    (K16 5, K3 0, K5 0) and K16 at both shapes.  (b) ``se3eti2.3dmatch``
+    its first design and the unfused route); the ``serve_femb`` route: one
+    eager pair (K16 5, K3 0, K5 0), captured, served in turns with the
+    default route and one replayed pair profiled; K16 at both shapes
+    beside its first design.  (b) ``se3eti2.3dmatch``
     through ``run_test``'s Tester (calibrated limits, the captured eval
     forward) with counters set to 0 just before and read just after, every
     replayed output and metric bit for bit against eager, and K5 at its
@@ -1590,7 +1602,7 @@ def _wide_head(dev):
              "K7": eq_attention.eq_attention_apply_form(heads, hw, torch.bfloat16)}
     print(f"phase 9 {WIDE_EXPERIMENT}: head width {hw}, C {cc}, AH {ah} / {heads}; forms "
           f"{forms}", flush=True)
-    want_forms = {"K5 self_eq": "ws", "K5 self": "ws", "K16": "cuda", "K6": "tc", "K7": "tc"}
+    want_forms = {"K5 self_eq": "ws", "K5 self": "ws", "K16": "ws", "K6": "tc", "K7": "tc"}
     if hw != 32 or forms != want_forms:
         raise RuntimeError(f"the wide-head family's attention takes {forms} at head width {hw}:"
                            f" expected {want_forms}")
@@ -1736,8 +1748,10 @@ def _wide_head(dev):
         raise RuntimeError(f"K5's rows do not sum to the run's {launches['rpe_self_attention']}")
     checks.update(_conv_checks("se3ete2", SE3ETE2_CONV_SHAPES, p0, launches, runs))
 
-    # one serve_femb pair: K16 (at head width 32 the CUDA-core routine, K5's
-    # first design) in place of K3 + K5, then K16 at both self-layer shapes
+    # the serve_femb route: K16 (its ws form with head width 32's plan) in
+    # place of K3 + K5; one eager pair counted, then captured (replays bit
+    # for bit), served in turns with the default route, one replayed pair
+    # profiled; then K16 at both self-layer shapes beside its first design
     femb = SE3ETModel(dataclasses.replace(m, serve_femb=True), seed=cfg.seed).eval()
     for w in selfcheck.WRAPPERS.values():
         w.launches = 0
@@ -1749,15 +1763,54 @@ def _wide_head(dev):
         raise RuntimeError(f"a se3ete2 femb pair launched {counted}, expected {want}")
     print(f"phase 9: a se3ete2 serve_femb pair launched "
           f"{dict((n, c) for n, c in counted.items() if c)}", flush=True)
-    del femb, out
+    del out
+    served_femb = _capture_checked("se3ete2 femb", femb, inputs, want)
+    ms = _captured_turns({"default": (served, inputs), "femb": (served_femb, inputs)},
+                         ("default", "femb", "femb", "default"))
+    print(f"phase 9 se3ete2 ms/pair in turns (captured default, femb, femb, default; "
+          f"{CAPTURED_TURN_PAIRS} pairs each): " + "; ".join(
+              f"{r} median {statistics.median(v):.2f} (range {min(v):.2f}-{max(v):.2f})"
+              for r, v in ms.items()), flush=True)
+    want_seen = {K16_WS_KERNEL: FEMB_LAUNCHES["rpe_self_attention_femb"], K16_FIRST_KERNEL: 0}
+    for attempt in (1, 2):
+        prof = _profile(lambda: served_femb(inputs[0]), what="one replayed se3ete2 femb pair",
+                        also=(K16_WS_KERNEL, K16_FIRST_KERNEL))
+        if prof is None:
+            raise RuntimeError("the profiler recorded no device time over a se3ete2 femb replay")
+        seen = {name: sum(c for key, c in prof["counts"].items()
+                          if re.search(rf"\b{name}\b", key))
+                for name in want_seen}
+        print(f"phase 9 femb replay profile (attempt {attempt}): {seen}", flush=True)
+        if seen == want_seen:
+            break
+    else:
+        raise RuntimeError(f"a replayed se3ete2 femb pair launched {seen}, expected {want_seen}")
+    k16_device = {key: t for key, t in prof["ms"].items()
+                  if re.search(rf"\b{K16_WS_KERNEL}\b", key)}
+    print(f"phase 9 K16 device ms in the replayed femb pair: " + ", ".join(
+        f"{t:.4f} over {prof['counts'][key]} launches ({key[:70]})"
+        for key, t in k16_device.items()), flush=True)
+    del femb, served_femb
+    k16 = {}
     for what, n, a, with_sh in (("self_eq", 2, ah, True), ("self", 3, heads, False)):
         res = selfcheck.check_rpe_attention_femb(pts_c, masks_c, a, c=hw, cc=cc, k=m.angle_k,
                                                  sigma_d=m.sigma_d, sigma_a=m.sigma_a,
-                                                 with_sh=with_sh, reps=5, replay=True)
+                                                 with_sh=with_sh, reps=5, replay=True,
+                                                 first=True)
         res.launches = n
         _print_check(res)
         _print_replayed(res)
+        print(f"phase 9 K16 at se3ete2 {what} (ws form): {res.ms:.4f} ms by events (first "
+              f"design in this run {res.first_ms:.4f}), replayed {res.replay_ms:.4f} "
+              f"({res.first_replay_ms:.4f}), {res.first_replay_ms / res.replay_ms:.1f}x the "
+              f"first design replayed; bound {res.bound_ms:.4f} ({res.bound_by}), "
+              f"{res.bound_ms / res.replay_ms:.1%} of it replayed", flush=True)
+        k16[what] = (n, res)
         checks[f"rpe_self_attention_femb (se3ete2 {what}, head width {hw})"] = res
+    print(f"phase 9 K16 per se3ete2 femb pair (2 + 3 launches): replayed "
+          f"{sum(n * r.replay_ms for n, r in k16.values()):.4f} ms (first design in this run "
+          f"{sum(n * r.first_replay_ms for n, r in k16.values()):.4f}), bound "
+          f"{sum(n * r.bound_ms for n, r in k16.values()):.4f} ms", flush=True)
     bad = [k for k, r in checks.items() if not r.ok]
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions at head width {hw}: "

@@ -21,16 +21,18 @@
 //
 // Two forms, chosen by shape (the wrapper's rpe_attention_form mirrors the
 // choice):
-// * "ws" (bf16, head width 64, C % 32 == 0, AH 4 or 24: the serving path):
-//   rpe_attention_femb_ws.cuh.  Positional warps build each 32-key tile of
-//   a query row's embedding on the tensor cores from basis rows in shared
-//   memory and the block's resident G, and contract it at once with the
-//   row's folded queries, while K5's flash warps run the softmax and p.v of
-//   the previous key tile;
-// * "cuda" (float32 and the other widths): rpe_attention_core.cuh's
-//   CUDA-core kernel with the policy EmbGeometry below; each lane evaluates
-//   the same per key and contracts it against the AH folded queries held in
-//   shared memory as float32.
+// * "ws" (bf16, head width 64 or 32, C % 32 == 0, AH 4 or 24: the serving
+//   path): rpe_attention_femb_ws.cuh.  Positional warps build each 32-key
+//   tile of a query row's embedding on the tensor cores from basis rows in
+//   shared memory and the block's resident G, and contract it at once with
+//   the row's folded queries, while K5's flash warps run the softmax and
+//   p.v of the previous key tile (at head width 32 they also form the pair
+//   geometry two tiles ahead);
+// * "cuda" (float32 and head width 16): rpe_attention_core.cuh's CUDA-core
+//   kernel with the policy EmbGeometry below; each lane evaluates the same
+//   per key and contracts it against the AH folded queries held in shared
+//   memory as float32.  se3et_rpe_attention_femb_cuda_bf16 takes it at the
+//   ws shapes too, for tests and timings.
 #include "rpe_attention_femb_ws.cuh"
 
 namespace {
@@ -102,15 +104,18 @@ struct EmbGeometry {
   }
 };
 
+// the form the shape takes, or with `first` the CUDA-core form at any shape
 template <typename T>
 int run(const void* q, const void* k, const void* v, const void* qp, const void* kmask,
         const void* qw, const void* pts, const void* pts3, const void* knn, const void* g,
         const void* gt, void* out, int batch, int ah, int n, int hc, int cc, int pts_rows,
-        int deg_d, int deg_a, int ka, float scale, float inv_d, float inv_a, void* stream) {
+        int deg_d, int deg_a, int ka, float scale, float inv_d, float inv_a, void* stream,
+        bool first = false) {
   if (deg_d != kDD || deg_a != kDA || ka != kKA) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const size_t ws = femb_ws::smem_bytes(ah, hc, cc);
-  if (std::is_same<T, __nv_bfloat16>::value && ws != 0 && ws <= (size_t)rpe_ws::kMaxSmem) {
+  if (std::is_same<T, __nv_bfloat16>::value && !first && ws != 0
+      && ws <= (size_t)rpe_ws::kMaxSmem) {
     if (gt == nullptr) return (int)cudaErrorInvalidValue;
     return femb_ws::dispatch(q, k, v, qp, kmask, qw, pts3, knn, gt, out, batch, ah, n, hc, cc,
                              scale, inv_d, inv_a, s);
@@ -130,6 +135,18 @@ extern "C" int se3et_rpe_attention_femb_bf16(
     int deg_d, int deg_a, int ka, float scale, float inv_d, float inv_a, void* stream) {
   return run<__nv_bfloat16>(q, k, v, qp, kmask, qw, pts, pts3, knn, g, gt, out, batch, ah, n,
                             hc, cc, pts_rows, deg_d, deg_a, ka, scale, inv_d, inv_a, stream);
+}
+
+// the CUDA-core first design in bf16 at any shape, the ws shapes too (for
+// tests and timings; the serving path never reaches it)
+extern "C" int se3et_rpe_attention_femb_cuda_bf16(
+    const void* q, const void* k, const void* v, const void* qp, const void* kmask,
+    const void* qw, const void* pts, const void* pts3, const void* knn, const void* g,
+    const void* gt, void* out, int batch, int ah, int n, int hc, int cc, int pts_rows,
+    int deg_d, int deg_a, int ka, float scale, float inv_d, float inv_a, void* stream) {
+  return run<__nv_bfloat16>(q, k, v, qp, kmask, qw, pts, pts3, knn, g, gt, out, batch, ah, n,
+                            hc, cc, pts_rows, deg_d, deg_a, ka, scale, inv_d, inv_a, stream,
+                            true);
 }
 
 extern "C" int se3et_rpe_attention_femb_f32(

@@ -1,7 +1,7 @@
-// K16's bf16 serving form ("ws", warp-specialised; head width 64, C % 32 ==
-// 0, AH 4 or 24), included only by rpe_attention_femb.cu.  Same function as
-// the kernels of rpe_attention_core.cuh with the embedding rows of
-// rpe_attention_femb.cu (the formula and the roundings are stated there).
+// K16's bf16 serving form ("ws", warp-specialised; head widths 64 and 32,
+// C % 32 == 0, AH 4 or 24), included only by rpe_attention_femb.cu.  Same
+// function as the kernels of rpe_attention_core.cuh with the embedding rows
+// of rpe_attention_femb.cu (the formula and the roundings are stated there).
 //
 // Bound: operations.  Per (query, key) pair the (40 + 3 x 16) x C
 // projection MACs dominate: ~0.13 ms at AH = 24 at the bf16 tensor-core peak
@@ -43,6 +43,27 @@
 //   parameter): content scores on the tensor cores, masked online softmax,
 //   p . v with v staged by cp.async, over the double-buffered float32 score
 //   tiles behind full / empty mbarriers.
+// Head width 32 (the wide-head family, C = 128) keeps the roles and the
+// tiles with a plan of its own (Layout's kGeoAhead;
+// scripts/probe_rpe_attention_femb.py --head-width 32 measures each against
+// 64's plan there).  The projection halves with C, the per-key geometry
+// does not: at AH = 24 64's plan spends ~0.19 of its positional warps'
+// ~0.51 ms on the geometry and the basis rows, with half of each warp's
+// lanes idle (a pair's warp owns 16 keys).  So at AH = 24:
+// * the flash warps, which have slack, form tile j + 2's pair geometry
+//   (distance, the KA angles, the SH term's rinv * (p_row - p_key)) for the
+//   block's rows while they hold tile j, into one of two shared buffers
+//   [16 rows][32 keys] x 2 float4 (rpe_ws::flash's look-ahead, FembAhead):
+//   the score buffers' barriers order it, and a positional warp waits for
+//   tile j - 2's release before it reads tile j's geometry;
+// * a positional warp's 32 lanes build its 16 keys' basis rows, lanes 0-15
+//   the distance terms and lanes 16-31 the angles', in one branch-free
+//   sequence of 48 terms each (split_basis).
+// AH = 4 keeps 64's plan: its 12 positional warps have all 32 lanes keyed,
+// and its 4 flash warps, forming the geometry ahead, cost more than they
+// saved.  More positional groups (20 warps, 96 registers a thread) spilled
+// and gained nothing at either shape; the distance k-steps in accumulators
+// of their own, beside the angle products, ran slower (more registers).
 // mma.sync rather than wgmma: a form with positional warpgroups (64 pairs of
 // two rows as wgmma's M, the projections m64n32k16 and m64n16k16 from basis
 // and G tiles in shared memory without swizzle, the positional product from
@@ -84,11 +105,18 @@ struct Layout {
   static constexpr int kGroups = kPosWarps / kItemWarps;  // items in flight
   static constexpr int kQpSlots = 4;  // 32-channel chunks of qp[b, row] in a group's ring
   static constexpr int kThreads = (kPosWarps + kFlash) * 32;
+  // head width 32's plan (the header): at AH = 24 the flash warps form each
+  // key tile's pair geometry two tiles ahead into two buffers, and all 32
+  // lanes of a positional warp build its 16 keys' basis rows, distance and
+  // angles apart; AH = 4 keeps 64's plan
+  static constexpr bool kGeoAhead = HC == 32 && AH >= kFlashWarps;
+  static_assert(!kGeoAhead || kMT == 1, "split_basis: a warp's 16 keys, two lanes a key");
   // byte offsets of the shared-memory plan (mirrored by the wrapper's
   // rpe_attention.femb_ws_smem_bytes): G (C rows of kGStride bf16), each
   // group's 32 basis rows and qp ring (kQpSlots x AH x 32 bf16), two score
   // buffers, the flash warps' v tiles, the block's SH queries and row
-  // geometry, four mbarriers
+  // geometry, with kGeoAhead two buffers of pair geometry ([16 rows][32
+  // keys] x 2 float4), four mbarriers
   __host__ __device__ static size_t basis(int cc) {
     return (size_t)cc * emb::kGStride * sizeof(bf16);
   }
@@ -107,8 +135,11 @@ struct Layout {
   __host__ __device__ static size_t rowgeo(int cc) {
     return qws(cc) + (size_t)kRows * 3 * AH * sizeof(float);
   }
-  __host__ __device__ static size_t bars(int cc) {
+  __host__ __device__ static size_t geo(int cc) {
     return rowgeo(cc) + (size_t)kRows * kRowGeo * sizeof(float);
+  }
+  __host__ __device__ static size_t bars(int cc) {
+    return geo(cc) + (kGeoAhead ? 2 * (size_t)kRows * kKeys * 2 * sizeof(float4) : 0);
   }
   __host__ __device__ static size_t bytes(int cc) { return bars(cc) + 4 * sizeof(uint64_t); }
 };
@@ -159,6 +190,85 @@ __device__ __forceinline__ void group_sync(int grp) {
     asm volatile("bar.sync %0, %1;\n" ::"r"(2 + grp), "n"(W * 32) : "memory");
 }
 
+// head width 32: tile j's pair geometry for the block's nr rows, formed by
+// the flash warps two tiles ahead (rpe_ws::flash's look-ahead) and by the
+// whole block for tiles 0 and 1: per (row, key) two float4, (distance,
+// angles 0-2) and the SH term's rinv * (p_row - p_key) (x, y, z, 0); every
+// value 0 on the diagonal (by index) and past n.  The arithmetic of 64's
+// positional warps.  kActive: the plan's kGeoAhead (rpe_ws::flash calls
+// it only then).
+template <bool kOn>
+struct FembAhead {
+  static constexpr bool kActive = kOn;
+  const float* pts3b;
+  const float* rowgeo;
+  int n, row0, nr;
+  bool with_sh;
+  float4* geo;  // [2][kRows][kKeys][2]
+  __device__ __forceinline__ void operator()(int j, int buf, int tid, int nthreads) const {
+    float4* out = geo + buf * kRows * kKeys * 2;
+    for (int i = tid; i < nr * kKeys; i += nthreads) {
+      const int r = i / kKeys, key = j * kKeys + i - r * kKeys;
+      const float* rg = rowgeo + r * kRowGeo;
+      const float qx = rg[0], qy = rg[1], qz = rg[2];
+      float dist = 0.f, ang[emb::kKA] = {0.f, 0.f, 0.f}, f[3] = {0.f, 0.f, 0.f};
+      if (key != row0 + r && key < n) {
+        const float3 kp = key_point(pts3b, key, n);
+        dist = pair_distance(qx, qy, qz, rg[3], kp.x, kp.y, kp.z);
+#pragma unroll
+        for (int k = 0; k < emb::kKA; ++k)
+          ang[k] = pair_angle(rg[4 + k], rg[4 + emb::kKA + k], rg[4 + 2 * emb::kKA + k],
+                              kp.x - qx, kp.y - qy, kp.z - qz);
+        if (with_sh) {
+          const float dx = qx - kp.x, dy = qy - kp.y, dz = qz - kp.z;
+          const float rinv = rpe::kSh1 / (sqrtf(dx * dx + dy * dy + dz * dz) + 1e-12f);
+          f[0] = rinv * dx;
+          f[1] = rinv * dy;
+          f[2] = rinv * dz;
+        }
+      }
+      out[2 * i] = make_float4(dist, ang[0], ang[1], ang[2]);
+      out[2 * i + 1] = make_float4(f[0], f[1], f[2], 0.f);
+    }
+  }
+};
+
+// Half a key's basis row, by a lane of a pair that shares the key (K3's
+// emb::key_basis split in two, both halves 48 terms in one branch-free
+// sequence, so that the warp's two halves do not diverge): the distance
+// lane runs one recurrence over the 40 distance terms and writes 8 zeros
+// of padding after them; the angle lane restarts it at each of the KA
+// angles, 16 terms each.  The terms are emb::cheb_basis_bf16's; zeros past
+// the end.
+__device__ __forceinline__ void split_basis(bool distance, bool valid, float4 pg, float inv_d,
+                                            float inv_a, bf16* row) {
+  static_assert(emb::kKA * emb::kDA == emb::kDDPad, "the two halves run alike");
+  const float x[emb::kKA] = {distance ? pg.x : pg.y, pg.z, pg.w};
+  bf16* dst = row + (distance ? 0 : emb::kDDPad);
+  float prev = 1.f, cur = 0.f, two_t = 0.f;
+#pragma unroll
+  for (int seg = 0; seg < emb::kKA; ++seg) {
+    if (seg == 0 || !distance) {
+      const float t = fminf(fmaxf(x[seg] * (distance ? inv_d : inv_a) - 1.f, -1.f), 1.f);
+      prev = 1.f;
+      cur = t;
+      two_t = 2.f * t;
+    }
+#pragma unroll
+    for (int k = 0; k < emb::kDA; k += 2) {
+      const bool keep = valid && !(distance && emb::kDA * seg + k >= emb::kDD);
+      *reinterpret_cast<__nv_bfloat162*>(dst + emb::kDA * seg + k) =
+          __floats2bfloat162_rn(keep ? prev : 0.f, keep ? cur : 0.f);
+      const float nxt = two_t * cur - prev;
+      prev = cur;
+      cur = nxt;
+      const float nxt2 = two_t * cur - prev;
+      prev = cur;
+      cur = nxt2;
+    }
+  }
+}
+
 // positional group grp < ngrp (its warp gw): items grp, grp + ngrp, ...
 // (item s: key tile s / nr, query row s % nr of the block); the warp takes
 // kMT m-tiles of the item's 32 keys, from key 16 kMT gw
@@ -167,7 +277,8 @@ __device__ __forceinline__ void positional(
     int grp, int gw, int lane, int row0, int nr, int ngrp, int n, int cc, int total,
     const float* __restrict__ pts3b, bool with_sh, const bf16* __restrict__ qpb,
     const float* rowgeo, const float* qw_s, const bf16* sg, bf16* sbasis, bf16* qring,
-    float inv_d, float inv_a, float* sp, uint64_t* sfull, uint64_t* sempty) {
+    float inv_d, float inv_a, float* sp, const float4* geo, uint64_t* sfull,
+    uint64_t* sempty) {
   using L = Layout<AH, HC>;
   using F = typename L::Flash;
   constexpr int kNT = F::kNT;
@@ -204,12 +315,24 @@ __device__ __forceinline__ void positional(
 
     // 1. this lane's key: distance and angles against the row (0 on the
     //    diagonal, by index), its bases into the group's basis rows; the
-    //    next item's key point is fetched meanwhile
+    //    next item's key point is fetched meanwhile.  With kGeoAhead the
+    //    flash warps formed the geometry (released with tile j - 2), and at
+    //    AH = 24 lanes 0-15 build the distance terms of the warp's 16 keys,
+    //    lanes 16-31 their angles'.
+    const float4* pg = geo + (size_t)(buf * kRows + r) * kKeys * 2;
+    if constexpr (L::kGeoAhead) {
+      if (j >= 2) mbar_wait_or_trap(&sempty[buf], ((j >> 1) - 1) & 1, 2);
+      __syncwarp();  // the previous item's basis rows are read
+      const int kl = k16 + (lane & 15);
+      split_basis(lane < 16, key0 + kl < n, pg[2 * kl], inv_d, inv_a,
+                  sbasis + kl * emb::kBStride);
+    }
     const float3 kp = next;
-    next = key_point(pts3b, ((s + ngrp) / nr) * kKeys + k16 + lane,
-                     keyed && s + ngrp < total ? n : 0);
-    __syncwarp();  // the previous item's basis rows are read
-    if (keyed) {
+    if constexpr (!L::kGeoAhead)
+      next = key_point(pts3b, ((s + ngrp) / nr) * kKeys + k16 + lane,
+                       keyed && s + ngrp < total ? n : 0);
+    if constexpr (!L::kGeoAhead) __syncwarp();  // the previous item's basis rows are read
+    if (!L::kGeoAhead && keyed) {
       const int key = key0 + k16 + lane;
       float dist = 0.f, ang[emb::kKA] = {0.f, 0.f, 0.f};
       if (key < n && key != row) {
@@ -311,7 +434,16 @@ __device__ __forceinline__ void positional(
     float* sprow = sp + buf * F::kScoreFloats + r * F::kRowStride;
     float f[kMT][2][3] = {};  // [mt][hh]: rinv * (dx, dy, dz) of key 16 mt + 8 hh + g
 #pragma unroll
-    for (int mt = 0; mt < kMT && with_sh; ++mt)
+    for (int mt = 0; mt < kMT && with_sh && L::kGeoAhead; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float4 v = pg[2 * (k16 + 16 * mt + 8 * hh + g) + 1];
+        f[mt][hh][0] = v.x;
+        f[mt][hh][1] = v.y;
+        f[mt][hh][2] = v.z;
+      }
+#pragma unroll
+    for (int mt = 0; mt < kMT && with_sh && !L::kGeoAhead; ++mt)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int kl = 16 * mt + 8 * hh + g;  // of the warp's keys
@@ -325,7 +457,8 @@ __device__ __forceinline__ void positional(
         f[mt][hh][1] = rinv * dy;
         f[mt][hh][2] = rinv * dz;
       }
-    if (j >= 2) mbar_wait_or_trap(&sempty[buf], ((j >> 1) - 1) & 1, 2);  // tile j - 2 is read
+    if (!L::kGeoAhead && j >= 2)
+      mbar_wait_or_trap(&sempty[buf], ((j >> 1) - 1) & 1, 2);  // tile j - 2 is read
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -372,6 +505,7 @@ rpe_attention_femb_ws_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   bf16* vtiles = reinterpret_cast<bf16*>(fw_smem + L::vtiles(cc));
   float* qw_s = reinterpret_cast<float*>(fw_smem + L::qws(cc));
   float* rowgeo = reinterpret_cast<float*>(fw_smem + L::rowgeo(cc));
+  float4* geo = reinterpret_cast<float4*>(fw_smem + L::geo(cc));  // kGeoAhead
   uint64_t* sfull = reinterpret_cast<uint64_t*>(fw_smem + L::bars(cc));  // [2]
   uint64_t* sempty = sfull + 2;                                        // [2]
 
@@ -407,6 +541,11 @@ rpe_attention_femb_ws_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   }
   load_g(sg, gt, cc);
   __syncthreads();
+  const FembAhead<L::kGeoAhead> ahead{pts3b, rowgeo, n, row0, nr, with_sh, geo};
+  if constexpr (L::kGeoAhead) {  // tiles 0 and 1's geometry; the flash warps form the rest
+    for (int j = 0; j < 2 && j < ntiles; ++j) ahead(j, j, threadIdx.x, L::kThreads);
+    __syncthreads();
+  }
 
   if (warp < L::kPosWarps) {
     const int grp = warp / L::kItemWarps;
@@ -414,23 +553,24 @@ rpe_attention_femb_ws_kernel(const bf16* __restrict__ q, const bf16* __restrict_
       positional<AH, HC>(grp, warp % L::kItemWarps, lane, row0, nr, ngrp, n, cc, total, pts3b,
                          with_sh, qp + (long long)b * n * AH * cc, rowgeo, qw_s, sg,
                          sbasis + grp * kKeys * emb::kBStride,
-                         qring + grp * L::kQpSlots * AH * 32, inv_d, inv_a, sp, sfull, sempty);
+                         qring + grp * L::kQpSlots * AH * 32, inv_d, inv_a, sp, geo, sfull,
+                         sempty);
   } else {
     const int fw = warp - L::kPosWarps;
     static_assert(F::kSplit == 1, "one flash warp a head: no end merge");
     rpe_ws::flash<AH, HC, L::kFlash>(fw, lane, b, row0, n, ntiles, q, k, v,
                                      kmask + (long long)b * n, sp,
                                      vtiles + fw * F::kWarpKeys * F::kVStride, nullptr, sfull,
-                                     sempty, out, nullptr, scale);
+                                     sempty, out, nullptr, scale, nullptr, 0, nullptr,
+                                     ahead);
   }
 }
 
 // The shared memory of the (AH, HC) kernel at width cc; 0 where none is built.
 inline size_t smem_bytes(int ah, int hc, int cc) {
-  if (hc != 64 || cc % 32 != 0) return 0;
-  if (ah == 24) return Layout<24, 64>::bytes(cc);
-  if (ah == 4) return Layout<4, 64>::bytes(cc);
-  return 0;
+  if ((hc != 64 && hc != 32) || cc % 32 != 0 || (ah != 24 && ah != 4)) return 0;
+  if (hc == 64) return ah == 24 ? Layout<24, 64>::bytes(cc) : Layout<4, 64>::bytes(cc);
+  return ah == 24 ? Layout<24, 32>::bytes(cc) : Layout<4, 32>::bytes(cc);
 }
 
 // static: internal linkage, as rpe_ws::launch
@@ -464,10 +604,17 @@ inline int dispatch(const void* q, const void* k, const void* v, const void* qp,
                     float scale, float inv_d, float inv_a, cudaStream_t s) {
   const size_t smem = smem_bytes(ah, hc, cc);
   if (smem == 0 || smem > (size_t)rpe_ws::kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (hc == 64) {
+    if (ah == 24)
+      return launch<24, 64>(q, k, v, qp, kmask, qw, pts3, knn, gt, out, batch, n, cc, scale,
+                            inv_d, inv_a, s);
+    return launch<4, 64>(q, k, v, qp, kmask, qw, pts3, knn, gt, out, batch, n, cc, scale,
+                         inv_d, inv_a, s);
+  }
   if (ah == 24)
-    return launch<24, 64>(q, k, v, qp, kmask, qw, pts3, knn, gt, out, batch, n, cc, scale,
+    return launch<24, 32>(q, k, v, qp, kmask, qw, pts3, knn, gt, out, batch, n, cc, scale,
                           inv_d, inv_a, s);
-  return launch<4, 64>(q, k, v, qp, kmask, qw, pts3, knn, gt, out, batch, n, cc, scale, inv_d,
+  return launch<4, 32>(q, k, v, qp, kmask, qw, pts3, knn, gt, out, batch, n, cc, scale, inv_d,
                        inv_a, s);
 }
 

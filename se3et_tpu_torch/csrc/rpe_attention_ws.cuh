@@ -179,6 +179,14 @@ __device__ __forceinline__ void tile_geometry(const float* __restrict__ pb, int 
   }
 }
 
+// flash()'s look-ahead beside K5's SH geometry: none (kActive false, the
+// default).  K16's ws form at head width 32 passes one that forms its pair
+// geometry two tiles ahead (rpe_attention_femb_ws.cuh's FembAhead).
+struct NoAhead {
+  static constexpr bool kActive = false;
+  __device__ __forceinline__ void operator()(int, int, int, int) const {}
+};
+
 // producer: every (tile, row) slab of the block, tile-major, with its row's
 // folded queries unless those are resident (then copied once, first, to
 // qp_s under qp_full); slab s goes to slot s % nsl (nsl slots in use, a
@@ -298,8 +306,9 @@ __device__ __forceinline__ void positional(int pw, int lane, int b, int row0, in
 
 // flash warp fw of FW; with the layout's kGeoBuf and the SH term (points
 // pb), each tile j also forms tile j + 2's geometry for the block's nr rows
-// into geo, before tile j's release
-template <int AH, int HC, int FW = kFlashWarps>
+// into geo, before tile j's release; with an active look-ahead (Ahead's
+// kActive), each tile j calls it for tile j + 2 at the same point
+template <int AH, int HC, int FW = kFlashWarps, class Ahead = NoAhead>
 __device__ __forceinline__ void flash(int fw, int lane, int b, int row0, int n, int ntiles,
                                       const bf16* __restrict__ q, const bf16* __restrict__ k,
                                       const bf16* __restrict__ v,
@@ -308,7 +317,7 @@ __device__ __forceinline__ void flash(int fw, int lane, int b, int row0, int n, 
                                       uint64_t* sempty, float* __restrict__ out,
                                       float* __restrict__ lse, float scale,
                                       const float* __restrict__ pb = nullptr, int nr = 0,
-                                      float4* geo = nullptr) {
+                                      float4* geo = nullptr, const Ahead ahead = Ahead{}) {
   using L = Layout<AH, HC, FW>;
   constexpr int kHeads = L::kHeads, NK = L::kWarpKeys, NJ = NK / 8;
   constexpr int kRS = L::kRowStride;
@@ -346,6 +355,8 @@ __device__ __forceinline__ void flash(int fw, int lane, int b, int row0, int n, 
       if (pb != nullptr && j + 2 < ntiles)
         tile_geometry(pb, n, row0, nr, j + 2, geo + buf * kRows * kKeys, fw * 32 + lane,
                       FW * 32);
+    if constexpr (Ahead::kActive)
+      if (j + 2 < ntiles) ahead(j + 2, buf, fw * 32 + lane, FW * 32);
 #pragma unroll
     for (int i = 0; i < kHeads; ++i) {
       const int ah = head_of(i);

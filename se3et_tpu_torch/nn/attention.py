@@ -124,7 +124,9 @@ class RPEMultiHeadAttention(nn.Module):
         """Kernel K5: folded-query streaming softmax.  Projection biases and
         the degree-0 SH term are per-query constants, softmax no-ops, so only
         the ``q @ W^T`` folds are passed.  ``femb_pack = (knn_points, wd, wa,
-        sigma_d, sigma_a)`` takes K16 instead, with ``embed_qk`` None: the
+        sigma_d, sigma_a, tables)`` (``tables``: K16's folded projections in
+        the compute dtype, made once per forward, or None) takes K16
+        instead, with ``embed_qk`` None: the
         embedding is recomputed in the kernel, in the compute dtype (the JAX
         route casts to bf16 there; the port's float32 route stays float32, as
         its K3 route does)."""
@@ -146,10 +148,10 @@ class RPEMultiHeadAttention(nn.Module):
         km = key_masks if key_masks is not None else torch.ones(
             (b, n), dtype=torch.bool, device=q.device)
         if femb_pack is not None:
-            knn_points, wd, wa, sigma_d, sigma_a = femb_pack
+            knn_points, wd, wa, sigma_d, sigma_a, tables = femb_pack
             hidden = rpe_flash.rpe_self_attention_femb(
                 qf, kf, vf, qp, km, qw, rpe_flash.point_rows(points), knn_points, wd, wa,
-                scale=1.0 / math.sqrt(dh), sigma_d=sigma_d, sigma_a=sigma_a)
+                scale=1.0 / math.sqrt(dh), sigma_d=sigma_d, sigma_a=sigma_a, tables=tables)
         else:
             hidden = rpe_flash.rpe_self_attention(qf, kf, vf, qp, embed_qk, km, qw, pts,
                                                   scale=1.0 / math.sqrt(dh))

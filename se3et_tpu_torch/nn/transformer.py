@@ -31,12 +31,14 @@ import numpy as np
 import torch
 from torch import nn
 
+from se3et_tpu_torch import precision as prec
 from se3et_tpu_torch.core import anchors as anchor_lib
 from se3et_tpu_torch.nn.attention import (
     RotCompressOutput, RPETransformerLayer, TransformerLayer,
 )
 from se3et_tpu_torch.nn.embedding import GeometricStructureEmbedding
 from se3et_tpu_torch.nn.layers import TorchLinear
+from se3et_tpu_torch.ops.kernels import rpe_attention as rpe_flash
 
 EQ_BLOCKS = (
     "self_eq", "cross_eq", "cross_a_soft", "cross_a_best", "cross_r_soft",
@@ -98,8 +100,8 @@ class RPEConditionalTransformer(nn.Module):
 
         ``stacked``: optional (emb, masks, points) with both clouds on the
         leading axis; the self layers then run one flash launch over both
-        (with ``femb_pack`` (knn_points, wd, wa, sigma_d, sigma_a) and emb
-        None, K16's)."""
+        (with ``femb_pack`` (knn_points, wd, wa, sigma_d, sigma_a, tables)
+        and emb None, K16's)."""
         feats0_eq = feats1_eq = None
         ref_feat_m = src_feat_m = None
         blocks = self.blocks
@@ -202,8 +204,13 @@ class GeometricTransformer(nn.Module):
             mks = torch.cat([ref_masks, src_masks])
             if flash_self and fused_femb and embed.reduction_a == "max":
                 # no embedding: each flash self layer rebuilds its rows (K16)
+                # from tables folded once here for all of them (on the card:
+                # the CPU's plain version folds its own)
                 wd, wa, knn_pts = embed(pts, mks, tables_only=True)
-                femb_pack = (knn_pts, wd, wa, embed.sigma_d, embed.sigma_a)
+                tables = rpe_flash.femb_tables(
+                    wd, wa, embed.sigma_a,
+                    prec.compute_dtype() or torch.float32) if pts.is_cuda else None
+                femb_pack = (knn_pts, wd, wa, embed.sigma_d, embed.sigma_a, tables)
                 ref_emb = src_emb = None
                 stacked = (None, mks, pts)
             else:

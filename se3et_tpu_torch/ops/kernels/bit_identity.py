@@ -37,8 +37,15 @@ shapes of se3ete.3dmatch (bf16) and the tiny float32 widths:
   128, C = 64 in float32 (bit for bit), the four gradients, on inputs of
   their own generator;
 * K16 (fused-embedding attention) at AH = 24 with SH and AH = 4 without,
-  at both widths (the bf16 ones, the serving shapes, timed and held within
-  their ``TOLERANCES``);
+  at both widths (the bf16 ones, the serving shapes, timed), and at the
+  wide-head family's two self-layer shapes (head width 32, C = 128, bf16:
+  AH = 24 with the SH term, AH = 4 without; timed and held within their
+  ``TOLERANCES``: its ws form there against a build where the first design
+  takes them); where the wrapper takes folded tables
+  (``rpe_attention.femb_tables``) they are folded in the timed call and
+  passed, so a build that folds them in the wrapper is held bit for bit
+  against one that takes them folded, and both builds' times include the
+  fold;
 * K1 (conv gather) in bf16 at the stage-2 (x (2, 2500, 768), H 36), s2 ->
   s3 (the same x, 1024 queries) and stage-3 (x (2, 1024, 1536), H 38)
   shapes, and in float32 (the rows form) at the seven training shapes
@@ -100,7 +107,8 @@ others), and each checkout's two turns are compared too (run to run).
 
 With ``--serve-pairs N`` each turn also serves ``--serve-experiment``
 (se3ete2.3dmatch by default) captured, as ``chip_smoke.py`` phase 9 serves
-se3ete2: the experiment's serving config at full width, its first two
+se3ete2 (with ``--serve-femb``, on the ``serve_femb`` route: K16 in place
+of K3 + K5): the experiment's serving config at full width, its first two
 synthetic pairs of ``point_limit`` points with the host's influence and
 seeded weights, ``capture_forward`` on pair 0, each pair's replay held to
 the eager forward bit for bit (the turn fails otherwise); then N pairs
@@ -131,6 +139,9 @@ K6_BF16_32 = "K6 N=M=1024 c=32 bf16"
 K5_BF16_32 = (("K5 AH=24 SH N=1024 C=128 c=32 bf16", 24, True),
               ("K5 AH=4 no SH N=1024 C=128 c=32 bf16", 4, False),
               ("K5 AH=24 no SH N=1024 C=128 c=32 bf16", 24, False))
+# K16 at head width 32: (name, AH, SH term)
+K16_BF16_32 = (("K16 AH=24 SH N=1024 C=128 c=32 bf16", 24, True),
+               ("K16 AH=4 no SH N=1024 C=128 c=32 bf16", 4, False))
 # K11 at head width 32: (name, AH, SH term)
 K11_BF16_32 = (("K11 AH=24 SH N=1024 C=128 c=32 bf16", 24, True),
                ("K11 AH=4 no SH N=1024 C=128 c=32 bf16", 4, False),
@@ -156,6 +167,7 @@ K9_CASES = (("K9 s0 -> s1 float32", 10000, 20000, 24, 768),
             ("K9 s1 -> s2 float32", 2500, 10000, 32, 1536),
             ("K9 s2 -> s3 float32", 1024, 2500, 36, 3072))
 TIMED = K5_BF16 + tuple(c[0] for c in K5_BF16_32) + K16_BF16 \
+    + tuple(c[0] for c in K16_BF16_32) \
     + (K6_BF16, K7_BF16, K6_BF16_32, K7_BF16_32, K4_CASES[0]) + K12_CASES + K13_CASES \
     + K2_CASES + K14_CASES \
     + K1_BF16 + tuple(c[0] for c in K1_F32) + K11_BF16 + tuple(c[0] for c in K11_BF16_32) \
@@ -207,11 +219,27 @@ SERVE_TURN = "captured serving (ms/pair, host load, launches a pair)"
 # selfcheck.check_fused_conv) takes its tc48 form since it was built, where
 # the first design took the shape: the H contraction summed on the tensor
 # cores in another order before the same per-k rounding to bf16, the weight
-# product on the tensor cores
-TOLERANCES = {**dict.fromkeys((c[0] for c in K11_BF16_32), 1e-2), K10_CASES[0]: 1e-2,
+# product on the tensor cores; the bf16 K16 at head width 32 (1e-2, K16's
+# tolerance in selfcheck.check_rpe_attention_femb) takes its ws form since
+# it was built there, where the first design took the shape: the same
+# bases, G and rows rounded to bf16, the projections and products summed on
+# the tensor cores in another order, so a row can round an ulp apart
+TOLERANCES = {**dict.fromkeys((c[0] for c in K16_BF16_32), 1e-2),
+              **dict.fromkeys((c[0] for c in K11_BF16_32), 1e-2), K10_CASES[0]: 1e-2,
               **dict.fromkeys((c[0] for c in K5_BF16_32), 1e-3), K6_BF16_32: 1e-3,
               **dict.fromkeys(K4_CASES, 1e-5), K13_CASES[0]: 1e-3, K14_CASES[0]: 1e-2,
               K12_CASES[2]: 1e-2}
+
+
+def _femb_case(rpe_attention, args, hc):
+    """K16's call on ``args`` (q .. wa); where the checkout's wrapper takes
+    folded tables, folded in the call and passed, so that its time includes
+    the fold as a build whose wrapper folds them does."""
+    kw = dict(scale=hc ** -0.5, sigma_d=0.2, sigma_a=15.0)
+    if not hasattr(rpe_attention, "femb_tables"):
+        return lambda: rpe_attention.rpe_self_attention_femb(*args, **kw)
+    return lambda: rpe_attention.rpe_self_attention_femb(
+        *args, tables=rpe_attention.femb_tables(args[8], args[9], 15.0, args[0].dtype), **kw)
 
 
 def _cases(dev):
@@ -257,10 +285,9 @@ def _cases(dev):
                           lambda a=saved, hc=hc: tuple(
                               t for t in rpe_attention.rpe_attention_bwd(*a, scale=hc ** -0.5)
                               if t is not None)))
-            femb = (q, k, v, qp, masks, qw, pts, knn, w[0], w[2])
             cases.append((f"K16 AH={ah} {sh} N={n} C={cc} {tag}",
-                          lambda a=femb, hc=hc: rpe_attention.rpe_self_attention_femb(
-                              *a, scale=hc ** -0.5, sigma_d=0.2, sigma_a=15.0)))
+                          _femb_case(rpe_attention, (q, k, v, qp, masks, qw, pts, knn, w[0],
+                                                     w[2]), hc)))
     g10 = torch.Generator().manual_seed(10)
     for name, (n, cc, dtype) in zip(K10_CASES, ((1024, 256, torch.bfloat16),
                                                 (128, 64, torch.float32))):
@@ -366,6 +393,20 @@ def _cases(dev):
             + rpe_attention.rpe_self_attention_with_lse(*args, scale=32 ** -0.5)
         cases.append((name, lambda a=saved: tuple(
             t for t in rpe_attention.rpe_attention_bwd(*a, scale=32 ** -0.5) if t is not None)))
+    # K16 at head width 32 on the same points, inputs of its own generator
+    g16 = torch.Generator().manual_seed(16)
+    sq = torch.cdist(points, points).masked_fill(~masks[:, None, :], 1e10)
+    idx = torch.topk(-sq, 4, dim=-1).indices[:, :, 1:]
+    knn = torch.gather(points, 1, idx.reshape(2, -1, 1).expand(-1, -1, 3)).reshape(2, 1024, 3, 3)
+    wd, wa = (((torch.rand((128, 128), generator=g16) * 2 - 1) * 128 ** -0.5).to(dev)
+              for _ in range(2))
+    for name, ah, with_sh in K16_BF16_32:
+        q, k, v = (torch.randn((2, ah, 1024, 32), generator=g16).to(dev, bf) for _ in range(3))
+        qp = torch.randn((2, 1024, ah, 128), generator=g16).to(dev, bf) * 128 ** -0.5
+        qw = (torch.randn((2, 3, ah, 1024), generator=g16) * 0.3).to(dev) if with_sh else None
+        cases.append((name, _femb_case(rpe_attention, (q, k, v, qp, masks, qw,
+                                                       rpe_attention.point_rows(points), knn,
+                                                       wd, wa), 32)))
     for name, (b, m, n) in zip(K4_CASES, ((256, 65, 65), (6, 17, 13))):
         padded, mu, nu, valid = selfcheck.sinkhorn_inputs(b, m, n, dev)
         cases.append((name, lambda a=(padded, mu, nu), v=valid: torch.where(
@@ -487,11 +528,12 @@ def _train_step_ms(steps: int):
     return statistics.median(ms), kernels, state
 
 
-def _serve_ms(experiment: str, pairs: int):
+def _serve_ms(experiment: str, pairs: int, femb: bool = False):
     """``pairs`` captured serving ms of ``experiment``'s first two synthetic
     pairs in turn, after one untimed pair, in the checkout on
     ``sys.path[0]``, every replay first held to the eager forward bit for
-    bit; and the launches a pair."""
+    bit; and the launches a pair.  ``femb``: on the ``serve_femb`` route."""
+    import dataclasses
     import time
 
     from se3et_tpu_torch.data.pyramid import synthetic_pair
@@ -506,7 +548,8 @@ def _serve_ms(experiment: str, pairs: int):
     inputs = [pyramid_to_tensors(synthetic_pair(i, cfg.pipeline, cfg.model,
                                                 cfg.data.point_limit, extent, seed=cfg.seed),
                                  dev) for i in range(2)]
-    model = SE3ETModel(cfg.model, seed=cfg.seed).eval()
+    m = dataclasses.replace(cfg.model, serve_femb=True) if femb else cfg.model
+    model = SE3ETModel(m, seed=cfg.seed).eval()
     eager = [model(td) for td in inputs]
     for w in selfcheck.WRAPPERS.values():
         w.launches = 0
@@ -531,7 +574,7 @@ def _serve_ms(experiment: str, pairs: int):
 
 
 def _worker(tree: str, out: str, save: bool, train_steps: int, serve_pairs: int,
-            experiment: str) -> None:
+            experiment: str, femb: bool = False) -> None:
     """One run in checkout ``tree``: the outputs (saved when ``save``) and
     the ms of the ``TIMED`` cases (and of ``train_steps`` training steps,
     and of ``serve_pairs`` pairs of ``experiment`` served captured)."""
@@ -553,7 +596,7 @@ def _worker(tree: str, out: str, save: bool, train_steps: int, serve_pairs: int,
         torch.save(state, out + ".train.pt")
     if serve_pairs:
         load = os.getloadavg()
-        pair_ms, launches = _serve_ms(experiment, serve_pairs)
+        pair_ms, launches = _serve_ms(experiment, serve_pairs, femb)
         ms[SERVE] = statistics.median(pair_ms)
         ms[SERVE_TURN] = [pair_ms, load, launches]
     if save:
@@ -595,13 +638,15 @@ def main() -> int:
                         help="also serve this many pairs captured a turn")
     parser.add_argument("--serve-experiment", default="se3ete2.3dmatch",
                         help="the experiment served with --serve-pairs")
+    parser.add_argument("--serve-femb", action="store_true",
+                        help="serve it on the serve_femb route (K16 in place of K3 + K5)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("bit_identity: no CUDA device", file=sys.stderr)
         return 1
     if args.worker:
         _worker(*args.worker, args.save, args.train_steps, args.serve_pairs,
-                args.serve_experiment)
+                args.serve_experiment, args.serve_femb)
         return 0
     if not args.other:
         parser.error("--other is required")
@@ -616,13 +661,15 @@ def main() -> int:
         out = os.path.join(work, f"turn{i}")
         cmd = [sys.executable, os.path.abspath(__file__), "--worker", tree, out,
                "--train-steps", str(args.train_steps), "--serve-pairs", str(args.serve_pairs),
-               "--serve-experiment", args.serve_experiment] + (["--save"] if i < 2 else [])
+               "--serve-experiment", args.serve_experiment] + (["--save"] if i < 2 else []) \
+            + (["--serve-femb"] if args.serve_femb else [])
         subprocess.run(cmd, check=True, cwd=tree)
         with open(out + ".json") as f:
             times[who].append(json.load(f))
         if args.serve_pairs:
             pair_ms, load, launches = times[who][-1][SERVE_TURN]
-            print(f"turn {i} {who}: {args.serve_experiment} captured, host load "
+            print(f"turn {i} {who}: {args.serve_experiment}"
+                  f"{' serve_femb' if args.serve_femb else ''} captured, host load "
                   f"{[round(x, 2) for x in load]}; launches a pair {launches}; ms/pair "
                   f"{[round(x, 2) for x in pair_ms]}", flush=True)
     theirs = torch.load(os.path.join(work, "turn0.pt"))

@@ -40,9 +40,11 @@ replaces the TPU ``rpe_self_attention_femb``; serving only) is the same
 attention with the embedding rows recomputed inside the kernel from the
 coordinates (K3's function without its biases, which are softmax no-ops),
 so the (B, N, N, C) embedding is never written; its bf16 serving form
-("ws", ``csrc/rpe_attention_femb_ws.cuh``) builds each 32-key tile of a
-row's embedding on the tensor cores and contracts it at once, beside K5's
-flash warps.
+("ws", ``csrc/rpe_attention_femb_ws.cuh``, at head widths 64 and 32) builds
+each 32-key tile of a row's embedding on the tensor cores and contracts it
+at once, beside K5's flash warps.  The folded tables it projects with
+(:func:`femb_tables`) are made once per forward by the caller that serves
+several layers, or by the wrapper where only the projections are given.
 """
 
 from __future__ import annotations
@@ -107,6 +109,15 @@ def ws_smem_bytes(ah: int, hc: int, cc: int) -> int:
     return ring + qp + scores + vtiles + qw + geo + (2 * slots + 4 + resident) * 8
 
 
+def femb_ws_geo_ahead(ah: int, hc: int) -> bool:
+    """Whether K16's ws form has its flash warps form each key tile's pair
+    geometry (distance, angles, the SH term's) two tiles ahead into two
+    shared buffers, where 64's positional warps form their own: at head
+    width 32 and AH = 24, where the projection halves and the geometry does
+    not (at AH = 4 the 4 flash warps' look-ahead cost more than it saved)."""
+    return hc == 32 and ah >= WS_FLASH_WARPS
+
+
 def femb_ws_groups(ah: int) -> int:
     """(Key tile, query row) items K16's ws form keeps in flight, a group of
     positional warps each: 4 pairs of warps (a 16-key m-tile each) at AH =
@@ -122,7 +133,8 @@ def femb_ws_smem_bytes(ah: int, hc: int, cc: int) -> int:
     and a ring of 4 chunks of qp (AH x 32 bf16); then K5's two
     float32 score buffers (:func:`ws_smem_bytes`), a v tile of 32 keys per
     flash warp (8 at AH = 24, 4 at AH = 4), the block's SH queries, 16 rows'
-    geometry (16 floats each) and 4 mbarriers."""
+    geometry (16 floats each), with :func:`femb_ws_geo_ahead` two buffers of
+    pair geometry (16 rows x 32 keys x 2 float4) and 4 mbarriers."""
     flash = WS_FLASH_WARPS if ah >= WS_FLASH_WARPS else 4  # one or more heads a warp
     g = cc * 72 * 2
     basis = femb_ws_groups(ah) * WS_KEYS * 104 * 2
@@ -131,7 +143,8 @@ def femb_ws_smem_bytes(ah: int, hc: int, cc: int) -> int:
     vtiles = flash * WS_KEYS * (hc + 8) * 2
     qw = WS_ROWS * 3 * ah * 4
     rowgeo = WS_ROWS * 16 * 4
-    return g + basis + qp + scores + vtiles + qw + rowgeo + 4 * 8
+    geo = 2 * WS_ROWS * WS_KEYS * 2 * 16 if femb_ws_geo_ahead(ah, hc) else 0
+    return g + basis + qp + scores + vtiles + qw + rowgeo + geo + 4 * 8
 
 
 def cuda_smem_bytes(ah: int, cc: int) -> int:
@@ -145,24 +158,23 @@ def rpe_attention_form(ah: int, hc: int, cc: int, dtype, *, femb: bool = False) 
     anchor-heads, head width ``hc`` and embedding width ``cc`` in ``dtype``:
 
     * "ws": in bf16 with C % 32 == 0, where the plan fits a block, the
-      warp-specialised serving form: K5's at head widths 64 and 32
+      warp-specialised serving form at head widths 64 and 32: K5's
       (``csrc/rpe_attention_ws.cuh``, :func:`ws_smem_bytes`) or, with
-      ``femb``, K16's at head width 64 (``csrc/rpe_attention_femb_ws.cuh``,
+      ``femb``, K16's (``csrc/rpe_attention_femb_ws.cuh``,
       :func:`femb_ws_smem_bytes`);
-    * "cuda": the CUDA-core kernel (float32, head width 16, and K16 at head
-      width 32, in either type).
+    * "cuda": the CUDA-core kernel (float32 and head width 16, in either
+      type).
 
     Chosen by shape alone, as the C entry points choose; none is a
-    fallback of another (K5's CUDA-core first design stays reachable at
-    the "ws" shapes only through ``_rpe_forward(..., form="cuda")``, for
-    tests and timings).  Raises ``ValueError`` where no form takes the
-    shape."""
+    fallback of another (the CUDA-core first design stays reachable at
+    the "ws" shapes only through ``_rpe_forward(..., form="cuda")`` and
+    ``_femb_forward(..., form="cuda")``, for tests and timings).  Raises
+    ``ValueError`` where no form takes the shape."""
     if dtype not in _DTYPES or ah not in KERNEL_AH or hc not in KERNEL_HEAD_DIMS or cc % 16:
         raise ValueError(f"no flash RPE kernel for AH={ah}, head width {hc}, C={cc}, {dtype}: "
                          f"built for AH in {KERNEL_AH}, head width in {KERNEL_HEAD_DIMS}, "
                          f"C % 16 == 0, bf16 or float32")
-    ws_widths = (64,) if femb else WS_HEAD_DIMS
-    if dtype == torch.bfloat16 and hc in ws_widths and cc % 32 == 0:
+    if dtype == torch.bfloat16 and hc in WS_HEAD_DIMS and cc % 32 == 0:
         plan = femb_ws_smem_bytes if femb else ws_smem_bytes
         if plan(ah, hc, cc) <= SMEM_LIMIT:
             return "ws"
@@ -585,10 +597,11 @@ def rpe_self_attention_femb_plain(q, k, v, qp, k_masks, qw, points, knn_points, 
         k_masks, qw, points, scale, row_block, False)
 
 
-def _femb_tables(wd, wa, sigma_a, dtype):
-    """(deg_d, deg_a, g (64, C) float32 rows [Gd | 0 | Ga] rounded to
-    ``dtype``, its (C, 64) bf16 transpose for the ws form or None): the
-    distance basis padded to 48 rows, three k-steps of 16."""
+def femb_tables(wd, wa, sigma_a, dtype):
+    """K16's tables for projections ``wd``/``wa`` (C, C) in ``dtype``:
+    (deg_d, deg_a, g (64, C) float32 rows [Gd | 0 | Ga] rounded to
+    ``dtype``, its (C, 64) bf16 transpose for the ws form or None): G = A @
+    W folded, the distance basis padded to 48 rows, three k-steps of 16."""
     deg_d, deg_a, gd, ga = embedding._folded_projections(wd, wa, sigma_a)
     if (deg_d, deg_a) != (40, 16):
         raise ValueError(f"K16 is built for 40 distance and 16 angle basis terms, got "
@@ -602,13 +615,16 @@ def _femb_tables(wd, wa, sigma_a, dtype):
 
 
 def rpe_self_attention_femb(q, k, v, qp, k_masks, qw, points, knn_points, wd, wa, *,
-                            scale, sigma_d, sigma_a):
+                            scale, sigma_d, sigma_a, tables=None):
     """K16 (``csrc/rpe_attention_femb.cu``, replaces the TPU
     ``rpe_self_attention_femb``): see :func:`rpe_self_attention_femb_plain`.
     Serving only: inputs that require grad raise, as the TPU kernel has no
     VJP.  The kernel is the one :func:`rpe_attention_form` names with
     ``femb`` (serving in bf16: "ws").  Bound by the tensor-core operations
-    of the in-kernel projections; the source notes the design."""
+    of the in-kernel projections; the source notes the design.  ``tables``:
+    :func:`femb_tables` of ``wd``/``wa`` in q's dtype, folded once by a
+    caller that serves several layers (the kernel's inputs then are those
+    alone); None folds them here."""
     if any(t is not None and t.requires_grad for t in (q, k, v, qp, qw, wd, wa)) \
             and torch.is_grad_enabled():
         raise ValueError("rpe_self_attention_femb has no backward (serving only)")
@@ -616,6 +632,15 @@ def rpe_self_attention_femb(q, k, v, qp, k_masks, qw, points, knn_points, wd, wa
         return rpe_self_attention_femb_plain(q, k, v, qp, k_masks, qw, points, knn_points,
                                              wd, wa, scale=scale, sigma_d=sigma_d,
                                              sigma_a=sigma_a)
+    return _femb_forward(q, k, v, qp, k_masks, qw, points, knn_points, wd, wa, scale, sigma_d,
+                         sigma_a, tables)
+
+
+def _femb_forward(q, k, v, qp, k_masks, qw, points, knn_points, wd, wa, scale, sigma_d,
+                  sigma_a, tables=None, form=None):
+    """K16 on the card, on the form :func:`rpe_attention_form` names, or on
+    ``form`` where the caller asks for "cuda", the CUDA-core first design,
+    which takes every shape that has a kernel (for tests and timings)."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, ah, n, c = q.shape
@@ -626,8 +651,18 @@ def rpe_self_attention_femb(q, k, v, qp, k_masks, qw, points, knn_points, wd, wa
         raise ValueError("rpe_self_attention_femb takes points (B, 3|4, N) and knn_points "
                          "(B, N, k, 3)")
     _check_inputs(q, k, v, qp, None, k_masks, qw, points, cc=cc)
-    rpe_attention_form(ah, c, cc, q.dtype, femb=True)  # raises where no form takes it
-    deg_d, deg_a, g, gt = _femb_tables(wd, wa, sigma_a, q.dtype)
+    # raises where no form takes the shape; the C entry point launches the
+    # same form
+    chosen = rpe_attention_form(ah, c, cc, q.dtype, femb=True)
+    if form not in (None, chosen, "cuda"):
+        raise ValueError(f"K16's {form} form does not take AH={ah}, head width {c}, {q.dtype}")
+    first = form == "cuda" and chosen == "ws"  # the first design where ws takes the shape
+    if tables is None:
+        tables = femb_tables(wd, wa, sigma_a, q.dtype)
+    deg_d, deg_a, g, gt = tables
+    if g.shape != (64, cc) or (gt is not None) != (q.dtype == torch.bfloat16):
+        raise ValueError(f"K16's tables were folded for another width or dtype than C={cc}, "
+                         f"{q.dtype}")
     with_sh = qw is not None
     qwc = qw.float().contiguous() if with_sh else None
     pts = points.float().contiguous()
@@ -636,15 +671,15 @@ def rpe_self_attention_femb(q, k, v, qp, k_masks, qw, points, knn_points, wd, wa
     q, k, v, qp = (t.contiguous() for t in (q, k, v, qp))
     km = k_masks.to(torch.uint8).contiguous()
     out = torch.empty((b, ah, n, c), dtype=torch.float32, device=q.device)
-    fn = _build.function("rpe_attention_femb", f"se3et_rpe_attention_femb_{_DTYPES[q.dtype]}",
-                         12, 9, 3)
+    fn = _build.function("rpe_attention_femb", "se3et_rpe_attention_femb_"
+                         f"{'cuda_' if first else ''}{_DTYPES[q.dtype]}", 12, 9, 3)
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(), km.data_ptr(),
                     qwc.data_ptr() if with_sh else None, pts.data_ptr(), pts3.data_ptr(),
                     knn.data_ptr(), g.data_ptr(), gt.data_ptr() if gt is not None else None,
                     out.data_ptr(), b, ah, n, c, cc, pts.shape[1], deg_d, deg_a, ka,
                     float(scale), 2.0 / (embedding.D_INDEX_MAX * sigma_d), 2.0 / math.pi,
                     torch.cuda.current_stream(q.device).cuda_stream),
-                 "rpe_self_attention_femb launch")
+                 f"rpe_self_attention_femb launch ({'cuda' if first else chosen})")
     rpe_self_attention_femb.launches += 1
     return out
 

@@ -1093,17 +1093,21 @@ def check_influence(q_points, s_points, nbr, kernel_points, sigma, mode="linear"
 
 def check_rpe_attention_femb(points, masks, ah, c=64, cc=256, k=3, sigma_d=0.2, sigma_a=15.0,
                              with_sh=True, dtype=torch.bfloat16, seed=12, reps=3,
-                             device_kernel=None, replay=False):
+                             device_kernel=None, replay=False, first=False):
     """K16 on the coarse points (B, N, 3) and key masks (B, N): random q, k,
     v (B, AH, N, c), qp (B, N, AH, C) in ``dtype``, random projections
     (C, C) and, with ``with_sh``, qw (B, 3, AH, N); the k nearest valid
     neighbours of each point.  Tolerance on valid query rows 1e-2 *
     max|out| in bf16 (K5's; the kernel and the plain version round the same
     bases, G and rows, their float32 sums differ in order, so a row can
-    land an ulp apart) and 1e-4 * max|out| in float32.  With
-    ``device_kernel``, also that kernel's device time per call; with
-    ``replay``, the call's time replayed from a CUDA graph
-    (:func:`replay_ms`)."""
+    land an ulp apart) and 1e-4 * max|out| in float32.  The kernel takes
+    its tables folded once, before the calls, as the serving route folds
+    them once a forward.  With ``device_kernel``, also that kernel's device
+    time per call; with ``replay``, the call's time replayed from a CUDA
+    graph (:func:`replay_ms`); with ``first``, the first design's
+    (``_femb_forward(..., form="cuda")``, the CUDA-core kernel) time on the
+    same inputs by events, replayed (with ``replay``) and as its kernel's
+    device time (with ``device_kernel``)."""
     g = torch.Generator().manual_seed(seed)
     dev = points.device
     b, n, _ = points.shape
@@ -1121,8 +1125,9 @@ def check_rpe_attention_femb(points, masks, ah, c=64, cc=256, k=3, sigma_d=0.2, 
     rows = masks[:, None, :, None].expand(b, ah, n, c)
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
     kw = dict(scale=scale, sigma_d=sigma_d, sigma_a=sigma_a)
+    tables = rpe_attention.femb_tables(wd, wa, sigma_a, dtype) if dev.type == "cuda" else None
     kernel_fn = lambda: rpe_attention.rpe_self_attention_femb(  # noqa: E731
-        q, kk, v, qp, masks, qw, pts, knn, wd, wa, **kw)
+        q, kk, v, qp, masks, qw, pts, knn, wd, wa, tables=tables, **kw)
     res = _compare(
         "rpe_self_attention_femb",
         f"q(B={b}, AH={ah}, N={n}, c={c}) C={cc} {'with' if with_sh else 'no'} SH {dtype}",
@@ -1134,6 +1139,15 @@ def check_rpe_attention_femb(points, masks, ah, c=64, cc=256, k=3, sigma_d=0.2, 
         res.device_ms = device_ms(kernel_fn, device_kernel)
     if replay:
         res.replay_ms = replay_ms(kernel_fn)
+    if first:
+        first_fn = lambda: rpe_attention._femb_forward(  # noqa: E731
+            q, kk, v, qp, masks, qw, pts, knn, wd, wa, scale, sigma_d, sigma_a, tables,
+            form="cuda")
+        res.first_ms = _time_ms(first_fn, reps)
+        if replay:
+            res.first_replay_ms = replay_ms(first_fn)
+        if device_kernel is not None:
+            res.first_device_ms = device_ms(first_fn, "rpe_attention_kernel")
     deg_d, deg_a, _, _ = embedding._folded_projections(wd, wa, sigma_a)
     nkeys = int(masks.sum())  # valid keys of the B clouds
     # per (query, valid key): the distance and k angle projections (deg_d +

@@ -222,12 +222,14 @@ def test_rpe_attention_form(ah, hc, cc, dtype, form):
 
 
 @pytest.mark.parametrize("ah,hc,cc,form", [(24, 64, 256, "ws"), (4, 64, 256, "ws"),
-                                           (24, 16, 64, "cuda"), (24, 32, 128, "cuda"),
-                                           (4, 32, 128, "cuda")])
+                                           (24, 16, 64, "cuda"), (24, 32, 128, "ws"),
+                                           (4, 32, 128, "ws")])
 def test_rpe_attention_form_of_femb(ah, hc, cc, form):
     """K16 takes its own ws form in bf16 at the serving shapes of head
-    width 64, and its CUDA-core form at 32, where K5 takes its ws form."""
+    widths 64 and 32 (se3ete2's, C = 128: with 32's plan), and its CUDA-core
+    form at head width 16 and in float32."""
     assert rpe_k.rpe_attention_form(ah, hc, cc, torch.bfloat16, femb=True) == form
+    assert rpe_k.rpe_attention_form(ah, hc, cc, torch.float32, femb=True) == "cuda"
 
 
 @pytest.mark.parametrize("femb", [False, True])
@@ -246,16 +248,23 @@ def test_rpe_attention_forms_are_ws_or_cuda(femb):
     assert forms == {"ws", "cuda"}
 
 
-@pytest.mark.parametrize("ah", [4, 24])
-def test_rpe_attention_femb_ws_plan_fits_a_block(ah):
-    """K16's ws form at the serving width C = 256 fits one block of an H100
-    (232,448 bytes) with G resident and its positional groups' basis rows
-    beside K5's score buffers and v tiles: the rest of its plan is smaller
-    than K5's ws plan, which holds a ring of embedding slabs."""
-    plan = rpe_k.femb_ws_smem_bytes(ah, 64, 256)
-    resident = 256 * 72 * 2 + rpe_k.femb_ws_groups(ah) * 32 * 104 * 2
+@pytest.mark.parametrize("ah,hc,cc", [(4, 64, 256), (24, 64, 256), (4, 32, 128),
+                                      (24, 32, 128)], ids=["4", "24", "4-32", "24-32"])
+def test_rpe_attention_femb_ws_plan_fits_a_block(ah, hc, cc):
+    """K16's ws form at the serving widths (C = 256 at head width 64, C =
+    128 at 32) fits one block of an H100 (232,448 bytes) with G resident
+    and its positional groups' basis rows beside K5's score buffers and v
+    tiles: the rest of its plan is smaller than K5's ws plan, which holds a
+    ring of embedding slabs.  At 32 and AH = 24 the plan also holds the two
+    buffers of pair geometry the flash warps form ahead (16 rows x 32 keys
+    x 32 bytes each), and only there."""
+    plan = rpe_k.femb_ws_smem_bytes(ah, hc, cc)
+    resident = cc * 72 * 2 + rpe_k.femb_ws_groups(ah) * 32 * 104 * 2
+    ahead = rpe_k.femb_ws_geo_ahead(ah, hc)
+    assert ahead == (hc == 32 and ah == 24)
     assert resident < plan <= 232448 == rpe_k.SMEM_LIMIT
-    assert plan - resident < rpe_k.ws_smem_bytes(ah, 64, 256)
+    geo = 2 * 16 * 32 * 32 if ahead else 0
+    assert plan - resident - geo < rpe_k.ws_smem_bytes(ah, hc, cc)
 
 
 @pytest.mark.parametrize("ah", [4, 24])

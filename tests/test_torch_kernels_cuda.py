@@ -2216,11 +2216,21 @@ FEMB_MASK_RUNS = ((0, 37, 45), (1, 100, 128), (0, 500, 532), (1, 70, 71))
     (1024, 4, 64, 256, False, torch.bfloat16, 40, True),
     (12, 24, 64, 256, True, torch.bfloat16, 3, False),       # fewer rows than positional
     (12, 4, 64, 256, False, torch.bfloat16, 3, False),       # warps (AH = 4: 8 of them)
-    # head width 32 (the wide-head family, C = 128): the CUDA-core form
+    # head width 32 (the wide-head family, C = 128): the ws form with 32's
+    # plan in bf16 (the flash warps form the pair geometry ahead), the
+    # CUDA-core form in float32
     (1024, 24, 32, 128, True, torch.bfloat16, 40, False),    # se3ete2 self_eq layers
     (1024, 4, 32, 128, False, torch.bfloat16, 40, False),    # its plain self layers
+    (1024, 24, 32, 128, False, torch.bfloat16, 40, False),
+    (1024, 4, 32, 128, True, torch.bfloat16, 40, False),
     (1003, 24, 32, 128, True, torch.bfloat16, 72, False),    # ragged, masked tiles
+    (1000, 24, 32, 128, True, torch.bfloat16, 8, False),     # N not a multiple of the key
+    (1000, 4, 32, 128, False, torch.bfloat16, 8, False),     # tile, its last tile masked
+    (1000, 24, 32, 128, True, torch.bfloat16, 72, False),    # the last two tiles masked
     (1024, 24, 32, 128, True, torch.bfloat16, 40, True),     # masked runs inside tiles
+    (1024, 4, 32, 128, False, torch.bfloat16, 40, True),
+    (12, 24, 32, 128, True, torch.bfloat16, 3, False),       # fewer rows than positional
+    (12, 4, 32, 128, False, torch.bfloat16, 3, False),       # groups, one key tile
     (128, 24, 32, 128, True, torch.float32, 40, False),      # float32
     (128, 4, 32, 128, False, torch.float32, 40, False),
 ])
@@ -2233,6 +2243,39 @@ def test_rpe_attention_femb_kernel(cuda, n, ah, c, cc, with_sh, dtype, pad, runs
                                                   with_sh=with_sh, dtype=dtype, reps=1))
 
 
+@pytest.mark.parametrize("n,ah,with_sh,pad", [(1024, 24, True, 40), (1024, 4, False, 40),
+                                              (1003, 24, True, 72), (12, 4, False, 3)])
+def test_rpe_attention_femb_first_design_agrees_with_ws_at_head_width_32(cuda, n, ah, with_sh,
+                                                                          pad):
+    """At head width 32 in bf16 the CUDA-core first design, reached only by
+    the explicit form, and the ws form agree on valid rows within K16's
+    tolerance, 1e-2 of max |out| (the same bases, G and rows rounded to
+    bf16; their sums in another order); the default call takes the ws form
+    and matches it exactly."""
+    from se3et_tpu_torch.ops.kernels import rpe_attention as rpe
+
+    points, masks = _cloud(cuda, n, 32, pad=pad)
+    g = torch.Generator().manual_seed(33)
+    rnd = lambda *s, sc=1.0: (torch.randn(s, generator=g) * sc).to(cuda, torch.bfloat16)  # noqa
+    q, k, v = rnd(2, ah, n, 32), rnd(2, ah, n, 32), rnd(2, ah, n, 32)
+    qp = rnd(2, n, ah, 128, sc=128 ** -0.5)
+    wd, wa = (((torch.rand((128, 128), generator=g) * 2 - 1) * 128 ** -0.5).to(cuda)
+              for _ in range(2))
+    qw = (torch.randn((2, 3, ah, n), generator=g) * 0.3).to(cuda) if with_sh else None
+    sq = torch.cdist(points, points).masked_fill(~masks[:, None, :], 1e10)
+    idx = torch.topk(-sq, 4, dim=-1).indices[:, :, 1:]
+    knn = torch.gather(points, 1, idx.reshape(2, -1, 1).expand(-1, -1, 3)).reshape(2, n, 3, 3)
+    args = (q, k, v, qp, masks, qw, rpe.point_rows(points), knn, wd, wa, 32 ** -0.5, 0.2, 15.0)
+    assert rpe.rpe_attention_form(ah, 32, 128, torch.bfloat16, femb=True) == "ws"
+    ws = rpe._femb_forward(*args)
+    first = rpe._femb_forward(*args, form="cuda")
+    assert torch.equal(ws, rpe.rpe_self_attention_femb(*args[:10], scale=32 ** -0.5,
+                                                       sigma_d=0.2, sigma_a=15.0))
+    rows = masks[:, None, :, None].expand_as(ws)
+    err = float((ws - first)[rows].abs().max())
+    assert err <= 1e-2 * float(first[rows].abs().max()), err
+
+
 def test_rpe_attention_femb_ws_plan_matches_the_kernel(cuda):
     """The wrapper's shared-memory plan of K16's ws form is the kernel's."""
     import ctypes
@@ -2243,6 +2286,7 @@ def test_rpe_attention_femb_ws_plan_matches_the_kernel(cuda):
     fn = getattr(_build._library("rpe_attention_femb"), "se3et_rpe_attention_femb_ws_smem")
     fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_longlong
-    for ah, hc, cc in ((24, 64, 256), (4, 64, 256), (24, 64, 64), (4, 64, 512)):
+    for ah, hc, cc in ((24, 64, 256), (4, 64, 256), (24, 64, 64), (4, 64, 512),
+                       (24, 32, 128), (4, 32, 128), (24, 32, 64)):
         assert fn(ah, hc, cc) == rpe.femb_ws_smem_bytes(ah, hc, cc)
-    assert fn(24, 16, 64) == 0 and fn(24, 64, 48) == 0
+    assert fn(24, 16, 64) == 0 and fn(24, 64, 48) == 0 and fn(24, 32, 48) == 0

@@ -1,18 +1,18 @@
 """The wide-head family (``se3ete2`` / ``se3eti2``: head width 32) of the
 PyTorch port against the JAX package, on the CPU.
 
-The attention kernels K5, K6 and K7 at head width 32: their plain versions
-(what the port's wrappers take on the CPU) against the TPU kernels in
-interpret mode on the same float32 numpy inputs, as
+The attention kernels K5, K6, K7 and K16 at head width 32: their plain
+versions (what the port's wrappers take on the CPU) against the TPU
+kernels in interpret mode on the same float32 numpy inputs, as
 ``tests/test_torch_attention.py`` holds them at head width 16.  Then the
 whole forward of a tiny cut of ``se3ete2.3dmatch`` and of
 ``se3eti2.3dmatch`` that keeps the family's transformer width 128 (head
 width 32) and group norm of 16 groups (``tiny_config``), on the
-materialised and flash routes, cut at each ``stop_after`` point and held
-against the JAX forward with converted weights, as ``tests/test_torch_model.py``
-holds SE3ET-E and SE3ET-I.  Also: K11's plain version at head width 32
-(its first design's form) against the JAX VJP, and the KITTI entry's test
-path raises.
+materialised and flash routes (se3ete2 also on the ``serve_femb`` route),
+cut at each ``stop_after`` point and held against the JAX forward with
+converted weights, as ``tests/test_torch_model.py`` holds SE3ET-E and
+SE3ET-I.  Also: K11's plain version at head width 32 (its first design's
+form) against the JAX VJP, and the KITTI entry's test path raises.
 """
 
 import dataclasses
@@ -59,6 +59,36 @@ def test_rpe_self_attention_plain_matches_pallas_at_head_width_32(ah, with_sh):
         scale=HEAD_WIDTH ** -0.5)
     assert got.shape == (2, ah, 128, HEAD_WIDTH) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("ah,with_sh", [(24, True), (4, False)])
+def test_rpe_attention_femb_plain_matches_pallas_at_head_width_32(ah, with_sh):
+    """K16's plain version (float32) == the TPU rpe_self_attention_femb
+    (interpret mode) at head width 32 and C = 128, at se3ete2's self_eq
+    layers' AH = 24 with the SH term and its plain self layers' AH = 4
+    without, N = 128 with a masked tail, on valid query rows: rtol and atol
+    3e-3, tests/test_torch_femb_influence.py's (the TPU kernel rounds its
+    bases, G and the angle max to bf16).  In bf16 the card takes K16's ws
+    form at both shapes."""
+    from se3et_tpu.ops.pallas import rpe_attention as fr
+    from tests.test_torch_femb_influence import _femb_inputs
+
+    cc = 128
+    assert rpe_k.rpe_attention_form(ah, HEAD_WIDTH, cc, torch.bfloat16, femb=True) == "ws"
+    x = _femb_inputs(ah=ah, c=HEAD_WIDTH, cc=cc, seed=50 + ah)
+    qw = x["qw"] if with_sh else None
+    kw = dict(scale=HEAD_WIDTH ** -0.5, sigma_d=0.2, sigma_a=15.0)
+    want = np.asarray(fr.rpe_self_attention_femb(
+        *(jnp.asarray(x[k]) for k in ("q", "q", "q", "qp", "km")),
+        None if qw is None else jnp.asarray(qw), jnp.asarray(x["p4"]), jnp.asarray(x["knn"]),
+        jnp.asarray(x["wd"]), jnp.asarray(x["wa"]), interpret=True, **kw))
+    got = rpe_k.rpe_self_attention_femb(
+        *(_t(x[k]) for k in ("q", "q", "q", "qp", "km")), None if qw is None else _t(qw),
+        _t(x["p4"]), _t(x["knn"]), _t(x["wd"]), _t(x["wa"]), **kw)
+    assert got.shape == (1, ah, 128, HEAD_WIDTH) and got.dtype == torch.float32
+    valid = x["km"][0]
+    np.testing.assert_allclose(got.numpy()[..., valid, :], want[..., valid, :], rtol=3e-3,
+                               atol=3e-3)
 
 
 @pytest.mark.parametrize("positive,sup", [
@@ -228,13 +258,23 @@ def test_tiny_config_keeps_the_family_head_width(name, flash):
     assert got.model.gt_hidden_dim // got.model.num_heads == HEAD_WIDTH
 
 
+# the femb route's features after the transformer: JAX's bf16 self layers
+# against the port's float32 ones (tests/test_torch_model.py's
+# _TRANSFORMER_RTOL); every other route and cut at the float32 tolerances
+_TRANSFORMER_RTOL = {"flash_femb": 3e-3}
+
+
 @pytest.fixture(scope="module", params=[f"{route}-{name.split('.')[0]}" for name in WIDE
-                                        for route in ("materialised", "flash")])
+                                        for route in ("materialised", "flash")]
+                + ["flash_femb-se3ete2"])
 def pair(request):
     """One tiny pair through both packages with the same numpy weights: the
     JAX forward (and its backbone) against the port cut at each
     ``stop_after`` point (float32, the XLA embedding route on the JAX side
-    as in tests/test_torch_model.py)."""
+    as in tests/test_torch_model.py).  ``flash_femb``: the flash route with
+    ``serve_femb`` on both sides, so the self layers rebuild their
+    embedding rows in K16 (JAX: ``rpe_self_attention_femb`` in interpret
+    mode; the port: its plain version) at head width 32."""
     import __graft_entry__ as ge
     from se3et_tpu.nn.model import SE3ETModel as JaxModel
     from se3et_tpu_torch.convert import load_flax_params
@@ -242,9 +282,10 @@ def pair(request):
     from se3et_tpu_torch.nn.model import ModelConfig, SE3ETModel, pyramid_to_tensors
 
     route, family = request.param.split("-")
-    flash = route == "flash"
+    flash = route.startswith("flash")
     jcfg, pipeline = _jax_tiny(f"{family}.3dmatch", flash)
-    jcfg = dataclasses.replace(jcfg, serve_fused_embedding=False)
+    jcfg = dataclasses.replace(jcfg, serve_fused_embedding=False,
+                               serve_femb=route == "flash_femb")
     data = ge._example_pair(pipeline, num_points=600 if flash else 250, seed=0,
                             model_cfg=jcfg)
     data = {k: (np.asarray(v, np.float32)
@@ -268,7 +309,7 @@ def pair(request):
     load_flax_params(port, params)
     tdata = pyramid_to_tensors(data, "cpu")
     return {
-        "route": request.param,
+        "route": route,
         "cfg": jcfg,
         "data": data,
         "jax": run(""),
@@ -295,12 +336,14 @@ def test_backbone_matches_jax(pair):
 
 def test_transformer_matches_jax(pair):
     """Normalised coarse features after the transformer (width 128, head
-    width 32), rtol 1e-4 of the output scale."""
+    width 32), rtol 1e-4 of the output scale (the femb route: see
+    _TRANSFORMER_RTOL)."""
     mc = pair["data"]["masks_3"]
     got = pair["port"]["transformer"]
+    rtol = _TRANSFORMER_RTOL.get(pair["route"], 1e-4)
     for i, key in enumerate(("ref_feats_c", "src_feats_c")):
         assert got[key].shape[-1] == 128
-        _close_rows(got[key][torch.from_numpy(mc[i])], pair["jax"][key][mc[i]], 1e-4)
+        _close_rows(got[key][torch.from_numpy(mc[i])], pair["jax"][key][mc[i]], rtol)
 
 
 def test_superpoint_correspondences_match_as_sets(pair):
